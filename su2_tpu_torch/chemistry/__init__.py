@@ -1,0 +1,1 @@
+"""chemistry layer of su2_tpu_torch."""

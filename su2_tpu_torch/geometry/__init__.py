@@ -1,0 +1,1 @@
+"""geometry layer of su2_tpu_torch."""

@@ -1,0 +1,1 @@
+"""linalg layer of su2_tpu_torch."""

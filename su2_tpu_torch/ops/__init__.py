@@ -1,0 +1,1 @@
+"""ops layer of su2_tpu_torch."""

@@ -1,0 +1,1 @@
+"""solvers layer of su2_tpu_torch."""

@@ -1,0 +1,1 @@
+"""turbulence layer of su2_tpu_torch."""
