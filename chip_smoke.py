@@ -3,14 +3,27 @@
 
 Phases (one line each; any failure exits nonzero):
   1 device   the card's name and power limit, CUDA and nvcc versions
-  2 build    nvcc builds the four kernels from su2_tpu_torch/csrc
+  2 build    nvcc builds the kernels from su2_tpu_torch/csrc (one nvcc per
+             source, all started together)
   3 kernels  T1-T4 against their plain torch versions on the card, at the
              9,072-node case's shapes, in float64 and float32, with times
-  4 step     5 coupled iterations of the 9,072-node case in float64 on the
-             card (kernels) and on the CPU (plain versions) from one state
-  5 slice    Simulation.run: 9,072 nodes x 50 and 142,317 nodes x 20
-             iterations in float32; finite residuals, kernel launch counts,
-             ms/iter and Mcell-updates/s
+  4 stencil  K5 (sweep + matvec, sweep only, matvec only) and K6 (one
+             FGMRES(10) cycle) against their plain versions, in float64,
+             float32 and mixed (bf16 sweep blocks), on the SST systems the
+             port assembles at 9,072 and 142,317 nodes and on band systems
+             with round-robin (not proper) colorings, with times
+  5 step     5 coupled iterations of the 9,072-node case in float64 on the
+             card (kernels, K6 for the SST solve) and on the CPU (plain
+             versions) from one state
+  6 slice    Simulation.run: 9,072 nodes x 50 and 142,317 nodes x 20
+             iterations in float32 with LU_SGS; finite residuals, kernel
+             launch counts (K6 once per iteration at 9,072 nodes, K5 ten
+             times per iteration at 142,317), ms/iter and Mcell-updates/s;
+             142,317 nodes x 3 in float64 (K5 ten times per iteration);
+             then each size with LINEAR_SOLVER_PREC= JACOBI (the path that
+             bypasses K5/K6) and with LU_SGS in the order J, L, L, J, each
+             timed and then profiled over 3 iterations (torch.profiler:
+             CUDA launches and device-busy ms per iteration)
 The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}.
 
@@ -39,6 +52,11 @@ KERNELS = {
                   "su2_tpu/pallas/edge_fused.py:161"),
     "chem_source": ("su2_tpu_torch/csrc/chem_source.cu",
                     "su2_tpu/pallas/chem_source.py:62"),
+    "stencil_sgs_matvec": ("su2_tpu_torch/csrc/stencil_solve.cu",
+                           "su2_tpu/pallas/stencil_solve.py:178,206,251,273,"
+                           "554,643,741"),
+    "stencil_fgmres": ("su2_tpu_torch/csrc/stencil_solve.cu",
+                       "su2_tpu/pallas/stencil_solve.py:381,434"),
 }
 # tolerances per kernel and dtype: |kernel - plain| <= rtol * |plain|
 # + atol_frac * max|plain| (T3: per flux row, atol only, the row's max)
@@ -51,8 +69,19 @@ TOL = {
     ("edge_flux", "float32"): (0.0, 1e-4),
     ("chem_source", "float64"): (1e-9, 1e-12),
     ("chem_source", "float32"): (5e-3, 2e-5),
+    # K5: f64 at the JAX package's own sweep/matvec pin (tests/test_stencil
+    # .py:166-167); f32 and mixed: f32 rounding, fused multiply-adds in the
+    # kernel, none in the plain version
+    ("stencil_sgs_matvec", "float64"): (1e-11, 1e-13),
+    ("stencil_sgs_matvec", "float32"): (1e-5, 1e-6),
+    ("stencil_sgs_matvec", "mixed"): (1e-5, 1e-6),
 }
 SIZES = {"flagship": (189, 48), "scaling": (753, 189)}
+# The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM bytes/s
+# and non-tensor FLOP/s per type, for the bound of each kernel
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "mixed": 67e12}
+KRYLOV_M = 10           # LINEAR_SOLVER_ITER of the case (the cfg default)
 
 
 def phase(name, msg):
@@ -67,19 +96,45 @@ def card_line():
     return out[0].strip()
 
 
+def demangle(sym):
+    """su2k::name<args> of a mangled kernel symbol (float, double, bf16,
+    integer and bool template arguments)."""
+    m = re.match(r"_ZN4su2k(\d+)", sym)
+    if not m:
+        return sym
+    i = m.end() + int(m.group(1))
+    name, args = sym[m.end():i], []
+    if sym[i:i + 1] == "I":
+        i += 1
+        while i < len(sym) and sym[i] != "E":
+            if sym[i] in "fd":
+                args.append("float" if sym[i] == "f" else "double")
+                i += 1
+            elif sym[i] == "L":
+                j = sym.index("E", i)
+                lit = sym[i + 1:j]
+                args.append(("lite" if lit == "b1" else "full")
+                            if lit[0] == "b" else lit[1:])
+                i = j + 1
+            else:
+                d = re.match(r"\d+", sym[i:]).group(0)
+                k = i + len(d)
+                args.append(sym[k:k + int(d)].replace("__nv_bfloat16",
+                                                      "bf16"))
+                i = k + int(d)
+    return f"{name}<{', '.join(args)}>"
+
+
 def ptxas_summary(log):
     """One line per compiled kernel: registers and stack bytes."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"su2k\d+(\w+?_kernel)I([fd])(?:Lb([01]))?",
-                          line.split("'")[1])
-            name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
-                    f"{', lite' if m.group(3) == '1' else ''}>")
+            name = demangle(line.split("'")[1])
         elif "Used" in line and "registers" in line and name:
-            stack = line.split("used 0 barriers")[-1].strip(", ")
-            regs = line.split("Used")[1].split("registers")[0].strip()
-            out.append(f"{name}: {regs} registers {stack}".strip())
+            regs, tail = line.split("Used")[1].split("registers", 1)
+            out.append(f"{name}: {regs.strip()} registers, "
+                       f"{tail.strip(', ')}")
             name = None
     return out
 
@@ -133,15 +188,15 @@ def compare(name, dt, got, want, per_row=False):
     return worst, scaled
 
 
-def make_case(tmp, nx, ny, dtype, device):
-    import torch
+def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS"):
     from su2_tpu_torch import cases
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
     from su2_tpu_torch.geometry.structured import channel_mesh
-    cfg = Config(text=cases.write_case(tmp))
-    return Simulation(cfg, raw_mesh=channel_mesh(nx, ny), dtype=dtype,
-                      device=device)
+    text = cases.write_case(tmp).replace("LINEAR_SOLVER_PREC= LU_SGS",
+                                         f"LINEAR_SOLVER_PREC= {prec}")
+    return Simulation(Config(text=text), raw_mesh=channel_mesh(nx, ny),
+                      dtype=dtype, device=device)
 
 
 def kernel_inputs(sim, seed=0):
@@ -202,6 +257,22 @@ def kernel_phase(tmp, dtype_name, report):
     consts = (prm.m_infty, prm.prandtl_lam, prm.prandtl_turb, prm.lewis_turb)
     eargs = (lib, lay, sc, consts, f_all, mesh.fam_offsets, mesh.fam_normal,
              mesh.fam_evec)
+    # inputs each call reads (the tables included), for the bytes bound
+    node_tab = list(kernels._node_tables(lib))
+    chem_tab = list(kernels._chem_tables(lib))
+    inputs = {
+        "mixture_enthalpy": [tb, yb, lib.h_y, lib.h_y2, lib.mm],
+        "node_state": 2 * [x["u"], x["t_guess"], x["tke"]] + 2 * node_tab,
+        "edge_flux": [f_all, mesh.fam_normal, mesh.fam_evec, lib.h_y,
+                      lib.h_y2, lib.cp_y, lib.cp_y2, lib.mm, sc.sm_den],
+        "chem_source": [tt, rho, ys, x["omt"], tt, rho, ys] + 2 * chem_tab,
+    }
+    # operations: conservative per-element counts read off the kernels'
+    # sources (a lower bound, like the byte count)
+    n, kh = mesh.npoint, len(mesh.fam_offsets)
+    flops = {"mixture_enthalpy": 12 * lib.nspecies * nb,
+             "node_state": 2 * 500 * n, "edge_flux": 2000 * kh * n,
+             "chem_source": 2 * 600 * n}
     calls = {
         "mixture_enthalpy": (
             lambda: [kernels.mixture_enthalpy(lib, tb, yb)],
@@ -235,10 +306,14 @@ def kernel_phase(tmp, dtype_name, report):
         err, scaled = compare(name, dtype_name, got, want, per_row)
         ms = cuda_time(kfn)
         plain_ms = cuda_time(pfn)
+        bound = bound_of(nbytes(inputs[name] + got), flops[name], dtype_name)
         phase("kernels", f"{name} {dtype_name}: max_abs_err {err:.3e} "
               f"({scaled:.2e} of its field's max) kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms")
-        report.setdefault(name, {})[dtype_name] = (err, ms, plain_ms)
+              f"plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
+        report.setdefault(name, {})[dtype_name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+            bound_by=bound[1], library_ms=None)
     # bisection path and its flags (secant budget 1, far-off guess)
     if dtype_name == "float64":
         pb = st.TSolveParams(secant_iters=1, secant_tol=1e-30)
@@ -249,6 +324,296 @@ def kernel_phase(tmp, dtype_name, report):
         err, scaled = compare("node_state", dtype_name, got, want)
         phase("kernels", f"node_state float64 bisection path: max_abs_err "
               f"{err:.3e} ({scaled:.2e} of its field's max)")
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound_of(nbyte, nflop, variant):
+    """(least ms the card could take, what sets it): the bytes that must
+    move over the HBM rate against the operations over the type's peak."""
+    t_bytes = nbyte / HBM_BPS * 1e3
+    t_ops = nflop / PEAK_FLOPS[variant] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def capture_sst_system(sim, steps=3):
+    """The SST solve's operands (diag, sel_t, colors, rhs) of the
+    port's own assembly, recorded around its solver calls during the
+    steps-th coupled step from the freestream state."""
+    from su2_tpu_torch.linalg import blockcsr, krylov
+    rec = {}
+    make_ops, fgmres = blockcsr.make_solver_ops_stencil_t, krylov.fgmres
+
+    def rec_ops(mesh, diag, sel_t, kind, colors=None, ncolor=0,
+                linear_iter=5):
+        rec.update(diag=diag, sel_t=sel_t, colors=colors, ncolor=ncolor)
+        mv, pc, pm, solve = make_ops(mesh, diag, sel_t, kind, colors, ncolor,
+                                     linear_iter)
+        if solve is None:
+            return mv, pc, pm, None
+
+        def rec_solve(b, m, tol):
+            rec["rhs"] = b
+            return solve(b, m, tol)
+        return mv, pc, pm, rec_solve
+
+    def rec_fgmres(matvec, precond, b, **kw):
+        rec["rhs"] = b
+        return fgmres(matvec, precond, b, **kw)
+
+    state = (sim.u0, sim.t0) + tuple(sim.initial_turb_state())
+    for _ in range(steps - 1):
+        state = sim._step(*state)[:6]
+    blockcsr.make_solver_ops_stencil_t = rec_ops
+    krylov.fgmres = rec_fgmres
+    try:
+        sim._step(*state)
+    finally:
+        blockcsr.make_solver_ops_stencil_t, krylov.fgmres = make_ops, fgmres
+    return rec
+
+
+def sst_operands(sim, rec, variant):
+    """K5/K6 operands of a captured SST system, laid out by the port's own
+    StencilSolveOps: (kwargs, unit right side, right side)."""
+    import torch
+    from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    diag, sel_t = rec["diag"].to(dtype), rec["sel_t"].to(dtype)
+    ops = ts.StencilSolveOps(
+        sim.mesh, sel_t, blockcsr.block_diag_inv(diag), diag, rec["colors"],
+        rec["ncolor"], sel_dtype=torch.bfloat16 if variant == "mixed"
+        else None)
+    b = rec["rhs"].to(dtype).contiguous()
+    args = dict(selp_t=ops.sel_t, selm_t=ops.selm_t, dinv_t=ops.dinv_t,
+                diag_t=ops.diag_t, colors=ops.colors, offsets=ops.offsets,
+                ncolor=ops.ncolor)
+    return args, (b / torch.linalg.vector_norm(b)).contiguous(), b
+
+
+def band_operands(v, offsets, variant, n=20000, ncolor=4, seed=11):
+    """A random band block system with dense v x v blocks, zero blocks for
+    out-of-range neighbours and round-robin colors, which are not a proper
+    coloring for these offsets: the two-buffer rule decides the numbers."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    k = len(offsets)
+    sel = rng.standard_normal((k, v, v, n)) * 0.1
+    p = np.arange(n)
+    for kk, o in enumerate(offsets):
+        sel[kk, :, :, (p + o < 0) | (p + o >= n)] = 0.0
+    diag = rng.standard_normal((n, v, v)) * 0.1 + 3.0 * np.eye(v)
+    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(
+        "cuda", dtype)
+    lanes = lambda blk: dev(blk.transpose(1, 2, 0).reshape(v * v, n))
+    sel_t = dev(sel.reshape(k * v * v, n))
+    colors = torch.as_tensor((p % ncolor).astype(np.int8)).to("cuda")
+    b = dev(rng.standard_normal((n, v)))
+    args = dict(selp_t=sel_t.to(torch.bfloat16) if variant == "mixed"
+                else sel_t, selm_t=sel_t,
+                dinv_t=lanes(np.linalg.inv(diag)), diag_t=lanes(diag),
+                colors=colors, offsets=tuple(offsets),
+                ncolor=ncolor)
+    return args, (b / torch.linalg.vector_norm(b)).contiguous(), b
+
+
+def bsr_operator(args, n, v):
+    """The matvec operator D + sum_k B_k shift_k as one (n v, n v) block
+    sparse matrix with v x v blocks: the yardstick of torch.sparse.mm,
+    never called by the port."""
+    import torch
+    offs = [0] + list(args["offsets"])
+    blocks = [args["diag_t"]] + list(args["selm_t"].reshape(
+        len(args["offsets"]), v * v, n).unbind(0))
+    p = torch.arange(n, device="cuda")
+    order = sorted(range(len(offs)), key=lambda i: offs[i])
+    cols = torch.stack([p + offs[i] for i in order], 1)         # (n, K+1)
+    vals = torch.stack([blocks[i].T.reshape(n, v, v) for i in order], 1)
+    ok = (cols >= 0) & (cols < n)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = ok.sum(1).cumsum(0)
+    return torch.sparse_bsr_tensor(crow, cols[ok], vals[ok].contiguous(),
+                                   size=(n * v, n * v))
+
+
+def k5_flops(args, n, v, sweep, matvec):
+    """Multiply-adds of one K5 application as 2 operations each: a sweep
+    pass updates its color's nodes (K v x v off-diagonal products, the
+    subtraction and the dinv product; the first pass only dinv), the
+    matvec every node."""
+    k, nc = len(args["offsets"]), args["ncolor"]
+    flops = 0
+    if sweep:
+        cnt = [int((args["colors"] == c).sum()) for c in range(nc)]
+        order = list(range(nc)) + list(range(nc - 2, -1, -1))
+        flops += 2 * v * v * cnt[order[0]]
+        flops += sum(cnt[c] for c in order[1:]) * (2 * k * v * v + v
+                                                   + 2 * v * v)
+    if matvec:
+        flops += n * (2 * k * v * v + 2 * v * v + v)
+    return flops
+
+
+def k6_flops(args, n, v, m):
+    """One FGMRES(m) cycle: m sweeps and matvecs, the j + 1 Gram-Schmidt
+    dots and updates and the norm of iteration j, the basis vector, and
+    x = sum_j y_j z_j."""
+    nv = n * v
+    per = k5_flops(args, n, v, True, True)
+    return m * per + sum(4 * nv * (j + 1) + 3 * nv for j in range(m)) \
+        + 2 * m * nv
+
+
+def k6_barriers(ncolor, m):
+    """Grid-wide barriers of one K6 cycle (csrc/stencil_solve.cu)."""
+    return 2 + m * (2 * ncolor + 1) + m * (m - 1) // 2
+
+
+def stencil_phase(sims, report):
+    """K5 and K6 against their plain versions: the SST systems the port
+    assembles at both sizes and band systems with dense blocks, in f64,
+    f32 and mixed."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    systems = {}
+    for size, sim in sims.items():
+        rec = capture_sst_system(sim)
+        systems[f"sst{sim.mesh.npoint}"] = (
+            lambda var, sim=sim, rec=rec: sst_operands(sim, rec, var))
+    systems["band2"] = lambda var: band_operands(
+        2, (-9, -8, -7, -1, 1, 7, 8, 9), var)
+    systems["band3"] = lambda var: band_operands(3, (-5, -1, 1, 5), var)
+    for sname, make in systems.items():
+        for var in ("float64", "float32", "mixed"):
+            args, r, b = make(var)
+            n, v = r.shape
+            rtol, afrac = TOL[("stencil_sgs_matvec", var)]
+            for mode in ("sgs_matvec", "sgs", "matvec"):
+                sweep, matvec = mode != "matvec", mode != "sgs"
+                if mode == "matvec" and var == "mixed":
+                    continue          # the matvec never reads bf16 blocks
+                kfn = lambda: [t for t in kernels.stencil_sgs_matvec(
+                    **args, r=r, sweep=sweep, matvec=matvec)
+                    if t is not None and (sweep or t is not r)]
+                pfn = lambda: [t for t in ts.sgs_matvec_plain(
+                    **args, r=r, sweep=sweep, matvec=matvec)
+                    if t is not None and (sweep or t is not r)]
+                got, want = kfn(), pfn()
+                torch.cuda.synchronize()
+                err, worst = 0.0, 0.0
+                for g, w in zip(got, want):
+                    g, w = g.double(), w.double()
+                    if not torch.isfinite(g).all():
+                        raise AssertionError(f"K5 {sname} {var} {mode}: "
+                                             "non-finite output")
+                    e = (g - w).abs()
+                    if not bool((e <= rtol * w.abs()
+                                 + afrac * w.abs().max()).all()):
+                        raise AssertionError(
+                            f"K5 {sname} {var} {mode}: max err "
+                            f"{e.max().item():.3e} outside rtol {rtol} atol "
+                            f"{afrac}*max")
+                    err = max(err, e.max().item())
+                    worst = max(worst, e.max().item()
+                                / max(w.abs().max().item(), 1e-300))
+                ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
+                ins = [r]
+                if sweep:
+                    ins += [args["selp_t"], args["dinv_t"], args["colors"]]
+                if matvec:
+                    ins.append(args["diag_t"])
+                    if not sweep or args["selm_t"] is not args["selp_t"]:
+                        ins.append(args["selm_t"])
+                bound = bound_of(nbytes(ins + got),
+                                 k5_flops(args, n, v, sweep, matvec), var)
+                lib_ms, lib_txt = None, ""
+                if mode == "matvec":
+                    mat = bsr_operator(args, n, v)
+                    xv = r.reshape(n * v, 1)
+                    lib_ms = cuda_time(lambda: torch.sparse.mm(mat, xv))
+                    lib_txt = f" torch.sparse.mm (BSR) {lib_ms:.4f} ms"
+                phase("stencil", f"K5 {mode} {sname} {var}: max_abs_err "
+                      f"{err:.3e} ({worst:.2e} of its field's max) kernel "
+                      f"{ms:.4f} ms plain {plain_ms:.4f} ms bound "
+                      f"{bound[0]:.4f} ms ({bound[1]}){lib_txt}")
+                report.setdefault("stencil_sgs_matvec", {})[
+                    (sname, var, mode)] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound[0], bound_by=bound[1],
+                        library_ms=lib_ms)
+            k6_check(sname, var, args, r, b, report)
+
+
+def k6_check(sname, var, args, r, b, report):
+    """K6 against the plain FGMRES(10) over the plain sweep: equal
+    iterations; f64 x within rtol 1e-9 and atol 1e-12 of max|x|, rel
+    within rtol 1e-8 (atol 1e-15); f32 and mixed x within 2e-5 of max|x|
+    (the JAX package's pins, tests/test_stencil.py:259-262, 315-317).
+    Cases: tol 1e-6, tol 1e-12 (all iterations in f32), the unit right
+    side r times 1e18 (the pow2 scaling; b itself may reach 1e21 in f32)
+    and, in f64, b = 0 (in f32 the reference's 1e-300 floor rounds to 0
+    and its cycle divides 0 by 0)."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    n, v = b.shape
+    cases = [("tol 1e-6", b, 1e-6), ("tol 1e-12", b, 1e-12),
+             ("r x 1e18", r * 1e18, 1e-6)]
+    if var == "float64":
+        cases.append(("b = 0", torch.zeros_like(b), 1e-6))
+    err = err_abs = 0.0
+    iters = []
+    for label, bb, tol in cases:
+        x, rel, it = kernels.stencil_fgmres(**args, b=bb, m=KRYLOV_M,
+                                            tol=tol)
+        px, prel, pit = ts.fgmres_plain(**args, b=bb, m=KRYLOV_M, tol=tol)
+        torch.cuda.synchronize()
+        if int(it) != int(pit):
+            raise AssertionError(f"K6 {sname} {var} {label}: {int(it)} "
+                                 f"iterations, plain {int(pit)}")
+        x, px = x.double(), px.double()
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"K6 {sname} {var} {label}: non-finite x")
+        scale = max(px.abs().max().item(), 1e-300)
+        e = (x - px).abs()
+        if var == "float64":
+            # rel: atol 1e-15, since at tol 1e-12 it ends at rounding
+            # level, where the summation orders of the dots show
+            ok = bool((e <= 1e-9 * px.abs() + 1e-12 * scale).all()) and \
+                abs(float(rel) - float(prel)) <= 1e-8 * abs(float(prel)) \
+                + 1e-15
+        else:
+            ok = e.max().item() <= 2e-5 * scale
+        if not ok:
+            raise AssertionError(
+                f"K6 {sname} {var} {label}: max err {e.max().item():.3e} "
+                f"(x scale {scale:.3e}), rel {float(rel):.6e} vs plain "
+                f"{float(prel):.6e}")
+        err = max(err, e.max().item() / scale)
+        if label == "tol 1e-6":
+            err_abs = e.max().item()
+        iters.append(int(it))
+    kfn = lambda: kernels.stencil_fgmres(**args, b=b, m=KRYLOV_M, tol=1e-6)
+    pfn = lambda: ts.fgmres_plain(**args, b=b, m=KRYLOV_M, tol=1e-6)
+    ms, plain_ms = cuda_time(kfn, reps=10), cuda_time(pfn, reps=5)
+    ins = [args["selp_t"], args["dinv_t"], args["diag_t"], args["colors"], b,
+           None if args["selm_t"] is args["selp_t"] else args["selm_t"]]
+    outs = nbytes([b]) + 2 * b.element_size()          # x and the stats
+    bound = bound_of(nbytes(ins) + outs, k6_flops(args, n, v, KRYLOV_M), var)
+    phase("stencil", f"K6 {sname} {var}: iterations {iters} equal to the "
+          f"plain version's, max error {err:.2e} of max|x|; kernel {ms:.4f} "
+          f"ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]});"
+          f" {k6_barriers(args['ncolor'], KRYLOV_M)} grid barriers")
+    report.setdefault("stencil_fgmres", {})[(sname, var)] = dict(
+        max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+        bound_by=bound[1], library_ms=None,
+        barriers=k6_barriers(args["ncolor"], KRYLOV_M))
 
 
 def step_phase(tmp):
@@ -288,11 +653,43 @@ def step_phase(tmp):
           f"difference {worst:.3e} of its field's max)")
 
 
-def slice_phase(tmp, size, niter, card):
+# the stencil kernel of each size's SST solve and its launches per
+# iteration: one K6 cycle at 9,072 nodes, KRYLOV_M K5 (z, A z) at 142,317
+STENCIL_PER_ITER = {"flagship": ("stencil_fgmres", 1),
+                    "scaling": ("stencil_sgs_matvec", KRYLOV_M)}
+
+
+def profile_steps(sim, state, niter=3):
+    """(CUDA kernel launches, device-busy ms, {su2k kernel: device ms}) per
+    iteration over niter coupled steps, from torch.profiler: launches are
+    the runtime's launch calls, busy the summed device time of kernels,
+    copies and sets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(niter):
+            state = sim._step(*state)[:6]
+        torch.cuda.synchronize()
+    launches, busy_us, ours = 0, 0.0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            m = re.search(r"su2k::(\w+)_kernel", e.name)
+            if m:
+                ours[m.group(1)] = ours.get(m.group(1), 0.0) + us
+        elif "LaunchKernel" in e.name or "LaunchCooperativeKernel" in e.name:
+            launches += 1
+    return (launches / niter, busy_us / 1e3 / niter,
+            {k: round(us / 1e3 / niter, 4) for k, us in sorted(ours.items())})
+
+
+def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     import numpy as np
     import torch
     from su2_tpu_torch import kernels
-    sim = make_case(tmp, *SIZES[size], torch.float32, "cuda")
     n = sim.mesh.npoint
     # warm-up outside the counted, timed run
     u, t, _, ts = sim.run(2, quiet=True)
@@ -316,6 +713,13 @@ def slice_phase(tmp, size, niter, card):
     if counts["mixture_enthalpy"] < niter:
         raise AssertionError(f"{size}: mixture_enthalpy launched "
                              f"{counts['mixture_enthalpy']} < {niter}")
+    name, per_iter = STENCIL_PER_ITER[size]
+    for k in ("stencil_fgmres", "stencil_sgs_matvec"):
+        want_k = per_iter * niter if (k == name and prec == "LU_SGS") else 0
+        if counts[k] != want_k:
+            raise AssertionError(f"{size} {prec}: {k} launched {counts[k]} "
+                                 f"times in {niter} iterations, expected "
+                                 f"{want_k}")
     # the mixing layer reacts: species production of the final state
     from su2_tpu_torch import state as st
     lay = sim.lay
@@ -327,10 +731,18 @@ def slice_phase(tmp, size, niter, card):
     if not om_max > 0.0:
         raise AssertionError(f"{size}: no species production")
     ms = wall * 1e3 / niter
-    phase("slice", f"{n} nodes f32 x {niter}: {ms:.3f} ms/iter, "
+    prof = ""
+    if profile:
+        cuda_launches, busy, ours = profile_steps(sim, (u, t) + tuple(ts))
+        prof = (f", profiled: {cuda_launches:.1f} CUDA launches/iter, "
+                f"device busy {busy:.3f} ms/iter, su2k kernels' device "
+                f"ms/iter {ours}")
+    dt = str(sim.dtype).split(".")[-1]
+    phase("slice", f"{n} nodes {dt} {prec} x {niter}: {ms:.3f} ms/iter, "
           f"{n / (ms * 1e3):.3f} Mcell-updates/s, log10 rms[rho] "
           f"{hist[0][0]:.4f} -> {hist[-1][0]:.4f}, max|omega| "
-          f"{om_max:.4g} kg/(m^3 s), launches {counts} ({card})")
+          f"{om_max:.4g} kg/(m^3 s), kernel launches {counts}{prof} "
+          f"({card})")
     return counts
 
 
@@ -363,19 +775,50 @@ def main():
         phase("build", line)
 
     report = {}
+    niters = {"flagship": 50, "scaling": 20}
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
         for dt in ("float64", "float32"):
             kernel_phase(tmp, dt, report)
+        t0 = time.perf_counter()
+        sims = {size: make_case(tmp, *SIZES[size], torch.float32, "cuda")
+                for size in SIZES}
+        phase("stencil", f"cases built in {time.perf_counter() - t0:.1f} s")
+        stencil_phase(sims, report)
         step_phase(tmp)
-        counts = slice_phase(tmp, "flagship", 50, card)
-        slice_phase(tmp, "scaling", 20, card)
+        counts = {size: slice_phase(sims[size], size, niter, card)
+                  for size, niter in niters.items()}
+        # float64 past the full-precision gate: K5 at full precision inside
+        # the Krylov loop, KRYLOV_M launches per iteration
+        slice_phase(make_case(tmp, *SIZES["scaling"], torch.float64, "cuda"),
+                    "scaling", 3, card)
+        # JACOBI (the path without K5/K6) against LU_SGS in the order J,
+        # L, L, J, each run profiled after its timed run
+        for size, niter in niters.items():
+            jac = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                            prec="JACOBI")
+            for sim, prec in ((jac, "JACOBI"), (sims[size], "LU_SGS"),
+                              (sims[size], "LU_SGS"), (jac, "JACOBI")):
+                slice_phase(sim, size, niter, card, prec=prec, profile=True)
 
+    # each kernel's numbers at its main-path use: T1-T4 in f32 at 9,072
+    # nodes, K5 mixed at 142,317 nodes, K6 f32 at 9,072 nodes
+    main_use = {"stencil_sgs_matvec": ("sst142317", "mixed", "sgs_matvec"),
+                "stencil_fgmres": ("sst9072", "float32")}
     rows = []
     for name, (src, repl) in KERNELS.items():
-        err, ms, plain_ms = report[name]["float32"]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": counts[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        rec = dict(report[name][main_use.get(name, "float32")])
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": repl,
+               "launches": sum(c[name] for c in counts.values()),
+               "launches_per_iter": {
+                   str(sims[size].mesh.npoint): counts[size][name] / niter
+                   for size, niter in niters.items()}}
+        row.update(rec)
+        if name == "stencil_sgs_matvec":
+            mv = report[name][("sst142317", "float32", "matvec")]
+            row["matvec_only"] = {k: mv[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

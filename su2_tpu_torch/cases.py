@@ -135,7 +135,8 @@ def write_library(directory: str, backward_rate: bool = False) -> str:
 
 def cfg_text(manifest: str, mesh_file: str | None = None) -> str:
     """cfg of the case: REACTIVE_NAVIER_STOKES + SST + PaSR, AUSM first
-    order, explicit flow, implicit SST by FGMRES + JACOBI."""
+    order, explicit flow, implicit SST by FGMRES + LU_SGS (the multicolor
+    block-SGS sweep; JACOBI is the test variant that bypasses it)."""
     fuel = ", ".join(["1.0"] + ["0.0"] * (len(SPECIES) - 1))
     ox = ", ".join(["0.0", "0.0", "1.0"] + ["0.0"] * (len(SPECIES) - 3))
     mesh = f"MESH_FILENAME= {mesh_file}\n" if mesh_file else ""
@@ -161,7 +162,7 @@ SPATIAL_ORDER_FLOW= 1ST_ORDER
 TIME_DISCRE_FLOW= EULER_EXPLICIT
 TIME_DISCRE_TURB= EULER_IMPLICIT
 LINEAR_SOLVER= FGMRES
-LINEAR_SOLVER_PREC= JACOBI
+LINEAR_SOLVER_PREC= LU_SGS
 PASR_LB = 0.2
 """
 

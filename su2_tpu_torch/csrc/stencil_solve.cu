@@ -1,0 +1,599 @@
+// K5 stencil_sgs_matvec and K6 stencil_fgmres: the symmetric multicolor
+// block Gauss-Seidel sweep (the reference's LU-SGS made color-parallel),
+// the stencil matvec, and one right-preconditioned FGMRES(m) cycle, on
+// meshes whose neighbours sit at K fixed index offsets.
+//
+// Replaces su2_tpu/pallas/stencil_solve.py.  K5: _sgs_matvec_call :178,
+// _sgs_matvec_mixed_call :206, _sgs_call :251, _matvec_call :273 and the
+// windowed _tiled_sgs_matvec_call :554, _tiled_sgs_matvec_mixed_call :643,
+// _tiled_sgs_call :741 (the windows fit the TPU's VMEM; a grid-stride
+// kernel reads any field size from device memory).  K6: the one-launch
+// cycles _fgmres_call :381 and _fgmres_mixed_call :434.
+//
+// Layout: blocks lane-major, row q of an (R, n) array at q*n + p (rows
+// k*V*V + a*V + b of the off-diagonal blocks, a*V + b of dinv/diag);
+// vectors node-major, entry a of node p at p*V + a.  Colors: one int8 per
+// node.  A neighbour p + o_k outside [0, n) is skipped: its block is zero
+// by construction, where the reference multiplies a wrapped lane by it.
+//
+// Sweep semantics (the reference's _sgs_body): z starts at 0; passes run
+// over the colors 0..nc-1, then nc-2..0; a pass sets
+//   z_new[p] = dinv[p] (r[p] - sum_k B_k[p] z_old[p + o_k])
+// at the nodes of its color and z_new[p] = z_old[p] elsewhere.  Every pass
+// reads the z of the previous pass (two buffers), so masks that are not a
+// proper coloring give the reference's numbers as well, with no race.
+// The mixed tier stores the sweep blocks as __nv_bfloat16 (rounded to
+// nearest even once per solve by the caller) and widens each with
+// __bfloat162float; the matvec blocks stay at the state type.
+//
+// Bound on the H100: bytes.  A sweep pass reads its nodes' K*V*V blocks,
+// dinv and r, and the neighbours' z; the matvec reads the K*V*V matvec
+// blocks and diag.  At the main path's shape (142,317 nodes, K = 4, V = 2,
+// 2 colors, f32 with bf16 sweep blocks) one K5 application has to move
+// ~6.3 MB (each operand read once), ~1.9 us at 3.35 TB/s; its
+// 2nc - 1 + 1 = 4 passes re-read the field, which mostly stays in the
+// 50 MB L2.  Design K5: one thread per node, one launch per pass issued
+// from one C call (the launches are the barriers between passes), no
+// shared memory; loads of neighbouring nodes coalesce along the lanes.
+//
+// K6 is bound by its barriers: at m = 10, nc = 2 a cycle has
+// 2 + m (2nc + 1) + m (m - 1)/2 = 97 grid-wide barriers (sweep passes, one
+// fused matvec-and-first-dot pass, the j + 1 sequential modified
+// Gram-Schmidt passes and the norm), while its operands at 9,072 nodes
+// (~2.5 MB with the basis) sit in L2.  Design K6: one cooperative grid of
+// at most the co-resident blocks (cudaLaunchCooperativeKernel), grid-stride
+// loops with a fixed node-to-thread map, cg::this_grid().sync() as the
+// barrier.  Every reduction is deterministic: block partials, then every
+// block sums the same partials in the same order, so the scalar recurrence
+// (pow2 scaling, Givens rotations, back-substitution) runs redundantly and
+// identically in each block, with no extra barrier.  Values written by
+// other blocks inside the launch are read with __ldcg (L2, not a stale L1).
+#include "common.cuh"
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+
+namespace cg = cooperative_groups;
+
+#define SU2K_MAXK 8       // stencil offsets (geometry/stencil.py MAX_OFFSETS)
+#define SU2K_FG_THREADS 256
+
+namespace su2k {
+
+struct Stencil {
+  int k;
+  int off[SU2K_MAXK];
+};
+
+template <typename T, typename S>
+__device__ __forceinline__ T widen(S x) { return (T)x; }
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ float fab(float x) { return fabsf(x); }
+__device__ __forceinline__ double fab(double x) { return fabs(x); }
+__device__ __forceinline__ float sq(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sq(double x) { return sqrt(x); }
+__device__ __forceinline__ float pow2_floor(float x) {
+  float e = floorf(log2f(x));
+  return exp2f(e < -120.f ? -120.f : (e > 120.f ? 120.f : e));
+}
+__device__ __forceinline__ double pow2_floor(double x) {
+  double e = floor(log2(x));
+  return exp2(e < -120.0 ? -120.0 : (e > 120.0 ? 120.0 : e));
+}
+
+// x read through L2 when other blocks wrote it inside the same launch
+template <typename T, bool L2>
+__device__ __forceinline__ T ldx(const T* p) {
+  if constexpr (L2) return __ldcg(p);
+  else return *p;
+}
+
+// out = sum_k B_k[p] x[p + o_k]; the products of one block row are summed
+// over b, then the offsets in order (the reference's _offdiag)
+template <typename T, typename S, int V, bool L2>
+__device__ __forceinline__ void offdiag_at(const S* __restrict__ sel,
+                                           const T* x, int n, int p,
+                                           const Stencil& st, T (&out)[V]) {
+#pragma unroll
+  for (int a = 0; a < V; ++a) out[a] = (T)0;
+  for (int kk = 0; kk < st.k; ++kk) {
+    const int q = p + st.off[kk];
+    if (q < 0 || q >= n) continue;
+    T xq[V];
+#pragma unroll
+    for (int b = 0; b < V; ++b) xq[b] = ldx<T, L2>(x + (size_t)q * V + b);
+    const S* blk = sel + (size_t)kk * V * V * n + p;
+#pragma unroll
+    for (int a = 0; a < V; ++a) {
+      T y = (T)0;
+#pragma unroll
+      for (int b = 0; b < V; ++b)
+        y += widen<T, S>(blk[(size_t)(a * V + b) * n]) * xq[b];
+      out[a] += y;
+    }
+  }
+}
+
+// out = blk[p] x (one V x V block per node)
+template <typename T, int V>
+__device__ __forceinline__ void bapply_at(const T* __restrict__ blk, int n,
+                                          int p, const T (&x)[V],
+                                          T (&out)[V]) {
+#pragma unroll
+  for (int a = 0; a < V; ++a) {
+    T s = (T)0;
+#pragma unroll
+    for (int b = 0; b < V; ++b) s += blk[(size_t)(a * V + b) * n + p] * x[b];
+    out[a] = s;
+  }
+}
+
+// one color pass of the sweep at node p; first: z_old is 0 (r - 0 = r)
+template <typename T, typename S, int V, bool L2>
+__device__ __forceinline__ void sweep_at(const S* __restrict__ selp,
+                                         const T* __restrict__ dinv,
+                                         const int8_t* __restrict__ colors,
+                                         const T (&r)[V], const T* zold,
+                                         T* znew, int n, int p,
+                                         const Stencil& st, int color,
+                                         bool first) {
+  T zn[V];
+  if (colors[p] == color) {
+    T acc[V];
+    if (first) {
+#pragma unroll
+      for (int a = 0; a < V; ++a) acc[a] = r[a];
+    } else {
+      T od[V];
+      offdiag_at<T, S, V, L2>(selp, zold, n, p, st, od);
+#pragma unroll
+      for (int a = 0; a < V; ++a) acc[a] = r[a] - od[a];
+    }
+    bapply_at<T, V>(dinv, n, p, acc, zn);
+  } else {
+#pragma unroll
+    for (int a = 0; a < V; ++a)
+      zn[a] = first ? (T)0 : ldx<T, L2>(zold + (size_t)p * V + a);
+  }
+#pragma unroll
+  for (int a = 0; a < V; ++a) znew[(size_t)p * V + a] = zn[a];
+}
+
+// w[p] = diag[p] z[p] + sum_k B_k[p] z[p + o_k]
+template <typename T, int V, bool L2>
+__device__ __forceinline__ void matvec_at(const T* __restrict__ selm,
+                                          const T* __restrict__ diag,
+                                          const T* z, int n, int p,
+                                          const Stencil& st, T (&w)[V]) {
+  T zp[V], od[V];
+#pragma unroll
+  for (int a = 0; a < V; ++a) zp[a] = ldx<T, L2>(z + (size_t)p * V + a);
+  offdiag_at<T, T, V, L2>(selm, z, n, p, st, od);
+  bapply_at<T, V>(diag, n, p, zp, w);
+#pragma unroll
+  for (int a = 0; a < V; ++a) w[a] += od[a];
+}
+
+// ------------------------------------------------------------------- K5
+template <typename T, typename S, int V>
+__global__ void sgs_pass_kernel(int n, Stencil st, int color, int first,
+                                const S* __restrict__ selp,
+                                const T* __restrict__ dinv,
+                                const int8_t* __restrict__ colors,
+                                const T* __restrict__ r, const T* zold,
+                                T* znew) {
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
+       p += gridDim.x * blockDim.x) {
+    T rp[V];
+#pragma unroll
+    for (int a = 0; a < V; ++a) rp[a] = r[(size_t)p * V + a];
+    sweep_at<T, S, V, false>(selp, dinv, colors, rp, zold, znew, n, p, st,
+                             color, first != 0);
+  }
+}
+
+template <typename T, int V>
+__global__ void matvec_kernel(int n, Stencil st, const T* __restrict__ selm,
+                              const T* __restrict__ diag,
+                              const T* __restrict__ x, T* __restrict__ y) {
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
+       p += gridDim.x * blockDim.x) {
+    T w[V];
+    matvec_at<T, V, false>(selm, diag, x, n, p, st, w);
+#pragma unroll
+    for (int a = 0; a < V; ++a) y[(size_t)p * V + a] = w[a];
+  }
+}
+
+template <typename T, typename S, int V>
+int launch_sgs_matvec(int n, const Stencil& st, int ncolor, int do_sweep,
+                      int do_matvec, const S* selp, const T* selm,
+                      const T* dinv, const T* diag, const int8_t* colors,
+                      const T* r, T* z, T* w, T* zbuf, cudaStream_t stream) {
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  if (n <= 0) return 0;
+  const T* x = r;
+  if (do_sweep) {
+    const int npass = 2 * ncolor - 1;
+    const T* zold = nullptr;
+    for (int i = 0; i < npass; ++i) {
+      const int c = i < ncolor ? i : 2 * ncolor - 2 - i;
+      T* dst = ((npass - 1 - i) & 1) ? zbuf : z;   // the last pass writes z
+      sgs_pass_kernel<T, S, V><<<blocks, threads, 0, stream>>>(
+          n, st, c, i == 0, selp, dinv, colors, r, zold, dst);
+      zold = dst;
+    }
+    x = z;
+  }
+  if (do_matvec)
+    matvec_kernel<T, V><<<blocks, threads, 0, stream>>>(n, st, selm, diag,
+                                                        x, w);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------- K6
+template <typename T, typename S>
+struct FgArgs {
+  int n, ncolor, m;
+  Stencil st;
+  T tol;
+  const S* selp;
+  const T* selm;
+  const T* dinv;
+  const T* diag;
+  const int8_t* colors;
+  const T* b;
+  T* x;
+  T* stats;     // [relative residual, iterations]
+  T* ws;        // V (m+1), Z (m), sweep scratch, w: each n*V
+  T* part;      // 2 * gridDim.x block partials
+};
+
+template <typename T, bool MAX>
+__device__ __forceinline__ T warp_red(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    T u = __shfl_down_sync(0xffffffffu, v, o);
+    v = MAX ? (u > v ? u : v) : v + u;
+  }
+  return v;
+}
+
+// sum (or max) of v over the grid, returned to every thread; one grid
+// barrier.  Partials alternate between two buffers, so a block that runs
+// ahead never overwrites partials another block has yet to read.
+template <typename T, bool MAX>
+__device__ T grid_reduce(cg::grid_group& grid, T v, T* part, int& buf,
+                         T* wsum, T* bcast) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  v = warp_red<T, MAX>(v);
+  if (lane == 0) wsum[wid] = v;
+  __syncthreads();
+  T* pb = part + (size_t)buf * gridDim.x;
+  if (wid == 0) {
+    T s = lane < (int)(blockDim.x >> 5) ? wsum[lane] : (T)0;
+    s = warp_red<T, MAX>(s);
+    if (lane == 0) pb[blockIdx.x] = s;
+  }
+  grid.sync();
+  if (wid == 0) {
+    T s = (T)0;
+    for (int i = lane; i < (int)gridDim.x; i += 32) {
+      T u = __ldcg(pb + i);
+      s = MAX ? (u > s ? u : s) : s + u;
+    }
+    s = warp_red<T, MAX>(s);
+    if (lane == 0) *bcast = s;
+  }
+  __syncthreads();
+  T tot = *bcast;
+  buf ^= 1;
+  return tot;
+}
+
+__host__ __device__ constexpr int fg_smem_words(int m) {
+  return 50 + 5 * m + m * m;
+}
+
+template <typename T, typename S, int V>
+__global__ void __launch_bounds__(SU2K_FG_THREADS)
+fgmres_kernel(FgArgs<T, S> A) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char fg_smem[];
+  T* sh = reinterpret_cast<T*>(fg_smem);
+  const int n = A.n, m = A.m;
+  T* wsum = sh;              // 32 warp partials
+  T* bc = sh + 32;           // reduction broadcast
+  T* sc = sh + 40;           // active, iters, res_hist, vact, vden
+  T* rc = sh + 48;           // m + 1: the new Hessenberg column
+  T* cs = rc + m + 1;        // m
+  T* sn = cs + m;            // m
+  T* g = sn + m;             // m + 1
+  T* y = g + m + 1;          // m
+  T* cols = y + m;           // m * m: rotated column j, row i at j*m + i
+  const size_t nv = (size_t)n * V;
+  T* vb = A.ws;
+  T* zb = vb + (size_t)(m + 1) * nv;
+  T* zs = zb + (size_t)m * nv;
+  T* wv = zs + nv;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nth = gridDim.x * blockDim.x;
+  const int npass = 2 * A.ncolor - 1;
+  const T tiny = (T)1e-300;   // 0 in float, as in the reference
+  int buf = 0;
+
+  // exact power-of-two scaling of b (krylov._pow2_scale)
+  T amax = (T)0;
+  for (int p = tid; p < n; p += nth) {
+#pragma unroll
+    for (int a = 0; a < V; ++a) {
+      T u = fab(A.b[(size_t)p * V + a]);
+      amax = u > amax ? u : amax;
+    }
+  }
+  amax = grid_reduce<T, true>(grid, amax, A.part, buf, wsum, bc);
+  const T s = amax > (T)0 ? pow2_floor(amax > tiny ? amax : tiny) : (T)1;
+
+  T ss = (T)0;
+  for (int p = tid; p < n; p += nth) {
+#pragma unroll
+    for (int a = 0; a < V; ++a) {
+      T bv = A.b[(size_t)p * V + a] / s;
+      ss += bv * bv;
+    }
+  }
+  const T beta = sq(grid_reduce<T, false>(grid, ss, A.part, buf, wsum, bc));
+  const T norm0 = beta > tiny ? beta : tiny;
+  for (int p = tid; p < n; p += nth) {
+#pragma unroll
+    for (int a = 0; a < V; ++a)
+      vb[(size_t)p * V + a] = (A.b[(size_t)p * V + a] / s) / norm0;
+  }
+  if (threadIdx.x == 0) {
+    sc[0] = (beta / norm0 >= A.tol) ? (T)1 : (T)0;
+    sc[1] = (T)0;
+    sc[2] = beta;
+    sc[3] = (T)0;
+    sc[4] = (T)1;
+    g[0] = beta;
+  }
+  __syncthreads();
+
+  for (int j = 0; j < m; ++j) {
+    T* vj = vb + (size_t)j * nv;
+    T* zj = zb + (size_t)j * nv;
+    const bool vact = sc[3] != (T)0;
+    const T vden = sc[4];
+    // z_j = sweep(v_j); v_j itself is formed in the first pass
+    const T* zold = nullptr;
+    for (int i = 0; i < npass; ++i) {
+      const int c = i < A.ncolor ? i : 2 * A.ncolor - 2 - i;
+      T* dst = ((npass - 1 - i) & 1) ? zs : zj;
+      for (int p = tid; p < n; p += nth) {
+        T r[V];
+        if (i == 0 && j > 0) {
+#pragma unroll
+          for (int a = 0; a < V; ++a) {
+            const size_t e = (size_t)p * V + a;
+            T t = vact ? wv[e] / vden : vj[e - nv];
+            vj[e] = t;
+            r[a] = t;
+          }
+        } else {
+#pragma unroll
+          for (int a = 0; a < V; ++a) r[a] = vj[(size_t)p * V + a];
+        }
+        sweep_at<T, S, V, true>(A.selp, A.dinv, A.colors, r, zold, dst, n,
+                                p, A.st, c, i == 0);
+      }
+      grid.sync();
+      zold = dst;
+    }
+    // w = A z_j, fused with the first Gram-Schmidt dot (v_0, w)
+    T part = (T)0;
+    for (int p = tid; p < n; p += nth) {
+      T w[V];
+      matvec_at<T, V, true>(A.selm, A.diag, zj, n, p, A.st, w);
+#pragma unroll
+      for (int a = 0; a < V; ++a) {
+        wv[(size_t)p * V + a] = w[a];
+        part += vb[(size_t)p * V + a] * w[a];
+      }
+    }
+    T h = grid_reduce<T, false>(grid, part, A.part, buf, wsum, bc);
+    const bool active = sc[0] != (T)0;
+    // modified Gram-Schmidt: w -= h_ij v_i, then the next dot (or |w|^2)
+    for (int i = 0; i <= j; ++i) {
+      const T hij = active ? h : (i == j ? (T)1 : (T)0);
+      const T hm = active ? hij : (T)0;
+      if (threadIdx.x == 0) rc[i] = hij;
+      const T* vi = vb + (size_t)i * nv;
+      part = (T)0;
+      for (int p = tid; p < n; p += nth) {
+#pragma unroll
+        for (int a = 0; a < V; ++a) {
+          const size_t e = (size_t)p * V + a;
+          T t = wv[e] - hm * vi[e];
+          wv[e] = t;
+          part += (i < j) ? vi[e + nv] * t : t * t;
+        }
+      }
+      h = grid_reduce<T, false>(grid, part, A.part, buf, wsum, bc);
+    }
+    if (threadIdx.x == 0) {
+      const T hj1 = active ? sq(h) : (T)0;
+      sc[3] = sc[0];
+      sc[4] = hj1 > tiny ? hj1 : tiny;
+      sc[1] += sc[0];
+      rc[j + 1] = hj1;
+      for (int i = 0; i < j; ++i) {
+        T t = cs[i] * rc[i] + sn[i] * rc[i + 1];
+        rc[i + 1] = -sn[i] * rc[i] + cs[i] * rc[i + 1];
+        rc[i] = t;
+      }
+      const T denom = sq(rc[j] * rc[j] + rc[j + 1] * rc[j + 1]);
+      const T safe = denom > tiny ? denom : tiny;
+      const T cj = denom == (T)0 ? (T)1 : rc[j] / safe;
+      const T sj = denom == (T)0 ? (T)0 : rc[j + 1] / safe;
+      cs[j] = cj;
+      sn[j] = sj;
+      const T gj1 = -sj * g[j];
+      g[j] = cj * g[j];
+      g[j + 1] = gj1;
+      const T cur = fab(gj1);
+      if (active) sc[2] = cur;
+      sc[0] = (active && cur / norm0 >= A.tol) ? (T)1 : (T)0;
+      for (int i = 0; i < j; ++i) cols[j * m + i] = rc[i];
+      cols[j * m + j] = cj * rc[j] + sj * rc[j + 1];
+    }
+    __syncthreads();
+  }
+
+  // back-substitution on the rotated R, then x = s * sum_j y_j z_j
+  if (threadIdx.x == 0) {
+    for (int j = m - 1; j >= 0; --j) {
+      T acc = g[j];
+      for (int i = j + 1; i < m; ++i) acc = acc - cols[i * m + j] * y[i];
+      const T rjj = cols[j * m + j];
+      y[j] = rjj == (T)0 ? (T)0 : acc / rjj;
+    }
+    if (blockIdx.x == 0) {
+      A.stats[0] = sc[2] / norm0;
+      A.stats[1] = sc[1];
+    }
+  }
+  __syncthreads();
+  for (int p = tid; p < n; p += nth) {
+#pragma unroll
+    for (int a = 0; a < V; ++a) {
+      const size_t e = (size_t)p * V + a;
+      T d = zb[e] * y[0];
+      for (int j = 1; j < m; ++j) d = d + y[j] * zb[(size_t)j * nv + e];
+      A.x[e] = d * s;
+    }
+  }
+}
+
+template <typename T, typename S, int V>
+int launch_fgmres(FgArgs<T, S> A, int part_cap, cudaStream_t stream) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  const size_t smem = (size_t)fg_smem_words(A.m) * sizeof(T);
+  auto kern = fgmres_kernel<T, S, V>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      SU2K_FG_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  int blocks = (A.n + SU2K_FG_THREADS - 1) / SU2K_FG_THREADS;
+  blocks = blocks < per_sm * sms ? blocks : per_sm * sms;  // co-resident
+  blocks = blocks < part_cap / 2 ? blocks : part_cap / 2;
+  blocks = blocks > 0 ? blocks : 1;
+  void* args[] = {&A};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
+                                    dim3(SU2K_FG_THREADS), args, smem,
+                                    stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename S>
+int fgmres_v(int v, int n, const Stencil& st, int ncolor, int m, double tol,
+             const void* selp, const void* selm, const void* dinv,
+             const void* diag, const void* colors, const void* b, void* x,
+             void* stats, void* ws, void* part, int part_cap,
+             cudaStream_t stream) {
+  FgArgs<T, S> A{n, ncolor, m, st, (T)tol, (const S*)selp, (const T*)selm,
+                 (const T*)dinv, (const T*)diag, (const int8_t*)colors,
+                 (const T*)b, (T*)x, (T*)stats, (T*)ws, (T*)part};
+  if (v == 2) return launch_fgmres<T, S, 2>(A, part_cap, stream);
+  if (v == 3) return launch_fgmres<T, S, 3>(A, part_cap, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename S>
+int sgs_matvec_v(int v, int n, const Stencil& st, int ncolor, int do_sweep,
+                 int do_matvec, const void* selp, const void* selm,
+                 const void* dinv, const void* diag, const void* colors,
+                 const void* r, void* z, void* w, void* zbuf,
+                 cudaStream_t stream) {
+#define SU2K_SGS_ARGS                                                      \
+  n, st, ncolor, do_sweep, do_matvec, (const S*)selp, (const T*)selm,      \
+      (const T*)dinv, (const T*)diag, (const int8_t*)colors, (const T*)r,  \
+      (T*)z, (T*)w, (T*)zbuf, stream
+  if (v == 2) return launch_sgs_matvec<T, S, 2>(SU2K_SGS_ARGS);
+  if (v == 3) return launch_sgs_matvec<T, S, 3>(SU2K_SGS_ARGS);
+#undef SU2K_SGS_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+inline bool make_stencil(int k, const int* offs, Stencil& st) {
+  if (k < 1 || k > SU2K_MAXK) return false;
+  st.k = k;
+  for (int i = 0; i < SU2K_MAXK; ++i) st.off[i] = i < k ? offs[i] : 0;
+  return true;
+}
+
+}  // namespace su2k
+
+// sel_bf16: the sweep blocks selp are __nv_bfloat16 (float state only)
+extern "C" int su2k_stencil_sgs_matvec(
+    int is_f64, int sel_bf16, int v, int n, int k, const int* offs,
+    int ncolor, int do_sweep, int do_matvec, const void* selp,
+    const void* selm, const void* dinv, const void* diag, const void* colors,
+    const void* r, void* z, void* w, void* zbuf, void* stream) {
+  su2k::Stencil st;
+  if (!su2k::make_stencil(k, offs, st) || (is_f64 && sel_bf16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_f64)
+    return su2k::sgs_matvec_v<double, double>(v, n, st, ncolor, do_sweep,
+                                              do_matvec, selp, selm, dinv,
+                                              diag, colors, r, z, w, zbuf, s);
+  if (sel_bf16)
+    return su2k::sgs_matvec_v<float, __nv_bfloat16>(
+        v, n, st, ncolor, do_sweep, do_matvec, selp, selm, dinv, diag,
+        colors, r, z, w, zbuf, s);
+  return su2k::sgs_matvec_v<float, float>(v, n, st, ncolor, do_sweep,
+                                          do_matvec, selp, selm, dinv, diag,
+                                          colors, r, z, w, zbuf, s);
+}
+
+extern "C" int su2k_stencil_fgmres(
+    int is_f64, int sel_bf16, int v, int n, int k, const int* offs,
+    int ncolor, int m, double tol, const void* selp, const void* selm,
+    const void* dinv, const void* diag, const void* colors, const void* b,
+    void* x, void* stats, void* ws, void* part, int part_cap, void* stream) {
+  su2k::Stencil st;
+  if (!su2k::make_stencil(k, offs, st) || (is_f64 && sel_bf16) || m < 1 ||
+      n < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_f64)
+    return su2k::fgmres_v<double, double>(v, n, st, ncolor, m, tol, selp,
+                                          selm, dinv, diag, colors, b, x,
+                                          stats, ws, part, part_cap, s);
+  if (sel_bf16)
+    return su2k::fgmres_v<float, __nv_bfloat16>(v, n, st, ncolor, m, tol,
+                                                selp, selm, dinv, diag,
+                                                colors, b, x, stats, ws,
+                                                part, part_cap, s);
+  return su2k::fgmres_v<float, float>(v, n, st, ncolor, m, tol, selp, selm,
+                                      dinv, diag, colors, b, x, stats, ws,
+                                      part, part_cap, s);
+}

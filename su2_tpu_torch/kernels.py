@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/*.cu).
 
 The kernels are compiled at first use with nvcc for sm_90a into one shared
-library with a plain C interface (loaded with ctypes), under csrc/build/.
-A hash of the sources names the library, so an edited source rebuilds.
+library with a plain C interface (loaded with ctypes), under csrc/build/:
+one nvcc per source, all started together, then one link.  A hash of the
+sources names the library, so an edited source rebuilds.
 Every kernel launches on torch.cuda.current_stream(), allocates nothing
 and returns its cudaError_t; each wrapper below checks device, dtype,
 shape and contiguity, allocates the outputs, launches, raises on a nonzero
@@ -12,6 +13,8 @@ error and adds one to its entry in ``launches``.
   T2 node_state        csrc/node_state.cu   (state.py)
   T3 edge_flux         csrc/edge_flux.cu    (ops/edge_flux.py)
   T4 chem_source       csrc/chem_source.cu  (solvers/euler.py)
+  K5 stencil_sgs_matvec csrc/stencil_solve.cu (linalg/stencil_solve.py)
+  K6 stencil_fgmres     csrc/stencil_solve.cu (linalg/stencil_solve.py)
 """
 
 from __future__ import annotations
@@ -27,13 +30,13 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("common.cuh", "thermo.cu", "node_state.cu", "edge_flux.cu",
-           "chem_source.cu")
+           "chem_source.cu", "stencil_solve.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # launches of each kernel since the last reset_launches()
 launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
-            "chem_source": 0}
+            "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +49,12 @@ _ARGTYPES = {
                        _D, _D, _D, _D, _D, _D, _D] + [_P] * 9,
     "su2k_chem_source": [_I, _I, _I, _I, _I, _D, _D] + [_P] * 6
                         + [_D, _D, _P, _P],
+    "su2k_stencil_sgs_matvec": [_I, _I, _I, _I, _I,
+                                ctypes.POINTER(ctypes.c_int), _I, _I, _I]
+                               + [_P] * 10,
+    "su2k_stencil_fgmres": [_I, _I, _I, _I, _I,
+                            ctypes.POINTER(ctypes.c_int), _I, _I, _D]
+                           + [_P] * 10 + [_I, _P],
 }
 
 _loaded = None
@@ -81,15 +90,36 @@ def build(verbose: bool = False) -> tuple[str, str]:
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp] + [os.path.join(CSRC, s) for s in SOURCES
-                         if s.endswith(".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    objs, procs = [], []
+    for src in (s for s in SOURCES if s.endswith(".cu")):
+        obj = f"{tmp}.{src}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+             "-c", "-o", obj, os.path.join(CSRC, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return path, "".join(log)
 
 
 def _lib():
@@ -290,3 +320,96 @@ def chem_source(lib, prm, t, rho, ys, omega_turb=None):
     _raise("chem_source", err)
     launches["chem_source"] += 1
     return out
+
+
+# ------------------------------------------------------------------ K5, K6
+# Work space of the K6 block partials: two buffers of at most 4,096 blocks
+# (the co-resident blocks of any card at 256 threads).
+_PART_CAP = 2 * 4096
+
+
+def _check_stencil(name, selp, selm, dinv, diag, colors, r, offsets, ncolor,
+                   sweep=True):
+    """Device, dtype, shape and contiguity of the stencil-solve operands."""
+    dtype, dev = r.dtype, r.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32 or float64 vectors, got {dtype}")
+    n, v = r.shape
+    k = len(offsets)
+    if v not in (2, 3):
+        raise ValueError(f"{name}: block width 2 or 3, got {v}")
+    if not 1 <= k <= 8:
+        raise ValueError(f"{name}: 1 to 8 stencil offsets, got {k}")
+    sel_bf16 = selp.dtype == torch.bfloat16
+    if selp.dtype not in (dtype, torch.bfloat16) or (
+            sel_bf16 and dtype != torch.float32):
+        raise TypeError(f"{name}: sweep blocks {selp.dtype} with {dtype} "
+                        "vectors (bf16 pairs only with float32)")
+    want = [(selp, (k * v * v, n)), (selm, (k * v * v, n)),
+            (dinv, (v * v, n)), (diag, (v * v, n)), (r, (n, v))]
+    if sweep:
+        want.append((colors, (n,)))
+        if colors.dtype != torch.int8 or not 1 <= ncolor <= 127:
+            raise TypeError(f"{name}: int8 colors, 1 to 127 of them")
+    for x, shape in want:
+        if not x.is_cuda or x.device != dev:
+            raise ValueError(f"{name}: every tensor must be on {dev}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    for x in (selm, dinv, diag):
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {x.dtype} and {dtype}")
+    return n, v, k, sel_bf16
+
+
+def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
+                       ncolor, sweep=True, matvec=True):
+    """Kernel K5: (z, w) with z the symmetric multicolor block-SGS sweep of
+    r over the sweep blocks selp_t (float or bf16) and w = A z over the
+    matvec blocks selm_t.  sweep=False: w = A r (z is r); matvec=False: w
+    is None.  Blocks (K*v*v, N) and (v*v, N), colors (N,) int8, r (N, v)."""
+    if not (sweep or matvec):
+        raise ValueError("stencil_sgs_matvec: nothing to compute")
+    n, v, k, sel_bf16 = _check_stencil("stencil_sgs_matvec", selp_t, selm_t,
+                                       dinv_t, diag_t, colors, r, offsets,
+                                       ncolor, sweep)
+    z = torch.empty_like(r) if sweep else r
+    zbuf = torch.empty_like(r) if sweep and ncolor > 1 else None
+    w = torch.empty_like(r) if matvec else None
+    offs = (ctypes.c_int * k)(*[int(o) for o in offsets])
+    err = _lib().su2k_stencil_sgs_matvec(
+        int(r.dtype == torch.float64), int(sel_bf16), v, n, k, offs,
+        int(ncolor), int(sweep), int(matvec), _ptr(selp_t), _ptr(selm_t),
+        _ptr(dinv_t), _ptr(diag_t), _ptr(colors) if sweep else None, _ptr(r),
+        _ptr(z) if sweep else None, _ptr(w), _ptr(zbuf), _stream())
+    _raise("stencil_sgs_matvec", err)
+    launches["stencil_sgs_matvec"] += 1
+    return z, w
+
+
+def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
+                   m, tol):
+    """Kernel K6: one FGMRES(m) cycle preconditioned by the sweep, in one
+    cooperative launch.  Returns (x (N, v), relative residual, iterations
+    as int32), the contract of krylov.fgmres without x0."""
+    n, v, k, sel_bf16 = _check_stencil("stencil_fgmres", selp_t, selm_t,
+                                       dinv_t, diag_t, colors, b, offsets,
+                                       ncolor)
+    if not 1 <= m <= 64:
+        raise ValueError(f"stencil_fgmres: 1 to 64 Krylov vectors, got {m}")
+    x = torch.empty_like(b)
+    stats = torch.empty((2,), dtype=b.dtype, device=b.device)
+    ws = torch.empty(((2 * m + 3) * n * v,), dtype=b.dtype, device=b.device)
+    part = torch.empty((_PART_CAP,), dtype=b.dtype, device=b.device)
+    offs = (ctypes.c_int * k)(*[int(o) for o in offsets])
+    err = _lib().su2k_stencil_fgmres(
+        int(b.dtype == torch.float64), int(sel_bf16), v, n, k, offs,
+        int(ncolor), int(m), float(tol), _ptr(selp_t), _ptr(selm_t),
+        _ptr(dinv_t), _ptr(diag_t), _ptr(colors), _ptr(b), _ptr(x),
+        _ptr(stats), _ptr(ws), _ptr(part), _PART_CAP, _stream())
+    _raise("stencil_fgmres", err)
+    launches["stencil_fgmres"] += 1
+    return x, stats[0], stats[1].to(torch.int32)

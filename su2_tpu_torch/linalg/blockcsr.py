@@ -3,17 +3,21 @@
 The off-diagonal blocks live in the stencil lane layout (StencilJacobianT):
 row k*v*v + a*v + b, lane p holds entry (a, b) of the block coupling row p
 to column p + stencil_offsets[k] (zero where the edge is absent).  This
-module carries the JACOBI preconditioner; the multicolor-SGS kernels of
-the default LU_SGS are not ported yet (su2_tpu.pallas.stencil_solve).
+module carries the JACOBI preconditioner, the coloring of the multicolor
+SGS sweep of the default LU_SGS (and ILU0, which the reference maps to the
+same sweep) and the routing of a solve to the stencil kernels
+(linalg/stencil_solve.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from su2_tpu_torch.geometry.mesh_data import MeshArrays
+from su2_tpu_torch.linalg import stencil_solve as sts
 
 
 @dataclass(frozen=True)
@@ -45,28 +49,73 @@ def block_jacobi_apply(dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return _bmv(dinv, r)
 
 
-def _offdiag_apply(mesh: MeshArrays, sel: torch.Tensor, x: torch.Tensor):
-    """sum_k sel[k, p] @ x[p + o_k] for the (K, nP, v, v) stencil form;
-    wrapped rolls meet zero padding blocks."""
-    out = None
-    for k, o in enumerate(mesh.stencil_offsets):
-        part = _bmv(sel[k], torch.roll(x, -o, dims=0))
-        out = part if out is None else out + part
-    return out
+def greedy_coloring(node_nbrs) -> np.ndarray:
+    """Greedy graph coloring on the host (NumPy).  node_nbrs: (nP, D)
+    padded with self.  Returns (nP,) int colors: nodes of one color share
+    no edge, so each color of the SGS sweep updates in one step."""
+    nbrs = np.asarray(node_nbrs)
+    n = nbrs.shape[0]
+    colors = -np.ones(n, dtype=np.int64)
+    for p in range(n):
+        used = set(colors[q] for q in nbrs[p] if q != p and colors[q] >= 0)
+        c = 0
+        while c in used:
+            c += 1
+        colors[p] = c
+    return colors
+
+
+def sweep_colors(node_nbrs, device) -> tuple[torch.Tensor, int]:
+    """(colors, ncolor) of the multicolor sweep: greedy_coloring's colors as
+    the (nP,) int8 tensor on `device` that the stencil kernels read."""
+    colors = greedy_coloring(node_nbrs)
+    ncolor = int(colors.max()) + 1
+    if ncolor > 127:
+        raise ValueError(f"{ncolor} colors; the sweep takes at most 127")
+    return torch.as_tensor(colors.astype(np.int8)).to(device), ncolor
+
+
+# preconditioners of the reference that this package does not carry, with
+# the su2_tpu module that has each
+UNPORTED_PREC = {"LINELET": "su2_tpu.linalg.linelet",
+                 "LU_SGS_SEQ": "su2_tpu.linalg.seq_sgs",
+                 "LU_SGS_WAVE": "su2_tpu.linalg.wavefront"}
 
 
 def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
-                              sel_t: torch.Tensor, kind: str = "JACOBI"):
-    """(matvec, precond) from lane-layout off-diagonal blocks."""
-    if kind != "JACOBI":
+                              sel_t: torch.Tensor, kind: str = "JACOBI",
+                              colors=None, ncolor: int = 0,
+                              linear_iter: int = 5):
+    """(matvec, precond, precond_matvec | None, solve | None) from
+    lane-layout off-diagonal blocks.
+
+    LU_SGS/ILU0 with colors run the stencil kernels in the reference's
+    tiers: full-precision blocks below the reference's full-precision gate
+    and in float64 at any size (the reference sweeps with XLA ops there;
+    the same sweep and matvec); in float32 past the gate, the mixed tier
+    (bf16 sweep blocks, f32 matvec blocks), whose (z, A z) kernel also
+    stands for the reference's two splits of the largest fields (a
+    sweep-only kernel plus an XLA matvec, and a windowed tier).  The whole
+    FGMRES cycle is one launch (`solve(b, max_iter, tol)`) where the
+    tier's one-launch predicate holds at Krylov budget linear_iter."""
+    if kind in UNPORTED_PREC:
         raise NotImplementedError(
-            f"LINEAR_SOLVER_PREC= {kind}: not ported (the multicolor SGS "
-            "kernels are in su2_tpu.pallas.stencil_solve); use JACOBI")
+            f"LINEAR_SOLVER_PREC= {kind}: not ported; "
+            f"{UNPORTED_PREC[kind]} has it")
     dinv = block_diag_inv(diag)
     v = diag.shape[-1]
-    n = mesh.npoint
-    k = len(mesh.stencil_offsets)
-    sel = sel_t.reshape(k, v, v, n).permute(0, 3, 1, 2)
-    mv = lambda x: _bmv(diag, x) + _offdiag_apply(mesh, sel, x)
-    pc = lambda r: block_jacobi_apply(dinv, r)
-    return mv, pc
+    offsets = tuple(int(o) for o in mesh.stencil_offsets)
+    if kind not in ("LU_SGS", "ILU0") or colors is None:
+        mv = lambda x: _bmv(diag, x) + sts.offdiag_plain(sel_t, x, offsets,
+                                                         v)
+        return mv, (lambda r: block_jacobi_apply(dinv, r)), None, None
+    n, k, dt = mesh.npoint, len(offsets), diag.dtype
+    if sts.supported(n, k, v, dt, ncolor) or dt != torch.float32:
+        ops = sts.StencilSolveOps(mesh, sel_t, dinv, diag, colors, ncolor)
+        one = sts.fgmres_supported(n, k, v, dt, ncolor, linear_iter)
+    else:
+        ops = sts.StencilSolveOps(mesh, sel_t, dinv, diag, colors, ncolor,
+                                  sel_dtype=torch.bfloat16)
+        one = sts.fgmres_mixed_supported(n, k, v, ncolor, linear_iter)
+    return ops.matvec, ops.precond, ops.precond_matvec, \
+        (ops.fgmres if one else None)

@@ -26,8 +26,11 @@ def _pow2_scale(b):
     return torch.where(absmax > 0, s, torch.ones_like(s))
 
 
-def fgmres(matvec, precond, b, max_iter: int = 5, tol: float = 1e-6):
-    """Returns (x, final relative residual, iterations used)."""
+def fgmres(matvec, precond, b, max_iter: int = 5, tol: float = 1e-6,
+           precond_matvec=None):
+    """Returns (x, final relative residual, iterations used).
+    precond_matvec, when given, computes (z, A z) = (precond(v),
+    matvec(precond(v))) in one call (the stencil sweep kernels)."""
     s = _pow2_scale(b)
     b = b / s
     x = torch.zeros_like(b)
@@ -44,8 +47,11 @@ def fgmres(matvec, precond, b, max_iter: int = 5, tol: float = 1e-6):
     one = torch.ones_like(beta)
     zero = torch.zeros_like(beta)
     for j in range(m):
-        z = precond(vs[j])
-        w = matvec(z)
+        if precond_matvec is not None:
+            z, w = precond_matvec(vs[j])
+        else:
+            z = precond(vs[j])
+            w = matvec(z)
         zs.append(z)
         col = []
         for i in range(j + 1):

@@ -108,6 +108,8 @@ class SSTConfig:
     linear_iter: int = 5
     linear_tol: float = 1e-6
     linear_prec: str = "JACOBI"
+    colors: torch.Tensor | None = None     # (nP,) int8 sweep colors
+    ncolor: int = 0
 
 
 def _weak_bc_batch(lay, bcs, q, vel, rho, kine_inf, omega_inf, flow_fb):
@@ -266,10 +268,15 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
         raise NotImplementedError(
             f"LINEAR_SOLVER= {scfg.linear_solver}: not ported; "
             "su2_tpu.linalg.krylov has it")
-    mv, pc = blockcsr.make_solver_ops_stencil_t(mesh, jac.diag, jac.sel_t,
-                                                scfg.linear_prec)
-    sol, _, _ = krylov.fgmres(mv, pc, rhs, max_iter=scfg.linear_iter,
-                              tol=scfg.linear_tol)
+    mv, pc, pm, solve = blockcsr.make_solver_ops_stencil_t(
+        mesh, jac.diag, jac.sel_t, scfg.linear_prec, scfg.colors,
+        scfg.ncolor, linear_iter=scfg.linear_iter)
+    if solve is not None:
+        # the whole FGMRES cycle in one launch (linalg/stencil_solve.py)
+        sol, _, _ = solve(rhs, scfg.linear_iter, scfg.linear_tol)
+    else:
+        sol, _, _ = krylov.fgmres(mv, pc, rhs, max_iter=scfg.linear_iter,
+                                  tol=scfg.linear_tol, precond_matvec=pm)
 
     lower = torch.tensor(LOWER, dtype=dtype, device=q.device)
     upper = torch.tensor(UPPER, dtype=dtype, device=q.device)

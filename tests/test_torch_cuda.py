@@ -1,6 +1,6 @@
-"""The CUDA kernels T1-T4 against their plain torch versions on the card,
-and the slice's launch counts.  Every test needs a CUDA device and skips
-without one.  This file imports no JAX, so on a machine without it run it
+"""The CUDA kernels T1-T4, K5 and K6 against their plain torch versions on
+the card, and the slice's launch counts.  Every test needs a CUDA device
+and skips without one.  This file imports no JAX, so on a machine without it run it
 alone, past the suite's JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -133,3 +133,113 @@ def test_slice_launches_every_kernel(card, tmp_path):
     assert kernels.launches["edge_flux"] == 3
     assert kernels.launches["chem_source"] == 3
     assert kernels.launches["mixture_enthalpy"] >= 3
+    # LU_SGS at 153 nodes: the whole FGMRES cycle in one launch
+    assert kernels.launches["stencil_fgmres"] == 3
+    assert kernels.launches["stencil_sgs_matvec"] == 0
+
+
+BANDS = {"band2": (2, (-9, -8, -7, -1, 1, 7, 8, 9)),
+         "band3": (3, (-5, -1, 1, 5))}
+VARIANTS = ["float64", "float32", "mixed"]
+
+
+def _band_args(card, system, variant, n=2000):
+    v, offsets = BANDS[system]
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    return th.stencil_args(th.band_system(n, v, offsets, 4, seed=7), dtype,
+                           mixed=variant == "mixed", device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sgs_matvec", "sgs", "matvec"])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("system", list(BANDS))
+def test_k5_kernel_matches_plain(card, system, variant, mode):
+    """K5 on band systems with round-robin masks (not a proper coloring:
+    the two-buffer rule decides the numbers): f64 rtol 1e-11, atol 1e-13
+    of the field's max (tests/test_stencil.py's own pin); f32 and mixed
+    rtol 1e-5, atol 1e-6 of the max (f32 rounding, fused multiply-adds in
+    the kernel)."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    args, r = _band_args(card, system, variant)
+    sweep, matvec = mode != "matvec", mode != "sgs"
+    kernels.reset_launches()
+    got = kernels.stencil_sgs_matvec(**args, r=r, sweep=sweep, matvec=matvec)
+    assert kernels.launches["stencil_sgs_matvec"] == 1
+    want = ts.sgs_matvec_plain(**args, r=r, sweep=sweep, matvec=matvec)
+    rtol, afrac = (1e-11, 1e-13) if variant == "float64" else (1e-5, 1e-6)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        w = th.npy(w)
+        np.testing.assert_allclose(th.npy(g), w, rtol=rtol,
+                                   atol=afrac * np.abs(w).max())
+
+
+K6_CASES = [(v, r) for v in VARIANTS for r in ("random", "tight", "scaled")
+            ] + [("float64", "zero")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,rhs", K6_CASES)
+@pytest.mark.parametrize("system", list(BANDS))
+def test_k6_kernel_matches_plain(card, system, variant, rhs):
+    """K6 (one cooperative launch) against the plain FGMRES(10) over the
+    plain sweep, at the JAX package's pins (tests/test_stencil.py:259-262,
+    315-317): equal iterations; f64 x rtol 1e-9, atol 1e-12 of max|x|, rel
+    rtol 1e-8 (atol 1e-15: at tol 1e-12 rel ends at rounding level, where
+    the summation orders of the dots show); f32 and mixed x within 2e-5 of
+    max|x|.  'tight' is tol
+    1e-12 (all iterations in f32), 'scaled' a right side times 1e18 (the
+    pow2 scaling).  b = 0 only in f64: in f32 the reference's 1e-300 floor
+    rounds to 0 and its cycle returns 0/0."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    args, r = _band_args(card, system, variant)
+    b = {"random": r, "tight": r, "scaled": r * 1e18, "zero": 0.0 * r}[rhs]
+    tol = 1e-12 if rhs == "tight" else 1e-6
+    kernels.reset_launches()
+    x, rel, it = kernels.stencil_fgmres(**args, b=b, m=10, tol=tol)
+    assert kernels.launches["stencil_fgmres"] == 1
+    wx, wrel, wit = ts.fgmres_plain(**args, b=b, m=10, tol=tol)
+    assert int(it) == int(wit)
+    x, wx = th.npy(x), th.npy(wx)
+    scale = max(np.abs(wx).max(), 1e-300)
+    if variant == "float64":
+        np.testing.assert_allclose(x, wx, rtol=1e-9, atol=1e-12 * scale)
+        np.testing.assert_allclose(float(rel), float(wrel), rtol=1e-8,
+                                   atol=1e-15)
+    else:
+        assert np.abs(x - wx).max() <= 2e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["LU_SGS", "ILU0"])
+def test_f64_past_the_gate_launches_k5(card, monkeypatch, kind):
+    """In float64 past the full-precision gate the solve's (z, A z) is K5
+    at full precision, one launch per application (the reference has no
+    bf16 tier there), equal to the plain version at the f64 pin."""
+    from types import SimpleNamespace
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import blockcsr as tb, stencil_solve as ts
+    monkeypatch.setattr(ts, "supported", lambda *a, **kw: False)
+    args, r = _band_args(card, "band2", "float64")
+    n, v = r.shape
+    mesh = SimpleNamespace(npoint=n, stencil_offsets=args["offsets"])
+    _, _, pm, solve = tb.make_solver_ops_stencil_t(
+        mesh, args["diag_t"].T.reshape(n, v, v), args["selm_t"], kind,
+        args["colors"], args["ncolor"], linear_iter=10)
+    assert solve is None
+    ops = pm.__self__
+    assert ops.sel_t.dtype == torch.float64
+    kernels.reset_launches()
+    got = pm(r)
+    assert kernels.launches["stencil_sgs_matvec"] == 1
+    want = ts.sgs_matvec_plain(ops.sel_t, ops.selm_t, ops.dinv_t, ops.diag_t,
+                               ops.colors, r, ops.offsets, ops.ncolor)
+    for g, w in zip(got, want):
+        w = th.npy(w)
+        np.testing.assert_allclose(th.npy(g), w, rtol=1e-11,
+                                   atol=1e-13 * np.abs(w).max())

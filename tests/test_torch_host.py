@@ -171,23 +171,24 @@ def test_su2_mesh_io_identical(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """AST scan: no module of su2_tpu_torch imports jax or su2_tpu."""
+    """AST scan: no module of su2_tpu_torch, and not chip_smoke.py, imports
+    jax or su2_tpu."""
     bad = []
+    paths = [os.path.join(os.path.dirname(PORT), "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
-        for name in files:
-            if not name.endswith(".py"):
-                continue
-            path = os.path.join(root, name)
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                mods = []
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    mods = [node.module]
-                for m in mods:
-                    top = m.split(".")[0]
-                    if top in ("jax", "jaxlib", "su2_tpu"):
-                        bad.append(f"{path}: {m}")
+        paths += [os.path.join(root, name) for name in files
+                  if name.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            mods = []
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = [node.module]
+            for m in mods:
+                top = m.split(".")[0]
+                if top in ("jax", "jaxlib", "su2_tpu"):
+                    bad.append(f"{path}: {m}")
     assert not bad, bad

@@ -52,8 +52,9 @@ def test_stencil_jacobi_ops_and_fgmres_match(meshes):
     diag, sel_t, b = _stencil_system(jmesh, 3)
     jmv, jpc, _, _ = jb.make_solver_ops_stencil_t(
         jmesh, jnp.asarray(diag), jnp.asarray(sel_t), "JACOBI")
-    tmv, tpc = tb.make_solver_ops_stencil_t(tmesh, th.tt(diag), th.tt(sel_t),
-                                            "JACOBI")
+    tmv, tpc, tpm, tsolve = tb.make_solver_ops_stencil_t(
+        tmesh, th.tt(diag), th.tt(sel_t), "JACOBI")
+    assert tpm is None and tsolve is None
     np.testing.assert_allclose(th.npy(tmv(th.tt(b))),
                                np.asarray(jmv(jnp.asarray(b))), rtol=1e-13)
     np.testing.assert_allclose(th.npy(tpc(th.tt(b))),
@@ -64,9 +65,9 @@ def test_stencil_jacobi_ops_and_fgmres_match(meshes):
                                atol=1e-13)
     np.testing.assert_allclose(float(tres), float(jres), rtol=1e-9)
     assert int(tit) == int(jit)
-    with pytest.raises(NotImplementedError, match="stencil_solve"):
+    with pytest.raises(NotImplementedError, match="seq_sgs"):
         tb.make_solver_ops_stencil_t(tmesh, th.tt(diag), th.tt(sel_t),
-                                     "LU_SGS")
+                                     "LU_SGS_SEQ")
 
 
 @pytest.mark.parametrize("method", ["WEIGHTED_LEAST_SQUARES", "GREEN_GAUSS"])

@@ -26,20 +26,29 @@ def text(tmp_path_factory):
     return th.write_case(tmp_path_factory.mktemp("slice"))
 
 
-@pytest.mark.parametrize("backward_rate,variant", [
-    (False, "isothermal"), (True, "isothermal"),
-    (False, "slip_heatflux_mass_flow")],
-    ids=["keq", "backward", "slip_heatflux_mass_flow"])
+VARIANTS = [(False, "isothermal"), (True, "isothermal"),
+            (False, "slip_heatflux_mass_flow")]
+VARIANT_IDS = ["keq", "backward", "slip_heatflux_mass_flow"]
+
+
+@pytest.mark.parametrize(
+    "backward_rate,variant,prec",
+    [(b, v, "LU_SGS") for b, v in VARIANTS]
+    + [(b, v, "JACOBI") for b, v in VARIANTS],
+    ids=VARIANT_IDS + [f"{i}-jacobi" for i in VARIANT_IDS])
 def test_three_coupled_iterations_match_jax(tmp_path, backward_rate,
-                                            variant):
+                                            variant, prec):
     """Every output field of 3 coupled iterations from the same state:
     rtol 1e-9, atol 1e-12 max|field|.  The module tests hold single
     evaluations at 1e-12..5e-12; three explicit steps compound those
     rounding differences (FGMRES orthogonalisation, secant stopping), and
     fields near zero (grad_k, the momentum of the first wall rows) carry
-    them relative to their scale, hence the looser per-element rtol."""
-    text = th.case_variant(
-        th.write_case(tmp_path, backward_rate=backward_rate), variant)
+    them relative to their scale, hence the looser per-element rtol.
+    With the default LU_SGS, su2_tpu runs the SST solve through its
+    one-launch _fgmres_call in interpret mode and the port through its
+    plain FGMRES over the plain sweep; JACOBI bypasses both."""
+    text = th.with_prec(th.case_variant(
+        th.write_case(tmp_path, backward_rate=backward_rate), variant), prec)
     js, ts = th.jax_sim(text), th.torch_sim(text)
     step = jax.jit(js._make_rans_step())
     from su2_tpu_torch.convert import state_from_numpy
@@ -83,7 +92,7 @@ def test_run_chunks_and_history(text, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,where", [
-    ("LINEAR_SOLVER_PREC", "LU_SGS", "su2_tpu.pallas.stencil_solve"),
+    ("LINEAR_SOLVER_PREC", "LINELET", "su2_tpu.linalg.linelet"),
     ("SPATIAL_ORDER_FLOW", "2ND_ORDER", "su2_tpu.ops.limiters"),
     ("TIME_DISCRE_FLOW", "EULER_IMPLICIT", "su2_tpu.solvers.euler"),
     ("INLET_TYPE", "TOTAL_CONDITIONS", "su2_tpu.solvers.euler"),
@@ -95,21 +104,38 @@ def test_unported_options_raise(text, key, value, where):
         th.torch_sim("\n".join(lines + [f"{key}= {value}"]))
 
 
-def test_cli_two_iterations(tmp_path):
-    """python -m su2_tpu_torch on a channel written as .su2: runs, and the
-    history has 2 rows."""
+def _cli_case(tmp_path):
     from su2_tpu_torch.geometry.structured import channel_mesh
     from su2_tpu_torch.io.mesh import write_su2_mesh
     write_su2_mesh(channel_mesh(*th.CHANNEL), str(tmp_path / "channel.su2"))
     text = th.write_case(tmp_path / "lib", mesh_file="channel.su2")
     cfg = tmp_path / "case.cfg"
     cfg.write_text(text)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-m", "su2_tpu_torch", str(cfg),
-                           "2"], cwd=tmp_path, env=env, capture_output=True,
-                          text=True, timeout=120)
+    return cfg, dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+
+
+def test_cli_two_iterations(tmp_path):
+    """python -m su2_tpu_torch --cpu on a channel written as .su2: runs,
+    and the history has 2 rows."""
+    cfg, env = _cli_case(tmp_path)
+    proc = subprocess.run([sys.executable, "-m", "su2_tpu_torch", "--cpu",
+                           str(cfg), "2"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     with open(tmp_path / "history.dat") as f:
         rows = [ln for ln in f.read().splitlines()
                 if ln and ln[0].isdigit()]
     assert len(rows) == 2
+
+
+def test_cli_refuses_without_a_card(tmp_path):
+    """Without --cpu and with no CUDA device visible the CLI exits nonzero
+    and names --cpu; it never drops to the CPU by itself."""
+    cfg, env = _cli_case(tmp_path)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "-m", "su2_tpu_torch", str(cfg),
+                           "2"], cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "--cpu" in proc.stderr
+    assert not (tmp_path / "history.dat").exists()

@@ -51,7 +51,14 @@ def torch_sim(text, shape=CHANNEL):
     from su2_tpu_torch.driver import Simulation
     from su2_tpu_torch.geometry.structured import channel_mesh
     return Simulation(Config(text=text), raw_mesh=channel_mesh(*shape),
-                      dtype=torch.float64)
+                      dtype=torch.float64, device="cpu")
+
+
+def with_prec(text, prec):
+    """The case text with LINEAR_SOLVER_PREC= prec."""
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith("LINEAR_SOLVER_PREC")]
+    return "\n".join(lines + [f"LINEAR_SOLVER_PREC= {prec}"])
 
 
 def chemlib_numpy(jlib) -> dict:
@@ -115,3 +122,48 @@ def assert_fields_close(got, want, rtol, atol_frac, names):
             continue
         np.testing.assert_allclose(
             g, w, rtol=rtol, atol=atol_frac * np.abs(w).max(), err_msg=name)
+
+
+def band_system(n, v, offsets, ncolor, seed=0):
+    """Random band block system in su2_tpu's padded lane layout (numpy),
+    with its invariants (zero blocks for out-of-range neighbours, zero pad
+    lanes) and round-robin masks, which are not a proper coloring for
+    offsets like +-7..9 (built as tests/test_stencil_tiled.py builds its
+    systems)."""
+    rng = np.random.default_rng(seed)
+    npad = -(-n // 128) * 128
+    k = len(offsets)
+    sel = rng.standard_normal((k, v, v, npad)) * 0.1
+    for kk, o in enumerate(offsets):
+        p = np.arange(npad)
+        sel[kk, :, :, (p + o < 0) | (p + o >= n) | (p >= n)] = 0.0
+    diag = rng.standard_normal((npad, v, v)) * 0.1 + 3.0 * np.eye(v)
+    diag[n:] = 0.0
+    dinv = np.zeros_like(diag)
+    dinv[:n] = np.linalg.inv(diag[:n])
+    lanes = lambda b: b.transpose(1, 2, 0).reshape(v * v, npad)
+    colors = np.arange(npad) % ncolor
+    masks = np.stack([(colors == c) & (np.arange(npad) < n)
+                      for c in range(ncolor)]).astype(np.float64)
+    r = rng.standard_normal((v, npad))
+    r[:, n:] = 0.0
+    return dict(n=n, v=v, offsets=tuple(offsets), ncolor=ncolor,
+                sel_t=sel.reshape(k * v * v, npad), dinv_t=lanes(dinv),
+                diag_t=lanes(diag), masks_t=masks, r_t=r)
+
+
+def stencil_args(s, dtype, mixed=False, device="cpu"):
+    """The port's operands of a band/quad system dict: unpadded, blocks
+    lane-major, r node-major, int8 colors from the masks (which partition
+    the nodes); mixed rounds the sweep blocks to bf16.  Returns (kwargs of
+    sgs_matvec / fgmres, r)."""
+    n = s["n"]
+    cut = lambda x: tt(x[..., :n], dtype).to(device).contiguous()
+    sel = cut(s["sel_t"])
+    masks = s["masks_t"][:, :n] > 0.5
+    assert (masks.sum(0) == 1).all()
+    colors = torch.as_tensor(masks.argmax(0).astype(np.int8)).to(device)
+    return dict(selp_t=sel.to(torch.bfloat16) if mixed else sel, selm_t=sel,
+                dinv_t=cut(s["dinv_t"]), diag_t=cut(s["diag_t"]),
+                colors=colors, offsets=s["offsets"],
+                ncolor=s["ncolor"]), cut(s["r_t"]).T.contiguous()
