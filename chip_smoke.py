@@ -6,7 +6,11 @@ Phases (one line each; any failure exits nonzero):
   2 build    nvcc builds the kernels from su2_tpu_torch/csrc (one nvcc per
              source, all started together)
   3 kernels  T1-T4 against their plain torch versions on the card, at the
-             9,072-node case's shapes, in float64 and float32, with times
+             9,072-node case's shapes, in float64 and float32, with times;
+             K7 (WLS and GG, beside torch.sparse.mm of the same operator)
+             and K8 (beside T3 + the roll-subtract) at the 565,500-node
+             case's shapes, K9 on a batch the size of that case's inlet
+             (377 vertices), in float64 and float32
   4 stencil  K5 (sweep + matvec, sweep only, matvec only) and K6 (one
              FGMRES(10) cycle) against their plain versions, in float64,
              float32 and mixed (bf16 sweep blocks), on the SST systems the
@@ -14,11 +18,16 @@ Phases (one line each; any failure exits nonzero):
              with round-robin (not proper) colorings, with times
   5 step     5 coupled iterations of the 9,072-node case in float64 on the
              card (kernels, K6 for the SST solve) and on the CPU (plain
-             versions) from one state
-  6 slice    Simulation.run: 9,072 nodes x 50 and 142,317 nodes x 20
-             iterations in float32 with LU_SGS; finite residuals, kernel
-             launch counts (K6 once per iteration at 9,072 nodes, K5 ten
-             times per iteration at 142,317), ms/iter and Mcell-updates/s;
+             versions) from one state; again with the >= 200k-node tier
+             forced on both sides (K7 and K8 against their plain versions
+             inside the step), and with a TOTAL_CONDITIONS inlet (K9)
+  6 slice    Simulation.run: 9,072 nodes x 50, 142,317 nodes x 20 and
+             565,500 nodes x 10 (the tier: K7 twice and K8 once per
+             iteration, T3 never; profiled once) in float32 with LU_SGS;
+             finite residuals, kernel launch counts (K6 once per iteration
+             at 9,072 nodes, K5 ten times per iteration at the larger
+             sizes), ms/iter and Mcell-updates/s; 9,072 nodes x 10 with a
+             TOTAL_CONDITIONS inlet (K9 once per iteration, profiled);
              142,317 nodes x 3 in float64 (K5 ten times per iteration);
              then each size with LINEAR_SOLVER_PREC= JACOBI (the path that
              bypasses K5/K6) and with LU_SGS in the order J, L, L, J, each
@@ -57,6 +66,12 @@ KERNELS = {
                            "554,643,741"),
     "stencil_fgmres": ("su2_tpu_torch/csrc/stencil_solve.cu",
                        "su2_tpu/pallas/stencil_solve.py:381,434"),
+    "gradient_rows": ("su2_tpu_torch/csrc/gradients_tiled.cu",
+                      "su2_tpu/pallas/gradients_tiled.py:55"),
+    "edge_win": ("su2_tpu_torch/csrc/edge_win.cu",
+                 "su2_tpu/pallas/edge_fused.py:346"),
+    "inlet_tc": ("su2_tpu_torch/csrc/inlet_tc.cu",
+                 "su2_tpu/pallas/inlet_tc.py:74"),
 }
 # tolerances per kernel and dtype: |kernel - plain| <= rtol * |plain|
 # + atol_frac * max|plain| (T3: per flux row, atol only, the row's max)
@@ -75,8 +90,21 @@ TOL = {
     ("stencil_sgs_matvec", "float64"): (1e-11, 1e-13),
     ("stencil_sgs_matvec", "float32"): (1e-5, 1e-6),
     ("stencil_sgs_matvec", "mixed"): (1e-5, 1e-6),
+    # K7: f64 at the JAX package's tiled-sweep pin (tests/test_gradients_
+    # tiled.py:49-50); f32 as K5 (fused multiply-adds in the kernel only)
+    ("gradient_rows", "float64"): (1e-11, 1e-13),
+    ("gradient_rows", "float32"): (1e-5, 1e-6),
+    # K8: as T3, per residual row against the row's max
+    ("edge_win", "float64"): (0.0, 1e-10),
+    ("edge_win", "float32"): (0.0, 1e-4),
+    # K9: as T1 (built without fused multiply-adds: the plain operations)
+    ("inlet_tc", "float64"): (1e-12, 1e-12),
+    ("inlet_tc", "float32"): (1e-5, 1e-5),
 }
-SIZES = {"flagship": (189, 48), "scaling": (753, 189)}
+# the 9,072-node flagship class, the 142,317-node scaling point and the
+# 565,500-node size of the >= 200k-node tier (the README's round-5 point)
+SIZES = {"flagship": (189, 48), "scaling": (753, 189), "tier": (1500, 377)}
+TC_T_TOT = 600.0        # T_tot of cases.with_total_conditions
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM bytes/s
 # and non-tensor FLOP/s per type, for the bound of each kernel
 HBM_BPS = 3.35e12
@@ -113,8 +141,12 @@ def demangle(sym):
             elif sym[i] == "L":
                 j = sym.index("E", i)
                 lit = sym[i + 1:j]
-                args.append(("lite" if lit == "b1" else "full")
-                            if lit[0] == "b" else lit[1:])
+                if lit[0] != "b":
+                    args.append(lit[1:])
+                elif name == "node_state_kernel":
+                    args.append("lite" if lit == "b1" else "full")
+                else:
+                    args.append("true" if lit == "b1" else "false")
                 i = j + 1
             else:
                 d = re.match(r"\d+", sym[i:]).group(0)
@@ -188,13 +220,16 @@ def compare(name, dt, got, want, per_row=False):
     return worst, scaled
 
 
-def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS"):
+def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
+              total_conditions=False):
     from su2_tpu_torch import cases
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
     from su2_tpu_torch.geometry.structured import channel_mesh
     text = cases.write_case(tmp).replace("LINEAR_SOLVER_PREC= LU_SGS",
                                          f"LINEAR_SOLVER_PREC= {prec}")
+    if total_conditions:
+        text = cases.with_total_conditions(text)
     return Simulation(Config(text=text), raw_mesh=channel_mesh(nx, ny),
                       dtype=dtype, device=device)
 
@@ -324,6 +359,151 @@ def kernel_phase(tmp, dtype_name, report):
         err, scaled = compare("node_state", dtype_name, got, want)
         phase("kernels", f"node_state float64 bisection path: max_abs_err "
               f"{err:.3e} ({scaled:.2e} of its field's max)")
+
+
+def grad_operator(mesh, mode, dtype):
+    """The gradient sweep as one (d n, n) CSR matrix (WLS, or GG with its
+    boundary and volume terms folded in): row dd*n + p of A q is
+    d(q)/dx_dd at p.  The yardstick of torch.sparse.mm, never called by the
+    port."""
+    import torch
+    n, d = mesh.npoint, mesh.ndim
+    gg = mode == "GG"
+    coef = (mesh.gg_snormal if gg else mesh.wls_coeff).to(dtype)
+    p = torch.arange(n, device=coef.device)
+    inv = None
+    if gg:
+        vol = mesh.volume.to(dtype)
+        inv = 1.0 / torch.where(vol > 0.0, vol, torch.ones_like(vol))
+    diag = torch.zeros((d, n), dtype=dtype, device=coef.device)
+    rows, cols, vals = [], [], []
+    for k, o in enumerate(mesh.stencil_offsets):
+        off = 0.5 * coef[k].T * inv if gg else coef[k].T
+        diag = diag + off if gg else diag - off
+        for dd in range(d):
+            rows.append(dd * n + p)
+            cols.append((p + int(o)) % n)
+            vals.append(off[dd])
+    if gg:
+        diag = diag - mesh.bnd_accum_normal.to(dtype).T * inv
+    for dd in range(d):
+        rows.append(dd * n + p)
+        cols.append(p)
+        vals.append(diag[dd])
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    return torch.sparse_coo_tensor(idx, torch.cat(vals), (d * n, n)
+                                   ).coalesce().to_sparse_csr()
+
+
+def tier_kernel_phase(sim, dtype_name, report):
+    """K7 (WLS and GG), K8 and K9 against their plain versions at the
+    shapes of the 565,500-node case (its mesh and library converted to the
+    dtype) on a random reacting state; K9 on a random inflow batch of the
+    size of the case's inlet."""
+    from types import SimpleNamespace
+    import dataclasses
+    import numpy as np
+    import torch
+    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch.ops import edge_flux as ef, gradients_tiled as tg
+    from su2_tpu_torch.ops import viscous as vis
+    from su2_tpu_torch.solvers import euler as es, inlet_tc as itc
+    dtype = getattr(torch, dtype_name)
+    mesh, lib = sim.mesh.to(dtype=dtype), sim.lib.to(dtype=dtype)
+    lay, prm = sim.lay, sim.params
+    x = kernel_inputs(SimpleNamespace(lib=lib, lay=lay, mesh=mesh,
+                                      dtype=dtype, device=sim.device,
+                                      tparams=sim.tparams))
+    nsd = st.node_state(lib, lay, x["u"], x["t_guess"], x["p"],
+                        turb_ke=x["tke"])
+    q = vis.ns_gradient_vars(lib, lay, nsd.v, nsd.xs).contiguous()
+    n, d, ng = mesh.npoint, mesh.ndim, q.shape[1]
+    kk = len(mesh.stencil_offsets)
+
+    def record(name, key, got, want, kfn, pfn, ins, nflop, per_row=False,
+               lib_ms=None, extra=""):
+        err, scaled = compare(name, dtype_name, got, want, per_row)
+        ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
+        bound = bound_of(nbytes(ins + got), nflop, dtype_name)
+        lib_txt = "" if lib_ms is None else f" library {lib_ms:.4f} ms"
+        phase("kernels", f"{name} {key}: max_abs_err {err:.3e} "
+              f"({scaled:.2e} of its field's max) kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]})"
+              f"{lib_txt}{extra}")
+        report.setdefault(name, {})[key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+            bound_by=bound[1], library_ms=lib_ms)
+
+    # K7: the flow gradient set's rows, both methods
+    for mode in ("WLS", "GG"):
+        gg = mode == "GG"
+        kfn = lambda: [tg.gradient_rows(mesh, q, mode)]
+        pfn = lambda: [tg.gradient_rows_plain(mesh, q, mode)]
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        op = grad_operator(mesh, mode, dtype)
+        lib_ms = cuda_time(lambda: torch.sparse.mm(op, q))
+        ref = torch.sparse.mm(op, q).reshape(d, n, ng).permute(2, 0, 1)
+        dev = ((ref.reshape(ng * d, n) - want[0]).abs().max()
+               / want[0].abs().max()).item()
+        if dtype == torch.float64 and not dev < 1e-9:
+            raise AssertionError(f"K7 {mode}: the sparse operator is off by "
+                                 f"{dev:.2e} of the max")
+        ins = [q, mesh.gg_snormal if gg else mesh.wls_coeff] + (
+            [mesh.bnd_accum_normal, mesh.volume] if gg else [])
+        record("gradient_rows", f"{dtype_name} {mode}", got, want, kfn, pfn,
+               ins, 3 * kk * d * ng * n + (3 * d * ng * n if gg else 0),
+               lib_ms=lib_ms, extra=f" (torch.sparse.mm CSR, off by "
+               f"{dev:.1e} of the max)")
+    # K8: the stack of the tier's main path, from K7's rows
+    rows = es.compute_gradient_rows(mesh, prm, q)
+    turb = vis.TurbFlowData(tke=x["tke"], mu_t=x["mu_t"],
+                            grad_tke=x["grad_tke"], sigma_k=x["sigma_k"])
+    f_all = ef.stack_inputs(lay, nsd.v, None, vis.Transport(nsd.mu,
+                                                            nsd.kappa),
+                            turb, x["sigma_k"], nsd.dpdu[:, lay.RHOE],
+                            grad_rows=rows)
+    sc = ef.species_consts_of(lib)
+    eargs = (lib, lay, sc, (prm.m_infty, prm.prandtl_lam, prm.prandtl_turb,
+                            prm.lewis_turb), f_all, mesh.fam_offsets,
+             mesh.fam_normal, mesh.fam_evec)
+    rowwise = lambda r: [r[0], r[1][None], r[2][None]]
+    kfn = lambda: rowwise(kernels.edge_win(*eargs))
+    pfn = lambda: rowwise(ef.edge_win_plain(*eargs))
+    got, want = kfn(), pfn()
+    torch.cuda.synchronize()
+    kh = len(mesh.fam_offsets)
+    # K8 evaluates every edge twice; T3 once, then the roll-subtract sums
+    t3_ms = cuda_time(lambda: ef.roll_subtract(
+        mesh.fam_offsets, *kernels.edge_flux(*eargs)))
+    record("edge_win", dtype_name, got, want, kfn, pfn,
+           [f_all, mesh.fam_normal, mesh.fam_evec, lib.h_y, lib.h_y2,
+            lib.cp_y, lib.cp_y2, lib.mm, sc.sm_den], 2000 * kh * n,
+           per_row=True,
+           extra=f" (T3 + roll-subtract at these shapes {t3_ms:.4f} ms)")
+    # K9: a random inflow batch about the 600 K fuel stream (the
+    # distribution of tests/test_torch_inlet_tc.py), inlet-sized
+    nv = int(mesh.markers["inlet"][0].shape[0])
+    rng = np.random.default_rng(4)
+    gamma = rng.uniform(1.06, 1.2, nv)
+    a = np.sqrt(gamma * float(lib.ri[0]) * rng.uniform(450.0, 650.0, nv))
+    rm = rng.uniform(-40.0, 0.0, nv) + 2.0 * a / (gamma - 1.0)
+    rm[: nv // 4] *= rng.uniform(0.5, 1.5, nv // 4)
+    al = rng.uniform(-1.0, -0.8, nv)
+    tcx = [torch.as_tensor(v).to(sim.device, dtype) for v in (rm, gamma, al)]
+    tc = itc.total_conditions_t(lib, np.eye(lib.nspecies)[0], TC_T_TOT)
+    for sec in ((15, 1) if dtype == torch.float64 else (15,)):
+        tcs = dataclasses.replace(tc, sec_iters=sec)
+        kfn = lambda: [itc.solve(tcs, *tcx)]
+        pfn = lambda: [itc.solve_plain(tcs, *tcx)]
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        # operations: a lower bound of two spline evaluations (~30
+        # operations each) per vertex; the iterations depend on the data
+        record("inlet_tc", dtype_name if sec == 15
+               else f"{dtype_name} bisection path", got, want, kfn, pfn,
+               tcx + [tc.y, tc.y2], 60 * nv,
+               extra=f" ({nv} vertices, secant budget {sec})")
 
 
 def nbytes(tensors):
@@ -616,12 +796,43 @@ def k6_check(sname, var, args, r, b, report):
         barriers=k6_barriers(args["ncolor"], KRYLOV_M))
 
 
-def step_phase(tmp):
+def step_phase(tmp, tier=False, total_conditions=False):
     """5 coupled iterations, card vs CPU, from the state after 10 card
-    iterations of the flagship-class case."""
+    iterations of the flagship-class case; tier=True forces the
+    >= 200k-node tier on both sides (TILED_MIN_NODES = 0: K7 and K8 on the
+    card), total_conditions a TOTAL_CONDITIONS inlet (K9)."""
     import torch
-    gpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cuda")
-    cpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cpu")
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import gradients
+    saved = gradients.TILED_MIN_NODES
+    if tier:
+        gradients.TILED_MIN_NODES = 0
+    try:
+        worst, counts, n = _step_compare(tmp, total_conditions)
+    finally:
+        gradients.TILED_MIN_NODES = saved
+    want = {"edge_win": 5 * tier, "edge_flux": 5 * (not tier),
+            "gradient_rows": 10 * tier, "inlet_tc": 5 * total_conditions}
+    for k, c in want.items():
+        if counts[k] != c:
+            raise AssertionError(f"step: {k} launched {counts[k]} times in "
+                                 f"the 5 compared card iterations, "
+                                 f"expected {c}")
+    what = ("the >= 200k-node tier forced (K7, K8)" if tier else
+            "a TOTAL_CONDITIONS inlet (K9)" if total_conditions else
+            "the main path")
+    phase("step", f"5 iterations at {n} nodes f64 with {what}, card vs CPU "
+          f"within rtol 1e-9, atol 1e-12*max|field| (largest difference "
+          f"{worst:.3e} of its field's max); card launches {counts}")
+
+
+def _step_compare(tmp, total_conditions):
+    import torch
+    from su2_tpu_torch import kernels
+    gpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cuda",
+                    total_conditions=total_conditions)
+    cpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cpu",
+                    total_conditions=total_conditions)
     s_gpu = (gpu.u0, gpu.t0) + tuple(gpu.initial_turb_state())
     for _ in range(10):
         s_gpu = gpu._step(*s_gpu)[:6]
@@ -629,6 +840,7 @@ def step_phase(tmp):
     names = ("u", "t", "q", "mu_t", "grad_k", "sigma_k", "rms", "rmax",
              "turb_rms", "nonphys", "min_dt")
     worst = 0.0
+    kernels.reset_launches()
     for it in range(5):
         og = gpu._step(*s_gpu)
         oc = cpu._step(*s_cpu)
@@ -648,15 +860,15 @@ def step_phase(tmp):
             if scale > 0.0:
                 worst = max(worst, err.max().item() / scale)
         s_gpu, s_cpu = tuple(og[:6]), tuple(oc[:6])
-    phase("step", f"5 iterations at {gpu.mesh.npoint} nodes f64, card vs "
-          f"CPU within rtol 1e-9, atol 1e-12*max|field| (largest "
-          f"difference {worst:.3e} of its field's max)")
+    return worst, dict(kernels.launches), gpu.mesh.npoint
 
 
 # the stencil kernel of each size's SST solve and its launches per
 # iteration: one K6 cycle at 9,072 nodes, KRYLOV_M K5 (z, A z) at 142,317
+# and 565,500 (the mixed tier)
 STENCIL_PER_ITER = {"flagship": ("stencil_fgmres", 1),
-                    "scaling": ("stencil_sgs_matvec", KRYLOV_M)}
+                    "scaling": ("stencil_sgs_matvec", KRYLOV_M),
+                    "tier": ("stencil_sgs_matvec", KRYLOV_M)}
 
 
 def profile_steps(sim, state, niter=3):
@@ -704,8 +916,18 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     if len(hist) != niter or not np.isfinite(hist).all() \
             or not torch.isfinite(u).all():
         raise AssertionError(f"{size}: non-finite residual history or state")
-    want = {"node_state": 2 * niter, "edge_flux": niter,
-            "chem_source": niter}
+    # the tier runs K8 instead of T3 and sweeps its gradients with K7: the
+    # flow sweep, plus the turbulence sweep (one merged sweep when the
+    # flow and turbulence methods match, else two)
+    from su2_tpu_torch.ops import gradients
+    tier = gradients.use_tiled(sim.mesh)
+    sweeps = 2 if sim.scfg.grad_method == sim.cfg.num_method_grad else 3
+    n_tc = sum(bc.kind == "inlet" and bc.inlet_mode == "TOTAL_CONDITIONS"
+               for bc in sim.bcs)
+    want = {"node_state": 2 * niter, "edge_flux": 0 if tier else niter,
+            "edge_win": niter if tier else 0,
+            "gradient_rows": sweeps * niter if tier else 0,
+            "chem_source": niter, "inlet_tc": n_tc * niter}
     for k, c in want.items():
         if counts[k] != c:
             raise AssertionError(f"{size}: {k} launched {counts[k]} times "
@@ -738,6 +960,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
                 f"device busy {busy:.3f} ms/iter, su2k kernels' device "
                 f"ms/iter {ours}")
     dt = str(sim.dtype).split(".")[-1]
+    if n_tc:
+        prec = f"{prec}, TOTAL_CONDITIONS inlet"
     phase("slice", f"{n} nodes {dt} {prec} x {niter}: {ms:.3f} ms/iter, "
           f"{n / (ms * 1e3):.3f} Mcell-updates/s, log10 rms[rho] "
           f"{hist[0][0]:.4f} -> {hist[-1][0]:.4f}, max|omega| "
@@ -775,18 +999,30 @@ def main():
         phase("build", line)
 
     report = {}
-    niters = {"flagship": 50, "scaling": 20}
+    niters = {"flagship": 50, "scaling": 20, "tier": 10}
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
         for dt in ("float64", "float32"):
             kernel_phase(tmp, dt, report)
-        t0 = time.perf_counter()
-        sims = {size: make_case(tmp, *SIZES[size], torch.float32, "cuda")
-                for size in SIZES}
-        phase("stencil", f"cases built in {time.perf_counter() - t0:.1f} s")
-        stencil_phase(sims, report)
+        sims = {}
+        for size in SIZES:
+            t0 = time.perf_counter()
+            sims[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda")
+            phase("kernels", f"{sims[size].mesh.npoint}-node case built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        for dt in ("float64", "float32"):
+            tier_kernel_phase(sims["tier"], dt, report)
+        stencil_phase({k: sims[k] for k in ("flagship", "scaling")}, report)
         step_phase(tmp)
-        counts = {size: slice_phase(sims[size], size, niter, card)
+        step_phase(tmp, tier=True)
+        step_phase(tmp, total_conditions=True)
+        counts = {size: slice_phase(sims[size], size, niter, card,
+                                    profile=size == "tier")
                   for size, niter in niters.items()}
+        # the TOTAL_CONDITIONS inlet on the main path: K9 once per iteration
+        counts["tc"] = slice_phase(
+            make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
+                      total_conditions=True), "flagship", 10, card,
+            profile=True)
         # float64 past the full-precision gate: K5 at full precision inside
         # the Krylov loop, KRYLOV_M launches per iteration
         slice_phase(make_case(tmp, *SIZES["scaling"], torch.float64, "cuda"),
@@ -801,9 +1037,13 @@ def main():
                 slice_phase(sim, size, niter, card, prec=prec, profile=True)
 
     # each kernel's numbers at its main-path use: T1-T4 in f32 at 9,072
-    # nodes, K5 mixed at 142,317 nodes, K6 f32 at 9,072 nodes
+    # nodes, K5 mixed at 142,317 nodes, K6 f32 at 9,072 nodes, K7 (WLS, the
+    # case's method) and K8 in f32 at 565,500 nodes, K9 in f32 on the
+    # 377-vertex batch
     main_use = {"stencil_sgs_matvec": ("sst142317", "mixed", "sgs_matvec"),
-                "stencil_fgmres": ("sst9072", "float32")}
+                "stencil_fgmres": ("sst9072", "float32"),
+                "gradient_rows": "float32 WLS"}
+    niters["tc"] = 10
     rows = []
     for name, (src, repl) in KERNELS.items():
         rec = dict(report[name][main_use.get(name, "float32")])
@@ -811,7 +1051,8 @@ def main():
                "replaces": repl,
                "launches": sum(c[name] for c in counts.values()),
                "launches_per_iter": {
-                   str(sims[size].mesh.npoint): counts[size][name] / niter
+                   (str(sims[size].mesh.npoint) if size in sims
+                    else "9072 TOTAL_CONDITIONS"): counts[size][name] / niter
                    for size, niter in niters.items()}}
         row.update(rec)
         if name == "stencil_sgs_matvec":

@@ -171,3 +171,14 @@ def write_case(directory: str, backward_rate: bool = False,
                mesh_file: str | None = None) -> str:
     """Write the library into `directory` and return the cfg text."""
     return cfg_text(write_library(directory, backward_rate), mesh_file)
+
+
+def with_total_conditions(text: str) -> str:
+    """The cfg text with a TOTAL_CONDITIONS inlet (SU2's default
+    INLET_TYPE): T_tot 600 K and P_tot 101404 Pa, about 0.5 rho v^2 of the
+    12 m/s fuel stream (rho ~1.10 kg/m^3) above the outlet's 101325 Pa."""
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith(("INLET_TYPE", "MARKER_INLET"))]
+    return "\n".join(lines + [
+        "INLET_TYPE= TOTAL_CONDITIONS",
+        "MARKER_INLET= ( inlet, 600.0, 101404.0, 1.0, 0.0, 0.0 )"]) + "\n"

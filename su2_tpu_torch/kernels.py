@@ -15,6 +15,10 @@ error and adds one to its entry in ``launches``.
   T4 chem_source       csrc/chem_source.cu  (solvers/euler.py)
   K5 stencil_sgs_matvec csrc/stencil_solve.cu (linalg/stencil_solve.py)
   K6 stencil_fgmres     csrc/stencil_solve.cu (linalg/stencil_solve.py)
+  K7 gradient_rows      csrc/gradients_tiled.cu (ops/gradients_tiled.py)
+  K8 edge_win           csrc/edge_win.cu     (ops/edge_flux.py)
+  K9 inlet_tc           csrc/inlet_tc.cu     (solvers/inlet_tc.py)
+T3 and K8 share the per-edge device function of csrc/edge_side.cuh.
 """
 
 from __future__ import annotations
@@ -29,14 +33,19 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("common.cuh", "thermo.cu", "node_state.cu", "edge_flux.cu",
-           "chem_source.cu", "stencil_solve.cu")
+SOURCES = ("common.cuh", "edge_side.cuh", "thermo.cu", "node_state.cu",
+           "edge_flux.cu", "chem_source.cu", "stencil_solve.cu",
+           "gradients_tiled.cu", "edge_win.cu", "inlet_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# per-source flags: K9 keeps the plain version's operations (no fused
+# multiply-adds), so its secant stops where the plain version's does
+SOURCE_FLAGS = {"inlet_tc.cu": ("-fmad=false",)}
 
 # launches of each kernel since the last reset_launches()
 launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
-            "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0}
+            "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0,
+            "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +64,12 @@ _ARGTYPES = {
     "su2k_stencil_fgmres": [_I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int), _I, _I, _D]
                            + [_P] * 10 + [_I, _P],
+    "su2k_gradient_rows": [_I, _I, _I, _I, _I, _I,
+                           ctypes.POINTER(ctypes.c_int)] + [_P] * 6,
+    "su2k_edge_win": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I,
+                      _D, _D, _D, _D, _D, _D, _D] + [_P] * 9,
+    "su2k_inlet_tc": [_I, _I, _I, _D, _D, _D, _D, _D, _D, _I, _D, _I, _D]
+                     + [_P] * 7,
 }
 
 _loaded = None
@@ -79,6 +94,7 @@ def library_path() -> str:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return os.path.join(BUILD_DIR, f"libsu2k_{h.hexdigest()[:16]}.so")
 
 
@@ -97,7 +113,8 @@ def build(verbose: bool = False) -> tuple[str, str]:
         obj = f"{tmp}.{src}.o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+            [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()),
+             *(("-Xptxas", "-v") if verbose else ()),
              "-c", "-o", obj, os.path.join(CSRC, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
@@ -247,10 +264,11 @@ def node_state(lib, lay, p, u, t_guess, turb_ke=None, lite=False):
     return u_out, v, nonphys, dtdu, dpdu, mu, kappa, xs
 
 
-# ---------------------------------------------------------------- T3
-def edge_flux(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec):
-    """Kernel T3: per-family interior edge flux (Kh, nVar, N) and spectral
-    radii (Kh, N), (Kh, N) from the feature-major stack f_all (R, N)."""
+# ------------------------------------------------------------- T3, K8
+def _edge_args(name, lib, lay, sc, consts, f_all, offsets, fam_normal,
+               fam_evec):
+    """Checked, contiguous operands of T3/K8 and the argument tail of their
+    C calls (after n, nd, ns, kh, offsets)."""
     m_infty, pr_lam, pr_turb, le_turb = consts
     f_all = f_all.contiguous()
     fam_normal = fam_normal.contiguous()
@@ -259,28 +277,55 @@ def edge_flux(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec):
         [lib.h_y, lib.h_y2, lib.cp_y, lib.cp_y2]).contiguous())
     cst = _cached(lib, "_k_edge_consts", lambda: torch.cat(
         [lib.mm, sc.sm_den.reshape(-1)]).contiguous())
-    _check("edge_flux", f_all, fam_normal, fam_evec, tab, cst)
+    _check(name, f_all, fam_normal, fam_evec, tab, cst)
     nrow, n = f_all.shape
     kh = len(offsets)
     from su2_tpu_torch.ops.edge_flux import stack_rows
     if nrow != stack_rows(lay)["total"] \
             or fam_normal.shape != (kh, n, lay.ndim) \
             or fam_evec.shape != (kh, n, lay.ndim):
-        raise ValueError("edge_flux: f_all (R, N), fam_normal/fam_evec "
+        raise ValueError(f"{name}: f_all (R, N), fam_normal/fam_evec "
                          "(Kh, N, d)")
+    offs = (ctypes.c_int * kh)(*[int(o) for o in offsets])
+    head = (int(f_all.dtype == torch.float64), n, lay.ndim, lay.ns, kh, offs)
+    tail = (lib.nt, lib.t0, lib.dt, m_infty, pr_lam, pr_turb, le_turb,
+            sc.mm_sum, _ptr(f_all), _ptr(fam_normal), _ptr(fam_evec),
+            _ptr(tab), _ptr(cst))
+    return f_all, head + tail
+
+
+def edge_flux(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec):
+    """Kernel T3: per-family interior edge flux (Kh, nVar, N) and spectral
+    radii (Kh, N), (Kh, N) from the feature-major stack f_all (R, N)."""
+    f_all, args = _edge_args("edge_flux", lib, lay, sc, consts, f_all,
+                             offsets, fam_normal, fam_evec)
+    n, kh = f_all.shape[1], len(offsets)
     kw = dict(dtype=f_all.dtype, device=f_all.device)
     flux = torch.empty((kh, lay.nvar, n), **kw)
     lc = torch.empty((kh, n), **kw)
     lv = torch.empty((kh, n), **kw)
-    offs = (ctypes.c_int * kh)(*[int(o) for o in offsets])
-    err = _lib().su2k_edge_flux(
-        int(f_all.dtype == torch.float64), n, lay.ndim, lay.ns, kh, offs,
-        lib.nt, lib.t0, lib.dt, m_infty, pr_lam, pr_turb, le_turb,
-        sc.mm_sum, _ptr(f_all), _ptr(fam_normal), _ptr(fam_evec), _ptr(tab),
-        _ptr(cst), _ptr(flux), _ptr(lc), _ptr(lv), _stream())
+    err = _lib().su2k_edge_flux(*args, _ptr(flux), _ptr(lc), _ptr(lv),
+                                _stream())
     _raise("edge_flux", err)
     launches["edge_flux"] += 1
     return flux, lc, lv
+
+
+def edge_win(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec):
+    """Kernel K8: T3's edge terms summed per node in one launch: res
+    (nVar, N), lc (N,), lv (N,) (ops/edge_flux.roll_subtract order)."""
+    f_all, args = _edge_args("edge_win", lib, lay, sc, consts, f_all,
+                             offsets, fam_normal, fam_evec)
+    n = f_all.shape[1]
+    kw = dict(dtype=f_all.dtype, device=f_all.device)
+    res = torch.empty((lay.nvar, n), **kw)
+    lc = torch.empty((n,), **kw)
+    lv = torch.empty((n,), **kw)
+    err = _lib().su2k_edge_win(*args, _ptr(res), _ptr(lc), _ptr(lv),
+                               _stream())
+    _raise("edge_win", err)
+    launches["edge_win"] += 1
+    return res, lc, lv
 
 
 # ---------------------------------------------------------------- T4
@@ -413,3 +458,52 @@ def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
     _raise("stencil_fgmres", err)
     launches["stencil_fgmres"] += 1
     return x, stats[0], stats[1].to(torch.int32)
+
+
+# ---------------------------------------------------------------- K7
+def gradient_rows(q, coef, offsets, bnd=None, vol=None):
+    """Kernel K7: the stencil gradient rows (nG*d, N) of q (N, nG): WLS
+    with coef the (K, N, d) WLS coefficients, or GG with coef the signed
+    dual normals, bnd (N, d) and vol (N,) given."""
+    gg = bnd is not None
+    qt = q.T.contiguous()                       # (nG, N): coalesced reads
+    coef = coef.contiguous()
+    extra = (bnd.contiguous(), vol.contiguous()) if gg else ()
+    _check("gradient_rows", qt, coef, *extra)
+    ng, n = qt.shape
+    k = len(offsets)
+    d = coef.shape[-1]
+    if coef.shape != (k, n, d) or (gg and (extra[0].shape != (n, d)
+                                           or extra[1].shape != (n,))):
+        raise ValueError("gradient_rows: q (N, nG), coef (K, N, d), "
+                         "bnd (N, d), vol (N,)")
+    out = torch.empty((ng * d, n), dtype=qt.dtype, device=qt.device)
+    offs = (ctypes.c_int * k)(*[int(o) for o in offsets])
+    err = _lib().su2k_gradient_rows(
+        int(qt.dtype == torch.float64), int(gg), n, ng, d, k, offs, _ptr(qt),
+        _ptr(coef), _ptr(extra[0]) if gg else None,
+        _ptr(extra[1]) if gg else None, _ptr(out), _stream())
+    _raise("gradient_rows", err)
+    launches["gradient_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K9
+def inlet_tc(tc, riemann, gamma, alpha):
+    """Kernel K9: the TOTAL_CONDITIONS inlet temperature (nV,) of the
+    marker constants tc (solvers/inlet_tc.TotalConditions)."""
+    riemann, gamma, alpha = (x.contiguous() for x in (riemann, gamma, alpha))
+    _check("inlet_tc", riemann, gamma, alpha, tc.y, tc.y2)
+    nv = riemann.shape[0]
+    if riemann.ndim != 1 or gamma.shape != (nv,) or alpha.shape != (nv,) \
+            or tc.y.shape != (tc.nt,) or tc.y2.shape != (tc.nt,):
+        raise ValueError("inlet_tc: riemann, gamma, alpha (nV,), table (nT,)")
+    out = torch.empty_like(riemann)
+    err = _lib().su2k_inlet_tc(
+        int(riemann.dtype == torch.float64), nv, tc.nt, tc.t0, tc.dt,
+        tc.rgas, tc.htot, tc.ttot, tc.tmin, tc.sec_iters, tc.sec_tol,
+        tc.bis_iters, tc.bis_tol, _ptr(riemann), _ptr(gamma), _ptr(alpha),
+        _ptr(tc.y), _ptr(tc.y2), _ptr(out), _stream())
+    _raise("inlet_tc", err)
+    launches["inlet_tc"] += 1
+    return out

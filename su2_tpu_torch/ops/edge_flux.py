@@ -8,9 +8,12 @@ solver_direct_reactive.cpp:2535, :5305, :5057).  All per-node inputs ride
 in one feature-major stack F (R, nP); slot p reads columns p and p + o_k.
 Padded slots carry zero normals, so their flux is exactly zero.
 
-On CUDA tensors the per-edge pipeline is kernel T3 (csrc/edge_flux.cu);
-on CPU tensors ``edge_flux_plain``.  The residual is formed here by
-roll-subtracts, deterministic and without atomics.
+On CUDA tensors the per-edge pipeline is kernel T3 (csrc/edge_flux.cu),
+and the residual is formed here by roll-subtracts, deterministic and
+without atomics; from TILED_MIN_NODES nodes up (ops/gradients.use_tiled)
+kernel K8 (csrc/edge_win.cu) computes the same node sums in one launch,
+from a stack built straight from the gradient rows.  On CPU tensors
+``edge_flux_plain`` and the roll-subtract serve both.
 """
 
 from __future__ import annotations
@@ -83,12 +86,21 @@ def edge_flux_plain(lib, lay, sc, consts, f_all, offsets, fam_normal,
     return torch.stack(fluxes), torch.stack(lcs), torch.stack(lvs)
 
 
-def stack_inputs(lay, v, grad, trans, turb, sigma_k, dpdu_e):
+def stack_inputs(lay, v, grad, trans, turb, sigma_k, dpdu_e,
+                 grad_rows=None):
     """The feature-major per-node stack F (R, nP) of stack_rows; grad is
     the NS gradient set [T, u.., P, X..] (nP, nG, d), whose pressure row
-    the viscous flux does not read."""
+    the viscous flux does not read.  With grad_rows (nG*d, nP) (the tier's
+    feature-major rows) the stack is built from them, with no node-major
+    transpose of the gradients."""
     nd, ns = lay.ndim, lay.ns
     n = v.shape[0]
+    if grad_rows is not None:
+        return torch.cat([
+            v.T, grad_rows[:(1 + nd) * nd], grad_rows[(2 + nd) * nd:],
+            trans.mu[None], trans.kappa[None], turb.mu_t[None],
+            turb.tke[None], turb.grad_tke.T, (dpdu_e + 1.0)[None],
+            sigma_k[None]], dim=0).contiguous()
     sel = [0] + list(range(1, 1 + nd)) + list(range(2 + nd, 2 + nd + ns))
     gsel = grad[:, sel, :].reshape(n, (1 + nd + ns) * nd)
     return torch.cat([
@@ -97,31 +109,52 @@ def stack_inputs(lay, v, grad, trans, turb, sigma_k, dpdu_e):
         sigma_k[:, None]], dim=1).T.contiguous()
 
 
-def fused_interior_terms(lib, lay, mesh, prm, v, grad, trans, turb, sigma_k,
-                         dpdu_e):
-    """Interior-edge residual (nP, nVar) and the interior sums of the two
-    spectral radii (nP,), (nP,); boundary terms are added by the caller."""
-    f_all = stack_inputs(lay, v, grad, trans, turb, sigma_k, dpdu_e)
-    sc = species_consts_of(lib)
-    consts = (float(prm.m_infty), float(prm.prandtl_lam),
-              float(prm.prandtl_turb), float(prm.lewis_turb))
-    if v.is_cuda:
-        from su2_tpu_torch import kernels
-        fluxes, lcs, lvs = kernels.edge_flux(lib, lay, sc, consts, f_all,
-                                             mesh.fam_offsets,
-                                             mesh.fam_normal, mesh.fam_evec)
-    else:
-        fluxes, lcs, lvs = edge_flux_plain(lib, lay, sc, consts, f_all,
-                                           mesh.fam_offsets, mesh.fam_normal,
-                                           mesh.fam_evec)
+def roll_subtract(offsets, fluxes, lcs, lvs):
+    """Node sums of per-family slot outputs: res[:, p] = sum_k flux_k[:, p]
+    - flux_k[:, p - o_k], lc[p] = sum_k lc_k[p] + lc_k[p - o_k] (lv
+    likewise), each family's difference formed before it is added."""
     res_t = lc_n = lv_n = None
-    for k, o in enumerate(mesh.fam_offsets):
+    for k, o in enumerate(offsets):
         rt = fluxes[k] - torch.roll(fluxes[k], o, dims=1)
         lcn = lcs[k] + torch.roll(lcs[k], o)
         lvn = lvs[k] + torch.roll(lvs[k], o)
         res_t = rt if res_t is None else res_t + rt
         lc_n = lcn if lc_n is None else lc_n + lcn
         lv_n = lvn if lv_n is None else lv_n + lvn
+    return res_t, lc_n, lv_n
+
+
+def edge_win_plain(lib, lay, sc, consts, f_all, offsets, fam_normal,
+                   fam_evec):
+    """Plain version of kernel K8: res (nVar, nP), lc (nP,), lv (nP,) of
+    edge_flux_plain's slots summed per node by roll_subtract."""
+    return roll_subtract(offsets, *edge_flux_plain(
+        lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec))
+
+
+def fused_interior_terms(lib, lay, mesh, prm, v, grad, trans, turb, sigma_k,
+                         dpdu_e, grad_rows=None):
+    """Interior-edge residual (nP, nVar) and the interior sums of the two
+    spectral radii (nP,), (nP,); boundary terms are added by the caller.
+    Below TILED_MIN_NODES: the per-slot fluxes (T3 on the card) and the
+    roll-subtract here; from it up (grad_rows given): the node sums in one
+    launch of K8 on the card, edge_win_plain on the CPU."""
+    f_all = stack_inputs(lay, v, grad, trans, turb, sigma_k, dpdu_e,
+                         grad_rows)
+    sc = species_consts_of(lib)
+    consts = (float(prm.m_infty), float(prm.prandtl_lam),
+              float(prm.prandtl_turb), float(prm.lewis_turb))
+    args = (lib, lay, sc, consts, f_all, mesh.fam_offsets, mesh.fam_normal,
+            mesh.fam_evec)
+    if v.is_cuda:
+        from su2_tpu_torch import kernels
+        if grad_rows is not None:
+            res_t, lc_n, lv_n = kernels.edge_win(*args)
+        else:
+            res_t, lc_n, lv_n = roll_subtract(mesh.fam_offsets,
+                                              *kernels.edge_flux(*args))
+    else:
+        res_t, lc_n, lv_n = edge_win_plain(*args)
     return res_t.T, lc_n, lv_n
 
 

@@ -20,6 +20,7 @@ from su2_tpu_torch.chemistry.library import ChemLib
 from su2_tpu_torch.config import Config
 from su2_tpu_torch.geometry.mesh_data import MeshArrays
 from su2_tpu_torch.ops import gradients
+from su2_tpu_torch.solvers import inlet_tc
 from su2_tpu_torch.state import Layout, TSolveParams
 
 EPS = 1e-16
@@ -31,6 +32,7 @@ class BCMarker:
     #                           | inlet | outlet
     tag: str
     inlet_mode: str           # TEMPERATURE_IMPOSE | MASS_FLOW
+    #                           | TOTAL_CONDITIONS
     nodes: torch.Tensor       # (nV,) int64
     normal: torch.Tensor      # (nV, d) stored (inward) vertex normals
     params: dict              # kind-specific floats / tensors
@@ -71,19 +73,26 @@ def build_bc_markers(cfg: Config, lib: ChemLib, mesh: MeshArrays,
         out.append(BCMarker("heatflux_wall", tag, "",
                             params={"qwall": float(flux)}, **geom(tag)))
     for tag, (v1, v2, fdir) in cfg.marker_inlet.items():
-        if cfg.inlet_type not in ("TEMPERATURE_IMPOSE", "MASS_FLOW"):
+        if cfg.inlet_type not in ("TEMPERATURE_IMPOSE", "MASS_FLOW",
+                                  "TOTAL_CONDITIONS"):
             raise NotImplementedError(
                 f"INLET_TYPE= {cfg.inlet_type}: not ported; "
                 "su2_tpu.solvers.euler.inlet_state has it")
         ys = cfg.inlet_mass_frac.get(tag, cfg.freestream_mass_frac)
-        out.append(BCMarker(
-            "inlet", tag, cfg.inlet_type,
-            params={"v1": float(v1), "v2": float(v2),
-                    "flow_dir": f(fdir[:lay.ndim]), "ys": f(ys)},
-            **geom(tag)))
+        params = {"v1": float(v1), "v2": float(v2),
+                  "flow_dir": f(fdir[:lay.ndim]), "ys": f(ys)}
+        if cfg.inlet_type == "TOTAL_CONDITIONS":
+            # v1 = T_tot, v2 = P_tot: the solve's host-side constants
+            params["tc"] = inlet_tc.total_conditions_t(lib, ys, float(v1))
+        out.append(BCMarker("inlet", tag, cfg.inlet_type, params=params,
+                            **geom(tag)))
     for tag, pback in cfg.marker_outlet.items():
         out.append(BCMarker("outlet", tag, "",
                             params={"p_exit": float(pback)}, **geom(tag)))
+    for bc in out:
+        # add_rows scatters marker by marker: no node twice in one marker
+        if bc.nodes.unique().numel() != bc.nodes.numel():
+            raise ValueError(f"marker {bc.tag} lists a node twice")
     return tuple(out)
 
 
@@ -109,13 +118,16 @@ def euler_wall_residual(lib, lay, nodes, normal, v, turb_ke=None):
 
 def inlet_state(lib, lay, bc: BCMarker, v, dpdu_e, tke_inf):
     """V_inlet ghost state (BC_Inlet, solver_direct_reactive.cpp:3226-3580)
-    for TEMPERATURE_IMPOSE and MASS_FLOW."""
+    for the three subsonic inlet modes."""
     nodes = bc.nodes
     nv = nodes.shape[0]
     vd = v[nodes]
     ys = bc.params["ys"].expand(nv, lay.ns)
     fdir_r = bc.params["flow_dir"].expand(nv, lay.ndim)
     full = lambda x: torch.full((nv,), x, dtype=v.dtype, device=v.device)
+    if bc.inlet_mode == "TOTAL_CONDITIONS":
+        return _total_conditions_state(lib, lay, bc, v, vd, ys, full,
+                                       dpdu_e, tke_inf)
     vel_mag = full(bc.params["v2"])
     velb = vel_mag[:, None] * fdir_r
     p = vd[:, lay.P]
@@ -129,6 +141,36 @@ def inlet_state(lib, lay, bc: BCMarker, v, dpdu_e, tke_inf):
     h = cl.mixture_enthalpy(lib, temp, ys) + tke_inf + 0.5 * vel_mag ** 2
     gamma, a = cl.frozen_gamma_sound(lib, temp, ys)
     return _prim_row(temp, velb, p, rho, h, a, ys), gamma, vel_mag ** 2
+
+
+def _total_conditions_state(lib, lay, bc, v, vd, ys, full, dpdu_e,
+                            tke_inf):
+    """TOTAL_CONDITIONS branch (:3226-3489): the Riemann invariant of the
+    domain state with the mean of the domain and total-state gammas, the
+    inlet temperature by the secant/bisection of solvers/inlet_tc.py
+    (kernel K9 on the card), then the isentropic static state."""
+    ttot, ptot = bc.params["v1"], bc.params["v2"]
+    fdir = bc.params["flow_dir"]
+    area = torch.linalg.norm(bc.normal, dim=1)
+    unit = -bc.normal / area[:, None]                     # outward
+    vn = (vd[:, lay.VX:lay.VX + lay.ndim] * unit).sum(1)
+    gamma_node = dpdu_e[bc.nodes] + 1.0
+    gamma_tot = cl.frozen_gamma_sound(lib, full(ttot), ys)[0]
+    gamma = 2.0 / (1.0 / gamma_node + 1.0 / gamma_tot)
+    gm1 = gamma - 1.0
+    riemann = vn + 2.0 * vd[:, lay.A] / gm1
+    tot_enthalpy = cl.mixture_enthalpy(lib, full(ttot), ys)
+    alpha = (unit * fdir).sum(1)
+    rgas = cl.mixture_rgas(lib, ys)
+    t_b = inlet_tc.solve(bc.params["tc"], riemann, gamma, alpha)
+    htot = tot_enthalpy + tke_inf
+    rho_tot = ptot / (rgas * ttot)
+    rho = rho_tot * (t_b / ttot) ** (1.0 / gm1)
+    p = rho * rgas * t_b
+    a = torch.sqrt(t_b * gamma * rgas)
+    vel_mag = torch.abs((riemann - 2.0 * a / gm1) / alpha)
+    velb = vel_mag[:, None] * fdir
+    return _prim_row(t_b, velb, p, rho, htot, a, ys), gamma, vel_mag ** 2
 
 
 def outlet_state(lib, lay, bc: BCMarker, v, dpdu_e, tke_inf):
@@ -173,13 +215,28 @@ def outlet_state(lib, lay, bc: BCMarker, v, dpdu_e, tke_inf):
 class FluxBCBatch:
     """Ghost states of all weak flux-BC markers, concatenated in marker
     order (the flow phase hands them to the turbulence BCs, the reference's
-    CharacPrimVar handoff)."""
+    CharacPrimVar handoff).  seg: each marker's vertex count."""
     nodes: torch.Tensor
     nn: torch.Tensor
     normal: torch.Tensor
     v_ghost: torch.Tensor
     gamma: torch.Tensor
     vel2: torch.Tensor
+    seg: tuple
+
+
+def add_rows(x, nodes, vals, seg=None):
+    """x[nodes] += vals with the batch's rows added in order, as the JAX
+    package's .at[].add does on the CPU, and without atomics: one gather,
+    add and index_put per marker (seg: the markers' row counts; None for
+    one marker), each marker's nodes being distinct (build_bc_markers).
+    A node that two markers share gets (x + a) + b."""
+    pos = 0
+    for m in (nodes.shape[0],) if seg is None else seg:
+        idx = nodes[pos:pos + m]
+        x = x.index_put((idx,), x[idx] + vals[pos:pos + m])
+        pos += m
+    return x
 
 
 def flux_bc_batch(lib, lay, bcs, v, dpdu_full, tke_inf):
@@ -198,7 +255,8 @@ def flux_bc_batch(lib, lay, bcs, v, dpdu_full, tke_inf):
         parts.append((bc.nodes, bc.nn, bc.normal, v_ghost, gamma, vel2))
     if not parts:
         return None
-    return FluxBCBatch(*(torch.cat(list(x), dim=0) for x in zip(*parts)))
+    return FluxBCBatch(*(torch.cat(list(x), dim=0) for x in zip(*parts)),
+                       seg=tuple(int(x[0].shape[0]) for x in parts))
 
 
 @dataclass(frozen=True)
@@ -217,10 +275,21 @@ class EulerParams:
 
 
 def compute_gradients(mesh, prm: EulerParams, q):
-    """GG/WLS gradients (nP, nG, d) of the variable set q (nP, nG)."""
+    """GG/WLS gradients (nP, nG, d) of the variable set q (nP, nG); in the
+    >= TILED_MIN_NODES tier the node-major view of the rows sweep, as the
+    JAX package routes every sweep there through its tiled kernel."""
+    if gradients.use_tiled(mesh):
+        return gradients.rows_to_grad(compute_gradient_rows(mesh, prm, q),
+                                      q.shape[1], mesh.ndim)
     if gradients.GRAD_METHOD_MODE.get(prm.grad_method, "WLS") == "GG":
         return gradients.green_gauss(mesh, q)
     return gradients.weighted_least_squares(mesh, q)
+
+
+def compute_gradient_rows(mesh, prm: EulerParams, q):
+    """Feature-major (nG*d, nP) gradient rows (ops/gradients_tiled.py;
+    kernel K7 on the card)."""
+    return gradients.gradient_rows(mesh, q, prm.grad_method)
 
 
 def chemistry_source_plain(lib, prm, t, rho, ys, omega_turb=None):

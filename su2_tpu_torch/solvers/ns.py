@@ -2,9 +2,12 @@
 
 Port of the explicit fused path of the JAX package's ns_assemble
 (CReactiveNSSolver, solver_direct_reactive.cpp:4131-6354): interior edge
-terms (kernel T3 on the card), weak flux BCs with their viscous part, weak
+terms (kernel T3 on the card; K8 on the gradient rows of K7 from
+TILED_MIN_NODES nodes up), weak flux BCs with their viscous part, weak
 slip walls, the chemistry source (kernel T4 on the card), strong
-isothermal/heat-flux walls and the viscous spectral radius.
+isothermal/heat-flux walls and the viscous spectral radius.  Boundary
+rows are added marker by marker in batch order (euler.add_rows), without
+atomics.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 from su2_tpu_torch.chemistry import library as cl
 from su2_tpu_torch.chemistry.library import ChemLib
 from su2_tpu_torch.geometry.mesh_data import MeshArrays
-from su2_tpu_torch.ops import ausm_t, edge_flux, viscous, viscous_t
+from su2_tpu_torch.ops import ausm_t, edge_flux, gradients, viscous, viscous_t
 from su2_tpu_torch.ops.viscous import TurbFlowData
 from su2_tpu_torch.solvers import euler as es
 from su2_tpu_torch.state import Layout
@@ -63,18 +66,25 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     """Explicit NS residual with the SST coupling.
 
     nsd: the node-state bundle (state.NodeState) of this iteration.
-    Returns (res, wall_mask, trans, grad, (lam_conv, lam_visc) interior
-    sums, flux-BC ghost batch)."""
+    Returns (res, wall_mask, trans, grad (None in the rows tier),
+    (lam_conv, lam_visc) interior sums, flux-BC ghost batch)."""
     n = v.shape[0]
     nd, ns_ = lay.ndim, lay.ns
     q = viscous.ns_gradient_vars(lib, lay, v, xs=nsd.xs)
-    grad = es.compute_gradients(mesh, prm, q)
+    ngv = q.shape[1]
+    # >= TILED_MIN_NODES: feature-major gradient rows (K7) feed the
+    # windowed edge kernel (K8) and the boundary gather directly
+    grad_rows = grad = None
+    if gradients.use_tiled(mesh):
+        grad_rows = es.compute_gradient_rows(mesh, prm, q)
+    else:
+        grad = es.compute_gradients(mesh, prm, q)
     dpdu_full = nsd.dpdu
     trans = viscous.Transport(mu=nsd.mu, kappa=nsd.kappa)
 
     res, lam_c, lam_v = edge_flux.fused_interior_terms(
         lib, lay, mesh, prm, v, grad, trans, turb, turb.sigma_k,
-        dpdu_full[:, lay.RHOE])
+        dpdu_full[:, lay.RHOE], grad_rows=grad_rows)
 
     # weak flux BCs: AUSM + uncorrected viscous flux between the domain
     # node and its ghost state over the negated vertex normal
@@ -85,9 +95,12 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
         vbt, vgt = vb.T, fb.v_ghost.T
         nrm = -fb.normal.T
         cf = ausm_t.ausm_flux_t(lay, vbt, vgt, nrm, prm.m_infty)
-        g_n = grad[nodes][:, [0] + list(range(1, 1 + nd))
-                          + list(range(2 + nd, 2 + nd + ns_)), :]
-        g_n = g_n.permute(1, 2, 0)
+        sel = [0] + list(range(1, 1 + nd)) + list(range(2 + nd, 2 + nd + ns_))
+        if grad is not None:
+            g_n = grad[nodes][:, sel, :].permute(1, 2, 0)
+        else:
+            # the boundary columns of the rows (ng*d, nb) -> (ng', d, nb)
+            g_n = grad_rows[:, nodes].reshape(ngv, nd, -1)[sel]
         tmean = 0.5 * (vbt[lay.T] + vgt[lay.T])
         mu_b, ka_b = trans.mu[nodes], trans.kappa[nodes]
         mut_b, tke_b = turb.mu_t[nodes], turb.tke[nodes]
@@ -99,13 +112,13 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
             cl.species_enthalpy(lib, tmean).T, cl.species_cp(lib, tmean).T,
             prm.prandtl_turb, prm.lewis_turb, corrected=False,
             v_fuller_j=vbt)
-        res = res.index_add(0, nodes, (cf - vf).T)
+        res = es.add_rows(res, nodes, (cf - vf).T, fb.seg)
 
     # weak slip walls (MARKER_EULER / MARKER_SYM): pressure (+ 2/3 rho k)
     # on the momentum rows
     for bc in bcs:
         if bc.kind == "euler_wall":
-            res = res.index_add(0, bc.nodes, es.euler_wall_residual(
+            res = es.add_rows(res, bc.nodes, es.euler_wall_residual(
                 lib, lay, bc.nodes, bc.normal, v, turb.tke))
 
     # chemistry source
@@ -138,9 +151,9 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
             coef = (turb.mu_t[nodes] / prm.prandtl_turb)[:, None] \
                 * cp_s * rho_s
             evisc = evisc + coef.sum(-1) * dtdn * area
-            erow = erow.index_add(0, nodes, -evisc)
+            erow = es.add_rows(erow, nodes, -evisc)
         else:
-            erow = erow.index_add(0, nodes, -bc.params["qwall"] * area)
+            erow = es.add_rows(erow, nodes, -bc.params["qwall"] * area)
     res = torch.cat([res[:, :lay.RHOE], (res[:, lay.RHOE] + erow)[:, None],
                      res[:, lay.RHOE + 1:]], dim=1)
     # zero momentum residual rows at strong walls

@@ -17,6 +17,7 @@ import torch
 
 from su2_tpu_torch.geometry.mesh_data import MeshArrays
 from su2_tpu_torch.linalg import blockcsr, krylov
+from su2_tpu_torch.solvers import euler as es
 from su2_tpu_torch.state import Layout
 
 EPS = 1e-16
@@ -245,8 +246,8 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
     wk = _weak_bc_batch(lay, bcs, q, vel, rho, kine_inf, omega_inf, flow_fb)
     if wk is not None:
         bn, bflux, a0b = wk
-        res = res.index_add(0, bn, bflux)
-        diag = diag.index_add(0, bn, a0b[:, None, None] * eye2)
+        res = es.add_rows(res, bn, bflux, flow_fb.seg)
+        diag = es.add_rows(diag, bn, a0b[:, None, None] * eye2, flow_fb.seg)
 
     res = torch.where(wall_mask[:, None], 0.0, res)
     diag = torch.where(wall_mask[:, None, None], eye2[None], diag)

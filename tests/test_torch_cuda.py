@@ -1,4 +1,4 @@
-"""The CUDA kernels T1-T4, K5 and K6 against their plain torch versions on
+"""The CUDA kernels T1-T4 and K5-K9 against their plain torch versions on
 the card, and the slice's launch counts.  Every test needs a CUDA device
 and skips without one.  This file imports no JAX, so on a machine without it run it
 alone, past the suite's JAX conftest:
@@ -118,6 +118,105 @@ def test_t3_kernel_matches_plain(card, tmp_path):
                 <= 1e-10 * scale).all()
 
 
+def _card_sim(card, text, dtype=torch.float64):
+    from su2_tpu_torch.config import Config
+    from su2_tpu_torch.driver import Simulation
+    from su2_tpu_torch.geometry.structured import channel_mesh
+    return Simulation(Config(text=text), raw_mesh=channel_mesh(*th.CHANNEL),
+                      dtype=dtype, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", ["WLS", "GG"])
+def test_k7_kernel_matches_plain(card, tmp_path, mode, dtype):
+    """f64 at the JAX package's tiled-sweep pin (rtol 1e-11, atol 1e-13 of
+    the max); f32 rtol 1e-5, atol 1e-6 of the max (fused multiply-adds)."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import gradients_tiled as tg
+    sim = _card_sim(card, th.write_case(tmp_path), dtype)
+    q = th.tt(np.random.default_rng(5).standard_normal(
+        (sim.mesh.npoint, 16)), dtype).to(card)
+    kernels.reset_launches()
+    got = tg.gradient_rows(sim.mesh, q, mode)
+    assert kernels.launches["gradient_rows"] == 1
+    want = th.npy(tg.gradient_rows_plain(sim.mesh, q, mode))
+    rtol, afrac = (1e-11, 1e-13) if dtype == torch.float64 else (1e-5, 1e-6)
+    np.testing.assert_allclose(th.npy(got), want, rtol=rtol,
+                               atol=afrac * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_k8_kernel_matches_plain(card, tmp_path):
+    """K8 (the edge terms summed per node, one launch) against T3's plain
+    version and the roll-subtract: rows of the residual within 1e-10 of
+    their max, as T3; the radii within 1e-10 of theirs."""
+    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch.ops import edge_flux as ef, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    sim = _card_sim(card, th.write_case(tmp_path))
+    lib, lay, mesh, prm = sim.lib, sim.lay, sim.mesh, sim.params
+    n = mesh.npoint
+    rng = np.random.default_rng(9)
+    u = sim.u0 * th.tt(1.0 + 0.02 * rng.standard_normal(
+        tuple(sim.u0.shape))).to(card)
+    nsd = st.node_state_plain(lib, lay, u, sim.t0, sim.tparams)
+    rows = es.compute_gradient_rows(
+        mesh, prm, vis.ns_gradient_vars(lib, lay, nsd.v, nsd.xs))
+    turb = vis.TurbFlowData(
+        tke=th.tt(rng.uniform(0.0, 5.0, n)).to(card),
+        mu_t=th.tt(rng.uniform(1e-5, 1e-3, n)).to(card),
+        grad_tke=th.tt(rng.normal(0.0, 1.0, (n, 2))).to(card),
+        sigma_k=th.tt(rng.uniform(0.85, 1.0, n)).to(card))
+    f_all = ef.stack_inputs(lay, nsd.v, None,
+                            vis.Transport(nsd.mu, nsd.kappa), turb,
+                            turb.sigma_k, nsd.dpdu[:, lay.RHOE],
+                            grad_rows=rows)
+    args = (lib, lay, ef.species_consts_of(lib),
+            (prm.m_infty, prm.prandtl_lam, prm.prandtl_turb, prm.lewis_turb),
+            f_all, mesh.fam_offsets, mesh.fam_normal, mesh.fam_evec)
+    kernels.reset_launches()
+    got = kernels.edge_win(*args)
+    assert kernels.launches["edge_win"] == 1
+    want = ef.edge_win_plain(*args)
+    for g, w in zip(got, want):
+        g, w = th.npy(g), th.npy(w).reshape(-1, n)
+        scale = np.abs(w).max(axis=1, keepdims=True)
+        assert (np.abs(g.reshape(w.shape) - w) <= 1e-10 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_k9_kernel_matches_plain(card, tmp_path, dtype):
+    """K9 is built without fused multiply-adds, so it runs the plain
+    version's operations: f64 rtol 1e-12, f32 rtol 1e-6."""
+    import dataclasses
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.chemistry import library as tl
+    from su2_tpu_torch.solvers import inlet_tc as itc
+    lib = tl.load_library(th.cases.write_library(str(tmp_path)), None,
+                          dtype).to(card)
+    rng = np.random.default_rng(4)
+    gamma = rng.uniform(1.06, 1.2, N)
+    a = np.sqrt(gamma * float(lib.ri[0]) * rng.uniform(450.0, 650.0, N))
+    rm = rng.uniform(-40.0, 0.0, N) + 2.0 * a / (gamma - 1.0)
+    rm[: N // 4] *= rng.uniform(0.5, 1.5, N // 4)
+    al = rng.uniform(-1.0, -0.8, N)
+    x = [th.tt(v, dtype).to(card) for v in (rm, gamma, al)]
+    for sec in (15, 1):
+        tc = dataclasses.replace(
+            itc.total_conditions_t(lib, np.eye(lib.nspecies)[0], 600.0),
+            sec_iters=sec)
+        kernels.reset_launches()
+        got = itc.solve(tc, *x)
+        assert kernels.launches["inlet_tc"] == 1
+        np.testing.assert_allclose(
+            th.npy(got), th.npy(itc.solve_plain(tc, *x)),
+            rtol=1e-12 if dtype == torch.float64 else 1e-6)
+
+
 @pytest.mark.cuda
 def test_slice_launches_every_kernel(card, tmp_path):
     from su2_tpu_torch import kernels
@@ -136,6 +235,31 @@ def test_slice_launches_every_kernel(card, tmp_path):
     # LU_SGS at 153 nodes: the whole FGMRES cycle in one launch
     assert kernels.launches["stencil_fgmres"] == 3
     assert kernels.launches["stencil_sgs_matvec"] == 0
+    # below the tier: no gradient rows, no windowed edge kernel
+    assert kernels.launches["gradient_rows"] == 0
+    assert kernels.launches["edge_win"] == 0
+    assert kernels.launches["inlet_tc"] == 0
+
+
+@pytest.mark.cuda
+def test_slice_launches_in_the_tier(card, tmp_path, monkeypatch):
+    """The tier forced at 153 nodes: K8 once and T3 never per iteration,
+    K7 for the flow sweep and the merged turbulence sweep (two per
+    iteration: the case's methods match); the TOTAL_CONDITIONS inlet
+    launches K9 once per iteration."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import gradients
+    monkeypatch.setattr(gradients, "TILED_MIN_NODES", 0)
+    sim = _card_sim(card, th.case_variant(th.write_case(tmp_path),
+                                          "total_conditions"))
+    kernels.reset_launches()
+    _, _, hist, _ = sim.run(3, quiet=True)
+    assert np.isfinite(hist).all()
+    assert kernels.launches["edge_win"] == 3
+    assert kernels.launches["edge_flux"] == 0
+    assert kernels.launches["gradient_rows"] == 6
+    assert kernels.launches["inlet_tc"] == 3
+    assert kernels.launches["node_state"] == 6
 
 
 BANDS = {"band2": (2, (-9, -8, -7, -1, 1, 7, 8, 9)),

@@ -141,3 +141,39 @@ def test_t3_roll_subtract_equals_scatter_edges(pair):
                              for d, i in zip(diff, e[:, 0])])
     np.testing.assert_allclose(th.npy(mesh.scatter_edges(edge_vals)),
                                th.npy(roll), rtol=1e-13, atol=1e-13)
+
+
+def test_shared_corner_nodes_match_jax(tmp_path):
+    """The lower wall a second outlet: its two end nodes sit in two weak
+    flux markers each (inlet or outlet, and lower_wall) and receive both
+    boundary fluxes, added in batch order without atomics
+    (euler.add_rows); the residual matches the JAX package's at
+    _check_terms' tolerances (1e-12 of each variable's max)."""
+    pair = _make_pair(tmp_path, "shared_corners")
+    ts = pair[1]
+    weak = [bc for bc in ts.bcs if bc.kind in ("inlet", "outlet")]
+    nodes = torch.cat([bc.nodes for bc in weak])
+    shared = nodes.unique(return_counts=True)[1]
+    assert len(weak) == 3 and int((shared == 2).sum()) == 2
+    _check_terms(_jax_terms(pair, True), _port_terms(pair))
+
+
+def test_add_rows_sums_in_batch_order():
+    """add_rows equals numpy's unbuffered np.add.at (rows added in batch
+    order) bitwise, for a batch of three markers sharing nodes."""
+    from su2_tpu_torch.solvers import euler as es
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((20, 3))
+    seg = (5, 4, 6)
+    nodes = np.concatenate([rng.choice(20, m, replace=False) for m in seg])
+    assert len(np.unique(nodes)) < len(nodes)
+    vals = rng.standard_normal((len(nodes), 3)) * 10.0 ** rng.integers(
+        -8, 8, (len(nodes), 1))
+    want = x.copy()
+    np.add.at(want, nodes, vals)
+    got = es.add_rows(th.tt(x), torch.as_tensor(nodes), th.tt(vals), seg)
+    assert np.array_equal(th.npy(got), want)
+    one = es.add_rows(th.tt(x), torch.as_tensor(nodes[:5]), th.tt(vals[:5]))
+    want1 = x.copy()
+    np.add.at(want1, nodes[:5], vals[:5])
+    assert np.array_equal(th.npy(one), want1)

@@ -32,12 +32,19 @@ VARIANT_IDS = ["keq", "backward", "slip_heatflux_mass_flow"]
 
 
 @pytest.mark.parametrize(
-    "backward_rate,variant,prec",
-    [(b, v, "LU_SGS") for b, v in VARIANTS]
-    + [(b, v, "JACOBI") for b, v in VARIANTS],
-    ids=VARIANT_IDS + [f"{i}-jacobi" for i in VARIANT_IDS])
-def test_three_coupled_iterations_match_jax(tmp_path, backward_rate,
-                                            variant, prec):
+    "backward_rate,variant,prec,tiled",
+    [(b, v, "LU_SGS", False) for b, v in VARIANTS]
+    + [(b, v, "JACOBI", False) for b, v in VARIANTS]
+    + [(False, "isothermal", "LU_SGS", True),
+       (False, "slip_heatflux_mass_flow", "LU_SGS", True),
+       (False, "total_conditions", "LU_SGS", False),
+       (False, "shared_corners", "LU_SGS", False)],
+    ids=VARIANT_IDS + [f"{i}-jacobi" for i in VARIANT_IDS]
+    + ["keq-tiled", "slip_heatflux_mass_flow-tiled", "total_conditions",
+       "shared_corners"])
+def test_three_coupled_iterations_match_jax(tmp_path, monkeypatch,
+                                            backward_rate, variant, prec,
+                                            tiled):
     """Every output field of 3 coupled iterations from the same state:
     rtol 1e-9, atol 1e-12 max|field|.  The module tests hold single
     evaluations at 1e-12..5e-12; three explicit steps compound those
@@ -46,11 +53,32 @@ def test_three_coupled_iterations_match_jax(tmp_path, backward_rate,
     them relative to their scale, hence the looser per-element rtol.
     With the default LU_SGS, su2_tpu runs the SST solve through its
     one-launch _fgmres_call in interpret mode and the port through its
-    plain FGMRES over the plain sweep; JACOBI bypasses both."""
+    plain FGMRES over the plain sweep; JACOBI bypasses both.  -tiled
+    forces the >= 200k-node tier on both sides (su2_tpu: the tiled
+    gradient rows and the windowed edge kernel, fused edge mode on); the
+    TOTAL_CONDITIONS inlet runs su2_tpu's _solve_call, the arithmetic the
+    port computes; shared_corners puts two nodes in two weak flux markers
+    each (the boundary scatters' order)."""
+    from su2_tpu.pallas import edge_kernels as ek, inlet_tc as jtc
+    from su2_tpu_torch.ops import gradients
     text = th.with_prec(th.case_variant(
         th.write_case(tmp_path, backward_rate=backward_rate), variant), prec)
     js, ts = th.jax_sim(text), th.torch_sim(text)
-    step = jax.jit(js._make_rans_step())
+    if tiled:
+        monkeypatch.setenv("SU2_TPU_TILED_GRAD", "1")
+        monkeypatch.setenv("SU2_TPU_WIN_EDGE", "1")
+        monkeypatch.setattr(gradients, "TILED_MIN_NODES", 0)
+        ek.set_edge_kernel_mode(True)
+    jtc.set_inlet_tc_mode(variant == "total_conditions")
+    try:
+        step = jax.jit(js._make_rans_step())
+        _three_steps(js, ts, step)
+    finally:
+        ek.set_edge_kernel_mode(False)
+        jtc.set_inlet_tc_mode(False)
+
+
+def _three_steps(js, ts, step):
     from su2_tpu_torch.convert import state_from_numpy
     j_state = (js.u0, js.t0) + tuple(js.initial_turb_state())
     # the port starts from the JAX carry, which equals its own initial state
@@ -95,7 +123,7 @@ def test_run_chunks_and_history(text, tmp_path):
     ("LINEAR_SOLVER_PREC", "LINELET", "su2_tpu.linalg.linelet"),
     ("SPATIAL_ORDER_FLOW", "2ND_ORDER", "su2_tpu.ops.limiters"),
     ("TIME_DISCRE_FLOW", "EULER_IMPLICIT", "su2_tpu.solvers.euler"),
-    ("INLET_TYPE", "TOTAL_CONDITIONS", "su2_tpu.solvers.euler"),
+    ("CONV_NUM_METHOD_FLOW", "ROE", "su2_tpu.ops"),
     ("KIND_TURB_MODEL", "SA", "su2_tpu.turbulence"),
 ])
 def test_unported_options_raise(text, key, value, where):

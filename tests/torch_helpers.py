@@ -23,10 +23,22 @@ def write_case(directory, backward_rate=False, mesh_file=None):
 
 
 def case_variant(text, name):
-    """The case, or its variant with a slip lower wall, a heat-flux upper
-    wall and a MASS_FLOW inlet (fuel at 1.1 kg/m^3)."""
+    """The case, or a variant: "slip_heatflux_mass_flow" (a slip lower
+    wall, a heat-flux upper wall and a MASS_FLOW inlet, fuel at 1.1
+    kg/m^3); "total_conditions" (a TOTAL_CONDITIONS inlet at 600 K with
+    P_tot about 0.5 rho v^2 of the 12 m/s fuel stream above the outlet's
+    101325 Pa); "shared_corners" (the lower wall a second outlet, so its
+    two end nodes sit in two weak flux markers each)."""
     if name == "isothermal":
         return text
+    if name == "total_conditions":
+        return cases.with_total_conditions(text)
+    if name == "shared_corners":
+        lines = [ln for ln in text.splitlines()
+                 if not ln.startswith(("MARKER_ISOTHERMAL", "MARKER_OUTLET"))]
+        return "\n".join(lines + [
+            "MARKER_ISOTHERMAL = (upper_wall, 600.0)",
+            "MARKER_OUTLET= ( outlet, 101325.0, lower_wall, 101325.0)"])
     lines = [ln for ln in text.splitlines()
              if not ln.startswith(("MARKER_ISOTHERMAL", "INLET_TYPE",
                                    "MARKER_INLET"))]
