@@ -20,7 +20,10 @@ Phases (one line each; any failure exits nonzero):
              card (kernels, K6 for the SST solve) and on the CPU (plain
              versions) from one state; again with the >= 200k-node tier
              forced on both sides (K7 and K8 against their plain versions
-             inside the step), and with a TOTAL_CONDITIONS inlet (K9)
+             inside the step), and with a TOTAL_CONDITIONS inlet (K9); the
+             implicit-flow case (EULER_IMPLICIT, MUSCL + Venkatakrishnan,
+             JACOBI: K10 once per iteration) the same way, also with the
+             tier forced (K7's rows feeding K10)
   6 slice    Simulation.run: 9,072 nodes x 50, 142,317 nodes x 20 and
              565,500 nodes x 10 (the tier: K7 twice and K8 once per
              iteration, T3 never; profiled once) in float32 with LU_SGS;
@@ -29,10 +32,19 @@ Phases (one line each; any failure exits nonzero):
              sizes), ms/iter and Mcell-updates/s; 9,072 nodes x 10 with a
              TOTAL_CONDITIONS inlet (K9 once per iteration, profiled);
              142,317 nodes x 3 in float64 (K5 ten times per iteration);
-             then each size with LINEAR_SOLVER_PREC= JACOBI (the path that
-             bypasses K5/K6) and with LU_SGS in the order J, L, L, J, each
-             timed and then profiled over 3 iterations (torch.profiler:
-             CUDA launches and device-busy ms per iteration)
+             each size with LINEAR_SOLVER_PREC= JACOBI (the path that
+             bypasses K5/K6) and with LU_SGS in the order J, L, each timed
+             and then profiled over 3 iterations (torch.profiler: CUDA
+             launches and device-busy ms per iteration, the launches per
+             stage of the step, step_groups); the implicit-flow
+             case at 9,072 x 20, 142,317 x 10 and 565,500 x 3 nodes in
+             float32, timed and profiled (K10 and T2 twice per iteration,
+             T3, K8, T4, K5 and K6 never)
+  K10 phase  (between 4 and 5) K10 against its plain version at 9,072 nodes
+             in float64 and float32 for the four (MUSCL, limiter) variants
+             and at 142,317 and 565,500 nodes in float32 (the latter's
+             stack from K7's gradient rows, as the tier's ns_assemble builds
+             it), per output row, with times
 The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}.
 
@@ -72,6 +84,8 @@ KERNELS = {
                  "su2_tpu/pallas/edge_fused.py:346"),
     "inlet_tc": ("su2_tpu_torch/csrc/inlet_tc.cu",
                  "su2_tpu/pallas/inlet_tc.py:74"),
+    "edge_implicit": ("su2_tpu_torch/csrc/edge_implicit.cu",
+                      "su2_tpu/pallas/edge_fused.py:721"),
 }
 # tolerances per kernel and dtype: |kernel - plain| <= rtol * |plain|
 # + atol_frac * max|plain| (T3: per flux row, atol only, the row's max)
@@ -100,7 +114,16 @@ TOL = {
     # K9: as T1 (built without fused multiply-adds: the plain operations)
     ("inlet_tc", "float64"): (1e-12, 1e-12),
     ("inlet_tc", "float32"): (1e-5, 1e-5),
+    # K10: as T3, per output row (flux, j_i, j_j rows of each family)
+    # against the row's max
+    ("edge_implicit", "float64"): (0.0, 1e-10),
+    ("edge_implicit", "float32"): (0.0, 1e-4),
 }
+# the (MUSCL, limiter) variants of the implicit case (cases.with_implicit_
+# flow); the main path is the first
+IMPLICIT_VARIANTS = {"venkatakrishnan": (True, "VENKATAKRISHNAN"),
+                     "muscl": (True, None), "first_order": (False, None),
+                     "barth_jespersen": (True, "BARTH_JESPERSEN")}
 # the 9,072-node flagship class, the 142,317-node scaling point and the
 # 565,500-node size of the >= 200k-node tier (the README's round-5 point)
 SIZES = {"flagship": (189, 48), "scaling": (753, 189), "tier": (1500, 377)}
@@ -110,6 +133,8 @@ TC_T_TOT = 600.0        # T_tot of cases.with_total_conditions
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "mixed": 67e12}
 KRYLOV_M = 10           # LINEAR_SOLVER_ITER of the case (the cfg default)
+# iterations of the implicit-flow slice runs per size
+IMPLICIT_NITERS = {"flagship": 20, "scaling": 10, "tier": 3}
 
 
 def phase(name, msg):
@@ -221,7 +246,9 @@ def compare(name, dt, got, want, per_row=False):
 
 
 def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
-              total_conditions=False):
+              total_conditions=False, implicit=None):
+    """The synthetic case on channel_mesh(nx, ny); implicit: (muscl,
+    limiter) of the implicit-flow variant (JACOBI for both systems)."""
     from su2_tpu_torch import cases
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
@@ -230,6 +257,8 @@ def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
                                          f"LINEAR_SOLVER_PREC= {prec}")
     if total_conditions:
         text = cases.with_total_conditions(text)
+    if implicit is not None:
+        text = cases.with_implicit_flow(text, *implicit)
     return Simulation(Config(text=text), raw_mesh=channel_mesh(nx, ny),
                       dtype=dtype, device=device)
 
@@ -504,6 +533,108 @@ def tier_kernel_phase(sim, dtype_name, report):
                else f"{dtype_name} bisection path", got, want, kfn, pfn,
                tcx + [tc.y, tc.y2], 60 * nv,
                extra=f" ({nv} vertices, secant budget {sec})")
+
+
+def k10_rows_read(lay, muscl, limiter):
+    """Rows of the implicit stack (edge_implicit.implicit_rows) that K10
+    reads in the variant: with MUSCL not the dP/dU rows (the face state
+    recomputes dP/dU), without the limiter not its rows, and at first
+    order not the pressure gradient (only the reconstruction reads it)."""
+    from su2_tpu_torch.ops import edge_implicit as ei
+    r, nd = ei.implicit_rows(lay), lay.ndim
+    rows = r["total"]
+    if muscl:
+        rows -= lay.nvar
+    else:
+        rows -= nd
+    if not limiter:
+        rows -= 2 + nd
+    return rows
+
+
+def implicit_kernel_phase(sim, dtype_name, report, variants):
+    """K10 against its plain version at the shapes of the implicit case sim
+    (its mesh and library converted to the dtype) on a random reacting
+    state: per output row of every family, the pad slots exactly 0.  In
+    the >= 200k-node tier the stack's gradients are K7's rows, as
+    ns_assemble builds it."""
+    from types import SimpleNamespace
+    import torch
+    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch.ops import edge_flux as ef, edge_implicit as ei
+    from su2_tpu_torch.ops import gradients, limiters, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    dtype = getattr(torch, dtype_name)
+    mesh, lib = sim.mesh.to(dtype=dtype), sim.lib.to(dtype=dtype)
+    lay, prm = sim.lay, sim.params
+    x = kernel_inputs(SimpleNamespace(lib=lib, lay=lay, mesh=mesh,
+                                      dtype=dtype, device=sim.device,
+                                      tparams=sim.tparams))
+    nsd = st.node_state(lib, lay, x["u"], x["t_guess"], x["p"],
+                        turb_ke=x["tke"])
+    v = nsd.v
+    nd = lay.ndim
+    qg = vis.ns_gradient_vars(lib, lay, v, nsd.xs)
+    grad = grad_rows = None
+    if gradients.use_tiled(mesh):
+        grad_rows = es.compute_gradient_rows(mesh, prm, qg)
+        g = gradients.rows_to_grad(grad_rows[:(2 + nd) * nd], 2 + nd, nd)
+    else:
+        grad = es.compute_gradients(mesh, prm, qg)
+        g = grad[:, :2 + nd]
+    q = es.gradient_vars(lay, v)
+    lims = {"VENKATAKRISHNAN": limiters.venkatakrishnan(
+        mesh, q, g, prm.limiter_coeff, prm.ref_elem_length),
+        "BARTH_JESPERSEN": limiters.barth_jespersen(mesh, q, g)}
+    turb = vis.TurbFlowData(tke=x["tke"], mu_t=x["mu_t"],
+                            grad_tke=x["grad_tke"], sigma_k=x["sigma_k"])
+    trans = vis.Transport(nsd.mu, nsd.kappa)
+    sc = ef.species_consts_of(lib)
+    n, kh = mesh.npoint, len(mesh.fam_offsets)
+    nvar, ns = lay.nvar, lay.ns
+    pad = (mesh.fam_normal == 0).all(-1)                  # (Kh, N)
+    # operations per slot, a lower bound read off the kernel: about 8 per
+    # entry of the two Jacobian blocks, the Stefan-Maxwell Gauss-Jordan,
+    # and the dJ/dr species blocks (about 8 per entry, for the species
+    # rows and for the density and energy rows of both sides)
+    flops = kh * n * (16 * nvar * nvar + 2 * ns * ns * (ns + 1)
+                      + 64 * ns * ns)
+    for name in variants:
+        muscl, limiter = IMPLICIT_VARIANTS[name]
+        f_all = ei.stack_inputs(lay, v, grad, lims.get(limiter), trans,
+                                turb, x["sigma_k"], nsd.dtdu, nsd.dpdu,
+                                grad_rows=grad_rows)
+        args = (lib, lay, sc, (prm.m_infty, prm.prandtl_turb,
+                               prm.lewis_turb), f_all, mesh.fam_offsets,
+                mesh.fam_normal, mesh.fam_evec, muscl, limiter is not None)
+        rows = lambda out: [t.flatten(0, 1) for t in out]
+        kfn = lambda: rows(kernels.edge_implicit(*args))
+        pfn = lambda: rows(ei.edge_implicit_plain(*args))
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        err, scaled = compare("edge_implicit", dtype_name, got, want,
+                              per_row=True)
+        for t in got:
+            if not bool((t.reshape(kh, -1, n).permute(1, 0, 2)[:, pad]
+                         == 0).all()):
+                raise AssertionError(f"K10 {name} {dtype_name}: nonzero "
+                                     "output on a pad slot")
+        ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
+        # the stack's bytes: only the rows this variant reads
+        ins = [mesh.fam_normal, mesh.fam_evec, lib.h_y, lib.h_y2,
+               lib.cp_y, lib.cp_y2, lib.mm, sc.sm_den, lib.ri]
+        stack = k10_rows_read(lay, muscl, limiter) * n * f_all.element_size()
+        bound = bound_of(stack + nbytes(ins + got), flops, dtype_name)
+        key = f"{dtype_name} {n} {name}"
+        phase("k10", f"edge_implicit {key}: max_abs_err {err:.3e} "
+              f"({scaled:.2e} of its row's max) kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"one launch for {kh} families, pad slots exactly 0"
+              + ("; the stack's gradients from K7's rows" if grad is None
+                 else ""))
+        report.setdefault("edge_implicit", {})[key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+            bound_by=bound[1], library_ms=None)
 
 
 def nbytes(tensors):
@@ -796,43 +927,51 @@ def k6_check(sname, var, args, r, b, report):
         barriers=k6_barriers(args["ncolor"], KRYLOV_M))
 
 
-def step_phase(tmp, tier=False, total_conditions=False):
+def step_phase(tmp, tier=False, total_conditions=False, implicit=None):
     """5 coupled iterations, card vs CPU, from the state after 10 card
     iterations of the flagship-class case; tier=True forces the
-    >= 200k-node tier on both sides (TILED_MIN_NODES = 0: K7 and K8 on the
-    card), total_conditions a TOTAL_CONDITIONS inlet (K9)."""
-    import torch
-    from su2_tpu_torch import kernels
+    >= 200k-node tier on both sides (TILED_MIN_NODES = 0: K7 and K8, or
+    K7 feeding K10, on the card), total_conditions a TOTAL_CONDITIONS
+    inlet (K9), implicit the implicit-flow variant (muscl, limiter) (K10
+    once per iteration)."""
     from su2_tpu_torch.ops import gradients
     saved = gradients.TILED_MIN_NODES
     if tier:
         gradients.TILED_MIN_NODES = 0
     try:
-        worst, counts, n = _step_compare(tmp, total_conditions)
+        worst, counts, n = _step_compare(tmp, total_conditions, implicit)
     finally:
         gradients.TILED_MIN_NODES = saved
-    want = {"edge_win": 5 * tier, "edge_flux": 5 * (not tier),
+    imp = implicit is not None
+    want = {"edge_win": 5 * (tier and not imp),
+            "edge_flux": 5 * (not tier and not imp),
+            "edge_implicit": 5 * imp, "chem_source": 5 * (not imp),
             "gradient_rows": 10 * tier, "inlet_tc": 5 * total_conditions}
+    if imp:
+        want.update(stencil_fgmres=0, stencil_sgs_matvec=0)
     for k, c in want.items():
         if counts[k] != c:
             raise AssertionError(f"step: {k} launched {counts[k]} times in "
                                  f"the 5 compared card iterations, "
                                  f"expected {c}")
-    what = ("the >= 200k-node tier forced (K7, K8)" if tier else
+    what = ("the >= 200k-node tier forced (K7, K8)" if tier and not imp else
             "a TOTAL_CONDITIONS inlet (K9)" if total_conditions else
             "the main path")
+    if imp:
+        what = ("the implicit flow (K10) with the >= 200k-node tier forced "
+                "(K7 rows into K10)" if tier else "the implicit flow (K10)")
     phase("step", f"5 iterations at {n} nodes f64 with {what}, card vs CPU "
           f"within rtol 1e-9, atol 1e-12*max|field| (largest difference "
           f"{worst:.3e} of its field's max); card launches {counts}")
 
 
-def _step_compare(tmp, total_conditions):
+def _step_compare(tmp, total_conditions, implicit=None):
     import torch
     from su2_tpu_torch import kernels
     gpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cuda",
-                    total_conditions=total_conditions)
+                    total_conditions=total_conditions, implicit=implicit)
     cpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cpu",
-                    total_conditions=total_conditions)
+                    total_conditions=total_conditions, implicit=implicit)
     s_gpu = (gpu.u0, gpu.t0) + tuple(gpu.initial_turb_state())
     for _ in range(10):
         s_gpu = gpu._step(*s_gpu)[:6]
@@ -871,31 +1010,119 @@ STENCIL_PER_ITER = {"flagship": ("stencil_fgmres", 1),
                     "tier": ("stencil_sgs_matvec", KRYLOV_M)}
 
 
-def profile_steps(sim, state, niter=3):
-    """(CUDA kernel launches, device-busy ms, {su2k kernel: device ms}) per
-    iteration over niter coupled steps, from torch.profiler: launches are
-    the runtime's launch calls, busy the summed device time of kernels,
-    copies and sets."""
+def step_groups():
+    """(module, function name, group) of the step's stages whose CUDA
+    launches profile_steps counts apart; each call of one is wrapped in a
+    torch.profiler range named by its group while the profile runs."""
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.linalg import blockcsr, krylov
+    from su2_tpu_torch.ops import (ausm_t, edge_flux, edge_implicit,
+                                   limiters, viscous_t)
+    from su2_tpu_torch.solvers import euler as es, ns
+    from su2_tpu_torch.turbulence import sst
+    return [(st, "node_state", "node state"),
+            (st, "node_state_lite", "node state"),
+            (ns, "viscous_lambda", "viscous spectral radius"),
+            (ns, "ns_assemble", "flow assembly"),
+            (es, "compute_gradients", "gradients"),
+            (es, "compute_gradient_rows", "gradients"),
+            (limiters, "venkatakrishnan", "limiter"),
+            (limiters, "barth_jespersen", "limiter"),
+            (edge_implicit, "fused_implicit_family_terms", "edge terms"),
+            (edge_flux, "fused_interior_terms", "edge terms"),
+            (es, "flux_bc_batch", "flux-BC ghost states"),
+            (es, "ghost_dpdu", "boundary flux and Jacobians"),
+            (ausm_t, "ausm_flux_t", "boundary flux and Jacobians"),
+            (viscous_t, "viscous_flux_t", "boundary flux and Jacobians"),
+            (es, "chemistry_source_system", "chemistry source"),
+            (es, "chemistry_source_residual", "chemistry source"),
+            (blockcsr, "block_diag_inv", "block inverse"),
+            (krylov, "fgmres", "FGMRES"),
+            (sst, "sst_step", "SST solve")]
+
+
+def launches_by_group(events, groups):
+    """{nested group path: launches} from profiler events: each launch
+    goes to the chain of group ranges that enclose it on the host (outer
+    first, "/"-joined, a group called from itself named once; "other"
+    outside every range).  The ranges' device-side copies are not
+    used."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    cpu = torch.autograd.DeviceType.CPU
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events
+                   if e.name in groups and e.device_type == cpu)
+    counts = {}
+    for e in events:
+        if "LaunchKernel" not in e.name \
+                and "LaunchCooperativeKernel" not in e.name:
+            continue
+        t = e.time_range.start
+        path = []
+        for a, b, name in spans:
+            if a <= t <= b and (not path or path[-1] != name):
+                path.append(name)
+        key = "/".join(path) if path else "other"
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def profile_steps(sim, state, niter=3):
+    """(CUDA kernel launches, device-busy ms, {su2k kernel: device ms},
+    {other device op: device ms} of the three largest, {stage path:
+    launches}) per iteration over niter coupled steps, from
+    torch.profiler: launches are the runtime's launch calls, busy the
+    summed device time of kernels, copies and sets; the stages are those
+    of step_groups."""
+    import functools
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(fn, name):
+        @functools.wraps(fn)
+        def call(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return call
+
+    groups = step_groups()
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in groups]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(niter):
-            state = sim._step(*state)[:6]
-        torch.cuda.synchronize()
-    launches, busy_us, ours = 0, 0.0, {}
-    for e in prof.events():
+    try:
+        for mod, attr, name in groups:
+            setattr(mod, attr, ranged(getattr(mod, attr), name))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(niter):
+                state = sim._step(*state)[:6]
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    events = prof.events()
+    names = {g for _, _, g in groups}
+    by_group = launches_by_group(events, names)
+    launches, busy_us, ours, other = 0, 0.0, {}, {}
+    for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name in names:
+                continue        # a range's device-side copy, not work
             us = e.time_range.elapsed_us()
             busy_us += us
             m = re.search(r"su2k::(\w+)_kernel", e.name)
             if m:
                 ours[m.group(1)] = ours.get(m.group(1), 0.0) + us
+            else:
+                key = e.name[:60]
+                other[key] = other.get(key, 0.0) + us
         elif "LaunchKernel" in e.name or "LaunchCooperativeKernel" in e.name:
             launches += 1
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
     return (launches / niter, busy_us / 1e3 / niter,
-            {k: round(us / 1e3 / niter, 4) for k, us in sorted(ours.items())})
+            {k: round(us / 1e3 / niter, 4) for k, us in sorted(ours.items())},
+            {k: round(us / 1e3 / niter, 4) for k, us in top},
+            {k: c / niter for k, c in sorted(by_group.items(),
+                                             key=lambda kv: -kv[1])})
 
 
 def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
@@ -924,10 +1151,14 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     sweeps = 2 if sim.scfg.grad_method == sim.cfg.num_method_grad else 3
     n_tc = sum(bc.kind == "inlet" and bc.inlet_mode == "TOTAL_CONDITIONS"
                for bc in sim.bcs)
-    want = {"node_state": 2 * niter, "edge_flux": 0 if tier else niter,
-            "edge_win": niter if tier else 0,
+    # implicit flow: K10 instead of T3/K8, the source system in torch ops
+    imp = sim.cfg.implicit_flow
+    want = {"node_state": 2 * niter,
+            "edge_flux": 0 if tier or imp else niter,
+            "edge_win": niter if tier and not imp else 0,
+            "edge_implicit": niter if imp else 0,
             "gradient_rows": sweeps * niter if tier else 0,
-            "chem_source": niter, "inlet_tc": n_tc * niter}
+            "chem_source": 0 if imp else niter, "inlet_tc": n_tc * niter}
     for k, c in want.items():
         if counts[k] != c:
             raise AssertionError(f"{size}: {k} launched {counts[k]} times "
@@ -955,13 +1186,17 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     ms = wall * 1e3 / niter
     prof = ""
     if profile:
-        cuda_launches, busy, ours = profile_steps(sim, (u, t) + tuple(ts))
+        cuda_launches, busy, ours, top, by_group = profile_steps(
+            sim, (u, t) + tuple(ts))
         prof = (f", profiled: {cuda_launches:.1f} CUDA launches/iter, "
                 f"device busy {busy:.3f} ms/iter, su2k kernels' device "
-                f"ms/iter {ours}")
+                f"ms/iter {ours}, the largest other device ops' ms/iter "
+                f"{top}, CUDA launches/iter by stage {by_group}")
     dt = str(sim.dtype).split(".")[-1]
     if n_tc:
         prec = f"{prec}, TOTAL_CONDITIONS inlet"
+    if imp:
+        prec = f"implicit flow ({sim.cfg.spatial_order_flow}), {prec}"
     phase("slice", f"{n} nodes {dt} {prec} x {niter}: {ms:.3f} ms/iter, "
           f"{n / (ms * 1e3):.3f} Mcell-updates/s, log10 rms[rho] "
           f"{hist[0][0]:.4f} -> {hist[-1][0]:.4f}, max|omega| "
@@ -1012,48 +1247,71 @@ def main():
         for dt in ("float64", "float32"):
             tier_kernel_phase(sims["tier"], dt, report)
         stencil_phase({k: sims[k] for k in ("flagship", "scaling")}, report)
+        # the implicit-flow case (MUSCL + Venkatakrishnan, JACOBI) at every
+        # size; K10 against its plain version at every size
+        main_imp = IMPLICIT_VARIANTS["venkatakrishnan"]
+        imp = {}
+        for size in SIZES:
+            t0 = time.perf_counter()
+            imp[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                                  implicit=main_imp)
+            phase("k10", f"{imp[size].mesh.npoint}-node implicit case built "
+                  f"in {time.perf_counter() - t0:.1f} s")
+        for dt in ("float64", "float32"):
+            implicit_kernel_phase(imp["flagship"], dt, report,
+                                  list(IMPLICIT_VARIANTS))
+        for size in ("scaling", "tier"):
+            implicit_kernel_phase(imp[size], "float32", report,
+                                  ["venkatakrishnan"])
         step_phase(tmp)
         step_phase(tmp, tier=True)
         step_phase(tmp, total_conditions=True)
-        counts = {size: slice_phase(sims[size], size, niter, card,
-                                    profile=size == "tier")
-                  for size, niter in niters.items()}
+        step_phase(tmp, implicit=main_imp)
+        step_phase(tmp, tier=True, implicit=main_imp)
+        # each run: (label, launch counts, iterations)
+        runs = []
+        for size, niter in niters.items():
+            runs.append((str(sims[size].mesh.npoint), slice_phase(
+                sims[size], size, niter, card, profile=size == "tier"),
+                niter))
         # the TOTAL_CONDITIONS inlet on the main path: K9 once per iteration
-        counts["tc"] = slice_phase(
+        runs.append(("9072 TOTAL_CONDITIONS", slice_phase(
             make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
                       total_conditions=True), "flagship", 10, card,
-            profile=True)
+            profile=True), 10))
         # float64 past the full-precision gate: K5 at full precision inside
         # the Krylov loop, KRYLOV_M launches per iteration
         slice_phase(make_case(tmp, *SIZES["scaling"], torch.float64, "cuda"),
                     "scaling", 3, card)
-        # JACOBI (the path without K5/K6) against LU_SGS in the order J,
-        # L, L, J, each run profiled after its timed run
+        # JACOBI (the path without K5/K6) against LU_SGS in the order J, L,
+        # each run profiled after its timed run
         for size, niter in niters.items():
             jac = make_case(tmp, *SIZES[size], torch.float32, "cuda",
                             prec="JACOBI")
-            for sim, prec in ((jac, "JACOBI"), (sims[size], "LU_SGS"),
-                              (sims[size], "LU_SGS"), (jac, "JACOBI")):
+            for sim, prec in ((jac, "JACOBI"), (sims[size], "LU_SGS")):
                 slice_phase(sim, size, niter, card, prec=prec, profile=True)
+        # the implicit flow: K10 once per iteration, profiled
+        for size, niter in IMPLICIT_NITERS.items():
+            runs.append((f"{imp[size].mesh.npoint} implicit", slice_phase(
+                imp[size], size, niter, card, prec="JACOBI", profile=True),
+                niter))
 
     # each kernel's numbers at its main-path use: T1-T4 in f32 at 9,072
     # nodes, K5 mixed at 142,317 nodes, K6 f32 at 9,072 nodes, K7 (WLS, the
     # case's method) and K8 in f32 at 565,500 nodes, K9 in f32 on the
-    # 377-vertex batch
+    # 377-vertex batch, K10 f32 at 9,072 nodes (MUSCL + Venkatakrishnan)
     main_use = {"stencil_sgs_matvec": ("sst142317", "mixed", "sgs_matvec"),
                 "stencil_fgmres": ("sst9072", "float32"),
-                "gradient_rows": "float32 WLS"}
-    niters["tc"] = 10
+                "gradient_rows": "float32 WLS",
+                "edge_implicit": "float32 9072 venkatakrishnan"}
     rows = []
     for name, (src, repl) in KERNELS.items():
         rec = dict(report[name][main_use.get(name, "float32")])
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": repl,
-               "launches": sum(c[name] for c in counts.values()),
-               "launches_per_iter": {
-                   (str(sims[size].mesh.npoint) if size in sims
-                    else "9072 TOTAL_CONDITIONS"): counts[size][name] / niter
-                   for size, niter in niters.items()}}
+               "launches": sum(c[name] for _, c, _ in runs),
+               "launches_per_iter": {label: c[name] / it
+                                     for label, c, it in runs}}
         row.update(rec)
         if name == "stencil_sgs_matvec":
             mv = report[name][("sst142317", "float32", "matvec")]

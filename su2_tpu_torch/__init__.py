@@ -1,5 +1,6 @@
-"""su2_tpu_torch — the coupled explicit-flow REACTIVE_RANS step of su2_tpu,
-ported to PyTorch with hand-written CUDA kernels for the NVIDIA H100.
+"""su2_tpu_torch — the coupled REACTIVE_RANS step of su2_tpu (explicit or
+implicit flow), ported to PyTorch with hand-written CUDA kernels for the
+NVIDIA H100.
 
 The JAX package (su2_tpu) stays the reference.  This package imports no JAX
 and no su2_tpu module: the NumPy host modules (config, io, geometry,

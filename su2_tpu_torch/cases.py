@@ -182,3 +182,33 @@ def with_total_conditions(text: str) -> str:
     return "\n".join(lines + [
         "INLET_TYPE= TOTAL_CONDITIONS",
         "MARKER_INLET= ( inlet, 600.0, 101404.0, 1.0, 0.0, 0.0 )"]) + "\n"
+
+
+# CFL of the implicit-flow variant (with_implicit_flow): the 9,072-node
+# channel runs 20 iterations at CFL 1 in the port and in su2_tpu with the
+# port's form of the effective diffusion (tests/test_torch_pure_streams.py)
+IMPLICIT_CFL = 1.0
+
+
+def with_implicit_flow(text: str, muscl: bool = True,
+                       limiter: str | None = "VENKATAKRISHNAN",
+                       cfl: float = IMPLICIT_CFL) -> str:
+    """The cfg text with implicit flow: TIME_DISCRE_FLOW= EULER_IMPLICIT,
+    the flow and SST systems solved by FGMRES with LINEAR_SOLVER_PREC=
+    JACOBI, CFL_ADAPT= NO and CFL_NUMBER= cfl; SPATIAL_ORDER_FLOW=
+    2ND_ORDER_LIMITER with SLOPE_LIMITER_FLOW= limiter (VENKATAKRISHNAN or
+    BARTH_JESPERSEN), 2ND_ORDER with limiter None, 1ST_ORDER with
+    muscl False."""
+    keys = ("TIME_DISCRE_FLOW", "SPATIAL_ORDER_FLOW", "SLOPE_LIMITER_FLOW",
+            "LINEAR_SOLVER_PREC", "CFL_NUMBER", "CFL_ADAPT")
+    lines = [ln for ln in text.splitlines() if not ln.startswith(keys)]
+    order = ("1ST_ORDER" if not muscl else
+             "2ND_ORDER" if limiter is None else "2ND_ORDER_LIMITER")
+    lines += ["TIME_DISCRE_FLOW= EULER_IMPLICIT",
+              f"SPATIAL_ORDER_FLOW= {order}",
+              "LINEAR_SOLVER_PREC= JACOBI",
+              f"CFL_NUMBER= {cfl}",
+              "CFL_ADAPT= NO"]
+    if muscl and limiter is not None:
+        lines.append(f"SLOPE_LIMITER_FLOW= {limiter}")
+    return "\n".join(lines) + "\n"

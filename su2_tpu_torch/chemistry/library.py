@@ -400,3 +400,47 @@ def mass_production(lib: ChemLib, omega_ir, pasr_k=None) -> torch.Tensor:
     if pasr_k is None:
         return omega_ir.sum(-1)
     return (omega_ir * pasr_k[..., None, :]).sum(-1)
+
+
+def backfor_contributions(lib: ChemLib, t, rf, rb, kc):
+    """d(rates)/dT composite terms (Set_BackFor_Contr, :233-289), each
+    (..., R): for_contr = Rf (beta + Ta/T)/T; back_contr = Rb (beta + Ta/T)/T
+    - Rb dKc/dT / Kc (Gibbs Kc) or Rb (beta_b + Ta_b/T)/T (explicit
+    backward rate).  dKc/dT by the reference's relative step eps = 1e-6."""
+    eps = 1.0e-6
+    tp = t + eps * t
+    kc_gibbs_p, _ = equilibrium_constants(lib, tp)
+    tpc = tp[..., None]
+    kf_p = lib.arr_a * tpc ** lib.arr_beta * torch.exp(-lib.arr_ta / tpc)
+    kb_p = lib.arr_a_b * tpc ** lib.arr_beta_b \
+        * torch.exp(-lib.arr_ta_b / tpc)
+    use_b = lib.has_backward > 0.5
+    dtp = (tp - t)[..., None]
+    # Gibbs case: Kc_pert = Kc (derivative 0) when Rb == 0, which also
+    # avoids inf - inf for complete reactions whose Kc overflows
+    kc_deriv_gibbs = torch.where(rb > 0.0, (kc_gibbs_p - kc) / dtp, 0.0)
+    kc_deriv_arr = (kf_p / torch.where(kb_p != 0.0, kb_p, 1.0) - kc) / dtp
+    kc_deriv = torch.where(use_b, kc_deriv_arr, kc_deriv_gibbs)
+    tt = t[..., None]
+    tmp = (lib.arr_beta + lib.arr_ta / tt) / tt
+    for_contr = rf * tmp
+    back_gibbs = rb * (tmp - kc_deriv / torch.where(kc != 0.0, kc, 1.0))
+    back_arr = rb * (lib.arr_beta_b + lib.arr_ta_b / tt) / tt
+    return torch.where(use_b, back_arr, back_gibbs), for_contr
+
+
+def source_jacobian(lib: ChemLib, t, rho, ys, rf, rb, kc, pasr_k=None):
+    """Chemistry source Jacobian [dT column | species block], (..., S, S+1):
+    GetTurbSourceJacobian (:295-319) with the PaSR constants pasr_k,
+    GetSourceJacobian (:325-350, k_r = 1) without."""
+    back, forw = backfor_contributions(lib, t, rf, rb, kc)
+    if pasr_k is None:
+        pasr_k = torch.ones_like(rf)
+    fixed = 1.0e-3 * lib.mm[:, None] * (lib.stoich_p - lib.stoich_r)
+    d_t = ((forw - back) * pasr_k)[..., None, :] * fixed          # (..., S, R)
+    d_t = d_t.sum(-1)
+    dfr = dfr_drho(lib, rf, rb, rho, ys)                          # (..., S=j, R)
+    # species block [i, j] = sum_r fixed[i, r] k_r dfr[j, r]
+    d_y = ((fixed * pasr_k[..., None, :])[..., :, None, :]
+           * dfr[..., None, :, :]).sum(-1)
+    return torch.cat([d_t[..., :, None], d_y], dim=-1)

@@ -1,7 +1,8 @@
 // The per-edge pipeline of the explicit interior edge flux, shared by
 // kernel T3 (csrc/edge_flux.cu, one thread per family slot) and kernel K8
 // (csrc/edge_win.cu, the same edges summed per node), so both run the same
-// instructions.  For the edge (p, p + o_k) of family k: AUSM+-up convective
+// instructions.  Its species h/cp lookup and Stefan-Maxwell solve are also
+// the viscous core of kernel K10 (csrc/edge_implicit.cu).  For the edge (p, p + o_k) of family k: AUSM+-up convective
 // flux (numerics_direct_reactive.cpp:53-383), viscous flux with
 // Stefan-Maxwell diffusion and the SST closure (:385-1684, closure
 // :656-889), species h/cp at the face-mean temperature, and the convective
@@ -52,6 +53,69 @@ __device__ __forceinline__ void press_polys(T m, T alpha, T& pp, T& pm) {
                  - alpha * m * q
            : (T)0.5 * ((T)1 - fabs(m) / safe);
 }
+// Species h, cp [J/kg] at temperature t from the tables h[S] h2[S] cp[S]
+// cp2[S] (each nt long).
+template <typename T>
+__device__ __forceinline__ void species_hcp(const Grid<T>& g,
+                                            const T* __restrict__ tab,
+                                            const T* __restrict__ mm, int ns,
+                                            T t, T* hs, T* cps) {
+  Bin<T> bn = spline_bin(g, t);
+  for (int s = 0; s < ns; ++s) {
+    hs[s] = spline_at(g, bn, tab + (size_t)s * g.nt,
+                      tab + (size_t)(ns + s) * g.nt) / mm[s];
+    cps[s] = spline_at(g, bn, tab + (size_t)(2 * ns + s) * g.nt,
+                       tab + (size_t)(3 * ns + s) * g.nt) / mm[s];
+  }
+}
+
+// Stefan-Maxwell diffusion fluxes: (Gamma + alpha y 1^T) Jd = -gxn
+// (GetGamma, reacting_model_library.cpp:771-798, Solve_SM), Gamma from the
+// separable Fuller form D_ab = gf / den[a, b], pivot-free Gauss-Jordan on
+// the S x (S+1) system aug; Jd is left in aug[s * (S+1) + S].
+template <typename T>
+__device__ __forceinline__ void stefan_maxwell(int ns,
+                                               const T* __restrict__ mm,
+                                               const T* __restrict__ den,
+                                               const T* ysc, const T* xs,
+                                               T rho, T gf, const T* gxn,
+                                               T* aug) {
+  const int w = ns + 1;
+  T sigma = (T)0, ym = (T)0;
+  for (int s = 0; s < ns; ++s) {
+    sigma += ysc[s];
+    ym += ysc[s] / mm[s];
+  }
+  T mtot = (T)1 / ym;
+  T prefg = sigma * mtot / (rho * gf);
+  T den_min = den[0];
+  for (int q = 1; q < ns * ns; ++q) den_min = den[q] < den_min ? den[q]
+                                                               : den_min;
+  T alpha_sm = den_min / (rho * gf);
+  for (int a = 0; a < ns; ++a) {
+    T sum_terms = (T)0;
+    for (int b = 0; b < ns; ++b)
+      sum_terms += (a == b ? (T)0 : den[a * ns + b]) * xs[b];
+    T diag = prefg * sum_terms / mm[a];
+    for (int b = 0; b < ns; ++b) {
+      T gam = a == b ? diag
+                     : -(prefg * xs[a]) * (den[a * ns + b] / mm[b]);
+      aug[a * w + b] = gam + alpha_sm * ysc[a];
+    }
+    aug[a * w + ns] = -gxn[a];
+  }
+  for (int col = 0; col < ns; ++col) {
+    T piv = aug[col * w + col];
+    T safe = piv == (T)0 ? (T)1 : piv;
+    for (int b = 0; b < w; ++b) aug[col * w + b] /= safe;
+    for (int a = 0; a < ns; ++a) {
+      if (a == col) continue;
+      T fac = aug[a * w + col];
+      for (int b = 0; b < w; ++b) aug[a * w + b] -= fac * aug[col * w + b];
+    }
+  }
+}
+
 // f: the feature-major stack (R, n); fam_normal/fam_evec (Kh, n, d); table
 // rows (each nt long): h[S] h2[S] cp[S] cp2[S]; cst: mm[S] den[S*S].
 // Writes flux = conv - visc (nVar) into fo and the two radii.
@@ -211,54 +275,14 @@ __device__ __forceinline__ void edge_side(int n, const EdgeConsts& c,
   }
   T aug[SU2K_MAXS * (SU2K_MAXS + 1)];
   const int w = ns + 1;
-  {
-    T sigma = (T)0, ym = (T)0;
-    for (int s = 0; s < ns; ++s) {
-      sigma += ysc[s];
-      ym += ysc[s] / mm[s];
-    }
-    T mtot = (T)1 / ym;
-    T prefg = sigma * mtot / (rho * gf);
-    T den_min = den[0];
-    for (int q = 1; q < ns * ns; ++q) den_min = den[q] < den_min ? den[q]
-                                                                 : den_min;
-    T alpha_sm = den_min / (rho * gf);
-    for (int a = 0; a < ns; ++a) {
-      T sum_terms = (T)0;
-      for (int b = 0; b < ns; ++b)
-        sum_terms += (a == b ? (T)0 : den[a * ns + b]) * xs[b];
-      T diag = prefg * sum_terms / mm[a];
-      for (int b = 0; b < ns; ++b) {
-        T gam = a == b ? diag
-                       : -(prefg * xs[a]) * (den[a * ns + b] / mm[b]);
-        aug[a * w + b] = gam + alpha_sm * ysc[a];
-      }
-      aug[a * w + ns] = -gxn[a];
-    }
-    for (int col = 0; col < ns; ++col) {
-      T piv = aug[col * w + col];
-      T safe = piv == (T)0 ? (T)1 : piv;
-      for (int b = 0; b < w; ++b) aug[col * w + b] /= safe;
-      for (int a = 0; a < ns; ++a) {
-        if (a == col) continue;
-        T fac = aug[a * w + col];
-        for (int b = 0; b < w; ++b) aug[a * w + b] -= fac * aug[col * w + b];
-      }
-    }
-  }
+  stefan_maxwell(ns, mm, den, ysc, xs, rho, gf, gxn, aug);
   T e_heat = (T)0, jsum = (T)0;
   T hs[SU2K_MAXS], cps[SU2K_MAXS];
-  {
-    Bin<T> bn = spline_bin(g, (T)0.5 * (vi[0] + vj[0]));
-    for (int s = 0; s < ns; ++s) {
-      hs[s] = spline_at(g, bn, tab + (size_t)s * g.nt,
-                        tab + (size_t)(ns + s) * g.nt) / mm[s];
-      cps[s] = spline_at(g, bn, tab + (size_t)(2 * ns + s) * g.nt,
-                         tab + (size_t)(3 * ns + s) * g.nt) / mm[s];
-      T jd = aug[s * w + ns];
-      e_heat -= hs[s] * jd;
-      jsum += jd;
-    }
+  species_hcp(g, tab, mm, ns, (T)0.5 * (vi[0] + vj[0]), hs, cps);
+  for (int s = 0; s < ns; ++s) {
+    T jd = aug[s * w + ns];
+    e_heat -= hs[s] * jd;
+    jsum += jd;
   }
   T mu_t = harm(fi(r_mut), fj(r_mut));
   T tke = (T)0.5 * (fi(r_tke) + fj(r_tke));

@@ -1,9 +1,12 @@
-"""Simulation driver for the coupled explicit-flow REACTIVE_RANS step (torch).
+"""Simulation driver for the coupled REACTIVE_RANS step (torch).
 
 Port of the JAX package's Simulation for one configuration family:
-reactive Navier-Stokes with SST and PaSR, AUSM first order, explicit flow,
-implicit SST solved by FGMRES with the multicolor SGS (LU_SGS, ILU0) or
-JACOBI preconditioner, on meshes with a static neighbour stencil.  One
+reactive Navier-Stokes with SST and PaSR and the AUSM scheme, on meshes
+with a static neighbour stencil.  The flow is explicit (first order), or
+implicit (EULER_IMPLICIT, first order or MUSCL with or without a limiter,
+solved by FGMRES with the JACOBI preconditioner); the SST system is
+implicit, solved by FGMRES with the multicolor SGS (LU_SGS, ILU0) or
+JACOBI preconditioner.  One
 outer iteration is the segregated sequence of iteration_structure.cpp
 :531-550: flow system (with SST closures), then the SST system on the
 updated flow state.  Setup stays on
@@ -29,7 +32,7 @@ from su2_tpu_torch.geometry import stencil as stn
 from su2_tpu_torch.geometry.dual_grid import build_dual_grid
 from su2_tpu_torch.geometry.mesh_data import mesh_arrays
 from su2_tpu_torch.io.mesh import RawMesh
-from su2_tpu_torch.linalg import blockcsr
+from su2_tpu_torch.linalg import blockcsr, krylov
 from su2_tpu_torch.ops import timestep, viscous as vis
 from su2_tpu_torch.solvers import euler as es
 from su2_tpu_torch.solvers import ns
@@ -57,11 +60,14 @@ def _unported(cfg: Config):
         (not cfg.reactive, "non-reactive solvers", "su2_tpu.driver"),
         (cfg.kind_turb_model != "SST", f"KIND_TURB_MODEL= "
          f"{cfg.kind_turb_model}", "su2_tpu.turbulence"),
-        (cfg.implicit_flow, "TIME_DISCRE_FLOW= EULER_IMPLICIT",
-         "su2_tpu.solvers.euler"),
+        (cfg.implicit_flow and cfg.linear_solver_prec in ("LU_SGS", "ILU0"),
+         f"TIME_DISCRE_FLOW= EULER_IMPLICIT with LINEAR_SOLVER_PREC= "
+         f"{cfg.linear_solver_prec} (the flow's 13-wide block sweep)",
+         "su2_tpu.pallas.stencil_solve"),
         (not cfg.implicit_turb, "explicit turbulence", "su2_tpu.driver"),
-        (cfg.muscl_flow, "MUSCL reconstruction and limiters",
-         "su2_tpu.ops.limiters"),
+        (cfg.muscl_flow and not cfg.implicit_flow,
+         "MUSCL reconstruction with explicit flow (convective_residual)",
+         "su2_tpu.solvers.euler"),
         (cfg.conv_num_method_flow != "AUSM",
          f"CONV_NUM_METHOD_FLOW= {cfg.conv_num_method_flow}",
          "su2_tpu.ops"),
@@ -130,6 +136,9 @@ class Simulation:
                 grid2 = build_dual_grid(raw2)
                 if 0 < len(stn.edge_offsets(grid2.edges)) <= stn.MAX_OFFSETS:
                     raw, self.grid, self.perm = raw2, grid2, sperm
+        if cfg.implicit_flow and self.grid.ndim == 3:
+            raise NotImplementedError("3D implicit flow: not ported; "
+                                      "su2_tpu.ops.viscous_t has it")
         self.mesh = mesh_arrays(self.grid, dtype, self.device)
         self.lay = Layout(self.grid.ndim, cfg.nspecies)
         self.tparams = TSolveParams(tmin=cfg.temperature_min,
@@ -154,7 +163,11 @@ class Simulation:
             reactive_sources=self.lib.nreactions > 0,
             pasr=cfg.kind_turb_model == "SST", pasr_lb=cfg.pasr_lb,
             c_mu=cfg.c_mu, prandtl_lam=cfg.prandtl_lam,
-            prandtl_turb=cfg.prandtl_turb, lewis_turb=cfg.lewis_turb)
+            prandtl_turb=cfg.prandtl_turb, lewis_turb=cfg.lewis_turb,
+            muscl=cfg.muscl_flow, use_limiter=cfg.limiter_flow,
+            limiter_kind=cfg.slope_limiter_flow,
+            limiter_coeff=cfg.limiter_coeff,
+            ref_elem_length=cfg.ref_elem_length)
         self.bcs = es.build_bc_markers(cfg, self.lib, self.mesh, self.lay)
         self.lower, self.upper = es.clip_limits(self.lay, dtype, self.device)
 
@@ -235,14 +248,60 @@ class Simulation:
 
     # ------------------------------------------------------------------
     def _make_rans_step(self):
-        """Segregated REACTIVE_RANS outer iteration: explicit flow system
-        (with SST closures), then the implicit SST system."""
+        """Segregated REACTIVE_RANS outer iteration: the flow system (with
+        SST closures), explicit or implicit (EULER_IMPLICIT: the linearised
+        system solved by FGMRES with the JACOBI preconditioner), then the
+        implicit SST system."""
         lib, lay, mesh, prm, bcs = (self.lib, self.lay, self.mesh,
                                     self.params, self.bcs)
         tparams = self.tparams
         lower, upper = self.lower, self.upper
         cfg = self.cfg
         turb_phase = self._make_turb_phase()
+
+        def flow_dt(v, lam_v, lam_c=None):
+            dt, min_dt, _ = timestep.local_time_step(
+                mesh, lay, v, prm.cfl, prm.max_dt, lam_visc=lam_v,
+                lam_inv=lam_c)
+            return timestep.apply_time_marching(
+                dt, min_dt, cfg.unsteady_simulation, cfg.unst_timestep,
+                cfg.unst_cfl_number), min_dt
+
+        def implicit_flow(u, v, nsd, turb, omega_t):
+            lam_v = ns.viscous_lambda(lib, mesh, lay, prm, v,
+                                      vis.Transport(nsd.mu, nsd.kappa),
+                                      nsd.dpdu, turb)
+            dt, min_dt = flow_dt(v, lam_v)
+            res, wall_mask, _, _, jac, flow_fb = ns.ns_assemble(
+                lib, lay, mesh, prm, bcs, v, nsd, turb, omega_t, dt=dt)
+            u = ns.enforce_wall_velocity(lay, u, wall_mask)
+            rhs = -res
+            mv, pc, pm, _ = blockcsr.make_solver_ops_stencil_t(
+                mesh, jac.diag, jac.sel_t, cfg.linear_solver_prec,
+                linear_iter=cfg.linear_solver_iter)
+            sol, _, _ = krylov.fgmres(mv, pc, rhs,
+                                      max_iter=cfg.linear_solver_iter,
+                                      tol=cfg.linear_solver_error,
+                                      precond_matvec=pm)
+            u_new = u + cfg.relaxation_factor_flow * sol
+            u_new = torch.minimum(torch.maximum(u_new, lower), upper)
+            rms = torch.sqrt((rhs * rhs).mean(0))
+            rmax = torch.abs(rhs).amax(0)
+            return u_new, wall_mask, dt, min_dt, flow_fb, rms, rmax
+
+        def explicit_flow(u, v, nsd, turb, omega_t):
+            res, wall_mask, trans, _, lams, flow_fb = ns.ns_assemble(
+                lib, lay, mesh, prm, bcs, v, nsd, turb, omega_t)
+            lam_c = timestep.boundary_lambda_inv(mesh, lay, v, lams[0])
+            lam_v = ns.viscous_lambda_boundary(lib, mesh, lay, prm, v, trans,
+                                               nsd.dpdu, turb, lams[1])
+            dt, min_dt = flow_dt(v, lam_v, lam_c)
+            u = ns.enforce_wall_velocity(lay, u, wall_mask)
+            u_new, rms, rmax = es.explicit_euler_update(
+                lay, mesh, u, res, dt, lower, upper)
+            return u_new, wall_mask, dt, min_dt, flow_fb, rms, rmax
+
+        flow = implicit_flow if cfg.implicit_flow else explicit_flow
 
         def step(u, t_guess, q, mu_t, grad_k, sigma_k):
             tke = q[:, 0]
@@ -251,20 +310,8 @@ class Simulation:
             u, v, nonphys = nsd.u, nsd.v, nsd.nonphys
             turb = vis.TurbFlowData(tke=tke, mu_t=mu_t,
                                     grad_tke=grad_k[:, 0, :], sigma_k=sigma_k)
-            res, wall_mask, trans, _, lams, flow_fb = ns.ns_assemble(
-                lib, lay, mesh, prm, bcs, v, nsd, turb, omega_t)
-            lam_c = timestep.boundary_lambda_inv(mesh, lay, v, lams[0])
-            lam_v = ns.viscous_lambda_boundary(lib, mesh, lay, prm, v, trans,
-                                               nsd.dpdu, turb, lams[1])
-            dt, min_dt, _ = timestep.local_time_step(
-                mesh, lay, v, prm.cfl, prm.max_dt, lam_visc=lam_v,
-                lam_inv=lam_c)
-            dt = timestep.apply_time_marching(
-                dt, min_dt, cfg.unsteady_simulation, cfg.unst_timestep,
-                cfg.unst_cfl_number)
-            u = ns.enforce_wall_velocity(lay, u, wall_mask)
-            u_new, rms, rmax = es.explicit_euler_update(
-                lay, mesh, u, res, dt, lower, upper)
+            u_new, wall_mask, dt, min_dt, flow_fb, rms, rmax = flow(
+                u, v, nsd, turb, omega_t)
             u_new = ns.enforce_wall_velocity(lay, u_new, wall_mask)
             return turb_phase(u_new, v, tke, q, mu_t, grad_k, dt, flow_fb,
                               rms, rmax, nonphys.sum(), min_dt)

@@ -18,7 +18,9 @@ error and adds one to its entry in ``launches``.
   K7 gradient_rows      csrc/gradients_tiled.cu (ops/gradients_tiled.py)
   K8 edge_win           csrc/edge_win.cu     (ops/edge_flux.py)
   K9 inlet_tc           csrc/inlet_tc.cu     (solvers/inlet_tc.py)
-T3 and K8 share the per-edge device function of csrc/edge_side.cuh.
+  K10 edge_implicit     csrc/edge_implicit.cu (ops/edge_implicit.py)
+T3 and K8 share the per-edge device function of csrc/edge_side.cuh; K10
+shares its species h/cp lookup and Stefan-Maxwell solve.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("common.cuh", "edge_side.cuh", "thermo.cu", "node_state.cu",
            "edge_flux.cu", "chem_source.cu", "stencil_solve.cu",
-           "gradients_tiled.cu", "edge_win.cu", "inlet_tc.cu")
+           "gradients_tiled.cu", "edge_win.cu", "inlet_tc.cu",
+           "edge_implicit.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # per-source flags: K9 keeps the plain version's operations (no fused
@@ -45,7 +48,8 @@ SOURCE_FLAGS = {"inlet_tc.cu": ("-fmad=false",)}
 # launches of each kernel since the last reset_launches()
 launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
             "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0,
-            "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0}
+            "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0,
+            "edge_implicit": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,6 +74,8 @@ _ARGTYPES = {
                       _D, _D, _D, _D, _D, _D, _D] + [_P] * 9,
     "su2k_inlet_tc": [_I, _I, _I, _D, _D, _D, _D, _D, _D, _I, _D, _I, _D]
                      + [_P] * 7,
+    "su2k_edge_implicit": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
+                           _I, _D, _D, _D, _D, _D, _D, _I, _I] + [_P] * 9,
 }
 
 _loaded = None
@@ -507,3 +513,48 @@ def inlet_tc(tc, riemann, gamma, alpha):
     _raise("inlet_tc", err)
     launches["inlet_tc"] += 1
     return out
+
+
+# ---------------------------------------------------------------- K10
+def edge_implicit(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec,
+                  muscl, use_limiter):
+    """Kernel K10: per-family implicit edge flux (Kh, nVar, N) and edge
+    Jacobian blocks j_i, j_j (Kh, nVar^2, N) from the stack f_all (R, N) of
+    ops/edge_implicit.implicit_rows, in one launch for every family;
+    consts = (m_infty, prandtl_turb, lewis_turb).  2D only."""
+    m_infty, pr_turb, le_turb = consts
+    f_all = f_all.contiguous()
+    fam_normal = fam_normal.contiguous()
+    fam_evec = fam_evec.contiguous()
+    tab = _cached(lib, "_k_hcp_table", lambda: torch.cat(
+        [lib.h_y, lib.h_y2, lib.cp_y, lib.cp_y2]).contiguous())
+    cst = _cached(lib, "_k_implicit_consts", lambda: torch.cat(
+        [lib.mm, sc.sm_den.reshape(-1), lib.ri]).contiguous())
+    _check("edge_implicit", f_all, fam_normal, fam_evec, tab, cst)
+    nrow, n = f_all.shape
+    kh = len(offsets)
+    from su2_tpu_torch.ops.edge_implicit import implicit_rows
+    if lay.ndim != 2:
+        raise ValueError("edge_implicit: 2D only")
+    if use_limiter and not muscl:
+        raise ValueError("edge_implicit: a limiter needs MUSCL")
+    if nrow != implicit_rows(lay)["total"] \
+            or fam_normal.shape != (kh, n, lay.ndim) \
+            or fam_evec.shape != (kh, n, lay.ndim):
+        raise ValueError("edge_implicit: f_all (R, N), fam_normal/fam_evec "
+                         "(Kh, N, d)")
+    kw = dict(dtype=f_all.dtype, device=f_all.device)
+    nv = lay.nvar
+    flux = torch.empty((kh, nv, n), **kw)
+    j_i = torch.empty((kh, nv * nv, n), **kw)
+    j_j = torch.empty((kh, nv * nv, n), **kw)
+    offs = (ctypes.c_int * kh)(*[int(o) for o in offsets])
+    err = _lib().su2k_edge_implicit(
+        int(f_all.dtype == torch.float64), n, lay.ndim, lay.ns, kh, offs,
+        lib.nt, lib.t0, lib.dt, float(m_infty), float(pr_turb),
+        float(le_turb), sc.mm_sum, int(bool(muscl)), int(bool(use_limiter)),
+        _ptr(f_all), _ptr(fam_normal), _ptr(fam_evec), _ptr(tab), _ptr(cst),
+        _ptr(flux), _ptr(j_i), _ptr(j_j), _stream())
+    _raise("edge_implicit", err)
+    launches["edge_implicit"] += 1
+    return flux, j_i, j_j

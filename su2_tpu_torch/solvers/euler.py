@@ -1,8 +1,9 @@
-"""Reactive Euler layer, explicit subset (torch): weak boundary states,
-the chemistry source and the explicit update.
+"""Reactive Euler layer (torch): weak boundary states and their dP/dU,
+the slip-wall Jacobian, the chemistry source and its Jacobian, and the
+explicit update.
 
-Port of the parts of the JAX package's solvers/euler.py that the explicit
-REACTIVE_RANS step runs (CReactiveEulerSolver,
+Port of the parts of the JAX package's solvers/euler.py that the coupled
+REACTIVE_RANS step runs, explicit and implicit flow (CReactiveEulerSolver,
 solver_direct_reactive.cpp:24-4129).  Sign convention as the reference:
 the residual R(U) accumulates edge fluxes (+ at edge node i, - at j), weak
 BC fluxes and sources; the explicit update is U <- clip(U - R dt/Vol).
@@ -272,6 +273,50 @@ class EulerParams:
     pasr_lb: float
     c_mu: float = 0.09
     tke_inf: float = 0.0
+    # MUSCL reconstruction of the implicit flow's face states
+    muscl: bool = False
+    use_limiter: bool = False
+    limiter_kind: str = "VENKATAKRISHNAN"   # | BARTH_JESPERSEN
+    limiter_coeff: float = 0.5
+    ref_elem_length: float = 0.1
+
+
+def gradient_vars(lay: Layout, v):
+    """[T, u, v, (w), P]: the Euler gradient and limiter variable set."""
+    return torch.cat([v[:, lay.T:lay.T + 1], v[:, lay.VX:lay.VX + lay.ndim],
+                      v[:, lay.P:lay.P + 1]], dim=1)
+
+
+def ghost_dpdu(lib, lay, v_ghost, gamma, vel2):
+    """dP/dU of a state with known gamma (the BC 'Secondary'), (nV, nVar)."""
+    t = v_ghost[:, lay.T]
+    e_s = cl.species_energy(lib, t)
+    gm1 = gamma - 1.0
+    return torch.cat([
+        (gm1 * 0.5 * vel2)[:, None],
+        (1.0 - gamma)[:, None] * v_ghost[:, lay.VX:lay.VX + lay.ndim],
+        gm1[:, None], lib.ri * t[:, None] - gm1[:, None] * e_s], dim=1)
+
+
+def row_gamma_vel2(lay, vrow):
+    """gamma = a^2 rho / P and |v|^2 of primitive rows (nV, nPrim)."""
+    gamma = vrow[:, lay.A] ** 2 * vrow[:, lay.PRHO] / vrow[:, lay.P]
+    vel = vrow[:, lay.VX:lay.VX + lay.ndim]
+    return gamma, (vel * vel).sum(1)
+
+
+def euler_wall_jacobian(lay, normal, dpdu_rows):
+    """d(pressure wall flux)/dU (BC_Euler_Wall implicit part, :2950-2974):
+    the momentum rows (-normal) (x) dP/dU of the wall nodes; normal
+    (nV, d), dpdu_rows (nV, nVar) -> (nV, nVar, nVar)."""
+    area = torch.linalg.norm(normal, dim=1)
+    unit = -normal / area[:, None]
+    contrib = (unit * area[:, None])[:, :, None] * dpdu_rows[:, None, :]
+    nv = normal.shape[0]
+    z = lambda m: torch.zeros((nv, m, lay.nvar), dtype=normal.dtype,
+                              device=normal.device)
+    return torch.cat([z(lay.RHOVX), contrib,
+                      z(lay.nvar - lay.RHOVX - lay.ndim)], dim=1)
 
 
 def compute_gradients(mesh, prm: EulerParams, q):
@@ -320,6 +365,38 @@ def chemistry_source_residual(lib, lay, mesh, prm, v, omega_turb=None):
         omega = chemistry_source_plain(lib, prm, t, rho, ys, omt)
     zero = torch.zeros((v.shape[0], lay.RHOS), dtype=v.dtype, device=v.device)
     return torch.cat([zero, -omega * mesh.volume[:, None]], dim=1)
+
+
+def chemistry_source_system(lib, lay, mesh, prm, v, dtdu_full,
+                            omega_turb=None):
+    """Source residual and its diagonal Jacobian (CSourceReactive::
+    ComputeChemistry implicit part, numerics_direct_reactive.cpp:1826-1878)
+    in plain torch ops, as the JAX package computes it: species rows only,
+    J[s, :] = -(d omega_s/dT) dT/dU Vol, minus d omega_s/d rho_k Vol on the
+    species columns."""
+    t = v[:, lay.T]
+    rho = v[:, lay.PRHO]
+    ys = v[:, lay.YS:lay.YS + lay.ns]
+    rf, rb, kc = cl.reaction_rates(lib, t, rho, ys)
+    om = cl.omega_tensor(lib, rf, rb)
+    k = None
+    if prm.pasr and omega_turb is not None:
+        dfr = cl.dfr_drho(lib, rf, rb, rho, ys)
+        k = cl.pasr_constants(lib, dfr, omega_turb, prm.c_mu, prm.pasr_lb)
+    omega = cl.mass_production(lib, om, k)
+    sjac = cl.source_jacobian(lib, t, rho, ys, rf, rb, kc, k)
+    vol = mesh.volume
+    n = v.shape[0]
+    res = torch.cat([torch.zeros((n, lay.RHOS), dtype=v.dtype,
+                                 device=v.device),
+                     -omega * vol[:, None]], dim=1)
+    rows = -(sjac[:, :, 0][:, :, None] * dtdu_full[:, None, :]) \
+        * vol[:, None, None]                                   # (n, S, nVar)
+    spec = rows[:, :, lay.RHOS:] + (-sjac[:, :, 1:] * vol[:, None, None])
+    rows = torch.cat([rows[:, :, :lay.RHOS], spec], dim=2)
+    diag = torch.cat([torch.zeros((n, lay.RHOS, lay.nvar), dtype=v.dtype,
+                                  device=v.device), rows], dim=1)
+    return res, diag
 
 
 def clip_limits(lay: Layout, dtype, device="cpu"):

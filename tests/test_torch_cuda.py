@@ -1,4 +1,4 @@
-"""The CUDA kernels T1-T4 and K5-K9 against their plain torch versions on
+"""The CUDA kernels T1-T4 and K5-K10 against their plain torch versions on
 the card, and the slice's launch counts.  Every test needs a CUDA device
 and skips without one.  This file imports no JAX, so on a machine without it run it
 alone, past the suite's JAX conftest:
@@ -260,6 +260,99 @@ def test_slice_launches_in_the_tier(card, tmp_path, monkeypatch):
     assert kernels.launches["gradient_rows"] == 6
     assert kernels.launches["inlet_tc"] == 3
     assert kernels.launches["node_state"] == 6
+
+
+# the (muscl, limiter) variants of K10 (cases.with_implicit_flow)
+K10_VARIANTS = {"first_order": (False, None), "muscl": (True, None),
+                "venkatakrishnan": (True, "VENKATAKRISHNAN"),
+                "barth_jespersen": (True, "BARTH_JESPERSEN")}
+
+
+def _k10_args(card, text, dtype):
+    """K10's operands on a perturbed, mixed state of the 153-node channel:
+    the stack of the port's own node state, gradients and limiter."""
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.ops import edge_flux as ef, edge_implicit as ei
+    from su2_tpu_torch.ops import limiters, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    sim = _card_sim(card, text, dtype)
+    lib, lay, mesh, prm = sim.lib, sim.lay, sim.mesh, sim.params
+    n = mesh.npoint
+    rng = np.random.default_rng(9)
+    u = th.tt(th.mixed_state(sim, seed=9), dtype).to(card)
+    nsd = st.node_state_plain(lib, lay, u, sim.t0, sim.tparams)
+    grad = es.compute_gradients(mesh, prm,
+                                vis.ns_gradient_vars(lib, lay, nsd.v, nsd.xs))
+    lim = None
+    if prm.use_limiter:
+        q, g = es.gradient_vars(lay, nsd.v), grad[:, :2 + lay.ndim]
+        lim = (limiters.barth_jespersen(mesh, q, g)
+               if prm.limiter_kind == "BARTH_JESPERSEN" else
+               limiters.venkatakrishnan(mesh, q, g, prm.limiter_coeff,
+                                        prm.ref_elem_length))
+    t = lambda x: th.tt(x, dtype).to(card)
+    turb = vis.TurbFlowData(tke=t(rng.uniform(0.0, 5.0, n)),
+                            mu_t=t(rng.uniform(1e-5, 1e-3, n)),
+                            grad_tke=t(rng.normal(0.0, 1.0, (n, 2))),
+                            sigma_k=t(rng.uniform(0.85, 1.0, n)))
+    f_all = ei.stack_inputs(lay, nsd.v, grad, lim,
+                            vis.Transport(nsd.mu, nsd.kappa), turb,
+                            turb.sigma_k, nsd.dtdu, nsd.dpdu)
+    return (lib, lay, ef.species_consts_of(lib),
+            (prm.m_infty, prm.prandtl_turb, prm.lewis_turb), f_all,
+            mesh.fam_offsets, mesh.fam_normal, mesh.fam_evec, prm.muscl,
+            prm.use_limiter)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("variant", list(K10_VARIANTS))
+def test_k10_kernel_matches_plain(card, tmp_path, variant, dtype):
+    """K10 (every template variant, one launch for both families) against
+    edge_implicit_plain: each output row of each family within 1e-10 (f64)
+    or 1e-4 (f32, fused multiply-adds) of the row's max over the slots, as
+    T3; the pad slots exactly 0."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_implicit as ei
+    muscl, limiter = K10_VARIANTS[variant]
+    args = _k10_args(card, th.with_implicit(th.write_case(tmp_path),
+                                            muscl=muscl, limiter=limiter),
+                     dtype)
+    kernels.reset_launches()
+    got = kernels.edge_implicit(*args)
+    assert kernels.launches["edge_implicit"] == 1
+    want = ei.edge_implicit_plain(*args)
+    pad = th.npy((args[6] == 0).all(-1))              # (Kh, N)
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for g, w in zip(got, want):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert np.isfinite(g).all()
+        scale = np.abs(w).max(axis=-1, keepdims=True)
+        assert (np.abs(g - w) <= tol * scale).all()
+        assert (np.moveaxis(g, 1, 0)[:, pad] == 0.0).all()
+
+
+@pytest.mark.cuda
+def test_implicit_slice_launches(card, tmp_path, monkeypatch):
+    """The implicit JACOBI case: K10 once per iteration (both families in
+    one launch) and T2 twice; T3, K8, T4, K5 and K6 never; with the tier
+    forced, K10 reads K7's rows (two K7 sweeps per iteration)."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import gradients
+    text = th.with_implicit(th.write_case(tmp_path))
+    for tier in (False, True):
+        if tier:
+            monkeypatch.setattr(gradients, "TILED_MIN_NODES", 0)
+        sim = _card_sim(card, text)
+        kernels.reset_launches()
+        _, _, hist, _ = sim.run(3, quiet=True)
+        assert np.isfinite(hist).all()
+        want = {"edge_implicit": 3, "node_state": 6, "edge_flux": 0,
+                "edge_win": 0, "chem_source": 0, "stencil_fgmres": 0,
+                "stencil_sgs_matvec": 0, "gradient_rows": 6 * tier}
+        assert {k: kernels.launches[k] for k in want} == want
+        assert kernels.launches["mixture_enthalpy"] >= 3
 
 
 BANDS = {"band2": (2, (-9, -8, -7, -1, 1, 7, 8, 9)),

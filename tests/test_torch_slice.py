@@ -29,22 +29,33 @@ def text(tmp_path_factory):
 VARIANTS = [(False, "isothermal"), (True, "isothermal"),
             (False, "slip_heatflux_mass_flow")]
 VARIANT_IDS = ["keq", "backward", "slip_heatflux_mass_flow"]
+# implicit flow (JACOBI for both systems): (muscl, limiter)
+IMPLICIT = (True, "VENKATAKRISHNAN")
+# the mixed start of the implicit comparisons: every species present
+MIXED_YS = (0.01, 0.1, 0.59, 0.05, 0.15, 0.02, 0.03, 0.03, 0.02)
 
 
 @pytest.mark.parametrize(
-    "backward_rate,variant,prec,tiled",
-    [(b, v, "LU_SGS", False) for b, v in VARIANTS]
-    + [(b, v, "JACOBI", False) for b, v in VARIANTS]
-    + [(False, "isothermal", "LU_SGS", True),
-       (False, "slip_heatflux_mass_flow", "LU_SGS", True),
-       (False, "total_conditions", "LU_SGS", False),
-       (False, "shared_corners", "LU_SGS", False)],
+    "backward_rate,variant,prec,tiled,implicit",
+    [(b, v, "LU_SGS", False, None) for b, v in VARIANTS]
+    + [(b, v, "JACOBI", False, None) for b, v in VARIANTS]
+    + [(False, "isothermal", "LU_SGS", True, None),
+       (False, "slip_heatflux_mass_flow", "LU_SGS", True, None),
+       (False, "total_conditions", "LU_SGS", False, None),
+       (False, "shared_corners", "LU_SGS", False, None),
+       (False, "isothermal", "JACOBI", False, IMPLICIT),
+       (False, "isothermal", "JACOBI", False, (True, None)),
+       (False, "isothermal", "JACOBI", False, (False, None)),
+       (False, "isothermal", "JACOBI", True, IMPLICIT),
+       (False, "slip_heatflux_mass_flow", "JACOBI", False, IMPLICIT)],
     ids=VARIANT_IDS + [f"{i}-jacobi" for i in VARIANT_IDS]
     + ["keq-tiled", "slip_heatflux_mass_flow-tiled", "total_conditions",
-       "shared_corners"])
+       "shared_corners", "implicit", "implicit-nolimiter",
+       "implicit-firstorder", "implicit-tiled",
+       "implicit-slip_heatflux_mass_flow"])
 def test_three_coupled_iterations_match_jax(tmp_path, monkeypatch,
                                             backward_rate, variant, prec,
-                                            tiled):
+                                            tiled, implicit):
     """Every output field of 3 coupled iterations from the same state:
     rtol 1e-9, atol 1e-12 max|field|.  The module tests hold single
     evaluations at 1e-12..5e-12; three explicit steps compound those
@@ -58,27 +69,37 @@ def test_three_coupled_iterations_match_jax(tmp_path, monkeypatch,
     gradient rows and the windowed edge kernel, fused edge mode on); the
     TOTAL_CONDITIONS inlet runs su2_tpu's _solve_call, the arithmetic the
     port computes; shared_corners puts two nodes in two weak flux markers
-    each (the boundary scatters' order)."""
+    each (the boundary scatters' order).
+    implicit-*: EULER_IMPLICIT flow with JACOBI, MUSCL with the
+    Venkatakrishnan limiter, unlimited MUSCL or first order; su2_tpu runs
+    its fused implicit edge kernel in interpret mode.  They start from the
+    freestream with every species present (MIXED_YS): in the
+    case's own pure streams su2_tpu's effective diffusion (1 - x_s over a
+    trace-sized sum) and the port's (sum_{k!=s} x_k over it,
+    ops/viscous_t.py) differ by 1 - sum_k x_k, which sets su2_tpu's there;
+    test_torch_pure_streams.py holds those states."""
     from su2_tpu.pallas import edge_kernels as ek, inlet_tc as jtc
     from su2_tpu_torch.ops import gradients
-    text = th.with_prec(th.case_variant(
-        th.write_case(tmp_path, backward_rate=backward_rate), variant), prec)
+    text = th.case_variant(
+        th.write_case(tmp_path, backward_rate=backward_rate), variant)
+    text = (th.with_implicit(text, *implicit) if implicit
+            else th.with_prec(text, prec))
     js, ts = th.jax_sim(text), th.torch_sim(text)
     if tiled:
         monkeypatch.setenv("SU2_TPU_TILED_GRAD", "1")
         monkeypatch.setenv("SU2_TPU_WIN_EDGE", "1")
         monkeypatch.setattr(gradients, "TILED_MIN_NODES", 0)
-        ek.set_edge_kernel_mode(True)
+    ek.set_edge_kernel_mode(tiled or implicit is not None)
     jtc.set_inlet_tc_mode(variant == "total_conditions")
     try:
         step = jax.jit(js._make_rans_step())
-        _three_steps(js, ts, step)
+        _three_steps(js, ts, step, mixed=implicit is not None)
     finally:
         ek.set_edge_kernel_mode(False)
         jtc.set_inlet_tc_mode(False)
 
 
-def _three_steps(js, ts, step):
+def _three_steps(js, ts, step, mixed=False):
     from su2_tpu_torch.convert import state_from_numpy
     j_state = (js.u0, js.t0) + tuple(js.initial_turb_state())
     # the port starts from the JAX carry, which equals its own initial state
@@ -86,6 +107,10 @@ def _three_steps(js, ts, step):
     own = (ts.u0, ts.t0) + tuple(ts.initial_turb_state())
     for a, b in zip(t_state, own):
         assert torch.equal(a, b)
+    if mixed:
+        u = th.mixed_state(ts, ys=MIXED_YS)
+        j_state = (jnp.asarray(u),) + j_state[1:]
+        t_state = (th.tt(u),) + t_state[1:]
     for _ in range(3):
         jo = step(*j_state, jnp.asarray(False))
         to = ts._step(*t_state)
@@ -121,12 +146,16 @@ def test_run_chunks_and_history(text, tmp_path):
 
 @pytest.mark.parametrize("key,value,where", [
     ("LINEAR_SOLVER_PREC", "LINELET", "su2_tpu.linalg.linelet"),
-    ("SPATIAL_ORDER_FLOW", "2ND_ORDER", "su2_tpu.ops.limiters"),
-    ("TIME_DISCRE_FLOW", "EULER_IMPLICIT", "su2_tpu.solvers.euler"),
+    ("SPATIAL_ORDER_FLOW", "2ND_ORDER", "su2_tpu.solvers.euler"),
+    ("TIME_DISCRE_FLOW", "EULER_IMPLICIT", "su2_tpu.pallas.stencil_solve"),
     ("CONV_NUM_METHOD_FLOW", "ROE", "su2_tpu.ops"),
     ("KIND_TURB_MODEL", "SA", "su2_tpu.turbulence"),
+    ("LINEAR_SOLVER", "BCGSTAB", "su2_tpu.linalg.krylov"),
 ])
 def test_unported_options_raise(text, key, value, where):
+    """Options outside the port raise, naming the su2_tpu module that runs
+    them: explicit flow with MUSCL (convective_residual), implicit flow
+    with the case's LU_SGS (the flow's 13-wide block sweep)."""
     lines = [ln for ln in text.splitlines() if not ln.startswith(key)]
     with pytest.raises(NotImplementedError, match=where.replace(".", r"\.")):
         th.torch_sim("\n".join(lines + [f"{key}= {value}"]))
@@ -154,6 +183,36 @@ def test_cli_two_iterations(tmp_path):
         rows = [ln for ln in f.read().splitlines()
                 if ln and ln[0].isdigit()]
     assert len(rows) == 2
+
+
+def test_cli_implicit_two_iterations(tmp_path):
+    """The implicit-flow case through the CLI with --cpu: runs, and the
+    history has 2 finite rows."""
+    cfg, env = _cli_case(tmp_path)
+    cfg.write_text(th.with_implicit(cfg.read_text()))
+    proc = subprocess.run([sys.executable, "-m", "su2_tpu_torch", "--cpu",
+                           str(cfg), "2"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    with open(tmp_path / "history.dat") as f:
+        rows = [ln for ln in f.read().splitlines()
+                if ln and ln[0].isdigit()]
+    assert len(rows) == 2 and "nan" not in " ".join(rows).lower()
+
+
+def test_implicit_3d_raises():
+    """3D implicit flow is refused, naming the su2_tpu module with the 3D
+    viscous Jacobians."""
+    from su2_tpu_torch.config import Config
+    from su2_tpu_torch.driver import Simulation
+    from su2_tpu_torch.geometry.structured import box_mesh
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        text = th.with_implicit(th.write_case(d))
+        with pytest.raises(NotImplementedError,
+                           match=r"su2_tpu\.ops\.viscous_t"):
+            Simulation(Config(text=text), raw_mesh=box_mesh(3, 3, 3),
+                       dtype=torch.float64, device="cpu")
 
 
 def test_cli_refuses_without_a_card(tmp_path):

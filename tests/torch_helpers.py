@@ -73,6 +73,54 @@ def with_prec(text, prec):
     return "\n".join(lines + [f"LINEAR_SOLVER_PREC= {prec}"])
 
 
+def with_implicit(text, muscl=True, limiter="VENKATAKRISHNAN",
+                  cfl=cases.IMPLICIT_CFL):
+    """The case text with implicit flow (cases.with_implicit_flow): JACOBI
+    for both systems, MUSCL with the limiter (None: unlimited), first order
+    with muscl False."""
+    return cases.with_implicit_flow(text, muscl=muscl, limiter=limiter,
+                                    cfl=cfl)
+
+
+def mixed_state(ts, ys=None, seed=None):
+    """A conserved state (N, nVar) in numpy of the port's Simulation ts: the
+    freestream's T, P and velocity (each perturbed by 2 % per node when a
+    seed is given) and the composition ys, or per node a Dirichlet draw
+    with every species present when ys is None; the energy is the
+    composition's own, so the state keeps its temperature."""
+    from su2_tpu_torch.chemistry import library as cl
+    lay, n = ts.lay, ts.mesh.npoint
+    _, t_inf, p_inf, _, vel_inf, _ = ts.freestream_primitives()
+    rng = np.random.default_rng(seed)
+    jit = (lambda shape: 1.0 + 0.02 * rng.standard_normal(shape)) \
+        if seed is not None else (lambda shape: np.ones(shape))
+    t = t_inf * jit(n)
+    p = p_inf * jit(n)
+    vel = vel_inf[None] * jit((n, lay.ndim)) \
+        + (0.2 * rng.standard_normal((n, lay.ndim)) if seed is not None
+           else 0.0)
+    if ys is None:
+        alpha = np.array([1.0] * 5 + [0.05] * (lay.ns - 5))
+        ys = rng.dirichlet(alpha, n)
+    ys = np.broadcast_to(np.asarray(ys, np.float64), (n, lay.ns))
+    lib = ts.lib_host
+    h = tt(cl.mixture_enthalpy_plain(lib, tt(t), tt(ys)))
+    rgas = tt(cl.mixture_rgas(lib, tt(ys)))
+    h, rgas = npy(h), npy(rgas)
+    rho = p / (rgas * t)
+    e = h - rgas * t + 0.5 * (vel * vel).sum(1)
+    return np.concatenate([rho[:, None], rho[:, None] * vel,
+                           (rho * e)[:, None], rho[:, None] * ys], axis=1)
+
+
+def jacobian_from_jax(jac):
+    """A JAX StencilJacobianT as the port's linalg.blockcsr.StencilJacobianT
+    (CPU tensors; the same diag (nP, v, v) and lane-layout sel_t
+    (K*v*v, nP))."""
+    from su2_tpu_torch.linalg.blockcsr import StencilJacobianT
+    return StencilJacobianT(diag=tt(jac.diag), sel_t=tt(jac.sel_t))
+
+
 def chemlib_numpy(jlib) -> dict:
     """The JAX ChemLib's leaves as numpy plus its metadata."""
     d = {k: np.asarray(getattr(jlib, k)) for k in _TABLE_FIELDS}
