@@ -13,17 +13,23 @@ Phases (one line each; any failure exits nonzero):
              (377 vertices), in float64 and float32
   4 stencil  K5 (sweep + matvec, sweep only, matvec only) and K6 (one
              FGMRES(10) cycle) against their plain versions, in float64,
-             float32 and mixed (bf16 sweep blocks), on the SST systems the
-             port assembles at 9,072 and 142,317 nodes and on band systems
-             with round-robin (not proper) colorings, with times
+             float32 and mixed (bf16 sweep blocks): on the SST systems
+             (v = 2) the port assembles at 9,072 and 142,317 nodes, on the
+             implicit LU_SGS case's flow systems (v = 13: K6 at 9,072 nodes,
+             K5 at 142,317) and on band systems (v = 2, 3, 7) with
+             round-robin (not proper) colorings; times, bounds, K6's
+             cooperative grid, torch.sparse.mm on the matvec as BSR (or
+             what it raised)
   5 step     5 coupled iterations of the 9,072-node case in float64 on the
              card (kernels, K6 for the SST solve) and on the CPU (plain
              versions) from one state; again with the >= 200k-node tier
              forced on both sides (K7 and K8 against their plain versions
              inside the step), and with a TOTAL_CONDITIONS inlet (K9); the
-             implicit-flow case (EULER_IMPLICIT, MUSCL + Venkatakrishnan,
-             JACOBI: K10 once per iteration) the same way, also with the
-             tier forced (K7's rows feeding K10)
+             implicit-flow case (EULER_IMPLICIT, MUSCL + Venkatakrishnan:
+             K10 once per iteration) the same way with JACOBI, with JACOBI
+             and the tier forced (K7's rows feeding K10), and with LU_SGS
+             (the flow's 13 x 13 system through K5 past the full-precision
+             gate, the SST's through K6)
   6 slice    Simulation.run: 9,072 nodes x 50, 142,317 nodes x 20 and
              565,500 nodes x 10 (the tier: K7 twice and K8 once per
              iteration, T3 never; profiled once) in float32 with LU_SGS;
@@ -36,10 +42,13 @@ Phases (one line each; any failure exits nonzero):
              bypasses K5/K6) and with LU_SGS in the order J, L, each timed
              and then profiled over 3 iterations (torch.profiler: CUDA
              launches and device-busy ms per iteration, the launches per
-             stage of the step, step_groups); the implicit-flow
-             case at 9,072 x 20, 142,317 x 10 and 565,500 x 3 nodes in
+             stage of the step, step_groups); the implicit-flow case in
              float32, timed and profiled (K10 and T2 twice per iteration,
-             T3, K8, T4, K5 and K6 never)
+             T3, K8 and T4 never): with JACOBI at 9,072 x 10, 142,317 x 5
+             and 565,500 x 2 (K5 and K6 never), with LU_SGS at 9,072 x 20
+             (K6 twice per iteration: the flow's mixed one-launch tier and
+             the SST's, K5 never), 142,317 x 10 and 565,500 x 3 (K5 twenty
+             times per iteration, K6 never)
   K10 phase  (between 4 and 5) K10 against its plain version at 9,072 nodes
              in float64 and float32 for the four (MUSCL, limiter) variants
              and at 142,317 and 565,500 nodes in float32 (the latter's
@@ -133,8 +142,9 @@ TC_T_TOT = 600.0        # T_tot of cases.with_total_conditions
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "mixed": 67e12}
 KRYLOV_M = 10           # LINEAR_SOLVER_ITER of the case (the cfg default)
-# iterations of the implicit-flow slice runs per size
-IMPLICIT_NITERS = {"flagship": 20, "scaling": 10, "tier": 3}
+# iterations of the implicit-flow slice runs per size: JACOBI, and LU_SGS
+IMPLICIT_NITERS = {"flagship": 10, "scaling": 5, "tier": 2}
+LUSGS_NITERS = {"flagship": 20, "scaling": 10, "tier": 3}
 
 
 def phase(name, msg):
@@ -183,15 +193,18 @@ def demangle(sym):
 
 
 def ptxas_summary(log):
-    """One line per compiled kernel: registers and stack bytes."""
-    out, name = [], None
+    """One line per compiled kernel: registers, and the stack frame and
+    spill bytes (ptxas -v prints them before the registers)."""
+    out, name, frame = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = demangle(line.split("'")[1])
+            name, frame = demangle(line.split("'")[1]), ""
+        elif "bytes stack frame" in line and name:
+            frame = line.strip()
         elif "Used" in line and "registers" in line and name:
             regs, tail = line.split("Used")[1].split("registers", 1)
             out.append(f"{name}: {regs.strip()} registers, "
-                       f"{tail.strip(', ')}")
+                       f"{tail.strip(', ')}" + (f"; {frame}" if frame else ""))
             name = None
     return out
 
@@ -248,7 +261,8 @@ def compare(name, dt, got, want, per_row=False):
 def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
               total_conditions=False, implicit=None):
     """The synthetic case on channel_mesh(nx, ny); implicit: (muscl,
-    limiter) of the implicit-flow variant (JACOBI for both systems)."""
+    limiter) of the implicit-flow variant, whose flow and SST systems are
+    solved with prec as well."""
     from su2_tpu_torch import cases
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
@@ -258,7 +272,7 @@ def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
     if total_conditions:
         text = cases.with_total_conditions(text)
     if implicit is not None:
-        text = cases.with_implicit_flow(text, *implicit)
+        text = cases.with_implicit_flow(text, *implicit, prec=prec)
     return Simulation(Config(text=text), raw_mesh=channel_mesh(nx, ny),
                       dtype=dtype, device=device)
 
@@ -650,29 +664,31 @@ def bound_of(nbyte, nflop, variant):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def capture_sst_system(sim, steps=3):
-    """The SST solve's operands (diag, sel_t, colors, rhs) of the
-    port's own assembly, recorded around its solver calls during the
-    steps-th coupled step from the freestream state."""
+def capture_systems(sim, steps=3):
+    """The operands (diag, sel_t, colors, rhs) of the solves of the port's
+    own assembly, by block width (the SST's 2, the implicit flow's 13),
+    recorded around its solver calls during the steps-th coupled step from
+    the freestream state."""
     from su2_tpu_torch.linalg import blockcsr, krylov
     rec = {}
     make_ops, fgmres = blockcsr.make_solver_ops_stencil_t, krylov.fgmres
 
     def rec_ops(mesh, diag, sel_t, kind, colors=None, ncolor=0,
                 linear_iter=5):
-        rec.update(diag=diag, sel_t=sel_t, colors=colors, ncolor=ncolor)
+        sys_ = rec.setdefault(diag.shape[-1], {})
+        sys_.update(diag=diag, sel_t=sel_t, colors=colors, ncolor=ncolor)
         mv, pc, pm, solve = make_ops(mesh, diag, sel_t, kind, colors, ncolor,
                                      linear_iter)
         if solve is None:
             return mv, pc, pm, None
 
         def rec_solve(b, m, tol):
-            rec["rhs"] = b
+            sys_["rhs"] = b
             return solve(b, m, tol)
         return mv, pc, pm, rec_solve
 
     def rec_fgmres(matvec, precond, b, **kw):
-        rec["rhs"] = b
+        rec[b.shape[1]]["rhs"] = b
         return fgmres(matvec, precond, b, **kw)
 
     state = (sim.u0, sim.t0) + tuple(sim.initial_turb_state())
@@ -687,8 +703,8 @@ def capture_sst_system(sim, steps=3):
     return rec
 
 
-def sst_operands(sim, rec, variant):
-    """K5/K6 operands of a captured SST system, laid out by the port's own
+def system_operands(sim, rec, variant):
+    """K5/K6 operands of a captured system, laid out by the port's own
     StencilSolveOps: (kwargs, unit right side, right side)."""
     import torch
     from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
@@ -785,27 +801,37 @@ def k6_barriers(ncolor, m):
     return 2 + m * (2 * ncolor + 1) + m * (m - 1) // 2
 
 
-def stencil_phase(sims, report):
-    """K5 and K6 against their plain versions: the SST systems the port
-    assembles at both sizes and band systems with dense blocks, in f64,
-    f32 and mixed."""
+def stencil_phase(sims, flow_sims, report):
+    """K5 and K6 against their plain versions, in f64, f32 and mixed: the
+    SST systems the port assembles at both sizes (v = 2), the implicit
+    LU_SGS case's flow systems (v = 13: K6 at 9,072 nodes, K5 at 142,317),
+    and band systems with dense blocks (v = 2, 3 and 7)."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import stencil_solve as ts
-    systems = {}
+    systems = {}            # name -> (operands of a variant, run K5, run K6)
     for size, sim in sims.items():
-        rec = capture_sst_system(sim)
+        rec = capture_systems(sim)[2]
         systems[f"sst{sim.mesh.npoint}"] = (
-            lambda var, sim=sim, rec=rec: sst_operands(sim, rec, var))
-    systems["band2"] = lambda var: band_operands(
-        2, (-9, -8, -7, -1, 1, 7, 8, 9), var)
-    systems["band3"] = lambda var: band_operands(3, (-5, -1, 1, 5), var)
-    for sname, make in systems.items():
+            lambda var, sim=sim, rec=rec: system_operands(sim, rec, var),
+            True, True)
+    for size, sim in flow_sims.items():
+        rec = capture_systems(sim)[sim.lay.nvar]
+        systems[f"flow{sim.mesh.npoint}"] = (
+            lambda var, sim=sim, rec=rec: system_operands(sim, rec, var),
+            size != "flagship", size == "flagship")
+    systems["band2"] = (lambda var: band_operands(
+        2, (-9, -8, -7, -1, 1, 7, 8, 9), var), True, True)
+    systems["band3"] = (lambda var: band_operands(3, (-5, -1, 1, 5), var),
+                        True, True)
+    systems["band7"] = (lambda var: band_operands(7, (-9, -1, 1, 9), var),
+                        True, True)
+    for sname, (make, run_k5, run_k6) in systems.items():
         for var in ("float64", "float32", "mixed"):
             args, r, b = make(var)
             n, v = r.shape
             rtol, afrac = TOL[("stencil_sgs_matvec", var)]
-            for mode in ("sgs_matvec", "sgs", "matvec"):
+            for mode in ("sgs_matvec", "sgs", "matvec") if run_k5 else ():
                 sweep, matvec = mode != "matvec", mode != "sgs"
                 if mode == "matvec" and var == "mixed":
                     continue          # the matvec never reads bf16 blocks
@@ -845,10 +871,7 @@ def stencil_phase(sims, report):
                                  k5_flops(args, n, v, sweep, matvec), var)
                 lib_ms, lib_txt = None, ""
                 if mode == "matvec":
-                    mat = bsr_operator(args, n, v)
-                    xv = r.reshape(n * v, 1)
-                    lib_ms = cuda_time(lambda: torch.sparse.mm(mat, xv))
-                    lib_txt = f" torch.sparse.mm (BSR) {lib_ms:.4f} ms"
+                    lib_ms, lib_txt = bsr_time(args, r, n, v)
                 phase("stencil", f"K5 {mode} {sname} {var}: max_abs_err "
                       f"{err:.3e} ({worst:.2e} of its field's max) kernel "
                       f"{ms:.4f} ms plain {plain_ms:.4f} ms bound "
@@ -857,8 +880,26 @@ def stencil_phase(sims, report):
                     (sname, var, mode)] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound[0], bound_by=bound[1],
-                        library_ms=lib_ms)
-            k6_check(sname, var, args, r, b, report)
+                        library_ms=lib_ms, library=lib_txt.strip() or None)
+            if run_k6:
+                k6_check(sname, var, args, r, b, report)
+
+
+def bsr_time(args, r, n, v):
+    """(ms, label) of torch.sparse.mm on the matvec operator as a BSR
+    tensor with v x v blocks, the yardstick of the matvec; (None, what it
+    raised) where torch does not take that block size on the card."""
+    import torch
+    try:
+        mat = bsr_operator(args, n, v)
+        xv = r.reshape(n * v, 1)
+        torch.sparse.mm(mat, xv)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        msg = str(exc).strip().splitlines()[0][:120]
+        return None, f" torch.sparse.mm (BSR, {v} x {v} blocks) raised: {msg}"
+    ms = cuda_time(lambda: torch.sparse.mm(mat, xv))
+    return ms, f" torch.sparse.mm (BSR) {ms:.4f} ms"
 
 
 def k6_check(sname, var, args, r, b, report):
@@ -910,6 +951,8 @@ def k6_check(sname, var, args, r, b, report):
         if label == "tol 1e-6":
             err_abs = e.max().item()
         iters.append(int(it))
+    grid = kernels.stencil_fgmres_grid(
+        b.dtype, args["selp_t"].dtype == torch.bfloat16, v, n, KRYLOV_M)
     kfn = lambda: kernels.stencil_fgmres(**args, b=b, m=KRYLOV_M, tol=1e-6)
     pfn = lambda: ts.fgmres_plain(**args, b=b, m=KRYLOV_M, tol=1e-6)
     ms, plain_ms = cuda_time(kfn, reps=10), cuda_time(pfn, reps=5)
@@ -920,26 +963,32 @@ def k6_check(sname, var, args, r, b, report):
     phase("stencil", f"K6 {sname} {var}: iterations {iters} equal to the "
           f"plain version's, max error {err:.2e} of max|x|; kernel {ms:.4f} "
           f"ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]});"
-          f" {k6_barriers(args['ncolor'], KRYLOV_M)} grid barriers")
+          f" {k6_barriers(args['ncolor'], KRYLOV_M)} grid barriers; "
+          f"cooperative grid {grid} blocks of 256 threads (v = {v})")
     report.setdefault("stencil_fgmres", {})[(sname, var)] = dict(
         max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
         bound_by=bound[1], library_ms=None,
-        barriers=k6_barriers(args["ncolor"], KRYLOV_M))
+        barriers=k6_barriers(args["ncolor"], KRYLOV_M), grid=grid)
 
 
-def step_phase(tmp, tier=False, total_conditions=False, implicit=None):
+def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
+               prec="JACOBI"):
     """5 coupled iterations, card vs CPU, from the state after 10 card
     iterations of the flagship-class case; tier=True forces the
     >= 200k-node tier on both sides (TILED_MIN_NODES = 0: K7 and K8, or
     K7 feeding K10, on the card), total_conditions a TOTAL_CONDITIONS
     inlet (K9), implicit the implicit-flow variant (muscl, limiter) (K10
-    once per iteration)."""
+    once per iteration) with the preconditioner prec for its flow and SST
+    systems (LU_SGS in f64 at 9,072 nodes: the flow's 13 x 13 system past
+    the full-precision gate, K5 once per Krylov vector, FGMRES(10); the
+    SST's one K6 launch)."""
     from su2_tpu_torch.ops import gradients
     saved = gradients.TILED_MIN_NODES
     if tier:
         gradients.TILED_MIN_NODES = 0
     try:
-        worst, counts, n = _step_compare(tmp, total_conditions, implicit)
+        worst, counts, n = _step_compare(tmp, total_conditions, implicit,
+                                         prec)
     finally:
         gradients.TILED_MIN_NODES = saved
     imp = implicit is not None
@@ -948,7 +997,9 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None):
             "edge_implicit": 5 * imp, "chem_source": 5 * (not imp),
             "gradient_rows": 10 * tier, "inlet_tc": 5 * total_conditions}
     if imp:
-        want.update(stencil_fgmres=0, stencil_sgs_matvec=0)
+        lusgs = prec != "JACOBI"
+        want.update(stencil_fgmres=5 * lusgs,
+                    stencil_sgs_matvec=5 * KRYLOV_M * lusgs)
     for k, c in want.items():
         if counts[k] != c:
             raise AssertionError(f"step: {k} launched {counts[k]} times in "
@@ -960,17 +1011,19 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None):
     if imp:
         what = ("the implicit flow (K10) with the >= 200k-node tier forced "
                 "(K7 rows into K10)" if tier else "the implicit flow (K10)")
+        what += f", {prec}"
     phase("step", f"5 iterations at {n} nodes f64 with {what}, card vs CPU "
           f"within rtol 1e-9, atol 1e-12*max|field| (largest difference "
           f"{worst:.3e} of its field's max); card launches {counts}")
 
 
-def _step_compare(tmp, total_conditions, implicit=None):
+def _step_compare(tmp, total_conditions, implicit=None, prec="JACOBI"):
     import torch
     from su2_tpu_torch import kernels
-    gpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cuda",
+    prec = "LU_SGS" if implicit is None else prec
+    gpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cuda", prec,
                     total_conditions=total_conditions, implicit=implicit)
-    cpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cpu",
+    cpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cpu", prec,
                     total_conditions=total_conditions, implicit=implicit)
     s_gpu = (gpu.u0, gpu.t0) + tuple(gpu.initial_turb_state())
     for _ in range(10):
@@ -1002,20 +1055,31 @@ def _step_compare(tmp, total_conditions, implicit=None):
     return worst, dict(kernels.launches), gpu.mesh.npoint
 
 
-# the stencil kernel of each size's SST solve and its launches per
-# iteration: one K6 cycle at 9,072 nodes, KRYLOV_M K5 (z, A z) at 142,317
-# and 565,500 (the mixed tier)
-STENCIL_PER_ITER = {"flagship": ("stencil_fgmres", 1),
-                    "scaling": ("stencil_sgs_matvec", KRYLOV_M),
-                    "tier": ("stencil_sgs_matvec", KRYLOV_M)}
+# the stencil kernels' launches per iteration with LU_SGS: the explicit
+# step's SST solve, one K6 cycle at 9,072 nodes, KRYLOV_M K5 (z, A z) at
+# 142,317 and 565,500 (the mixed tier); the implicit step's flow (v = 13)
+# and SST (v = 2) solves, one K6 cycle each at 9,072 nodes (the mixed
+# one-launch tier for the flow), KRYLOV_M K5 each at the larger sizes
+STENCIL_PER_ITER = {
+    "flagship": {"stencil_fgmres": 1, "stencil_sgs_matvec": 0},
+    "scaling": {"stencil_fgmres": 0, "stencil_sgs_matvec": KRYLOV_M},
+    "tier": {"stencil_fgmres": 0, "stencil_sgs_matvec": KRYLOV_M}}
+IMPLICIT_STENCIL_PER_ITER = {
+    "flagship": {"stencil_fgmres": 2, "stencil_sgs_matvec": 0},
+    "scaling": {"stencil_fgmres": 0, "stencil_sgs_matvec": 2 * KRYLOV_M},
+    "tier": {"stencil_fgmres": 0, "stencil_sgs_matvec": 2 * KRYLOV_M}}
 
 
 def step_groups():
-    """(module, function name, group) of the step's stages whose CUDA
-    launches profile_steps counts apart; each call of one is wrapped in a
-    torch.profiler range named by its group while the profile runs."""
+    """(module or class, function name, group) of the step's stages whose
+    CUDA launches profile_steps counts apart; each call of one is wrapped
+    in a torch.profiler range named by its group while the profile runs.
+    The flow's solve is the top-level FGMRES (the torch Krylov loop or the
+    one-launch K6 of StencilSolveOps), the SST's sits inside "SST
+    solve"."""
     from su2_tpu_torch import state as st
     from su2_tpu_torch.linalg import blockcsr, krylov
+    from su2_tpu_torch.linalg.stencil_solve import StencilSolveOps
     from su2_tpu_torch.ops import (ausm_t, edge_flux, edge_implicit,
                                    limiters, viscous_t)
     from su2_tpu_torch.solvers import euler as es, ns
@@ -1037,7 +1101,9 @@ def step_groups():
             (es, "chemistry_source_system", "chemistry source"),
             (es, "chemistry_source_residual", "chemistry source"),
             (blockcsr, "block_diag_inv", "block inverse"),
+            (StencilSolveOps, "__init__", "sweep block layout"),
             (krylov, "fgmres", "FGMRES"),
+            (StencilSolveOps, "fgmres", "FGMRES"),
             (sst, "sst_step", "SST solve")]
 
 
@@ -1166,9 +1232,9 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     if counts["mixture_enthalpy"] < niter:
         raise AssertionError(f"{size}: mixture_enthalpy launched "
                              f"{counts['mixture_enthalpy']} < {niter}")
-    name, per_iter = STENCIL_PER_ITER[size]
-    for k in ("stencil_fgmres", "stencil_sgs_matvec"):
-        want_k = per_iter * niter if (k == name and prec == "LU_SGS") else 0
+    table = IMPLICIT_STENCIL_PER_ITER if imp else STENCIL_PER_ITER
+    for k, per_iter in table[size].items():
+        want_k = per_iter * niter if prec == "LU_SGS" else 0
         if counts[k] != want_k:
             raise AssertionError(f"{size} {prec}: {k} launched {counts[k]} "
                                  f"times in {niter} iterations, expected "
@@ -1246,17 +1312,20 @@ def main():
                   f"{time.perf_counter() - t0:.1f} s")
         for dt in ("float64", "float32"):
             tier_kernel_phase(sims["tier"], dt, report)
-        stencil_phase({k: sims[k] for k in ("flagship", "scaling")}, report)
-        # the implicit-flow case (MUSCL + Venkatakrishnan, JACOBI) at every
-        # size; K10 against its plain version at every size
+        # the implicit-flow case (MUSCL + Venkatakrishnan) at every size,
+        # with JACOBI (K10, the flow's solve in torch ops) and with LU_SGS
+        # (the flow's 13 x 13 system through K5/K6)
         main_imp = IMPLICIT_VARIANTS["venkatakrishnan"]
-        imp = {}
+        imp, lusgs = {}, {}
         for size in SIZES:
-            t0 = time.perf_counter()
-            imp[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda",
-                                  implicit=main_imp)
-            phase("k10", f"{imp[size].mesh.npoint}-node implicit case built "
-                  f"in {time.perf_counter() - t0:.1f} s")
+            for prec, out in (("JACOBI", imp), ("LU_SGS", lusgs)):
+                t0 = time.perf_counter()
+                out[size] = make_case(tmp, *SIZES[size], torch.float32,
+                                      "cuda", prec, implicit=main_imp)
+                phase("k10", f"{out[size].mesh.npoint}-node implicit {prec} "
+                      f"case built in {time.perf_counter() - t0:.1f} s")
+        stencil_phase({k: sims[k] for k in ("flagship", "scaling")},
+                      {k: lusgs[k] for k in ("flagship", "scaling")}, report)
         for dt in ("float64", "float32"):
             implicit_kernel_phase(imp["flagship"], dt, report,
                                   list(IMPLICIT_VARIANTS))
@@ -1268,6 +1337,7 @@ def main():
         step_phase(tmp, total_conditions=True)
         step_phase(tmp, implicit=main_imp)
         step_phase(tmp, tier=True, implicit=main_imp)
+        step_phase(tmp, implicit=main_imp, prec="LU_SGS")
         # each run: (label, launch counts, iterations)
         runs = []
         for size, niter in niters.items():
@@ -1290,20 +1360,29 @@ def main():
                             prec="JACOBI")
             for sim, prec in ((jac, "JACOBI"), (sims[size], "LU_SGS")):
                 slice_phase(sim, size, niter, card, prec=prec, profile=True)
-        # the implicit flow: K10 once per iteration, profiled
-        for size, niter in IMPLICIT_NITERS.items():
-            runs.append((f"{imp[size].mesh.npoint} implicit", slice_phase(
-                imp[size], size, niter, card, prec="JACOBI", profile=True),
-                niter))
+        # the implicit flow with JACOBI, then with LU_SGS: K10 once per
+        # iteration; K6 twice per iteration at 9,072 nodes, K5 twice per
+        # Krylov vector at the larger sizes; profiled
+        for size in SIZES:
+            for prec, sims_p, its in (("JACOBI", imp, IMPLICIT_NITERS),
+                                      ("LU_SGS", lusgs, LUSGS_NITERS)):
+                runs.append((f"{sims_p[size].mesh.npoint} implicit {prec}",
+                             slice_phase(sims_p[size], size, its[size], card,
+                                         prec=prec, profile=True),
+                             its[size]))
 
     # each kernel's numbers at its main-path use: T1-T4 in f32 at 9,072
-    # nodes, K5 mixed at 142,317 nodes, K6 f32 at 9,072 nodes, K7 (WLS, the
-    # case's method) and K8 in f32 at 565,500 nodes, K9 in f32 on the
-    # 377-vertex batch, K10 f32 at 9,072 nodes (MUSCL + Venkatakrishnan)
-    main_use = {"stencil_sgs_matvec": ("sst142317", "mixed", "sgs_matvec"),
-                "stencil_fgmres": ("sst9072", "float32"),
+    # nodes, K5 mixed on the implicit LU_SGS case's flow system at 142,317
+    # nodes and K6 mixed on it at 9,072 nodes (v = 13; the SST's v = 2
+    # numbers beside them), K7 (WLS, the case's method) and K8 in f32 at
+    # 565,500 nodes, K9 in f32 on the 377-vertex batch, K10 f32 at 9,072
+    # nodes (MUSCL + Venkatakrishnan)
+    main_use = {"stencil_sgs_matvec": ("flow142317", "mixed", "sgs_matvec"),
+                "stencil_fgmres": ("flow9072", "mixed"),
                 "gradient_rows": "float32 WLS",
                 "edge_implicit": "float32 9072 venkatakrishnan"}
+    sst_use = {"stencil_sgs_matvec": ("sst142317", "mixed", "sgs_matvec"),
+               "stencil_fgmres": ("sst9072", "float32")}
     rows = []
     for name, (src, repl) in KERNELS.items():
         rec = dict(report[name][main_use.get(name, "float32")])
@@ -1313,10 +1392,12 @@ def main():
                "launches_per_iter": {label: c[name] / it
                                      for label, c, it in runs}}
         row.update(rec)
+        if name in sst_use:
+            row["sst_v2"] = report[name][sst_use[name]]
         if name == "stencil_sgs_matvec":
-            mv = report[name][("sst142317", "float32", "matvec")]
+            mv = report[name][("flow142317", "float32", "matvec")]
             row["matvec_only"] = {k: mv[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms")}
+                "ms", "plain_ms", "bound_ms", "library_ms", "library")}
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -192,13 +192,14 @@ IMPLICIT_CFL = 1.0
 
 def with_implicit_flow(text: str, muscl: bool = True,
                        limiter: str | None = "VENKATAKRISHNAN",
-                       cfl: float = IMPLICIT_CFL) -> str:
+                       cfl: float = IMPLICIT_CFL, prec: str = "JACOBI") -> str:
     """The cfg text with implicit flow: TIME_DISCRE_FLOW= EULER_IMPLICIT,
-    the flow and SST systems solved by FGMRES with LINEAR_SOLVER_PREC=
-    JACOBI, CFL_ADAPT= NO and CFL_NUMBER= cfl; SPATIAL_ORDER_FLOW=
-    2ND_ORDER_LIMITER with SLOPE_LIMITER_FLOW= limiter (VENKATAKRISHNAN or
-    BARTH_JESPERSEN), 2ND_ORDER with limiter None, 1ST_ORDER with
-    muscl False."""
+    the flow and SST systems solved by FGMRES with LINEAR_SOLVER_PREC= prec
+    (JACOBI, or LU_SGS/ILU0: the multicolor block-SGS sweep, as the
+    reference's flat plate), CFL_ADAPT= NO and CFL_NUMBER= cfl;
+    SPATIAL_ORDER_FLOW= 2ND_ORDER_LIMITER with SLOPE_LIMITER_FLOW= limiter
+    (VENKATAKRISHNAN or BARTH_JESPERSEN), 2ND_ORDER with limiter None,
+    1ST_ORDER with muscl False."""
     keys = ("TIME_DISCRE_FLOW", "SPATIAL_ORDER_FLOW", "SLOPE_LIMITER_FLOW",
             "LINEAR_SOLVER_PREC", "CFL_NUMBER", "CFL_ADAPT")
     lines = [ln for ln in text.splitlines() if not ln.startswith(keys)]
@@ -206,7 +207,7 @@ def with_implicit_flow(text: str, muscl: bool = True,
              "2ND_ORDER" if limiter is None else "2ND_ORDER_LIMITER")
     lines += ["TIME_DISCRE_FLOW= EULER_IMPLICIT",
               f"SPATIAL_ORDER_FLOW= {order}",
-              "LINEAR_SOLVER_PREC= JACOBI",
+              f"LINEAR_SOLVER_PREC= {prec}",
               f"CFL_NUMBER= {cfl}",
               "CFL_ADAPT= NO"]
     if muscl and limiter is not None:

@@ -36,11 +36,26 @@
 // from one C call (the launches are the barriers between passes), no
 // shared memory; loads of neighbouring nodes coalesce along the lanes.
 //
+// Widths: V = 2 (the SST system), 3, and 7, 13 (the flow's nDim + nSpecies
+// + 2 of the 3-species flat plate and the 9-species channel), one template
+// instance each; another width is refused.  Every per-node V-vector (r, z,
+// the products) is a register array indexed only by unrolled loops, so it
+// stays out of local memory; the V x V blocks are streamed, never held.
+// At V = 13 the flow's mixed K5 at 142,317 nodes has to move ~792 MB
+// (bf16 sweep blocks 192 MB, f32 matvec blocks 385 MB, dinv and diag 96 MB
+// each, the vectors 22 MB), 0.24 ms at 3.35 TB/s; the field no longer
+// fits in L2, so each of the 2nc - 1 sweep passes reads its blocks from
+// HBM again (a pass loads only its color's blocks, but with two colors
+// every 32-byte sector of a row holds nodes of both).  Node-major vectors
+// are read at a stride of V entries across the threads of a warp: right,
+// and left for a later change to make fast.
+//
 // K6 is bound by its barriers: at m = 10, nc = 2 a cycle has
 // 2 + m (2nc + 1) + m (m - 1)/2 = 97 grid-wide barriers (sweep passes, one
 // fused matvec-and-first-dot pass, the j + 1 sequential modified
 // Gram-Schmidt passes and the norm), while its operands at 9,072 nodes
-// (~2.5 MB with the basis) sit in L2.  Design K6: one cooperative grid of
+// (~2.5 MB with the basis at V = 2; ~50 MB at V = 13 in the mixed tier, about
+// the size of L2) sit in L2.  Design K6: one cooperative grid of
 // at most the co-resident blocks (cudaLaunchCooperativeKernel), grid-stride
 // loops with a fixed node-to-thread map, cg::this_grid().sync() as the
 // barrier.  Every reduction is deterministic: block partials, then every
@@ -479,38 +494,73 @@ fgmres_kernel(FgArgs<T, S> A) {
   }
 }
 
+// The grid of a K6 launch: every block co-resident (the cooperative
+// launch's condition), at most one block per 256 nodes and at most the
+// partial buffers' capacity.  Wider blocks take more registers per thread,
+// so fewer blocks fit on an SM.
 template <typename T, typename S, int V>
-int launch_fgmres(FgArgs<T, S> A, int part_cap, cudaStream_t stream) {
+cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
+                        size_t* smem) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  const size_t smem = (size_t)fg_smem_words(A.m) * sizeof(T);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  *smem = (size_t)fg_smem_words(m) * sizeof(T);
   auto kern = fgmres_kernel<T, S, V>;
-  if (smem > 48 * 1024) {
+  if (*smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+    if (err != cudaSuccess) return err;
   }
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      SU2K_FG_THREADS, smem);
+                                                      SU2K_FG_THREADS, *smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  int b = (n + SU2K_FG_THREADS - 1) / SU2K_FG_THREADS;
+  b = b < per_sm * sms ? b : per_sm * sms;  // co-resident
+  b = b < part_cap / 2 ? b : part_cap / 2;
+  *blocks = b > 0 ? b : 1;
+  return cudaSuccess;
+}
+
+template <typename T, typename S, int V>
+int launch_fgmres(FgArgs<T, S> A, int part_cap, cudaStream_t stream) {
+  int blocks = 0;
+  size_t smem = 0;
+  cudaError_t err = fgmres_grid<T, S, V>(A.n, A.m, part_cap, &blocks, &smem);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  int blocks = (A.n + SU2K_FG_THREADS - 1) / SU2K_FG_THREADS;
-  blocks = blocks < per_sm * sms ? blocks : per_sm * sms;  // co-resident
-  blocks = blocks < part_cap / 2 ? blocks : part_cap / 2;
-  blocks = blocks > 0 ? blocks : 1;
   void* args[] = {&A};
-  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
-                                    dim3(SU2K_FG_THREADS), args, smem,
-                                    stream);
+  err = cudaLaunchCooperativeKernel((const void*)fgmres_kernel<T, S, V>,
+                                    dim3(blocks), dim3(SU2K_FG_THREADS), args,
+                                    smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+template <typename T, typename S, int V>
+int grid_of(int n, int m, int part_cap) {
+  int blocks = 0;
+  size_t smem = 0;
+  cudaError_t err = fgmres_grid<T, S, V>(n, m, part_cap, &blocks, &smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// the block widths K5 and K6 are compiled for (kernels.STENCIL_WIDTHS): 2
+// (the SST's k-omega system) and 3, and the flow's nDim + nSpecies + 2 of
+// the 3-species 2D flat plate (7) and the 9-species 2D channel (13); CALL
+// names the width V; another width returns BAD
+#define SU2K_BY_WIDTH(v, CALL, BAD)                     \
+  switch (v) {                                          \
+    case 2: { constexpr int V = 2; return CALL; }       \
+    case 3: { constexpr int V = 3; return CALL; }       \
+    case 7: { constexpr int V = 7; return CALL; }       \
+    case 13: { constexpr int V = 13; return CALL; }     \
+    default: return BAD;                                \
+  }
 
 template <typename T, typename S>
 int fgmres_v(int v, int n, const Stencil& st, int ncolor, int m, double tol,
@@ -521,9 +571,14 @@ int fgmres_v(int v, int n, const Stencil& st, int ncolor, int m, double tol,
   FgArgs<T, S> A{n, ncolor, m, st, (T)tol, (const S*)selp, (const T*)selm,
                  (const T*)dinv, (const T*)diag, (const int8_t*)colors,
                  (const T*)b, (T*)x, (T*)stats, (T*)ws, (T*)part};
-  if (v == 2) return launch_fgmres<T, S, 2>(A, part_cap, stream);
-  if (v == 3) return launch_fgmres<T, S, 3>(A, part_cap, stream);
-  return (int)cudaErrorInvalidValue;
+  SU2K_BY_WIDTH(v, (launch_fgmres<T, S, V>(A, part_cap, stream)),
+                (int)cudaErrorInvalidValue)
+}
+
+template <typename T, typename S>
+int fgmres_grid_v(int v, int n, int m, int part_cap) {
+  SU2K_BY_WIDTH(v, (grid_of<T, S, V>(n, m, part_cap)),
+                -(int)cudaErrorInvalidValue)
 }
 
 template <typename T, typename S>
@@ -536,10 +591,9 @@ int sgs_matvec_v(int v, int n, const Stencil& st, int ncolor, int do_sweep,
   n, st, ncolor, do_sweep, do_matvec, (const S*)selp, (const T*)selm,      \
       (const T*)dinv, (const T*)diag, (const int8_t*)colors, (const T*)r,  \
       (T*)z, (T*)w, (T*)zbuf, stream
-  if (v == 2) return launch_sgs_matvec<T, S, 2>(SU2K_SGS_ARGS);
-  if (v == 3) return launch_sgs_matvec<T, S, 3>(SU2K_SGS_ARGS);
+  SU2K_BY_WIDTH(v, (launch_sgs_matvec<T, S, V>(SU2K_SGS_ARGS)),
+                (int)cudaErrorInvalidValue)
 #undef SU2K_SGS_ARGS
-  return (int)cudaErrorInvalidValue;
 }
 
 inline bool make_stencil(int k, const int* offs, Stencil& st) {
@@ -596,4 +650,16 @@ extern "C" int su2k_stencil_fgmres(
   return su2k::fgmres_v<float, float>(v, n, st, ncolor, m, tol, selp, selm,
                                       dinv, diag, colors, b, x, stats, ws,
                                       part, part_cap, s);
+}
+
+// the grid (blocks of 256 threads) that su2k_stencil_fgmres takes for these
+// arguments on the current device, or minus a cudaError_t
+extern "C" int su2k_stencil_fgmres_grid(int is_f64, int sel_bf16, int v,
+                                        int n, int m, int part_cap) {
+  if ((is_f64 && sel_bf16) || m < 1 || n < 1)
+    return -(int)cudaErrorInvalidValue;
+  if (is_f64) return su2k::fgmres_grid_v<double, double>(v, n, m, part_cap);
+  if (sel_bf16)
+    return su2k::fgmres_grid_v<float, __nv_bfloat16>(v, n, m, part_cap);
+  return su2k::fgmres_grid_v<float, float>(v, n, m, part_cap);
 }

@@ -3,10 +3,9 @@
 Port of the JAX package's Simulation for one configuration family:
 reactive Navier-Stokes with SST and PaSR and the AUSM scheme, on meshes
 with a static neighbour stencil.  The flow is explicit (first order), or
-implicit (EULER_IMPLICIT, first order or MUSCL with or without a limiter,
-solved by FGMRES with the JACOBI preconditioner); the SST system is
-implicit, solved by FGMRES with the multicolor SGS (LU_SGS, ILU0) or
-JACOBI preconditioner.  One
+implicit (EULER_IMPLICIT, first order or MUSCL with or without a limiter);
+the flow and SST systems are solved by FGMRES with the multicolor SGS
+(LU_SGS, ILU0) or JACOBI preconditioner.  One
 outer iteration is the segregated sequence of iteration_structure.cpp
 :531-550: flow system (with SST closures), then the SST system on the
 updated flow state.  Setup stays on
@@ -58,12 +57,10 @@ def _unported(cfg: Config):
     module that runs it."""
     checks = [
         (not cfg.reactive, "non-reactive solvers", "su2_tpu.driver"),
-        (cfg.kind_turb_model != "SST", f"KIND_TURB_MODEL= "
+        (cfg.kind_turb_model == "NONE", "laminar flow (KIND_TURB_MODEL= "
+         "NONE: _make_explicit_step, _make_implicit_step)", "su2_tpu.driver"),
+        (cfg.kind_turb_model not in ("SST", "NONE"), f"KIND_TURB_MODEL= "
          f"{cfg.kind_turb_model}", "su2_tpu.turbulence"),
-        (cfg.implicit_flow and cfg.linear_solver_prec in ("LU_SGS", "ILU0"),
-         f"TIME_DISCRE_FLOW= EULER_IMPLICIT with LINEAR_SOLVER_PREC= "
-         f"{cfg.linear_solver_prec} (the flow's 13-wide block sweep)",
-         "su2_tpu.pallas.stencil_solve"),
         (not cfg.implicit_turb, "explicit turbulence", "su2_tpu.driver"),
         (cfg.muscl_flow and not cfg.implicit_flow,
          "MUSCL reconstruction with explicit flow (convective_residual)",
@@ -89,6 +86,10 @@ def _unported(cfg: Config):
          f"LINEAR_SOLVER_PREC= {cfg.linear_solver_prec}",
          blockcsr.UNPORTED_PREC.get(cfg.linear_solver_prec,
                                     "su2_tpu.linalg.blockcsr")),
+        (bool(cfg.marker_monitoring), "MARKER_MONITORING (force "
+         "coefficients and forces_breakdown.dat)", "su2_tpu.solvers.forces"),
+        (cfg.conv_criteria == "CAUCHY", "CONV_CRITERIA= CAUCHY",
+         "su2_tpu.driver"),
     ]
     for bad, what, where in checks:
         if bad:
@@ -250,13 +251,14 @@ class Simulation:
     def _make_rans_step(self):
         """Segregated REACTIVE_RANS outer iteration: the flow system (with
         SST closures), explicit or implicit (EULER_IMPLICIT: the linearised
-        system solved by FGMRES with the JACOBI preconditioner), then the
-        implicit SST system."""
+        system solved by FGMRES with the JACOBI preconditioner or the
+        multicolor SGS sweep of LU_SGS/ILU0), then the implicit SST
+        system."""
         lib, lay, mesh, prm, bcs = (self.lib, self.lay, self.mesh,
                                     self.params, self.bcs)
         tparams = self.tparams
         lower, upper = self.lower, self.upper
-        cfg = self.cfg
+        cfg, scfg = self.cfg, self.scfg
         turb_phase = self._make_turb_phase()
 
         def flow_dt(v, lam_v, lam_c=None):
@@ -276,13 +278,18 @@ class Simulation:
                 lib, lay, mesh, prm, bcs, v, nsd, turb, omega_t, dt=dt)
             u = ns.enforce_wall_velocity(lay, u, wall_mask)
             rhs = -res
-            mv, pc, pm, _ = blockcsr.make_solver_ops_stencil_t(
+            mv, pc, pm, solve = blockcsr.make_solver_ops_stencil_t(
                 mesh, jac.diag, jac.sel_t, cfg.linear_solver_prec,
-                linear_iter=cfg.linear_solver_iter)
-            sol, _, _ = krylov.fgmres(mv, pc, rhs,
-                                      max_iter=cfg.linear_solver_iter,
-                                      tol=cfg.linear_solver_error,
-                                      precond_matvec=pm)
+                scfg.colors, scfg.ncolor, linear_iter=cfg.linear_solver_iter)
+            if solve is not None:
+                # the whole FGMRES cycle in one launch (K6)
+                sol, _, _ = solve(rhs, cfg.linear_solver_iter,
+                                  cfg.linear_solver_error)
+            else:
+                sol, _, _ = krylov.fgmres(mv, pc, rhs,
+                                          max_iter=cfg.linear_solver_iter,
+                                          tol=cfg.linear_solver_error,
+                                          precond_matvec=pm)
             u_new = u + cfg.relaxation_factor_flow * sol
             u_new = torch.minimum(torch.maximum(u_new, lower), upper)
             rms = torch.sqrt((rhs * rhs).mean(0))
@@ -425,6 +432,13 @@ class Simulation:
         return u, t_guess, np.array(hist), (q, mu_t, grad_k, sigma_k)
 
 
+# what the CLI writes (MARKER_PLOTTING only selects markers of the files it
+# does not write)
+NO_SOLUTION_FILES = ("su2_tpu_torch writes the history file only: no "
+                     "solution, restart or surface file (su2_tpu.io.output "
+                     "writes them)")
+
+
 def main(argv=None):
     argv = list(argv if argv is not None else sys.argv[1:])
     cpu = "--cpu" in argv
@@ -441,6 +455,7 @@ def main(argv=None):
     dtype = torch.float64 if os.environ.get("SU2_TPU_DTYPE") == "float64" \
         else torch.float32
     sim = Simulation(cfg, dtype=dtype, device="cpu" if cpu else "cuda")
+    print(NO_SOLUTION_FILES)
     sim.enable_output()
     sim.run(niter, chunk=25)
     return 0

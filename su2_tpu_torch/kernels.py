@@ -68,6 +68,7 @@ _ARGTYPES = {
     "su2k_stencil_fgmres": [_I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int), _I, _I, _D]
                            + [_P] * 10 + [_I, _P],
+    "su2k_stencil_fgmres_grid": [_I] * 6,
     "su2k_gradient_rows": [_I, _I, _I, _I, _I, _I,
                            ctypes.POINTER(ctypes.c_int)] + [_P] * 6,
     "su2k_edge_win": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I,
@@ -377,6 +378,9 @@ def chem_source(lib, prm, t, rho, ys, omega_turb=None):
 # Work space of the K6 block partials: two buffers of at most 4,096 blocks
 # (the co-resident blocks of any card at 256 threads).
 _PART_CAP = 2 * 4096
+# The block widths K5 and K6 are compiled for (SU2K_BY_WIDTH in
+# csrc/stencil_solve.cu): 2 (the SST's system) and 3, the flow's 7 and 13.
+STENCIL_WIDTHS = (2, 3, 7, 13)
 
 
 def _check_stencil(name, selp, selm, dinv, diag, colors, r, offsets, ncolor,
@@ -387,8 +391,9 @@ def _check_stencil(name, selp, selm, dinv, diag, colors, r, offsets, ncolor,
         raise TypeError(f"{name}: float32 or float64 vectors, got {dtype}")
     n, v = r.shape
     k = len(offsets)
-    if v not in (2, 3):
-        raise ValueError(f"{name}: block width 2 or 3, got {v}")
+    if v not in STENCIL_WIDTHS:
+        raise ValueError(f"{name}: block width {v}; the kernels are compiled "
+                         f"for the widths {STENCIL_WIDTHS}")
     if not 1 <= k <= 8:
         raise ValueError(f"{name}: 1 to 8 stencil offsets, got {k}")
     sel_bf16 = selp.dtype == torch.bfloat16
@@ -464,6 +469,21 @@ def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
     _raise("stencil_fgmres", err)
     launches["stencil_fgmres"] += 1
     return x, stats[0], stats[1].to(torch.int32)
+
+
+def stencil_fgmres_grid(dtype, sel_bf16, v, n, m):
+    """The blocks (of 256 threads) of K6's cooperative grid for these
+    arguments on the current card: the co-resident blocks, at most one per
+    256 nodes (a host query; launches nothing)."""
+    if v not in STENCIL_WIDTHS:
+        raise ValueError(f"stencil_fgmres_grid: block width {v}; the kernels "
+                         f"are compiled for the widths {STENCIL_WIDTHS}")
+    blocks = _lib().su2k_stencil_fgmres_grid(
+        int(dtype == torch.float64), int(bool(sel_bf16)), int(v), int(n),
+        int(m), _PART_CAP)
+    if blocks <= 0:
+        _raise("stencil_fgmres_grid", -blocks)
+    return blocks
 
 
 # ---------------------------------------------------------------- K7

@@ -90,14 +90,15 @@ def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
     lane-layout off-diagonal blocks.
 
     LU_SGS/ILU0 with colors run the stencil kernels in the reference's
-    tiers: full-precision blocks below the reference's full-precision gate
-    and in float64 at any size (the reference sweeps with XLA ops there;
-    the same sweep and matvec); in float32 past the gate, the mixed tier
-    (bf16 sweep blocks, f32 matvec blocks), whose (z, A z) kernel also
-    stands for the reference's two splits of the largest fields (a
-    sweep-only kernel plus an XLA matvec, and a windowed tier).  The whole
-    FGMRES cycle is one launch (`solve(b, max_iter, tol)`) where the
-    tier's one-launch predicate holds at Krylov budget linear_iter."""
+    tiers (stencil_solve.solve_tier), at any block width the kernels are
+    compiled for (the SST's 2, the flow's 13).  Where the reference sweeps
+    with XLA ops (float64 past its full-precision gate, float32 with no
+    mixed tier) the kernels compute the same sweep and matvec at full
+    precision; the (z, A z) kernel of the mixed tier stands for the
+    reference's resident and windowed mixed kernels and its split of a
+    sweep-only kernel plus an XLA matvec.  The whole FGMRES cycle is one
+    launch (`solve(b, max_iter, tol)`) where the tier's one-launch
+    predicate holds at Krylov budget linear_iter."""
     if kind in UNPORTED_PREC:
         raise NotImplementedError(
             f"LINEAR_SOLVER_PREC= {kind}: not ported; "
@@ -109,13 +110,9 @@ def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
         mv = lambda x: _bmv(diag, x) + sts.offdiag_plain(sel_t, x, offsets,
                                                          v)
         return mv, (lambda r: block_jacobi_apply(dinv, r)), None, None
-    n, k, dt = mesh.npoint, len(offsets), diag.dtype
-    if sts.supported(n, k, v, dt, ncolor) or dt != torch.float32:
-        ops = sts.StencilSolveOps(mesh, sel_t, dinv, diag, colors, ncolor)
-        one = sts.fgmres_supported(n, k, v, dt, ncolor, linear_iter)
-    else:
-        ops = sts.StencilSolveOps(mesh, sel_t, dinv, diag, colors, ncolor,
-                                  sel_dtype=torch.bfloat16)
-        one = sts.fgmres_mixed_supported(n, k, v, ncolor, linear_iter)
+    sel_dtype, one = sts.solve_tier(mesh.npoint, offsets, v, diag.dtype,
+                                    ncolor, linear_iter)
+    ops = sts.StencilSolveOps(mesh, sel_t, dinv, diag, colors, ncolor,
+                              sel_dtype=sel_dtype)
     return ops.matvec, ops.precond, ops.precond_matvec, \
         (ops.fgmres if one else None)

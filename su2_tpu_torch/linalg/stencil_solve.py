@@ -107,6 +107,41 @@ def fgmres_mixed_supported(npoint: int, k: int, v: int, ncolor: int,
     return est <= _VMEM_LIMIT
 
 
+_TILE_W_CAP = 65536
+
+
+def tiled_supported(offsets, v: int, ncolor: int) -> bool:
+    """Whether the reference's windowed mixed tier has a plan (its
+    tile_plan with bf16 sweep and f32 matvec blocks): the halo of the
+    2 ncolor - 1 passes must not dominate the window that fits VMEM.
+    Without one, the reference sweeps f32 blocks with XLA ops."""
+    k = len(offsets)
+    halo = _npad(2 * ncolor * max(abs(int(o)) for o in offsets))
+    per_lane = (k * v * v * 2 + k * v * v * 4 + 2 * v * v * 4 + ncolor * 4
+                + 4 * v * 4 + 2 * (v * v + ncolor + 6 * v + k * v) * 4)
+    window = min(_TILE_W_CAP, (_VMEM_LIMIT * 22 // 25 // per_lane)
+                 // 128 * 128)
+    return window - 2 * halo >= max(8 * 128, halo)
+
+
+def solve_tier(npoint: int, offsets, v: int, dtype, ncolor: int,
+               m: int) -> tuple:
+    """(dtype of the sweep blocks, whether the solve is one K6 launch) of
+    the reference's tier for an SGS-class solve at Krylov budget m:
+    full-precision blocks below its full-precision gate and in float64 at
+    any size; in float32 past the gate the mixed tier (bf16 sweep blocks)
+    where the reference has one, resident or windowed; else full
+    precision (the reference's XLA sweep)."""
+    k = len(offsets)
+    if supported(npoint, k, v, dtype, ncolor) or dtype != torch.float32:
+        return dtype, fgmres_supported(npoint, k, v, dtype, ncolor, m)
+    if supported(npoint, k, v, torch.bfloat16, ncolor) \
+            or tiled_supported(offsets, v, ncolor):
+        return torch.bfloat16, fgmres_mixed_supported(npoint, k, v, ncolor,
+                                                      m)
+    return dtype, False
+
+
 # ---------------------------------------------------------------------------
 # Plain versions: the arithmetic of the reference's _offdiag, _bapply,
 # _sgs_body (its pass order, the offsets summed in order) and _fgmres_body

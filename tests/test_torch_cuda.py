@@ -355,8 +355,62 @@ def test_implicit_slice_launches(card, tmp_path, monkeypatch):
         assert kernels.launches["mixture_enthalpy"] >= 3
 
 
+# the tiers of the implicit LU_SGS case at 153 nodes: (dtype, forced
+# predicates of linalg/stencil_solve.py, K6 and K5 launches per iteration)
+LUSGS_TIERS = {
+    "one-launch-f64": (torch.float64, {}, 2, 0),
+    "one-launch-f32": (torch.float32, {}, 2, 0),
+    # past the full-precision gate: the mixed one-launch tier
+    "mixed-f32": (torch.float32,
+                  {"supported": lambda n, k, v, dt, nc=None:
+                   dt == torch.bfloat16}, 2, 0),
+    # past every one-launch gate: K5 (z, A z) ten times per solve
+    "per-iteration-f32": (torch.float32,
+                          {"fgmres_supported": lambda *a, **k: False,
+                           "fgmres_mixed_supported": lambda *a, **k: False},
+                          0, 20)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", list(LUSGS_TIERS))
+def test_implicit_lusgs_slice_launches(card, tmp_path, monkeypatch, tier):
+    """The implicit LU_SGS case (the flow's 13 x 13 and the SST's 2 x 2
+    systems through the multicolor sweep): K6 once per solve where the
+    one-launch predicate holds (two per iteration), else K5 once per
+    Krylov vector (FGMRES(10): 20 per iteration); K10 once and T2 twice
+    per iteration, T3, K8 and T4 never; the flow's sweep blocks bf16 in
+    the mixed tier."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
+    dtype, patch, k6, k5 = LUSGS_TIERS[tier]
+    for name, fn in patch.items():
+        monkeypatch.setattr(ts, name, fn)
+    sweep_dtypes = []
+    make = blockcsr.make_solver_ops_stencil_t
+
+    def spy(*a, **kw):
+        ops = make(*a, **kw)
+        sweep_dtypes.append(ops[2].__self__.sel_t.dtype)
+        return ops
+    monkeypatch.setattr(blockcsr, "make_solver_ops_stencil_t", spy)
+    sim = _card_sim(card, th.with_implicit(th.write_case(tmp_path),
+                                           prec="LU_SGS"), dtype)
+    kernels.reset_launches()
+    _, _, hist, _ = sim.run(3, quiet=True)
+    assert np.isfinite(hist).all()
+    want = {"stencil_fgmres": 3 * k6, "stencil_sgs_matvec": 3 * k5,
+            "edge_implicit": 3, "node_state": 6, "edge_flux": 0,
+            "edge_win": 0, "chem_source": 0, "gradient_rows": 0}
+    assert {k: kernels.launches[k] for k in want} == want
+    # the flow's system, then the SST's, in every iteration
+    sweep = torch.bfloat16 if tier == "mixed-f32" else dtype
+    assert sweep_dtypes == [sweep] * 6
+
+
 BANDS = {"band2": (2, (-9, -8, -7, -1, 1, 7, 8, 9)),
-         "band3": (3, (-5, -1, 1, 5))}
+         "band3": (3, (-5, -1, 1, 5)),
+         "band7": (7, (-9, -1, 1, 9)),
+         "band13": (13, (-9, -1, 1, 9))}
 VARIANTS = ["float64", "float32", "mixed"]
 
 
@@ -420,6 +474,10 @@ def test_k6_kernel_matches_plain(card, system, variant, rhs):
     kernels.reset_launches()
     x, rel, it = kernels.stencil_fgmres(**args, b=b, m=10, tol=tol)
     assert kernels.launches["stencil_fgmres"] == 1
+    n, v = r.shape
+    assert 1 <= kernels.stencil_fgmres_grid(
+        r.dtype, args["selp_t"].dtype == torch.bfloat16, v, n, 10) \
+        <= -(-n // 256)
     wx, wrel, wit = ts.fgmres_plain(**args, b=b, m=10, tol=tol)
     assert int(it) == int(wit)
     x, wx = th.npy(x), th.npy(wx)

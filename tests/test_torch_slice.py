@@ -47,12 +47,14 @@ MIXED_YS = (0.01, 0.1, 0.59, 0.05, 0.15, 0.02, 0.03, 0.03, 0.02)
        (False, "isothermal", "JACOBI", False, (True, None)),
        (False, "isothermal", "JACOBI", False, (False, None)),
        (False, "isothermal", "JACOBI", True, IMPLICIT),
-       (False, "slip_heatflux_mass_flow", "JACOBI", False, IMPLICIT)],
+       (False, "slip_heatflux_mass_flow", "JACOBI", False, IMPLICIT),
+       (False, "isothermal", "LU_SGS", False, IMPLICIT),
+       (False, "isothermal", "ILU0", False, IMPLICIT)],
     ids=VARIANT_IDS + [f"{i}-jacobi" for i in VARIANT_IDS]
     + ["keq-tiled", "slip_heatflux_mass_flow-tiled", "total_conditions",
        "shared_corners", "implicit", "implicit-nolimiter",
        "implicit-firstorder", "implicit-tiled",
-       "implicit-slip_heatflux_mass_flow"])
+       "implicit-slip_heatflux_mass_flow", "implicit-lusgs", "implicit-ilu0"])
 def test_three_coupled_iterations_match_jax(tmp_path, monkeypatch,
                                             backward_rate, variant, prec,
                                             tiled, implicit):
@@ -72,7 +74,12 @@ def test_three_coupled_iterations_match_jax(tmp_path, monkeypatch,
     each (the boundary scatters' order).
     implicit-*: EULER_IMPLICIT flow with JACOBI, MUSCL with the
     Venkatakrishnan limiter, unlimited MUSCL or first order; su2_tpu runs
-    its fused implicit edge kernel in interpret mode.  They start from the
+    its fused implicit edge kernel in interpret mode.  implicit-lusgs and
+    -ilu0 solve the flow's 13 x 13 block system and the SST's with the
+    multicolor sweep: su2_tpu through its one-launch _fgmres_call at
+    v = 13 and v = 2 in interpret mode, the port through its plain FGMRES
+    over the plain sweep (in f64 at this size the one-launch tier; the
+    windowed and mixed tiers are float32 only).  They start from the
     freestream with every species present (MIXED_YS): in the
     case's own pure streams su2_tpu's effective diffusion (1 - x_s over a
     trace-sized sum) and the port's (sum_{k!=s} x_k over it,
@@ -82,7 +89,7 @@ def test_three_coupled_iterations_match_jax(tmp_path, monkeypatch,
     from su2_tpu_torch.ops import gradients
     text = th.case_variant(
         th.write_case(tmp_path, backward_rate=backward_rate), variant)
-    text = (th.with_implicit(text, *implicit) if implicit
+    text = (th.with_implicit(text, *implicit, prec=prec) if implicit
             else th.with_prec(text, prec))
     js, ts = th.jax_sim(text), th.torch_sim(text)
     if tiled:
@@ -147,15 +154,19 @@ def test_run_chunks_and_history(text, tmp_path):
 @pytest.mark.parametrize("key,value,where", [
     ("LINEAR_SOLVER_PREC", "LINELET", "su2_tpu.linalg.linelet"),
     ("SPATIAL_ORDER_FLOW", "2ND_ORDER", "su2_tpu.solvers.euler"),
-    ("TIME_DISCRE_FLOW", "EULER_IMPLICIT", "su2_tpu.pallas.stencil_solve"),
+    ("MARKER_MONITORING", "( lower_wall, upper_wall )",
+     "su2_tpu.solvers.forces"),
+    ("CONV_CRITERIA", "CAUCHY", "su2_tpu.driver"),
+    ("KIND_TURB_MODEL", "NONE", "su2_tpu.driver"),
     ("CONV_NUM_METHOD_FLOW", "ROE", "su2_tpu.ops"),
     ("KIND_TURB_MODEL", "SA", "su2_tpu.turbulence"),
     ("LINEAR_SOLVER", "BCGSTAB", "su2_tpu.linalg.krylov"),
 ])
 def test_unported_options_raise(text, key, value, where):
     """Options outside the port raise, naming the su2_tpu module that runs
-    them: explicit flow with MUSCL (convective_residual), implicit flow
-    with the case's LU_SGS (the flow's 13-wide block sweep)."""
+    them: explicit flow with MUSCL (convective_residual), the force
+    monitoring and the CAUCHY convergence test it has no counterpart of,
+    laminar flow (the JAX driver's own explicit and implicit steps)."""
     lines = [ln for ln in text.splitlines() if not ln.startswith(key)]
     with pytest.raises(NotImplementedError, match=where.replace(".", r"\.")):
         th.torch_sim("\n".join(lines + [f"{key}= {value}"]))
@@ -185,19 +196,35 @@ def test_cli_two_iterations(tmp_path):
     assert len(rows) == 2
 
 
-def test_cli_implicit_two_iterations(tmp_path):
-    """The implicit-flow case through the CLI with --cpu: runs, and the
+def _cli_implicit(tmp_path, prec):
+    """The implicit-flow case with prec through the CLI with --cpu: exits
+    0, says on a line of its own that it writes no solution file, and the
     history has 2 finite rows."""
+    from su2_tpu_torch.driver import NO_SOLUTION_FILES
     cfg, env = _cli_case(tmp_path)
-    cfg.write_text(th.with_implicit(cfg.read_text()))
+    cfg.write_text(th.with_implicit(cfg.read_text(), prec=prec))
     proc = subprocess.run([sys.executable, "-m", "su2_tpu_torch", "--cpu",
                            str(cfg), "2"], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert NO_SOLUTION_FILES in proc.stdout.splitlines()
+    assert "su2_tpu.io.output" in NO_SOLUTION_FILES
     with open(tmp_path / "history.dat") as f:
         rows = [ln for ln in f.read().splitlines()
                 if ln and ln[0].isdigit()]
     assert len(rows) == 2 and "nan" not in " ".join(rows).lower()
+
+
+def test_cli_implicit_two_iterations(tmp_path):
+    """The implicit-flow case (JACOBI) through the CLI: see _cli_implicit."""
+    _cli_implicit(tmp_path, "JACOBI")
+
+
+def test_cli_implicit_lusgs_two_iterations(tmp_path):
+    """The implicit-flow case with LU_SGS for the flow's 13 x 13 and the
+    SST's 2 x 2 systems (the reference flat plate's solver) through the
+    CLI: see _cli_implicit."""
+    _cli_implicit(tmp_path, "LU_SGS")
 
 
 def test_implicit_3d_raises():

@@ -17,7 +17,11 @@ import torch_helpers as th
 torch.set_num_threads(1)
 
 BAND = {"band2": (2, (-9, -8, -7, -1, 1, 7, 8, 9)),
-        "band3": (3, (-5, -1, 1, 5))}
+        "band3": (3, (-5, -1, 1, 5)),
+        # the flow's widths (nDim + nSpecies + 2: the 3-species flat plate,
+        # the 9-species channel) on a channel-like stencil
+        "band7": (7, (-9, -1, 1, 9)),
+        "band13": (13, (-9, -1, 1, 9))}
 
 
 def _quad(v, seed, f32=False):
@@ -66,8 +70,17 @@ CALLS = ("sgs_matvec", "sgs", "matvec", "sgs_matvec_mixed",
          "tiled_sgs_matvec", "tiled_sgs", "tiled_sgs_matvec_mixed")
 
 
-@pytest.mark.parametrize("call", CALLS)
-@pytest.mark.parametrize("system", ["band2", "band3", "quad"])
+# every call on the SST-sized systems and v = 7; at v = 13 (where each
+# interpret-mode trace takes ~20 s) the full-field sweep + matvec and
+# matvec, and the mixed calls of the flow's tiers (resident and windowed)
+SGS_CASES = [(system, call) for system in ("band2", "band3", "quad", "band7")
+             for call in CALLS] + [
+    ("band13", call) for call in ("sgs_matvec", "matvec", "sgs_matvec_mixed",
+                                  "tiled_sgs_matvec_mixed")]
+
+
+@pytest.mark.parametrize("system,call", SGS_CASES,
+                         ids=[f"{s}-{c}" for s, c in SGS_CASES])
 def test_sgs_matvec_plain_matches_jax(system, call):
     """sgs_matvec_plain (sweep + matvec, sweep only, matvec only, mixed
     bf16 sweep blocks) against the reference's full-field calls and its
@@ -133,25 +146,28 @@ def test_sgs_matvec_plain_matches_jax(system, call):
                                    rtol=rtol, atol=afrac * np.abs(wnt).max())
 
 
-FGMRES_CASES = [  # (m, tol, right side)
-    (3, 1e-6, "random"), (3, 1e-12, "random"), (10, 1e-6, "random"),
-    (10, 1e-12, "random"), (3, 1e-6, "scaled"), (3, 1e-6, "zero")]
+FGMRES_CASES = [  # (m, tol, right side, block width)
+    (3, 1e-6, "random", 2), (3, 1e-12, "random", 2), (10, 1e-6, "random", 2),
+    (10, 1e-12, "random", 2), (3, 1e-6, "scaled", 2), (3, 1e-6, "zero", 2),
+    (3, 1e-6, "random", 7), (3, 1e-6, "scaled", 7), (3, 1e-12, "random", 13)]
 
 
-@pytest.mark.parametrize("m,tol,rhs", FGMRES_CASES,
-                         ids=[f"m{m}-{t:g}-{r}" for m, t, r in FGMRES_CASES])
-def test_fgmres_plain_matches_jax(m, tol, rhs):
-    """fgmres_plain against the one-launch _fgmres_call (f64, v = 2) at the
-    pins of tests/test_stencil.py:259-262 (x rtol 1e-9, atol 1e-12; rel
-    rtol 1e-8; equal iterations), a right side scaled by 1e18 (the pow2
-    scaling; atol 1e-3 as there) and b = 0.  tol 1e-12 runs all 3
-    iterations at m = 3; at m = 10 it stops after 8, with the relative
-    residual at ~2e-13, where the two packages' dot summation orders show,
-    hence atol 1e-15 on rel."""
+@pytest.mark.parametrize(
+    "m,tol,rhs,v", FGMRES_CASES,
+    ids=[f"m{m}-{t:g}-{r}" + (f"-v{v}" if v != 2 else "")
+         for m, t, r, v in FGMRES_CASES])
+def test_fgmres_plain_matches_jax(m, tol, rhs, v):
+    """fgmres_plain against the one-launch _fgmres_call (f64, v = 2, and
+    the flow's v = 7 and 13) at the pins of tests/test_stencil.py:259-262
+    (x rtol 1e-9, atol 1e-12; rel rtol 1e-8; equal iterations), a right
+    side scaled by 1e18 (the pow2 scaling; atol 1e-3 as there) and b = 0.
+    tol 1e-12 runs all 3 iterations at m = 3; at m = 10 and v = 2 it stops
+    after 8, with the relative residual at ~2e-13, where the two packages'
+    dot summation orders show, hence atol 1e-15 on rel."""
     from su2_tpu.pallas import stencil_solve as stks
     from su2_tpu_torch.linalg import stencil_solve as ts
-    s, (ma, jac, sel, dinv, masks, _) = _quad(2, 13)
-    b = np.random.default_rng(14).normal(0, 1, (s["n"], 2))
+    s, (ma, jac, sel, dinv, masks, _) = _quad(v, 13)
+    b = np.random.default_rng(14).normal(0, 1, (s["n"], v))
     b = {"random": b, "scaled": b * 1e18, "zero": 0.0 * b}[rhs]
     ops = stks.StencilSolveOps(ma, sel, dinv, jac.diag, masks)
     wx, wrel, wit = ops.fgmres(jnp.asarray(b), m, tol)
@@ -164,19 +180,20 @@ def test_fgmres_plain_matches_jax(m, tol, rhs):
                                atol=1e-15)
     assert int(it) == int(wit)
     if tol == 1e-12 and rhs == "random":
-        assert int(it) == min(m, 8)
+        assert int(it) == (min(m, 8) if v == 2 else m)
 
 
-@pytest.mark.parametrize("m", [3, 10])
-def test_fgmres_mixed_plain_matches_jax(m):
+@pytest.mark.parametrize("v,m", [(3, 3), (3, 10), (7, 3), (13, 3)],
+                         ids=["3", "10", "v7-3", "v13-3"])
+def test_fgmres_mixed_plain_matches_jax(v, m):
     """fgmres_plain with bf16 sweep blocks and f32 matvec blocks against
-    _fgmres_mixed_call (f32, v = 3) at the pins of
+    _fgmres_mixed_call (f32, v = 3 and the flow's 7 and 13) at the pins of
     tests/test_stencil.py:315-317: x within rtol 2e-5, atol 2e-5; equal
     iterations."""
     from su2_tpu.pallas import stencil_solve as stks
     from su2_tpu_torch.linalg import stencil_solve as ts
-    s, (ma, jac, sel, dinv, masks, _) = _quad(3, 17, f32=True)
-    b = np.random.default_rng(18).normal(0, 1, (s["n"], 3))
+    s, (ma, jac, sel, dinv, masks, _) = _quad(v, 17, f32=True)
+    b = np.random.default_rng(18).normal(0, 1, (s["n"], v))
     ops = stks.StencilSolveOps(ma, sel, dinv, jac.diag, masks,
                                sel_dtype=jnp.bfloat16, m=m)
     assert ops.fgmres_mixed_ok
@@ -266,23 +283,35 @@ def test_tier_choice_of_the_smoke_sizes():
     assert not ts.fgmres_mixed_supported(142317, 4, 2, 2, 10)
 
 
-@pytest.mark.parametrize("kind", ["LU_SGS", "ILU0"])
-def test_make_solver_ops_stencil_t_matches_jax(kind):
+@pytest.mark.parametrize("kind,v", [("LU_SGS", 2), ("ILU0", 2),
+                                    ("LU_SGS", 13)],
+                         ids=["LU_SGS", "ILU0", "LU_SGS-v13"])
+def test_make_solver_ops_stencil_t_matches_jax(kind, v):
     """The four operators of make_solver_ops_stencil_t on the quad grid
     (f64, the one-launch tier) against the reference's: matvec, sweep,
-    (z, A z) at rtol 1e-12, the solve at the FGMRES pins."""
+    (z, A z) at rtol 1e-12, the solve at the FGMRES pins.  v = 13 (the
+    flow's blocks, with colors) against su2_tpu's make_solver_ops on the
+    same StencilJacobianT: the same tier (full-precision sweep blocks, one
+    launch) and the same FGMRES solution, at Krylov budget 3."""
     from su2_tpu.linalg import blockcsr as jb
     from su2_tpu_torch.linalg import blockcsr as tb
-    s, (ma, jac, sel, dinv, masks, colors) = _quad(2, 21)
-    n, v, k = s["n"], 2, len(s["offsets"])
+    s, (ma, jac, sel, dinv, masks, colors) = _quad(v, 21)
+    n, k = s["n"], len(s["offsets"])
+    m = 10 if v == 2 else 3
     sel_t = s["sel_t"][:, :n]
-    jops = jb.make_solver_ops_stencil_t(ma, jac.diag, jnp.asarray(sel_t),
-                                        kind, masks, linear_iter=10)
+    if v == 2:
+        jops = jb.make_solver_ops_stencil_t(ma, jac.diag, jnp.asarray(sel_t),
+                                            kind, masks, linear_iter=m)
+    else:
+        jops = jb.make_solver_ops(
+            ma, jb.StencilJacobianT(diag=jac.diag, sel_t=jnp.asarray(sel_t)),
+            kind, masks, linear_iter=m)
     tmesh = SimpleNamespace(npoint=n, stencil_offsets=s["offsets"])
     tops = tb.make_solver_ops_stencil_t(
         tmesh, th.tt(jac.diag), th.tt(sel_t), kind,
-        torch.as_tensor(colors.astype(np.int8)), len(masks), linear_iter=10)
+        torch.as_tensor(colors.astype(np.int8)), len(masks), linear_iter=m)
     assert all(op is not None for op in tops) and jops[3] is not None
+    assert tops[2].__self__.sel_t.dtype == torch.float64
     r = np.random.default_rng(22).normal(0, 1, (n, v))
     for jf, tf in zip(jops[:2], tops[:2]):
         np.testing.assert_allclose(th.npy(tf(th.tt(r))),
@@ -291,13 +320,95 @@ def test_make_solver_ops_stencil_t_matches_jax(kind):
     for a, b in zip(tops[2](th.tt(r)), jops[2](jnp.asarray(r))):
         np.testing.assert_allclose(th.npy(a), np.asarray(b), rtol=1e-12,
                                    atol=1e-14)
-    tx, trel, tit = tops[3](th.tt(r), 10, 1e-6)
-    jx, jrel, jit = jops[3](jnp.asarray(r), 10, 1e-6)
+    tx, trel, tit = tops[3](th.tt(r), m, 1e-6)
+    jx, jrel, jit = jops[3](jnp.asarray(r), m, 1e-6)
     np.testing.assert_allclose(th.npy(tx), np.asarray(jx), rtol=1e-9,
                                atol=1e-12)
     np.testing.assert_allclose(float(trel), float(jrel), rtol=1e-8)
     assert int(tit) == int(jit)
     assert k == 4
+
+
+def _offset_sets():
+    """Stencils of the channel meshes (+-1, +-ny) from the test's to the
+    largest smoke size, a wide 2D quad stencil and 3D-like ones."""
+    sets = [(-ny, -1, 1, ny) for ny in (9, 48, 189, 377, 1000, 1500, 4000)]
+    return sets + [(-8, -7, -6, -1, 1, 6, 7, 8), (-2500, -50, -1, 1, 50, 2500)]
+
+
+def test_tiled_tier_predicate_matches_jax():
+    """tiled_supported equals the reference's tile_plan (bf16 sweep and
+    f32 matvec blocks, one shard) is not None over stencils, widths and
+    color counts, both answers seen."""
+    from su2_tpu.pallas import stencil_solve as stks
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    seen = set()
+    for offsets in _offset_sets():
+        mesh = SimpleNamespace(npoint=565500, n_shards=1,
+                               stencil_offsets=offsets)
+        for v in (2, 3, 7, 13):
+            for nc in (2, 5):
+                want = stks.tile_plan(mesh, v, nc, 2, True) is not None
+                assert ts.tiled_supported(offsets, v, nc) == want, \
+                    (offsets, v, nc)
+                seen.add(want)
+    assert seen == {True, False}
+
+
+def _reference_tier(mesh, v, jdt, nc, m):
+    """(sweep block dtype name, one launch) of the reference's
+    make_solver_ops_stencil_t for an SGS-class solve, from its own
+    predicates in its own order; "xla" where it sweeps with XLA ops (the
+    port: full-precision blocks)."""
+    from su2_tpu.pallas import stencil_solve as stks
+    name = jnp.dtype(jdt).name
+    if stks.supported(mesh, v, jdt, nc):
+        return name, stks.fgmres_supported(mesh, v, jdt, nc, m)
+    if jdt == jnp.float32 and stks.supported(mesh, v, jnp.bfloat16, nc):
+        return "bfloat16", (stks.sgs_matvec_mixed_supported(mesh, v, nc)
+                            and stks.fgmres_mixed_supported(mesh, v, nc, m))
+    if jdt == jnp.float32 and stks.tile_plan(mesh, v, nc, 2, True):
+        return "bfloat16", False
+    return "xla", False
+
+
+def test_solve_tier_matches_jax():
+    """solve_tier (the tiers make_solver_ops_stencil_t picks) against the
+    reference's choice over sizes, stencils, the SST's and the flow's
+    widths, f32 and f64, at Krylov budgets 5 and 10; and at the flow's
+    v = 13 on the smoke sizes' channels (2 colors, FGMRES(10)): the mixed
+    one-launch tier at 9,072 nodes, the mixed per-iteration tier (windowed
+    in the reference) at 142,317 and 565,500, full precision per
+    iteration in f64."""
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    seen = set()
+    for n in (153, 9072, 36000, 142317, 565500):
+        for offsets in _offset_sets():
+            mesh = SimpleNamespace(npoint=n, n_shards=1,
+                                   stencil_offsets=offsets)
+            for v in (2, 3, 7, 13):
+                for jdt, tdt in ((jnp.float32, torch.float32),
+                                 (jnp.float64, torch.float64)):
+                    for m in (5, 10):
+                        want = _reference_tier(mesh, v, jdt, 2, m)
+                        sel_dtype, one = ts.solve_tier(n, offsets, v, tdt, 2,
+                                                       m)
+                        got = str(sel_dtype).split(".")[-1]
+                        if want[0] == "xla":
+                            want = (got if got == str(tdt).split(".")[-1]
+                                    else "xla", want[1])
+                        assert (got, one) == want, (n, offsets, v, tdt, m)
+                        seen.add(want)
+    assert {w[0] for w in seen} == {"float32", "float64", "bfloat16"}
+    smoke = {9072: 48, 142317: 189, 565500: 377}
+    for n, ny in smoke.items():
+        offsets = (-ny, -1, 1, ny)
+        assert ts.solve_tier(n, offsets, 13, torch.float32, 2, 10) == \
+            (torch.bfloat16, n == 9072)
+        assert ts.solve_tier(n, offsets, 13, torch.float64, 2, 10) == \
+            (torch.float64, False)
+    assert ts.solve_tier(565500, (-4000, -1, 1, 4000), 13, torch.float32, 2,
+                         10) == (torch.float32, False)
 
 
 @pytest.mark.parametrize("kind", ["LU_SGS", "ILU0"])
@@ -339,8 +450,9 @@ def test_f64_past_the_gate_matches_jax(monkeypatch, kind):
 def test_sweep_colors_and_refusals():
     """The driver's sweep colors: greedy_coloring as int8 with its count,
     refused past 127 colors; the stencil kernel wrappers refuse CPU
-    tensors; the unported preconditioners name the su2_tpu module that has
-    them."""
+    tensors and block widths they were not compiled for (naming the
+    compiled ones); the unported preconditioners name the su2_tpu module
+    that has them."""
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import blockcsr as tb
     path = np.array([[1, 0], [0, 2], [1, 2]])       # 0 - 1 - 2, self-padded
@@ -355,6 +467,15 @@ def test_sweep_colors_and_refusals():
         kernels.stencil_sgs_matvec(**args, r=r)
     with pytest.raises(ValueError, match="must be on"):
         kernels.stencil_fgmres(**args, b=r, m=5, tol=1e-6)
+    # a width the kernels were not compiled for, named with the compiled
+    s5 = th.band_system(300, 5, BAND["band3"][1], 4)
+    args5, r5 = th.stencil_args(s5, torch.float32)
+    for call in (lambda: kernels.stencil_sgs_matvec(**args5, r=r5),
+                 lambda: kernels.stencil_fgmres(**args5, b=r5, m=5, tol=1e-6),
+                 lambda: kernels.stencil_fgmres_grid(torch.float32, True, 5,
+                                                     300, 10)):
+        with pytest.raises(ValueError, match=r"\(2, 3, 7, 13\)"):
+            call()
     tmesh = SimpleNamespace(npoint=4, stencil_offsets=(1,))
     for kind, where in tb.UNPORTED_PREC.items():
         with pytest.raises(NotImplementedError, match=where):

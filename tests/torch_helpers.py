@@ -74,12 +74,12 @@ def with_prec(text, prec):
 
 
 def with_implicit(text, muscl=True, limiter="VENKATAKRISHNAN",
-                  cfl=cases.IMPLICIT_CFL):
-    """The case text with implicit flow (cases.with_implicit_flow): JACOBI
-    for both systems, MUSCL with the limiter (None: unlimited), first order
-    with muscl False."""
+                  cfl=cases.IMPLICIT_CFL, prec="JACOBI"):
+    """The case text with implicit flow (cases.with_implicit_flow): prec
+    (JACOBI, LU_SGS or ILU0) for both systems, MUSCL with the limiter
+    (None: unlimited), first order with muscl False."""
     return cases.with_implicit_flow(text, muscl=muscl, limiter=limiter,
-                                    cfl=cfl)
+                                    cfl=cfl, prec=prec)
 
 
 def mixed_state(ts, ys=None, seed=None):
