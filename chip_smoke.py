@@ -54,6 +54,19 @@ Phases (one line each; any failure exits nonzero):
              and at 142,317 and 565,500 nodes in float32 (the latter's
              stack from K7's gradient rows, as the tier's ns_assemble builds
              it), per output row, with times
+  K11 phase  (after K10) K11 (the AUSM+-up flux and both Jacobians) against
+             its plain version on the laminar implicit case's family slots
+             (limited MUSCL face states): 9,072 nodes in float64 and
+             float32, 565,500 in float32, feature-major (the main path) and
+             edge-major, per output row, pad slots exactly 0, with times;
+             then 5 laminar (KIND_TURB_MODEL= NONE) f64 iterations card vs
+             CPU at 9,072 nodes: explicit (T4), implicit LU_SGS (K11, the
+             flow's solve), implicit JACOBI with the tier forced (K7)
+  laminar    (at the end of 6) the laminar implicit LU_SGS case at 9,072 x
+             20 (K11 and K6 once per iteration) and 565,500 x 3 (K11 once,
+             K5 ten times, K7 once per iteration) and the laminar explicit
+             case at 9,072 x 20 (T4 once per iteration, K11 never), each
+             timed and profiled
 The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}.
 
@@ -95,6 +108,8 @@ KERNELS = {
                  "su2_tpu/pallas/inlet_tc.py:74"),
     "edge_implicit": ("su2_tpu_torch/csrc/edge_implicit.cu",
                       "su2_tpu/pallas/edge_fused.py:721"),
+    "ausm_flux_jac": ("su2_tpu_torch/csrc/ausm_jac.cu",
+                      "su2_tpu/pallas/edge_kernels.py:34,91"),
 }
 # tolerances per kernel and dtype: |kernel - plain| <= rtol * |plain|
 # + atol_frac * max|plain| (T3: per flux row, atol only, the row's max)
@@ -127,6 +142,9 @@ TOL = {
     # against the row's max
     ("edge_implicit", "float64"): (0.0, 1e-10),
     ("edge_implicit", "float32"): (0.0, 1e-4),
+    # K11: as K10, per output row (flux rows, Jacobian entries)
+    ("ausm_flux_jac", "float64"): (0.0, 1e-10),
+    ("ausm_flux_jac", "float32"): (0.0, 1e-4),
 }
 # the (MUSCL, limiter) variants of the implicit case (cases.with_implicit_
 # flow); the main path is the first
@@ -145,6 +163,9 @@ KRYLOV_M = 10           # LINEAR_SOLVER_ITER of the case (the cfg default)
 # iterations of the implicit-flow slice runs per size: JACOBI, and LU_SGS
 IMPLICIT_NITERS = {"flagship": 10, "scaling": 5, "tier": 2}
 LUSGS_NITERS = {"flagship": 20, "scaling": 10, "tier": 3}
+# iterations of the laminar implicit LU_SGS slice runs (the explicit one
+# at 9,072 nodes runs the flagship's count too)
+LAMINAR_NITERS = {"flagship": 20, "tier": 3}
 
 
 def phase(name, msg):
@@ -259,10 +280,10 @@ def compare(name, dt, got, want, per_row=False):
 
 
 def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
-              total_conditions=False, implicit=None):
+              total_conditions=False, implicit=None, laminar=False):
     """The synthetic case on channel_mesh(nx, ny); implicit: (muscl,
     limiter) of the implicit-flow variant, whose flow and SST systems are
-    solved with prec as well."""
+    solved with prec as well; laminar: KIND_TURB_MODEL= NONE."""
     from su2_tpu_torch import cases
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
@@ -273,6 +294,8 @@ def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
         text = cases.with_total_conditions(text)
     if implicit is not None:
         text = cases.with_implicit_flow(text, *implicit, prec=prec)
+    if laminar:
+        text = cases.with_laminar(text)
     return Simulation(Config(text=text), raw_mesh=channel_mesh(nx, ny),
                       dtype=dtype, device=device)
 
@@ -651,6 +674,73 @@ def implicit_kernel_phase(sim, dtype_name, report, variants):
             bound_by=bound[1], library_ms=None)
 
 
+def ausm_kernel_phase(sim, dtype_name, report):
+    """K11 against its plain version (ops/ausm_t.ausm_flux_t) on the
+    family-slot inputs of the laminar implicit case sim (its mesh and
+    library converted to the dtype): the limited MUSCL face states of a
+    random reacting state, as convective_system_fam builds them, in the
+    feature-major layout of the main path (edge_kernels.py:91) and the
+    edge-major one (:34); per output row, the pad slots exactly 0."""
+    from types import SimpleNamespace
+    import torch
+    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch.ops import ausm_t, limiters, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    dtype = getattr(torch, dtype_name)
+    mesh, lib = sim.mesh.to(dtype=dtype), sim.lib.to(dtype=dtype)
+    lay, prm = sim.lay, sim.params
+    x = kernel_inputs(SimpleNamespace(lib=lib, lay=lay, mesh=mesh,
+                                      dtype=dtype, device=sim.device,
+                                      tparams=sim.tparams))
+    nsd = st.node_state(lib, lay, x["u"], x["t_guess"], x["p"])
+    nd = lay.ndim
+    grad = es.compute_gradients(mesh, prm, vis.ns_gradient_vars(
+        lib, lay, nsd.v, nsd.xs))[:, :2 + nd]
+    lim = limiters.venkatakrishnan(mesh, es.gradient_vars(lay, nsd.v), grad,
+                                   prm.limiter_coeff, prm.ref_elem_length)
+    v_i, s_i, v_j, s_j = es.muscl_reconstruct_fam(
+        lib, lay, mesh, prm, nsd.v, grad.permute(1, 2, 0), lim)
+    ins = [v_i, v_j, mesh.fam_normal_flat.T.contiguous(), s_i, s_j]
+    ins_e = [t.T.contiguous() for t in ins]
+    m_inf = prm.m_infty
+    ne, nv = v_i.shape[1], lay.nvar
+    pad = ~mesh.fam_valid_flat
+    # operations per edge, a lower bound read off the kernel: ~500 for the
+    # flux and the 4 nVar column vectors, ~8 per entry of the two blocks
+    flops = ne * (500 + 16 * nv * nv)
+    want = ausm_t.ausm_flux_t(lay, *ins[:3], m_inf, *ins[3:])
+    rows = lambda out: [out[0], out[1].reshape(nv * nv, ne),
+                        out[2].reshape(nv * nv, ne)]
+    for layout, edge_major in (("feature-major", False),
+                               ("edge-major", True)):
+        args = ins_e if edge_major else ins
+        kfn = lambda: kernels.ausm_flux_jac(lay, *args[:3], m_inf, *args[3:],
+                                            edge_major=edge_major)
+        out = kfn()
+        if edge_major:
+            out = (out[0].T, out[1].permute(1, 2, 0), out[2].permute(1, 2, 0))
+        got = rows(out)
+        torch.cuda.synchronize()
+        err, scaled = compare("ausm_flux_jac", dtype_name, got, rows(want),
+                              per_row=True)
+        for t in got:
+            if not bool((t[:, pad] == 0).all()):
+                raise AssertionError(f"K11 {layout} {dtype_name}: nonzero "
+                                     "output on a pad slot")
+        ms = cuda_time(kfn)
+        plain_ms = cuda_time(lambda: ausm_t.ausm_flux_t(
+            lay, *ins[:3], m_inf, *ins[3:]))
+        bound = bound_of(nbytes(ins + got), flops, dtype_name)
+        key = f"{dtype_name} {mesh.npoint} {layout}"
+        phase("k11", f"ausm_flux_jac {key}: max_abs_err {err:.3e} "
+              f"({scaled:.2e} of its row's max) kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"{ne} family slots, {int(pad.sum())} pad slots exactly 0")
+        report.setdefault("ausm_flux_jac", {})[key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+            bound_by=bound[1], library_ms=None)
+
+
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -1017,20 +1107,65 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
           f"{worst:.3e} of its field's max); card launches {counts}")
 
 
-def _step_compare(tmp, total_conditions, implicit=None, prec="JACOBI"):
+def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False):
+    """5 laminar iterations (KIND_TURB_MODEL= NONE), card vs CPU, from the
+    state after 10 card iterations of the flagship-class case: explicit
+    (T4 once per iteration), or implicit (muscl, limiter) with prec (K11
+    once per iteration; LU_SGS: the flow's 13 x 13 solve in f64's tier);
+    tier=True forces the >= 200k-node tier on both sides (K7's rows, read
+    node-major by the laminar edge terms)."""
+    import torch
+    from su2_tpu_torch.linalg import stencil_solve as sts
+    from su2_tpu_torch.ops import gradients
+    saved = gradients.TILED_MIN_NODES
+    if tier:
+        gradients.TILED_MIN_NODES = 0
+    try:
+        worst, counts, n, sim = _step_compare(tmp, False, implicit, prec,
+                                              laminar=True)
+    finally:
+        gradients.TILED_MIN_NODES = saved
+    imp = implicit is not None
+    want = {"ausm_flux_jac": 5 * imp, "chem_source": 5 * (not imp),
+            "node_state": 5, "edge_implicit": 0, "edge_flux": 0,
+            "edge_win": 0, "gradient_rows": 5 * tier}
+    lusgs = imp and prec != "JACOBI"
+    one = lusgs and sts.solve_tier(n, sim.mesh.stencil_offsets, sim.lay.nvar,
+                                   torch.float64, sim.ncolor, KRYLOV_M)[1]
+    want.update(stencil_fgmres=5 * one,
+                stencil_sgs_matvec=5 * KRYLOV_M * (lusgs and not one))
+    for k, c in want.items():
+        if counts[k] != c:
+            raise AssertionError(f"laminar step: {k} launched {counts[k]} "
+                                 f"times in the 5 compared card iterations,"
+                                 f" expected {c}")
+    what = (f"implicit ({prec}, K11)" if imp else "explicit (T4)") \
+        + (" with the >= 200k-node tier forced (K7)" if tier else "")
+    phase("step", f"5 laminar iterations at {n} nodes f64, {what}, card vs "
+          f"CPU within rtol 1e-9, atol 1e-12*max|field| (largest difference "
+          f"{worst:.3e} of its field's max); card launches {counts}")
+
+
+def _step_compare(tmp, total_conditions, implicit=None, prec="JACOBI",
+                  laminar=False):
     import torch
     from su2_tpu_torch import kernels
-    prec = "LU_SGS" if implicit is None else prec
+    prec = "LU_SGS" if implicit is None and not laminar else prec
     gpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cuda", prec,
-                    total_conditions=total_conditions, implicit=implicit)
+                    total_conditions=total_conditions, implicit=implicit,
+                    laminar=laminar)
     cpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cpu", prec,
-                    total_conditions=total_conditions, implicit=implicit)
-    s_gpu = (gpu.u0, gpu.t0) + tuple(gpu.initial_turb_state())
+                    total_conditions=total_conditions, implicit=implicit,
+                    laminar=laminar)
+    ncarry = 2 if laminar else 6
+    s_gpu = (gpu.u0, gpu.t0) + (() if laminar
+                                else tuple(gpu.initial_turb_state()))
     for _ in range(10):
-        s_gpu = gpu._step(*s_gpu)[:6]
+        s_gpu = gpu._step(*s_gpu)[:ncarry]
     s_cpu = tuple(x.cpu() for x in s_gpu)
-    names = ("u", "t", "q", "mu_t", "grad_k", "sigma_k", "rms", "rmax",
-             "turb_rms", "nonphys", "min_dt")
+    names = (("u", "t", "rms", "rmax", "nonphys", "min_dt") if laminar else
+             ("u", "t", "q", "mu_t", "grad_k", "sigma_k", "rms", "rmax",
+              "turb_rms", "nonphys", "min_dt"))
     worst = 0.0
     kernels.reset_launches()
     for it in range(5):
@@ -1051,7 +1186,9 @@ def _step_compare(tmp, total_conditions, implicit=None, prec="JACOBI"):
             scale = b.abs().max().item()
             if scale > 0.0:
                 worst = max(worst, err.max().item() / scale)
-        s_gpu, s_cpu = tuple(og[:6]), tuple(oc[:6])
+        s_gpu, s_cpu = tuple(og[:ncarry]), tuple(oc[:ncarry])
+    if laminar:
+        return worst, dict(kernels.launches), gpu.mesh.npoint, gpu
     return worst, dict(kernels.launches), gpu.mesh.npoint
 
 
@@ -1068,6 +1205,15 @@ IMPLICIT_STENCIL_PER_ITER = {
     "flagship": {"stencil_fgmres": 2, "stencil_sgs_matvec": 0},
     "scaling": {"stencil_fgmres": 0, "stencil_sgs_matvec": 2 * KRYLOV_M},
     "tier": {"stencil_fgmres": 0, "stencil_sgs_matvec": 2 * KRYLOV_M}}
+
+
+# the laminar implicit step's flow solve (v = 13) with LU_SGS: the mixed
+# one-launch tier at 9,072 nodes, KRYLOV_M K5 (z, A z) at the larger sizes;
+# the explicit laminar step solves no system
+LAMINAR_STENCIL_PER_ITER = {
+    "flagship": {"stencil_fgmres": 1, "stencil_sgs_matvec": 0},
+    "scaling": {"stencil_fgmres": 0, "stencil_sgs_matvec": KRYLOV_M},
+    "tier": {"stencil_fgmres": 0, "stencil_sgs_matvec": KRYLOV_M}}
 
 
 def step_groups():
@@ -1098,6 +1244,9 @@ def step_groups():
             (es, "ghost_dpdu", "boundary flux and Jacobians"),
             (ausm_t, "ausm_flux_t", "boundary flux and Jacobians"),
             (viscous_t, "viscous_flux_t", "boundary flux and Jacobians"),
+            (es, "convective_system_fam", "convective system"),
+            (es, "convective_residual", "convective residual"),
+            (ns, "_laminar_edge_viscous", "laminar viscous flux"),
             (es, "chemistry_source_system", "chemistry source"),
             (es, "chemistry_source_residual", "chemistry source"),
             (blockcsr, "block_diag_inv", "block inverse"),
@@ -1152,6 +1301,7 @@ def profile_steps(sim, state, niter=3):
         return call
 
     groups = step_groups()
+    ncarry = 6 if sim.turbulent else 2
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in groups]
     torch.cuda.synchronize()
     try:
@@ -1160,7 +1310,7 @@ def profile_steps(sim, state, niter=3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(niter):
-                state = sim._step(*state)[:6]
+                state = sim._step(*state)[:ncarry]
             torch.cuda.synchronize()
     finally:
         for mod, attr, fn in saved:
@@ -1196,15 +1346,19 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     import torch
     from su2_tpu_torch import kernels
     n = sim.mesh.npoint
+    lam = not sim.turbulent
     # warm-up outside the counted, timed run
-    u, t, _, ts = sim.run(2, quiet=True)
+    out = sim.run(2, quiet=True)
+    u, t, ts = out[0], out[1], None if lam else out[3]
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    u, t, hist, ts = sim.run(niter, u=u, t_guess=t, turb_state=ts,
-                             quiet=True, chunk=25)
+    out = sim.run(niter, u=u, t_guess=t, turb_state=ts, quiet=True,
+                  chunk=25)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    u, t, hist = out[:3]
+    ts = None if lam else out[3]
     counts = dict(kernels.launches)
     if len(hist) != niter or not np.isfinite(hist).all() \
             or not torch.isfinite(u).all():
@@ -1214,15 +1368,18 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     # flow and turbulence methods match, else two)
     from su2_tpu_torch.ops import gradients
     tier = gradients.use_tiled(sim.mesh)
-    sweeps = 2 if sim.scfg.grad_method == sim.cfg.num_method_grad else 3
+    sweeps = 1 if lam else (
+        2 if sim.scfg.grad_method == sim.cfg.num_method_grad else 3)
     n_tc = sum(bc.kind == "inlet" and bc.inlet_mode == "TOTAL_CONDITIONS"
                for bc in sim.bcs)
-    # implicit flow: K10 instead of T3/K8, the source system in torch ops
+    # implicit flow: K10 instead of T3/K8, the source system in torch ops;
+    # laminar: one node state, no fused edge kernel, implicit through K11
     imp = sim.cfg.implicit_flow
-    want = {"node_state": 2 * niter,
-            "edge_flux": 0 if tier or imp else niter,
-            "edge_win": niter if tier and not imp else 0,
-            "edge_implicit": niter if imp else 0,
+    want = {"node_state": (1 if lam else 2) * niter,
+            "edge_flux": 0 if tier or imp or lam else niter,
+            "edge_win": niter if tier and not (imp or lam) else 0,
+            "edge_implicit": niter if imp and not lam else 0,
+            "ausm_flux_jac": niter if imp and lam else 0,
             "gradient_rows": sweeps * niter if tier else 0,
             "chem_source": 0 if imp else niter, "inlet_tc": n_tc * niter}
     for k, c in want.items():
@@ -1232,7 +1389,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     if counts["mixture_enthalpy"] < niter:
         raise AssertionError(f"{size}: mixture_enthalpy launched "
                              f"{counts['mixture_enthalpy']} < {niter}")
-    table = IMPLICIT_STENCIL_PER_ITER if imp else STENCIL_PER_ITER
+    table = (LAMINAR_STENCIL_PER_ITER if lam else
+             IMPLICIT_STENCIL_PER_ITER if imp else STENCIL_PER_ITER)
     for k, per_iter in table[size].items():
         want_k = per_iter * niter if prec == "LU_SGS" else 0
         if counts[k] != want_k:
@@ -1242,10 +1400,11 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     # the mixing layer reacts: species production of the final state
     from su2_tpu_torch import state as st
     lay = sim.lay
-    v = st.node_state(sim.lib, lay, u, t, sim.tparams, turb_ke=ts[0][:, 0]).v
+    v = st.node_state(sim.lib, lay, u, t, sim.tparams,
+                      turb_ke=None if lam else ts[0][:, 0]).v
     omega = kernels.chem_source(sim.lib, sim.params, v[:, lay.T],
                                 v[:, lay.PRHO], v[:, lay.YS:],
-                                ts[0][:, 1])
+                                None if lam else ts[0][:, 1])
     om_max = omega.abs().max().item()
     if not om_max > 0.0:
         raise AssertionError(f"{size}: no species production")
@@ -1253,7 +1412,7 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
     prof = ""
     if profile:
         cuda_launches, busy, ours, top, by_group = profile_steps(
-            sim, (u, t) + tuple(ts))
+            sim, (u, t) + (() if lam else tuple(ts)))
         prof = (f", profiled: {cuda_launches:.1f} CUDA launches/iter, "
                 f"device busy {busy:.3f} ms/iter, su2k kernels' device "
                 f"ms/iter {ours}, the largest other device ops' ms/iter "
@@ -1263,6 +1422,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
         prec = f"{prec}, TOTAL_CONDITIONS inlet"
     if imp:
         prec = f"implicit flow ({sim.cfg.spatial_order_flow}), {prec}"
+    if lam:
+        prec = f"laminar {prec if imp else 'explicit flow'}"
     phase("slice", f"{n} nodes {dt} {prec} x {niter}: {ms:.3f} ms/iter, "
           f"{n / (ms * 1e3):.3f} Mcell-updates/s, log10 rms[rho] "
           f"{hist[0][0]:.4f} -> {hist[-1][0]:.4f}, max|omega| "
@@ -1332,6 +1493,21 @@ def main():
         for size in ("scaling", "tier"):
             implicit_kernel_phase(imp[size], "float32", report,
                                   ["venkatakrishnan"])
+        # the laminar implicit case (MUSCL + Venkatakrishnan, LU_SGS): K11
+        # at 9,072 nodes in f64 and f32 and at 565,500 in f32
+        lam = {}
+        for size in ("flagship", "tier"):
+            t0 = time.perf_counter()
+            lam[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                                  "LU_SGS", implicit=main_imp, laminar=True)
+            phase("k11", f"{lam[size].mesh.npoint}-node laminar implicit "
+                  f"LU_SGS case built in {time.perf_counter() - t0:.1f} s")
+        for dt in ("float64", "float32"):
+            ausm_kernel_phase(lam["flagship"], dt, report)
+        ausm_kernel_phase(lam["tier"], "float32", report)
+        laminar_step_phase(tmp)
+        laminar_step_phase(tmp, implicit=main_imp, prec="LU_SGS")
+        laminar_step_phase(tmp, implicit=main_imp, tier=True)
         step_phase(tmp)
         step_phase(tmp, tier=True)
         step_phase(tmp, total_conditions=True)
@@ -1370,17 +1546,32 @@ def main():
                              slice_phase(sims_p[size], size, its[size], card,
                                          prec=prec, profile=True),
                              its[size]))
+        # the laminar slice: implicit LU_SGS (K11 once per iteration, the
+        # flow's solve K6 once at 9,072 nodes, K5 ten times at 565,500)
+        # and explicit (T4 once per iteration), timed and profiled
+        for size, niter in LAMINAR_NITERS.items():
+            runs.append((f"{lam[size].mesh.npoint} laminar implicit LU_SGS",
+                         slice_phase(lam[size], size, niter, card,
+                                     profile=True), niter))
+        lam_exp = make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
+                            "JACOBI", laminar=True)
+        runs.append(("9072 laminar explicit", slice_phase(
+            lam_exp, "flagship", LAMINAR_NITERS["flagship"], card,
+            prec="JACOBI", profile=True), LAMINAR_NITERS["flagship"]))
 
     # each kernel's numbers at its main-path use: T1-T4 in f32 at 9,072
     # nodes, K5 mixed on the implicit LU_SGS case's flow system at 142,317
     # nodes and K6 mixed on it at 9,072 nodes (v = 13; the SST's v = 2
     # numbers beside them), K7 (WLS, the case's method) and K8 in f32 at
     # 565,500 nodes, K9 in f32 on the 377-vertex batch, K10 f32 at 9,072
-    # nodes (MUSCL + Venkatakrishnan)
+    # nodes (MUSCL + Venkatakrishnan), K11 f32 feature-major at 9,072 nodes
+    # (the laminar implicit case's family slots; edge-major and 565,500
+    # nodes beside it)
     main_use = {"stencil_sgs_matvec": ("flow142317", "mixed", "sgs_matvec"),
                 "stencil_fgmres": ("flow9072", "mixed"),
                 "gradient_rows": "float32 WLS",
-                "edge_implicit": "float32 9072 venkatakrishnan"}
+                "edge_implicit": "float32 9072 venkatakrishnan",
+                "ausm_flux_jac": "float32 9072 feature-major"}
     sst_use = {"stencil_sgs_matvec": ("sst142317", "mixed", "sgs_matvec"),
                "stencil_fgmres": ("sst9072", "float32")}
     rows = []
@@ -1394,6 +1585,9 @@ def main():
         row.update(rec)
         if name in sst_use:
             row["sst_v2"] = report[name][sst_use[name]]
+        if name == "ausm_flux_jac":
+            row["edge_major"] = report[name]["float32 9072 edge-major"]
+            row["at_565500"] = report[name]["float32 565500 feature-major"]
         if name == "stencil_sgs_matvec":
             mv = report[name][("flow142317", "float32", "matvec")]
             row["matvec_only"] = {k: mv[k] for k in (

@@ -213,3 +213,12 @@ def with_implicit_flow(text: str, muscl: bool = True,
     if muscl and limiter is not None:
         lines.append(f"SLOPE_LIMITER_FLOW= {limiter}")
     return "\n".join(lines) + "\n"
+
+
+def with_laminar(text: str) -> str:
+    """The cfg text with laminar flow, KIND_TURB_MODEL= NONE
+    (REACTIVE_NAVIER_STOKES without SST and PaSR); combine with
+    with_implicit_flow for the implicit variants."""
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith("KIND_TURB_MODEL")]
+    return "\n".join(lines + ["KIND_TURB_MODEL= NONE"]) + "\n"

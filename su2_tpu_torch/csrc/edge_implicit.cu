@@ -15,7 +15,9 @@
 // host-side roll of the stack and runs one launch per family; here one
 // launch covers every family, each thread reading columns p and p + o_k
 // of the stack itself.  The arithmetic follows the plain version
-// (ops/edge_implicit.py edge_implicit_plain) operation by operation,
+// (ops/edge_implicit.py edge_implicit_plain) operation by operation (the
+// AUSM+-up face, flux and Jacobian columns, is edge_side.cuh's ausm_face,
+// which K11 runs too),
 // including the effective diffusion's sum_{k!=s} x_k in place of 1 - x_s
 // (ops/viscous_t.py).
 //
@@ -147,7 +149,7 @@ edge_implicit_kernel(int n, ImpConsts c, Grid<T> g, const T* __restrict__ f,
   const int jcol = q_;
   const int ns = c.ns, nd = IMP_ND;
   const int nprim = ns + nd + 5, nvar = ns + nd + 2;
-  const int P_ = nd + 1, PRHO = nd + 2, H_ = nd + 3, A_ = nd + 4;
+  const int P_ = nd + 1, PRHO = nd + 2;
   const int YS = nd + 5;
   const int RHOE = nd + 1, RHOS = nd + 2;
   const int ng = 2 + nd + ns;
@@ -172,135 +174,19 @@ edge_implicit_kernel(int n, ImpConsts c, Grid<T> g, const T* __restrict__ f,
   for (int d = 0; d < nd; ++d) unit[d] = nm[d] / area_s;
 
   // ------------------------------------------------ AUSM+-up on the faces
-  const T KP = (T)0.25, SIGMA = (T)1, KU = (T)0.75, BETA = (T)0.125;
   T vfi[SU2K_MAXS + 7], vfj[SU2K_MAXS + 7];
   T s_i[SU2K_MAXV], s_j[SU2K_MAXV];
   face_state<T, MUSCL, LIMITER>(c, g, f, n, p, ev, (T)0.5, tab, mm, ri, vfi,
                                 s_i);
   face_state<T, MUSCL, LIMITER>(c, g, f, n, jcol, ev, (T)-0.5, tab, mm, ri,
                                 vfj, s_j);
-  T rho_i = vfi[PRHO], rho_j = vfj[PRHO], p_i = vfi[P_], p_j = vfj[P_];
-  T proj_i = vfi[1] * unit[0] + vfi[2] * unit[1];
-  T proj_j = vfj[1] * unit[0] + vfj[2] * unit[1];
-  T a_mean = (T)0.5 * (vfi[A_] + vfj[A_]);
-  T m_l = proj_i / a_mean, m_r = proj_j / a_mean;
-  T m_f2 = (T)0.5 * (m_l * m_l + m_r * m_r);
-  T minf2 = (T)(c.m_infty * c.m_infty);
-  T m_ref2 = m_f2 > minf2 ? m_f2 : minf2;
-  m_ref2 = m_ref2 < (T)1 ? m_ref2 : (T)1;
-  T m_ref = sqrt(m_ref2);
-  T fa = m_ref * ((T)2 - m_ref);
-  T alpha = (T)(3.0 / 16.0) * ((T)5 * fa * fa - (T)4);
-  T m_lp, m_lm, m_rp, m_rm, p_lp, p_lm, p_rp, p_rm;
-  split_mach(m_l, m_lp, m_lm);
-  split_mach(m_r, m_rp, m_rm);
-  press_polys(m_l, alpha, p_lp, p_lm);
-  press_polys(m_r, alpha, p_rp, p_rm);
-  T rho_mean = (T)0.5 * (rho_i + rho_j);
-  T factor = (T)1 - SIGMA * m_f2;
-  factor = factor > (T)0 ? factor : (T)0;
-  T dp = p_j - p_i;
-  T m12 = m_lp + m_rm - KP / fa * factor * dp
-                            / (rho_mean * a_mean * a_mean);
-  T m_lf = (T)0.5 * (m12 + fabs(m12));
-  T m_rf = (T)0.5 * (m12 - fabs(m12));
-  T mass12 = a_mean * (m_lf * rho_i + m_rf * rho_j);
-  T p_lf = p_lp * p_i + p_rm * p_j
-         - KU * p_lp * p_rm * (rho_i + rho_j) * fa * a_mean
-               * (proj_j - proj_i);
-  auto phi = [&](const T* v, int a) {
-    return a == 0 ? (T)1 : (a <= nd ? v[a] : (a == RHOE ? v[H_]
-                                                       : v[YS + a - RHOS]));
-  };
-  T fo[SU2K_MAXV];
-  for (int a = 0; a < nvar; ++a) {
-    T pi_ = phi(vfi, a), pj_ = phi(vfj, a);
-    fo[a] = (T)0.5 * (mass12 * (pi_ + pj_) + fabs(mass12) * (pi_ - pj_))
-          * area;
-  }
-  for (int d = 0; d < nd; ++d) fo[1 + d] = fo[1 + d] + (p_lf * area) * unit[d];
-
-  // Jacobian column vectors (ops/ausm_t._jacobians)
-  T mpld[SU2K_MAXV], mmld[SU2K_MAXV], mprd[SU2K_MAXV], mmrd[SU2K_MAXV];
+  // the flux and the Jacobians' column vectors (edge_side.cuh ausm_face)
+  T fo[SU2K_MAXV], w_l[SU2K_MAXV], w_r[SU2K_MAXV];
   T prld[SU2K_MAXV], prrd[SU2K_MAXV];
-  {
-    bool sub_l = fabs(m_l) < (T)1, sub_r = fabs(m_r) < (T)1;
-    T safe_ml = m_l == (T)0 ? (T)1 : m_l;
-    T safe_mr = m_r == (T)0 ? (T)1 : m_r;
-    T pol_l = sub_l ? (T)0.5 * (m_l + (T)1)
-                          + (T)4 * BETA * m_l * (m_l * m_l - (T)1)
-                    : (T)0.5 * ((T)1 + fabs(m_l) / safe_ml);
-    T pol_r = sub_r ? (T)0.5 * ((T)1 - m_r)
-                          + (T)4 * BETA * m_r * ((T)1 - m_r * m_r)
-                    : (T)0.5 * ((T)1 - fabs(m_r) / safe_mr);
-    T m_f = sqrt(m_f2);
-    bool at_ref = m_f2 == m_ref2;
-    T safe_mf = m_f == (T)0 ? (T)1 : m_f;
-    T sc_l = m_l * ((T)1 - m_f) / safe_mf;
-    T sc_r = m_r * ((T)1 - m_f) / safe_mf;
-    T fpos = factor > (T)0 ? (T)1 : (T)0;
-    T c0 = KP / (a_mean * a_mean * fa * fa * rho_mean * rho_mean);
-    T c1 = KP / (a_mean * a_mean * fa * rho_mean * rho_mean) * (T)0.5
-         * factor * dp;
-    T el_l = fpos * SIGMA * m_l * dp * fa * rho_mean;
-    T el_r = fpos * SIGMA * m_r * (p_i - p_j) * fa * rho_mean;
-    T es_ = factor * fa * rho_mean;
-    T ec_ = factor * dp * rho_mean;
-    T sign_m12 = m12 == (T)0 ? (T)0 : fabs(m12) / m12;
-    T sp = (T)1 + sign_m12, sm = (T)1 - sign_m12;
-    T ml2 = m_l * m_l - (T)1, mr2 = m_r * m_r - (T)1;
-    T pp_l = (T)0.25 * (m_l + (T)1)
-           * ((T)3 * ((T)1 - m_l)
-              + (T)4 * alpha * ((T)5 * m_l * m_l - (T)1) * (m_l - (T)1));
-    T pp_r = (T)0.25 * (m_r - (T)1)
-           * ((T)3 * ((T)1 + m_r)
-              + (T)4 * alpha * ((T)1 - (T)5 * m_r * m_r) * (m_r + (T)1));
-    T ps_l = (T)(15.0 / 8.0) * m_l * (ml2 * ml2);
-    T ps_r = (T)(15.0 / 8.0) * m_r * (mr2 * mr2);
-    T rho_sum = rho_i + rho_j;
-    T dproj = proj_j - proj_i;
-    T kl = KU * p_rm * a_mean, kr = KU * p_lp * a_mean;
-    T x1 = rho_sum * fa * dproj;
-    T xl = p_lp * rho_sum * dproj, xr = p_rm * rho_sum * dproj;
-    T pr_l0 = KU * p_rm * a_mean * p_lp * fa
-            * (dproj + rho_sum * proj_i / rho_i);
-    T pr_r0 = KU * p_lp * a_mean * p_rm * fa
-            * (dproj - rho_sum * proj_j / rho_j);
-    T pv_l = -(KU * p_rm * a_mean * p_lp * fa * rho_sum / rho_i);
-    T pv_r = KU * p_lp * a_mean * p_rm * fa * rho_sum / rho_j;
-    for (int b = 0; b < nvar; ++b) {
-      T mld = b == 0 ? -m_l / rho_i
-                     : (b <= nd ? unit[b - 1] / (rho_i * a_mean) : (T)0);
-      T mrd = b == 0 ? -m_r / rho_j
-                     : (b <= nd ? unit[b - 1] / (rho_j * a_mean) : (T)0);
-      T mpl = mld * pol_l, mpr = mrd * pol_r;
-      T scl = at_ref ? mld * sc_l : (T)0;
-      T scr = at_ref ? mrd * sc_r : (T)0;
-      T mel = -c0 * (el_l * mld + es_ * s_i[b] + ec_ * scl);
-      T mer = c0 * (el_r * mrd + es_ * s_j[b] - ec_ * scr);
-      if (b == 0) {
-        mel = mel + -c1;
-        mer = mer + -c1;
-      }
-      mpld[b] = (T)0.5 * (mpl - mel) * sp;
-      mmld[b] = (T)0.5 * (mpl - mel) * sm;
-      mprd[b] = (T)0.5 * (mpr - mer) * sp;
-      mmrd[b] = (T)0.5 * (mpr - mer) * sm;
-      T ppl = sub_l ? pp_l * mld + ps_l * scl : (T)0;
-      T ppr = sub_r ? pp_r * mrd - ps_r * scr : (T)0;
-      T pel = kl * (x1 * ppl + xl * scl);
-      T per = kr * (x1 * ppr + xr * scr);
-      if (b == 0) {
-        pel = pel + pr_l0;
-        per = per + pr_r0;
-      } else if (b <= nd) {
-        pel = pel + pv_l * unit[b - 1];
-        per = per + pv_r * unit[b - 1];
-      }
-      prld[b] = p_lp * s_i[b] + p_i * ppl - pel;
-      prrd[b] = p_rm * s_j[b] + p_j * ppr - per;
-    }
-  }
+  const AusmFace<T> af = ausm_face<IMP_ND>(nvar, c.m_infty, vfi, vfj, s_i,
+                                           s_j, unit, area, fo, w_l, w_r,
+                                           prld, prrd);
+  const T rho_i = vfi[PRHO], rho_j = vfj[PRHO];
 
   // ------------------------------------------------ viscous (node states)
   T vi[SU2K_MAXS + 7], vj[SU2K_MAXS + 7];
@@ -543,16 +429,15 @@ edge_implicit_kernel(int n, ImpConsts c, Grid<T> g, const T* __restrict__ f,
     T rl = vr[PRHO];
     T* jout = (side ? jj : ji) + (size_t)k * nvar * nvar * n + p;
     const T* sv = side ? s_j : s_i;       // face dP/dU
-    const T* mp = side ? mprd : mpld;
-    const T* mq = side ? mmrd : mmld;
+    const T* w = side ? w_r : w_l;
     const T* pr = side ? prrd : prld;
-    T mlf = a_mean * (side ? m_rf : m_lf);
     T sdt[SU2K_MAXV];
     for (int b = 0; b < nvar; ++b)
       sdt[b] = side ? fj(r_dtdu + b) : fi(r_dtdu + b);
     T sg = side ? (T)1 : (T)-1;
     for (int a = 0; a < nvar; ++a) {
-      T rpi = rho_i * phi(vfi, a), rpj = rho_j * phi(vfj, a);
+      T rpi = rho_i * ausm_phi<IMP_ND>(vfi, a);
+      T rpj = rho_j * ausm_phi<IMP_ND>(vfj, a);
       // this row of dF/dV . dV/dU
       T vjr[SU2K_MAXV];
       if (a == 0) {
@@ -581,10 +466,8 @@ edge_implicit_kernel(int n, ImpConsts c, Grid<T> g, const T* __restrict__ f,
           vjr[RHOS + kk] = -djdr(side, s, kk) * area;
       }
       for (int b = 0; b < nvar; ++b) {
-        T cj = a_mean * (rpi * mp[b] + rpj * mq[b]);
-        if (a == b) cj = cj + mlf;
-        if (a == RHOE) cj = cj + mlf * sv[b];
-        if (a >= 1 && a <= nd) cj = cj + unit[a - 1] * pr[b];
+        T cj = ausm_jac_entry<IMP_ND>(af, side != 0, a, b, rpi, rpj, w, pr,
+                                      sv, unit);
         jout[(size_t)(a * nvar + b) * n] = cj * area - vjr[b];
       }
     }

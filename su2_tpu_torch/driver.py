@@ -1,14 +1,17 @@
-"""Simulation driver for the coupled REACTIVE_RANS step (torch).
+"""Simulation driver for the coupled REACTIVE_RANS step and the laminar
+REACTIVE_NAVIER_STOKES step (torch).
 
 Port of the JAX package's Simulation for one configuration family:
-reactive Navier-Stokes with SST and PaSR and the AUSM scheme, on meshes
-with a static neighbour stencil.  The flow is explicit (first order), or
+reactive Navier-Stokes, with SST and PaSR (KIND_TURB_MODEL= SST) or
+laminar (NONE), and the AUSM scheme, on meshes with a static neighbour
+stencil.  The flow is explicit (first order; laminar also Runge-Kutta), or
 implicit (EULER_IMPLICIT, first order or MUSCL with or without a limiter);
 the flow and SST systems are solved by FGMRES with the multicolor SGS
-(LU_SGS, ILU0) or JACOBI preconditioner.  One
+(LU_SGS, ILU0) or JACOBI preconditioner.  One RANS
 outer iteration is the segregated sequence of iteration_structure.cpp
 :531-550: flow system (with SST closures), then the SST system on the
-updated flow state.  Setup stays on
+updated flow state; a laminar one is the flow system alone
+(_make_explicit_step, _make_implicit_step).  Setup stays on
 the host (NumPy); the step runs on the tensors' device — the CUDA kernels
 on a card, their plain versions on the CPU.
 """
@@ -57,11 +60,10 @@ def _unported(cfg: Config):
     module that runs it."""
     checks = [
         (not cfg.reactive, "non-reactive solvers", "su2_tpu.driver"),
-        (cfg.kind_turb_model == "NONE", "laminar flow (KIND_TURB_MODEL= "
-         "NONE: _make_explicit_step, _make_implicit_step)", "su2_tpu.driver"),
         (cfg.kind_turb_model not in ("SST", "NONE"), f"KIND_TURB_MODEL= "
          f"{cfg.kind_turb_model}", "su2_tpu.turbulence"),
-        (not cfg.implicit_turb, "explicit turbulence", "su2_tpu.driver"),
+        (cfg.turbulent and not cfg.implicit_turb, "explicit turbulence",
+         "su2_tpu.driver"),
         (cfg.muscl_flow and not cfg.implicit_flow,
          "MUSCL reconstruction with explicit flow (convective_residual)",
          "su2_tpu.solvers.euler"),
@@ -97,7 +99,7 @@ def _unported(cfg: Config):
 
 
 class Simulation:
-    """One flow zone: reactive NS + SST on one device."""
+    """One flow zone: reactive NS (+ SST) on one device."""
 
     def __init__(self, cfg: Config, raw_mesh: RawMesh | None = None,
                  dtype=torch.float64, device="cuda"):
@@ -171,6 +173,21 @@ class Simulation:
             ref_elem_length=cfg.ref_elem_length)
         self.bcs = es.build_bc_markers(cfg, self.lib, self.mesh, self.lay)
         self.lower, self.upper = es.clip_limits(self.lay, dtype, self.device)
+        # colors of the SGS-class preconditioners' multicolor sweep of the
+        # implicit systems, taken after the stencil renumbering
+        self.colors, self.ncolor = None, 0
+        if cfg.linear_solver_prec != "JACOBI" \
+                and (cfg.implicit_flow or cfg.turbulent):
+            self.colors, self.ncolor = blockcsr.sweep_colors(
+                self.grid.node_nbrs, self.device)
+        self.turbulent = cfg.turbulent
+        self.history = None
+        self.u0, self.t0 = self.freestream_solution()
+        if not self.turbulent:
+            # laminar: no wall distance or SST state, tke_inf stays 0
+            self._step = (self._make_implicit_step() if cfg.implicit_flow
+                          else self._make_explicit_step())
+            return
 
         # wall distance to the no-slip walls + freestream turbulence
         wall_pts = [self.grid.coords[self.grid.bnd_nodes[tag]]
@@ -192,14 +209,9 @@ class Simulation:
             linear_iter=cfg.linear_solver_iter,
             linear_tol=cfg.linear_solver_error,
             linear_prec=cfg.linear_solver_prec)
-        # colors of the SGS-class preconditioners' multicolor sweep, taken
-        # after the stencil renumbering
-        if cfg.linear_solver_prec != "JACOBI":
-            colors, ncolor = blockcsr.sweep_colors(self.grid.node_nbrs,
-                                                   self.device)
-            self.scfg = replace(self.scfg, colors=colors, ncolor=ncolor)
-        self.history = None
-        self.u0, self.t0 = self.freestream_solution()
+        if self.colors is not None:
+            self.scfg = replace(self.scfg, colors=self.colors,
+                                ncolor=self.ncolor)
         self._step = self._make_rans_step()
 
     # ------------------------------------------------------------------
@@ -258,7 +270,7 @@ class Simulation:
                                     self.params, self.bcs)
         tparams = self.tparams
         lower, upper = self.lower, self.upper
-        cfg, scfg = self.cfg, self.scfg
+        cfg = self.cfg
         turb_phase = self._make_turb_phase()
 
         def flow_dt(v, lam_v, lam_c=None):
@@ -274,26 +286,8 @@ class Simulation:
                                       vis.Transport(nsd.mu, nsd.kappa),
                                       nsd.dpdu, turb)
             dt, min_dt = flow_dt(v, lam_v)
-            res, wall_mask, _, _, jac, flow_fb = ns.ns_assemble(
-                lib, lay, mesh, prm, bcs, v, nsd, turb, omega_t, dt=dt)
-            u = ns.enforce_wall_velocity(lay, u, wall_mask)
-            rhs = -res
-            mv, pc, pm, solve = blockcsr.make_solver_ops_stencil_t(
-                mesh, jac.diag, jac.sel_t, cfg.linear_solver_prec,
-                scfg.colors, scfg.ncolor, linear_iter=cfg.linear_solver_iter)
-            if solve is not None:
-                # the whole FGMRES cycle in one launch (K6)
-                sol, _, _ = solve(rhs, cfg.linear_solver_iter,
-                                  cfg.linear_solver_error)
-            else:
-                sol, _, _ = krylov.fgmres(mv, pc, rhs,
-                                          max_iter=cfg.linear_solver_iter,
-                                          tol=cfg.linear_solver_error,
-                                          precond_matvec=pm)
-            u_new = u + cfg.relaxation_factor_flow * sol
-            u_new = torch.minimum(torch.maximum(u_new, lower), upper)
-            rms = torch.sqrt((rhs * rhs).mean(0))
-            rmax = torch.abs(rhs).amax(0)
+            u_new, wall_mask, flow_fb, rms, rmax = self._implicit_update(
+                u, nsd, turb, omega_t, dt)
             return u_new, wall_mask, dt, min_dt, flow_fb, rms, rmax
 
         def explicit_flow(u, v, nsd, turb, omega_t):
@@ -322,6 +316,102 @@ class Simulation:
             u_new = ns.enforce_wall_velocity(lay, u_new, wall_mask)
             return turb_phase(u_new, v, tke, q, mu_t, grad_k, dt, flow_fb,
                               rms, rmax, nonphys.sum(), min_dt)
+
+        return step
+
+    def _implicit_update(self, u, nsd, turb, omega_t, dt):
+        """The implicit flow update at the local time step dt: assemble
+        the system (turb None: laminar), solve it by FGMRES (one K6 launch
+        where the tier has one), relax, clip.  Returns (u_new, wall_mask,
+        flux-BC ghost batch, rms, rmax) of the residual."""
+        cfg = self.cfg
+        res, wall_mask, _, _, jac, flow_fb = ns.ns_assemble(
+            self.lib, self.lay, self.mesh, self.params, self.bcs, nsd.v, nsd,
+            turb, omega_t, dt=dt)
+        u = ns.enforce_wall_velocity(self.lay, u, wall_mask)
+        rhs = -res
+        mv, pc, pm, solve = blockcsr.make_solver_ops(
+            self.mesh, jac, cfg.linear_solver_prec, self.colors, self.ncolor,
+            linear_iter=cfg.linear_solver_iter)
+        if solve is not None:
+            # the whole FGMRES cycle in one launch (K6)
+            sol, _, _ = solve(rhs, cfg.linear_solver_iter,
+                              cfg.linear_solver_error)
+        else:
+            sol, _, _ = krylov.fgmres(mv, pc, rhs,
+                                      max_iter=cfg.linear_solver_iter,
+                                      tol=cfg.linear_solver_error,
+                                      precond_matvec=pm)
+        u_new = u + cfg.relaxation_factor_flow * sol
+        u_new = torch.minimum(torch.maximum(u_new, self.lower), self.upper)
+        rms = torch.sqrt((rhs * rhs).mean(0))
+        rmax = torch.abs(rhs).amax(0)
+        return u_new, wall_mask, flow_fb, rms, rmax
+
+    def _make_explicit_step(self):
+        """Laminar explicit step (the JAX package's _make_explicit_step):
+        explicit Euler, or the RUNGE-KUTTA_EXPLICIT stages (RK_ALPHA_COEFF,
+        ExplicitRK_Iteration, solver_direct_reactive.cpp:2456) at the
+        first stage's local time step, each stage from the stage-0 state
+        with the wall velocity enforced.  step(u, t_guess) -> (u, T, rms,
+        rmax, nonphysical count, min dt)."""
+        lib, lay, mesh, prm, bcs = (self.lib, self.lay, self.mesh,
+                                    self.params, self.bcs)
+        tparams, lower, upper = self.tparams, self.lower, self.upper
+        alphas = (tuple(self.cfg.rk_alpha_coeff)
+                  if self.cfg.time_discre_flow == "RUNGE-KUTTA_EXPLICIT"
+                  else (1.0,))
+
+        def assemble(u, t_guess):
+            nsd = st.node_state(lib, lay, u, t_guess, tparams)
+            res, wall_mask, trans, _, _, _ = ns.ns_assemble(
+                lib, lay, mesh, prm, bcs, nsd.v, nsd, None, None)
+            return nsd, res, wall_mask, trans
+
+        def step(u, t_guess):
+            nsd, res, wall_mask, trans = assemble(u, t_guess)
+            v, nonphys = nsd.v, nsd.nonphys
+            lam_v = ns.viscous_lambda(lib, mesh, lay, prm, v, trans,
+                                      nsd.dpdu, None)
+            dt, min_dt, _ = timestep.local_time_step(
+                mesh, lay, v, prm.cfl, prm.max_dt, lam_visc=lam_v)
+            u_old = ns.enforce_wall_velocity(lay, nsd.u, wall_mask)
+            u_new, rms, rmax = es.explicit_euler_update(
+                lay, mesh, u_old, res, dt, lower, upper, alpha=alphas[0])
+            t_cur = v[:, lay.T]
+            for alpha in alphas[1:]:
+                u_new = ns.enforce_wall_velocity(lay, u_new, wall_mask)
+                nsd_k, res, _, _ = assemble(u_new, t_cur)
+                t_cur = nsd_k.v[:, lay.T]
+                nonphys = nonphys | nsd_k.nonphys
+                u_new, rms, rmax = es.explicit_euler_update(
+                    lay, mesh, u_old, res, dt, lower, upper, alpha=alpha)
+            u_new = ns.enforce_wall_velocity(lay, u_new, wall_mask)
+            return u_new, t_cur, rms, rmax, nonphys.sum(), min_dt
+
+        return step
+
+    def _make_implicit_step(self):
+        """Laminar implicit step (the JAX package's _make_implicit_step):
+        the local time step from the viscous spectral radius (no time
+        marching), then the implicit update, the flow system assembled on
+        the family slots (K11) as a FamilyJacobian.  step(u, t_guess) ->
+        (u, T, rms, rmax, nonphysical count, min dt)."""
+        lib, lay, mesh, prm = self.lib, self.lay, self.mesh, self.params
+        tparams = self.tparams
+
+        def step(u, t_guess):
+            nsd = st.node_state(lib, lay, u, t_guess, tparams)
+            v = nsd.v
+            lam_v = ns.viscous_lambda(lib, mesh, lay, prm, v,
+                                      vis.Transport(nsd.mu, nsd.kappa),
+                                      nsd.dpdu, None)
+            dt, min_dt, _ = timestep.local_time_step(
+                mesh, lay, v, prm.cfl, prm.max_dt, lam_visc=lam_v)
+            u_new, wall_mask, _, rms, rmax = self._implicit_update(
+                nsd.u, nsd, None, None, dt)
+            u_new = ns.enforce_wall_velocity(lay, u_new, wall_mask)
+            return u_new, v[:, lay.T], rms, rmax, nsd.nonphys.sum(), min_dt
 
         return step
 
@@ -364,25 +454,30 @@ class Simulation:
     # ------------------------------------------------------------------
     def enable_output(self, out_dir: str | None = None):
         """Write the convergence history (history writer of the JAX
-        package's COutput role)."""
+        package's COutput role; no turbulence columns when laminar)."""
         from su2_tpu_torch.io.output import HistoryWriter
         base = out_dir or os.getcwd()
         self.history = HistoryWriter(
             os.path.join(base, self.cfg.conv_filename + ".dat"),
-            self.lay.nvar, 2, cfl=self.cfg.cfl_number)
+            self.lay.nvar, 2 if self.turbulent else 0,
+            cfl=self.cfg.cfl_number)
 
     def run(self, niter: int | None = None, log_every: int = 1, u=None,
             t_guess=None, turb_state=None, quiet=False, chunk: int = 1):
         """Main iteration loop.  Every `chunk` iterations the per-iteration
         residuals come back to the host in one copy, for the NaN check, the
         history file, the log and the convergence test.
-        Returns (u, t_guess, hist (niter, nVar) log10 RMS, turb_state)."""
+        Returns (u, t_guess, hist (niter, nVar) log10 RMS, turb_state), or
+        laminar (u, t_guess, hist)."""
         cfg = self.cfg
+        turbulent = self.turbulent
         niter = niter if niter is not None else cfg.ext_iter
         u = self.u0 if u is None else u
         t_guess = self.t0 if t_guess is None else t_guess
-        q, mu_t, grad_k, sigma_k = (turb_state if turb_state is not None
-                                    else self.initial_turb_state())
+        if turbulent:
+            q, mu_t, grad_k, sigma_k = (turb_state if turb_state is not None
+                                        else self.initial_turb_state())
+        nv, nt = self.lay.nvar, 2 if turbulent else 0
         hist = []
         rms0 = None
         start = time.time()
@@ -392,16 +487,20 @@ class Simulation:
             k = min(max(chunk, 1), niter - it)
             outs = []
             for _ in range(k):
-                (u, t_guess, q, mu_t, grad_k, sigma_k, rms, _rmax, turb_rms,
-                 nerr, min_dt) = self._step(u, t_guess, q, mu_t, grad_k,
-                                            sigma_k)
-                outs.append(torch.cat([rms, turb_rms, nerr[None].to(rms.dtype),
+                if turbulent:
+                    (u, t_guess, q, mu_t, grad_k, sigma_k, rms, _rmax,
+                     turb_rms, nerr, min_dt) = self._step(
+                        u, t_guess, q, mu_t, grad_k, sigma_k)
+                    rms = torch.cat([rms, turb_rms])
+                else:
+                    u, t_guess, rms, _rmax, nerr, min_dt = self._step(
+                        u, t_guess)
+                outs.append(torch.cat([rms, nerr[None].to(rms.dtype),
                                        min_dt[None]]))
             block = torch.stack(outs).cpu().double().numpy()
-            nv = self.lay.nvar
             for j in range(k):
                 gi = it + j
-                rms_np, trms_np = block[j, :nv], block[j, nv:nv + 2]
+                rms_np, trms_np = block[j, :nv], block[j, nv:nv + nt]
                 if np.isnan(rms_np).any():
                     raise RuntimeError(f"NaN residual at iteration {gi}")
                 log_rms = np.log10(np.maximum(rms_np, 1e-300))
@@ -410,15 +509,17 @@ class Simulation:
                 if rms0 is None:
                     rms0 = log_rms.copy()
                 if self.history is not None and gi % cfg.wrt_con_freq == 0:
-                    self.history.write(gi, log_rms, log_trms,
+                    self.history.write(gi, log_rms,
+                                       log_trms if turbulent else None,
                                        lin_iters=cfg.linear_solver_iter)
                 if not quiet and gi % log_every == 0:
+                    turb_cols = (f"Res[k]: {log_trms[0]: .4f}  "
+                                 f"Res[w]: {log_trms[1]: .4f}  "
+                                 if turbulent else "")
                     print(f"{gi:6d}  Res[Rho]: {log_rms[self.lay.RHO]: .6f}  "
                           f"Res[RhoE]: {log_rms[self.lay.RHOE]: .6f}  "
-                          f"Res[k]: {log_trms[0]: .4f}  "
-                          f"Res[w]: {log_trms[1]: .4f}  "
-                          f"dt_min: {block[j, nv + 3]:.3e}  "
-                          f"nonphys: {int(block[j, nv + 2])}  "
+                          f"{turb_cols}dt_min: {block[j, nv + nt + 1]:.3e}  "
+                          f"nonphys: {int(block[j, nv + nt])}  "
                           f"({time.time() - start:.1f}s)")
                 if cfg.conv_criteria == "RESIDUAL" \
                         and gi > cfg.startconv_iter:
@@ -429,6 +530,8 @@ class Simulation:
                         converged = True
                         break
             it += k
+        if not turbulent:
+            return u, t_guess, np.array(hist)
         return u, t_guess, np.array(hist), (q, mu_t, grad_k, sigma_k)
 
 

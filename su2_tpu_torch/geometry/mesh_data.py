@@ -72,6 +72,51 @@ class MeshArrays:
                                for t, (a, b) in self.marker_dense.items()}
         return dataclasses.replace(self, **upd)
 
+    # ---- the family-major virtual edge set (stencil meshes) ----
+    # Kh*nP slots, family k's slot p is the edge (p, p + fam_offsets[k]);
+    # absent edges are pad slots with a zero fam_normal.  The endpoint
+    # gathers are tiles and rolls and the scatters roll-subtracts, without
+    # atomics: the parts are added in family order, as the JAX package's
+    # MeshArrays.fam_* do.  dim: the slot axis (0 node-major, -1 for
+    # feature-major arrays whose lanes are the slots).
+
+    @property
+    def fam_normal_flat(self) -> torch.Tensor:
+        """(Kh*nP, d) area normals of the family slots."""
+        return self.fam_normal.reshape(len(self.fam_offsets) * self.npoint,
+                                       -1)
+
+    @property
+    def fam_valid_flat(self) -> torch.Tensor:
+        """(Kh*nP,) True where the slot is an edge."""
+        return (self.fam_normal_flat != 0.0).any(dim=-1)
+
+    def fam_gather_i(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return torch.cat([x] * len(self.fam_offsets), dim=dim)
+
+    def fam_gather_j(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return torch.cat([torch.roll(x, -int(o), dims=dim)
+                          for o in self.fam_offsets], dim=dim)
+
+    def _fam_parts(self, ev: torch.Tensor, dim: int):
+        return list(torch.split(ev, self.npoint, dim=dim))
+
+    def fam_scatter(self, ev: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """out[i] += ev, out[j] -= ev over the family slots (pad slots must
+        already be zero: the wrapped rolls then add nothing)."""
+        parts = self._fam_parts(ev, dim)
+        neg = [torch.roll(p, int(o), dims=dim)
+               for p, o in zip(parts, self.fam_offsets)]
+        return sum(parts[1:], parts[0]) - sum(neg[1:], neg[0])
+
+    def fam_accum(self, val_i: torch.Tensor, val_j: torch.Tensor,
+                  dim: int = 0) -> torch.Tensor:
+        """out[i] += val_i, out[j] += val_j over the family slots."""
+        pi = self._fam_parts(val_i, dim)
+        pj = [torch.roll(p, int(o), dims=dim)
+              for p, o in zip(self._fam_parts(val_j, dim), self.fam_offsets)]
+        return sum(pi[1:], pi[0]) + sum(pj[1:], pj[0])
+
     def scatter_edges(self, edge_vals: torch.Tensor) -> torch.Tensor:
         """out[i] = sum_e sign(i, e) * edge_vals[e]: gather + slot sum, no
         atomics, fixed summation order."""

@@ -19,8 +19,10 @@ error and adds one to its entry in ``launches``.
   K8 edge_win           csrc/edge_win.cu     (ops/edge_flux.py)
   K9 inlet_tc           csrc/inlet_tc.cu     (solvers/inlet_tc.py)
   K10 edge_implicit     csrc/edge_implicit.cu (ops/edge_implicit.py)
+  K11 ausm_flux_jac     csrc/ausm_jac.cu      (ops/edge_kernels.py)
 T3 and K8 share the per-edge device function of csrc/edge_side.cuh; K10
-shares its species h/cp lookup and Stefan-Maxwell solve.
+shares its species h/cp lookup and Stefan-Maxwell solve, and K10 and K11
+its implicit AUSM+-up face (ausm_face, ausm_jac_entry).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("common.cuh", "edge_side.cuh", "thermo.cu", "node_state.cu",
            "edge_flux.cu", "chem_source.cu", "stencil_solve.cu",
            "gradients_tiled.cu", "edge_win.cu", "inlet_tc.cu",
-           "edge_implicit.cu")
+           "edge_implicit.cu", "ausm_jac.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # per-source flags: K9 keeps the plain version's operations (no fused
@@ -49,7 +51,7 @@ SOURCE_FLAGS = {"inlet_tc.cu": ("-fmad=false",)}
 launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
             "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0,
             "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0,
-            "edge_implicit": 0}
+            "edge_implicit": 0, "ausm_flux_jac": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,6 +79,7 @@ _ARGTYPES = {
                      + [_P] * 7,
     "su2k_edge_implicit": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
                            _I, _D, _D, _D, _D, _D, _D, _I, _I] + [_P] * 9,
+    "su2k_ausm_flux_jac": [_I, _I, _I, _I, _I, _D] + [_P] * 9,
 }
 
 _loaded = None
@@ -578,3 +581,48 @@ def edge_implicit(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec,
     _raise("edge_implicit", err)
     launches["edge_implicit"] += 1
     return flux, j_i, j_j
+
+
+# ---------------------------------------------------------------- K11
+# The species counts K11 is compiled for (SU2K_AUSM_BY_NS in
+# csrc/ausm_jac.cu): the case's 9, nVar = 13.
+AUSM_SPECIES = (9,)
+
+
+def ausm_flux_jac(lay, v_i, v_j, normal, m_infty, s_i, s_j,
+                  edge_major=False):
+    """Kernel K11: the AUSM+-up flux and both Jacobians per edge, 2D.
+    Feature-major (edge_major False): v_* (nPrim, E), normal (d, E), s_*
+    (nVar, E) -> flux (nVar, E), jac_i, jac_j (nVar, nVar, E).
+    Edge-major: the transposes, (E, nPrim) ... -> (E, nVar),
+    (E, nVar, nVar).  A zero normal gives exact zeros."""
+    ins = [x.contiguous() for x in (v_i, v_j, normal, s_i, s_j)]
+    _check("ausm_flux_jac", *ins)
+    if lay.ndim != 2:
+        raise ValueError("ausm_flux_jac: 2D only")
+    if lay.ns not in AUSM_SPECIES:
+        raise ValueError(f"ausm_flux_jac: {lay.ns} species; the kernel is "
+                         f"compiled for {AUSM_SPECIES}")
+    ne = ins[0].shape[0 if edge_major else 1]
+    widths = (lay.nprim, lay.nprim, lay.ndim, lay.nvar, lay.nvar)
+    for x, w in zip(ins, widths):
+        if tuple(x.shape) != ((ne, w) if edge_major else (w, ne)):
+            raise ValueError("ausm_flux_jac: v_* (nPrim, E), normal (d, E), "
+                             "s_* (nVar, E), or their transposes with "
+                             "edge_major")
+    nv = lay.nvar
+    kw = dict(dtype=ins[0].dtype, device=ins[0].device)
+    if edge_major:
+        flux = torch.empty((ne, nv), **kw)
+        ji = torch.empty((ne, nv, nv), **kw)
+    else:
+        flux = torch.empty((nv, ne), **kw)
+        ji = torch.empty((nv, nv, ne), **kw)
+    jj = torch.empty_like(ji)
+    err = _lib().su2k_ausm_flux_jac(
+        int(kw["dtype"] == torch.float64), int(bool(edge_major)), ne,
+        lay.ndim, lay.ns, float(m_infty), *(_ptr(x) for x in ins),
+        _ptr(flux), _ptr(ji), _ptr(jj), _stream())
+    _raise("ausm_flux_jac", err)
+    launches["ausm_flux_jac"] += 1
+    return flux, ji, jj

@@ -26,6 +26,34 @@ class StencilJacobianT:
     sel_t: torch.Tensor    # (K*v*v, nP)
 
 
+@dataclass(frozen=True)
+class FamilyJacobian:
+    """Block Jacobian assembled on the family-major edge slots
+    (MeshArrays.fam_gather_*; the laminar implicit step): slot (k, p) is
+    the edge (p, p + fam_offsets[k]).  off_ij[:, k*nP + p] is the
+    row-p / column-(p + o_k) block, off_ji[:, k*nP + p] the row-(p + o_k) /
+    column-p block, both in the lane layout (v*v, Kh*nP), rows a*v + b, as
+    kernel K11 emits them; pad slots carry zero blocks.  (The JAX package
+    keeps them edge-major, (Kh*nP, v, v).)"""
+    diag: torch.Tensor     # (nP, v, v)
+    off_ij: torch.Tensor   # (v*v, Kh*nP)
+    off_ji: torch.Tensor   # (v*v, Kh*nP)
+
+
+def family_sel(mesh: MeshArrays, jac: FamilyJacobian) -> torch.Tensor:
+    """(K*v*v, nP) stencil lane-layout blocks from family-major ones: offset
+    +o_k reads off_ij of family k in place, offset -o_k reads its off_ji
+    shifted to the j node (roll by +o_k; the wrapped lanes are zero pad
+    blocks), as the JAX package's family_sel; no permute."""
+    n = mesh.npoint
+    by_off = {}
+    for k, o in enumerate(mesh.fam_offsets):
+        o = int(o)
+        by_off[o] = jac.off_ij[:, k * n:(k + 1) * n]
+        by_off[-o] = torch.roll(jac.off_ji[:, k * n:(k + 1) * n], o, dims=1)
+    return torch.cat([by_off[int(o)] for o in mesh.stencil_offsets], dim=0)
+
+
 def _bmv(blocks: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """Batched small-block matvec ("...ij,...j->...i")."""
     return (blocks * vecs[..., None, :]).sum(-1)
@@ -116,3 +144,25 @@ def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
                               sel_dtype=sel_dtype)
     return ops.matvec, ops.precond, ops.precond_matvec, \
         (ops.fgmres if one else None)
+
+
+def make_solver_ops_fam(mesh: MeshArrays, jac: FamilyJacobian,
+                        kind: str = "JACOBI", colors=None, ncolor: int = 0,
+                        linear_iter: int = 5):
+    """make_solver_ops_stencil_t of a FamilyJacobian (the JAX package's
+    make_solver_ops_fam): the same tiers (stencil_solve.solve_tier), K5/K6
+    on the lane-layout blocks of family_sel."""
+    return make_solver_ops_stencil_t(mesh, jac.diag, family_sel(mesh, jac),
+                                     kind, colors, ncolor, linear_iter)
+
+
+def make_solver_ops(mesh: MeshArrays, jac, kind: str = "JACOBI",
+                    colors=None, ncolor: int = 0, linear_iter: int = 5):
+    """(matvec, precond, precond_matvec | None, solve | None) of an
+    implicit system: a StencilJacobianT (the RANS step) or a
+    FamilyJacobian (the laminar step)."""
+    if isinstance(jac, FamilyJacobian):
+        return make_solver_ops_fam(mesh, jac, kind, colors, ncolor,
+                                   linear_iter)
+    return make_solver_ops_stencil_t(mesh, jac.diag, jac.sel_t, kind,
+                                     colors, ncolor, linear_iter)

@@ -74,26 +74,25 @@ def _hcp(lib, t):
     return cl.species_enthalpy(lib, t).T, cl.species_cp(lib, t).T
 
 
-def face_state(lib, lay, f, ev, dxsign, muscl, use_limiter):
-    """(v_face (nPrim, E), its dP/dU rows (nVar, E)) of one edge side:
-    the node state, or the MUSCL state at the edge midpoint (limited when
-    use_limiter) with h, a and dP/dU recomputed from the species tables at
-    the face temperature; a face with T or P <= EPS keeps the node state."""
-    r = implicit_rows(lay)
-    nd, ns, nvar, nprim = lay.ndim, lay.ns, lay.nvar, lay.nprim
-    ng = 2 + nd + ns
-    n = f.shape[1]
-    v = f[:nprim]
+def face_state(lib, lay, v, g, lim, dpdu, ev, dxsign, muscl):
+    """(v_face (nPrim, E), its dP/dU rows (nVar, E)) of one edge side,
+    feature-major: the node state v (nPrim, E) with its dP/dU rows dpdu
+    (nVar, E), or with muscl the MUSCL state at the edge midpoint x +
+    dxsign ev / 2 from the gradients g (2+d, d, E) of [T, u.., P], limited
+    by lim (2+d, E) unless lim is None, with h, a and dP/dU recomputed from
+    the species tables at the face temperature; a face with T or P <= EPS
+    keeps the node state (the JAX package's euler._muscl_rows and
+    ghost_dpdu)."""
+    nd, ns = lay.ndim, lay.ns
     if not muscl:
-        return v, f[r["dpdu"]:r["dpdu"] + nvar]
-    grads = f[r["g"]:r["g"] + ng * nd].reshape(ng, nd, n)
+        return v, dpdu
     dx = dxsign * 0.5 * ev
     q = torch.cat([v[lay.T][None], v[lay.VX:lay.VX + nd], v[lay.P][None]])
-    proj = grads[:2 + nd, 0] * dx[0][None]
+    proj = g[:, 0] * dx[0][None]
     for d in range(1, nd):
-        proj = proj + grads[:2 + nd, d] * dx[d][None]
-    if use_limiter:
-        proj = proj * f[r["lim"]:r["lim"] + 2 + nd]
+        proj = proj + g[:, d] * dx[d][None]
+    if lim is not None:
+        proj = proj * lim
     qr = q + proj
     t_r, vel_r, p_r = qr[0], qr[1:1 + nd], qr[1 + nd]
     bad = (t_r <= EPS) | (p_r <= EPS)
@@ -140,12 +139,19 @@ def edge_implicit_plain(lib, lay, sc, consts, f_all, offsets, fam_normal,
     sel = [0] + list(range(1, 1 + nd)) + list(range(2 + nd, ng))
     g_i = fi[r["g"]:r["g"] + ng * nd].reshape(ng, nd, n)[sel]
     fluxes, jis, jjs = [], [], []
+
+    def side(fs, ev, dxsign):
+        g = fs[r["g"]:r["g"] + (2 + nd) * nd].reshape(2 + nd, nd, n)
+        lim = fs[r["lim"]:r["lim"] + 2 + nd] if use_limiter else None
+        return face_state(lib, lay, fs[:nprim], g, lim,
+                          fs[r["dpdu"]:r["dpdu"] + nvar], ev, dxsign, muscl)
+
     for k, o in enumerate(offsets):
         fj = torch.roll(f_all, -int(o), dims=1)
         nm = fam_normal[k].T
         ev = fam_evec[k].T
-        vf_i, sc_i = face_state(lib, lay, fi, ev, 1.0, muscl, use_limiter)
-        vf_j, sc_j = face_state(lib, lay, fj, ev, -1.0, muscl, use_limiter)
+        vf_i, sc_i = side(fi, ev, 1.0)
+        vf_j, sc_j = side(fj, ev, -1.0)
         conv, cj_i, cj_j = ausm_t.ausm_flux_t(lay, vf_i, vf_j, nm, m_infty,
                                               sc_i, sc_j)
         # the viscous terms read the node states and gradients

@@ -8,6 +8,9 @@ versions of kernels T3 (csrc/edge_flux.cu) and K10 (csrc/edge_implicit.cu,
 with the Jacobians of SetLaminarViscousProjJacs :1200-1409 and
 SST_Reactive_JacobianClosure :891-1097); the boundary faces use it with
 ``corrected=False`` and the Fuller factor of the domain node on both sides.
+Without the SST fields (mu_t_i None) it is the laminar flux and Jacobians,
+the JAX package's node-major ops/viscous.py viscous_flux with turb_i None,
+which the laminar steps run in plain torch ops on every edge.
 
 The Fuller binary diffusion is separable, D_ij = g(T, P) / den[i, j], so
 the Stefan-Maxwell matrix uses one per-edge scalar g against the static
@@ -143,6 +146,8 @@ def viscous_flux_t(lay: Layout, sc: SpeciesConsts, v_i, v_j, g_i, g_j,
     v_*: (nPrim, E); g_*: (1+nd+ns, d, E) gradients of [T, u.., X..];
     normal, evec: (d, E) (evec = x_j - x_i; read only by the correction
     and the Jacobians); mu/ka/mu_t/tke/sigma_k: (E,); gk_*: (d, E);
+    mu_t_i None: laminar, without the SST closure (mu_t_j, tke_*, gk_*
+    and sigma_k are not read);
     h_s/cp_s: (S, E) species enthalpy/cp at the face-mean T.
     corrected: edge-projection correction (interior faces).
     v_fuller_j: state whose (T, P) gives side j's Fuller factor (boundary
@@ -225,25 +230,29 @@ def viscous_flux_t(lay: Layout, sc: SpeciesConsts, v_i, v_j, g_i, g_j,
     e_tau = tau_vn(tau)
     e_cond = ktr * gtn
 
-    # SST closure (SST_Reactive_ResidualClosure, :656-889)
-    mu_t = harm(mu_t_i, mu_t_j)
-    tke = 0.5 * (tke_i + tke_j)
-    g_k = 0.5 * (gk_i + gk_j)
-    tau_t = mu_t[None, None] * sym \
-        - (TWO3 * (mu_t * div_vel + tke * rho))[None, None] * eye_d[:, :, None]
-    mom = mom + tau_n(tau_t)
-    e_tau = e_tau + tau_vn(tau_t)
-    gy = _molar2mass_solve_t(mm_col, sc.mm_sum, ysc, xs, g_xs)  # (S, d, E)
-    gy = torch.where(torch.abs(g_xs) < 1e-8, 0.0, gy)
-    cmt = mu_t / (prandtl_turb * lewis_turb)
-    gy_n = dot_n(gy)
-    e_heat = e_heat + cmt * _rowsum(h_s * ysc * gy_n)
-    e_cond = e_cond + (mu_t / prandtl_turb) * _rowsum(cp_s * ysc) * gtn
-    e_cond = e_cond + (mu + mu_t / sigma_k) * dot_n(g_k[None])[0]
+    species = -jd
+    mu_t = gy = cmt = None
+    if mu_t_i is not None:
+        # SST closure (SST_Reactive_ResidualClosure, :656-889)
+        mu_t = harm(mu_t_i, mu_t_j)
+        tke = 0.5 * (tke_i + tke_j)
+        g_k = 0.5 * (gk_i + gk_j)
+        tau_t = mu_t[None, None] * sym \
+            - (TWO3 * (mu_t * div_vel + tke * rho))[None, None] \
+            * eye_d[:, :, None]
+        mom = mom + tau_n(tau_t)
+        e_tau = e_tau + tau_vn(tau_t)
+        gy = _molar2mass_solve_t(mm_col, sc.mm_sum, ysc, xs, g_xs)
+        gy = torch.where(torch.abs(g_xs) < 1e-8, 0.0, gy)    # (S, d, E)
+        cmt = mu_t / (prandtl_turb * lewis_turb)
+        gy_n = dot_n(gy)
+        e_heat = e_heat + cmt * _rowsum(h_s * ysc * gy_n)
+        e_cond = e_cond + (mu_t / prandtl_turb) * _rowsum(cp_s * ysc) * gtn
+        e_cond = e_cond + (mu + mu_t / sigma_k) * dot_n(g_k[None])[0]
+        species = species + cmt[None] * gy_n
 
     flux = torch.cat([(-_rowsum(jd))[None], mom,
-                      (e_tau + e_cond + e_heat)[None],
-                      -jd + cmt[None] * gy_n], dim=0)
+                      (e_tau + e_cond + e_heat)[None], species], dim=0)
     if not jac:
         return flux
 
@@ -286,8 +295,9 @@ def _viscous_jacobians_t(lay, sc, v_i, v_j, vmean, mu, ktr, ds, xs, xs_i,
                          xs_j, grad_xs_norm, jd, dist, area, unit, s_i, s_j,
                          flux, mu_t, gy, cmt, ys, h_s, cp_s, prandtl_turb):
     """dF/dV . dV/dU (SetLaminarViscousProjJacs :1200-1409 +
-    SST_Reactive_JacobianClosure :891-1097, 2D), the (nVar, nVar) block
-    held as lists of (E,) rows, the sparse dV/dU applied analytically."""
+    SST_Reactive_JacobianClosure :891-1097, 2D; mu_t None: laminar), the
+    (nVar, nVar) block held as lists of (E,) rows, the sparse dV/dU applied
+    analytically."""
     nd, ns, nvar = lay.ndim, lay.ns, lay.nvar
     if nd != 2:
         raise NotImplementedError("3D implicit viscous Jacobians: not "
@@ -367,30 +377,31 @@ def _viscous_jacobians_t(lay, sc, v_i, v_j, vmean, mu, ktr, ds, xs, xs_i,
                 col_e = he if col_e is None else col_e + he
             dadd(side, lay.RHO, lay.RHOS + k, col_rho)
             dadd(side, lay.RHOE, lay.RHOS + k, col_e)
-    # SST closure Jacobian (2D, :911-983)
-    coef_t = mu_t / dist * area
-    add = emp()
-    for d in range(nd):
-        for e in range(nd):
-            dadd(add, lay.RHOVX + d, lay.RHOVX + e, coef_t * mrows[d][e])
-        dadd(add, lay.RHOE, lay.RHOVX + d, coef_t * pi[d])
-    cpy = _rowsum(cp_s * ys)
-    dadd(add, lay.RHOE, lay.RHOE,
-         mu_t / prandtl_turb * cpy * theta / dist * area)
-    ce = cmt / dist * area * theta
-    for k in range(ns):
-        dadd(dfdv_j, lay.RHOE, lay.RHOS + k, ce * h_s[k] * ys[k] / rho_j)
-        dadd(dfdv_i, lay.RHOE, lay.RHOS + k, -ce * h_s[k] * ys[k] / rho_i)
-    for a in range(nvar):
-        for b in range(nvar):
-            if add[a][b] is not None:
-                dadd(dfdv_j, a, b, add[a][b])
-                dadd(dfdv_i, a, b, -add[a][b])
-    # common energy-diagonal term with the mass-fraction gradients
-    aux = [sum(gy[s_, d] * unit[d] for d in range(nd)) for s_ in range(ns)]
-    com = cmt * sum(cp_s[s_] * ys[s_] * aux[s_] for s_ in range(ns)) * area
-    dadd(dfdv_i, lay.RHOE, lay.RHOE, com)
-    dadd(dfdv_j, lay.RHOE, lay.RHOE, com)
+    if mu_t is not None:
+        # SST closure Jacobian (2D, :911-983)
+        coef_t = mu_t / dist * area
+        add = emp()
+        for d in range(nd):
+            for e in range(nd):
+                dadd(add, lay.RHOVX + d, lay.RHOVX + e, coef_t * mrows[d][e])
+            dadd(add, lay.RHOE, lay.RHOVX + d, coef_t * pi[d])
+        cpy = _rowsum(cp_s * ys)
+        dadd(add, lay.RHOE, lay.RHOE,
+             mu_t / prandtl_turb * cpy * theta / dist * area)
+        ce = cmt / dist * area * theta
+        for k in range(ns):
+            dadd(dfdv_j, lay.RHOE, lay.RHOS + k, ce * h_s[k] * ys[k] / rho_j)
+            dadd(dfdv_i, lay.RHOE, lay.RHOS + k, -ce * h_s[k] * ys[k] / rho_i)
+        for a in range(nvar):
+            for b in range(nvar):
+                if add[a][b] is not None:
+                    dadd(dfdv_j, a, b, add[a][b])
+                    dadd(dfdv_i, a, b, -add[a][b])
+        # common energy-diagonal term with the mass-fraction gradients
+        aux = [sum(gy[s_, d] * unit[d] for d in range(nd)) for s_ in range(ns)]
+        com = cmt * sum(cp_s[s_] * ys[s_] * aux[s_] for s_ in range(ns)) * area
+        dadd(dfdv_i, lay.RHOE, lay.RHOE, com)
+        dadd(dfdv_j, lay.RHOE, lay.RHOE, com)
     # common flux-dependent term on the energy/velocity entries
     for d in range(nd):
         hm = 0.5 * flux[lay.RHOVX + d]

@@ -11,8 +11,13 @@ chemistry source by kernel T4.  Implicit: the interior terms and their
 edge Jacobians by kernel K10 (ops/edge_implicit.py), with MUSCL and the
 limiters, plus the boundary, slip-wall, source and isothermal-wall
 Jacobians, the wall momentum rows and the time diagonal, as a
-StencilJacobianT.  Boundary rows are added marker by marker in batch order
-(euler.add_rows), without atomics.
+StencilJacobianT.  Laminar (REACTIVE_NAVIER_STOKES, turb None), as the
+JAX package runs it without its fused kernels: explicit, the AUSM+-up and
+viscous fluxes over the edge list (mesh.scatter_edges); implicit, on the
+family slots, the convective system by kernel K11 (euler.
+convective_system_fam) and the viscous flux and Jacobians in plain torch
+ops, as a FamilyJacobian.  Boundary rows are added marker by marker in
+batch order (euler.add_rows), without atomics.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 from su2_tpu_torch.chemistry import library as cl
 from su2_tpu_torch.chemistry.library import ChemLib
 from su2_tpu_torch.geometry.mesh_data import MeshArrays
-from su2_tpu_torch.linalg.blockcsr import StencilJacobianT
+from su2_tpu_torch.linalg.blockcsr import FamilyJacobian, StencilJacobianT
 from su2_tpu_torch.ops import (ausm_t, edge_flux, edge_implicit, gradients,
                                limiters, viscous, viscous_t)
 from su2_tpu_torch.ops.viscous import TurbFlowData
@@ -41,38 +46,60 @@ class NSParams(es.EulerParams):
     lewis_turb: float = 1.2
 
 
-def _visc_lam12(prm: NSParams, mu, mut, gam):
+def _visc_lam12(prm: NSParams, turb_on: bool, mu, kappa, mut, gam, cv):
     """RANS: lam1 = 4/3 (mu + mu_t), lam2 = (1 + Pr_l/Pr_t mu_t/mu)
-    gamma mu/Pr_l."""
-    lam1 = 4.0 / 3.0 * (mu + mut)
-    lam2 = (1.0 + (prm.prandtl_lam / prm.prandtl_turb) * (mut / mu)) \
-        * (gam * mu / prm.prandtl_lam)
+    gamma mu/Pr_l; laminar: lam1 = 4/3 mu, lam2 = kappa/Cv with Cv :=
+    Cp/gamma (the reference's Mean_CV uses Cp/(dPdU[rhoE] + 1))."""
+    if turb_on:
+        lam1 = 4.0 / 3.0 * (mu + mut)
+        lam2 = (1.0 + (prm.prandtl_lam / prm.prandtl_turb) * (mut / mu)) \
+            * (gam * mu / prm.prandtl_lam)
+    else:
+        lam1 = 4.0 / 3.0 * mu
+        lam2 = kappa / cv
     return lam1 + lam2
+
+
+def _cv(lib, lay, v, gamma):
+    """Cp/gamma per node (the laminar lam2's Cv)."""
+    return cl.mixture_cp(lib, v[:, lay.T], v[:, lay.YS:lay.YS + lay.ns]) \
+        / gamma
 
 
 def viscous_lambda_boundary(lib: ChemLib, mesh: MeshArrays, lay: Layout,
                             prm: NSParams, v, trans, dpdu_full,
-                            turb: TurbFlowData, lam):
+                            turb: TurbFlowData | None, lam):
     """Add the boundary-vertex viscous spectral radii (:5188-5214): every
-    marker merged into one static area^2 weight per node."""
+    marker merged into one static area^2 weight per node.  turb None:
+    laminar."""
     gamma = dpdu_full[:, lay.RHOE] + 1.0
-    lamf = _visc_lam12(prm, trans.mu, turb.mu_t, gamma) / v[:, lay.PRHO]
+    on = turb is not None
+    lamf = _visc_lam12(prm, on, trans.mu, trans.kappa,
+                       turb.mu_t if on else None, gamma,
+                       None if on else _cv(lib, lay, v, gamma)) \
+        / v[:, lay.PRHO]
     return lam + lamf * mesh.visc_w2
 
 
 def viscous_lambda(lib: ChemLib, mesh: MeshArrays, lay: Layout,
-                   prm: NSParams, v, trans, dpdu_full, turb: TurbFlowData):
+                   prm: NSParams, v, trans, dpdu_full,
+                   turb: TurbFlowData | None):
     """Accumulated viscous spectral radius (SetTime_Step NS branch,
     solver_direct_reactive.cpp:5132-5152), interior families by rolls
-    (node-mean transport, gamma of node i) and the boundary vertices."""
+    (node-mean transport, gamma of node i) and the boundary vertices.
+    turb None: laminar."""
     gamma = dpdu_full[:, lay.RHOE] + 1.0
+    on = turb is not None
+    cpg = None if on else _cv(lib, lay, v, gamma)
     rho = v[:, lay.PRHO]
     lam = torch.zeros_like(rho)
     for k, o in enumerate(mesh.fam_offsets):
         area2 = (mesh.fam_normal[k] ** 2).sum(1)
         mean = lambda x: 0.5 * (x + torch.roll(x, -int(o), dims=0))
-        lam_e = _visc_lam12(prm, mean(trans.mu), mean(turb.mu_t), gamma) \
-            * area2 / mean(rho)
+        lam_e = _visc_lam12(prm, on, mean(trans.mu),
+                            None if on else mean(trans.kappa),
+                            mean(turb.mu_t) if on else None, gamma,
+                            None if on else mean(cpg)) * area2 / mean(rho)
         lam = lam + lam_e + torch.roll(lam_e, int(o), dims=0)
     return viscous_lambda_boundary(lib, mesh, lay, prm, v, trans, dpdu_full,
                                    turb, lam)
@@ -86,41 +113,111 @@ def enforce_wall_velocity(lay: Layout, u, wall_mask):
                      dim=1)
 
 
+def _laminar_edge_viscous(lib, lay, prm, v, grad, trans, dtdu, gi, gj,
+                          normal, evec, implicit):
+    """The laminar viscous flux (and with implicit its Jacobians),
+    feature-major (ops/viscous_t.py, plain torch ops), on the edge slots
+    whose endpoint fields gi(x), gj(x) gather from the last (node) axis of
+    x."""
+    nd, ns_ = lay.ndim, lay.ns
+    sel = [0] + list(range(1, 1 + nd)) + list(range(2 + nd, 2 + nd + ns_))
+    g = grad[:, sel, :].permute(1, 2, 0)
+    vi, vj = gi(v.T), gj(v.T)
+    tmean = 0.5 * (vi[lay.T] + vj[lay.T])
+    jkw = dict(s_i=gi(dtdu.T), s_j=gj(dtdu.T)) if implicit else {}
+    return viscous_t.viscous_flux_t(
+        lay, edge_flux.species_consts_of(lib), vi, vj, gi(g), gj(g), normal,
+        evec, gi(trans.mu), gj(trans.mu), gi(trans.kappa), gj(trans.kappa),
+        None, None, None, None, None, None, None,
+        cl.species_enthalpy(lib, tmean).T, cl.species_cp(lib, tmean).T,
+        prm.prandtl_turb, prm.lewis_turb, **jkw)
+
+
+def _laminar_interior(lib, lay, mesh, prm, v, grad, lim, nsd, trans,
+                      implicit):
+    """Interior terms of the laminar step (the JAX package's ns_assemble
+    with turb None).  Explicit: the AUSM+-up residual over the edge list
+    minus the scattered viscous flux.  Implicit, on the family slots:
+    convective_system_fam (K11) and the laminar viscous flux and
+    Jacobians, pad slots masked; returns (res, diag, off_ij, off_ji) with
+    the off-diagonal blocks in the lane layout (blockcsr.FamilyJacobian)."""
+    nvar = lay.nvar
+    if not implicit:
+        i, j = mesh.edges[:, 0], mesh.edges[:, 1]
+        vflux = _laminar_edge_viscous(
+            lib, lay, prm, v, grad, trans, None, lambda x: x[..., i],
+            lambda x: x[..., j], mesh.edge_normal.T,
+            (mesh.coords[j] - mesh.coords[i]).T, False)
+        return es.convective_residual(lib, lay, mesh, prm, v) \
+            - mesh.scatter_edges(vflux.T)
+    res, diag, off_ij, off_ji = es.convective_system_fam(
+        lib, lay, mesh, prm, v, grad, lim, nsd.dpdu)
+    valid = mesh.fam_valid_flat
+    vflux, vjac_i, vjac_j = _laminar_edge_viscous(
+        lib, lay, prm, v, grad, trans, nsd.dtdu,
+        lambda x: mesh.fam_gather_i(x, dim=-1),
+        lambda x: mesh.fam_gather_j(x, dim=-1), mesh.fam_normal_flat.T,
+        mesh.fam_evec.reshape(-1, lay.ndim).T, True)
+    vflux = torch.where(valid, vflux, 0.0)
+    vjac_i = torch.where(valid, vjac_i.reshape(nvar * nvar, -1), 0.0)
+    vjac_j = torch.where(valid, vjac_j.reshape(nvar * nvar, -1), 0.0)
+    n = mesh.npoint
+    diag = diag + mesh.fam_accum(-vjac_i, vjac_j, dim=-1).T.reshape(
+        n, nvar, nvar)
+    res = res - mesh.fam_scatter(vflux, dim=-1).T
+    return res, diag, off_ij - vjac_j, off_ji + vjac_i
+
+
 def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
-                bcs, v, nsd, turb: TurbFlowData, omega_turb, dt=None):
-    """NS residual with the SST coupling; with dt the implicit system.
+                bcs, v, nsd, turb: TurbFlowData | None, omega_turb,
+                dt=None):
+    """NS residual, with the SST coupling unless turb is None (laminar);
+    with dt the implicit system.
 
     nsd: the node-state bundle (state.NodeState) of this iteration.
-    Returns (res, wall_mask, trans, grad (None in the rows tier), extra,
-    flux-BC ghost batch): extra is (lam_conv, lam_visc), the interior sums
-    of the spectral radii, when dt is None, else the StencilJacobianT of
-    the implicit system (time diagonal Vol/dt included)."""
+    Returns (res, wall_mask, trans, grad (None in the rows tier of the RANS
+    step), extra, flux-BC ghost batch): extra is, when dt is None,
+    (lam_conv, lam_visc), the interior sums of the spectral radii (None in
+    the laminar step, which sums them itself), else the implicit system
+    (time diagonal Vol/dt included): a StencilJacobianT, or in the
+    laminar step a FamilyJacobian."""
     implicit = dt is not None
+    laminar = turb is None
     n = v.shape[0]
     nd, ns_ = lay.ndim, lay.ns
     q = viscous.ns_gradient_vars(lib, lay, v, xs=nsd.xs)
     ngv = q.shape[1]
     # >= TILED_MIN_NODES: feature-major gradient rows (K7) feed the edge
-    # kernels (K8, K10) and the boundary gather directly
+    # kernels (K8, K10) and the boundary gather directly; the laminar
+    # step, which has no fused edge kernel, reads them node-major
     grad_rows = grad = None
     if gradients.use_tiled(mesh):
         grad_rows = es.compute_gradient_rows(mesh, prm, q)
+        if laminar:
+            grad = gradients.rows_to_grad(grad_rows, ngv, nd)
+            grad_rows = None
     else:
         grad = es.compute_gradients(mesh, prm, q)
     dpdu_full = nsd.dpdu
     trans = viscous.Transport(mu=nsd.mu, kappa=nsd.kappa)
 
-    if implicit:
-        lim = None
-        if prm.use_limiter:
-            qlim = es.gradient_vars(lay, v)
-            glim = grad[:, :2 + nd, :] if grad is not None else \
-                gradients.rows_to_grad(grad_rows[:(2 + nd) * nd], 2 + nd, nd)
-            lim = (limiters.barth_jespersen(mesh, qlim, glim)
-                   if prm.limiter_kind == "BARTH_JESPERSEN" else
-                   limiters.venkatakrishnan(mesh, qlim, glim,
-                                            prm.limiter_coeff,
-                                            prm.ref_elem_length))
+    lim = None
+    if implicit and prm.use_limiter:
+        qlim = es.gradient_vars(lay, v)
+        glim = grad[:, :2 + nd, :] if grad is not None else \
+            gradients.rows_to_grad(grad_rows[:(2 + nd) * nd], 2 + nd, nd)
+        lim = (limiters.barth_jespersen(mesh, qlim, glim)
+               if prm.limiter_kind == "BARTH_JESPERSEN" else
+               limiters.venkatakrishnan(mesh, qlim, glim, prm.limiter_coeff,
+                                        prm.ref_elem_length))
+    if laminar:
+        out = _laminar_interior(lib, lay, mesh, prm, v, grad, lim, nsd,
+                                trans, implicit)
+        if implicit:
+            res, diag, off_ij, off_ji = out
+        else:
+            res = out
+    elif implicit:
         res, diag, sel_t = edge_implicit.fused_implicit_family_terms(
             lib, lay, mesh, prm, v, grad, lim, dpdu_full, nsd.dtdu, trans,
             turb, turb.sigma_k, grad_rows=grad_rows)
@@ -155,13 +252,16 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
             g_n = grad_rows[:, nodes].reshape(ngv, nd, -1)[sel]
         tmean = 0.5 * (vbt[lay.T] + vgt[lay.T])
         mu_b, ka_b = trans.mu[nodes], trans.kappa[nodes]
-        mut_b, tke_b = turb.mu_t[nodes], turb.tke[nodes]
-        gk_b = turb.grad_tke[nodes].T
+        tb = (None,) * 7
+        if not laminar:
+            mut_b, tke_b = turb.mu_t[nodes], turb.tke[nodes]
+            gk_b = turb.grad_tke[nodes].T
+            tb = (mut_b, mut_b, tke_b, tke_b, gk_b, gk_b,
+                  turb.sigma_k[nodes])
         vf = viscous_t.viscous_flux_t(
             lay, edge_flux.species_consts_of(lib), vbt, vgt, g_n, g_n, nrm,
             (mesh.coords[fb.nn] - mesh.coords[nodes]).T, mu_b, mu_b, ka_b,
-            ka_b, mut_b, mut_b, tke_b, tke_b, gk_b, gk_b,
-            turb.sigma_k[nodes], cl.species_enthalpy(lib, tmean).T,
+            ka_b, *tb, cl.species_enthalpy(lib, tmean).T,
             cl.species_cp(lib, tmean).T, prm.prandtl_turb, prm.lewis_turb,
             corrected=False, v_fuller_j=vbt, **jkw)
         if implicit:
@@ -175,7 +275,8 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     for bc in bcs:
         if bc.kind == "euler_wall":
             res = es.add_rows(res, bc.nodes, es.euler_wall_residual(
-                lib, lay, bc.nodes, bc.normal, v, turb.tke))
+                lib, lay, bc.nodes, bc.normal, v,
+                None if laminar else turb.tke))
             if implicit:
                 diag = es.add_rows(diag, bc.nodes, es.euler_wall_jacobian(
                     lay, bc.normal, dpdu_full[bc.nodes]))
@@ -208,19 +309,21 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
             ktr = trans.kappa[nodes]
             dtdn = (twall - tj) / dij
             evisc = ktr * dtdn * area
-            # the reference's ALTERNATIVE closure (:5516-5541):
-            # sum_s mu_t/Pr_t Cp_s rho_s (Twall - Tj)/dij
-            cp_s = cl.species_cp(lib, torch.full_like(area, twall))
-            vn = v[nodes]
-            rho_s = vn[:, lay.PRHO, None] * vn[:, lay.YS:lay.YS + ns_]
-            coef = (turb.mu_t[nodes] / prm.prandtl_turb)[:, None] \
-                * cp_s * rho_s
-            evisc = evisc + coef.sum(-1) * dtdn * area
+            c_turb = None
+            if not laminar:
+                # the reference's ALTERNATIVE closure (:5516-5541):
+                # sum_s mu_t/Pr_t Cp_s rho_s (Twall - Tj)/dij
+                cp_s = cl.species_cp(lib, torch.full_like(area, twall))
+                vn = v[nodes]
+                rho_s = vn[:, lay.PRHO, None] * vn[:, lay.YS:lay.YS + ns_]
+                coef = (turb.mu_t[nodes] / prm.prandtl_turb)[:, None] \
+                    * cp_s * rho_s
+                evisc = evisc + coef.sum(-1) * dtdn * area
+                c_turb = coef.sum(-1) / dij * area
             erow = es.add_rows(erow, nodes, -evisc)
             if implicit:
                 diag = es.add_rows(diag, nodes, _isothermal_energy_rows(
-                    lay, nsd.dtdu[bc.nn], ktr / dij * area,
-                    coef.sum(-1) / dij * area))
+                    lay, nsd.dtdu[bc.nn], ktr / dij * area, c_turb))
         else:
             erow = es.add_rows(erow, nodes, -bc.params["qwall"] * area)
     res = torch.cat([res[:, :lay.RHOE], (res[:, lay.RHOE] + erow)[:, None],
@@ -228,7 +331,8 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     # zero momentum residual rows at strong walls
     res = enforce_wall_velocity(lay, res, wall_mask)
     if not implicit:
-        return res, wall_mask, trans, grad, (lam_c, lam_v), fb
+        return res, wall_mask, trans, grad, \
+            None if laminar else (lam_c, lam_v), fb
 
     # momentum rows of wall nodes: identity on the diagonal, zero off it
     # (DeleteValsRowi)
@@ -238,29 +342,40 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     eye = torch.eye(nvar, dtype=v.dtype, device=v.device)
     diag = torch.where((wall_mask[:, None] & mom[None])[:, :, None], eye[None],
                        diag)
-    row_mom = mom.repeat_interleave(nvar).repeat(len(mesh.stencil_offsets))
-    sel_t = torch.where(row_mom[:, None] & wall_mask[None, :], 0.0, sel_t)
+    row_mom = mom.repeat_interleave(nvar)
+    if laminar:
+        # family slots: off_ij's rows belong to node i, off_ji's to node j
+        iw = mesh.fam_gather_i(wall_mask)
+        jw = mesh.fam_gather_j(wall_mask)
+        off_ij = torch.where(row_mom[:, None] & iw[None, :], 0.0, off_ij)
+        off_ji = torch.where(row_mom[:, None] & jw[None, :], 0.0, off_ji)
+    else:
+        row_mom = row_mom.repeat(len(mesh.stencil_offsets))
+        sel_t = torch.where(row_mom[:, None] & wall_mask[None, :], 0.0,
+                            sel_t)
     # time diagonal Vol/dt
     ok = dt > EPS
     delta = torch.where(ok, mesh.volume / torch.where(ok, dt, 1.0), 0.0)
     diag = diag + delta[:, None, None] * eye
     diag = torch.where(ok[:, None, None], diag, eye[None])
     res = torch.where(ok[:, None], res, 0.0)
-    return res, wall_mask, trans, grad, StencilJacobianT(diag=diag,
-                                                         sel_t=sel_t), fb
+    jac = (FamilyJacobian(diag=diag, off_ij=off_ij, off_ji=off_ji)
+           if laminar else StencilJacobianT(diag=diag, sel_t=sel_t))
+    return res, wall_mask, trans, grad, jac, fb
 
 
 def _isothermal_energy_rows(lay, dtdu_nn, c, c_turb):
     """(nV, nVar, nVar) blocks whose energy row is the isothermal wall's
     Jacobian (SubtractBlock of -ktr dT/dU(nn) Area/dij): c dT/dU on the
-    density, energy and species columns, c_turb dT/dU on energy, zero on
-    momentum."""
+    density, energy and species columns, plus c_turb dT/dU on energy (the
+    RANS closure; None laminar), zero on momentum."""
     nd = lay.ndim
     row = c[:, None] * dtdu_nn
+    e_col = row[:, lay.RHOE:lay.RHOE + 1]
+    if c_turb is not None:
+        e_col = e_col + (c_turb * dtdu_nn[:, lay.RHOE])[:, None]
     row = torch.cat([row[:, :lay.RHOVX], torch.zeros_like(row[:, :nd]),
-                     row[:, lay.RHOE:lay.RHOE + 1]
-                     + (c_turb * dtdu_nn[:, lay.RHOE])[:, None],
-                     row[:, lay.RHOS:]], dim=1)
+                     e_col, row[:, lay.RHOS:]], dim=1)
     z = lambda m: torch.zeros((row.shape[0], m, lay.nvar), dtype=row.dtype,
                               device=row.device)
     return torch.cat([z(lay.RHOE), row[:, None], z(lay.nvar - lay.RHOE - 1)],

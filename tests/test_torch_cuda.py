@@ -1,4 +1,4 @@
-"""The CUDA kernels T1-T4 and K5-K10 against their plain torch versions on
+"""The CUDA kernels T1-T4 and K5-K11 against their plain torch versions on
 the card, and the slice's launch counts.  Every test needs a CUDA device
 and skips without one.  This file imports no JAX, so on a machine without it run it
 alone, past the suite's JAX conftest:
@@ -518,3 +518,85 @@ def test_f64_past_the_gate_launches_k5(card, monkeypatch, kind):
         w = th.npy(w)
         np.testing.assert_allclose(th.npy(g), w, rtol=1e-11,
                                    atol=1e-13 * np.abs(w).max())
+
+
+def _k11_inputs(card, tmp_path, dtype):
+    """K11's operands on the laminar implicit case's family slots: the
+    face states of the port's own MUSCL reconstruction (limited) and of
+    first order, feature-major, with zero normals on the pad slots."""
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.ops import limiters, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    text = th.with_implicit(th.cases.with_laminar(th.write_case(tmp_path)))
+    sim = _card_sim(card, text, dtype)
+    lib, lay, mesh, prm = sim.lib, sim.lay, sim.mesh, sim.params
+    u = th.tt(th.mixed_state(sim, seed=4), dtype).to(card)
+    nsd = st.node_state_plain(lib, lay, u, sim.t0, sim.tparams)
+    grad = es.compute_gradients(mesh, prm,
+                                vis.ns_gradient_vars(lib, lay, nsd.v, nsd.xs))
+    g = grad[:, :2 + lay.ndim]
+    lim = limiters.venkatakrishnan(mesh, es.gradient_vars(lay, nsd.v), g,
+                                   prm.limiter_coeff, prm.ref_elem_length)
+    v_i, s_i, v_j, s_j = es.muscl_reconstruct_fam(
+        lib, lay, mesh, prm, nsd.v, g.permute(1, 2, 0), lim)
+    normal = mesh.fam_normal_flat.T.contiguous()
+    return sim, (v_i, v_j, normal, s_i, s_j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["feature_major", "edge_major"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_k11_kernel_matches_plain(card, tmp_path, dtype, layout):
+    """K11 against its plain version (ops/ausm_t.ausm_flux_t) on the
+    laminar implicit case's family-slot inputs, in both layouts: every
+    output within 1e-12 (f64) or 1e-5 (f32, fused multiply-adds) of its
+    field's max, relative 1e-10 / 1e-4 per entry; the pad slots exactly
+    0; one launch per call."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import ausm_t
+    sim, ins = _k11_inputs(card, tmp_path, dtype)
+    lay, m_inf = sim.lay, sim.params.m_infty
+    want = ausm_t.ausm_flux_t(lay, *ins[:3], m_inf, *ins[3:])
+    kernels.reset_launches()
+    if layout == "feature_major":
+        got = kernels.ausm_flux_jac(lay, *ins[:3], m_inf, *ins[3:])
+    else:
+        got = kernels.ausm_flux_jac(lay, *(x.T for x in ins[:3]), m_inf,
+                                    *(x.T for x in ins[3:]),
+                                    edge_major=True)
+        got = (got[0].T, got[1].permute(1, 2, 0), got[2].permute(1, 2, 0))
+    assert kernels.launches["ausm_flux_jac"] == 1
+    pad = th.npy(~sim.mesh.fam_valid_flat)
+    assert pad.any()
+    rtol, afrac = (1e-10, 1e-12) if dtype == torch.float64 else (1e-4, 1e-5)
+    for g, w in zip(got, want):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert g.shape == w.shape and np.isfinite(g).all()
+        assert (np.abs(g - w) <= rtol * np.abs(w)
+                + afrac * np.abs(w).max()).all()
+        assert (g[..., pad] == 0.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("implicit", [False, True],
+                         ids=["explicit", "implicit"])
+def test_laminar_slice_launches(card, tmp_path, implicit):
+    """The laminar case on the card: implicit (LU_SGS), K11 once per
+    iteration and K6 once (the flow's solve, one launch at 153 nodes), T2
+    once; explicit, T4 and T2 once per iteration; K10, T3, K8 never (no
+    SST fields), K11 never in the explicit step."""
+    from su2_tpu_torch import kernels
+    text = th.cases.with_laminar(th.with_prec(th.write_case(tmp_path),
+                                              "LU_SGS"))
+    if implicit:
+        text = th.with_implicit(text, prec="LU_SGS")
+    sim = _card_sim(card, text)
+    kernels.reset_launches()
+    u, _, hist = sim.run(3, quiet=True)
+    assert np.isfinite(hist).all() and torch.isfinite(u).all()
+    want = {"ausm_flux_jac": 3 * implicit, "stencil_fgmres": 3 * implicit,
+            "stencil_sgs_matvec": 0, "chem_source": 3 * (not implicit),
+            "node_state": 3, "edge_implicit": 0, "edge_flux": 0,
+            "edge_win": 0, "gradient_rows": 0, "inlet_tc": 0}
+    assert {k: kernels.launches[k] for k in want} == want

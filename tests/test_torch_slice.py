@@ -151,25 +151,34 @@ def test_run_chunks_and_history(text, tmp_path):
     assert len(rows) == 4
 
 
-@pytest.mark.parametrize("key,value,where", [
-    ("LINEAR_SOLVER_PREC", "LINELET", "su2_tpu.linalg.linelet"),
-    ("SPATIAL_ORDER_FLOW", "2ND_ORDER", "su2_tpu.solvers.euler"),
-    ("MARKER_MONITORING", "( lower_wall, upper_wall )",
+UNPORTED = [
+    ({"LINEAR_SOLVER_PREC": "LINELET"}, "su2_tpu.linalg.linelet"),
+    ({"SPATIAL_ORDER_FLOW": "2ND_ORDER"}, "su2_tpu.solvers.euler"),
+    ({"MARKER_MONITORING": "( lower_wall, upper_wall )"},
      "su2_tpu.solvers.forces"),
-    ("CONV_CRITERIA", "CAUCHY", "su2_tpu.driver"),
-    ("KIND_TURB_MODEL", "NONE", "su2_tpu.driver"),
-    ("CONV_NUM_METHOD_FLOW", "ROE", "su2_tpu.ops"),
-    ("KIND_TURB_MODEL", "SA", "su2_tpu.turbulence"),
-    ("LINEAR_SOLVER", "BCGSTAB", "su2_tpu.linalg.krylov"),
-])
-def test_unported_options_raise(text, key, value, where):
+    ({"CONV_CRITERIA": "CAUCHY"}, "su2_tpu.driver"),
+    ({"KIND_TURB_MODEL": "NONE", "LINEAR_SOLVER": "BCGSTAB"},
+     "su2_tpu.linalg.krylov"),
+    ({"CONV_NUM_METHOD_FLOW": "ROE"}, "su2_tpu.ops"),
+    ({"KIND_TURB_MODEL": "SA"}, "su2_tpu.turbulence"),
+    ({"LINEAR_SOLVER": "BCGSTAB"}, "su2_tpu.linalg.krylov"),
+]
+
+
+@pytest.mark.parametrize("settings,where", [
+    pytest.param(o, w, id="-".join(f"{k}-{v}" for k, v in o.items())
+                 + f"-{w}") for o, w in UNPORTED])
+def test_unported_options_raise(text, settings, where):
     """Options outside the port raise, naming the su2_tpu module that runs
     them: explicit flow with MUSCL (convective_residual), the force
     monitoring and the CAUCHY convergence test it has no counterpart of,
-    laminar flow (the JAX driver's own explicit and implicit steps)."""
-    lines = [ln for ln in text.splitlines() if not ln.startswith(key)]
+    BCGSTAB, also in a laminar run (KIND_TURB_MODEL= NONE, which the port
+    runs since the laminar slice)."""
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith(tuple(settings))]
     with pytest.raises(NotImplementedError, match=where.replace(".", r"\.")):
-        th.torch_sim("\n".join(lines + [f"{key}= {value}"]))
+        th.torch_sim("\n".join(lines + [f"{k}= {v}"
+                                        for k, v in settings.items()]))
 
 
 def _cli_case(tmp_path):
