@@ -67,6 +67,18 @@ Phases (one line each; any failure exits nonzero):
              K5 ten times, K7 once per iteration) and the laminar explicit
              case at 9,072 x 20 (T4 once per iteration, K11 never), each
              timed and profiled
+  K12 phase  (after K11) K12 (the fused SST assembly) against its plain
+             version on the SST inputs of the explicit LU_SGS case's third
+             iteration, with its wall rows: 9,072 nodes in float64 and
+             float32, 565,500 in float32, per output row, with times; then
+             5 f64 iterations card vs CPU with the fused SST assembly
+             (K12 once per iteration), explicit LU_SGS and implicit LU_SGS
+  fused      (in 6) SU2_TPU_SST_ASSEMBLE=pallas through Simulation: explicit
+             LU_SGS at 9,072 x 50, 142,317 x 20, 565,500 x 10 and implicit
+             LU_SGS at 9,072 x 20, K12 once per iteration and the SST
+             solve's K5/K6 in stencil_solve.fused_sst_solve_tier's tier,
+             timed and profiled, each printed beside the unfused run of
+             its size; every other run asserts K12 never launched
 The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}.
 
@@ -110,6 +122,8 @@ KERNELS = {
                       "su2_tpu/pallas/edge_fused.py:721"),
     "ausm_flux_jac": ("su2_tpu_torch/csrc/ausm_jac.cu",
                       "su2_tpu/pallas/edge_kernels.py:34,91"),
+    "sst_assemble": ("su2_tpu_torch/csrc/sst_assemble.cu",
+                     "su2_tpu/pallas/sst_assemble.py:168,235"),
 }
 # tolerances per kernel and dtype: |kernel - plain| <= rtol * |plain|
 # + atol_frac * max|plain| (T3: per flux row, atol only, the row's max)
@@ -145,6 +159,10 @@ TOL = {
     # K11: as K10, per output row (flux rows, Jacobian entries)
     ("ausm_flux_jac", "float64"): (0.0, 1e-10),
     ("ausm_flux_jac", "float32"): (0.0, 1e-4),
+    # K12: per output row against the row's max (built without fused
+    # multiply-adds: the plain version's roundings)
+    ("sst_assemble", "float64"): (0.0, 1e-12),
+    ("sst_assemble", "float32"): (0.0, 1e-5),
 }
 # the (MUSCL, limiter) variants of the implicit case (cases.with_implicit_
 # flow); the main path is the first
@@ -741,6 +759,62 @@ def ausm_kernel_phase(sim, dtype_name, report):
             bound_by=bound[1], library_ms=None)
 
 
+def sst_inputs(sim, steps=3):
+    """The arguments of the fused SST assembly in the steps-th coupled step
+    of sim from the freestream state: the steps before it unfused, that
+    one with the fused mode on."""
+    from su2_tpu_torch.turbulence import sst, sst_assemble as sa
+    state = (sim.u0, sim.t0) + tuple(sim.initial_turb_state())
+    for _ in range(steps - 1):
+        state = sim._step(*state)[:6]
+    rec, orig = [], sa.sst_assemble
+    sa.sst_assemble = lambda *a: rec.append(a) or orig(*a)
+    sst.set_assemble_mode("fused")
+    try:
+        sim._step(*state)
+    finally:
+        sa.sst_assemble = orig
+        sst.set_assemble_mode("unfused")
+    return rec[0]
+
+
+def sst_kernel_phase(sim, dtype_name, report):
+    """K12 against its plain version (turbulence/sst_assemble.
+    assemble_plain) on the SST inputs of sim's third coupled step (its
+    real wall rows): per output row against the row's max, with times."""
+    import torch
+    from su2_tpu_torch.turbulence import sst_assemble as sa
+    args = sst_inputs(sim)
+    mesh, wall = args[0], args[12]
+    n, k = mesh.npoint, len(mesh.stencil_offsets)
+    kfn = lambda: list(sa.sst_assemble(*args))
+    pfn = lambda: list(sa.assemble_plain(*args))
+    got, want = kfn(), pfn()
+    torch.cuda.synchronize()
+    err, scaled = compare("sst_assemble", dtype_name, got, want, per_row=True)
+    if not bool((got[0][:, wall] == 0).all()) \
+            or not bool((got[2][:, wall] == 0).all()):
+        raise AssertionError(f"K12 {dtype_name}: a wall row's residual or "
+                             "off-diagonal block is not 0")
+    ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
+    # bytes: each field as the kernel reads it (rho and the velocity are
+    # columns of the primitive rows: their n and n d values), the mesh's
+    # volume, coordinates and stencil geometry, the outputs; operations: a
+    # lower bound read off the kernel, ~90 per offset and ~50 per node
+    ins = list(args[2:16]) + [mesh.volume, mesh.coords, mesh.gg_snormal,
+                              mesh.stencil_pvec]
+    bound = bound_of(nbytes(ins + got), n * (90 * k + 50), dtype_name)
+    key = f"{dtype_name} {n}"
+    phase("k12", f"sst_assemble {key}: max_abs_err {err:.3e} ({scaled:.2e} "
+          f"of its field's max; each row within {TOL[('sst_assemble', dtype_name)][1]}"
+          f" of its max) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+          f"{bound[0]:.4f} ms ({bound[1]}); {int(wall.sum())} wall rows, "
+          f"K = {k}")
+    report.setdefault("sst_assemble", {})[key] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+        bound_by=bound[1], library_ms=None)
+
+
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -1062,7 +1136,7 @@ def k6_check(sname, var, args, r, b, report):
 
 
 def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
-               prec="JACOBI"):
+               prec="JACOBI", fused=False):
     """5 coupled iterations, card vs CPU, from the state after 10 card
     iterations of the flagship-class case; tier=True forces the
     >= 200k-node tier on both sides (TILED_MIN_NODES = 0: K7 and K8, or
@@ -1071,25 +1145,37 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
     once per iteration) with the preconditioner prec for its flow and SST
     systems (LU_SGS in f64 at 9,072 nodes: the flow's 13 x 13 system past
     the full-precision gate, K5 once per Krylov vector, FGMRES(10); the
-    SST's one K6 launch)."""
+    SST's one K6 launch); fused the fused SST assembly on both sides (K12
+    once per iteration, the SST's solve in the fused tier: one K6 launch
+    in f64 at 9,072 nodes)."""
     from su2_tpu_torch.ops import gradients
+    from su2_tpu_torch.turbulence import sst
     saved = gradients.TILED_MIN_NODES
     if tier:
         gradients.TILED_MIN_NODES = 0
+    if fused:
+        sst.set_assemble_mode("fused")
     try:
-        worst, counts, n = _step_compare(tmp, total_conditions, implicit,
-                                         prec)
+        worst, counts, sim = _step_compare(tmp, total_conditions, implicit,
+                                           prec)
     finally:
         gradients.TILED_MIN_NODES = saved
+        sst.set_assemble_mode("unfused")
+    n = sim.mesh.npoint
     imp = implicit is not None
     want = {"edge_win": 5 * (tier and not imp),
             "edge_flux": 5 * (not tier and not imp),
             "edge_implicit": 5 * imp, "chem_source": 5 * (not imp),
-            "gradient_rows": 10 * tier, "inlet_tc": 5 * total_conditions}
+            "gradient_rows": 10 * tier, "inlet_tc": 5 * total_conditions,
+            "sst_assemble": 5 * fused}
     if imp:
         lusgs = prec != "JACOBI"
         want.update(stencil_fgmres=5 * lusgs,
                     stencil_sgs_matvec=5 * KRYLOV_M * lusgs)
+    if fused and not imp:
+        _, one = fused_sst_tier(sim)
+        want.update(stencil_fgmres=5 * one,
+                    stencil_sgs_matvec=5 * KRYLOV_M * (not one))
     for k, c in want.items():
         if counts[k] != c:
             raise AssertionError(f"step: {k} launched {counts[k]} times in "
@@ -1102,6 +1188,8 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
         what = ("the implicit flow (K10) with the >= 200k-node tier forced "
                 "(K7 rows into K10)" if tier else "the implicit flow (K10)")
         what += f", {prec}"
+    if fused:
+        what += ", the fused SST assembly (K12)"
     phase("step", f"5 iterations at {n} nodes f64 with {what}, card vs CPU "
           f"within rtol 1e-9, atol 1e-12*max|field| (largest difference "
           f"{worst:.3e} of its field's max); card launches {counts}")
@@ -1121,14 +1209,15 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False):
     if tier:
         gradients.TILED_MIN_NODES = 0
     try:
-        worst, counts, n, sim = _step_compare(tmp, False, implicit, prec,
-                                              laminar=True)
+        worst, counts, sim = _step_compare(tmp, False, implicit, prec,
+                                           laminar=True)
     finally:
         gradients.TILED_MIN_NODES = saved
+    n = sim.mesh.npoint
     imp = implicit is not None
     want = {"ausm_flux_jac": 5 * imp, "chem_source": 5 * (not imp),
             "node_state": 5, "edge_implicit": 0, "edge_flux": 0,
-            "edge_win": 0, "gradient_rows": 5 * tier}
+            "edge_win": 0, "gradient_rows": 5 * tier, "sst_assemble": 0}
     lusgs = imp and prec != "JACOBI"
     one = lusgs and sts.solve_tier(n, sim.mesh.stencil_offsets, sim.lay.nvar,
                                    torch.float64, sim.ncolor, KRYLOV_M)[1]
@@ -1187,9 +1276,15 @@ def _step_compare(tmp, total_conditions, implicit=None, prec="JACOBI",
             if scale > 0.0:
                 worst = max(worst, err.max().item() / scale)
         s_gpu, s_cpu = tuple(og[:ncarry]), tuple(oc[:ncarry])
-    if laminar:
-        return worst, dict(kernels.launches), gpu.mesh.npoint, gpu
-    return worst, dict(kernels.launches), gpu.mesh.npoint
+    return worst, dict(kernels.launches), gpu
+
+
+def fused_sst_tier(sim):
+    """(sweep block dtype, one launch) of the SST solve of sim's fused
+    step (linalg/stencil_solve.fused_sst_solve_tier)."""
+    from su2_tpu_torch.linalg import stencil_solve as sts
+    return sts.fused_sst_solve_tier(sim.mesh.npoint, sim.mesh.stencil_offsets,
+                                    sim.dtype, sim.ncolor, KRYLOV_M)
 
 
 # the stencil kernels' launches per iteration with LU_SGS: the explicit
@@ -1229,7 +1324,7 @@ def step_groups():
     from su2_tpu_torch.ops import (ausm_t, edge_flux, edge_implicit,
                                    limiters, viscous_t)
     from su2_tpu_torch.solvers import euler as es, ns
-    from su2_tpu_torch.turbulence import sst
+    from su2_tpu_torch.turbulence import sst, sst_assemble
     return [(st, "node_state", "node state"),
             (st, "node_state_lite", "node state"),
             (ns, "viscous_lambda", "viscous spectral radius"),
@@ -1253,7 +1348,12 @@ def step_groups():
             (StencilSolveOps, "__init__", "sweep block layout"),
             (krylov, "fgmres", "FGMRES"),
             (StencilSolveOps, "fgmres", "FGMRES"),
-            (sst, "sst_step", "SST solve")]
+            (sst, "sst_step", "SST solve"),
+            (sst, "blending", "SST blending"),
+            (sst, "_wall_rows", "SST wall rows"),
+            (sst, "_weak_bc_batch", "SST weak BCs"),
+            (sst_assemble, "sst_assemble", "SST assembly (K12)"),
+            (sst, "_update", "SST update")]
 
 
 def launches_by_group(events, groups):
@@ -1341,12 +1441,21 @@ def profile_steps(sim, state, niter=3):
                                              key=lambda kv: -kv[1])})
 
 
-def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
+def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
+                stats=None):
+    """Time niter iterations of Simulation.run after a 2-iteration warm-up,
+    check the history, the state and the launch counts, print one line;
+    profile: also 3 profiled iterations.  Returns the launch counts;
+    stats, a dict, receives ms/iter and the profile's launches and busy
+    ms per iteration."""
     import numpy as np
     import torch
     from su2_tpu_torch import kernels
+    from su2_tpu_torch.turbulence import sst
     n = sim.mesh.npoint
     lam = not sim.turbulent
+    # the fused SST assembly, where sst_step's gate holds (LU_SGS)
+    fused = not lam and prec != "JACOBI" and sst.assemble_mode() == "fused"
     # warm-up outside the counted, timed run
     out = sim.run(2, quiet=True)
     u, t, ts = out[0], out[1], None if lam else out[3]
@@ -1381,7 +1490,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
             "edge_implicit": niter if imp and not lam else 0,
             "ausm_flux_jac": niter if imp and lam else 0,
             "gradient_rows": sweeps * niter if tier else 0,
-            "chem_source": 0 if imp else niter, "inlet_tc": n_tc * niter}
+            "chem_source": 0 if imp else niter, "inlet_tc": n_tc * niter,
+            "sst_assemble": niter if fused else 0}
     for k, c in want.items():
         if counts[k] != c:
             raise AssertionError(f"{size}: {k} launched {counts[k]} times "
@@ -1391,7 +1501,15 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
                              f"{counts['mixture_enthalpy']} < {niter}")
     table = (LAMINAR_STENCIL_PER_ITER if lam else
              IMPLICIT_STENCIL_PER_ITER if imp else STENCIL_PER_ITER)
-    for k, per_iter in table[size].items():
+    per = dict(table[size])
+    if fused:
+        # the SST's solve in the fused tier in place of the unfused one
+        _, one = fused_sst_tier(sim)
+        for k, c in STENCIL_PER_ITER[size].items():
+            per[k] -= c
+        per["stencil_fgmres"] += one
+        per["stencil_sgs_matvec"] += KRYLOV_M * (not one)
+    for k, per_iter in per.items():
         want_k = per_iter * niter if prec == "LU_SGS" else 0
         if counts[k] != want_k:
             raise AssertionError(f"{size} {prec}: {k} launched {counts[k]} "
@@ -1410,9 +1528,13 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
         raise AssertionError(f"{size}: no species production")
     ms = wall * 1e3 / niter
     prof = ""
+    if stats is not None:
+        stats["ms"] = ms
     if profile:
         cuda_launches, busy, ours, top, by_group = profile_steps(
             sim, (u, t) + (() if lam else tuple(ts)))
+        if stats is not None:
+            stats.update(launches=cuda_launches, busy=busy)
         prof = (f", profiled: {cuda_launches:.1f} CUDA launches/iter, "
                 f"device busy {busy:.3f} ms/iter, su2k kernels' device "
                 f"ms/iter {ours}, the largest other device ops' ms/iter "
@@ -1424,12 +1546,47 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False):
         prec = f"implicit flow ({sim.cfg.spatial_order_flow}), {prec}"
     if lam:
         prec = f"laminar {prec if imp else 'explicit flow'}"
+    if fused:
+        prec = f"{prec}, fused SST assembly (K12)"
     phase("slice", f"{n} nodes {dt} {prec} x {niter}: {ms:.3f} ms/iter, "
           f"{n / (ms * 1e3):.3f} Mcell-updates/s, log10 rms[rho] "
           f"{hist[0][0]:.4f} -> {hist[-1][0]:.4f}, max|omega| "
           f"{om_max:.4g} kg/(m^3 s), kernel launches {counts}{prof} "
           f"({card})")
     return counts
+
+
+def fused_slice(tmp, size, niter, card, implicit=None):
+    """The explicit (or implicit, (muscl, limiter)) LU_SGS case built by
+    Simulation with SU2_TPU_SST_ASSEMBLE=pallas (the fused SST assembly),
+    timed and profiled by slice_phase; the variable and the mode reset
+    afterwards.  Returns (launch counts, stats)."""
+    import torch
+    from su2_tpu_torch.turbulence import sst
+    os.environ["SU2_TPU_SST_ASSEMBLE"] = "pallas"
+    try:
+        sim = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                        implicit=implicit)
+        if sst.assemble_mode() != "fused":
+            raise AssertionError("SU2_TPU_SST_ASSEMBLE=pallas did not set "
+                                 "the fused SST assembly")
+        stats = {}
+        counts = slice_phase(sim, size, niter, card, profile=True,
+                             stats=stats)
+    finally:
+        del os.environ["SU2_TPU_SST_ASSEMBLE"]
+        sst.set_assemble_mode("unfused")
+    return counts, stats
+
+
+def print_pair(label, unfused, fused):
+    """One line: the unfused and the fused run of one size side by side."""
+    def fmt(st):
+        return (f"{st['ms']:.3f} ms/iter, {st['launches']:.1f} CUDA "
+                f"launches/iter, device busy {st['busy']:.3f} ms/iter "
+                f"(idle {1 - st['busy'] / st['ms']:.0%})")
+    phase("fused", f"{label}: unfused {fmt(unfused)}; fused (K12) "
+          f"{fmt(fused)}")
 
 
 def main():
@@ -1505,6 +1662,14 @@ def main():
         for dt in ("float64", "float32"):
             ausm_kernel_phase(lam["flagship"], dt, report)
         ausm_kernel_phase(lam["tier"], "float32", report)
+        # K12 on the explicit LU_SGS case's SST inputs: 9,072 nodes in f64
+        # (a case of its own) and f32, 565,500 in f32
+        sst_kernel_phase(make_case(tmp, *SIZES["flagship"], torch.float64,
+                                   "cuda"), "float64", report)
+        sst_kernel_phase(sims["flagship"], "float32", report)
+        sst_kernel_phase(sims["tier"], "float32", report)
+        step_phase(tmp, fused=True)
+        step_phase(tmp, implicit=main_imp, prec="LU_SGS", fused=True)
         laminar_step_phase(tmp)
         laminar_step_phase(tmp, implicit=main_imp, prec="LU_SGS")
         laminar_step_phase(tmp, implicit=main_imp, tier=True)
@@ -1530,22 +1695,43 @@ def main():
         slice_phase(make_case(tmp, *SIZES["scaling"], torch.float64, "cuda"),
                     "scaling", 3, card)
         # JACOBI (the path without K5/K6) against LU_SGS in the order J, L,
-        # each run profiled after its timed run
+        # then LU_SGS with the fused SST assembly (F), each run profiled
+        # after its timed run
+        pairs = {}
         for size, niter in niters.items():
             jac = make_case(tmp, *SIZES[size], torch.float32, "cuda",
                             prec="JACOBI")
-            for sim, prec in ((jac, "JACOBI"), (sims[size], "LU_SGS")):
-                slice_phase(sim, size, niter, card, prec=prec, profile=True)
+            slice_phase(jac, size, niter, card, prec="JACOBI", profile=True)
+            unf = {}
+            slice_phase(sims[size], size, niter, card, profile=True,
+                        stats=unf)
+            counts, fus = fused_slice(tmp, size, niter, card)
+            runs.append((f"{sims[size].mesh.npoint} fused", counts, niter))
+            pairs[f"{sims[size].mesh.npoint} nodes explicit LU_SGS"] = (
+                unf, fus)
         # the implicit flow with JACOBI, then with LU_SGS: K10 once per
         # iteration; K6 twice per iteration at 9,072 nodes, K5 twice per
         # Krylov vector at the larger sizes; profiled
+        imp_stats = {}
         for size in SIZES:
             for prec, sims_p, its in (("JACOBI", imp, IMPLICIT_NITERS),
                                       ("LU_SGS", lusgs, LUSGS_NITERS)):
+                stats = imp_stats.setdefault((size, prec), {})
                 runs.append((f"{sims_p[size].mesh.npoint} implicit {prec}",
                              slice_phase(sims_p[size], size, its[size], card,
-                                         prec=prec, profile=True),
+                                         prec=prec, profile=True,
+                                         stats=stats),
                              its[size]))
+        # the implicit LU_SGS case with the fused SST assembly at 9,072
+        niter = LUSGS_NITERS["flagship"]
+        counts, fus = fused_slice(tmp, "flagship", niter, card,
+                                  implicit=main_imp)
+        runs.append((f"{lusgs['flagship'].mesh.npoint} implicit LU_SGS "
+                     "fused", counts, niter))
+        pairs[f"{lusgs['flagship'].mesh.npoint} nodes implicit LU_SGS"] = (
+            imp_stats[("flagship", "LU_SGS")], fus)
+        for label, (unf, fus) in pairs.items():
+            print_pair(label, unf, fus)
         # the laminar slice: implicit LU_SGS (K11 once per iteration, the
         # flow's solve K6 once at 9,072 nodes, K5 ten times at 565,500)
         # and explicit (T4 once per iteration), timed and profiled
@@ -1571,7 +1757,8 @@ def main():
                 "stencil_fgmres": ("flow9072", "mixed"),
                 "gradient_rows": "float32 WLS",
                 "edge_implicit": "float32 9072 venkatakrishnan",
-                "ausm_flux_jac": "float32 9072 feature-major"}
+                "ausm_flux_jac": "float32 9072 feature-major",
+                "sst_assemble": "float32 9072"}
     sst_use = {"stencil_sgs_matvec": ("sst142317", "mixed", "sgs_matvec"),
                "stencil_fgmres": ("sst9072", "float32")}
     rows = []
@@ -1588,6 +1775,9 @@ def main():
         if name == "ausm_flux_jac":
             row["edge_major"] = report[name]["float32 9072 edge-major"]
             row["at_565500"] = report[name]["float32 565500 feature-major"]
+        if name == "sst_assemble":
+            row["float64"] = report[name]["float64 9072"]
+            row["at_565500"] = report[name]["float32 565500"]
         if name == "stencil_sgs_matvec":
             mv = report[name][("flow142317", "float32", "matvec")]
             row["matvec_only"] = {k: mv[k] for k in (

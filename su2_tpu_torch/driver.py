@@ -98,6 +98,11 @@ def _unported(cfg: Config):
             raise NotImplementedError(f"{what}: not ported; {where} has it")
 
 
+# SU2_TPU_SST_ASSEMBLE, the reference's switch: its values and the SST
+# assembly mode each selects
+SST_ASSEMBLE_MODES = {"pallas": "fused", "xla": "unfused"}
+
+
 class Simulation:
     """One flow zone: reactive NS (+ SST) on one device."""
 
@@ -107,6 +112,15 @@ class Simulation:
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device)
+        if self.device.type == "cuda" and dtype == torch.float32:
+            # the fused SST assembly (K12), the reference's switch for its
+            # production (accelerator, float32) runs: off unless set
+            mode = os.environ.get("SU2_TPU_SST_ASSEMBLE")
+            if mode:
+                if mode not in SST_ASSEMBLE_MODES:
+                    raise ValueError(f"SU2_TPU_SST_ASSEMBLE={mode}: 'pallas' "
+                                     "(fused) or 'xla' (unfused)")
+                sst.set_assemble_mode(SST_ASSEMBLE_MODES[mode])
         manifest = cfg.resolve(cfg.config_lib_file)
         # host copy in the run's precision (freestream scalars), then the
         # device copy the step reads

@@ -20,6 +20,7 @@ error and adds one to its entry in ``launches``.
   K9 inlet_tc           csrc/inlet_tc.cu     (solvers/inlet_tc.py)
   K10 edge_implicit     csrc/edge_implicit.cu (ops/edge_implicit.py)
   K11 ausm_flux_jac     csrc/ausm_jac.cu      (ops/edge_kernels.py)
+  K12 sst_assemble      csrc/sst_assemble.cu  (turbulence/sst_assemble.py)
 T3 and K8 share the per-edge device function of csrc/edge_side.cuh; K10
 shares its species h/cp lookup and Stefan-Maxwell solve, and K10 and K11
 its implicit AUSM+-up face (ausm_face, ausm_jac_entry).
@@ -40,18 +41,21 @@ BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("common.cuh", "edge_side.cuh", "thermo.cu", "node_state.cu",
            "edge_flux.cu", "chem_source.cu", "stencil_solve.cu",
            "gradients_tiled.cu", "edge_win.cu", "inlet_tc.cu",
-           "edge_implicit.cu", "ausm_jac.cu")
+           "edge_implicit.cu", "ausm_jac.cu", "sst_assemble.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
-# per-source flags: K9 keeps the plain version's operations (no fused
-# multiply-adds), so its secant stops where the plain version's does
-SOURCE_FLAGS = {"inlet_tc.cu": ("-fmad=false",)}
+# per-source flags: K9 and K12 keep the plain version's operations (no
+# fused multiply-adds), so K9's secant stops where the plain version's
+# does and K12 rounds where its plain version rounds (it is bytes-bound:
+# the contraction would buy nothing)
+SOURCE_FLAGS = {"inlet_tc.cu": ("-fmad=false",),
+                "sst_assemble.cu": ("-fmad=false",)}
 
 # launches of each kernel since the last reset_launches()
 launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
             "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0,
             "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0,
-            "edge_implicit": 0, "ausm_flux_jac": 0}
+            "edge_implicit": 0, "ausm_flux_jac": 0, "sst_assemble": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,6 +84,9 @@ _ARGTYPES = {
     "su2k_edge_implicit": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
                            _I, _D, _D, _D, _D, _D, _D, _I, _I] + [_P] * 9,
     "su2k_ausm_flux_jac": [_I, _I, _I, _I, _I, _D] + [_P] * 9,
+    "su2k_sst_assemble": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
+                          ctypes.POINTER(_D), ctypes.POINTER(_P),
+                          ctypes.POINTER(ctypes.c_longlong)] + [_P] * 7,
 }
 
 _loaded = None
@@ -626,3 +633,57 @@ def ausm_flux_jac(lay, v_i, v_j, normal, m_infty, s_i, s_j,
     _raise("ausm_flux_jac", err)
     launches["ausm_flux_jac"] += 1
     return flux, ji, jj
+
+
+# ---------------------------------------------------------------- K12
+# The per-node fields of K12, in the order of csrc/sst_assemble.cu's
+# SstField, with the shape of one node's values.
+SST_FIELDS = (("q", (2,)), ("rho", ()), ("vel", ("d",)), ("gq", (2, "d")),
+              ("mu", ()), ("mut", ()), ("dist", ()), ("strain", ()),
+              ("diverg", ()), ("vol", ()), ("dt", ()), ("f1", ()),
+              ("f2", ()), ("cdkw", ()), ("coords", ("d",)))
+
+
+def sst_assemble(consts, offsets, fields, wall, snormal, pvec):
+    """Kernel K12: the fused SST system (res (2, N), dd (2, N), sel
+    (4K, N)) from the per-node fields (a dict by the names of SST_FIELDS,
+    (N, ...) tensors read through their strides where they lie: columns
+    of the primitive rows, a slice of a gradient set, rows of the
+    feature-major gradient), the (N,) bool wall mask, the stencil normals
+    snormal (K, N, d) and pvec (K, N); consts = the 10 SST constants and
+    CFL_red."""
+    snormal, pvec = snormal.contiguous(), pvec.contiguous()
+    _check("sst_assemble", snormal, pvec)
+    k, n, d = snormal.shape
+    dtype, dev = snormal.dtype, snormal.device
+    if tuple(pvec.shape) != (k, n) or k != len(offsets):
+        raise ValueError("sst_assemble: snormal (K, N, d), pvec (K, N)")
+    ptrs, strides = [], []
+    for name, inner in SST_FIELDS:
+        x = fields[name]
+        shape = (n,) + tuple(d if s == "d" else s for s in inner)
+        if x.dtype != dtype or x.device != dev:
+            raise ValueError(f"sst_assemble: {name} must be {dtype} on {dev}")
+        if x.shape != shape:
+            raise ValueError(f"sst_assemble: {name} has shape "
+                             f"{tuple(x.shape)}, expected {shape}")
+        ptrs.append(x.data_ptr())
+        strides += list(x.stride()) + [0] * (3 - x.ndim)
+    if wall.dtype != torch.bool or wall.shape != (n,) \
+            or not wall.is_contiguous() or wall.device != dev:
+        raise ValueError(f"sst_assemble: wall is a contiguous (N,) bool mask "
+                         f"on {dev}")
+    if len(consts) != 11:
+        raise ValueError("sst_assemble: 11 constants")
+    res = torch.empty((2, n), dtype=dtype, device=dev)
+    dd = torch.empty((2, n), dtype=dtype, device=dev)
+    sel = torch.empty((4 * k, n), dtype=dtype, device=dev)
+    err = _lib().su2k_sst_assemble(
+        int(dtype == torch.float64), n, d, k,
+        (ctypes.c_int * k)(*offsets), (_D * 11)(*consts),
+        (_P * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
+        _ptr(wall), _ptr(snormal), _ptr(pvec), _ptr(res), _ptr(dd), _ptr(sel),
+        _stream())
+    _raise("sst_assemble", err)
+    launches["sst_assemble"] += 1
+    return res, dd, sel

@@ -142,6 +142,25 @@ def solve_tier(npoint: int, offsets, v: int, dtype, ncolor: int,
     return dtype, False
 
 
+def fused_sst_solve_tier(npoint: int, offsets, dtype, ncolor: int,
+                         m: int) -> tuple:
+    """(dtype of the sweep blocks, whether the solve is one K6 launch) of
+    the reference's fused SST step (v = 2), its branches in their order:
+    the one-launch cycle at full-precision blocks where that predicate
+    holds; in float32 the per-iteration mixed tier where the resident or
+    the windowed mixed kernel has a plan; else full-precision blocks per
+    iteration.  Unlike solve_tier it never takes the one-launch mixed
+    cycle."""
+    k = len(offsets)
+    if fgmres_supported(npoint, k, 2, dtype, ncolor, m):
+        return dtype, True
+    if dtype == torch.float32 and (
+            sgs_matvec_mixed_supported(npoint, k, 2, ncolor)
+            or tiled_supported(offsets, 2, ncolor)):
+        return torch.bfloat16, False
+    return dtype, False
+
+
 # ---------------------------------------------------------------------------
 # Plain versions: the arithmetic of the reference's _offdiag, _bapply,
 # _sgs_body (its pass order, the offsets summed in order) and _fgmres_body
@@ -235,7 +254,22 @@ class StencilSolveOps:
     def __init__(self, mesh, sel_t, dinv, diag, colors, ncolor: int,
                  sel_dtype=None):
         n, v = dinv.shape[0], dinv.shape[-1]
-        self.offsets = tuple(int(o) for o in mesh.stencil_offsets)
+        tt = lambda blk: blk.permute(1, 2, 0).reshape(v * v, n)
+        self._set(mesh.stencil_offsets, sel_t, tt(dinv), tt(diag), colors,
+                  ncolor, sel_dtype)
+
+    @classmethod
+    def from_lanes(cls, offsets, sel_t, dinv_t, diag_t, colors,
+                   ncolor: int, sel_dtype=None):
+        """The operators of blocks already in the lane layout: dinv_t and
+        diag_t (v*v, N), as the fused SST assembly emits them."""
+        ops = cls.__new__(cls)
+        ops._set(offsets, sel_t, dinv_t, diag_t, colors, ncolor, sel_dtype)
+        return ops
+
+    def _set(self, offsets, sel_t, dinv_t, diag_t, colors, ncolor,
+             sel_dtype):
+        self.offsets = tuple(int(o) for o in offsets)
         self.colors, self.ncolor = colors, int(ncolor)
         # matvec blocks at full precision; sweep blocks rounded in the
         # mixed tier (the reference keeps the f32 blocks only where its
@@ -243,9 +277,8 @@ class StencilSolveOps:
         self.selm_t = sel_t.contiguous()
         self.sel_t = self.selm_t if sel_dtype in (None, sel_t.dtype) \
             else self.selm_t.to(sel_dtype)
-        tt = lambda blk: blk.permute(1, 2, 0).reshape(v * v, n).contiguous()
-        self.dinv_t = tt(dinv)
-        self.diag_t = tt(diag)
+        self.dinv_t = dinv_t.contiguous()
+        self.diag_t = diag_t.contiguous()
 
     def _sgs(self, r, sweep=True, matvec=True):
         return sgs_matvec(self.sel_t, self.selm_t, self.dinv_t, self.diag_t,

@@ -1,11 +1,13 @@
 """Menter SST k-omega turbulence model on stencil meshes (torch).
 
-Port of the unfused stencil path of the JAX package's sst_step
-(CTurbSSTSolver / CTurbSSTVariable and the SST numerics, reference
+Port of the stencil paths of the JAX package's sst_step (CTurbSSTSolver /
+CTurbSSTVariable and the SST numerics, reference
 solver_direct_turbulent.cpp:2700-3454, numerics_direct_turbulent.cpp
 :865-1006 and :1183-1257, variable_direct_turbulent.cpp:178-204) with the
-MANGOTURB coupling conventions.  State q = (k, omega) primitive per node;
-the update is conservative, k_new = (rho_old k_old + d(rho k))/rho_new.
+MANGOTURB coupling conventions: the unfused assembly in torch ops, and the
+fused one (set_assemble_mode("fused"); turbulence/sst_assemble.py, K12).
+State q = (k, omega) primitive per node; the update is conservative,
+k_new = (rho_old k_old + d(rho k))/rho_new.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import torch
 
 from su2_tpu_torch.geometry.mesh_data import MeshArrays
 from su2_tpu_torch.linalg import blockcsr, krylov
+from su2_tpu_torch.linalg import stencil_solve as sts
 from su2_tpu_torch.solvers import euler as es
 from su2_tpu_torch.state import Layout
+from su2_tpu_torch.turbulence import sst_assemble as sa
 
 EPS = 1e-16
 
@@ -37,6 +41,26 @@ ALFA_2 = float(BETA_2 / BETA_STAR - SIGMA_OM2 * 0.41 ** 2
 
 LOWER = (1.0e-10, 1.0e-4)
 UPPER = (1.0e10, 1.0e15)
+
+# the constants of the fused assembly, before CFL_red
+_CONSTS = (SIGMA_K1, SIGMA_K2, SIGMA_OM1, SIGMA_OM2, BETA_1, BETA_2,
+           BETA_STAR, A1, ALFA_1, ALFA_2)
+
+# "unfused" (the default) or "fused": the one-launch assembly (K12) feeding
+# the lane-layout stencil solve, where sst_step's gate holds.  Process-wide,
+# as the reference's; the driver sets it from SU2_TPU_SST_ASSEMBLE.
+_ASSEMBLE_MODE = "unfused"
+
+
+def set_assemble_mode(mode: str) -> None:
+    global _ASSEMBLE_MODE
+    if mode not in ("unfused", "fused"):
+        raise ValueError(f"SST assembly mode {mode!r}: 'unfused' or 'fused'")
+    _ASSEMBLE_MODE = mode
+
+
+def assemble_mode() -> str:
+    return _ASSEMBLE_MODE
 
 
 def freestream(cfg, rho_inf, vel_inf, mu_inf):
@@ -161,6 +185,9 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
     gq: this step's (k, omega) gradients (N, 2, d); gvel: velocity
     gradient block (N, nd, nd); gq_prev: the previous step's gradients,
     whose blending (the reference's stored F1/F2/CDkw) enters the assembly.
+    In the fused mode, with FGMRES, LU_SGS/ILU0 and sweep colors, and where
+    the reference has a full-field or windowed plan, the fused path runs
+    (its gate, su2_tpu/turbulence/sst.py:204-215).
     Returns (q_new, rms, outs) with outs["gq"] = next step's gq_prev."""
     n = q.shape[0]
     dtype = q.dtype
@@ -170,6 +197,15 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
     bk, bw = (gq_prev[:, 0, :], gq_prev[:, 1, :]) if gq_prev is not None \
         else (grad_k, grad_w)
     f1, f2, cdkw = blending(q[:, 0], q[:, 1], bk, bw, mu, rho, dist)
+    if (_ASSEMBLE_MODE == "fused" and scfg.linear_solver == "FGMRES"
+            and scfg.linear_prec in ("LU_SGS", "ILU0")
+            and scfg.colors is not None
+            and (sa.supported(n, len(mesh.stencil_offsets), lay.ndim)
+                 or sa.tile_plan(n, mesh.stencil_offsets, lay.ndim)
+                 is not None)):
+        return _sst_step_fused(lay, mesh, scfg, bcs, q, v, mu, mu_t_node,
+                               strain_mag, dist, rho_old, dt, kine_inf,
+                               omega_inf, gq, gvel, flow_fb, f1, f2, cdkw)
     sigma_k_blend = f1 * SIGMA_K1 + (1.0 - f1) * SIGMA_K2
     sigma_w_blend = f1 * SIGMA_OM1 + (1.0 - f1) * SIGMA_OM2
 
@@ -207,9 +243,7 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
     diag = diag_c[:, :, None] * eye2
 
     # source (CSourcePieceWise_TurbSST)
-    diverg = gvel[:, 0, 0]
-    for d in range(1, lay.ndim):
-        diverg = diverg + gvel[:, d, d]
+    diverg = _divergence(gvel)
     k_, w_ = q[:, 0], q[:, 1]
     alfa_b = f1 * ALFA_1 + (1.0 - f1) * ALFA_2
     beta_b = f1 * BETA_1 + (1.0 - f1) * BETA_2
@@ -230,19 +264,7 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
                                torch.stack([torch.zeros_like(sj11), -sj11], 1)],
                               dim=1)
 
-    # strong walls: k = 0, omega = 60 mu/(rho beta1 d^2) at the nearest
-    # interior neighbour
-    wall_mask = torch.zeros(n, dtype=torch.bool, device=q.device)
-    w_wall_full = torch.zeros(n, dtype=dtype, device=q.device)
-    for bc in bcs:
-        if bc.kind in ("isothermal_wall", "heatflux_wall"):
-            nodes = bc.nodes
-            dnn = torch.linalg.norm(mesh.coords[bc.nn] - mesh.coords[nodes],
-                                    dim=1)
-            w_wall = 60.0 * mu[bc.nn] / (rho[bc.nn] * BETA_1 * dnn * dnn)
-            wall_mask[nodes] = True
-            w_wall_full[nodes] = w_wall
-    q_wall = torch.stack([torch.zeros_like(w_wall_full), w_wall_full], dim=1)
+    wall_mask, q_wall = _wall_rows(mesh, bcs, mu, rho)
     wk = _weak_bc_batch(lay, bcs, q, vel, rho, kine_inf, omega_inf, flow_fb)
     if wk is not None:
         bn, bflux, a0b = wk
@@ -278,7 +300,98 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
     else:
         sol, _, _ = krylov.fgmres(mv, pc, rhs, max_iter=scfg.linear_iter,
                                   tol=scfg.linear_tol, precond_matvec=pm)
+    rms = torch.sqrt((rhs * rhs).mean(0))
+    q_new, outs = _update(scfg, q, sol, rho_old, rho, wall_mask, q_wall,
+                          grad_k, grad_w, mu, dist, strain_mag, gq)
+    return q_new, rms, outs
 
+
+def _sst_step_fused(lay, mesh, scfg, bcs, q, v, mu, mu_t_node, strain_mag,
+                    dist, rho_old, dt, kine_inf, omega_inf, gq, gvel,
+                    flow_fb, f1, f2, cdkw):
+    """sst_step on the fused-assembly path (the JAX package's
+    _sst_step_fused): one K12 launch builds (res, dd, sel) in the lane
+    layout, the weak BCs add outside the wall rows, and the system goes to
+    the stencil solve in the reference's fused tier
+    (stencil_solve.fused_sst_solve_tier), its diagonal inverted
+    elementwise."""
+    n = q.shape[0]
+    dtype = q.dtype
+    rho = v[:, lay.PRHO]
+    vel = v[:, lay.VX:lay.VX + lay.ndim]
+    grad_k, grad_w = gq[:, 0, :], gq[:, 1, :]
+    wall_mask, q_wall = _wall_rows(mesh, bcs, mu, rho)
+    res_t, dd_t, sel_t = sa.sst_assemble(
+        mesh, _CONSTS + (float(scfg.cfl_red),), q, rho, vel, gq, mu,
+        mu_t_node, dist, strain_mag, _divergence(gvel), dt, wall_mask, f1, f2,
+        cdkw)
+    res, dd = res_t.T, dd_t.T
+    wk = _weak_bc_batch(lay, bcs, q, vel, rho, kine_inf, omega_inf, flow_fb)
+    if wk is not None:
+        # wall-corner faces masked out before the adds (the unfused path
+        # zeroes the wall rows after them: the same result)
+        bn, bflux, a0b = wk
+        notwall = 1.0 - wall_mask.to(dtype)[bn]
+        res = es.add_rows(res, bn, bflux * notwall[:, None], flow_fb.seg)
+        dd = es.add_rows(dd, bn, (a0b * notwall)[:, None].expand(-1, 2),
+                         flow_fb.seg)
+
+    # the solve in lane space: diag rows [d00, 0, 0, d11], 1/d elementwise
+    rhs = (-res).contiguous()
+    zero = torch.zeros_like(dd[:, 0])
+    safe = torch.where(dd == 0.0, 1.0, dd)
+    diag_t = torch.stack([dd[:, 0], zero, zero, dd[:, 1]])
+    dinv_t = torch.stack([1.0 / safe[:, 0], zero, zero, 1.0 / safe[:, 1]])
+    m = int(scfg.linear_iter)
+    sel_dtype, one = sts.fused_sst_solve_tier(n, mesh.stencil_offsets, dtype,
+                                              scfg.ncolor, m)
+    ops = sts.StencilSolveOps.from_lanes(mesh.stencil_offsets, sel_t, dinv_t,
+                                         diag_t, scfg.colors, scfg.ncolor,
+                                         sel_dtype)
+    if one:
+        sol, _, _ = ops.fgmres(rhs, m, scfg.linear_tol)
+    else:
+        sol, _, _ = krylov.fgmres(None, None, rhs, max_iter=m,
+                                  tol=scfg.linear_tol,
+                                  precond_matvec=ops.precond_matvec)
+    rms = torch.sqrt((rhs * rhs).sum(0) / n)
+    q_new, outs = _update(scfg, q, sol, rho_old, rho, wall_mask, q_wall,
+                          grad_k, grad_w, mu, dist, strain_mag, gq)
+    return q_new, rms, outs
+
+
+def _divergence(gvel):
+    """sum_d dv_d/dx_d of the velocity gradient block (N, nd, nd)."""
+    div = gvel[:, 0, 0]
+    for d in range(1, gvel.shape[1]):
+        div = div + gvel[:, d, d]
+    return div
+
+
+def _wall_rows(mesh, bcs, mu, rho):
+    """(wall mask (N,), q_wall (N, 2)) of the strong wall rows: k = 0,
+    omega = 60 mu/(rho beta1 d^2) at the nearest interior neighbour."""
+    n = rho.shape[0]
+    wall_mask = torch.zeros(n, dtype=torch.bool, device=rho.device)
+    w_wall_full = torch.zeros(n, dtype=rho.dtype, device=rho.device)
+    for bc in bcs:
+        if bc.kind in ("isothermal_wall", "heatflux_wall"):
+            nodes = bc.nodes
+            dnn = torch.linalg.norm(mesh.coords[bc.nn] - mesh.coords[nodes],
+                                    dim=1)
+            w_wall = 60.0 * mu[bc.nn] / (rho[bc.nn] * BETA_1 * dnn * dnn)
+            wall_mask[nodes] = True
+            w_wall_full[nodes] = w_wall
+    return wall_mask, torch.stack([torch.zeros_like(w_wall_full),
+                                   w_wall_full], dim=1)
+
+
+def _update(scfg, q, sol, rho_old, rho, wall_mask, q_wall, grad_k, grad_w,
+            mu, dist, strain_mag, gq):
+    """(q_new, outs): the relaxed conservative update, clipped, the wall
+    rows rescaled by rho_old/rho and clipped like every other row; the eddy
+    viscosity and sigma_k of the new state."""
+    dtype = q.dtype
     lower = torch.tensor(LOWER, dtype=dtype, device=q.device)
     upper = torch.tensor(UPPER, dtype=dtype, device=q.device)
     q_new = (rho_old[:, None] * q + scfg.relax * sol) / rho[:, None]
@@ -286,14 +399,13 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
     q_wall_c = torch.minimum(torch.maximum(
         q_wall * (rho_old / rho)[:, None], lower), upper)
     q_new = torch.where(wall_mask[:, None], q_wall_c, q_new)
-    rms = torch.sqrt((rhs * rhs).mean(0))
 
-    f1n, f2n, cdkwn = blending(q_new[:, 0], q_new[:, 1], grad_k, grad_w,
-                               mu, rho, dist)
+    f1n, f2n, _ = blending(q_new[:, 0], q_new[:, 1], grad_k, grad_w, mu, rho,
+                           dist)
     mu_t_new = eddy_viscosity(rho, q_new[:, 0], q_new[:, 1], strain_mag, f2n)
     outs = dict(mu_t=mu_t_new,
                 sigma_k=f1n * SIGMA_K1 + (1.0 - f1n) * SIGMA_K2, gq=gq)
-    return q_new, rms, outs
+    return q_new, outs
 
 
 def wall_distance(coords: np.ndarray, wall_points: np.ndarray,

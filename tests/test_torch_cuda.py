@@ -600,3 +600,112 @@ def test_laminar_slice_launches(card, tmp_path, implicit):
             "node_state": 3, "edge_implicit": 0, "edge_flux": 0,
             "edge_win": 0, "gradient_rows": 0, "inlet_tc": 0}
     assert {k: kernels.launches[k] for k in want} == want
+
+
+def _k12_inputs(card, dtype, feature_major=False, seed=12):
+    """K12's operands on the 153-node channel: random fields (every source
+    branch taken, a wall strip), rho and the velocity as columns of the
+    primitive rows and the (k, omega) gradients as a slice of a wider
+    gradient set, node-major or (feature_major) a view of the >= 200k-node
+    tier's gradient rows, as the step hands them over."""
+    from su2_tpu_torch.geometry.dual_grid import build_dual_grid
+    from su2_tpu_torch.geometry.mesh_data import mesh_arrays
+    from su2_tpu_torch.geometry.structured import channel_mesh
+    mesh = mesh_arrays(build_dual_grid(channel_mesh(*th.CHANNEL)), dtype,
+                       card)
+    n, d = mesh.npoint, mesh.ndim
+    rng = np.random.default_rng(seed)
+    t = lambda a: th.tt(a, dtype).to(card)
+    prim = t(np.abs(rng.normal(1.0, 0.1, (n, 16))) + 0.5)
+    prim[:, 1:1 + d] = t(rng.normal(0.0, 1.0, (n, d)))
+    grads = t(rng.normal(0.0, 0.5, (n, 7, d)))
+    if feature_major:
+        grads = grads.reshape(n, 7 * d).T.contiguous().T.reshape(n, 7, d)
+    dist = np.abs(rng.normal(0.5, 0.1, n)) + 0.01
+    dist[5::13] = 0.0
+    dt = 1e-4 * rng.uniform(0.5, 2.0, n)
+    dt[4::17] = 0.0
+    q = np.abs(rng.normal(1.0, 0.2, (n, 2))) + 0.1
+    q[1::3, 1] *= 0.05
+    wall = torch.zeros(n, dtype=torch.bool, device=card)
+    wall[::7] = True
+    from su2_tpu_torch.turbulence import sst
+    args = (mesh, sst._CONSTS + (0.8,), t(q), prim[:, 4], prim[:, 1:1 + d], grads[:, 5:, :],
+            t(np.abs(rng.normal(1.8e-5, 2e-6, n))),
+            t(np.abs(rng.normal(1e-4, 1e-5, n))), t(dist),
+            t(np.abs(rng.normal(1.0, 0.5, n))), t(rng.normal(0.0, 3.0, n)),
+            t(dt), wall, t(rng.uniform(0.0, 1.0, n)),
+            t(rng.uniform(0.0, 1.0, n)),
+            t(np.abs(rng.normal(1e-3, 1e-3, n)) + 1e-20))
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["node_major", "feature_major"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_k12_kernel_matches_plain(card, dtype, layout):
+    """K12 against its plain version (turbulence/sst_assemble.
+    assemble_plain) on strided inputs with a wall strip: every output row
+    within 1e-12 (f64) or 1e-5 (f32) of that row's max; the wall rows'
+    residual and off-diagonal blocks exactly 0; one launch per call."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.turbulence import sst_assemble as sa
+    args = _k12_inputs(card, dtype, layout == "feature_major")
+    assert not args[3].is_contiguous() and not args[5].is_contiguous()
+    assert (args[5].stride(0) == 1) == (layout == "feature_major")
+    want = sa.assemble_plain(*args)
+    kernels.reset_launches()
+    got = sa.sst_assemble(*args)
+    assert kernels.launches["sst_assemble"] == 1
+    afrac = 1e-12 if dtype == torch.float64 else 1e-5
+    k = len(args[0].stencil_offsets)
+    for g, w, rows in zip(got, want, (2, 2, 4 * k)):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert g.shape == w.shape == (rows, args[0].npoint)
+        assert np.isfinite(g).all()
+        assert (np.abs(g - w)
+                <= afrac * np.abs(w).max(1, keepdims=True)).all()
+    wall = th.npy(args[12])
+    assert (th.npy(got[0])[:, wall] == 0.0).all()
+    assert (th.npy(got[2])[:, wall] == 0.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("implicit", [False, True],
+                         ids=["explicit", "implicit"])
+def test_fused_slice_launches(card, tmp_path, monkeypatch, implicit):
+    """SU2_TPU_SST_ASSEMBLE=pallas on a float32 card run: K12 once per
+    iteration, the SST's solve in stencil_solve.fused_sst_solve_tier's
+    tier (one K6 launch at 153 nodes; the implicit flow's solve one more),
+    T2 twice; unset, K12 never.  Any other value raises."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    from su2_tpu_torch.turbulence import sst
+    text = th.write_case(tmp_path)
+    if implicit:
+        text = th.with_implicit(text, prec="LU_SGS")
+    monkeypatch.setenv("SU2_TPU_SST_ASSEMBLE", "bogus")
+    with pytest.raises(ValueError):
+        _card_sim(card, text, torch.float32)
+    monkeypatch.setenv("SU2_TPU_SST_ASSEMBLE", "pallas")
+    try:
+        sim = _card_sim(card, text, torch.float32)
+        assert sst.assemble_mode() == "fused"
+        kernels.reset_launches()
+        _, _, hist, _ = sim.run(3, quiet=True)
+    finally:
+        sst.set_assemble_mode("unfused")
+    assert np.isfinite(hist).all()
+    _, one = ts.fused_sst_solve_tier(sim.mesh.npoint, sim.mesh.stencil_offsets,
+                                     torch.float32, sim.ncolor,
+                                     sim.cfg.linear_solver_iter)
+    assert one
+    want = {"sst_assemble": 3, "stencil_fgmres": 3 * (1 + implicit),
+            "stencil_sgs_matvec": 0, "node_state": 6,
+            "edge_implicit": 3 * implicit}
+    assert {k: kernels.launches[k] for k in want} == want
+    monkeypatch.delenv("SU2_TPU_SST_ASSEMBLE")
+    kernels.reset_launches()
+    _card_sim(card, text, torch.float32).run(2, quiet=True)
+    assert kernels.launches["sst_assemble"] == 0
