@@ -79,6 +79,19 @@ Phases (one line each; any failure exits nonzero):
              solve's K5/K6 in stencil_solve.fused_sst_solve_tier's tier,
              timed and profiled, each printed beside the unfused run of
              its size; every other run asserts K12 never launched
+  K13 phase  (after K12) K13 (the explicit edge terms over an edge list)
+             against its plain version on the scrambled triangle channel
+             (cases.tri_channel_mesh, no static stencil: the gather path)
+             at 9,072 nodes in float64 and float32 and at 142,317 in
+             float32, per output row, with times and bounds; then 5 f64
+             iterations of the explicit LU_SGS step on the 9,072-node
+             triangle channel card vs CPU (K13 once per iteration, the SST
+             solve in torch gather ops: K5/K6 never)
+  tri        (at the end of 6) Simulation.run on the triangle channel in
+             float32: 9,072 x 50 and 142,317 x 20 with LU_SGS and with
+             JACOBI, each timed and profiled (K13 once per iteration; T3,
+             K8, K5, K6, K7 and K12 never); every stencil-mesh run asserts
+             K13 never launched
 The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}.
 
@@ -124,6 +137,8 @@ KERNELS = {
                       "su2_tpu/pallas/edge_kernels.py:34,91"),
     "sst_assemble": ("su2_tpu_torch/csrc/sst_assemble.cu",
                      "su2_tpu/pallas/sst_assemble.py:168,235"),
+    "edge_list_flux": ("su2_tpu_torch/csrc/edge_list.cu",
+                       "su2_tpu/pallas/edge_fused.py:494"),
 }
 # tolerances per kernel and dtype: |kernel - plain| <= rtol * |plain|
 # + atol_frac * max|plain| (T3: per flux row, atol only, the row's max)
@@ -163,6 +178,9 @@ TOL = {
     # multiply-adds: the plain version's roundings)
     ("sst_assemble", "float64"): (0.0, 1e-12),
     ("sst_assemble", "float32"): (0.0, 1e-5),
+    # K13: as T3 (the same edge_side), per output row against its max
+    ("edge_list_flux", "float64"): (0.0, 1e-10),
+    ("edge_list_flux", "float32"): (0.0, 1e-4),
 }
 # the (MUSCL, limiter) variants of the implicit case (cases.with_implicit_
 # flow); the main path is the first
@@ -172,6 +190,9 @@ IMPLICIT_VARIANTS = {"venkatakrishnan": (True, "VENKATAKRISHNAN"),
 # the 9,072-node flagship class, the 142,317-node scaling point and the
 # 565,500-node size of the >= 200k-node tier (the README's round-5 point)
 SIZES = {"flagship": (189, 48), "scaling": (753, 189), "tier": (1500, 377)}
+# the triangle-channel runs (cases.tri_channel_mesh of the same node grids:
+# 9,072 nodes / 26,743 edges and 142,317 / 425,068): iterations per size
+TRI_NITERS = {"flagship": 50, "scaling": 20}
 TC_T_TOT = 600.0        # T_tot of cases.with_total_conditions
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM bytes/s
 # and non-tensor FLOP/s per type, for the bound of each kernel
@@ -298,10 +319,13 @@ def compare(name, dt, got, want, per_row=False):
 
 
 def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
-              total_conditions=False, implicit=None, laminar=False):
+              total_conditions=False, implicit=None, laminar=False,
+              tri=False):
     """The synthetic case on channel_mesh(nx, ny); implicit: (muscl,
     limiter) of the implicit-flow variant, whose flow and SST systems are
-    solved with prec as well; laminar: KIND_TURB_MODEL= NONE."""
+    solved with prec as well; laminar: KIND_TURB_MODEL= NONE; tri: on
+    cases.tri_channel_mesh(nx, ny) (triangles, scrambled node order, no
+    static stencil)."""
     from su2_tpu_torch import cases
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
@@ -314,8 +338,9 @@ def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
         text = cases.with_implicit_flow(text, *implicit, prec=prec)
     if laminar:
         text = cases.with_laminar(text)
-    return Simulation(Config(text=text), raw_mesh=channel_mesh(nx, ny),
-                      dtype=dtype, device=device)
+    raw = cases.tri_channel_mesh(nx, ny) if tri else channel_mesh(nx, ny)
+    return Simulation(Config(text=text), raw_mesh=raw, dtype=dtype,
+                      device=device)
 
 
 def kernel_inputs(sim, seed=0):
@@ -815,6 +840,56 @@ def sst_kernel_phase(sim, dtype_name, report):
         bound_by=bound[1], library_ms=None)
 
 
+def k13_phase(sim, dtype_name, report):
+    """K13 against its plain version (ops/edge_flux.edge_list_flux_plain)
+    on sim's triangle mesh, from a mixed reacting state (kernel_inputs):
+    per output row against the row's max, with times and the bound."""
+    import torch
+    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch.ops import edge_flux as ef, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    lib, lay, mesh, prm = sim.lib, sim.lay, sim.mesh, sim.params
+    x = kernel_inputs(sim)
+    nsd = st.node_state_plain(lib, lay, x["u"], x["t_guess"], x["p"],
+                              x["tke"])
+    grad = es.compute_gradients(mesh, prm, vis.ns_gradient_vars(
+        lib, lay, nsd.v, nsd.xs))
+    turb = vis.TurbFlowData(tke=x["tke"], mu_t=x["mu_t"],
+                            grad_tke=x["grad_tke"], sigma_k=x["sigma_k"])
+    f_all = ef.stack_inputs(lay, nsd.v, grad, vis.Transport(nsd.mu,
+                                                            nsd.kappa),
+                            turb, x["sigma_k"], nsd.dpdu[:, lay.RHOE])
+    sc = ef.species_consts_of(lib)
+    args = (lib, lay, sc, (prm.m_infty, prm.prandtl_lam, prm.prandtl_turb,
+                           prm.lewis_turb), f_all, mesh.edges,
+            mesh.edge_normal, mesh.coords)
+    kfn = lambda: list(kernels.edge_list_flux(*args))
+    pfn = lambda: list(ef.edge_list_flux_plain(*args))
+    got, want = kfn(), pfn()
+    torch.cuda.synchronize()
+    # one row each for lc and lv
+    err, scaled = compare("edge_list_flux", dtype_name,
+                          [got[0], got[1][None], got[2][None]],
+                          [want[0], want[1][None], want[2][None]],
+                          per_row=True)
+    ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
+    # bytes: the stack, the coordinates, the edge list, the normals and the
+    # h/cp tables read once, the outputs written once; operations: ~2,000
+    # per edge, as T3's
+    ins = [f_all, mesh.coords, mesh.edges, mesh.edge_normal, lib.h_y,
+           lib.h_y2, lib.cp_y, lib.cp_y2, lib.mm, sc.sm_den]
+    bound = bound_of(nbytes(ins + got), 2000 * mesh.nedge, dtype_name)
+    key = f"{dtype_name} {mesh.npoint}"
+    phase("k13", f"edge_list_flux {key} ({mesh.nedge} edges): max_abs_err "
+          f"{err:.3e} ({scaled:.2e} of its field's max; each row within "
+          f"{TOL[('edge_list_flux', dtype_name)][1]} of its max) kernel "
+          f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms "
+          f"({bound[1]}, {nbytes(ins + got) / 1e6:.2f} MB)")
+    report.setdefault("edge_list_flux", {})[key] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+        bound_by=bound[1], library_ms=None)
+
+
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -1136,7 +1211,7 @@ def k6_check(sname, var, args, r, b, report):
 
 
 def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
-               prec="JACOBI", fused=False):
+               prec="JACOBI", fused=False, tri=False):
     """5 coupled iterations, card vs CPU, from the state after 10 card
     iterations of the flagship-class case; tier=True forces the
     >= 200k-node tier on both sides (TILED_MIN_NODES = 0: K7 and K8, or
@@ -1147,7 +1222,8 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
     the full-precision gate, K5 once per Krylov vector, FGMRES(10); the
     SST's one K6 launch); fused the fused SST assembly on both sides (K12
     once per iteration, the SST's solve in the fused tier: one K6 launch
-    in f64 at 9,072 nodes)."""
+    in f64 at 9,072 nodes); tri the triangle channel (the gather path: K13
+    once per iteration, the SST's solve in torch gather ops)."""
     from su2_tpu_torch.ops import gradients
     from su2_tpu_torch.turbulence import sst
     saved = gradients.TILED_MIN_NODES
@@ -1157,17 +1233,20 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
         sst.set_assemble_mode("fused")
     try:
         worst, counts, sim = _step_compare(tmp, total_conditions, implicit,
-                                           prec)
+                                           prec, tri=tri)
     finally:
         gradients.TILED_MIN_NODES = saved
         sst.set_assemble_mode("unfused")
     n = sim.mesh.npoint
     imp = implicit is not None
     want = {"edge_win": 5 * (tier and not imp),
-            "edge_flux": 5 * (not tier and not imp),
+            "edge_flux": 5 * (not tier and not imp and not tri),
+            "edge_list_flux": 5 * tri,
             "edge_implicit": 5 * imp, "chem_source": 5 * (not imp),
             "gradient_rows": 10 * tier, "inlet_tc": 5 * total_conditions,
             "sst_assemble": 5 * fused}
+    if tri:
+        want.update(stencil_fgmres=0, stencil_sgs_matvec=0)
     if imp:
         lusgs = prec != "JACOBI"
         want.update(stencil_fgmres=5 * lusgs,
@@ -1190,6 +1269,9 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
         what += f", {prec}"
     if fused:
         what += ", the fused SST assembly (K12)"
+    if tri:
+        what = ("the triangle channel (no static stencil: K13, the SST "
+                "solve's LU_SGS in torch gather ops)")
     phase("step", f"5 iterations at {n} nodes f64 with {what}, card vs CPU "
           f"within rtol 1e-9, atol 1e-12*max|field| (largest difference "
           f"{worst:.3e} of its field's max); card launches {counts}")
@@ -1217,7 +1299,8 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False):
     imp = implicit is not None
     want = {"ausm_flux_jac": 5 * imp, "chem_source": 5 * (not imp),
             "node_state": 5, "edge_implicit": 0, "edge_flux": 0,
-            "edge_win": 0, "gradient_rows": 5 * tier, "sst_assemble": 0}
+            "edge_win": 0, "gradient_rows": 5 * tier, "sst_assemble": 0,
+            "edge_list_flux": 0}
     lusgs = imp and prec != "JACOBI"
     one = lusgs and sts.solve_tier(n, sim.mesh.stencil_offsets, sim.lay.nvar,
                                    torch.float64, sim.ncolor, KRYLOV_M)[1]
@@ -1236,16 +1319,16 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False):
 
 
 def _step_compare(tmp, total_conditions, implicit=None, prec="JACOBI",
-                  laminar=False):
+                  laminar=False, tri=False):
     import torch
     from su2_tpu_torch import kernels
     prec = "LU_SGS" if implicit is None and not laminar else prec
     gpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cuda", prec,
                     total_conditions=total_conditions, implicit=implicit,
-                    laminar=laminar)
+                    laminar=laminar, tri=tri)
     cpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cpu", prec,
                     total_conditions=total_conditions, implicit=implicit,
-                    laminar=laminar)
+                    laminar=laminar, tri=tri)
     ncarry = 2 if laminar else 6
     s_gpu = (gpu.u0, gpu.t0) + (() if laminar
                                 else tuple(gpu.initial_turb_state()))
@@ -1319,6 +1402,7 @@ def step_groups():
     one-launch K6 of StencilSolveOps), the SST's sits inside "SST
     solve"."""
     from su2_tpu_torch import state as st
+    from su2_tpu_torch.geometry.mesh_data import MeshArrays
     from su2_tpu_torch.linalg import blockcsr, krylov
     from su2_tpu_torch.linalg.stencil_solve import StencilSolveOps
     from su2_tpu_torch.ops import (ausm_t, edge_flux, edge_implicit,
@@ -1335,6 +1419,10 @@ def step_groups():
             (limiters, "barth_jespersen", "limiter"),
             (edge_implicit, "fused_implicit_family_terms", "edge terms"),
             (edge_flux, "fused_interior_terms", "edge terms"),
+            (MeshArrays, "scatter_edges_mixed", "edge-to-node sums"),
+            (blockcsr, "gather_offdiag", "neighbour blocks (gather)"),
+            (blockcsr, "multicolor_sgs_apply", "multicolor sweep (gather)"),
+            (blockcsr, "matvec", "matvec (gather)"),
             (es, "flux_bc_batch", "flux-BC ghost states"),
             (es, "ghost_dpdu", "boundary flux and Jacobians"),
             (ausm_t, "ausm_flux_t", "boundary flux and Jacobians"),
@@ -1484,8 +1572,12 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     # implicit flow: K10 instead of T3/K8, the source system in torch ops;
     # laminar: one node state, no fused edge kernel, implicit through K11
     imp = sim.cfg.implicit_flow
+    # the triangle channel (no static stencil): K13 for T3, the SST solve
+    # in torch gather ops
+    tri = sim.mesh.stencil_offsets is None
     want = {"node_state": (1 if lam else 2) * niter,
-            "edge_flux": 0 if tier or imp or lam else niter,
+            "edge_flux": 0 if tier or imp or lam or tri else niter,
+            "edge_list_flux": niter if tri else 0,
             "edge_win": niter if tier and not (imp or lam) else 0,
             "edge_implicit": niter if imp and not lam else 0,
             "ausm_flux_jac": niter if imp and lam else 0,
@@ -1502,6 +1594,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     table = (LAMINAR_STENCIL_PER_ITER if lam else
              IMPLICIT_STENCIL_PER_ITER if imp else STENCIL_PER_ITER)
     per = dict(table[size])
+    if tri:
+        per = {k: 0 for k in per}
     if fused:
         # the SST's solve in the fused tier in place of the unfused one
         _, one = fused_sst_tier(sim)
@@ -1548,6 +1642,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
         prec = f"laminar {prec if imp else 'explicit flow'}"
     if fused:
         prec = f"{prec}, fused SST assembly (K12)"
+    if tri:
+        prec = f"{prec}, triangle channel ({sim.mesh.nedge} edges, K13)"
     phase("slice", f"{n} nodes {dt} {prec} x {niter}: {ms:.3f} ms/iter, "
           f"{n / (ms * 1e3):.3f} Mcell-updates/s, log10 rms[rho] "
           f"{hist[0][0]:.4f} -> {hist[-1][0]:.4f}, max|omega| "
@@ -1670,6 +1766,22 @@ def main():
         sst_kernel_phase(sims["tier"], "float32", report)
         step_phase(tmp, fused=True)
         step_phase(tmp, implicit=main_imp, prec="LU_SGS", fused=True)
+        # K13 on the scrambled triangle channel (no static stencil: the
+        # gather path): 9,072 nodes in f64 (a case of its own) and f32,
+        # 142,317 in f32; then the 5-step f64 check there
+        tri = {}
+        for size in TRI_NITERS:
+            t0 = time.perf_counter()
+            tri[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                                  tri=True)
+            phase("k13", f"{tri[size].mesh.npoint}-node triangle channel "
+                  f"({tri[size].mesh.nedge} edges, {tri[size].ncolor} sweep "
+                  f"colors) built in {time.perf_counter() - t0:.1f} s")
+        k13_phase(make_case(tmp, *SIZES["flagship"], torch.float64, "cuda",
+                            tri=True), "float64", report)
+        for size in TRI_NITERS:
+            k13_phase(tri[size], "float32", report)
+        step_phase(tmp, tri=True)
         laminar_step_phase(tmp)
         laminar_step_phase(tmp, implicit=main_imp, prec="LU_SGS")
         laminar_step_phase(tmp, implicit=main_imp, tier=True)
@@ -1744,6 +1856,16 @@ def main():
         runs.append(("9072 laminar explicit", slice_phase(
             lam_exp, "flagship", LAMINAR_NITERS["flagship"], card,
             prec="JACOBI", profile=True), LAMINAR_NITERS["flagship"]))
+        # the triangle channel (K13 once per iteration, the SST solve in
+        # torch gather ops): JACOBI, then LU_SGS, each timed and profiled
+        for size, niter in TRI_NITERS.items():
+            jac = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                            prec="JACOBI", tri=True)
+            n = jac.mesh.npoint
+            runs.append((f"{n} triangles JACOBI", slice_phase(
+                jac, size, niter, card, prec="JACOBI", profile=True), niter))
+            runs.append((f"{n} triangles LU_SGS", slice_phase(
+                tri[size], size, niter, card, profile=True), niter))
 
     # each kernel's numbers at its main-path use: T1-T4 in f32 at 9,072
     # nodes, K5 mixed on the implicit LU_SGS case's flow system at 142,317
@@ -1752,13 +1874,15 @@ def main():
     # 565,500 nodes, K9 in f32 on the 377-vertex batch, K10 f32 at 9,072
     # nodes (MUSCL + Venkatakrishnan), K11 f32 feature-major at 9,072 nodes
     # (the laminar implicit case's family slots; edge-major and 565,500
-    # nodes beside it)
+    # nodes beside it), K12 f32 at 9,072 nodes, K13 f32 on the 9,072-node
+    # triangle channel (f64 and 142,317 nodes beside it)
     main_use = {"stencil_sgs_matvec": ("flow142317", "mixed", "sgs_matvec"),
                 "stencil_fgmres": ("flow9072", "mixed"),
                 "gradient_rows": "float32 WLS",
                 "edge_implicit": "float32 9072 venkatakrishnan",
                 "ausm_flux_jac": "float32 9072 feature-major",
-                "sst_assemble": "float32 9072"}
+                "sst_assemble": "float32 9072",
+                "edge_list_flux": "float32 9072"}
     sst_use = {"stencil_sgs_matvec": ("sst142317", "mixed", "sgs_matvec"),
                "stencil_fgmres": ("sst9072", "float32")}
     rows = []
@@ -1778,6 +1902,9 @@ def main():
         if name == "sst_assemble":
             row["float64"] = report[name]["float64 9072"]
             row["at_565500"] = report[name]["float32 565500"]
+        if name == "edge_list_flux":
+            row["float64"] = report[name]["float64 9072"]
+            row["at_142317"] = report[name]["float32 142317"]
         if name == "stencil_sgs_matvec":
             mv = report[name][("flow142317", "float32", "matvec")]
             row["matvec_only"] = {k: mv[k] for k in (

@@ -27,6 +27,11 @@ pressure-diffusion term (~1/f_a, f_a ~ 2 M_inf) makes the explicit flow
 unstable at CFL 0.1 from about iteration 25 in both packages; cooling the
 streams enough to raise M_inf would stop the reaction, so the velocity is
 doubled instead.
+
+``tri_channel_mesh(nx, ny, seed)`` is the channel as a mesh generator
+would leave it: every quad split into two triangles, the nodes in a
+seeded random order, so no static neighbour stencil exists and both
+packages take the gather path.
 """
 
 from __future__ import annotations
@@ -222,3 +227,29 @@ def with_laminar(text: str) -> str:
     lines = [ln for ln in text.splitlines()
              if not ln.startswith("KIND_TURB_MODEL")]
     return "\n".join(lines + ["KIND_TURB_MODEL= NONE"]) + "\n"
+
+
+def tri_channel_mesh(nx: int, ny: int, seed: int = 0):
+    """channel_mesh(nx, ny) with each quad split into two triangles along
+    alternating diagonals ((i + j) even: (i, j)-(i+1, j+1), odd:
+    (i+1, j)-(i, j+1)) and the nodes numbered by
+    np.random.default_rng(seed).permutation: node perm[k] becomes node k.
+    The markers and coordinates are channel_mesh's.  Returns a RawMesh."""
+    from su2_tpu_torch.geometry.structured import channel_mesh
+    from su2_tpu_torch.io.mesh import RawMesh
+    quad = channel_mesh(nx, ny)
+    q = quad.elem_nodes
+    a, b, c, d = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    i, j = np.divmod(np.arange(q.shape[0]), ny - 1)
+    even = ((i + j) % 2 == 0)[:, None]
+    first = np.where(even, np.stack([a, b, c], 1), np.stack([a, b, d], 1))
+    second = np.where(even, np.stack([a, c, d], 1), np.stack([b, c, d], 1))
+    tris = np.stack([first, second], 1).reshape(-1, 3)
+    perm = np.random.default_rng(seed).permutation(quad.npoint)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    return RawMesh(ndim=2, coords=quad.coords[perm],
+                   elem_types=np.full(tris.shape[0], 5, dtype=np.int32),
+                   elem_nodes=inv[tris],
+                   markers={t: inv[m] for t, m in quad.markers.items()},
+                   marker_types=dict(quad.marker_types))

@@ -36,10 +36,13 @@ def chemlib_from_numpy(d: dict, dtype=torch.float64,
 def mesh_from_numpy(d: dict, dtype=torch.float64, device="cpu") -> MeshArrays:
     """MeshArrays from a dict of the JAX MeshArrays' fields: numpy leaves
     (markers as tag -> (nodes, normal)), plus ndim, npoint, nedge,
-    max_degree, stencil_offsets and fam_offsets.  The zero-padded marker
-    fields and the viscous area^2 weight are derived from the markers."""
-    f = lambda x: _t(x, dtype, device)
-    i = lambda x: _t(x, dtype, device, integer=True)
+    max_degree, stencil_offsets and fam_offsets.  On a mesh without a
+    static stencil the stencil and family fields are None.  The
+    zero-padded marker fields and the viscous area^2 weight are derived
+    from the markers."""
+    f = lambda x: None if x is None else _t(x, dtype, device)
+    i = lambda x: None if x is None else _t(x, dtype, device, integer=True)
+    offs = lambda x: None if x is None else tuple(int(o) for o in x)
     n = int(d["npoint"])
     dense = {}
     w2 = np.zeros((n,), np.float64)
@@ -64,12 +67,13 @@ def mesh_from_numpy(d: dict, dtype=torch.float64, device="cpu") -> MeshArrays:
         marker_nn={t: i(a) for t, a in d["marker_nn"].items()},
         marker_dense=dense,
         node_edges_t=i(d["node_edges_t"]), node_sign_t=f(d["node_sign_t"]),
+        node_nbrs=i(d["node_nbrs"]), nbr_mask=f(d["nbr_mask"]),
+        node_edges_sel=i(d["node_edges_sel"]),
         stencil_sel=i(d["stencil_sel"]),
-        stencil_offsets=tuple(int(o) for o in d["stencil_offsets"]),
+        stencil_offsets=offs(d["stencil_offsets"]),
         wls_coeff=f(d["wls_coeff"]), gg_snormal=f(d["gg_snormal"]),
         stencil_pvec=f(d["stencil_pvec"]), fam_normal=f(d["fam_normal"]),
-        fam_evec=f(d["fam_evec"]),
-        fam_offsets=tuple(int(o) for o in d["fam_offsets"]),
+        fam_evec=f(d["fam_evec"]), fam_offsets=offs(d["fam_offsets"]),
         visc_w2=f(w2))
 
 

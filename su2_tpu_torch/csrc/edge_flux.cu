@@ -41,10 +41,10 @@ __global__ void edge_flux_kernel(int n, EdgeConsts c, Grid<T> g,
   const int k = (int)(idx / n);
   const int p = (int)(idx - (long long)k * n);
   const int nvar = c.ns + c.nd + 2;
-  T fo[SU2K_MAXV];
+  T fo[SU2K_MAXV], nm[SU2K_MAXD], ev[SU2K_MAXD];
   T lco, lvo;
-  edge_side<T>(n, c, g, f, fam_normal, fam_evec, tab, cst, k, p, fo, lco,
-               lvo);
+  const int j = fam_slot(n, c, fam_normal, fam_evec, k, p, nm, ev);
+  edge_side<T>(n, c, g, f, p, j, nm, ev, tab, cst, fo, lco, lvo);
   // family-major (Kh, nVar, N)
   T* out = flux + (size_t)k * nvar * n + p;
   for (int r = 0; r < nvar; ++r) out[(size_t)r * n] = fo[r];

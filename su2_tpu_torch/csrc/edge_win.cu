@@ -50,9 +50,10 @@ __global__ void edge_win_kernel(int n, EdgeConsts c, Grid<T> g,
     if (q < 0) q += n;
 #pragma unroll 1
     for (int side = 0; side < 2; ++side) {
-      T lco, lvo;
-      edge_side<T>(n, c, g, f, fam_normal, fam_evec, tab, cst, k,
-                   side == 0 ? p : q, fo, lco, lvo);
+      T lco, lvo, nm[SU2K_MAXD], ev[SU2K_MAXD];
+      const int s = side == 0 ? p : q;
+      const int j = fam_slot(n, c, fam_normal, fam_evec, k, s, nm, ev);
+      edge_side<T>(n, c, g, f, s, j, nm, ev, tab, cst, fo, lco, lvo);
       if (side == 0) {
         for (int r = 0; r < nvar; ++r) own[r] = fo[r];
         lc_own = lco;

@@ -4,8 +4,10 @@ REACTIVE_NAVIER_STOKES step (torch).
 Port of the JAX package's Simulation for one configuration family:
 reactive Navier-Stokes, with SST and PaSR (KIND_TURB_MODEL= SST) or
 laminar (NONE), and the AUSM scheme, on meshes with a static neighbour
-stencil.  The flow is explicit (first order; laminar also Runge-Kutta), or
-implicit (EULER_IMPLICIT, first order or MUSCL with or without a limiter);
+stencil; the explicit-flow RANS step also on meshes without one (the
+gather path: triangles, nodes in any order).  The flow is explicit
+(first order; laminar also Runge-Kutta), or implicit (EULER_IMPLICIT,
+first order or MUSCL with or without a limiter);
 the flow and SST systems are solved by FGMRES with the multicolor SGS
 (LU_SGS, ILU0) or JACOBI preconditioner.  One RANS
 outer iteration is the segregated sequence of iteration_structure.cpp
@@ -157,6 +159,7 @@ class Simulation:
             raise NotImplementedError("3D implicit flow: not ported; "
                                       "su2_tpu.ops.viscous_t has it")
         self.mesh = mesh_arrays(self.grid, dtype, self.device)
+        ns.check_mesh(self.mesh, cfg.implicit_flow, not cfg.turbulent)
         self.lay = Layout(self.grid.ndim, cfg.nspecies)
         self.tparams = TSolveParams(tmin=cfg.temperature_min,
                                     tmax=cfg.temperature_max,

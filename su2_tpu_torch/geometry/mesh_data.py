@@ -2,9 +2,11 @@
 
 Torch port of the JAX package's mesh arrays.  Edge->node accumulation is
 gather-based: each node stores its padded incident-edge list and signs, so a
-residual scatter is a deterministic gather + sum with no atomics.  On
-static-stencil meshes (every neighbour at one of K fixed index offsets) the
-gradient and edge sweeps use rolls against per-offset geometry instead.
+residual scatter is a deterministic gather + sum with no atomics, the
+slots summed in slot order.  On static-stencil meshes (every neighbour at
+one of K fixed index offsets) the gradient and edge sweeps use rolls
+against per-offset geometry instead; on other meshes (triangles, nodes in
+any order) every stencil and family field is None and they gather.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ import torch
 from su2_tpu_torch.geometry.dual_grid import DualGrid
 
 _INT_FIELDS = ("edges", "node_edges", "n_neighbors", "node_edges_t",
-               "stencil_sel")
+               "stencil_sel", "node_nbrs", "node_edges_sel")
 _FLOAT_FIELDS = ("coords", "volume", "edge_normal", "edge_area", "node_sign",
                  "bnd_accum_normal", "node_sign_t", "wls_coeff", "gg_snormal",
-                 "stencil_pvec", "fam_normal", "fam_evec", "visc_w2")
+                 "stencil_pvec", "fam_normal", "fam_evec", "visc_w2",
+                 "nbr_mask")
 
 
 @dataclass(frozen=True)
@@ -44,6 +47,11 @@ class MeshArrays:
     marker_dense: dict          # tag -> (normal (nP, d), area (nP,)) zero-padded
     node_edges_t: torch.Tensor = None   # (D*nP,) slot-major node_edges
     node_sign_t: torch.Tensor = None    # (D*nP,)
+    node_nbrs: torch.Tensor = None      # (nP, D) int64, pad = self
+    nbr_mask: torch.Tensor = None       # (nP, D) 1.0 for real neighbours
+    # (nP, D) index into cat([off_ij, off_ji, pad]): sign > 0 -> edge id,
+    # sign < 0 -> edge id + nE, pad -> 2 nE (linalg/blockcsr.gather_offdiag)
+    node_edges_sel: torch.Tensor = None
     # static-stencil form (geometry/stencil.py)
     stencil_sel: torch.Tensor = None    # (K, nP)
     stencil_offsets: tuple = None       # K signed offsets
@@ -117,21 +125,62 @@ class MeshArrays:
               for p, o in zip(self._fam_parts(val_j, dim), self.fam_offsets)]
         return sum(pi[1:], pi[0]) + sum(pj[1:], pj[0])
 
-    def scatter_edges(self, edge_vals: torch.Tensor) -> torch.Tensor:
-        """out[i] = sum_e sign(i, e) * edge_vals[e]: gather + slot sum, no
-        atomics, fixed summation order."""
+    # ---- edge -> node sums (any mesh) ----
+    # Each gathers the edge values of every node's slots (slot-major, pad
+    # slots read a zero row) and sums the slots in slot order, as the JAX
+    # package's MeshArrays do: no index_add_, no atomics.
+
+    def _gather_slots(self, edge_vals: torch.Tensor) -> torch.Tensor:
+        """(D*nP, ...) edge values of the slots, pad slots zero."""
         pad = torch.zeros((1,) + edge_vals.shape[1:], dtype=edge_vals.dtype,
                           device=edge_vals.device)
-        ext = torch.cat([edge_vals, pad], dim=0)
-        g = ext[self.node_edges_t]
-        sign = self.node_sign_t.reshape(
-            self.node_sign_t.shape + (1,) * (edge_vals.ndim - 1))
-        g = g * sign
+        return torch.cat([edge_vals, pad], dim=0)[self.node_edges_t]
+
+    def _slot_sum(self, g: torch.Tensor) -> torch.Tensor:
         n = self.npoint
         out = g[0:n]
         for d in range(1, self.max_degree):
             out = out + g[d * n:(d + 1) * n]
         return out
+
+    @staticmethod
+    def _col(x: torch.Tensor, ndim: int) -> torch.Tensor:
+        return x.reshape(x.shape + (1,) * (ndim - 1))
+
+    def scatter_edges(self, edge_vals: torch.Tensor) -> torch.Tensor:
+        """out[i] = sum_e sign(i, e) * edge_vals[e]: gather + slot sum, no
+        atomics, fixed summation order."""
+        return self._slot_sum(self._gather_slots(edge_vals)
+                              * self._col(self.node_sign_t, edge_vals.ndim))
+
+    def accumulate_sides(self, val_i: torch.Tensor,
+                         val_j: torch.Tensor) -> torch.Tensor:
+        """out[p] = sum over p's edges of val_i[e] where p is the edge's
+        i-node and val_j[e] where it is the j-node."""
+        sign = self._col(self.node_sign_t, val_i.ndim)
+        ei = self._gather_slots(val_i)
+        ej = self._gather_slots(val_j)
+        return self._slot_sum(torch.where(
+            sign > 0.5, ei, torch.where(sign < -0.5, ej,
+                                        torch.zeros_like(ei))))
+
+    def scatter_edges_mixed(self, signed_vals: torch.Tensor,
+                            abs_vals: torch.Tensor):
+        """One gather + slot sum of a signed block (nE, k), summed as
+        scatter_edges, and an unsigned block (nE, m), summed as
+        sum_edges_abs.  Returns ((nP, k), (nP, m))."""
+        k = signed_vals.shape[1]
+        g = self._gather_slots(torch.cat([signed_vals, abs_vals], dim=1))
+        sign = self.node_sign_t[:, None]
+        mult = torch.cat([sign.expand(-1, k),
+                          sign.abs().expand(-1, g.shape[1] - k)], dim=1)
+        tot = self._slot_sum(g * mult)
+        return tot[:, :k], tot[:, k:]
+
+    def sum_edges_abs(self, edge_vals: torch.Tensor) -> torch.Tensor:
+        """out[i] = sum over i's edges of edge_vals (no sign)."""
+        return self._slot_sum(self._gather_slots(edge_vals) * self._col(
+            self.node_sign_t.abs(), edge_vals.ndim))
 
 
 def _stencil_grad_geometry(offsets, edges, coords, npoint, ndim):
@@ -198,9 +247,10 @@ def _stencil_gg_snormal(offsets, edges, edge_normal, npoint, ndim):
 
 def mesh_arrays(grid: DualGrid, dtype=torch.float64,
                 device="cpu") -> MeshArrays:
-    """MeshArrays of a static-stencil DualGrid (the port's main path needs
-    the stencil form: gradients, edge families and the SST sweep are
-    rolls)."""
+    """MeshArrays of a DualGrid: the gather fields always, and on a
+    static-stencil mesh (at most MAX_OFFSETS neighbour offsets) the stencil
+    and family fields (the gradients, edge families and the SST sweep are
+    then rolls); elsewhere those are None and the sweeps gather."""
     from su2_tpu_torch.geometry import stencil as stn
 
     def f(x):
@@ -210,12 +260,54 @@ def mesh_arrays(grid: DualGrid, dtype=torch.float64,
     def i(x):
         return torch.as_tensor(np.asarray(x, np.int64)).to(device=device)
 
+    n = grid.npoint
     offsets = stn.edge_offsets(grid.edges)
-    if not 0 < len(offsets) <= stn.MAX_OFFSETS:
-        raise NotImplementedError(
-            "meshes without a static neighbour stencil: not ported; "
-            "su2_tpu.geometry.mesh_data has the gather path")
-    stencil_offsets = tuple(int(o) for o in offsets)
+    stencil = {}
+    if 0 < len(offsets) <= stn.MAX_OFFSETS:
+        stencil = _stencil_fields(grid, tuple(int(o) for o in offsets), f, i)
+
+    bnd_accum = np.zeros_like(grid.coords)
+    dense = {}
+    w2 = np.zeros((n,), np.float64)
+    for tag in grid.bnd_nodes:
+        nodes, nm = grid.bnd_nodes[tag], grid.bnd_normal[tag]
+        np.add.at(bnd_accum, nodes, nm)
+        ndn = np.zeros((n, nm.shape[1]))
+        ndn[nodes] = nm
+        ad = np.zeros((n,))
+        ad[nodes] = np.linalg.norm(nm, axis=1)
+        dense[tag] = (f(ndn), f(ad))
+        np.add.at(w2, nodes, np.sum(nm.astype(np.float64) ** 2, axis=1))
+
+    ne = grid.nedge
+    sign = grid.node_edge_sign
+    # each slot's index into cat([off_ij, off_ji, pad]) by its sign
+    sel = np.where(sign > 0.5, grid.node_edges,
+                   np.where(sign < -0.5, grid.node_edges + ne, 2 * ne))
+    return MeshArrays(
+        ndim=grid.ndim, npoint=n, nedge=ne, max_degree=grid.max_degree,
+        coords=f(grid.coords), volume=f(grid.volume),
+        edges=i(grid.edges), edge_normal=f(grid.edge_normal),
+        edge_area=f(np.linalg.norm(grid.edge_normal, axis=1)),
+        node_edges=i(grid.node_edges), node_sign=f(sign),
+        n_neighbors=i((grid.node_edges < ne).sum(axis=1)),
+        bnd_accum_normal=f(bnd_accum),
+        markers={t: (i(grid.bnd_nodes[t]), f(grid.bnd_normal[t]))
+                 for t in grid.bnd_nodes},
+        marker_nn={t: i(grid.bnd_nn[t]) for t in grid.bnd_nn},
+        marker_dense=dense,
+        node_edges_t=i(grid.node_edges.T.reshape(-1)),
+        node_sign_t=f(sign.T.reshape(-1)),
+        node_nbrs=i(grid.node_nbrs),
+        nbr_mask=f((grid.node_edges < ne).astype(np.float64)),
+        node_edges_sel=i(sel),
+        visc_w2=f(w2), **stencil)
+
+
+def _stencil_fields(grid: DualGrid, stencil_offsets, f, i) -> dict:
+    """The stencil and family fields of MeshArrays for a static-stencil
+    grid with these signed offsets."""
+    from su2_tpu_torch.geometry import stencil as stn
     e_np = np.asarray(grid.edges).astype(np.int64)
     coords_np = np.asarray(grid.coords)
     wls = _stencil_grad_geometry(stencil_offsets, e_np, coords_np,
@@ -238,39 +330,9 @@ def mesh_arrays(grid: DualGrid, dtype=torch.float64,
         own = e_np[sel_e, 0]
         fnorm[ki, own] = en_np[sel_e]
         fevec[ki, own] = coords_np[e_np[sel_e, 1]] - coords_np[own]
-
-    n = grid.npoint
-    bnd_accum = np.zeros_like(grid.coords)
-    dense = {}
-    w2 = np.zeros((n,), np.float64)
-    for tag in grid.bnd_nodes:
-        nodes, nm = grid.bnd_nodes[tag], grid.bnd_normal[tag]
-        np.add.at(bnd_accum, nodes, nm)
-        ndn = np.zeros((n, nm.shape[1]))
-        ndn[nodes] = nm
-        ad = np.zeros((n,))
-        ad[nodes] = np.linalg.norm(nm, axis=1)
-        dense[tag] = (f(ndn), f(ad))
-        np.add.at(w2, nodes, np.sum(nm.astype(np.float64) ** 2, axis=1))
-
-    return MeshArrays(
-        ndim=grid.ndim, npoint=n, nedge=grid.nedge,
-        max_degree=grid.max_degree,
-        coords=f(grid.coords), volume=f(grid.volume),
-        edges=i(grid.edges), edge_normal=f(grid.edge_normal),
-        edge_area=f(np.linalg.norm(grid.edge_normal, axis=1)),
-        node_edges=i(grid.node_edges), node_sign=f(grid.node_edge_sign),
-        n_neighbors=i((grid.node_edges < grid.nedge).sum(axis=1)),
-        bnd_accum_normal=f(bnd_accum),
-        markers={t: (i(grid.bnd_nodes[t]), f(grid.bnd_normal[t]))
-                 for t in grid.bnd_nodes},
-        marker_nn={t: i(grid.bnd_nn[t]) for t in grid.bnd_nn},
-        marker_dense=dense,
-        node_edges_t=i(grid.node_edges.T.reshape(-1)),
-        node_sign_t=f(grid.node_edge_sign.T.reshape(-1)),
-        stencil_sel=i(stn.stencil_select(grid.edges, n, stencil_offsets)),
-        stencil_offsets=stencil_offsets,
-        wls_coeff=f(wls), gg_snormal=f(sn), stencil_pvec=f(pvec),
-        fam_normal=f(fnorm), fam_evec=f(fevec), fam_offsets=pos,
-        visc_w2=f(w2),
-    )
+    return dict(
+        stencil_sel=i(stn.stencil_select(grid.edges, grid.npoint,
+                                         stencil_offsets)),
+        stencil_offsets=stencil_offsets, wls_coeff=f(wls),
+        gg_snormal=f(sn), stencil_pvec=f(pvec), fam_normal=f(fnorm),
+        fam_evec=f(fevec), fam_offsets=pos)

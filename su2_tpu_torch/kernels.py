@@ -21,7 +21,8 @@ error and adds one to its entry in ``launches``.
   K10 edge_implicit     csrc/edge_implicit.cu (ops/edge_implicit.py)
   K11 ausm_flux_jac     csrc/ausm_jac.cu      (ops/edge_kernels.py)
   K12 sst_assemble      csrc/sst_assemble.cu  (turbulence/sst_assemble.py)
-T3 and K8 share the per-edge device function of csrc/edge_side.cuh; K10
+  K13 edge_list_flux    csrc/edge_list.cu     (ops/edge_flux.py)
+T3, K8 and K13 share the per-edge device function of csrc/edge_side.cuh; K10
 shares its species h/cp lookup and Stefan-Maxwell solve, and K10 and K11
 its implicit AUSM+-up face (ausm_face, ausm_jac_entry).
 """
@@ -41,7 +42,8 @@ BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("common.cuh", "edge_side.cuh", "thermo.cu", "node_state.cu",
            "edge_flux.cu", "chem_source.cu", "stencil_solve.cu",
            "gradients_tiled.cu", "edge_win.cu", "inlet_tc.cu",
-           "edge_implicit.cu", "ausm_jac.cu", "sst_assemble.cu")
+           "edge_implicit.cu", "ausm_jac.cu", "sst_assemble.cu",
+           "edge_list.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # per-source flags: K9 and K12 keep the plain version's operations (no
@@ -55,7 +57,8 @@ SOURCE_FLAGS = {"inlet_tc.cu": ("-fmad=false",),
 launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
             "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0,
             "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0,
-            "edge_implicit": 0, "ausm_flux_jac": 0, "sst_assemble": 0}
+            "edge_implicit": 0, "ausm_flux_jac": 0, "sst_assemble": 0,
+            "edge_list_flux": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,6 +87,7 @@ _ARGTYPES = {
     "su2k_edge_implicit": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
                            _I, _D, _D, _D, _D, _D, _D, _I, _I] + [_P] * 9,
     "su2k_ausm_flux_jac": [_I, _I, _I, _I, _I, _D] + [_P] * 9,
+    "su2k_edge_list": [_I] * 6 + [_D] * 7 + [_P] * 10,
     "su2k_sst_assemble": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
                           ctypes.POINTER(_D), ctypes.POINTER(_P),
                           ctypes.POINTER(ctypes.c_longlong)] + [_P] * 7,
@@ -343,6 +347,46 @@ def edge_win(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec):
     _raise("edge_win", err)
     launches["edge_win"] += 1
     return res, lc, lv
+
+
+# ---------------------------------------------------------------- K13
+def edge_list_flux(lib, lay, sc, consts, f_all, edges, edge_normal, coords):
+    """Kernel K13: the interior edge terms of every edge (i, j) of the
+    list edges (E, 2) int64, from the columns i and j of the stack f_all
+    (R, N), the area normals edge_normal (E, d) and coords (N, d).
+    Returns flux (nVar, E), lc (E,), lv (E,) in edge order."""
+    m_infty, pr_lam, pr_turb, le_turb = consts
+    f_all = f_all.contiguous()
+    edge_normal = edge_normal.contiguous()
+    coords = coords.contiguous()
+    edges = edges.contiguous()
+    tab = _cached(lib, "_k_hcp_table", lambda: torch.cat(
+        [lib.h_y, lib.h_y2, lib.cp_y, lib.cp_y2]).contiguous())
+    cst = _cached(lib, "_k_edge_consts", lambda: torch.cat(
+        [lib.mm, sc.sm_den.reshape(-1)]).contiguous())
+    _check("edge_list_flux", f_all, edge_normal, coords, tab, cst)
+    from su2_tpu_torch.ops.edge_flux import stack_rows
+    nrow, n = f_all.shape
+    ne = edges.shape[0]
+    if nrow != stack_rows(lay)["total"] or edges.shape != (ne, 2) \
+            or edges.dtype != torch.int64 or edges.device != f_all.device \
+            or edge_normal.shape != (ne, lay.ndim) \
+            or coords.shape != (n, lay.ndim):
+        raise ValueError("edge_list_flux: f_all (R, N), edges (E, 2) int64 "
+                         "on the same device, edge_normal (E, d), coords "
+                         "(N, d)")
+    kw = dict(dtype=f_all.dtype, device=f_all.device)
+    flux = torch.empty((lay.nvar, ne), **kw)
+    lc = torch.empty((ne,), **kw)
+    lv = torch.empty((ne,), **kw)
+    err = _lib().su2k_edge_list(
+        int(f_all.dtype == torch.float64), n, ne, lay.ndim, lay.ns, lib.nt,
+        lib.t0, lib.dt, m_infty, pr_lam, pr_turb, le_turb, sc.mm_sum,
+        _ptr(f_all), _ptr(edges), _ptr(edge_normal), _ptr(coords),
+        _ptr(tab), _ptr(cst), _ptr(flux), _ptr(lc), _ptr(lv), _stream())
+    _raise("edge_list_flux", err)
+    launches["edge_list_flux"] += 1
+    return flux, lc, lv
 
 
 # ---------------------------------------------------------------- T4

@@ -1,12 +1,15 @@
-"""Block-sparse Jacobian operators on static-stencil meshes (torch).
+"""Block-sparse Jacobian operators (torch).
 
-The off-diagonal blocks live in the stencil lane layout (StencilJacobianT):
-row k*v*v + a*v + b, lane p holds entry (a, b) of the block coupling row p
-to column p + stencil_offsets[k] (zero where the edge is absent).  This
-module carries the JACOBI preconditioner, the coloring of the multicolor
-SGS sweep of the default LU_SGS (and ILU0, which the reference maps to the
-same sweep) and the routing of a solve to the stencil kernels
-(linalg/stencil_solve.py).
+On static-stencil meshes the off-diagonal blocks live in the stencil lane
+layout (StencilJacobianT): row k*v*v + a*v + b, lane p holds entry (a, b)
+of the block coupling row p to column p + stencil_offsets[k] (zero where
+the edge is absent), and a solve goes to the stencil kernels
+(linalg/stencil_solve.py).  On other meshes the blocks are edge-major
+(BlockJacobian, the JAX package's form) and the matvec and the multicolor
+sweep gather through the padded node-edge table in plain torch ops, as
+the JAX package runs them in XLA.  This module also carries the JACOBI
+preconditioner and the coloring of the multicolor SGS sweep of the
+default LU_SGS (and ILU0, which the reference maps to the same sweep).
 """
 
 from __future__ import annotations
@@ -18,6 +21,16 @@ import torch
 
 from su2_tpu_torch.geometry.mesh_data import MeshArrays
 from su2_tpu_torch.linalg import stencil_solve as sts
+
+
+@dataclass(frozen=True)
+class BlockJacobian:
+    """Edge-major blocks (meshes without a static stencil): off_ij[e] is
+    the row-i / column-j block of the edge e = (i, j), off_ji[e] the
+    row-j / column-i block."""
+    diag: torch.Tensor     # (nP, v, v)
+    off_ij: torch.Tensor   # (nE, v, v)
+    off_ji: torch.Tensor   # (nE, v, v)
 
 
 @dataclass(frozen=True)
@@ -75,6 +88,50 @@ def block_diag_inv(diag: torch.Tensor) -> torch.Tensor:
 
 def block_jacobi_apply(dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return _bmv(dinv, r)
+
+
+# ---- the gather forms of a BlockJacobian (the JAX package's XLA path) ----
+
+def gather_offdiag(mesh: MeshArrays, jac: BlockJacobian) -> torch.Tensor:
+    """The neighbour block of every (node, slot), (nP, D, v, v), once per
+    solve; pad slots read a zero block.  (The JAX package gathers them
+    slot-major from 16,384 nodes up, for the TPU; on the card the
+    node-major form takes fewer launches and less time at 9,072 and
+    142,317 nodes: su2_tpu_torch/bench_gather.py.)"""
+    pad = torch.zeros((1,) + jac.off_ij.shape[1:], dtype=jac.off_ij.dtype,
+                      device=jac.off_ij.device)
+    stacked = torch.cat([jac.off_ij, jac.off_ji, pad], dim=0)
+    return stacked[mesh.node_edges_sel]
+
+
+def _offdiag_apply(mesh: MeshArrays, sel: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """sum over slots d of sel[p, d] @ x[nbr(p, d)] for sel of
+    gather_offdiag."""
+    return _bmv(sel, x[mesh.node_nbrs]).sum(1)
+
+
+def matvec(mesh: MeshArrays, jac: BlockJacobian, offdiag: torch.Tensor,
+           x: torch.Tensor) -> torch.Tensor:
+    """y = A x, x and y (nP, v); offdiag from gather_offdiag (hoisted out
+    of the Krylov loop by the caller)."""
+    return _bmv(jac.diag, x) + _offdiag_apply(mesh, offdiag, x)
+
+
+def multicolor_sgs_apply(mesh: MeshArrays, offdiag: torch.Tensor,
+                         dinv: torch.Tensor, colors: torch.Tensor,
+                         ncolor: int, r: torch.Tensor) -> torch.Tensor:
+    """One symmetric multicolor block-Gauss-Seidel sweep z ~ A^-1 r with
+    offdiag from gather_offdiag: the colors forward, then backward without
+    the first backward color (same color nodes share no edge, so it would
+    repeat the last forward update exactly), each color one masked update
+    from the current z."""
+    z = torch.zeros_like(r)
+    order = list(range(ncolor)) + list(range(ncolor - 2, -1, -1))
+    for c in order:
+        znew = _bmv(dinv, r - _offdiag_apply(mesh, offdiag, z))
+        z = torch.where((colors == c)[:, None], znew, z)
+    return z
 
 
 def greedy_coloring(node_nbrs) -> np.ndarray:
@@ -159,10 +216,27 @@ def make_solver_ops_fam(mesh: MeshArrays, jac: FamilyJacobian,
 def make_solver_ops(mesh: MeshArrays, jac, kind: str = "JACOBI",
                     colors=None, ncolor: int = 0, linear_iter: int = 5):
     """(matvec, precond, precond_matvec | None, solve | None) of an
-    implicit system: a StencilJacobianT (the RANS step) or a
-    FamilyJacobian (the laminar step)."""
+    implicit system: a StencilJacobianT (the RANS step), a FamilyJacobian
+    (the laminar step) or, on a mesh without a static stencil, a
+    BlockJacobian (the JAX package's gather tail: the neighbour blocks
+    gathered once, the matvec and the multicolor sweep, or JACOBI, in
+    torch ops; no kernel)."""
     if isinstance(jac, FamilyJacobian):
         return make_solver_ops_fam(mesh, jac, kind, colors, ncolor,
                                    linear_iter)
+    if isinstance(jac, BlockJacobian):
+        if kind in UNPORTED_PREC:
+            raise NotImplementedError(
+                f"LINEAR_SOLVER_PREC= {kind}: not ported; "
+                f"{UNPORTED_PREC[kind]} has it")
+        dinv = block_diag_inv(jac.diag)
+        sel = gather_offdiag(mesh, jac)
+        mv = lambda x: matvec(mesh, jac, sel, x)
+        if kind in ("LU_SGS", "ILU0") and colors is not None:
+            pc = lambda r: multicolor_sgs_apply(mesh, sel, dinv, colors,
+                                                ncolor, r)
+        else:
+            pc = lambda r: block_jacobi_apply(dinv, r)
+        return mv, pc, None, None
     return make_solver_ops_stencil_t(mesh, jac.diag, jac.sel_t, kind,
                                      colors, ncolor, linear_iter)

@@ -2,9 +2,11 @@
 
 Green-Gauss (SetPrimitive_Gradient_GG, solver_direct_reactive.cpp
 :1086-1165) and weighted least squares (SetPrimitive_Gradient_LS,
-:1170-1326) on static-stencil meshes: the WLS normal-equation inverse is
+:1170-1326).  On static-stencil meshes the WLS normal-equation inverse is
 folded into per-offset coefficients at setup, so a gradient is K rolls and
-multiply-adds.  ``q`` is (nP, nG); results are (nP, nG, d).
+multiply-adds; on other meshes both gather over the edge list and the
+padded neighbour table (2D WLS; 3D there is not ported).  ``q`` is
+(nP, nG); results are (nP, nG, d).
 
 From TILED_MIN_NODES nodes up the JAX package runs every gradient sweep
 through its tiled kernel, which emits feature-major rows (nG*d, nP); the
@@ -18,6 +20,9 @@ from __future__ import annotations
 import torch
 
 from su2_tpu_torch.geometry.mesh_data import MeshArrays
+
+# the guard of the gather WLS (the JAX package's ops/gradients.EPS)
+EPS = 1e-16
 
 GRAD_METHOD_MODE = {
     "GREEN_GAUSS": "GG",
@@ -51,21 +56,59 @@ def rows_to_grad(rows: torch.Tensor, ng: int, d: int) -> torch.Tensor:
 
 def green_gauss(mesh: MeshArrays, q: torch.Tensor) -> torch.Tensor:
     """grad_i = (sum_edges 0.5(q_i+q_j) n_signed - q_i n_bnd,i) / Vol_i."""
-    acc = None
-    for k, o in enumerate(mesh.stencil_offsets):
-        avg = 0.5 * (q + torch.roll(q, -o, dims=0))
-        part = avg[:, :, None] * mesh.gg_snormal[k][:, None, :]
-        acc = part if acc is None else acc + part
+    if mesh.gg_snormal is not None:
+        acc = None
+        for k, o in enumerate(mesh.stencil_offsets):
+            avg = 0.5 * (q + torch.roll(q, -o, dims=0))
+            part = avg[:, :, None] * mesh.gg_snormal[k][:, None, :]
+            acc = part if acc is None else acc + part
+    else:
+        avg = 0.5 * (q[mesh.edges[:, 0]] + q[mesh.edges[:, 1]])
+        acc = mesh.scatter_edges(avg[:, :, None]
+                                 * mesh.edge_normal[:, None, :])
     acc = acc - q[:, :, None] * mesh.bnd_accum_normal[:, None, :]
     return acc / mesh.volume[:, None, None]
 
 
 def weighted_least_squares(mesh: MeshArrays, q: torch.Tensor) -> torch.Tensor:
     """Inverse-distance-weighted LS gradient with the reference's
-    singular-matrix guard (gradient 0), as per-offset coefficients."""
-    grad = None
-    for k, o in enumerate(mesh.stencil_offsets):
-        dq = torch.roll(q, -o, dims=0) - q
-        part = mesh.wls_coeff[k][:, None, :] * dq[:, :, None]
-        grad = part if grad is None else grad + part
-    return grad
+    singular-matrix guard (gradient 0): per-offset coefficients on stencil
+    meshes, else the Cholesky-through-R form over the padded neighbour
+    table (2D)."""
+    if mesh.wls_coeff is not None:
+        grad = None
+        for k, o in enumerate(mesh.stencil_offsets):
+            dq = torch.roll(q, -o, dims=0) - q
+            part = mesh.wls_coeff[k][:, None, :] * dq[:, :, None]
+            grad = part if grad is None else grad + part
+        return grad
+    if mesh.ndim != 2:
+        raise NotImplementedError(
+            "3D weighted least squares without a static stencil: not "
+            "ported; su2_tpu.ops.gradients (_wls_3d) has it")
+    dx = mesh.coords[mesh.node_nbrs] - mesh.coords[:, None, :]  # (nP, D, 2)
+    w = (dx * dx).sum(-1)
+    valid = (w > EPS) & (mesh.nbr_mask > 0.5)
+    invw = torch.where(valid, 1.0 / torch.where(valid, w, 1.0), 0.0)
+    r11s = (dx[..., 0] * dx[..., 0] * invw).sum(1)
+    r12s = (dx[..., 0] * dx[..., 1] * invw).sum(1)
+    r22s = (dx[..., 1] * dx[..., 1] * invw).sum(1)
+    dq = q[mesh.node_nbrs] - q[:, None, :]                      # (nP, D, nG)
+    cx = ((dx[..., 0] * invw)[:, :, None] * dq).sum(1)
+    cy = ((dx[..., 1] * invw)[:, :, None] * dq).sum(1)
+    r11 = torch.where(r11s > EPS, torch.sqrt(torch.clamp(r11s, min=0.0)),
+                      0.0)
+    r12 = torch.where(torch.abs(r11) > EPS,
+                      r12s / torch.where(r11 == 0, 1.0, r11), 0.0)
+    r22sq = r22s - r12 * r12
+    r22 = torch.where(r22sq > EPS, torch.sqrt(torch.clamp(r22sq, min=0.0)),
+                      0.0)
+    det_r2 = (r11 * r22) ** 2
+    singular = torch.abs(det_r2) < EPS
+    det_safe = torch.where(singular, 1.0, det_r2)
+    s00 = torch.where(singular, 0.0, (r12 * r12 + r22 * r22) / det_safe)
+    s01 = torch.where(singular, 0.0, -r11 * r12 / det_safe)
+    s11 = torch.where(singular, 0.0, r11 * r11 / det_safe)
+    gx = cx * s00[:, None] + cy * s01[:, None]
+    gy = cx * s01[:, None] + cy * s11[:, None]
+    return torch.stack([gx, gy], dim=-1)

@@ -11,7 +11,10 @@ chemistry source by kernel T4.  Implicit: the interior terms and their
 edge Jacobians by kernel K10 (ops/edge_implicit.py), with MUSCL and the
 limiters, plus the boundary, slip-wall, source and isothermal-wall
 Jacobians, the wall momentum rows and the time diagonal, as a
-StencilJacobianT.  Laminar (REACTIVE_NAVIER_STOKES, turb None), as the
+StencilJacobianT.  On a mesh without a static stencil the explicit RANS
+interior terms run over the edge list (K13 on the card); implicit flow
+and laminar runs there are refused (check_mesh).
+Laminar (REACTIVE_NAVIER_STOKES, turb None), as the
 JAX package runs it without its fused kernels: explicit, the AUSM+-up and
 viscous fluxes over the edge list (mesh.scatter_edges); implicit, on the
 family slots, the convective system by kernel K11 (euler.
@@ -166,6 +169,23 @@ def _laminar_interior(lib, lay, mesh, prm, v, grad, lim, nsd, trans,
         n, nvar, nvar)
     res = res - mesh.fam_scatter(vflux, dim=-1).T
     return res, diag, off_ij - vjac_j, off_ji + vjac_i
+
+
+def check_mesh(mesh: MeshArrays, implicit: bool, laminar: bool) -> None:
+    """Refuse the steps that need a static stencil on a mesh without one:
+    implicit flow (the edge-list convective system) and laminar runs (the
+    family-slot spectral radius and implicit system).  Simulation calls it
+    before any step; ns_assemble assumes it passed."""
+    if mesh.stencil_offsets is not None:
+        return
+    if implicit:
+        raise NotImplementedError(
+            "implicit flow on a mesh without a static stencil: not ported; "
+            "su2_tpu.solvers.euler (convective_system) has it")
+    if laminar:
+        raise NotImplementedError(
+            "laminar runs (KIND_TURB_MODEL= NONE) on a mesh without a "
+            "static stencil: not ported; su2_tpu.solvers.ns has it")
 
 
 def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,

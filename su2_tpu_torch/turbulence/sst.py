@@ -1,11 +1,13 @@
-"""Menter SST k-omega turbulence model on stencil meshes (torch).
+"""Menter SST k-omega turbulence model (torch).
 
-Port of the stencil paths of the JAX package's sst_step (CTurbSSTSolver /
+Port of the JAX package's sst_step (CTurbSSTSolver /
 CTurbSSTVariable and the SST numerics, reference
 solver_direct_turbulent.cpp:2700-3454, numerics_direct_turbulent.cpp
 :865-1006 and :1183-1257, variable_direct_turbulent.cpp:178-204) with the
-MANGOTURB coupling conventions: the unfused assembly in torch ops, and the
-fused one (set_assemble_mode("fused"); turbulence/sst_assemble.py, K12).
+MANGOTURB coupling conventions: the unfused assembly in torch ops (per
+stencil offset on stencil meshes, over the edge list elsewhere), and the
+fused one on stencil meshes (set_assemble_mode("fused");
+turbulence/sst_assemble.py, K12).
 State q = (k, omega) primitive per node; the update is conservative,
 k_new = (rho_old k_old + d(rho k))/rho_new.
 """
@@ -180,14 +182,16 @@ def _weak_bc_batch(lay, bcs, q, vel, rho, kine_inf, omega_inf, flow_fb):
 def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
              mu, mu_t_node, strain_mag, dist, rho_old, dt, kine_inf,
              omega_inf, gq, gvel, flow_fb=None, gq_prev=None):
-    """One implicit Euler iteration of the SST system on a stencil mesh.
+    """One implicit Euler iteration of the SST system.
 
     gq: this step's (k, omega) gradients (N, 2, d); gvel: velocity
     gradient block (N, nd, nd); gq_prev: the previous step's gradients,
     whose blending (the reference's stored F1/F2/CDkw) enters the assembly.
-    In the fused mode, with FGMRES, LU_SGS/ILU0 and sweep colors, and where
-    the reference has a full-field or windowed plan, the fused path runs
-    (its gate, su2_tpu/turbulence/sst.py:204-215).
+    In the fused mode, with FGMRES, LU_SGS/ILU0 and sweep colors, and on a
+    stencil mesh where the reference has a full-field or windowed plan,
+    the fused path runs (its gate, su2_tpu/turbulence/sst.py:204-215).
+    On a mesh without a static stencil the edge sides are assembled over
+    the edge list and the system is a BlockJacobian.
     Returns (q_new, rms, outs) with outs["gq"] = next step's gq_prev."""
     n = q.shape[0]
     dtype = q.dtype
@@ -200,6 +204,7 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
     if (_ASSEMBLE_MODE == "fused" and scfg.linear_solver == "FGMRES"
             and scfg.linear_prec in ("LU_SGS", "ILU0")
             and scfg.colors is not None
+            and mesh.stencil_offsets is not None
             and (sa.supported(n, len(mesh.stencil_offsets), lay.ndim)
                  or sa.tile_plan(n, mesh.stencil_offsets, lay.ndim)
                  is not None)):
@@ -209,38 +214,13 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
     sigma_k_blend = f1 * SIGMA_K1 + (1.0 - f1) * SIGMA_K2
     sigma_w_blend = f1 * SIGMA_OM1 + (1.0 - f1) * SIGMA_OM2
 
-    # convective + corrected viscous edge sides, enumerated per offset
+    # convective + corrected viscous edge sides
     diff_k = mu + sigma_k_blend * mu_t_node
     diff_w = mu + sigma_w_blend * mu_t_node
     eye2 = torch.eye(2, dtype=dtype, device=q.device)
-    rhoq = rho[:, None] * q
-    dkw = torch.stack([diff_k, diff_w], dim=1)
-    res = diag_c = None
-    offs = []
-    for k, o in enumerate(mesh.stencil_offsets):
-        nsk = mesh.gg_snormal[k]
-        pv = mesh.stencil_pvec[k]
-        qt = 0.5 * ((vel + torch.roll(vel, -o, dims=0)) * nsk).sum(1)
-        a0p = 0.5 * (qt + torch.abs(qt))
-        a1p = 0.5 * (qt - torch.abs(qt))
-        conv = a0p[:, None] * rhoq + a1p[:, None] \
-            * torch.roll(rhoq, -o, dims=0)
-        dm = 0.5 * (dkw + torch.roll(dkw, -o, dims=0))
-        gmean = 0.5 * (gq + torch.roll(gq, -o, dims=0))
-        evec = torch.roll(mesh.coords, -o, dims=0) - mesh.coords
-        gm_e = (gmean * evec[:, None, :]).sum(2)
-        dq = torch.roll(q, -o, dims=0) - q
-        vflux = dm * ((gmean * nsk[:, None, :]).sum(2)
-                      + pv[:, None] * (dq - gm_e))
-        dvp = dm * (pv / rho)[:, None]
-        dvn = dm * (pv / torch.roll(rho, -o))[:, None]
-        part = conv - vflux
-        res = part if res is None else res + part
-        dpart = a0p[:, None] + dvp
-        diag_c = dpart if diag_c is None else diag_c + dpart
-        offs.append(a1p[:, None] - dvn)
-    fam_off = torch.stack(offs)                                 # (K, nP, 2)
-    diag = diag_c[:, :, None] * eye2
+    sides = _stencil_sides if mesh.stencil_offsets is not None \
+        else _edge_list_sides
+    res, diag, off = sides(mesh, q, vel, rho, gq, diff_k, diff_w, eye2)
 
     # source (CSourcePieceWise_TurbSST)
     diverg = _divergence(gvel)
@@ -273,7 +253,6 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
 
     res = torch.where(wall_mask[:, None], 0.0, res)
     diag = torch.where(wall_mask[:, None, None], eye2[None], diag)
-    fam_off = torch.where(wall_mask[None, :, None], 0.0, fam_off)
 
     # implicit solve
     ok = dt > EPS
@@ -281,19 +260,32 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
                         0.0)
     diag = diag + delta[:, None, None] * eye2
     rhs = -res
-    zrow = torch.zeros_like(fam_off[0, :, 0])[None]
-    sel_rows = []
-    for k in range(fam_off.shape[0]):
-        sel_rows += [fam_off[k, :, 0][None], zrow, zrow,
-                     fam_off[k, :, 1][None]]
-    jac = blockcsr.StencilJacobianT(diag=diag, sel_t=torch.cat(sel_rows))
     if scfg.linear_solver != "FGMRES":
         raise NotImplementedError(
             f"LINEAR_SOLVER= {scfg.linear_solver}: not ported; "
             "su2_tpu.linalg.krylov has it")
-    mv, pc, pm, solve = blockcsr.make_solver_ops_stencil_t(
-        mesh, jac.diag, jac.sel_t, scfg.linear_prec, scfg.colors,
-        scfg.ncolor, linear_iter=scfg.linear_iter)
+    if mesh.stencil_offsets is not None:
+        fam_off = torch.where(wall_mask[None, :, None], 0.0, off)
+        zrow = torch.zeros_like(fam_off[0, :, 0])[None]
+        sel_rows = []
+        for k in range(fam_off.shape[0]):
+            sel_rows += [fam_off[k, :, 0][None], zrow, zrow,
+                         fam_off[k, :, 1][None]]
+        mv, pc, pm, solve = blockcsr.make_solver_ops_stencil_t(
+            mesh, diag, torch.cat(sel_rows), scfg.linear_prec, scfg.colors,
+            scfg.ncolor, linear_iter=scfg.linear_iter)
+    else:
+        # the wall rows of the edge blocks: off_ij belongs to node i's
+        # row, off_ji to node j's
+        off_ij, off_ji = off
+        iw = wall_mask[mesh.edges[:, 0]]
+        jw = wall_mask[mesh.edges[:, 1]]
+        jac = blockcsr.BlockJacobian(
+            diag=diag, off_ij=torch.where(iw[:, None, None], 0.0, off_ij),
+            off_ji=torch.where(jw[:, None, None], 0.0, off_ji))
+        mv, pc, pm, solve = blockcsr.make_solver_ops(
+            mesh, jac, scfg.linear_prec, scfg.colors, scfg.ncolor,
+            linear_iter=scfg.linear_iter)
     if solve is not None:
         # the whole FGMRES cycle in one launch (linalg/stencil_solve.py)
         sol, _, _ = solve(rhs, scfg.linear_iter, scfg.linear_tol)
@@ -304,6 +296,90 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
     q_new, outs = _update(scfg, q, sol, rho_old, rho, wall_mask, q_wall,
                           grad_k, grad_w, mu, dist, strain_mag, gq)
     return q_new, rms, outs
+
+
+def _stencil_sides(mesh, q, vel, rho, gq, diff_k, diff_w, eye2):
+    """(res, diag, fam_off (K, nP, 2)) of the convective and corrected
+    viscous edge sides on a stencil mesh, enumerated per offset: with the
+    signed face mass flux qt = 0.5 (u_p + u_{p+o}) . n_signed both sides
+    of an edge take the same formulas, and the off-diagonal blocks (2 x 2
+    diagonal) come out per offset."""
+    rhoq = rho[:, None] * q
+    dkw = torch.stack([diff_k, diff_w], dim=1)
+    res = diag_c = None
+    offs = []
+    for k, o in enumerate(mesh.stencil_offsets):
+        nsk = mesh.gg_snormal[k]
+        pv = mesh.stencil_pvec[k]
+        qt = 0.5 * ((vel + torch.roll(vel, -o, dims=0)) * nsk).sum(1)
+        a0p = 0.5 * (qt + torch.abs(qt))
+        a1p = 0.5 * (qt - torch.abs(qt))
+        conv = a0p[:, None] * rhoq + a1p[:, None] \
+            * torch.roll(rhoq, -o, dims=0)
+        dm = 0.5 * (dkw + torch.roll(dkw, -o, dims=0))
+        gmean = 0.5 * (gq + torch.roll(gq, -o, dims=0))
+        evec = torch.roll(mesh.coords, -o, dims=0) - mesh.coords
+        gm_e = (gmean * evec[:, None, :]).sum(2)
+        dq = torch.roll(q, -o, dims=0) - q
+        vflux = dm * ((gmean * nsk[:, None, :]).sum(2)
+                      + pv[:, None] * (dq - gm_e))
+        dvp = dm * (pv / rho)[:, None]
+        dvn = dm * (pv / torch.roll(rho, -o))[:, None]
+        part = conv - vflux
+        res = part if res is None else res + part
+        dpart = a0p[:, None] + dvp
+        diag_c = dpart if diag_c is None else diag_c + dpart
+        offs.append(a1p[:, None] - dvn)
+    return res, diag_c[:, :, None] * eye2, torch.stack(offs)
+
+
+def _edge_list_sides(mesh, q, vel, rho, gq, diff_k, diff_w, eye2):
+    """(res, diag, (off_ij, off_ji) (nE, 2, 2)) of the convective (upwind)
+    and corrected viscous edge terms over the edge list (CUpwSca_TurbSST +
+    CAvgGradCorrected_TurbSST, numerics_direct_turbulent.cpp:1183-1257):
+    every node field gathered to both endpoints in one stacked matrix, the
+    projected gradient g.n - (g.e) pv + (q_j - q_i) pv with
+    pv = (e.n)/|e|^2, one scatter_edges for conv - visc and one
+    accumulate_sides for the diagonal blocks."""
+    d = mesh.ndim
+    n = q.shape[0]
+    feats = torch.cat([
+        vel,                              # [0:d]
+        rho[:, None],                     # [d]
+        rho[:, None] * q,                 # [d+1 : d+3]
+        gq.reshape(n, 2 * d),             # [d+3 : 3d+3]
+        diff_k[:, None], diff_w[:, None],  # [3d+3], [3d+4]
+        mesh.coords,                      # [3d+5 : 4d+5]
+    ], dim=1)
+    fi, fj = feats[mesh.edges[:, 0]], feats[mesh.edges[:, 1]]
+    nrm = mesh.edge_normal
+    qij = 0.5 * ((fi[:, :d] + fj[:, :d]) * nrm).sum(1)
+    a0 = 0.5 * (qij + torch.abs(qij))
+    a1c = 0.5 * (qij - torch.abs(qij))
+    flux = a0[:, None] * fi[:, d + 1:d + 3] + a1c[:, None] * fj[:, d + 1:d + 3]
+    dk = 0.5 * (fi[:, 3 * d + 3] + fj[:, 3 * d + 3])
+    dw = 0.5 * (fi[:, 3 * d + 4] + fj[:, 3 * d + 4])
+    gmean = 0.5 * (fi[:, d + 3:3 * d + 3]
+                   + fj[:, d + 3:3 * d + 3]).reshape(-1, 2, d)
+    evec = fj[:, 3 * d + 5:4 * d + 5] - fi[:, 3 * d + 5:4 * d + 5]
+    dist2 = (evec * evec).sum(1)
+    pvec = (evec * nrm).sum(1) / torch.where(dist2 == 0.0, 1.0, dist2)
+    proj = (gmean * nrm[:, None, :]).sum(2)
+    gm_e = (gmean * evec[:, None, :]).sum(2)
+    dq = fj[:, d + 1:d + 3] / fj[:, d:d + 1] - fi[:, d + 1:d + 3] / fi[:, d:d + 1]
+    proj = proj + pvec[:, None] * (dq - gm_e)
+    vflux = torch.stack([dk * proj[:, 0], dw * proj[:, 1]], dim=1)
+    res = mesh.scatter_edges(flux - vflux)
+    dvi = torch.stack([dk * pvec / fi[:, d], dw * pvec / fi[:, d]], dim=1)
+    dvj = torch.stack([dk * pvec / fj[:, d], dw * pvec / fj[:, d]], dim=1)
+    # viscous Jacobians J_i = -diag(dvi), J_j = +diag(dvj); the residual is
+    # subtracted, so node i's diagonal gets +diag(dvi)
+    acc = mesh.accumulate_sides(torch.cat([a0[:, None], dvi], dim=1),
+                                torch.cat([-a1c[:, None], dvj], dim=1))
+    diag = acc[:, 0, None, None] * eye2 + acc[:, 1:, None] * eye2
+    off_ij = a1c[:, None, None] * eye2 - dvj[:, :, None] * eye2
+    off_ji = -(a0[:, None, None] * eye2) - dvi[:, :, None] * eye2
+    return res, diag, (off_ij, off_ji)
 
 
 def _sst_step_fused(lay, mesh, scfg, bcs, q, v, mu, mu_t_node, strain_mag,

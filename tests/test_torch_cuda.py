@@ -1,4 +1,4 @@
-"""The CUDA kernels T1-T4 and K5-K11 against their plain torch versions on
+"""The CUDA kernels T1-T4 and K5-K13 against their plain torch versions on
 the card, and the slice's launch counts.  Every test needs a CUDA device
 and skips without one.  This file imports no JAX, so on a machine without it run it
 alone, past the suite's JAX conftest:
@@ -709,3 +709,114 @@ def test_fused_slice_launches(card, tmp_path, monkeypatch, implicit):
     kernels.reset_launches()
     _card_sim(card, text, torch.float32).run(2, quiet=True)
     assert kernels.launches["sst_assemble"] == 0
+
+
+def _k13_stack(sim, seed=13):
+    """The feature-major stack of a perturbed reacting state on sim's mesh
+    (plain node state and gradients), as fused_interior_terms builds it."""
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.ops import edge_flux as ef, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    lib, lay, mesh, prm = sim.lib, sim.lay, sim.mesh, sim.params
+    n, dev, dt = mesh.npoint, sim.device, sim.dtype
+    rng = np.random.default_rng(seed)
+    u = sim.u0 * th.tt(1.0 + 0.02 * rng.standard_normal(
+        tuple(sim.u0.shape)), dt).to(dev)
+    nsd = st.node_state_plain(lib, lay, u, sim.t0, sim.tparams)
+    grad = es.compute_gradients(mesh, prm,
+                                vis.ns_gradient_vars(lib, lay, nsd.v, nsd.xs))
+    turb = vis.TurbFlowData(
+        tke=th.tt(rng.uniform(0.0, 5.0, n), dt).to(dev),
+        mu_t=th.tt(rng.uniform(1e-5, 1e-3, n), dt).to(dev),
+        grad_tke=th.tt(rng.normal(0.0, 1.0, (n, 2)), dt).to(dev),
+        sigma_k=th.tt(rng.uniform(0.85, 1.0, n), dt).to(dev))
+    f_all = ef.stack_inputs(lay, nsd.v, grad,
+                            vis.Transport(nsd.mu, nsd.kappa), turb,
+                            turb.sigma_k, nsd.dpdu[:, lay.RHOE])
+    consts = (prm.m_infty, prm.prandtl_lam, prm.prandtl_turb, prm.lewis_turb)
+    return lib, lay, ef.species_consts_of(lib), consts, f_all
+
+
+def _tri_card_sim(card, text, shape, dtype):
+    from su2_tpu_torch import cases
+    from su2_tpu_torch.config import Config
+    from su2_tpu_torch.driver import Simulation
+    return Simulation(Config(text=text), raw_mesh=cases.tri_channel_mesh(
+        *shape), dtype=dtype, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_k13_kernel_matches_plain(card, tmp_path, dtype):
+    """K13 (the edge terms over the edge list) against
+    edge_list_flux_plain on the 9,072-node scrambled triangle channel:
+    every output row within 1e-10 (f64) or 1e-4 (f32) of its max, as T3;
+    one launch per call."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_flux as ef
+    sim = _tri_card_sim(card, th.write_case(tmp_path), (189, 48), dtype)
+    mesh = sim.mesh
+    assert mesh.stencil_offsets is None and mesh.npoint == 9072
+    args = _k13_stack(sim) + (mesh.edges, mesh.edge_normal, mesh.coords)
+    kernels.reset_launches()
+    got = kernels.edge_list_flux(*args)
+    assert kernels.launches["edge_list_flux"] == 1
+    want = ef.edge_list_flux_plain(*args)
+    afrac = 1e-10 if dtype == torch.float64 else 1e-4
+    for g, w in zip(got, want):
+        g = th.npy(g).astype(np.float64).reshape(-1, mesh.nedge)
+        w = th.npy(w).astype(np.float64).reshape(-1, mesh.nedge)
+        assert np.isfinite(g).all()
+        assert (np.abs(g - w) <= afrac * np.abs(w).max(1, keepdims=True)).all()
+
+
+@pytest.mark.cuda
+def test_t3_k8_k13_share_edge_side_bitwise(card, tmp_path):
+    """After edge_side took the endpoint columns and the edge geometry as
+    arguments, T3, K8 and K13 still run one arithmetic: in f64 on the
+    stencil channel, K13 over the family slots' edges (its own
+    coords[j] - coords[i] equals the host's float64 fam_evec) gives T3's
+    outputs at those slots bit for bit, and K8 gives the roll-subtract of
+    T3's outputs bit for bit."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_flux as ef
+    sim = _card_sim(card, th.write_case(tmp_path))
+    mesh = sim.mesh
+    n = mesh.npoint
+    head = _k13_stack(sim)
+    fam = (mesh.fam_offsets, mesh.fam_normal, mesh.fam_evec)
+    flux, lc, lv = kernels.edge_flux(*head, *fam)
+    res, lcn, lvn = kernels.edge_win(*head, *fam)
+    want = ef.roll_subtract(mesh.fam_offsets, flux, lc, lv)
+    for g, w in zip((res, lcn, lvn), want):
+        assert torch.equal(g, w)
+    valid = (mesh.fam_normal != 0).any(-1)                  # (Kh, nP)
+    ks, ps = torch.nonzero(valid, as_tuple=True)
+    offs = torch.tensor(mesh.fam_offsets, device=card)
+    edges = torch.stack([ps, (ps + offs[ks]) % n], dim=1)
+    assert torch.equal(mesh.coords[edges[:, 1]] - mesh.coords[edges[:, 0]],
+                       mesh.fam_evec[ks, ps])
+    f13, lc13, lv13 = kernels.edge_list_flux(
+        *head, edges.contiguous(), mesh.fam_normal[ks, ps].contiguous(),
+        mesh.coords)
+    assert torch.equal(f13, flux[ks, :, ps].T)
+    assert torch.equal(lc13, lc[ks, ps]) and torch.equal(lv13, lv[ks, ps])
+
+
+@pytest.mark.cuda
+def test_tri_slice_launches(card, tmp_path):
+    """The explicit LU_SGS step on the 153-node scrambled triangle
+    channel: K13 once per iteration, T2 twice, T4 once; T3, K8, K5, K6,
+    K7, K10 and K12 never (the SST solve is the torch gather sweep)."""
+    from su2_tpu_torch import kernels
+    sim = _tri_card_sim(card, th.write_case(tmp_path), th.CHANNEL,
+                        torch.float64)
+    kernels.reset_launches()
+    _, _, hist, _ = sim.run(3, quiet=True)
+    assert np.isfinite(hist).all()
+    want = {"edge_list_flux": 3, "node_state": 6, "chem_source": 3,
+            "edge_flux": 0, "edge_win": 0, "stencil_fgmres": 0,
+            "stencil_sgs_matvec": 0, "gradient_rows": 0,
+            "edge_implicit": 0, "sst_assemble": 0}
+    assert {k: kernels.launches[k] for k in want} == want

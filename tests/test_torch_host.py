@@ -97,7 +97,8 @@ def test_mesh_arrays_identical(grids):
     d = {k: getattr(ja, k) for k in (
         "ndim", "npoint", "nedge", "max_degree", "coords", "volume", "edges",
         "edge_normal", "edge_area", "node_edges", "node_sign", "n_neighbors",
-        "bnd_accum_normal", "node_edges_t", "node_sign_t", "stencil_sel",
+        "bnd_accum_normal", "node_edges_t", "node_sign_t", "node_nbrs",
+        "nbr_mask", "node_edges_sel", "stencil_sel",
         "stencil_offsets", "wls_coeff", "gg_snormal", "stencil_pvec",
         "fam_normal", "fam_evec", "fam_offsets")}
     d["markers"] = {t: (np.asarray(a), np.asarray(b))

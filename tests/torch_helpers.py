@@ -66,6 +66,34 @@ def torch_sim(text, shape=CHANNEL):
                       dtype=torch.float64, device="cpu")
 
 
+def tri_meshes(shape=CHANNEL, seed=0):
+    """(JAX RawMesh, port RawMesh) of cases.tri_channel_mesh(*shape, seed):
+    the channel split into triangles, nodes in a seeded random order."""
+    from su2_tpu.io.mesh import RawMesh
+    raw = cases.tri_channel_mesh(*shape, seed=seed)
+    return RawMesh(ndim=raw.ndim, coords=raw.coords.copy(),
+                   elem_types=raw.elem_types.copy(),
+                   elem_nodes=raw.elem_nodes.copy(),
+                   markers={t: m.copy() for t, m in raw.markers.items()},
+                   marker_types={t: m.copy()
+                                 for t, m in raw.marker_types.items()}), raw
+
+
+def tri_sims(text, shape=CHANNEL, seed=0):
+    """(su2_tpu Simulation, port Simulation on the CPU) of the case text on
+    the scrambled triangle channel, both in float64."""
+    import jax.numpy as jnp
+    from su2_tpu.config import Config as JConfig
+    from su2_tpu.driver import Simulation as JSimulation
+    from su2_tpu_torch.config import Config
+    from su2_tpu_torch.driver import Simulation
+    jraw, raw = tri_meshes(shape, seed)
+    return (JSimulation(JConfig(text=text), dtype=jnp.float64,
+                        raw_mesh=jraw),
+            Simulation(Config(text=text), raw_mesh=raw, dtype=torch.float64,
+                       device="cpu"))
+
+
 def with_prec(text, prec):
     """The case text with LINEAR_SOLVER_PREC= prec."""
     lines = [ln for ln in text.splitlines()
