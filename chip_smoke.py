@@ -17,9 +17,12 @@ Phases (one line each; any failure exits nonzero):
              (v = 2) the port assembles at 9,072 and 142,317 nodes, on the
              implicit LU_SGS case's flow systems (v = 13: K6 at 9,072 nodes,
              K5 at 142,317) and on band systems (v = 2, 3, 7) with
-             round-robin (not proper) colorings; times, bounds, K6's
-             cooperative grid, torch.sparse.mm on the matvec as BSR (or
-             what it raised)
+             round-robin (not proper) colorings; at 565,500 nodes K5 in
+             the main path's mixed tier on the SST and the flow systems
+             (and its matvec in float32); K5 reads the layout
+             StencilSolveOps makes (color-major bf16 sweep blocks in the
+             mixed tier); times, bounds, K6's cooperative grid,
+             torch.sparse.mm on the matvec as BSR (or what it raised)
   5 step     5 coupled iterations of the 9,072-node case in float64 on the
              card (kernels, K6 for the SST solve) and on the CPU (plain
              versions) from one state; again with the >= 200k-node tier
@@ -96,6 +99,19 @@ The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
+
+    python3 chip_smoke.py --time-k5-k8 [--root DIR]
+
+times K5 and K8 of the su2_tpu_torch in DIR (default: this checkout; another
+checkout, such as a parent commit unpacked with git archive, for an A/B
+comparison run in the order A B B A on one card) and prints, after the
+card's line, the SASS instructions and local loads (LDL) and stores (STL)
+of each kernel of the edge sources, then one JSON line: K5 as the Krylov
+loop calls it (StencilSolveOps.precond_matvec in the tier solve_tier
+picks) on the systems of the third coupled step, the implicit LU_SGS
+case's flow system (v = 13) and the explicit case's SST system (v = 2), at
+142,317 and 565,500 nodes; K8 and T3 + the roll-subtract at 565,500 nodes
+on kernel_inputs' state; float32, cuda_time's median ms.
 """
 
 from __future__ import annotations
@@ -504,28 +520,54 @@ def grad_operator(mesh, mode, dtype):
                                    ).coalesce().to_sparse_csr()
 
 
-def tier_kernel_phase(sim, dtype_name, report):
-    """K7 (WLS and GG), K8 and K9 against their plain versions at the
-    shapes of the 565,500-node case (its mesh and library converted to the
-    dtype) on a random reacting state; K9 on a random inflow batch of the
-    size of the case's inlet."""
+def tier_state(sim, dtype):
+    """(mesh, lib, kernel_inputs, node state, flow gradient variables) of
+    the case converted to dtype: K7's and K8's inputs."""
     from types import SimpleNamespace
-    import dataclasses
-    import numpy as np
-    import torch
-    from su2_tpu_torch import kernels, state as st
-    from su2_tpu_torch.ops import edge_flux as ef, gradients_tiled as tg
+    from su2_tpu_torch import state as st
     from su2_tpu_torch.ops import viscous as vis
-    from su2_tpu_torch.solvers import euler as es, inlet_tc as itc
-    dtype = getattr(torch, dtype_name)
-    mesh, lib = sim.mesh.to(dtype=dtype), sim.lib.to(dtype=dtype)
-    lay, prm = sim.lay, sim.params
+    mesh, lib, lay = sim.mesh.to(dtype=dtype), sim.lib.to(dtype=dtype), \
+        sim.lay
     x = kernel_inputs(SimpleNamespace(lib=lib, lay=lay, mesh=mesh,
                                       dtype=dtype, device=sim.device,
                                       tparams=sim.tparams))
     nsd = st.node_state(lib, lay, x["u"], x["t_guess"], x["p"],
                         turb_ke=x["tke"])
     q = vis.ns_gradient_vars(lib, lay, nsd.v, nsd.xs).contiguous()
+    return mesh, lib, x, nsd, q
+
+
+def edge_win_args(sim, mesh, lib, x, nsd, q):
+    """kernels.edge_win's arguments (T3's too) on the tier's stack, built
+    from K7's gradient rows of q."""
+    from su2_tpu_torch.ops import edge_flux as ef, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    lay, prm = sim.lay, sim.params
+    rows = es.compute_gradient_rows(mesh, prm, q)
+    turb = vis.TurbFlowData(tke=x["tke"], mu_t=x["mu_t"],
+                            grad_tke=x["grad_tke"], sigma_k=x["sigma_k"])
+    f_all = ef.stack_inputs(lay, nsd.v, None, vis.Transport(nsd.mu,
+                                                            nsd.kappa),
+                            turb, x["sigma_k"], nsd.dpdu[:, lay.RHOE],
+                            grad_rows=rows)
+    return (lib, lay, ef.species_consts_of(lib),
+            (prm.m_infty, prm.prandtl_lam, prm.prandtl_turb, prm.lewis_turb),
+            f_all, mesh.fam_offsets, mesh.fam_normal, mesh.fam_evec)
+
+
+def tier_kernel_phase(sim, dtype_name, report):
+    """K7 (WLS and GG), K8 and K9 against their plain versions at the
+    shapes of the 565,500-node case (its mesh and library converted to the
+    dtype) on a random reacting state; K9 on a random inflow batch of the
+    size of the case's inlet."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_flux as ef, gradients_tiled as tg
+    from su2_tpu_torch.solvers import inlet_tc as itc
+    dtype = getattr(torch, dtype_name)
+    mesh, lib, x, nsd, q = tier_state(sim, dtype)
     n, d, ng = mesh.npoint, mesh.ndim, q.shape[1]
     kk = len(mesh.stencil_offsets)
 
@@ -565,31 +607,25 @@ def tier_kernel_phase(sim, dtype_name, report):
                lib_ms=lib_ms, extra=f" (torch.sparse.mm CSR, off by "
                f"{dev:.1e} of the max)")
     # K8: the stack of the tier's main path, from K7's rows
-    rows = es.compute_gradient_rows(mesh, prm, q)
-    turb = vis.TurbFlowData(tke=x["tke"], mu_t=x["mu_t"],
-                            grad_tke=x["grad_tke"], sigma_k=x["sigma_k"])
-    f_all = ef.stack_inputs(lay, nsd.v, None, vis.Transport(nsd.mu,
-                                                            nsd.kappa),
-                            turb, x["sigma_k"], nsd.dpdu[:, lay.RHOE],
-                            grad_rows=rows)
-    sc = ef.species_consts_of(lib)
-    eargs = (lib, lay, sc, (prm.m_infty, prm.prandtl_lam, prm.prandtl_turb,
-                            prm.lewis_turb), f_all, mesh.fam_offsets,
-             mesh.fam_normal, mesh.fam_evec)
+    eargs = edge_win_args(sim, mesh, lib, x, nsd, q)
+    f_all, sc = eargs[4], eargs[2]
     rowwise = lambda r: [r[0], r[1][None], r[2][None]]
     kfn = lambda: rowwise(kernels.edge_win(*eargs))
     pfn = lambda: rowwise(ef.edge_win_plain(*eargs))
     got, want = kfn(), pfn()
     torch.cuda.synchronize()
     kh = len(mesh.fam_offsets)
-    # K8 evaluates every edge twice; T3 once, then the roll-subtract sums
+    # K8 evaluates every family slot's edge once (T3's slot pass), then
+    # sums per node; beside it T3 and the torch roll-subtract
     t3_ms = cuda_time(lambda: ef.roll_subtract(
         mesh.fam_offsets, *kernels.edge_flux(*eargs)))
     record("edge_win", dtype_name, got, want, kfn, pfn,
            [f_all, mesh.fam_normal, mesh.fam_evec, lib.h_y, lib.h_y2,
             lib.cp_y, lib.cp_y2, lib.mm, sc.sm_den], 2000 * kh * n,
            per_row=True,
-           extra=f" (T3 + roll-subtract at these shapes {t3_ms:.4f} ms)")
+           extra=f" ({kh * n} edge evaluations per call; T3 + "
+                 f"roll-subtract at these shapes {t3_ms:.4f} ms)")
+    report["edge_win"]["edge_evaluations_per_call"] = kh * n
     # K9: a random inflow batch about the 600 K fuel stream (the
     # distribution of tests/test_torch_inlet_tc.py), inlet-sized
     nv = int(mesh.markers["inlet"][0].shape[0])
@@ -943,8 +979,10 @@ def capture_systems(sim, steps=3):
 
 
 def system_operands(sim, rec, variant):
-    """K5/K6 operands of a captured system, laid out by the port's own
-    StencilSolveOps: (kwargs, unit right side, right side)."""
+    """K5/K6 operands of a captured system in the natural lane layout (K6
+    and the plain versions read it), laid out by the port's own
+    StencilSolveOps for a one-launch solve: (kwargs, unit right side,
+    right side).  k5_layout gives K5's."""
     import torch
     from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
     dtype = torch.float64 if variant == "float64" else torch.float32
@@ -952,7 +990,7 @@ def system_operands(sim, rec, variant):
     ops = ts.StencilSolveOps(
         sim.mesh, sel_t, blockcsr.block_diag_inv(diag), diag, rec["colors"],
         rec["ncolor"], sel_dtype=torch.bfloat16 if variant == "mixed"
-        else None)
+        else None, one_launch=True)
     b = rec["rhs"].to(dtype).contiguous()
     args = dict(selp_t=ops.sel_t, selm_t=ops.selm_t, dinv_t=ops.dinv_t,
                 diag_t=ops.diag_t, colors=ops.colors, offsets=ops.offsets,
@@ -986,6 +1024,19 @@ def band_operands(v, offsets, variant, n=20000, ncolor=4, seed=11):
                 colors=colors, offsets=tuple(offsets),
                 ncolor=ncolor)
     return args, (b / torch.linalg.vector_norm(b)).contiguous(), b
+
+
+def k5_layout(args):
+    """K5's sweep operands as StencilSolveOps lays them out for the Krylov
+    loop on the card (one_launch=False): the sweep blocks and dinv
+    (color-major in the mixed tier), the node order and its flag; they
+    override the natural ones of args in a K5 call."""
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    ops = ts.StencilSolveOps.from_lanes(
+        args["offsets"], args["selm_t"], args["dinv_t"], args["diag_t"],
+        args["colors"], args["ncolor"], args["selp_t"].dtype)
+    return dict(selp_t=ops.sel_t, dinv_t=ops.dinv_t, order=ops.order,
+                color_major=ops.color_major)
 
 
 def bsr_operator(args, n, v):
@@ -1042,40 +1093,52 @@ def k6_barriers(ncolor, m):
 
 def stencil_phase(sims, flow_sims, report):
     """K5 and K6 against their plain versions, in f64, f32 and mixed: the
-    SST systems the port assembles at both sizes (v = 2), the implicit
-    LU_SGS case's flow systems (v = 13: K6 at 9,072 nodes, K5 at 142,317),
-    and band systems with dense blocks (v = 2, 3 and 7)."""
+    SST systems the port assembles at 9,072 and 142,317 nodes (v = 2), the
+    implicit LU_SGS case's flow systems (v = 13: K6 at 9,072 nodes, K5 at
+    142,317), and band systems with dense blocks (v = 2, 3 and 7); at
+    565,500 nodes K5 in the main path's mixed tier on the SST and the flow
+    systems (and its matvec in f32, beside torch.sparse.mm).  K5 reads the
+    layout StencilSolveOps makes for the Krylov loop (k5_layout)."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import stencil_solve as ts
-    systems = {}            # name -> (operands of a variant, run K5, run K6)
+    every = ("float64", "float32", "mixed")
+    modes = ("sgs_matvec", "sgs", "matvec")
+    tier = {"mixed": ("sgs_matvec",), "float32": ("matvec",)}
+    # name -> (operands of a variant, K5's modes by variant, run K6)
+    systems = {}
     for size, sim in sims.items():
         rec = capture_systems(sim)[2]
         systems[f"sst{sim.mesh.npoint}"] = (
             lambda var, sim=sim, rec=rec: system_operands(sim, rec, var),
-            True, True)
+            tier if size == "tier" else dict.fromkeys(every, modes),
+            size != "tier")
     for size, sim in flow_sims.items():
         rec = capture_systems(sim)[sim.lay.nvar]
         systems[f"flow{sim.mesh.npoint}"] = (
             lambda var, sim=sim, rec=rec: system_operands(sim, rec, var),
-            size != "flagship", size == "flagship")
-    systems["band2"] = (lambda var: band_operands(
-        2, (-9, -8, -7, -1, 1, 7, 8, 9), var), True, True)
-    systems["band3"] = (lambda var: band_operands(3, (-5, -1, 1, 5), var),
-                        True, True)
-    systems["band7"] = (lambda var: band_operands(7, (-9, -1, 1, 9), var),
-                        True, True)
-    for sname, (make, run_k5, run_k6) in systems.items():
-        for var in ("float64", "float32", "mixed"):
+            tier if size == "tier" else dict.fromkeys(
+                every, () if size == "flagship" else modes),
+            size == "flagship")
+    for name, v, offsets in (("band2", 2, (-9, -8, -7, -1, 1, 7, 8, 9)),
+                             ("band3", 3, (-5, -1, 1, 5)),
+                             ("band7", 7, (-9, -1, 1, 9))):
+        systems[name] = (lambda var, v=v, offsets=offsets: band_operands(
+            v, offsets, var), dict.fromkeys(every, modes), True)
+    for sname, (make, k5_modes, run_k6) in systems.items():
+        for var in every:
+            if not (k5_modes.get(var) or run_k6):
+                continue
             args, r, b = make(var)
             n, v = r.shape
+            lay = k5_layout(args) if k5_modes.get(var) else None
             rtol, afrac = TOL[("stencil_sgs_matvec", var)]
-            for mode in ("sgs_matvec", "sgs", "matvec") if run_k5 else ():
+            for mode in k5_modes.get(var, ()):
                 sweep, matvec = mode != "matvec", mode != "sgs"
                 if mode == "matvec" and var == "mixed":
                     continue          # the matvec never reads bf16 blocks
                 kfn = lambda: [t for t in kernels.stencil_sgs_matvec(
-                    **args, r=r, sweep=sweep, matvec=matvec)
+                    **dict(args, **lay), r=r, sweep=sweep, matvec=matvec)
                     if t is not None and (sweep or t is not r)]
                 pfn = lambda: [t for t in ts.sgs_matvec_plain(
                     **args, r=r, sweep=sweep, matvec=matvec)
@@ -1101,7 +1164,8 @@ def stencil_phase(sims, flow_sims, report):
                 ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
                 ins = [r]
                 if sweep:
-                    ins += [args["selp_t"], args["dinv_t"], args["colors"]]
+                    ins += [args["selp_t"], args["dinv_t"], args["colors"],
+                            lay["order"]]
                 if matvec:
                     ins.append(args["diag_t"])
                     if not sweep or args["selm_t"] is not args["selp_t"]:
@@ -1114,7 +1178,9 @@ def stencil_phase(sims, flow_sims, report):
                 phase("stencil", f"K5 {mode} {sname} {var}: max_abs_err "
                       f"{err:.3e} ({worst:.2e} of its field's max) kernel "
                       f"{ms:.4f} ms plain {plain_ms:.4f} ms bound "
-                      f"{bound[0]:.4f} ms ({bound[1]}){lib_txt}")
+                      f"{bound[0]:.4f} ms ({bound[1]}){lib_txt}; sweep "
+                      "blocks " + ("color-major" if lay["color_major"]
+                                   else "natural"))
                 report.setdefault("stencil_sgs_matvec", {})[
                     (sname, var, mode)] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1685,8 +1751,103 @@ def print_pair(label, unfused, fused):
           f"{fmt(fused)}")
 
 
+EDGE_SOURCES = ("edge_flux.cu", "edge_win.cu", "edge_list.cu",
+                "edge_implicit.cu")
+
+
+def sass_counts(root):
+    """{kernel: [SASS instructions, LDL, STL]} of root's edge sources
+    (nvcc -cubin with the build's flags, cuobjdump -sass)."""
+    from su2_tpu_torch import kernels
+    csrc = os.path.join(root, "su2_tpu_torch", "csrc")
+    dump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in EDGE_SOURCES:
+            cubin = os.path.join(tmp, src + ".cubin")
+            subprocess.run([kernels._nvcc(), *flags, "-cubin", "-o", cubin,
+                            os.path.join(csrc, src)], check=True)
+            text = subprocess.run([dump, "-sass", cubin], check=True,
+                                  capture_output=True, text=True).stdout
+            name = None
+            for line in text.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    name = demangle(m.group(1))
+                    out[name] = [0, 0, 0]
+                    continue
+                m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?(\S+)",
+                              line)
+                if m and name:
+                    op = m.group(2)
+                    out[name][0] += 1
+                    out[name][1] += op.startswith("LDL")
+                    out[name][2] += op.startswith("STL")
+    return out
+
+
+def time_k5_k8(tmp):
+    """{label: ms} of K5 and K8 as the module docstring's --time-k5-k8
+    describes them."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
+    from su2_tpu_torch.ops import edge_flux as ef
+    out = {}
+    for size in ("scaling", "tier"):
+        for name, implicit, v in (
+                ("flow", IMPLICIT_VARIANTS["venkatakrishnan"], 13),
+                ("sst", None, 2)):
+            sim = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                            implicit=implicit)
+            rec = capture_systems(sim)[v]
+            n = sim.mesh.npoint
+            sel_dtype, _ = ts.solve_tier(n, sim.mesh.stencil_offsets, v,
+                                         torch.float32, rec["ncolor"],
+                                         KRYLOV_M)
+            ops = ts.StencilSolveOps(sim.mesh, rec["sel_t"],
+                                     blockcsr.block_diag_inv(rec["diag"]),
+                                     rec["diag"], rec["colors"],
+                                     rec["ncolor"], sel_dtype=sel_dtype)
+            r = rec["rhs"] / torch.linalg.vector_norm(rec["rhs"])
+            out[f"K5 {name} v={v} {n}"] = dict(
+                ms=cuda_time(lambda: ops.precond_matvec(r)),
+                sweep_blocks=str(sel_dtype).replace("torch.", ""))
+            del sim, rec, ops, r
+            torch.cuda.empty_cache()
+    sim = make_case(tmp, *SIZES["tier"], torch.float32, "cuda")
+    eargs = edge_win_args(sim, *tier_state(sim, torch.float32))
+    n = sim.mesh.npoint
+    out[f"K8 {n}"] = dict(ms=cuda_time(lambda: kernels.edge_win(*eargs)))
+    out[f"T3 + roll-subtract {n}"] = dict(ms=cuda_time(
+        lambda: ef.roll_subtract(eargs[5], *kernels.edge_flux(*eargs))))
+    return out
+
+
+def ab_main(root):
+    """--time-k5-k8: see the module docstring."""
+    from su2_tpu_torch import kernels
+    card = card_line()
+    print(f"card: {card}; root {root}", flush=True)
+    kernels.build()
+    for name, (ni, ldl, stl) in sass_counts(root).items():
+        print(f"sass {name}: {ni} instructions, {ldl} LDL, {stl} STL")
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as tmp:
+        result = dict(root=root, card=card, **time_k5_k8(tmp))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main():
-    sys.path.insert(0, HERE)
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of su2_tpu_torch "
+                                 "on one NVIDIA GPU (see the docstring)")
+    ap.add_argument("--time-k5-k8", action="store_true")
+    ap.add_argument("--root", default=HERE)
+    opt = ap.parse_args()
+    root = os.path.abspath(opt.root)
+    sys.path.insert(0, root)
     try:
         import torch
         from su2_tpu_torch import kernels
@@ -1698,6 +1859,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if opt.time_k5_k8:
+        return ab_main(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1738,8 +1901,7 @@ def main():
                                       "cuda", prec, implicit=main_imp)
                 phase("k10", f"{out[size].mesh.npoint}-node implicit {prec} "
                       f"case built in {time.perf_counter() - t0:.1f} s")
-        stencil_phase({k: sims[k] for k in ("flagship", "scaling")},
-                      {k: lusgs[k] for k in ("flagship", "scaling")}, report)
+        stencil_phase(sims, lusgs, report)
         for dt in ("float64", "float32"):
             implicit_kernel_phase(imp["flagship"], dt, report,
                                   list(IMPLICIT_VARIANTS))
@@ -1909,6 +2071,15 @@ def main():
             mv = report[name][("flow142317", "float32", "matvec")]
             row["matvec_only"] = {k: mv[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "library")}
+            row["at_565500"] = report[name][("flow565500", "mixed",
+                                             "sgs_matvec")]
+            row["sst_v2_at_565500"] = report[name][("sst565500", "mixed",
+                                                    "sgs_matvec")]
+            row["matvec_only_at_565500"] = report[name][
+                ("flow565500", "float32", "matvec")]
+        if name == "edge_win":
+            row["edge_evaluations_per_call"] = report[name][
+                "edge_evaluations_per_call"]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -81,7 +81,7 @@ __device__ __forceinline__ void face_state(const ImpConsts& c,
   bool bad = (t_r <= EPS) || (p_r <= EPS);
   T t_face = bad ? vf[0] : t_r;
   T hs[SU2K_MAXS], cps[SU2K_MAXS];
-  species_hcp(g, tab, mm, ns, t_face, hs, cps);
+  species_hcp<0>(g, tab, mm, ns, t_face, hs, cps);
   T rgas = (T)0, hmix = (T)0, cpmix = (T)0;
   for (int k = 0; k < ns; ++k) {
     T y = clip_y(vf[YS + k]);
@@ -242,11 +242,11 @@ edge_implicit_kernel(int n, ImpConsts c, Grid<T> g, const T* __restrict__ f,
   T jd[SU2K_MAXS];
   {
     T aug[SU2K_MAXS * (SU2K_MAXS + 1)];
-    stefan_maxwell(ns, mm, den, ysc, xs, rho, gf, gxn, aug);
+    stefan_maxwell<0>(ns, mm, den, ysc, xs, rho, gf, gxn, aug);
     for (int s = 0; s < ns; ++s) jd[s] = aug[s * (ns + 1) + ns];
   }
   T hs[SU2K_MAXS], cps[SU2K_MAXS];
-  species_hcp(g, tab, mm, ns, (T)0.5 * (vi[0] + vj[0]), hs, cps);
+  species_hcp<0>(g, tab, mm, ns, (T)0.5 * (vi[0] + vj[0]), hs, cps);
   T e_heat = (T)0, jsum = (T)0;
   for (int s = 0; s < ns; ++s) {
     e_heat -= hs[s] * jd[s];

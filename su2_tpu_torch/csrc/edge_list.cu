@@ -23,14 +23,13 @@
 // floor is the stack plus the per-edge arrays.  This simple design stays
 // above it: in a scrambled node order the 32 threads of a warp read 32
 // unrelated columns of every stack row (uncoalesced, each 4 or 8 bytes
-// from its own 32-byte sector), and, as in T3, each thread keeps its
-// S x (S+1) Stefan-Maxwell system in local memory.  One thread per edge,
-// S <= 16, f32 and f64.
+// from its own 32-byte sector).  One thread per edge, f32 and f64, the
+// per-edge body at T3's compile-time (dimension, species count) shapes.
 #include "edge_side.cuh"
 
 namespace su2k {
 
-template <typename T>
+template <typename T, int ND, int NS>
 __global__ void edge_list_kernel(int n, int ne, EdgeConsts c, Grid<T> g,
                                  const T* __restrict__ f,
                                  const long long* __restrict__ edges,
@@ -40,21 +39,22 @@ __global__ void edge_list_kernel(int n, int ne, EdgeConsts c, Grid<T> g,
                                  const T* __restrict__ cst,
                                  T* __restrict__ flux, T* __restrict__ lc,
                                  T* __restrict__ lv) {
+  constexpr int NV = NS + ND + 2;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= ne) return;
-  const int nd = c.nd;
-  const int nvar = c.ns + nd + 2;
   const int i = (int)edges[2 * (size_t)e];
   const int j = (int)edges[2 * (size_t)e + 1];
-  T nm[SU2K_MAXD], ev[SU2K_MAXD], fo[SU2K_MAXV];
-  for (int d = 0; d < nd; ++d) {
-    nm[d] = normal[(size_t)e * nd + d];
-    ev[d] = coords[(size_t)j * nd + d] - coords[(size_t)i * nd + d];
+  T nm[ND], ev[ND], fo[NV];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    nm[d] = normal[(size_t)e * ND + d];
+    ev[d] = coords[(size_t)j * ND + d] - coords[(size_t)i * ND + d];
   }
   T lco, lvo;
-  edge_side<T>(n, c, g, f, i, j, nm, ev, tab, cst, fo, lco, lvo);
+  edge_side<ND, NS>(n, c, g, f, i, j, nm, ev, tab, cst, fo, lco, lvo);
   // feature-major (nVar, E), edge order
-  for (int r = 0; r < nvar; ++r) flux[(size_t)r * ne + e] = fo[r];
+#pragma unroll
+  for (int r = 0; r < NV; ++r) flux[(size_t)r * ne + e] = fo[r];
   lc[e] = lco;
   lv[e] = lvo;
 }
@@ -66,14 +66,21 @@ int launch_edge_list(int n, int ne, EdgeConsts c, int nt, double t0,
                      const void* cst, void* flux, void* lc, void* lv,
                      void* stream) {
   Grid<T> g{(T)t0, (T)dt, (T)(t0 + (nt - 1) * dt), (T)(dt * dt), nt};
-  int threads = 128;
-  int blocks = (ne + threads - 1) / threads;
-  if (blocks > 0)
-    edge_list_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        n, ne, c, g, (const T*)f, (const long long*)edges, (const T*)nrm,
-        (const T*)coords, (const T*)tab, (const T*)cst, (T*)flux, (T*)lc,
-        (T*)lv);
-  return (int)cudaGetLastError();
+  const int threads = 128;
+  const int blocks = (ne + threads - 1) / threads;
+#define SU2K_K13_CASE(ND_, NS_)                                             \
+  if (c.nd == ND_ && c.ns == NS_) {                                         \
+    if (blocks > 0)                                                         \
+      edge_list_kernel<T, ND_, NS_>                                         \
+          <<<blocks, threads, 0, (cudaStream_t)stream>>>(                   \
+              n, ne, c, g, (const T*)f, (const long long*)edges,            \
+              (const T*)nrm, (const T*)coords, (const T*)tab,               \
+              (const T*)cst, (T*)flux, (T*)lc, (T*)lv);                     \
+    return (int)cudaGetLastError();                                         \
+  }
+  SU2K_EDGE_BY_SHAPE(SU2K_K13_CASE)
+#undef SU2K_K13_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace su2k
@@ -85,7 +92,7 @@ extern "C" int su2k_edge_list(int is_f64, int n, int ne, int nd, int ns,
                               const void* nrm, const void* coords,
                               const void* tab, const void* cst, void* flux,
                               void* lc, void* lv, void* stream) {
-  if (ns > SU2K_MAXS || nd > SU2K_MAXD || n < 1 || ne < 0)
+  if (n < 1 || ne < 0)
     return (int)cudaErrorInvalidValue;
   su2k::EdgeConsts c{m_infty, pr_lam, pr_turb, le_turb, mm_sum,
                      nd, ns, 0, {0}};

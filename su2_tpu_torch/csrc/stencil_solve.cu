@@ -11,10 +11,12 @@
 // cycles _fgmres_call :381 and _fgmres_mixed_call :434.
 //
 // Layout: blocks lane-major, row q of an (R, n) array at q*n + p (rows
-// k*V*V + a*V + b of the off-diagonal blocks, a*V + b of dinv/diag);
-// vectors node-major, entry a of node p at p*V + a.  Colors: one int8 per
-// node.  A neighbour p + o_k outside [0, n) is skipped: its block is zero
-// by construction, where the reference multiplies a wrapped lane by it.
+// k*V*V + a*V + b of the off-diagonal blocks, a*V + b of dinv/diag), or
+// for K5's color-major sweep operands at q*n + i, lane i holding node
+// order[i]; vectors node-major, entry a of node p at p*V + a.  Colors: one
+// int8 per node.  A neighbour p + o_k outside [0, n) is skipped: its
+// block is zero by construction, where the reference multiplies a wrapped
+// lane by it.
 //
 // Sweep semantics (the reference's _sgs_body): z starts at 0; passes run
 // over the colors 0..nc-1, then nc-2..0; a pass sets
@@ -28,27 +30,41 @@
 //
 // Bound on the H100: bytes.  A sweep pass reads its nodes' K*V*V blocks,
 // dinv and r, and the neighbours' z; the matvec reads the K*V*V matvec
-// blocks and diag.  At the main path's shape (142,317 nodes, K = 4, V = 2,
-// 2 colors, f32 with bf16 sweep blocks) one K5 application has to move
-// ~6.3 MB (each operand read once), ~1.9 us at 3.35 TB/s; its
-// 2nc - 1 + 1 = 4 passes re-read the field, which mostly stays in the
-// 50 MB L2.  Design K5: one thread per node, one launch per pass issued
-// from one C call (the launches are the barriers between passes), no
-// shared memory; loads of neighbouring nodes coalesce along the lanes.
+// blocks and diag.  At V = 13 the flow's mixed K5 at 142,317 nodes has to
+// move ~792 MB (bf16 sweep blocks 192 MB, f32 matvec blocks 385 MB, dinv
+// and diag 96 MB each, the vectors 22 MB), 0.24 ms at 3.35 TB/s; at
+// 565,500 nodes four times that.  The field does not fit the 50 MB L2, so
+// each of the 2nc - 1 sweep passes reads its blocks from HBM again.
+//
+// Design K5: one launch per pass issued from one C call (the launches are the
+// barriers between passes), then the matvec.  A pass runs over the lanes of
+// the color-major node list order (the nodes sorted by color,
+// stencil_solve.color_order), so the nodes of its color are a contiguous run
+// of lanes; the other lanes copy z_old (the two-buffer rule: masks that are
+// not a proper coloring give the reference's numbers too, with no race).  At
+// V = 7 and 13 every 32 lanes are V warps, warp a forming row a of the 32
+// nodes' block products: each block-row load is one coalesced read, a thread
+// holds no V-vector and has ~K V independent loads in flight, and the
+// node-major vectors are staged through shared memory (the former design ran
+// one thread per node, which read 4 K V^2 block values and the vectors at a
+// stride of V itself and moved ~1.6 TB/s).  At V = 2 and 3 a thread per lane
+// stays faster (the passes are short and latency-bound).  In the mixed tier
+// the bf16 sweep blocks and dinv are held in that color-major lane layout
+// (made once per solve with the bf16 copy, stencil_solve.to_color_major), so
+// a pass reads the contiguous block rows of its own color only: at nc = 2
+// half of the field's sweep bytes per pass, where the lane-interleaved colors
+// of the former design put both colors in every 32-byte sector and each pass
+// moved the whole field.  At full precision the sweep reads the matvec's
+// blocks in the natural layout through the node list (no second copy of the
+// field).  The matvec, with the same thread layout, reads the full-precision
+// blocks in the natural layout, one pass.
 //
 // Widths: V = 2 (the SST system), 3, and 7, 13 (the flow's nDim + nSpecies
 // + 2 of the 3-species flat plate and the 9-species channel), one template
 // instance each; another width is refused.  Every per-node V-vector (r, z,
-// the products) is a register array indexed only by unrolled loops, so it
-// stays out of local memory; the V x V blocks are streamed, never held.
-// At V = 13 the flow's mixed K5 at 142,317 nodes has to move ~792 MB
-// (bf16 sweep blocks 192 MB, f32 matvec blocks 385 MB, dinv and diag 96 MB
-// each, the vectors 22 MB), 0.24 ms at 3.35 TB/s; the field no longer
-// fits in L2, so each of the 2nc - 1 sweep passes reads its blocks from
-// HBM again (a pass loads only its color's blocks, but with two colors
-// every 32-byte sector of a row holds nodes of both).  Node-major vectors
-// are read at a stride of V entries across the threads of a warp: right,
-// and left for a later change to make fast.
+// the products) of K6 is a register array indexed only by unrolled loops,
+// so it stays out of local memory; the V x V blocks are streamed, never
+// held.
 //
 // K6 is bound by its barriers: at m = 10, nc = 2 a cycle has
 // 2 + m (2nc + 1) + m (m - 1)/2 = 97 grid-wide barriers (sweep passes, one
@@ -107,12 +123,15 @@ __device__ __forceinline__ T ldx(const T* p) {
   else return *p;
 }
 
-// out = sum_k B_k[p] x[p + o_k]; the products of one block row are summed
-// over b, then the offsets in order (the reference's _offdiag)
+// out = sum_k B_k[p] x[p + o_k], node p's blocks at lane `lane` of the
+// (K*V*V, n) rows (p itself in the natural layout); the products of one
+// block row are summed over b, then the offsets in order (the reference's
+// _offdiag)
 template <typename T, typename S, int V, bool L2>
 __device__ __forceinline__ void offdiag_at(const S* __restrict__ sel,
                                            const T* x, int n, int p,
-                                           const Stencil& st, T (&out)[V]) {
+                                           int lane, const Stencil& st,
+                                           T (&out)[V]) {
 #pragma unroll
   for (int a = 0; a < V; ++a) out[a] = (T)0;
   for (int kk = 0; kk < st.k; ++kk) {
@@ -121,7 +140,7 @@ __device__ __forceinline__ void offdiag_at(const S* __restrict__ sel,
     T xq[V];
 #pragma unroll
     for (int b = 0; b < V; ++b) xq[b] = ldx<T, L2>(x + (size_t)q * V + b);
-    const S* blk = sel + (size_t)kk * V * V * n + p;
+    const S* blk = sel + (size_t)kk * V * V * n + lane;
 #pragma unroll
     for (int a = 0; a < V; ++a) {
       T y = (T)0;
@@ -133,21 +152,22 @@ __device__ __forceinline__ void offdiag_at(const S* __restrict__ sel,
   }
 }
 
-// out = blk[p] x (one V x V block per node)
+// out = blk[lane] x (one V x V block per node)
 template <typename T, int V>
 __device__ __forceinline__ void bapply_at(const T* __restrict__ blk, int n,
-                                          int p, const T (&x)[V],
+                                          int lane, const T (&x)[V],
                                           T (&out)[V]) {
 #pragma unroll
   for (int a = 0; a < V; ++a) {
     T s = (T)0;
 #pragma unroll
-    for (int b = 0; b < V; ++b) s += blk[(size_t)(a * V + b) * n + p] * x[b];
+    for (int b = 0; b < V; ++b)
+      s += blk[(size_t)(a * V + b) * n + lane] * x[b];
     out[a] = s;
   }
 }
 
-// one color pass of the sweep at node p; first: z_old is 0 (r - 0 = r)
+// one color pass of K6's sweep at node p; first: z_old is 0 (r - 0 = r)
 template <typename T, typename S, int V, bool L2>
 __device__ __forceinline__ void sweep_at(const S* __restrict__ selp,
                                          const T* __restrict__ dinv,
@@ -164,7 +184,7 @@ __device__ __forceinline__ void sweep_at(const S* __restrict__ selp,
       for (int a = 0; a < V; ++a) acc[a] = r[a];
     } else {
       T od[V];
-      offdiag_at<T, S, V, L2>(selp, zold, n, p, st, od);
+      offdiag_at<T, S, V, L2>(selp, zold, n, p, p, st, od);
 #pragma unroll
       for (int a = 0; a < V; ++a) acc[a] = r[a] - od[a];
     }
@@ -187,50 +207,222 @@ __device__ __forceinline__ void matvec_at(const T* __restrict__ selm,
   T zp[V], od[V];
 #pragma unroll
   for (int a = 0; a < V; ++a) zp[a] = ldx<T, L2>(z + (size_t)p * V + a);
-  offdiag_at<T, T, V, L2>(selm, z, n, p, st, od);
+  offdiag_at<T, T, V, L2>(selm, z, n, p, p, st, od);
   bapply_at<T, V>(diag, n, p, zp, w);
 #pragma unroll
   for (int a = 0; a < V; ++a) w[a] += od[a];
 }
 
 // ------------------------------------------------------------------- K5
+// Thread layout of K5's kernels: a group of 32 lanes (nodes) is handled by
+// V warps, warp a forming row a of every block product of those 32 nodes
+// (threadIdx.x = lane, threadIdx.y = row a, threadIdx.z = group), so each
+// load of a block row is one coalesced read of 32 neighbouring lanes and a
+// thread holds no V-vector.  The group's vectors (r and the neighbours' z,
+// node-major) are staged through shared memory first, one element per
+// thread (32 V elements of each vector for V x 32 threads), and the row
+// results are exchanged there before the dinv product.
+// groups per block: as many as fit the kernels' bound of 512 threads
+// (8 at V = 2, 1 at V = 13)
+template <int V>
+__host__ __device__ constexpr int k5_groups() {
+  return 512 / (32 * V);
+}
+
+// shared memory of a K5 block: per group K staged neighbour vectors, r
+// (or z itself in the matvec) and the rows' results, each 32 x V; at most
+// 40 KB (V = 2, K = 8, double), under the 48 KB a launch gets unasked
+template <typename T, int V>
+size_t k5_smem(int k) {
+  return (size_t)k5_groups<V>() * (k + 2) * 32 * V * sizeof(T);
+}
+
+// One color pass over the color-major node list: lane i is node
+// p = order[i], so the nodes of one color are a contiguous run of lanes.
+// A lane of the pass's color sets z_new[p] = dinv (r - sum_k B_k z_old);
+// its sweep blocks and dinv sit at lane i (cm: the color-major copy) or at
+// lane p (the natural layout).  Any other lane copies z_old[p] (0 in the
+// first pass), the two-buffer rule.  Row a's sums run in the order of the
+// other kernels (offdiag_at, bapply_at).
 template <typename T, typename S, int V>
-__global__ void sgs_pass_kernel(int n, Stencil st, int color, int first,
-                                const S* __restrict__ selp,
-                                const T* __restrict__ dinv,
-                                const int8_t* __restrict__ colors,
-                                const T* __restrict__ r, const T* zold,
-                                T* znew) {
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += gridDim.x * blockDim.x) {
-    T rp[V];
+__global__ void __launch_bounds__(512, 2)
+sgs_pass_kernel(int n, Stencil st, int color, int first, int cm,
+                const S* __restrict__ selp, const T* __restrict__ dinv,
+                const int8_t* __restrict__ colors,
+                const int* __restrict__ order, const T* __restrict__ r,
+                const T* zold, T* znew) {
+  extern __shared__ __align__(16) unsigned char k5_raw[];
+  const int l = threadIdx.x, a = threadIdx.y, g = threadIdx.z;
+  const int k = st.k;
+  T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * V;
+  T* gr = gx + (size_t)k * 32 * V;     // r of the group's nodes
+  T* gacc = gr + 32 * V;               // r - sum_k B_k z_old, by row
+  const int i0 = (blockIdx.x * k5_groups<V>() + g) * 32;
+  {
+    // stage: element e = (node e / V, entry e % V) of each vector
+    const int e = a * 32 + l, ls = e / V, b = e - ls * V;
+    const int is = i0 + ls;
+    if (is < n) {
+      const int ps = order[is];
+      if (colors[ps] == color) {
+        gr[e] = r[(size_t)ps * V + b];
+        for (int kk = 0; kk < k && !first; ++kk) {
+          const int q = ps + st.off[kk];
+          gx[kk * 32 * V + e] =
+              q < 0 || q >= n ? (T)0 : zold[(size_t)q * V + b];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int i = i0 + l;
+  const int p = i < n ? order[i] : 0;
+  const bool mine = i < n && colors[p] == color;
+  const int lane = cm ? i : p;
+  if (mine) {
+    T acc = gr[l * V + a];
+    if (!first) {
+      T od = (T)0;
+      for (int kk = 0; kk < k; ++kk) {
+        const int q = p + st.off[kk];
+        if (q < 0 || q >= n) continue;
+        const S* blk = selp + ((size_t)kk * V * V + a * V) * n + lane;
+        const T* x = gx + kk * 32 * V + l * V;
+        T y = (T)0;
 #pragma unroll
-    for (int a = 0; a < V; ++a) rp[a] = r[(size_t)p * V + a];
-    sweep_at<T, S, V, false>(selp, dinv, colors, rp, zold, znew, n, p, st,
-                             color, first != 0);
+        for (int b = 0; b < V; ++b)
+          y += widen<T, S>(blk[(size_t)b * n]) * x[b];
+        od += y;
+      }
+      acc = acc - od;
+    }
+    gacc[l * V + a] = acc;
+  }
+  __syncthreads();
+  if (i < n) {
+    T zn;
+    if (mine) {
+      const T* dr = dinv + (size_t)a * V * n + lane;
+      zn = (T)0;
+#pragma unroll
+      for (int b = 0; b < V; ++b) zn += dr[(size_t)b * n] * gacc[l * V + b];
+    } else {
+      zn = first ? (T)0 : zold[(size_t)p * V + a];
+    }
+    znew[(size_t)p * V + a] = zn;
   }
 }
 
+// w[p] = diag[p] z[p] + sum_k B_k[p] z[p + o_k], natural layout; the
+// group's 32 nodes are consecutive, so each staged vector is one
+// contiguous run of 32 V entries
 template <typename T, int V>
-__global__ void matvec_kernel(int n, Stencil st, const T* __restrict__ selm,
-                              const T* __restrict__ diag,
-                              const T* __restrict__ x, T* __restrict__ y) {
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += gridDim.x * blockDim.x) {
-    T w[V];
-    matvec_at<T, V, false>(selm, diag, x, n, p, st, w);
-#pragma unroll
-    for (int a = 0; a < V; ++a) y[(size_t)p * V + a] = w[a];
+__global__ void __launch_bounds__(512, 2)
+matvec_kernel(int n, Stencil st, const T* __restrict__ selm,
+              const T* __restrict__ diag, const T* __restrict__ x,
+              T* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char k5_raw[];
+  const int l = threadIdx.x, a = threadIdx.y, g = threadIdx.z;
+  const int k = st.k;
+  T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * V;
+  T* gz = gx + (size_t)k * 32 * V;     // z of the group's own nodes
+  const int p0 = (blockIdx.x * k5_groups<V>() + g) * 32;
+  {
+    const int e = a * 32 + l;
+    const int ps = p0 + e / V;
+    if (ps < n) {
+      gz[e] = x[(size_t)p0 * V + e];
+      for (int kk = 0; kk < k; ++kk) {
+        const int q = ps + st.off[kk];
+        gx[kk * 32 * V + e] =
+            q < 0 || q >= n ? (T)0 : x[(size_t)p0 * V + e
+                                       + (ptrdiff_t)st.off[kk] * V];
+      }
+    }
   }
+  __syncthreads();
+  const int p = p0 + l;
+  if (p >= n) return;
+  T od = (T)0;
+  for (int kk = 0; kk < k; ++kk) {
+    const int q = p + st.off[kk];
+    if (q < 0 || q >= n) continue;
+    const T* blk = selm + ((size_t)kk * V * V + a * V) * n + p;
+    const T* xq = gx + kk * 32 * V + l * V;
+    T t = (T)0;
+#pragma unroll
+    for (int b = 0; b < V; ++b) t += blk[(size_t)b * n] * xq[b];
+    od += t;
+  }
+  const T* dr = diag + (size_t)a * V * n + p;
+  T w = (T)0;
+#pragma unroll
+  for (int b = 0; b < V; ++b) w += dr[(size_t)b * n] * gz[l * V + b];
+  y[(size_t)p * V + a] = w + od;
+}
+
+// V <= 3: one thread per lane holds its node's V-vectors in registers (a
+// node's block products are only 4 K V^2 <= 36 K values, and staging and
+// barriers would lengthen the dependent load chain of these small,
+// latency-bound passes); the same color-major lanes and two-buffer rule
+template <typename T, typename S, int V>
+__global__ void sgs_pass_lane_kernel(int n, Stencil st, int color, int first,
+                                     int cm, const S* __restrict__ selp,
+                                     const T* __restrict__ dinv,
+                                     const int8_t* __restrict__ colors,
+                                     const int* __restrict__ order,
+                                     const T* __restrict__ r, const T* zold,
+                                     T* znew) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int p = order[i];
+  T zn[V];
+  if (colors[p] == color) {
+    const int lane = cm ? i : p;
+    T acc[V];
+#pragma unroll
+    for (int a = 0; a < V; ++a) acc[a] = r[(size_t)p * V + a];
+    if (!first) {
+      T od[V];
+      offdiag_at<T, S, V, false>(selp, zold, n, p, lane, st, od);
+#pragma unroll
+      for (int a = 0; a < V; ++a) acc[a] = acc[a] - od[a];
+    }
+    bapply_at<T, V>(dinv, n, lane, acc, zn);
+  } else {
+#pragma unroll
+    for (int a = 0; a < V; ++a)
+      zn[a] = first ? (T)0 : zold[(size_t)p * V + a];
+  }
+#pragma unroll
+  for (int a = 0; a < V; ++a) znew[(size_t)p * V + a] = zn[a];
+}
+
+template <typename T, int V>
+__global__ void matvec_lane_kernel(int n, Stencil st,
+                                   const T* __restrict__ selm,
+                                   const T* __restrict__ diag,
+                                   const T* __restrict__ x,
+                                   T* __restrict__ y) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  T w[V];
+  matvec_at<T, V, false>(selm, diag, x, n, p, st, w);
+#pragma unroll
+  for (int a = 0; a < V; ++a) y[(size_t)p * V + a] = w[a];
 }
 
 template <typename T, typename S, int V>
 int launch_sgs_matvec(int n, const Stencil& st, int ncolor, int do_sweep,
-                      int do_matvec, const S* selp, const T* selm,
+                      int do_matvec, int cm, const S* selp, const T* selm,
                       const T* dinv, const T* diag, const int8_t* colors,
-                      const T* r, T* z, T* w, T* zbuf, cudaStream_t stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
+                      const int* order, const T* r, T* z, T* w, T* zbuf,
+                      cudaStream_t stream) {
+  constexpr bool ROWS = V > 3;        // a warp per block row
+  constexpr int G = ROWS ? k5_groups<V>() : 8;
+  const dim3 threads = ROWS ? dim3(32, V, G) : dim3(32 * G);
+  const int blocks = (n + 32 * G - 1) / (32 * G);
+  const size_t smem = k5_smem<T, V>(st.k);
   if (n <= 0) return 0;
   const T* x = r;
   if (do_sweep) {
@@ -239,15 +431,24 @@ int launch_sgs_matvec(int n, const Stencil& st, int ncolor, int do_sweep,
     for (int i = 0; i < npass; ++i) {
       const int c = i < ncolor ? i : 2 * ncolor - 2 - i;
       T* dst = ((npass - 1 - i) & 1) ? zbuf : z;   // the last pass writes z
-      sgs_pass_kernel<T, S, V><<<blocks, threads, 0, stream>>>(
-          n, st, c, i == 0, selp, dinv, colors, r, zold, dst);
+      if constexpr (ROWS)
+        sgs_pass_kernel<T, S, V><<<blocks, threads, smem, stream>>>(
+            n, st, c, i == 0, cm, selp, dinv, colors, order, r, zold, dst);
+      else
+        sgs_pass_lane_kernel<T, S, V><<<blocks, threads, 0, stream>>>(
+            n, st, c, i == 0, cm, selp, dinv, colors, order, r, zold, dst);
       zold = dst;
     }
     x = z;
   }
-  if (do_matvec)
-    matvec_kernel<T, V><<<blocks, threads, 0, stream>>>(n, st, selm, diag,
-                                                        x, w);
+  if (do_matvec) {
+    if constexpr (ROWS)
+      matvec_kernel<T, V><<<blocks, threads, smem, stream>>>(n, st, selm,
+                                                             diag, x, w);
+    else
+      matvec_lane_kernel<T, V><<<blocks, threads, 0, stream>>>(n, st, selm,
+                                                               diag, x, w);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -583,14 +784,14 @@ int fgmres_grid_v(int v, int n, int m, int part_cap) {
 
 template <typename T, typename S>
 int sgs_matvec_v(int v, int n, const Stencil& st, int ncolor, int do_sweep,
-                 int do_matvec, const void* selp, const void* selm,
+                 int do_matvec, int cm, const void* selp, const void* selm,
                  const void* dinv, const void* diag, const void* colors,
-                 const void* r, void* z, void* w, void* zbuf,
-                 cudaStream_t stream) {
+                 const void* order, const void* r, void* z, void* w,
+                 void* zbuf, cudaStream_t stream) {
 #define SU2K_SGS_ARGS                                                      \
-  n, st, ncolor, do_sweep, do_matvec, (const S*)selp, (const T*)selm,      \
-      (const T*)dinv, (const T*)diag, (const int8_t*)colors, (const T*)r,  \
-      (T*)z, (T*)w, (T*)zbuf, stream
+  n, st, ncolor, do_sweep, do_matvec, cm, (const S*)selp, (const T*)selm,  \
+      (const T*)dinv, (const T*)diag, (const int8_t*)colors,               \
+      (const int*)order, (const T*)r, (T*)z, (T*)w, (T*)zbuf, stream
   SU2K_BY_WIDTH(v, (launch_sgs_matvec<T, S, V>(SU2K_SGS_ARGS)),
                 (int)cudaErrorInvalidValue)
 #undef SU2K_SGS_ARGS
@@ -605,27 +806,30 @@ inline bool make_stencil(int k, const int* offs, Stencil& st) {
 
 }  // namespace su2k
 
-// sel_bf16: the sweep blocks selp are __nv_bfloat16 (float state only)
+// sel_bf16: the sweep blocks selp are __nv_bfloat16 (float state only);
+// order: the color-major node list (int32, n); cm: selp and dinv are in
+// the color-major lane layout (lane i = node order[i]), else natural
 extern "C" int su2k_stencil_sgs_matvec(
     int is_f64, int sel_bf16, int v, int n, int k, const int* offs,
-    int ncolor, int do_sweep, int do_matvec, const void* selp,
+    int ncolor, int do_sweep, int do_matvec, int cm, const void* selp,
     const void* selm, const void* dinv, const void* diag, const void* colors,
-    const void* r, void* z, void* w, void* zbuf, void* stream) {
+    const void* order, const void* r, void* z, void* w, void* zbuf,
+    void* stream) {
   su2k::Stencil st;
   if (!su2k::make_stencil(k, offs, st) || (is_f64 && sel_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64)
-    return su2k::sgs_matvec_v<double, double>(v, n, st, ncolor, do_sweep,
-                                              do_matvec, selp, selm, dinv,
-                                              diag, colors, r, z, w, zbuf, s);
+    return su2k::sgs_matvec_v<double, double>(
+        v, n, st, ncolor, do_sweep, do_matvec, cm, selp, selm, dinv, diag,
+        colors, order, r, z, w, zbuf, s);
   if (sel_bf16)
     return su2k::sgs_matvec_v<float, __nv_bfloat16>(
-        v, n, st, ncolor, do_sweep, do_matvec, selp, selm, dinv, diag,
-        colors, r, z, w, zbuf, s);
-  return su2k::sgs_matvec_v<float, float>(v, n, st, ncolor, do_sweep,
-                                          do_matvec, selp, selm, dinv, diag,
-                                          colors, r, z, w, zbuf, s);
+        v, n, st, ncolor, do_sweep, do_matvec, cm, selp, selm, dinv, diag,
+        colors, order, r, z, w, zbuf, s);
+  return su2k::sgs_matvec_v<float, float>(
+      v, n, st, ncolor, do_sweep, do_matvec, cm, selp, selm, dinv, diag,
+      colors, order, r, z, w, zbuf, s);
 }
 
 extern "C" int su2k_stencil_fgmres(

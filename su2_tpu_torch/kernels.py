@@ -22,9 +22,11 @@ error and adds one to its entry in ``launches``.
   K11 ausm_flux_jac     csrc/ausm_jac.cu      (ops/edge_kernels.py)
   K12 sst_assemble      csrc/sst_assemble.cu  (turbulence/sst_assemble.py)
   K13 edge_list_flux    csrc/edge_list.cu     (ops/edge_flux.py)
-T3, K8 and K13 share the per-edge device function of csrc/edge_side.cuh; K10
-shares its species h/cp lookup and Stefan-Maxwell solve, and K10 and K11
-its implicit AUSM+-up face (ausm_face, ausm_jac_entry).
+T3, K8 and K13 share the per-edge device function of csrc/edge_side.cuh
+(compiled for the (dimension, species count) shapes of EDGE_SHAPES; K8's
+first pass is T3's slot pass under a kernel name of its own); K10 shares its species h/cp lookup and
+Stefan-Maxwell solve, and K10 and K11 its implicit AUSM+-up face
+(ausm_face, ausm_jac_entry).
 """
 
 from __future__ import annotations
@@ -72,8 +74,8 @@ _ARGTYPES = {
     "su2k_chem_source": [_I, _I, _I, _I, _I, _D, _D] + [_P] * 6
                         + [_D, _D, _P, _P],
     "su2k_stencil_sgs_matvec": [_I, _I, _I, _I, _I,
-                                ctypes.POINTER(ctypes.c_int), _I, _I, _I]
-                               + [_P] * 10,
+                                ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I]
+                               + [_P] * 11,
     "su2k_stencil_fgmres": [_I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int), _I, _I, _D]
                            + [_P] * 10 + [_I, _P],
@@ -81,7 +83,7 @@ _ARGTYPES = {
     "su2k_gradient_rows": [_I, _I, _I, _I, _I, _I,
                            ctypes.POINTER(ctypes.c_int)] + [_P] * 6,
     "su2k_edge_win": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I,
-                      _D, _D, _D, _D, _D, _D, _D] + [_P] * 9,
+                      _D, _D, _D, _D, _D, _D, _D] + [_P] * 12,
     "su2k_inlet_tc": [_I, _I, _I, _D, _D, _D, _D, _D, _D, _I, _D, _I, _D]
                      + [_P] * 7,
     "su2k_edge_implicit": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
@@ -286,10 +288,26 @@ def node_state(lib, lay, p, u, t_guess, turb_ke=None, lite=False):
 
 
 # ------------------------------------------------------------- T3, K8
+# The (dimension, species count) shapes the per-edge body of T3, K8 and K13
+# is compiled for (SU2K_EDGE_BY_SHAPE in csrc/edge_side.cuh): the 9-species
+# combustion chemistry (the port's case, the reference combustor) in 2D and
+# 3D (the case on geometry.structured.box_mesh), the 3-species air of the
+# flat plate in 2D and of the 3D channel (tests/test_rans_3d.py)
+EDGE_SHAPES = ((2, 9), (2, 3), (3, 9), (3, 3))
+
+
+def _check_edge_shape(name, lay):
+    if (lay.ndim, lay.ns) not in EDGE_SHAPES:
+        raise ValueError(f"{name}: {lay.ndim}D with {lay.ns} species; the "
+                         "kernel is compiled for the (dimension, species) "
+                         f"shapes {EDGE_SHAPES}")
+
+
 def _edge_args(name, lib, lay, sc, consts, f_all, offsets, fam_normal,
                fam_evec):
     """Checked, contiguous operands of T3/K8 and the argument tail of their
     C calls (after n, nd, ns, kh, offsets)."""
+    _check_edge_shape(name, lay)
     m_infty, pr_lam, pr_turb, le_turb = consts
     f_all = f_all.contiguous()
     fam_normal = fam_normal.contiguous()
@@ -333,17 +351,21 @@ def edge_flux(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec):
 
 
 def edge_win(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec):
-    """Kernel K8: T3's edge terms summed per node in one launch: res
-    (nVar, N), lc (N,), lv (N,) (ops/edge_flux.roll_subtract order)."""
+    """Kernel K8: T3's edge terms summed per node: res (nVar, N), lc (N,),
+    lv (N,) (ops/edge_flux.roll_subtract order), from one C call that runs
+    T3's slot pass into a scratch and then the node sums."""
     f_all, args = _edge_args("edge_win", lib, lay, sc, consts, f_all,
                              offsets, fam_normal, fam_evec)
-    n = f_all.shape[1]
+    n, kh = f_all.shape[1], len(offsets)
     kw = dict(dtype=f_all.dtype, device=f_all.device)
     res = torch.empty((lay.nvar, n), **kw)
     lc = torch.empty((n,), **kw)
     lv = torch.empty((n,), **kw)
-    err = _lib().su2k_edge_win(*args, _ptr(res), _ptr(lc), _ptr(lv),
-                               _stream())
+    sflux = torch.empty((kh, lay.nvar, n), **kw)
+    slc = torch.empty((kh, n), **kw)
+    slv = torch.empty((kh, n), **kw)
+    err = _lib().su2k_edge_win(*args, _ptr(sflux), _ptr(slc), _ptr(slv),
+                               _ptr(res), _ptr(lc), _ptr(lv), _stream())
     _raise("edge_win", err)
     launches["edge_win"] += 1
     return res, lc, lv
@@ -355,6 +377,7 @@ def edge_list_flux(lib, lay, sc, consts, f_all, edges, edge_normal, coords):
     list edges (E, 2) int64, from the columns i and j of the stack f_all
     (R, N), the area normals edge_normal (E, d) and coords (N, d).
     Returns flux (nVar, E), lc (E,), lv (E,) in edge order."""
+    _check_edge_shape("edge_list_flux", lay)
     m_infty, pr_lam, pr_turb, le_turb = consts
     f_all = f_all.contiguous()
     edge_normal = edge_normal.contiguous()
@@ -476,25 +499,43 @@ def _check_stencil(name, selp, selm, dinv, diag, colors, r, offsets, ncolor,
 
 
 def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
-                       ncolor, sweep=True, matvec=True):
+                       ncolor, sweep=True, matvec=True, order=None,
+                       color_major=False):
     """Kernel K5: (z, w) with z the symmetric multicolor block-SGS sweep of
     r over the sweep blocks selp_t (float or bf16) and w = A z over the
     matvec blocks selm_t.  sweep=False: w = A r (z is r); matvec=False: w
-    is None.  Blocks (K*v*v, N) and (v*v, N), colors (N,) int8, r (N, v)."""
+    is None.  Blocks (K*v*v, N) and (v*v, N), colors (N,) int8, r (N, v).
+    Each sweep pass runs over order, the nodes sorted by color
+    (stencil_solve.color_order; the solve path passes the one
+    StencilSolveOps makes once per solve, and a call without it sorts the
+    colors here); color_major: selp_t and dinv_t are in the color-major
+    lane layout of order (stencil_solve.to_color_major), else in the
+    natural one."""
     if not (sweep or matvec):
         raise ValueError("stencil_sgs_matvec: nothing to compute")
     n, v, k, sel_bf16 = _check_stencil("stencil_sgs_matvec", selp_t, selm_t,
                                        dinv_t, diag_t, colors, r, offsets,
                                        ncolor, sweep)
+    if sweep and order is None:
+        if color_major:
+            raise ValueError("stencil_sgs_matvec: color-major blocks need "
+                             "their node order")
+        order = torch.argsort(colors, stable=True).to(torch.int32)
+    if sweep and (order.dtype != torch.int32 or tuple(order.shape) != (n,)
+                  or order.device != r.device
+                  or not order.is_contiguous()):
+        raise ValueError("stencil_sgs_matvec: order must be a contiguous "
+                         f"int32 ({n},) tensor on {r.device}")
     z = torch.empty_like(r) if sweep else r
     zbuf = torch.empty_like(r) if sweep and ncolor > 1 else None
     w = torch.empty_like(r) if matvec else None
     offs = (ctypes.c_int * k)(*[int(o) for o in offsets])
     err = _lib().su2k_stencil_sgs_matvec(
         int(r.dtype == torch.float64), int(sel_bf16), v, n, k, offs,
-        int(ncolor), int(sweep), int(matvec), _ptr(selp_t), _ptr(selm_t),
-        _ptr(dinv_t), _ptr(diag_t), _ptr(colors) if sweep else None, _ptr(r),
-        _ptr(z) if sweep else None, _ptr(w), _ptr(zbuf), _stream())
+        int(ncolor), int(sweep), int(matvec), int(bool(color_major)),
+        _ptr(selp_t), _ptr(selm_t), _ptr(dinv_t), _ptr(diag_t),
+        _ptr(colors) if sweep else None, _ptr(order) if sweep else None,
+        _ptr(r), _ptr(z) if sweep else None, _ptr(w), _ptr(zbuf), _stream())
     _raise("stencil_sgs_matvec", err)
     launches["stencil_sgs_matvec"] += 1
     return z, w

@@ -198,7 +198,7 @@ def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
     sel_dtype, one = sts.solve_tier(mesh.npoint, offsets, v, diag.dtype,
                                     ncolor, linear_iter)
     ops = sts.StencilSolveOps(mesh, sel_t, dinv, diag, colors, ncolor,
-                              sel_dtype=sel_dtype)
+                              sel_dtype=sel_dtype, one_launch=one)
     return ops.matvec, ops.precond, ops.precond_matvec, \
         (ops.fgmres if one else None)
 

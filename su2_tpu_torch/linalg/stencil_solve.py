@@ -16,7 +16,11 @@ StencilJacobianT carries them; vectors node-major (N, v), as the Krylov
 loop carries them, so no per-iteration relayout exists.  A neighbour
 p + o_k outside [0, N) multiplies a zero block (missing neighbours are
 routed to zero blocks by the assembly): the kernels skip it, the plain
-version reads a wrapped lane times zero.
+version reads a wrapped lane times zero.  K5's sweep passes run over the
+nodes sorted by color (color_order); in the mixed tier its bf16 sweep
+blocks and dinv are laid out in that order once per solve (the
+color-major lane layout, to_color_major), so a pass reads the contiguous
+lanes of its own color only.
 
 Which kernel a solve runs (one launch, per-iteration mixed bf16/f32, ...)
 follows the JAX package's tier predicates below, so both packages compute
@@ -162,6 +166,23 @@ def fused_sst_solve_tier(npoint: int, offsets, dtype, ncolor: int,
 
 
 # ---------------------------------------------------------------------------
+# The color-major lane layout of K5's sweep operands
+# ---------------------------------------------------------------------------
+def color_order(colors):
+    """(N,) int32: the nodes sorted by color, in node order within a color
+    (the lanes of one color are a contiguous run)."""
+    return torch.argsort(colors, stable=True).to(torch.int32)
+
+
+def to_color_major(order, sel_t, dinv_t, sel_dtype):
+    """The sweep blocks (cast to sel_dtype) and dinv in the color-major
+    lane layout of order: lane i holds node order[i]'s blocks."""
+    idx = order.long()
+    return (sel_t.to(sel_dtype).index_select(1, idx),
+            dinv_t.index_select(1, idx))
+
+
+# ---------------------------------------------------------------------------
 # Plain versions: the arithmetic of the reference's _offdiag, _bapply,
 # _sgs_body (its pass order, the offsets summed in order) and _fgmres_body
 # ---------------------------------------------------------------------------
@@ -218,17 +239,6 @@ def fgmres_plain(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
 # Dispatchers: a CUDA tensor launches the kernel, a CPU tensor runs the
 # plain version
 # ---------------------------------------------------------------------------
-def sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets, ncolor,
-               sweep=True, matvec=True):
-    if r.is_cuda:
-        from su2_tpu_torch import kernels
-        return kernels.stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t,
-                                          colors, r, offsets, ncolor, sweep,
-                                          matvec)
-    return sgs_matvec_plain(selp_t, selm_t, dinv_t, diag_t, colors, r,
-                            offsets, ncolor, sweep, matvec)
-
-
 def fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor, m,
            tol):
     if b.is_cuda:
@@ -249,41 +259,62 @@ class StencilSolveOps:
     blocks (preconditioner quality only), the matvec the full-precision
     ones.  The blocks the object holds decide the tier: the reference's
     precond_matvec_mixed and fgmres_mixed are precond_matvec and fgmres of
-    an object built with sel_dtype=bf16."""
+    an object built with sel_dtype=bf16.  one_launch: the solve is one K6
+    launch (fgmres), which reads the natural layout; otherwise, on the
+    card, K5's node order is made once here, and in the mixed tier the
+    sweep blocks and dinv are held in its color-major lane layout (the
+    bf16 copy takes the permutation; at full precision the sweep reads the
+    matvec's blocks where they lie, so no second copy is kept)."""
 
     def __init__(self, mesh, sel_t, dinv, diag, colors, ncolor: int,
-                 sel_dtype=None):
+                 sel_dtype=None, one_launch=False):
         n, v = dinv.shape[0], dinv.shape[-1]
         tt = lambda blk: blk.permute(1, 2, 0).reshape(v * v, n)
         self._set(mesh.stencil_offsets, sel_t, tt(dinv), tt(diag), colors,
-                  ncolor, sel_dtype)
+                  ncolor, sel_dtype, one_launch)
 
     @classmethod
     def from_lanes(cls, offsets, sel_t, dinv_t, diag_t, colors,
-                   ncolor: int, sel_dtype=None):
+                   ncolor: int, sel_dtype=None, one_launch=False):
         """The operators of blocks already in the lane layout: dinv_t and
         diag_t (v*v, N), as the fused SST assembly emits them."""
         ops = cls.__new__(cls)
-        ops._set(offsets, sel_t, dinv_t, diag_t, colors, ncolor, sel_dtype)
+        ops._set(offsets, sel_t, dinv_t, diag_t, colors, ncolor, sel_dtype,
+                 one_launch)
         return ops
 
     def _set(self, offsets, sel_t, dinv_t, diag_t, colors, ncolor,
-             sel_dtype):
+             sel_dtype, one_launch):
         self.offsets = tuple(int(o) for o in offsets)
         self.colors, self.ncolor = colors, int(ncolor)
         # matvec blocks at full precision; sweep blocks rounded in the
         # mixed tier (the reference keeps the f32 blocks only where its
         # per-iteration kernel fits VMEM; the (z, A z) kernel takes any size)
         self.selm_t = sel_t.contiguous()
-        self.sel_t = self.selm_t if sel_dtype in (None, sel_t.dtype) \
-            else self.selm_t.to(sel_dtype)
-        self.dinv_t = dinv_t.contiguous()
         self.diag_t = diag_t.contiguous()
+        sel_dtype = sel_t.dtype if sel_dtype is None else sel_dtype
+        self.order = None
+        if self.selm_t.is_cuda and not one_launch:
+            self.order = color_order(colors)
+        self.color_major = self.order is not None and sel_dtype != sel_t.dtype
+        if self.color_major:
+            self.sel_t, self.dinv_t = to_color_major(
+                self.order, self.selm_t, dinv_t, sel_dtype)
+        else:
+            self.sel_t = self.selm_t if sel_dtype == sel_t.dtype \
+                else self.selm_t.to(sel_dtype)
+            self.dinv_t = dinv_t.contiguous()
 
     def _sgs(self, r, sweep=True, matvec=True):
-        return sgs_matvec(self.sel_t, self.selm_t, self.dinv_t, self.diag_t,
-                          self.colors, r, self.offsets, self.ncolor, sweep,
-                          matvec)
+        """K5 on a CUDA tensor (over this object's node order and layout),
+        the plain version on a CPU tensor."""
+        args = (self.sel_t, self.selm_t, self.dinv_t, self.diag_t,
+                self.colors, r, self.offsets, self.ncolor, sweep, matvec)
+        if r.is_cuda:
+            from su2_tpu_torch import kernels
+            return kernels.stencil_sgs_matvec(*args, self.order,
+                                              self.color_major)
+        return sgs_matvec_plain(*args)
 
     def precond_matvec(self, r):
         """(z, A z) with z = the symmetric multicolor SGS sweep of r."""
@@ -298,6 +329,9 @@ class StencilSolveOps:
     def fgmres(self, b, max_iter: int, tol: float):
         """A whole FGMRES cycle as one launch; the (x, rel, iters) contract
         of krylov.fgmres."""
+        if self.color_major:
+            raise ValueError("StencilSolveOps.fgmres: the operators were "
+                             "laid out for K5 (one_launch=False)")
         return fgmres(self.sel_t, self.selm_t, self.dinv_t, self.diag_t,
                       self.colors, b, self.offsets, self.ncolor,
                       int(max_iter), float(tol))

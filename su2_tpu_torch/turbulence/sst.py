@@ -423,7 +423,7 @@ def _sst_step_fused(lay, mesh, scfg, bcs, q, v, mu, mu_t_node, strain_mag,
                                               scfg.ncolor, m)
     ops = sts.StencilSolveOps.from_lanes(mesh.stencil_offsets, sel_t, dinv_t,
                                          diag_t, scfg.colors, scfg.ncolor,
-                                         sel_dtype)
+                                         sel_dtype, one_launch=one)
     if one:
         sol, _, _ = ops.fgmres(rhs, m, scfg.linear_tol)
     else:

@@ -449,6 +449,120 @@ def test_k5_kernel_matches_plain(card, system, variant, mode):
                                    atol=afrac * np.abs(w).max())
 
 
+def _k5_check(args, r, variant, mode="sgs_matvec", **layout):
+    """K5 through the wrapper (with the layout given, if any) against the
+    plain natural-layout version at test_k5_kernel_matches_plain's pins."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    sweep, matvec = mode != "matvec", mode != "sgs"
+    got = kernels.stencil_sgs_matvec(**dict(args, **layout), r=r,
+                                     sweep=sweep, matvec=matvec)
+    want = ts.sgs_matvec_plain(**args, r=r, sweep=sweep, matvec=matvec)
+    rtol, afrac = (1e-11, 1e-13) if variant == "float64" else (1e-5, 1e-6)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        w = th.npy(w)
+        np.testing.assert_allclose(th.npy(g), w, rtol=rtol,
+                                   atol=afrac * np.abs(w).max())
+
+
+def _cm_layout(args):
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    order = ts.color_order(args["colors"])
+    selp, dinv = ts.to_color_major(order, args["selm_t"], args["dinv_t"],
+                                args["selp_t"].dtype)
+    return order, dict(selp_t=selp, dinv_t=dinv, order=order,
+                       color_major=True)
+
+
+K5_COLORINGS = [(c, v, var) for c in th.COLORINGS for v in (2, 3, 7, 13)
+                for var in VARIANTS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coloring,v,variant", K5_COLORINGS,
+                         ids=[f"{c}-v{v}-{var}"
+                              for c, v, var in K5_COLORINGS])
+def test_k5_colorings(card, coloring, v, variant):
+    """K5's passes over the color-major node list on proper colorings with
+    2, 3 and 4 colors and on masks that are not a proper coloring (the
+    two-buffer rule decides the numbers), at every compiled width: the
+    sweep blocks and dinv in the color-major lane layout and in the
+    natural one (and the node list made by the wrapper), sweep + matvec
+    and sweep only, against the plain version."""
+    offsets, nc = th.COLORINGS[coloring]
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    args, r = th.stencil_args(th.band_system(2000, v, offsets, nc, seed=5),
+                              dtype, mixed=variant == "mixed", device=card)
+    order, cm = _cm_layout(args)
+    for mode in ("sgs_matvec", "sgs"):
+        _k5_check(args, r, variant, mode, **cm)
+        _k5_check(args, r, variant, mode, order=order)
+        _k5_check(args, r, variant, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("n", [2037, 37])
+def test_k5_ragged_n_and_empty_color(card, n, variant):
+    """n not a multiple of the 256-thread block (and smaller than one),
+    and a color with no node (colors 0, 2, 3 of 4), v = 13, both
+    layouts."""
+    offsets, _ = th.COLORINGS["proper4"]
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    s = th.recolor(th.band_system(n, 13, offsets, 4, seed=6),
+                   np.array([(0, 2, 3)[p % 3] for p in range(n)]), 4)
+    args, r = th.stencil_args(s, dtype, mixed=variant == "mixed",
+                              device=card)
+    assert int((args["colors"] == 1).sum()) == 0
+    order, cm = _cm_layout(args)
+    _k5_check(args, r, variant, **cm)
+    _k5_check(args, r, variant, order=order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sel_dtype", [torch.bfloat16, None],
+                         ids=["mixed", "f32"])
+def test_stencil_solve_ops_layout_on_card(card, sel_dtype):
+    """On the card StencilSolveOps makes K5's node order once; in the mixed
+    tier it holds the bf16 sweep blocks and dinv color-major (and refuses
+    the one-launch K6 cycle, which reads the natural layout), at full
+    precision the natural blocks; one_launch keeps the natural layout.
+    precond_matvec equals the plain version on the natural blocks."""
+    from types import SimpleNamespace
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    args, r = th.stencil_args(th.band_system(2000, 7, (-9, -1, 1, 9), 2),
+                              torch.float32, mixed=sel_dtype is not None,
+                              device=card)
+    n = r.shape[0]
+    mesh = SimpleNamespace(stencil_offsets=args["offsets"])
+    blk = lambda t: t.T.reshape(n, 7, 7)
+    ops = ts.StencilSolveOps(mesh, args["selm_t"], blk(args["dinv_t"]),
+                             blk(args["diag_t"]), args["colors"],
+                             args["ncolor"], sel_dtype=sel_dtype)
+    assert ops.order.dtype == torch.int32
+    assert ops.color_major == (sel_dtype is not None)
+    kernels.reset_launches()
+    got = ops.precond_matvec(r)
+    assert kernels.launches["stencil_sgs_matvec"] == 1
+    want = ts.sgs_matvec_plain(**args, r=r)
+    for g, w in zip(got, want):
+        w = th.npy(w)
+        np.testing.assert_allclose(th.npy(g), w, rtol=1e-5,
+                                   atol=1e-6 * np.abs(w).max())
+    if ops.color_major:
+        with pytest.raises(ValueError):
+            ops.fgmres(r, 10, 1e-6)
+    one = ts.StencilSolveOps(mesh, args["selm_t"], blk(args["dinv_t"]),
+                             blk(args["diag_t"]), args["colors"],
+                             args["ncolor"], sel_dtype=sel_dtype,
+                             one_launch=True)
+    assert one.order is None and not one.color_major
+
+
 K6_CASES = [(v, r) for v in VARIANTS for r in ("random", "tight", "scaled")
             ] + [("float64", "zero")]
 
@@ -802,6 +916,55 @@ def test_t3_k8_k13_share_edge_side_bitwise(card, tmp_path):
         mesh.coords)
     assert torch.equal(f13, flux[ks, :, ps].T)
     assert torch.equal(lc13, lc[ks, ps]) and torch.equal(lv13, lv[ks, ps])
+
+
+SHAPES = [(nd, ns, dt) for nd, ns in ((2, 9), (2, 3), (3, 9), (3, 3))
+          for dt in ("float64", "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,ns,dtype", SHAPES,
+                         ids=[f"{nd}d-{ns}-{dt}" for nd, ns, dt in SHAPES])
+def test_edge_kernels_every_compiled_shape(card, tmp_path, nd, ns, dtype):
+    """T3, K8 and K13 at every (dimension, species count) shape they are
+    compiled for (kernels.EDGE_SHAPES), on torch_helpers.
+    edge_shape_inputs: each against its plain version, every output row
+    within 1e-10 (f64) or 1e-4 (f32) of its max; K8 the roll-subtract of
+    T3's outputs bit for bit; K13 over the family slots' edges."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_flux as ef
+    assert (nd, ns) in kernels.EDGE_SHAPES
+    dt = getattr(torch, dtype)
+    mesh, head = th.edge_shape_inputs(nd, ns, tmp_path, dt, card)
+    n = mesh.npoint
+    fam = (mesh.fam_offsets, mesh.fam_normal, mesh.fam_evec)
+    valid = (mesh.fam_normal != 0).any(-1)
+    ks, ps = torch.nonzero(valid, as_tuple=True)
+    offs = torch.tensor(mesh.fam_offsets, device=card)
+    edges = torch.stack([ps, (ps + offs[ks]) % n], dim=1).contiguous()
+    lst = (edges, mesh.fam_normal[ks, ps].contiguous(), mesh.coords)
+    afrac = 1e-10 if dt == torch.float64 else 1e-4
+    kernels.reset_launches()
+    t3 = kernels.edge_flux(*head, *fam)
+    for got, want in ((t3, ef.edge_flux_plain(*head, *fam)),
+                      (kernels.edge_win(*head, *fam),
+                       ef.edge_win_plain(*head, *fam)),
+                      (kernels.edge_list_flux(*head, *lst),
+                       ef.edge_list_flux_plain(*head, *lst))):
+        for g, w in zip(got, want):
+            g = th.npy(g).astype(np.float64)
+            w = th.npy(w).astype(np.float64)
+            assert np.isfinite(g).all()
+            rows = w.shape[-1]
+            g, w = g.reshape(-1, rows), w.reshape(-1, rows)
+            assert (np.abs(g - w)
+                    <= afrac * np.abs(w).max(1, keepdims=True)).all()
+    assert {k: kernels.launches[k] for k in
+            ("edge_flux", "edge_win", "edge_list_flux")} == dict(
+                edge_flux=1, edge_win=1, edge_list_flux=1)
+    win = kernels.edge_win(*head, *fam)
+    for g, w in zip(win, ef.roll_subtract(mesh.fam_offsets, *t3)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

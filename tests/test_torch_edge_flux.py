@@ -177,3 +177,35 @@ def test_add_rows_sums_in_batch_order():
     want1 = x.copy()
     np.add.at(want1, nodes[:5], vals[:5])
     assert np.array_equal(th.npy(one), want1)
+
+
+@pytest.mark.parametrize("name", ["edge_flux", "edge_win", "edge_list_flux"])
+@pytest.mark.parametrize("nd,ns", [(2, 5), (3, 16), (2, 1)],
+                         ids=["2d-5", "3d-16", "2d-1"])
+def test_edge_kernels_refuse_other_shapes(name, nd, ns):
+    """T3, K8 and K13 are compiled for the (dimension, species count)
+    shapes of kernels.EDGE_SHAPES only: another shape raises a ValueError
+    that names it and the compiled ones, before anything is launched."""
+    from types import SimpleNamespace
+    from su2_tpu_torch import kernels
+    lay = SimpleNamespace(ndim=nd, ns=ns)
+    with pytest.raises(ValueError, match=rf"{name}: {nd}D with {ns} species"
+                       r".*\(2, 9\), \(2, 3\), \(3, 9\), \(3, 3\)"):
+        getattr(kernels, name)(None, lay, None, None, None, None, None, None)
+
+
+def test_edge_shapes_match_the_compiled_instances():
+    """kernels.EDGE_SHAPES lists the shapes SU2K_EDGE_BY_SHAPE instantiates
+    in csrc/edge_side.cuh, and every one of them passes the check."""
+    import os
+    import re
+    from types import SimpleNamespace
+    from su2_tpu_torch import kernels
+    with open(os.path.join(kernels.CSRC, "edge_side.cuh")) as fh:
+        line = re.search(r"#define SU2K_EDGE_BY_SHAPE\(X\)(.*)", fh.read())
+    compiled = tuple((int(a), int(b)) for a, b in
+                     re.findall(r"X\((\d+), (\d+)\)", line.group(1)))
+    assert compiled == kernels.EDGE_SHAPES
+    for nd, ns in compiled:
+        kernels._check_edge_shape("edge_flux", SimpleNamespace(ndim=nd,
+                                                               ns=ns))

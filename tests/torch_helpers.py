@@ -240,11 +240,29 @@ def band_system(n, v, offsets, ncolor, seed=0):
                 diag_t=lanes(diag), masks_t=masks, r_t=r)
 
 
+def recolor(s, colors, ncolor):
+    """The band/quad system dict s with the node colors (n,) int array
+    (ncolor of them; a color may have no node) in place of its masks."""
+    npad = s["masks_t"].shape[1]
+    c = np.full(npad, -1)
+    c[:s["n"]] = colors
+    return dict(s, ncolor=ncolor, masks_t=np.stack(
+        [c == k for k in range(ncolor)]).astype(np.float64))
+
+
+# Band systems (width, offsets, colors p mod ncolor) whose colors are a
+# proper coloring (no offset a multiple of ncolor) with 2, 3 and 4 colors,
+# and one that is not (offsets +-8 with 4 colors)
+COLORINGS = {"proper2": ((-9, -1, 1, 9), 2), "proper3": ((-4, -1, 1, 4), 3),
+             "proper4": ((-9, -1, 1, 9), 4),
+             "roundrobin4": ((-8, -1, 1, 8), 4)}
+
+
 def stencil_args(s, dtype, mixed=False, device="cpu"):
     """The port's operands of a band/quad system dict: unpadded, blocks
     lane-major, r node-major, int8 colors from the masks (which partition
     the nodes); mixed rounds the sweep blocks to bf16.  Returns (kwargs of
-    sgs_matvec / fgmres, r)."""
+    sgs_matvec_plain / fgmres, r)."""
     n = s["n"]
     cut = lambda x: tt(x[..., :n], dtype).to(device).contiguous()
     sel = cut(s["sel_t"])
@@ -255,3 +273,85 @@ def stencil_args(s, dtype, mixed=False, device="cpu"):
                 dinv_t=cut(s["dinv_t"]), diag_t=cut(s["diag_t"]),
                 colors=colors, offsets=s["offsets"],
                 ncolor=s["ncolor"]), cut(s["r_t"]).T.contiguous()
+
+
+def color_major_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, order, r,
+                           offsets, ncolor, matvec=True):
+    """The tests' model of K5's sweep over the color-major lane layout
+    (stencil_solve.color_order / to_color_major): each pass runs over the
+    lanes of its color only, lane i updating node order[i] from its own
+    blocks selp_t[:, i], dinv_t[:, i] and the previous pass's z at
+    order[i] + o_k; the other nodes keep their z.  The block products are
+    the plain version's (_bapply); w as sgs_matvec_plain's."""
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    n, v = r.shape
+    vv, idx = v * v, order.long()
+    z = torch.zeros_like(r)
+    for c in list(range(ncolor)) + list(range(ncolor - 2, -1, -1)):
+        lanes = torch.nonzero(colors[idx] == c).flatten()
+        p = idx[lanes]
+        od = 0
+        for k, off in enumerate(offsets):
+            od = od + ts._bapply(selp_t[k * vv:(k + 1) * vv, lanes],
+                                 z[(p + int(off)) % n], v)
+        z = z.clone()
+        z[p] = ts._bapply(dinv_t[:, lanes], r[p] - od, v)
+    w = None
+    if matvec:
+        w = ts._bapply(diag_t, z, v) + ts.offdiag_plain(selm_t, z, offsets, v)
+    return z, w
+
+
+def edge_shape_inputs(nd, ns, directory, dtype=torch.float64, device="cpu",
+                      seed=8):
+    """(mesh, (lib, lay, species consts, consts, f_all)): the explicit edge
+    kernels' inputs at the (dimension, species count) shape: the case's
+    9-species library cut to its first ns species, on channel_mesh(9, 7)
+    (63 nodes) or box_mesh(6, 5, 4) (120 nodes), a random reacting state
+    (numpy seed) through the plain node state, random gradients."""
+    import dataclasses
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.chemistry import library as cl
+    from su2_tpu_torch.geometry.dual_grid import build_dual_grid
+    from su2_tpu_torch.geometry.mesh_data import mesh_arrays
+    from su2_tpu_torch.geometry.structured import box_mesh, channel_mesh
+    from su2_tpu_torch.ops import edge_flux as ef, viscous as vis
+    full = cl.load_library(cases.write_library(str(directory)), None, dtype)
+    kw = {f.name: getattr(full, f.name) for f in dataclasses.fields(full)}
+    for k in ("mm", "ri", "diff_vol", "h_form", "cp_y", "cp_y2", "h_y",
+              "h_y2", "s_y", "s_y2", "mu_y", "mu_y2", "ka_y", "ka_y2",
+              "stoich_r", "stoich_p"):
+        kw[k] = kw[k][:ns]
+    for k in ("exp_f", "exp_b"):
+        kw[k] = kw[k][:, :ns]
+    kw.update(nspecies=ns, species=full.species[:ns])
+    lib = type(full)(**kw).to(device)
+    raw = channel_mesh(9, 7) if nd == 2 else box_mesh(6, 5, 4)
+    mesh = mesh_arrays(build_dual_grid(raw), dtype, device)
+    lay, n = st.Layout(nd, ns), mesh.npoint
+    dev = lambda a: tt(a, dtype).to(device)
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(500.0, 2500.0, n)
+    p = rng.uniform(0.9e5, 1.2e5, n)
+    vel = rng.normal(0.0, 20.0, (n, nd))
+    ys = rng.dirichlet(np.ones(ns), n)
+    h = npy(cl.mixture_enthalpy_plain(lib, dev(t), dev(ys)))
+    rgas = npy(cl.mixture_rgas(lib, dev(ys)))
+    rho = p / (rgas * t)
+    e = h - rgas * t + 0.5 * (vel * vel).sum(1)
+    u = np.concatenate([rho[:, None], rho[:, None] * vel, (rho * e)[:, None],
+                        rho[:, None] * ys], axis=1)
+    nsd = st.node_state_plain(lib, lay, dev(u), dev(t * 1.01),
+                              st.TSolveParams(tmin=200.0, tmax=5000.0))
+    scale = np.r_[100.0, [10.0] * nd, 1e3, [1.0] * ns]
+    grad = dev(rng.normal(0.0, 1.0, (n, 2 + nd + ns, nd))
+               * scale[None, :, None])
+    turb = vis.TurbFlowData(tke=dev(rng.uniform(0.0, 5.0, n)),
+                            mu_t=dev(rng.uniform(1e-5, 1e-3, n)),
+                            grad_tke=dev(rng.normal(0.0, 1.0, (n, nd))),
+                            sigma_k=dev(rng.uniform(0.85, 1.0, n)))
+    f_all = ef.stack_inputs(lay, nsd.v, grad,
+                            vis.Transport(nsd.mu, nsd.kappa), turb,
+                            turb.sigma_k, nsd.dpdu[:, lay.RHOE])
+    return mesh, (lib, lay, ef.species_consts_of(lib), (0.1, 0.72, 0.9, 1.0),
+                  f_all)
