@@ -19,9 +19,10 @@ Phases (one line each; any failure exits nonzero):
              K5 at 142,317) and on band systems (v = 2, 3, 7) with
              round-robin (not proper) colorings; at 565,500 nodes K5 in
              the main path's mixed tier on the SST and the flow systems
-             (and its matvec in float32); K5 reads the layout
+             (and its matvec in float32); K5 and K6 read the layout
              StencilSolveOps makes (color-major bf16 sweep blocks in the
-             mixed tier); times, bounds, K6's cooperative grid,
+             mixed tier; K6 over the node order at v = 7, 13); times,
+             bounds, K6's cooperative grid,
              torch.sparse.mm on the matvec as BSR (or what it raised)
   5 step     5 coupled iterations of the 9,072-node case in float64 on the
              card (kernels, K6 for the SST solve) and on the CPU (plain
@@ -52,7 +53,8 @@ Phases (one line each; any failure exits nonzero):
              (K6 twice per iteration: the flow's mixed one-launch tier and
              the SST's, K5 never), 142,317 x 10 and 565,500 x 3 (K5 twenty
              times per iteration, K6 never)
-  K10 phase  (between 4 and 5) K10 against its plain version at 9,072 nodes
+  K10 phase  (between 4 and 5) K10 (compiled for 9 and 3 species) against
+             its plain version at 9,072 nodes
              in float64 and float32 for the four (MUSCL, limiter) variants
              and at 142,317 and 565,500 nodes in float32 (the latter's
              stack from K7's gradient rows, as the tier's ns_assemble builds
@@ -90,6 +92,13 @@ Phases (one line each; any failure exits nonzero):
              iterations of the explicit LU_SGS step on the 9,072-node
              triangle channel card vs CPU (K13 once per iteration, the SST
              solve in torch gather ops: K5/K6 never)
+  shapes     (after K13) T3, K8 and K13 at the (dimension, species)
+             shapes (2, 5), (2, 1) and (3, 16), K10 at 5 and 3 species and
+             K11 at 3 and 5 species (every shape outside the compiled
+             lists runs a kernel's run-time-count instance) against their
+             plain versions on cases.shape_inputs (9,072-node channel and
+             box), float64 and float32, per output row at the compiled
+             shapes' tolerances, with float32 times
   tri        (at the end of 6) Simulation.run on the triangle channel in
              float32: 9,072 x 50 and 142,317 x 20 with LU_SGS and with
              JACOBI, each timed and profiled (K13 once per iteration; T3,
@@ -100,18 +109,23 @@ The line before the last is the JSON kernel report; the last line is
 
 Run from the repository root:  python3 chip_smoke.py
 
-    python3 chip_smoke.py --time-k5-k8 [--root DIR]
+    python3 chip_smoke.py --time-kernels [--root DIR]
 
-times K5 and K8 of the su2_tpu_torch in DIR (default: this checkout; another
-checkout, such as a parent commit unpacked with git archive, for an A/B
-comparison run in the order A B B A on one card) and prints, after the
-card's line, the SASS instructions and local loads (LDL) and stores (STL)
-of each kernel of the edge sources, then one JSON line: K5 as the Krylov
-loop calls it (StencilSolveOps.precond_matvec in the tier solve_tier
-picks) on the systems of the third coupled step, the implicit LU_SGS
-case's flow system (v = 13) and the explicit case's SST system (v = 2), at
-142,317 and 565,500 nodes; K8 and T3 + the roll-subtract at 565,500 nodes
-on kernel_inputs' state; float32, cuda_time's median ms.
+times K5, K6, K8 and K10 of the su2_tpu_torch in DIR (default: this
+checkout; another checkout, such as a parent commit unpacked with git
+archive, for an A/B comparison run in the order A B B A on one card) and
+prints, after the card's line, the SASS instructions and local loads (LDL)
+and stores (STL) of each kernel of SASS_SOURCES, then one JSON line: K5
+as the Krylov loop calls it (StencilSolveOps.precond_matvec in the tier
+solve_tier picks) on the systems of the third coupled step, the implicit
+LU_SGS case's flow system (v = 13) and the explicit case's SST system
+(v = 2), at 142,317 and 565,500 nodes; K6 as a one-launch solve calls it
+(StencilSolveOps.fgmres, one FGMRES(10) cycle at tol 1e-6) on those
+systems at 9,072 nodes: the flow's in the mixed tier (bf16 sweep blocks)
+and at full precision, the SST's in its tier; K10
+(kernels.edge_implicit, MUSCL + Venkatakrishnan, both families) at 9,072
+and 565,500 nodes on k10_inputs' state; K8 and T3 + the roll-subtract at
+565,500 nodes on kernel_inputs' state; float32, cuda_time's median ms.
 """
 
 from __future__ import annotations
@@ -668,19 +682,18 @@ def k10_rows_read(lay, muscl, limiter):
     return rows
 
 
-def implicit_kernel_phase(sim, dtype_name, report, variants):
-    """K10 against its plain version at the shapes of the implicit case sim
-    (its mesh and library converted to the dtype) on a random reacting
-    state: per output row of every family, the pad slots exactly 0.  In
-    the >= 200k-node tier the stack's gradients are K7's rows, as
-    ns_assemble builds it."""
+def k10_inputs(sim, dtype):
+    """K10's inputs at the shapes of the implicit case sim (its mesh and
+    library converted to dtype) on a random reacting state (kernel_inputs):
+    (mesh, lib, species consts, whether the stack's gradients are K7's
+    rows, args_of) with args_of(variant name) kernels.edge_implicit's
+    arguments for that (MUSCL, limiter) variant.  In the >= 200k-node tier
+    the stack's gradients are K7's rows, as ns_assemble builds it."""
     from types import SimpleNamespace
-    import torch
-    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch import state as st
     from su2_tpu_torch.ops import edge_flux as ef, edge_implicit as ei
     from su2_tpu_torch.ops import gradients, limiters, viscous as vis
     from su2_tpu_torch.solvers import euler as es
-    dtype = getattr(torch, dtype_name)
     mesh, lib = sim.mesh.to(dtype=dtype), sim.lib.to(dtype=dtype)
     lay, prm = sim.lay, sim.params
     x = kernel_inputs(SimpleNamespace(lib=lib, lay=lay, mesh=mesh,
@@ -706,6 +719,28 @@ def implicit_kernel_phase(sim, dtype_name, report, variants):
                             grad_tke=x["grad_tke"], sigma_k=x["sigma_k"])
     trans = vis.Transport(nsd.mu, nsd.kappa)
     sc = ef.species_consts_of(lib)
+
+    def args_of(name):
+        muscl, limiter = IMPLICIT_VARIANTS[name]
+        f_all = ei.stack_inputs(lay, v, grad, lims.get(limiter), trans,
+                                turb, x["sigma_k"], nsd.dtdu, nsd.dpdu,
+                                grad_rows=grad_rows)
+        return (lib, lay, sc, (prm.m_infty, prm.prandtl_turb,
+                               prm.lewis_turb), f_all, mesh.fam_offsets,
+                mesh.fam_normal, mesh.fam_evec, muscl, limiter is not None)
+    return mesh, lib, sc, grad is None, args_of
+
+
+def implicit_kernel_phase(sim, dtype_name, report, variants):
+    """K10 against its plain version at the shapes of the implicit case sim
+    (k10_inputs): per output row of every family, the pad slots exactly
+    0."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_implicit as ei
+    dtype = getattr(torch, dtype_name)
+    mesh, lib, sc, from_rows, args_of = k10_inputs(sim, dtype)
+    lay = sim.lay
     n, kh = mesh.npoint, len(mesh.fam_offsets)
     nvar, ns = lay.nvar, lay.ns
     pad = (mesh.fam_normal == 0).all(-1)                  # (Kh, N)
@@ -717,12 +752,8 @@ def implicit_kernel_phase(sim, dtype_name, report, variants):
                       + 64 * ns * ns)
     for name in variants:
         muscl, limiter = IMPLICIT_VARIANTS[name]
-        f_all = ei.stack_inputs(lay, v, grad, lims.get(limiter), trans,
-                                turb, x["sigma_k"], nsd.dtdu, nsd.dpdu,
-                                grad_rows=grad_rows)
-        args = (lib, lay, sc, (prm.m_infty, prm.prandtl_turb,
-                               prm.lewis_turb), f_all, mesh.fam_offsets,
-                mesh.fam_normal, mesh.fam_evec, muscl, limiter is not None)
+        args = args_of(name)
+        f_all = args[4]
         rows = lambda out: [t.flatten(0, 1) for t in out]
         kfn = lambda: rows(kernels.edge_implicit(*args))
         pfn = lambda: rows(ei.edge_implicit_plain(*args))
@@ -746,7 +777,7 @@ def implicit_kernel_phase(sim, dtype_name, report, variants):
               f"({scaled:.2e} of its row's max) kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}); "
               f"one launch for {kh} families, pad slots exactly 0"
-              + ("; the stack's gradients from K7's rows" if grad is None
+              + ("; the stack's gradients from K7's rows" if from_rows
                  else ""))
         report.setdefault("edge_implicit", {})[key] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
@@ -926,6 +957,125 @@ def k13_phase(sim, dtype_name, report):
         bound_by=bound[1], library_ms=None)
 
 
+# the shapes of the shape phase outside the kernels' compiled lists: T3,
+# K8 and K13 ((dimension, species)), K10 and K11 (species counts, 2D), on
+# 9,072-node meshes (channel_mesh(189, 48), box_mesh(24, 21, 18))
+OTHER_EDGE_SHAPES = ((2, 5), (2, 1), (3, 16))
+OTHER_K10_SPECIES = (5, 3)
+OTHER_K11_SPECIES = (3, 5)
+
+
+def shape_phase(tmp, report):
+    """T3, K8 and K13 at OTHER_EDGE_SHAPES, K10 at OTHER_K10_SPECIES (5
+    runs its run-time-count instance; 3, the flat plate's air, is
+    compiled but off the main path) and K11 at OTHER_K11_SPECIES (its
+    run-time-count instance), in float64 and float32, on
+    cases.shape_inputs (the case's library cut to the species count, a
+    random reacting state) against their plain versions at the compiled
+    shapes' per-row tolerances; K8 the roll-subtract of T3's outputs bit
+    for bit, K13 over the family slots' edges; pad slots exactly 0 (K10,
+    K11); float32 times beside the plain versions'."""
+    import torch
+    from su2_tpu_torch import cases, kernels
+    from su2_tpu_torch.geometry.structured import box_mesh, channel_mesh
+    from su2_tpu_torch.ops import ausm_t, edge_flux as ef
+    from su2_tpu_torch.ops import edge_implicit as ei
+    meshes = {2: channel_mesh(*SIZES["flagship"]), 3: box_mesh(24, 21, 18)}
+    libdir = os.path.join(tmp, "shapes")
+
+    def check(name, key, dt, kfn, pfn, rows):
+        got, want = rows(kfn()), rows(pfn())
+        torch.cuda.synchronize()
+        err, scaled = compare(name, dt, got, want, per_row=True)
+        rec = dict(max_abs_err=err)
+        if dt == "float32":
+            rec.update(ms=cuda_time(kfn), plain_ms=cuda_time(pfn, reps=5))
+        report.setdefault(name, {})[f"shape {key} {dt}"] = rec
+        times = (f"; kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} "
+                 "ms") if "ms" in rec else ""
+        phase("shapes", f"{name} {key} {dt}: max_abs_err {err:.3e} "
+              f"({scaled:.2e} of its row's max){times}")
+        return got
+
+    for dt in ("float64", "float32"):
+        dtype = getattr(torch, dt)
+        for nd, ns in OTHER_EDGE_SHAPES:
+            x = cases.shape_inputs(nd, ns, libdir, dtype, "cuda",
+                                   raw_mesh=meshes[nd])
+            mesh, head, lay = x["mesh"], x["explicit"], x["lay"]
+            if kernels._check_edge_shape("edge_flux", lay):
+                raise AssertionError(f"({nd}, {ns}) is a compiled shape")
+            n = mesh.npoint
+            fam = (mesh.fam_offsets, mesh.fam_normal, mesh.fam_evec)
+            ks, ps = torch.nonzero((mesh.fam_normal != 0).any(-1),
+                                   as_tuple=True)
+            offs = torch.tensor(mesh.fam_offsets, device="cuda")
+            edges = torch.stack([ps, (ps + offs[ks]) % n], 1).contiguous()
+            lst = (edges, mesh.fam_normal[ks, ps].contiguous(), mesh.coords)
+            key = f"({nd}, {ns}) {n}"
+            slots = lambda o: [o[0].flatten(0, 1), o[1], o[2]]
+            nodes = lambda o: [o[0], o[1][None], o[2][None]]
+            t3 = check("edge_flux", key, dt,
+                       lambda: kernels.edge_flux(*head, *fam),
+                       lambda: ef.edge_flux_plain(*head, *fam), slots)
+            check("edge_win", key, dt, lambda: kernels.edge_win(*head, *fam),
+                  lambda: ef.edge_win_plain(*head, *fam), nodes)
+            check("edge_list_flux", key, dt,
+                  lambda: kernels.edge_list_flux(*head, *lst),
+                  lambda: ef.edge_list_flux_plain(*head, *lst), nodes)
+            flux = t3[0].reshape(len(fam[0]), lay.nvar, n)
+            win = kernels.edge_win(*head, *fam)
+            for g, w in zip(win, ef.roll_subtract(fam[0], flux, t3[1],
+                                                  t3[2])):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K8 {key} {dt}: not T3's "
+                                         "roll-subtract bit for bit")
+            del x, head, t3, win
+        for ns in OTHER_K10_SPECIES:
+            x = cases.shape_inputs(2, ns, libdir, dtype, "cuda",
+                                   raw_mesh=meshes[2])
+            mesh = x["mesh"]
+            args = x["implicit"] + (mesh.fam_offsets, mesh.fam_normal,
+                                    mesh.fam_evec, True, True)
+            got = check("edge_implicit", f"{ns} species {mesh.npoint}", dt,
+                        lambda: kernels.edge_implicit(*args),
+                        lambda: ei.edge_implicit_plain(*args),
+                        lambda o: [t.flatten(0, 1) for t in o])
+            pad = (mesh.fam_normal == 0).all(-1)
+            kh = len(mesh.fam_offsets)
+            for t in got:
+                if not bool((t.reshape(kh, -1, mesh.npoint).permute(
+                        1, 0, 2)[:, pad] == 0).all()):
+                    raise AssertionError(f"K10 {ns} species {dt}: nonzero "
+                                         "output on a pad slot")
+            del x, args, got
+        for ns in OTHER_K11_SPECIES:
+            x = cases.shape_inputs(2, ns, libdir, dtype, "cuda",
+                                   raw_mesh=meshes[2])
+            lay, ins = x["lay"], x["faces"]
+            m_inf = 0.1
+            ne, nv = ins[0].shape[1], lay.nvar
+            rows = lambda o: [o[0], o[1].reshape(nv * nv, ne),
+                              o[2].reshape(nv * nv, ne)]
+            pfn = lambda: ausm_t.ausm_flux_t(lay, *ins[:3], m_inf, *ins[3:])
+            ins_e = [t.T.contiguous() for t in ins]
+            for layout, kfn in (
+                    ("feature-major", lambda: kernels.ausm_flux_jac(
+                        lay, *ins[:3], m_inf, *ins[3:])),
+                    ("edge-major", lambda: (lambda o: (
+                        o[0].T, o[1].permute(1, 2, 0), o[2].permute(
+                            1, 2, 0)))(kernels.ausm_flux_jac(
+                                lay, *ins_e[:3], m_inf, *ins_e[3:],
+                                edge_major=True)))):
+                got = check("ausm_flux_jac", f"{ns} species {ne} slots "
+                            f"{layout}", dt, kfn, pfn, rows)
+                pad = ~x["mesh"].fam_valid_flat
+                if not all(bool((t[:, pad] == 0).all()) for t in got):
+                    raise AssertionError(f"K11 {ns} species {layout} {dt}: "
+                                         "nonzero output on a pad slot")
+            del x, ins, ins_e
+
+
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -979,22 +1129,23 @@ def capture_systems(sim, steps=3):
 
 
 def system_operands(sim, rec, variant):
-    """K5/K6 operands of a captured system in the natural lane layout (K6
-    and the plain versions read it), laid out by the port's own
-    StencilSolveOps for a one-launch solve: (kwargs, unit right side,
-    right side).  k5_layout gives K5's."""
+    """K5/K6 operands of a captured system in the natural lane layout (the
+    plain versions read it; the mixed tier's sweep blocks rounded to
+    bf16): (kwargs, unit right side, right side).  solve_layout gives
+    the layouts the solve path hands the kernels."""
     import torch
-    from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
+    from su2_tpu_torch.linalg import blockcsr
     dtype = torch.float64 if variant == "float64" else torch.float32
-    diag, sel_t = rec["diag"].to(dtype), rec["sel_t"].to(dtype)
-    ops = ts.StencilSolveOps(
-        sim.mesh, sel_t, blockcsr.block_diag_inv(diag), diag, rec["colors"],
-        rec["ncolor"], sel_dtype=torch.bfloat16 if variant == "mixed"
-        else None, one_launch=True)
+    diag, sel_t = rec["diag"].to(dtype), rec["sel_t"].to(dtype).contiguous()
+    n, v = diag.shape[0], diag.shape[-1]
+    lanes = lambda blk: blk.permute(1, 2, 0).reshape(v * v, n).contiguous()
     b = rec["rhs"].to(dtype).contiguous()
-    args = dict(selp_t=ops.sel_t, selm_t=ops.selm_t, dinv_t=ops.dinv_t,
-                diag_t=ops.diag_t, colors=ops.colors, offsets=ops.offsets,
-                ncolor=ops.ncolor)
+    args = dict(selp_t=sel_t.to(torch.bfloat16) if variant == "mixed"
+                else sel_t, selm_t=sel_t,
+                dinv_t=lanes(blockcsr.block_diag_inv(diag)),
+                diag_t=lanes(diag), colors=rec["colors"],
+                offsets=tuple(int(o) for o in sim.mesh.stencil_offsets),
+                ncolor=int(rec["ncolor"]))
     return args, (b / torch.linalg.vector_norm(b)).contiguous(), b
 
 
@@ -1026,15 +1177,17 @@ def band_operands(v, offsets, variant, n=20000, ncolor=4, seed=11):
     return args, (b / torch.linalg.vector_norm(b)).contiguous(), b
 
 
-def k5_layout(args):
-    """K5's sweep operands as StencilSolveOps lays them out for the Krylov
-    loop on the card (one_launch=False): the sweep blocks and dinv
-    (color-major in the mixed tier), the node order and its flag; they
-    override the natural ones of args in a K5 call."""
+def solve_layout(args, one_launch=False):
+    """The sweep operands StencilSolveOps lays out on the card, for K5's
+    Krylov loop or (one_launch) a K6 solve: the sweep blocks and dinv
+    (color-major in the mixed tier wherever the kernel reads the node
+    order: K5, and K6 at v >= 7), the order (None for K6 at v <= 3) and
+    its flag; they override the natural ones of args in a kernel call."""
     from su2_tpu_torch.linalg import stencil_solve as ts
     ops = ts.StencilSolveOps.from_lanes(
         args["offsets"], args["selm_t"], args["dinv_t"], args["diag_t"],
-        args["colors"], args["ncolor"], args["selp_t"].dtype)
+        args["colors"], args["ncolor"], args["selp_t"].dtype,
+        one_launch=one_launch)
     return dict(selp_t=ops.sel_t, dinv_t=ops.dinv_t, order=ops.order,
                 color_major=ops.color_major)
 
@@ -1086,6 +1239,14 @@ def k6_flops(args, n, v, m):
         + 2 * m * nv
 
 
+def k6_threads(v):
+    """Threads per block of K6 at width v (csrc/stencil_solve.cu)."""
+    from su2_tpu_torch import kernels
+    if v >= kernels.K6_ROWS_MIN_V:
+        return 32 * v * kernels.k6_groups(v)
+    return 256
+
+
 def k6_barriers(ncolor, m):
     """Grid-wide barriers of one K6 cycle (csrc/stencil_solve.cu)."""
     return 2 + m * (2 * ncolor + 1) + m * (m - 1) // 2
@@ -1098,7 +1259,7 @@ def stencil_phase(sims, flow_sims, report):
     142,317), and band systems with dense blocks (v = 2, 3 and 7); at
     565,500 nodes K5 in the main path's mixed tier on the SST and the flow
     systems (and its matvec in f32, beside torch.sparse.mm).  K5 reads the
-    layout StencilSolveOps makes for the Krylov loop (k5_layout)."""
+    layout StencilSolveOps makes for the Krylov loop (solve_layout)."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import stencil_solve as ts
@@ -1131,7 +1292,7 @@ def stencil_phase(sims, flow_sims, report):
                 continue
             args, r, b = make(var)
             n, v = r.shape
-            lay = k5_layout(args) if k5_modes.get(var) else None
+            lay = solve_layout(args) if k5_modes.get(var) else None
             rtol, afrac = TOL[("stencil_sgs_matvec", var)]
             for mode in k5_modes.get(var, ()):
                 sweep, matvec = mode != "matvec", mode != "sgs"
@@ -1220,6 +1381,7 @@ def k6_check(sname, var, args, r, b, report):
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import stencil_solve as ts
     n, v = b.shape
+    lay = solve_layout(args, one_launch=True)
     cases = [("tol 1e-6", b, 1e-6), ("tol 1e-12", b, 1e-12),
              ("r x 1e18", r * 1e18, 1e-6)]
     if var == "float64":
@@ -1227,8 +1389,8 @@ def k6_check(sname, var, args, r, b, report):
     err = err_abs = 0.0
     iters = []
     for label, bb, tol in cases:
-        x, rel, it = kernels.stencil_fgmres(**args, b=bb, m=KRYLOV_M,
-                                            tol=tol)
+        x, rel, it = kernels.stencil_fgmres(**dict(args, **lay), b=bb,
+                                            m=KRYLOV_M, tol=tol)
         px, prel, pit = ts.fgmres_plain(**args, b=bb, m=KRYLOV_M, tol=tol)
         torch.cuda.synchronize()
         if int(it) != int(pit):
@@ -1258,18 +1420,22 @@ def k6_check(sname, var, args, r, b, report):
         iters.append(int(it))
     grid = kernels.stencil_fgmres_grid(
         b.dtype, args["selp_t"].dtype == torch.bfloat16, v, n, KRYLOV_M)
-    kfn = lambda: kernels.stencil_fgmres(**args, b=b, m=KRYLOV_M, tol=1e-6)
+    kfn = lambda: kernels.stencil_fgmres(**dict(args, **lay), b=b,
+                                         m=KRYLOV_M, tol=1e-6)
     pfn = lambda: ts.fgmres_plain(**args, b=b, m=KRYLOV_M, tol=1e-6)
     ms, plain_ms = cuda_time(kfn, reps=10), cuda_time(pfn, reps=5)
     ins = [args["selp_t"], args["dinv_t"], args["diag_t"], args["colors"], b,
-           None if args["selm_t"] is args["selp_t"] else args["selm_t"]]
+           None if args["selm_t"] is args["selp_t"] else args["selm_t"],
+           lay["order"]]
     outs = nbytes([b]) + 2 * b.element_size()          # x and the stats
     bound = bound_of(nbytes(ins) + outs, k6_flops(args, n, v, KRYLOV_M), var)
     phase("stencil", f"K6 {sname} {var}: iterations {iters} equal to the "
           f"plain version's, max error {err:.2e} of max|x|; kernel {ms:.4f} "
           f"ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]});"
           f" {k6_barriers(args['ncolor'], KRYLOV_M)} grid barriers; "
-          f"cooperative grid {grid} blocks of 256 threads (v = {v})")
+          f"cooperative grid {grid} blocks of {k6_threads(v)} threads "
+          f"(v = {v}); sweep blocks "
+          + ("color-major" if lay["color_major"] else "natural"))
     report.setdefault("stencil_fgmres", {})[(sname, var)] = dict(
         max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
         bound_by=bound[1], library_ms=None,
@@ -1751,12 +1917,14 @@ def print_pair(label, unfused, fused):
           f"{fmt(fused)}")
 
 
-EDGE_SOURCES = ("edge_flux.cu", "edge_win.cu", "edge_list.cu",
-                "edge_implicit.cu")
+# the sources whose kernels --time-kernels counts SASS instructions of: the
+# edge kernels (T3, K8, K13, K10), K11 and K5/K6
+SASS_SOURCES = ("edge_flux.cu", "edge_win.cu", "edge_list.cu",
+                "edge_implicit.cu", "ausm_jac.cu", "stencil_solve.cu")
 
 
 def sass_counts(root):
-    """{kernel: [SASS instructions, LDL, STL]} of root's edge sources
+    """{kernel: [SASS instructions, LDL, STL]} of root's SASS_SOURCES
     (nvcc -cubin with the build's flags, cuobjdump -sass)."""
     from su2_tpu_torch import kernels
     csrc = os.path.join(root, "su2_tpu_torch", "csrc")
@@ -1764,7 +1932,7 @@ def sass_counts(root):
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for src in EDGE_SOURCES:
+        for src in SASS_SOURCES:
             cubin = os.path.join(tmp, src + ".cubin")
             subprocess.run([kernels._nvcc(), *flags, "-cubin", "-o", cubin,
                             os.path.join(csrc, src)], check=True)
@@ -1787,15 +1955,17 @@ def sass_counts(root):
     return out
 
 
-def time_k5_k8(tmp):
-    """{label: ms} of K5 and K8 as the module docstring's --time-k5-k8
-    describes them."""
+def time_kernels(tmp):
+    """{label: ms} of K5, K6, K8 and K10 as the module docstring's
+    --time-kernels describes them, through the calls that this checkout
+    and its parent share (StencilSolveOps, kernels.edge_implicit,
+    kernels.edge_win)."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
     from su2_tpu_torch.ops import edge_flux as ef
     out = {}
-    for size in ("scaling", "tier"):
+    for size in ("flagship", "scaling", "tier"):
         for name, implicit, v in (
                 ("flow", IMPLICIT_VARIANTS["venkatakrishnan"], 13),
                 ("sst", None, 2)):
@@ -1806,15 +1976,36 @@ def time_k5_k8(tmp):
             sel_dtype, _ = ts.solve_tier(n, sim.mesh.stencil_offsets, v,
                                          torch.float32, rec["ncolor"],
                                          KRYLOV_M)
-            ops = ts.StencilSolveOps(sim.mesh, rec["sel_t"],
-                                     blockcsr.block_diag_inv(rec["diag"]),
-                                     rec["diag"], rec["colors"],
-                                     rec["ncolor"], sel_dtype=sel_dtype)
             r = rec["rhs"] / torch.linalg.vector_norm(rec["rhs"])
-            out[f"K5 {name} v={v} {n}"] = dict(
-                ms=cuda_time(lambda: ops.precond_matvec(r)),
-                sweep_blocks=str(sel_dtype).replace("torch.", ""))
-            del sim, rec, ops, r
+            make = lambda sel, one: ts.StencilSolveOps(
+                sim.mesh, rec["sel_t"], blockcsr.block_diag_inv(rec["diag"]),
+                rec["diag"], rec["colors"], rec["ncolor"], sel_dtype=sel,
+                one_launch=one)
+            if size == "flagship":
+                # K6: one FGMRES(10) cycle, the flow's mixed tier and full
+                # precision, the SST's tier
+                sels = (sel_dtype,) if v == 2 else (torch.bfloat16,
+                                                    torch.float32)
+                for sel in sels:
+                    ops = make(sel, True)
+                    out[f"K6 {name} v={v} {n} "
+                        f"{str(sel).replace('torch.', '')}"] = dict(
+                        ms=cuda_time(lambda: ops.fgmres(r, KRYLOV_M, 1e-6),
+                                     reps=10))
+                    del ops
+            else:
+                ops = make(sel_dtype, False)
+                out[f"K5 {name} v={v} {n}"] = dict(
+                    ms=cuda_time(lambda: ops.precond_matvec(r)),
+                    sweep_blocks=str(sel_dtype).replace("torch.", ""))
+                del ops
+            if name == "flow" and size != "scaling":
+                # K10, MUSCL + Venkatakrishnan, both families in one launch
+                args = k10_inputs(sim, torch.float32)[4]("venkatakrishnan")
+                out[f"K10 {n}"] = dict(ms=cuda_time(
+                    lambda: kernels.edge_implicit(*args)))
+                del args
+            del sim, rec, r
             torch.cuda.empty_cache()
     sim = make_case(tmp, *SIZES["tier"], torch.float32, "cuda")
     eargs = edge_win_args(sim, *tier_state(sim, torch.float32))
@@ -1826,7 +2017,7 @@ def time_k5_k8(tmp):
 
 
 def ab_main(root):
-    """--time-k5-k8: see the module docstring."""
+    """--time-kernels: see the module docstring."""
     from su2_tpu_torch import kernels
     card = card_line()
     print(f"card: {card}; root {root}", flush=True)
@@ -1834,7 +2025,7 @@ def ab_main(root):
     for name, (ni, ldl, stl) in sass_counts(root).items():
         print(f"sass {name}: {ni} instructions, {ldl} LDL, {stl} STL")
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as tmp:
-        result = dict(root=root, card=card, **time_k5_k8(tmp))
+        result = dict(root=root, card=card, **time_kernels(tmp))
     print(json.dumps(result), flush=True)
     return 0
 
@@ -1843,7 +2034,7 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of su2_tpu_torch "
                                  "on one NVIDIA GPU (see the docstring)")
-    ap.add_argument("--time-k5-k8", action="store_true")
+    ap.add_argument("--time-kernels", action="store_true")
     ap.add_argument("--root", default=HERE)
     opt = ap.parse_args()
     root = os.path.abspath(opt.root)
@@ -1859,7 +2050,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    if opt.time_k5_k8:
+    if opt.time_kernels:
         return ab_main(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1944,6 +2135,8 @@ def main():
         for size in TRI_NITERS:
             k13_phase(tri[size], "float32", report)
         step_phase(tmp, tri=True)
+        # T3/K8/K13, K10 and K11 at shapes outside their compiled lists
+        shape_phase(tmp, report)
         laminar_step_phase(tmp)
         laminar_step_phase(tmp, implicit=main_imp, prec="LU_SGS")
         laminar_step_phase(tmp, implicit=main_imp, tier=True)
@@ -2080,6 +2273,10 @@ def main():
         if name == "edge_win":
             row["edge_evaluations_per_call"] = report[name][
                 "edge_evaluations_per_call"]
+        other = {k: v for k, v in report[name].items()
+                 if isinstance(k, str) and k.startswith("shape ")}
+        if other:
+            row["other_shapes"] = other
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

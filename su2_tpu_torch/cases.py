@@ -28,6 +28,10 @@ unstable at CFL 0.1 from about iteration 25 in both packages; cooling the
 streams enough to raise M_inf would stop the reaction, so the velocity is
 doubled instead.
 
+``species_cut(lib, ns)`` and ``shape_inputs(nd, ns, ...)`` give the edge
+kernels' inputs at other (dimension, species count) shapes: the case's
+library cut to its first ns species and a random reacting state on it.
+
 ``tri_channel_mesh(nx, ny, seed)`` is the channel as a mesh generator
 would leave it: every quad split into two triangles, the nodes in a
 seeded random order, so no static neighbour stencil exists and both
@@ -253,3 +257,95 @@ def tri_channel_mesh(nx: int, ny: int, seed: int = 0):
                    elem_nodes=inv[tris],
                    markers={t: inv[m] for t, m in quad.markers.items()},
                    marker_types=dict(quad.marker_types))
+
+
+def species_cut(lib, ns: int):
+    """The loaded library lib (chemistry.library.load_library) cut to ns
+    species: its first ns, or past its count its species again in order
+    (copies named name_1, name_2, ..., with the same tables), a mixture of
+    another species count for the kernels' shape dispatch.  The reactions
+    keep their rates and take the kept species' stoichiometry and
+    orders."""
+    import dataclasses
+    import torch
+    idx = torch.arange(ns) % lib.nspecies
+    kw = {f.name: getattr(lib, f.name) for f in dataclasses.fields(lib)}
+    for k in ("mm", "ri", "diff_vol", "h_form", "cp_y", "cp_y2", "h_y",
+              "h_y2", "s_y", "s_y2", "mu_y", "mu_y2", "ka_y", "ka_y2",
+              "stoich_r", "stoich_p"):
+        kw[k] = kw[k][idx.to(kw[k].device)]
+    for k in ("exp_f", "exp_b"):
+        kw[k] = kw[k][:, idx.to(kw[k].device)]
+    names = [lib.species[i % lib.nspecies]
+             + ("" if i < lib.nspecies else f"_{i // lib.nspecies}")
+             for i in range(ns)]
+    kw.update(nspecies=ns, species=type(lib.species)(names))
+    return type(lib)(**kw)
+
+
+def shape_inputs(nd: int, ns: int, directory: str, dtype=None,
+                 device="cpu", raw_mesh=None, seed: int = 8) -> dict:
+    """The edge kernels' inputs at the (dimension, species count) shape
+    (nd, ns): the case's library cut to ns species (species_cut, up to
+    kernels.MAX_SPECIES), on
+    raw_mesh (default channel_mesh(9, 7), 63 nodes, or box_mesh(6, 5, 4),
+    120 nodes), a random reacting state (numpy seed) through the plain node
+    state, random gradients and SST fields.  Returns a dict: mesh, lib,
+    lay; explicit, the arguments of T3/K8/K13 before the geometry (lib,
+    lay, species consts, consts, stack); in 2D also implicit, K10's before
+    the geometry (with a random limiter), and faces, K11's first-order face
+    states of the family slots (v_i, v_j, normal, s_i, s_j, feature-major;
+    pad slots with zero normals)."""
+    import torch
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.chemistry import library as cl
+    from su2_tpu_torch.geometry.dual_grid import build_dual_grid
+    from su2_tpu_torch.geometry.mesh_data import mesh_arrays
+    from su2_tpu_torch.geometry.structured import box_mesh, channel_mesh
+    from su2_tpu_torch.ops import edge_flux as ef, edge_implicit as ei
+    from su2_tpu_torch.ops import viscous as vis
+    dtype = torch.float64 if dtype is None else dtype
+    lib = species_cut(cl.load_library(write_library(str(directory)), None,
+                                      dtype), ns).to(device)
+    if raw_mesh is None:
+        raw_mesh = channel_mesh(9, 7) if nd == 2 else box_mesh(6, 5, 4)
+    mesh = mesh_arrays(build_dual_grid(raw_mesh), dtype, device)
+    lay, n = st.Layout(nd, ns), mesh.npoint
+    dev = lambda a: torch.as_tensor(a).to(device, dtype)
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(500.0, 2500.0, n)
+    p = rng.uniform(0.9e5, 1.2e5, n)
+    vel = rng.normal(0.0, 20.0, (n, nd))
+    ys = rng.dirichlet(np.ones(ns), n)
+    h = cl.mixture_enthalpy_plain(lib, dev(t), dev(ys)).cpu().numpy()
+    rgas = cl.mixture_rgas(lib, dev(ys)).cpu().numpy()
+    rho = p / (rgas * t)
+    e = h - rgas * t + 0.5 * (vel * vel).sum(1)
+    u = np.concatenate([rho[:, None], rho[:, None] * vel, (rho * e)[:, None],
+                        rho[:, None] * ys], axis=1)
+    nsd = st.node_state_plain(lib, lay, dev(u), dev(t * 1.01),
+                              st.TSolveParams(tmin=200.0, tmax=5000.0))
+    scale = np.r_[100.0, [10.0] * nd, 1e3, [1.0] * ns]
+    grad = dev(rng.normal(0.0, 1.0, (n, 2 + nd + ns, nd))
+               * scale[None, :, None])
+    turb = vis.TurbFlowData(tke=dev(rng.uniform(0.0, 5.0, n)),
+                            mu_t=dev(rng.uniform(1e-5, 1e-3, n)),
+                            grad_tke=dev(rng.normal(0.0, 1.0, (n, nd))),
+                            sigma_k=dev(rng.uniform(0.85, 1.0, n)))
+    trans = vis.Transport(nsd.mu, nsd.kappa)
+    sc = ef.species_consts_of(lib)
+    out = dict(mesh=mesh, lib=lib, lay=lay, explicit=(
+        lib, lay, sc, (0.1, 0.72, 0.9, 1.0),
+        ef.stack_inputs(lay, nsd.v, grad, trans, turb, turb.sigma_k,
+                        nsd.dpdu[:, lay.RHOE])))
+    if nd == 2:
+        lim = dev(rng.uniform(0.0, 1.0, (n, 2 + nd)))
+        out["implicit"] = (lib, lay, sc, (0.1, 0.9, 1.0), ei.stack_inputs(
+            lay, nsd.v, grad, lim, trans, turb, turb.sigma_k, nsd.dtdu,
+            nsd.dpdu))
+        vt, st_ = nsd.v.T, nsd.dpdu.T
+        out["faces"] = tuple(x.contiguous() for x in (
+            mesh.fam_gather_i(vt, -1), mesh.fam_gather_j(vt, -1),
+            mesh.fam_normal_flat.T, mesh.fam_gather_i(st_, -1),
+            mesh.fam_gather_j(st_, -1)))
+    return out

@@ -18,7 +18,9 @@
 // below the card's ~20 FLOP per byte.  Design: one thread per edge; the
 // species count is a template constant, so the loops unroll and the four
 // nVar column vectors of the Jacobians stay in registers (2 x 169 entries
-// are never held); each output row is formed and stored at once, so in
+// are never held); every other count up to 16 runs one run-time instance
+// (NS = 0, its vectors in local memory, so no mixture is refused); each
+// output row is formed and stored at once, so in
 // the feature-major layout a warp's loads and stores coalesce.  A
 // zero-area edge (a family pad slot) writes exact zeros and reads no
 // state, so no NaN can reach a sum that a mask would not hide.
@@ -30,12 +32,17 @@ constexpr int AUSM_ND = 2;
 
 template <typename T, int NS, bool EDGE_MAJOR>
 __global__ void __launch_bounds__(128)
-ausm_jac_kernel(int ne, double m_infty, const T* __restrict__ v_i,
+ausm_jac_kernel(int ne, int ns_rt, double m_infty, const T* __restrict__ v_i,
                 const T* __restrict__ v_j, const T* __restrict__ nrm,
                 const T* __restrict__ s_i, const T* __restrict__ s_j,
                 T* __restrict__ flux, T* __restrict__ jac_i,
                 T* __restrict__ jac_j) {
-  constexpr int ND = AUSM_ND, NPRIM = NS + ND + 5, NV = NS + ND + 2;
+  // NS = 0: the species count ns_rt known at run time (at most SU2K_MAXS),
+  // the arrays at that bound
+  constexpr int ND = AUSM_ND, MS = NS > 0 ? NS : SU2K_MAXS;
+  constexpr int MPRIM = MS + ND + 5, MV = MS + ND + 2;
+  const int ns = NS > 0 ? NS : ns_rt;
+  const int NPRIM = ns + ND + 5, NV = ns + ND + 2;
   const int PRHO = ND + 2;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= ne) return;
@@ -61,7 +68,7 @@ ausm_jac_kernel(int ne, double m_infty, const T* __restrict__ v_i,
   T unit[ND];
 #pragma unroll
   for (int d = 0; d < ND; ++d) unit[d] = nm[d] / area_s;
-  T vfi[NPRIM], vfj[NPRIM], si[NV], sj[NV];
+  T vfi[MPRIM], vfj[MPRIM], si[MV], sj[MV];
 #pragma unroll
   for (int r = 0; r < NPRIM; ++r) {
     vfi[r] = v_i[at(NPRIM, r)];
@@ -72,7 +79,7 @@ ausm_jac_kernel(int ne, double m_infty, const T* __restrict__ v_i,
     si[r] = s_i[at(NV, r)];
     sj[r] = s_j[at(NV, r)];
   }
-  T fo[NV], w_l[NV], w_r[NV], pr_l[NV], pr_r[NV];
+  T fo[MV], w_l[MV], w_r[MV], pr_l[MV], pr_r[MV];
   const AusmFace<T> af = ausm_face<ND>(NV, m_infty, vfi, vfj, si, sj, unit,
                                        area, fo, w_l, w_r, pr_l, pr_r);
 #pragma unroll
@@ -98,7 +105,8 @@ ausm_jac_kernel(int ne, double m_infty, const T* __restrict__ v_i,
 }
 
 // the species counts K11 is compiled for (kernels.AUSM_SPECIES): the
-// case's 9 (nVar = 13)
+// case's 9 (nVar = 13); every other count up to SU2K_MAXS runs the
+// run-time instance (NS = 0)
 #define SU2K_AUSM_BY_NS(X) X(9)
 
 template <typename T, bool EDGE_MAJOR>
@@ -108,18 +116,23 @@ int launch_ausm_jac(int ne, int ns, double m_infty, const void* vi,
                     void* stream) {
   const int threads = 128;
   const unsigned blocks = (unsigned)((ne + threads - 1) / threads);
+  if (ns < 1 || ns > SU2K_MAXS) return (int)cudaErrorInvalidValue;
   if (ne <= 0) return (int)cudaSuccess;
 #define SU2K_AUSM_CASE(NS_)                                                 \
   if (ns == NS_) {                                                          \
     ausm_jac_kernel<T, NS_, EDGE_MAJOR>                                     \
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(                     \
-            ne, m_infty, (const T*)vi, (const T*)vj, (const T*)nrm,         \
+            ne, ns, m_infty, (const T*)vi, (const T*)vj, (const T*)nrm,     \
             (const T*)si, (const T*)sj, (T*)flux, (T*)ji, (T*)jj);          \
     return (int)cudaGetLastError();                                         \
   }
   SU2K_AUSM_BY_NS(SU2K_AUSM_CASE)
 #undef SU2K_AUSM_CASE
-  return (int)cudaErrorInvalidValue;
+  ausm_jac_kernel<T, 0, EDGE_MAJOR>
+      <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          ne, ns, m_infty, (const T*)vi, (const T*)vj, (const T*)nrm,
+          (const T*)si, (const T*)sj, (T*)flux, (T*)ji, (T*)jj);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace su2k

@@ -21,7 +21,8 @@
 // address (coalesced rows of the feature-major stack).  Pad slots carry
 // zero normals, so their flux is zero.  The per-edge body is edge_side
 // (csrc/edge_side.cuh) at a compile-time (dimension, species count), its
-// S x (S+1) system in registers; another shape is refused.  The kernel
+// S x (S+1) system in registers; every other shape runs its run-time
+// instance (the same body, the arrays in local memory).  The kernel
 // and its launch (edge_slot, launch_edge_slots) are in edge_side.cuh,
 // which K8 compiles as its first pass.
 #include "edge_side.cuh"

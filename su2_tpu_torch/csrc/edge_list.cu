@@ -24,7 +24,8 @@
 // above it: in a scrambled node order the 32 threads of a warp read 32
 // unrelated columns of every stack row (uncoalesced, each 4 or 8 bytes
 // from its own 32-byte sector).  One thread per edge, f32 and f64, the
-// per-edge body at T3's compile-time (dimension, species count) shapes.
+// per-edge body at T3's compile-time (dimension, species count) shapes, or
+// its run-time instance for every other shape.
 #include "edge_side.cuh"
 
 namespace su2k {
@@ -39,22 +40,25 @@ __global__ void edge_list_kernel(int n, int ne, EdgeConsts c, Grid<T> g,
                                  const T* __restrict__ cst,
                                  T* __restrict__ flux, T* __restrict__ lc,
                                  T* __restrict__ lv) {
-  constexpr int NV = NS + ND + 2;
+  constexpr int MD = ND > 0 ? ND : SU2K_MAXD;
+  constexpr int MV = ND > 0 ? NS + ND + 2 : SU2K_MAXV;
+  const int nd = ND > 0 ? ND : c.nd;
+  const int nv = ND > 0 ? NS + ND + 2 : c.ns + c.nd + 2;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= ne) return;
   const int i = (int)edges[2 * (size_t)e];
   const int j = (int)edges[2 * (size_t)e + 1];
-  T nm[ND], ev[ND], fo[NV];
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    nm[d] = normal[(size_t)e * ND + d];
-    ev[d] = coords[(size_t)j * ND + d] - coords[(size_t)i * ND + d];
-  }
+  T nm[MD], ev[MD], fo[MV];
+  for_n<ND>(nd, [&](int d) {
+    nm[d] = normal[(size_t)e * nd + d];
+    ev[d] = coords[(size_t)j * nd + d] - coords[(size_t)i * nd + d];
+  });
   T lco, lvo;
   edge_side<ND, NS>(n, c, g, f, i, j, nm, ev, tab, cst, fo, lco, lvo);
   // feature-major (nVar, E), edge order
-#pragma unroll
-  for (int r = 0; r < NV; ++r) flux[(size_t)r * ne + e] = fo[r];
+  for_n<(ND > 0 ? NS + ND + 2 : 0)>(nv, [&](int r) {
+    flux[(size_t)r * ne + e] = fo[r];
+  });
   lc[e] = lco;
   lv[e] = lvo;
 }
@@ -78,9 +82,16 @@ int launch_edge_list(int n, int ne, EdgeConsts c, int nt, double t0,
               (const T*)cst, (T*)flux, (T*)lc, (T*)lv);                     \
     return (int)cudaGetLastError();                                         \
   }
+  if (!edge_shape_ok(c.nd, c.ns)) return (int)cudaErrorInvalidValue;
   SU2K_EDGE_BY_SHAPE(SU2K_K13_CASE)
 #undef SU2K_K13_CASE
-  return (int)cudaErrorInvalidValue;
+  // every other shape: the run-time instance
+  if (blocks > 0)
+    edge_list_kernel<T, 0, 0><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        n, ne, c, g, (const T*)f, (const long long*)edges, (const T*)nrm,
+        (const T*)coords, (const T*)tab, (const T*)cst, (T*)flux, (T*)lc,
+        (T*)lv);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace su2k

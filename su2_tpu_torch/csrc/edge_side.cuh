@@ -20,9 +20,10 @@
 // edge_side is compiled for fixed (dimension, species count) shapes
 // (SU2K_EDGE_BY_SHAPE), so its S x (S+1) system and work vectors are
 // registers.  With the counts known only at run time every one of them
-// was a local-memory array (2,096 B of stack per thread in f32, 4,176 B
-// in f64), and that traffic, not device memory, set the time of T3, K8
-// and K13.
+// is a local-memory array (2,096 B of stack per thread in f32, 4,176 B
+// in f64), and that traffic, not device memory, sets the time; every
+// other shape (nd <= 3, S <= 16) runs that run-time instance of the same
+// body (ND = NS = 0), so no mixture su2_tpu runs is refused.
 #pragma once
 
 #include "common.cuh"
@@ -156,7 +157,9 @@ __device__ __forceinline__ void stefan_maxwell(int ns,
 
 // c.off[k] by selects over an unrolled loop: a run-time index into the
 // kernel's argument struct would copy the whole struct to local memory
-__device__ __forceinline__ int fam_offset(const EdgeConsts& c, int k) {
+// (C: EdgeConsts, or K10's ImpConsts)
+template <typename C>
+__device__ __forceinline__ int fam_offset(const C& c, int k) {
   int o = c.off[0];
 #pragma unroll
   for (int kk = 1; kk < SU2K_MAXK; ++kk) o = k == kk ? c.off[kk] : o;
@@ -165,29 +168,31 @@ __device__ __forceinline__ int fam_offset(const EdgeConsts& c, int k) {
 
 // The family slot (p, p + o_k) of T3 and K8: its j endpoint (mod n), and
 // its area normal and node-to-node vector from fam_normal/fam_evec
-// (Kh, n, ND) into nm, ev.
+// (Kh, n, nd) into nm, ev (nd = ND, or c.nd where ND = 0).
 template <int ND, typename T>
 __device__ __forceinline__ int fam_slot(int n, const EdgeConsts& c,
                                         const T* __restrict__ fam_normal,
                                         const T* __restrict__ fam_evec,
                                         int k, int p, T* nm, T* ev) {
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    nm[d] = fam_normal[((size_t)k * n + p) * ND + d];
-    ev[d] = fam_evec[((size_t)k * n + p) * ND + d];
-  }
+  const int nd = ND > 0 ? ND : c.nd;
+  for_n<ND>(nd, [&](int d) {
+    nm[d] = fam_normal[((size_t)k * n + p) * nd + d];
+    ev[d] = fam_evec[((size_t)k * n + p) * nd + d];
+  });
   int j = p + fam_offset(c, k);
   return j >= n ? j - n : j;
 }
 
 // f: the feature-major stack (R, n), the edge's endpoints its columns i and
-// j; nm_in, ev_in: its area normal and node-to-node vector (ND); table rows
+// j; nm_in, ev_in: its area normal and node-to-node vector (nd); table rows
 // (each nt long): h[S] h2[S] cp[S] cp2[S]; cst: mm[S] den[S*S].  Writes
-// flux = conv - visc (NV = NS + ND + 2) into fo and the two radii.  ND and
+// flux = conv - visc (nVar = S + nd + 2) into fo and the two radii.  ND and
 // NS are compile-time constants (SU2K_EDGE_BY_SHAPE): every loop below has
 // a constant trip count and is unrolled, so every per-edge array, the
 // S x (S+1) system included, is indexed by constants and lives in
-// registers (the form with run-time counts kept them all in local memory).
+// registers.  ND = NS = 0 is the run-time instance (c.nd, c.ns, at most
+// SU2K_MAXD and SU2K_MAXS): the same operations in the same order, the
+// arrays at their bounds and in local memory, for every other shape.
 template <int ND, int NS, typename T>
 __device__ __forceinline__ void edge_side(int n, const EdgeConsts& c,
                                           const Grid<T>& g,
@@ -197,47 +202,52 @@ __device__ __forceinline__ void edge_side(int n, const EdgeConsts& c,
                                           const T* __restrict__ tab,
                                           const T* __restrict__ cst, T* fo,
                                           T& lc_o, T& lv_o) {
-  constexpr int NPRIM = NS + ND + 5, NV = NS + ND + 2, NG = 1 + ND + NS;
-  constexpr int P_ = ND + 1, PRHO = ND + 2, H_ = ND + 3, A_ = ND + 4;
-  constexpr int YS = ND + 5;
-  constexpr int r_g = NPRIM, r_mu = r_g + NG * ND, r_ka = r_mu + 1;
-  constexpr int r_mut = r_ka + 1, r_tke = r_mut + 1, r_gk = r_tke + 1;
-  constexpr int r_gam = r_gk + ND, r_sk = r_gam + 1;
+  static_assert((ND > 0) == (NS > 0), "both counts fixed, or neither");
+  constexpr bool FIXED = ND > 0;
+  constexpr int MD = FIXED ? ND : SU2K_MAXD, MS = FIXED ? NS : SU2K_MAXS;
+  constexpr int MPRIM = MS + MD + 5, MV = MS + MD + 2, MG = 1 + MD + MS;
+  // trip counts for for_n: the count itself, or 0 (known at run time)
+  constexpr int NPRIM = FIXED ? MPRIM : 0, NG = FIXED ? MG : 0;
+  constexpr int NGD = FIXED ? MG * MD : 0;
+  const int nd = FIXED ? ND : c.nd, ns = FIXED ? NS : c.ns;
+  const int nprim = ns + nd + 5, ng = 1 + nd + ns;
+  const int P_ = nd + 1, PRHO = nd + 2, H_ = nd + 3, A_ = nd + 4;
+  const int YS = nd + 5;
+  const int r_g = nprim, r_mu = r_g + ng * nd, r_ka = r_mu + 1;
+  const int r_mut = r_ka + 1, r_tke = r_mut + 1, r_gk = r_tke + 1;
+  const int r_gam = r_gk + nd, r_sk = r_gam + 1;
   const T tiny = sizeof(T) == 8 ? (T)1e-300 : (T)1e-30;
   const T* mm = cst;
-  const T* den = cst + NS;
+  const T* den = cst + ns;
 
   auto fi = [&](int r) { return f[(size_t)r * n + i]; };
   auto fj = [&](int r) { return f[(size_t)r * n + j]; };
 
-  T nm[ND], ev[ND];
+  T nm[MD], ev[MD];
   T area2 = (T)0;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
+  for_n<ND>(nd, [&](int d) {
     nm[d] = nm_in[d];
     ev[d] = ev_in[d];
     area2 += nm[d] * nm[d];
-  }
+  });
   T area = sqrt(area2);
 
-  T vi[NPRIM], vj[NPRIM];
-#pragma unroll
-  for (int r = 0; r < NPRIM; ++r) {
+  T vi[MPRIM], vj[MPRIM];
+  for_n<NPRIM>(nprim, [&](int r) {
     vi[r] = fi(r);
     vj[r] = fj(r);
-  }
+  });
 
   // ------------------------------------------------------- AUSM+-up
   const T KP = (T)0.25, SIGMA = (T)1, KU = (T)0.75;
-  T unit[ND];
+  T unit[MD];
   T asafe = area < tiny ? tiny : area;
   T proj_i = (T)0, proj_j = (T)0;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
+  for_n<ND>(nd, [&](int d) {
     unit[d] = nm[d] / asafe;
     proj_i += vi[1 + d] * unit[d];
     proj_j += vj[1 + d] * unit[d];
-  }
+  });
   T rho_i = vi[PRHO], rho_j = vj[PRHO], p_i = vi[P_], p_j = vj[P_];
   T a_mean = (T)0.5 * (vi[A_] + vj[A_]);
   T m_l = proj_i / a_mean, m_r = proj_j / a_mean;
@@ -264,20 +274,20 @@ __device__ __forceinline__ void edge_side(int n, const EdgeConsts& c,
   T p_lf = p_lp * p_i + p_rm * p_j
          - KU * p_lp * p_rm * (rho_i + rho_j) * fa * a_mean
                * (proj_j - proj_i);
-  T out[NV];
+  T out[MV];
   {
     auto conv = [&](T phi_i, T phi_j) {
       return (T)0.5 * (mass12 * (phi_i + phi_j)
                        + fabs(mass12) * (phi_i - phi_j)) * area;
     };
     out[0] = conv((T)1, (T)1);
-#pragma unroll
-    for (int d = 0; d < ND; ++d)
+    for_n<ND>(nd, [&](int d) {
       out[1 + d] = conv(vi[1 + d], vj[1 + d]) + (p_lf * area) * unit[d];
-    out[1 + ND] = conv(vi[H_], vj[H_]);
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
-      out[2 + ND + s] = conv(vi[YS + s], vj[YS + s]);
+    });
+    out[1 + nd] = conv(vi[H_], vj[H_]);
+    for_n<NS>(ns, [&](int s) {
+      out[2 + nd + s] = conv(vi[YS + s], vj[YS + s]);
+    });
   }
 
   // ------------------------------------------------------- viscous
@@ -285,123 +295,114 @@ __device__ __forceinline__ void edge_side(int n, const EdgeConsts& c,
   T ktr = harm(fi(r_ka), fj(r_ka));
   T gf = harm((T)1.0e-7 * pow(vi[0], (T)1.75) / (vi[P_] / (T)101325.0),
               (T)1.0e-7 * pow(vj[0], (T)1.75) / (vj[P_] / (T)101325.0));
-  T vel[ND];
-#pragma unroll
-  for (int d = 0; d < ND; ++d) vel[d] = (T)0.5 * (vi[1 + d] + vj[1 + d]);
+  T vel[MD];
+  for_n<ND>(nd, [&](int d) { vel[d] = (T)0.5 * (vi[1 + d] + vj[1 + d]); });
   T rho = (T)0.5 * (rho_i + rho_j);
-  T ysc[NS], xs[NS];
+  T ysc[MS], xs[MS];
   {
     T ysum = (T)0, xsum = (T)0;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
+    for_n<NS>(ns, [&](int s) {
       ysc[s] = clip_y((T)0.5 * (vi[YS + s] + vj[YS + s]));
       xs[s] = ysc[s] / mm[s];
       ysum += ysc[s];
       xsum += xs[s];
-    }
-#pragma unroll
-    for (int s = 0; s < NS; ++s) xs[s] = xs[s] * (ysum / xsum);
+    });
+    for_n<NS>(ns, [&](int s) { xs[s] = xs[s] * (ysum / xsum); });
   }
 
-  T gm[NG * ND];
-#pragma unroll
-  for (int q = 0; q < NG * ND; ++q)
+  T gm[MG * MD];
+  for_n<NGD>(ng * nd, [&](int q) {
     gm[q] = (T)0.5 * (fi(r_g + q) + fj(r_g + q));
+  });
   {
     // edge-projection correction (CAvgGradReactive_Flow, :1507-1527)
     T dist2 = (T)0;
-#pragma unroll
-    for (int d = 0; d < ND; ++d) dist2 += ev[d] * ev[d];
+    for_n<ND>(nd, [&](int d) { dist2 += ev[d] * ev[d]; });
     dist2 = dist2 > tiny ? dist2 : tiny;
-    T xi[NS], xj[NS];
+    T xi[MS], xj[MS];
     T si = (T)0, sxi = (T)0, sj = (T)0, sxj = (T)0;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
+    for_n<NS>(ns, [&](int s) {
       T yi = clip_y(vi[YS + s]), yj = clip_y(vj[YS + s]);
       xi[s] = yi / mm[s];
       xj[s] = yj / mm[s];
       si += yi; sxi += xi[s]; sj += yj; sxj += xj[s];
-    }
-#pragma unroll
-    for (int q = 0; q < NG; ++q) {
+    });
+    for_n<NG>(ng, [&](int q) {
       T diff;
       if (q == 0) diff = vj[0] - vi[0];
-      else if (q <= ND) diff = vj[q] - vi[q];
+      else if (q <= nd) diff = vj[q] - vi[q];
       else {
-        const int s = q - 1 - ND;
+        const int s = q - 1 - nd;
         diff = xj[s] * (sj / sxj) - xi[s] * (si / sxi);
       }
-      T proj = gm[q * ND] * ev[0];
-#pragma unroll
-      for (int d = 1; d < ND; ++d) proj += gm[q * ND + d] * ev[d];
+      T proj = gm[q * nd] * ev[0];
+      for_n<(FIXED ? ND - 1 : 0)>(nd - 1, [&](int d1) {
+        proj += gm[q * nd + d1 + 1] * ev[d1 + 1];
+      });
       T cf = (proj - diff) / dist2;
-#pragma unroll
-      for (int d = 0; d < ND; ++d) gm[q * ND + d] -= cf * ev[d];
-    }
+      for_n<ND>(nd, [&](int d) { gm[q * nd + d] -= cf * ev[d]; });
+    });
   }
   const T* g_t = gm;
-  const T* g_vel = gm + ND;            // [a * ND + b]
-  const T* g_xs = gm + (1 + ND) * ND;  // [s * ND + d]
+  const T* g_vel = gm + nd;            // [a * nd + b]
+  const T* g_xs = gm + (1 + nd) * nd;  // [s * nd + d]
   T div = g_vel[0];
-#pragma unroll
-  for (int d = 1; d < ND; ++d) div += g_vel[d * ND + d];
+  for_n<(FIXED ? ND - 1 : 0)>(nd - 1, [&](int d1) {
+    div += g_vel[(d1 + 1) * nd + d1 + 1];
+  });
   const T TWO3 = (T)(2.0 / 3.0);
 
   // Stefan-Maxwell: (Gamma + alpha y 1^T) Jd = -grad(X).N, Gauss-Jordan
-  T gxn[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    T acc = g_xs[s * ND] * nm[0];
-#pragma unroll
-    for (int d = 1; d < ND; ++d) acc += g_xs[s * ND + d] * nm[d];
+  T gxn[MS];
+  for_n<NS>(ns, [&](int s) {
+    T acc = g_xs[s * nd] * nm[0];
+    for_n<(FIXED ? ND - 1 : 0)>(nd - 1, [&](int d1) {
+      acc += g_xs[s * nd + d1 + 1] * nm[d1 + 1];
+    });
     gxn[s] = acc;
-  }
-  T aug[NS * (NS + 1)];
-  constexpr int w = NS + 1;
-  stefan_maxwell<NS>(NS, mm, den, ysc, xs, rho, gf, gxn, aug);
+  });
+  T aug[MS * (MS + 1)];
+  const int w = ns + 1;
+  stefan_maxwell<NS>(ns, mm, den, ysc, xs, rho, gf, gxn, aug);
   T e_heat = (T)0, jsum = (T)0;
-  T hs[NS], cps[NS];
-  species_hcp<NS>(g, tab, mm, NS, (T)0.5 * (vi[0] + vj[0]), hs, cps);
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    T jd = aug[s * w + NS];
+  T hs[MS], cps[MS];
+  species_hcp<NS>(g, tab, mm, ns, (T)0.5 * (vi[0] + vj[0]), hs, cps);
+  for_n<NS>(ns, [&](int s) {
+    T jd = aug[s * w + ns];
     e_heat -= hs[s] * jd;
     jsum += jd;
-  }
+  });
   T mu_t = harm(fi(r_mut), fj(r_mut));
   T tke = (T)0.5 * (fi(r_tke) + fj(r_tke));
-  T mom[ND];
+  T mom[MD];
   T e_tau = (T)0;
-#pragma unroll
-  for (int b = 0; b < ND; ++b) mom[b] = (T)0;
-#pragma unroll
-  for (int a = 0; a < ND; ++a)
-#pragma unroll
-    for (int b = 0; b < ND; ++b) {
-      T sym = g_vel[a * ND + b] + g_vel[b * ND + a];
+  for_n<ND>(nd, [&](int b) { mom[b] = (T)0; });
+  for_n<ND>(nd, [&](int a) {
+    for_n<ND>(nd, [&](int b) {
+      T sym = g_vel[a * nd + b] + g_vel[b * nd + a];
       T tau = mu * sym - (a == b ? TWO3 * mu * div : (T)0);
       T taut = mu_t * sym
              - (a == b ? TWO3 * (mu_t * div + tke * rho) : (T)0);
       mom[b] += (tau + taut) * nm[a];
       e_tau += (tau + taut) * vel[b] * nm[a];
-    }
+    });
+  });
   T gtn = g_t[0] * nm[0];
-#pragma unroll
-  for (int d = 1; d < ND; ++d) gtn += g_t[d] * nm[d];
+  for_n<(FIXED ? ND - 1 : 0)>(nd - 1, [&](int d1) {
+    gtn += g_t[d1 + 1] * nm[d1 + 1];
+  });
   T e_cond = ktr * gtn;
 
   // molar -> mass gradient operator, rank-2 Woodbury solve (:855-880)
   T cmt = mu_t / (T)(c.pr_turb * c.le_turb);
-  T gyn[NS];
+  T gyn[MS];
   {
     T mms = (T)c.mm_sum;
     T sigx = (T)0;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) sigx += xs[s];
+    for_n<NS>(ns, [&](int s) { sigx += xs[s]; });
     T g11 = (T)1, g12 = (T)0, g21 = (T)0, g22 = (T)1;
-    T du[NS], dw[NS], dinv[NS];
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
+    T du[MS], dw[MS], dinv[MS];
+    for_n<NS>(ns, [&](int s) {
       dinv[s] = mm[s] / (mms * sigx);
       du[s] = dinv[s] * (mms * ysc[s] / mm[s]);
       dw[s] = dinv[s] * (-mms * xs[s]);
@@ -409,58 +410,51 @@ __device__ __forceinline__ void edge_side(int n, const EdgeConsts& c,
       g12 += dw[s];
       g21 += du[s] / mm[s];
       g22 += dw[s] / mm[s];
-    }
+    });
     T det = g11 * g22 - g12 * g21;
     det = det == (T)0 ? (T)1 : det;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) gyn[s] = (T)0;
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
+    for_n<NS>(ns, [&](int s) { gyn[s] = (T)0; });
+    for_n<ND>(nd, [&](int d) {
       T c1 = (T)0, c2 = (T)0;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        T db = dinv[s] * g_xs[s * ND + d];
+      for_n<NS>(ns, [&](int s) {
+        T db = dinv[s] * g_xs[s * nd + d];
         c1 += db;
         c2 += db / mm[s];
-      }
+      });
       T a1 = (g22 * c1 - g12 * c2) / det;
       T a2 = (g11 * c2 - g21 * c1) / det;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        T gxs = g_xs[s * ND + d];
+      for_n<NS>(ns, [&](int s) {
+        T gxs = g_xs[s * nd + d];
         T gy = dinv[s] * gxs - du[s] * a1 - dw[s] * a2;
         gy = fabs(gxs) < (T)1e-8 ? (T)0 : gy;
         gyn[s] += gy * nm[d];
-      }
-    }
+      });
+    });
   }
   T hy = (T)0, cpy = (T)0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
+  for_n<NS>(ns, [&](int s) {
     hy += hs[s] * ysc[s] * gyn[s];
     cpy += cps[s] * ysc[s];
-  }
+  });
   e_heat += cmt * hy;
   e_cond += (mu_t / (T)c.pr_turb) * cpy * gtn;
   T gkn = (T)0;
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
+  for_n<ND>(nd, [&](int d) {
     gkn += (T)0.5 * (fi(r_gk + d) + fj(r_gk + d)) * nm[d];
+  });
   e_cond += (mu + mu_t / fi(r_sk)) * gkn;
 
   // flux = conv - visc
   fo[0] = out[0] - (-jsum);
-#pragma unroll
-  for (int d = 0; d < ND; ++d) fo[1 + d] = out[1 + d] - mom[d];
-  fo[1 + ND] = out[1 + ND] - (e_tau + e_cond + e_heat);
-#pragma unroll
-  for (int s = 0; s < NS; ++s)
-    fo[2 + ND + s] = out[2 + ND + s] - (-aug[s * w + NS] + cmt * gyn[s]);
+  for_n<ND>(nd, [&](int d) { fo[1 + d] = out[1 + d] - mom[d]; });
+  fo[1 + nd] = out[1 + nd] - (e_tau + e_cond + e_heat);
+  for_n<NS>(ns, [&](int s) {
+    fo[2 + nd + s] = out[2 + nd + s] - (-aug[s * w + ns] + cmt * gyn[s]);
+  });
 
   // spectral radii (max_lambda_inv + viscous_lambda terms)
   T pr = (T)0;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) pr += (vi[1 + d] + vj[1 + d]) * nm[d];
+  for_n<ND>(nd, [&](int d) { pr += (vi[1 + d] + vj[1 + d]) * nm[d]; });
   lc_o = (fabs((T)0.5 * pr) + a_mean) * area;
   T mean_mu = (T)0.5 * (fi(r_mu) + fj(r_mu));
   T mean_mut = (T)0.5 * (fi(r_mut) + fj(r_mut));
@@ -473,8 +467,14 @@ __device__ __forceinline__ void edge_side(int n, const EdgeConsts& c,
 // The (dimension, species count) shapes edge_side is compiled for in T3,
 // K8 and K13 (kernels.EDGE_SHAPES): the 9-species combustion chemistry in
 // 2D and 3D and the 3-species air in 2D and 3D; X(ND, NS) names one.
-// Another shape is refused.
+// Every other shape with 1 <= nd <= SU2K_MAXD and 1 <= ns <= SU2K_MAXS
+// runs the run-time instance X(0, 0).
 #define SU2K_EDGE_BY_SHAPE(X) X(2, 9) X(2, 3) X(3, 9) X(3, 3)
+
+// whether the run-time instance takes the shape of c
+__host__ __device__ inline bool edge_shape_ok(int nd, int ns) {
+  return nd >= 1 && nd <= SU2K_MAXD && ns >= 1 && ns <= SU2K_MAXS;
+}
 
 // One thread per family slot (k, p): the slot's outputs, family-major:
 // flux (Kh, NV, n), lc and lv (Kh, n).  T3 is this pass; K8 runs it as its
@@ -490,18 +490,21 @@ __device__ __forceinline__ void edge_slot(int n, const EdgeConsts& c,
                                           T* __restrict__ flux,
                                           T* __restrict__ lc,
                                           T* __restrict__ lv) {
-  constexpr int NV = NS + ND + 2;
+  constexpr int MD = ND > 0 ? ND : SU2K_MAXD;
+  constexpr int MV = ND > 0 ? NS + ND + 2 : SU2K_MAXV;
+  const int nv = ND > 0 ? NS + ND + 2 : c.ns + c.nd + 2;
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)c.kh * n) return;
   const int k = (int)(idx / n);
   const int p = (int)(idx - (long long)k * n);
-  T fo[NV], nm[ND], ev[ND];
+  T fo[MV], nm[MD], ev[MD];
   T lco, lvo;
   const int j = fam_slot<ND>(n, c, fam_normal, fam_evec, k, p, nm, ev);
   edge_side<ND, NS>(n, c, g, f, p, j, nm, ev, tab, cst, fo, lco, lvo);
-  T* out = flux + (size_t)k * NV * n + p;
-#pragma unroll
-  for (int r = 0; r < NV; ++r) out[(size_t)r * n] = fo[r];
+  T* out = flux + (size_t)k * nv * n + p;
+  for_n<(ND > 0 ? NS + ND + 2 : 0)>(nv, [&](int r) {
+    out[(size_t)r * n] = fo[r];
+  });
   lc[(size_t)k * n + p] = lco;
   lv[(size_t)k * n + p] = lvo;
 }
@@ -525,8 +528,9 @@ __global__ void edge_win_slot_kernel(SU2K_EDGE_SLOT_ARGS(T)) {
 }
 
 // The slot pass at the shape of c: edge_flux_kernel (T3), or
-// edge_win_slot_kernel (K8's first pass) when K8; cudaErrorInvalidValue
-// for a shape SU2K_EDGE_BY_SHAPE does not name.
+// edge_win_slot_kernel (K8's first pass) when K8, at the compiled shape or
+// else the run-time instance <T, 0, 0>; cudaErrorInvalidValue past the
+// bounds of edge_shape_ok.
 template <typename T, bool K8>
 int launch_edge_slots(int n, const EdgeConsts& c, const Grid<T>& g,
                       const T* f, const T* nrm, const T* evec, const T* tab,
@@ -535,6 +539,7 @@ int launch_edge_slots(int n, const EdgeConsts& c, const Grid<T>& g,
   const int threads = 128;
   const long long total = (long long)c.kh * n;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if (!edge_shape_ok(c.nd, c.ns)) return (int)cudaErrorInvalidValue;
   if (total <= 0) return (int)cudaSuccess;
 #define SU2K_SLOT_CASE(ND_, NS_)                                            \
   if (c.nd == ND_ && c.ns == NS_) {                                         \
@@ -548,7 +553,13 @@ int launch_edge_slots(int n, const EdgeConsts& c, const Grid<T>& g,
   }
   SU2K_EDGE_BY_SHAPE(SU2K_SLOT_CASE)
 #undef SU2K_SLOT_CASE
-  return (int)cudaErrorInvalidValue;
+  if constexpr (K8)
+    edge_win_slot_kernel<T, 0, 0><<<blocks, threads, 0, stream>>>(
+        n, c, g, f, nrm, evec, tab, cst, flux, lc, lv);
+  else
+    edge_flux_kernel<T, 0, 0><<<blocks, threads, 0, stream>>>(
+        n, c, g, f, nrm, evec, tab, cst, flux, lc, lv);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -574,8 +585,10 @@ __device__ __forceinline__ T ausm_phi(const T* v, int a) {
 // dP/dU rows (nvar); unit, area: the face's unit normal and area.  Writes
 // the flux fo (nvar, times area) and the column vectors w_l, w_r (half the
 // mass-flux derivatives, 0.5 (dM_pol - dM_ext), before the upwind signs)
-// and pr_l, pr_r (the pressure-flux derivatives).
-template <int ND, typename T>
+// and pr_l, pr_r (the pressure-flux derivatives): both sides' (SIDES = 3),
+// or side i's only (1: w_r, pr_r untouched) or side j's (2: w_l, pr_l), so
+// a caller that stores one side's block at a time keeps one side's vectors.
+template <int ND, typename T, int SIDES = 3>
 __device__ __forceinline__ AusmFace<T> ausm_face(
     int nvar, double m_infty, const T* vfi, const T* vfj, const T* s_i,
     const T* s_j, const T* unit, T area, T* fo, T* w_l, T* w_r, T* pr_l,
@@ -683,8 +696,8 @@ __device__ __forceinline__ AusmFace<T> ausm_face(
       mel = mel + -c1;
       mer = mer + -c1;
     }
-    w_l[b] = (T)0.5 * (mpl - mel);
-    w_r[b] = (T)0.5 * (mpr - mer);
+    if constexpr ((SIDES & 1) != 0) w_l[b] = (T)0.5 * (mpl - mel);
+    if constexpr ((SIDES & 2) != 0) w_r[b] = (T)0.5 * (mpr - mer);
     T ppl = sub_l ? pp_l * mld + ps_l * scl : (T)0;
     T ppr = sub_r ? pp_r * mrd - ps_r * scr : (T)0;
     T pel = kl * (x1 * ppl + xl * scl);
@@ -696,8 +709,8 @@ __device__ __forceinline__ AusmFace<T> ausm_face(
       pel = pel + pv_l * unit[b - 1];
       per = per + pv_r * unit[b - 1];
     }
-    pr_l[b] = p_lp * s_i[b] + p_i * ppl - pel;
-    pr_r[b] = p_rm * s_j[b] + p_j * ppr - per;
+    if constexpr ((SIDES & 1) != 0) pr_l[b] = p_lp * s_i[b] + p_i * ppl - pel;
+    if constexpr ((SIDES & 2) != 0) pr_r[b] = p_rm * s_j[b] + p_j * ppr - per;
   }
   return AusmFace<T>{a_mean, m_lf, m_rf, (T)1 + sign_m12, (T)1 - sign_m12};
 }

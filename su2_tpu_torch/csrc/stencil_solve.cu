@@ -66,19 +66,25 @@
 // so it stays out of local memory; the V x V blocks are streamed, never
 // held.
 //
-// K6 is bound by its barriers: at m = 10, nc = 2 a cycle has
-// 2 + m (2nc + 1) + m (m - 1)/2 = 97 grid-wide barriers (sweep passes, one
-// fused matvec-and-first-dot pass, the j + 1 sequential modified
-// Gram-Schmidt passes and the norm), while its operands at 9,072 nodes
-// (~2.5 MB with the basis at V = 2; ~50 MB at V = 13 in the mixed tier, about
-// the size of L2) sit in L2.  Design K6: one cooperative grid of
-// at most the co-resident blocks (cudaLaunchCooperativeKernel), grid-stride
-// loops with a fixed node-to-thread map, cg::this_grid().sync() as the
-// barrier.  Every reduction is deterministic: block partials, then every
-// block sums the same partials in the same order, so the scalar recurrence
-// (pow2 scaling, Givens rotations, back-substitution) runs redundantly and
-// identically in each block, with no extra barrier.  Values written by
-// other blocks inside the launch are read with __ldcg (L2, not a stale L1).
+// K6: at m = 10, nc = 2 a cycle has 2 + m (2nc + 1) + m (m - 1)/2 = 97
+// grid-wide barriers (sweep passes, one fused matvec-and-first-dot pass,
+// the j + 1 sequential modified Gram-Schmidt passes and the norm), while
+// its operands at 9,072 nodes (~2.5 MB with the basis at V = 2; ~50 MB at
+// V = 13 in the mixed tier, about the size of L2) sit in L2.  At V = 2 the
+// barriers bound it (~3 us a phase); at V = 13 the work of a phase did
+// (~22 us a phase with a thread per node: 36 blocks of 256 threads at
+// 9,072 nodes, each thread streaming its K V^2 block values one after the
+// other).  Design K6: one cooperative grid of co-resident blocks
+// (cudaLaunchCooperativeKernel), cg::this_grid().sync() as the barrier.  At
+// V = 2 and 3 (fgmres_kernel) a thread per node, at most one block of 256
+// threads per 256 nodes; at V = 7 and 13 (fgmres_rows_kernel) K5's warp
+// per block row over the color-major node list, the grid as many blocks as
+// fit on every SM at once (one per 32-node group at most).  Every
+// reduction is deterministic: block partials, then every block sums the
+// same partials in the same order, so the scalar recurrence (pow2 scaling,
+// Givens rotations, back-substitution) runs redundantly and identically in
+// each block, with no extra barrier.  Values written by other threads
+// inside the launch are read with __ldcg (L2, not a stale L1).
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -463,6 +469,8 @@ struct FgArgs {
   const T* dinv;
   const T* diag;
   const int8_t* colors;
+  const int* order;   // V >= 7: the nodes sorted by color (color_order)
+  int cm;             // V >= 7: selp and dinv in order's color-major lanes
   const T* b;
   T* x;
   T* stats;     // [relative residual, iterations]
@@ -514,6 +522,59 @@ __device__ T grid_reduce(cg::grid_group& grid, T v, T* part, int& buf,
 
 __host__ __device__ constexpr int fg_smem_words(int m) {
   return 50 + 5 * m + m * m;
+}
+
+// The scalar part of Arnoldi step j, run by one thread of every block (the
+// same numbers in each): h_{j+1,j} = |w| from h = |w|^2 (or the identity
+// column once the cycle stopped), the earlier Givens rotations on the new
+// column rc, the new rotation, the residual estimate |g_{j+1}| and the
+// rotated column into cols; sc = [active, iterations, residual, vact,
+// vden] (krylov.fgmres's recurrence).
+template <typename T>
+__device__ void fg_column(int j, int m, bool active, T h, T norm0, T tol,
+                          T* sc, T* rc, T* cs, T* sn, T* g, T* cols) {
+  const T tiny = (T)1e-300;   // 0 in float, as in the reference
+  const T hj1 = active ? sq(h) : (T)0;
+  sc[3] = sc[0];
+  sc[4] = hj1 > tiny ? hj1 : tiny;
+  sc[1] += sc[0];
+  rc[j + 1] = hj1;
+  for (int i = 0; i < j; ++i) {
+    T t = cs[i] * rc[i] + sn[i] * rc[i + 1];
+    rc[i + 1] = -sn[i] * rc[i] + cs[i] * rc[i + 1];
+    rc[i] = t;
+  }
+  const T denom = sq(rc[j] * rc[j] + rc[j + 1] * rc[j + 1]);
+  const T safe = denom > tiny ? denom : tiny;
+  const T cj = denom == (T)0 ? (T)1 : rc[j] / safe;
+  const T sj = denom == (T)0 ? (T)0 : rc[j + 1] / safe;
+  cs[j] = cj;
+  sn[j] = sj;
+  const T gj1 = -sj * g[j];
+  g[j] = cj * g[j];
+  g[j + 1] = gj1;
+  const T cur = fab(gj1);
+  if (active) sc[2] = cur;
+  sc[0] = (active && cur / norm0 >= tol) ? (T)1 : (T)0;
+  for (int i = 0; i < j; ++i) cols[j * m + i] = rc[i];
+  cols[j * m + j] = cj * rc[j] + sj * rc[j + 1];
+}
+
+// back-substitution on the rotated R into y; block 0 writes the stats
+// [relative residual, iterations]
+template <typename T>
+__device__ void fg_solve_y(int m, T norm0, const T* sc, const T* g,
+                           const T* cols, T* y, T* stats) {
+  for (int j = m - 1; j >= 0; --j) {
+    T acc = g[j];
+    for (int i = j + 1; i < m; ++i) acc = acc - cols[i * m + j] * y[i];
+    const T rjj = cols[j * m + j];
+    y[j] = rjj == (T)0 ? (T)0 : acc / rjj;
+  }
+  if (blockIdx.x == 0) {
+    stats[0] = sc[2] / norm0;
+    stats[1] = sc[1];
+  }
 }
 
 template <typename T, typename S, int V>
@@ -641,48 +702,13 @@ fgmres_kernel(FgArgs<T, S> A) {
       }
       h = grid_reduce<T, false>(grid, part, A.part, buf, wsum, bc);
     }
-    if (threadIdx.x == 0) {
-      const T hj1 = active ? sq(h) : (T)0;
-      sc[3] = sc[0];
-      sc[4] = hj1 > tiny ? hj1 : tiny;
-      sc[1] += sc[0];
-      rc[j + 1] = hj1;
-      for (int i = 0; i < j; ++i) {
-        T t = cs[i] * rc[i] + sn[i] * rc[i + 1];
-        rc[i + 1] = -sn[i] * rc[i] + cs[i] * rc[i + 1];
-        rc[i] = t;
-      }
-      const T denom = sq(rc[j] * rc[j] + rc[j + 1] * rc[j + 1]);
-      const T safe = denom > tiny ? denom : tiny;
-      const T cj = denom == (T)0 ? (T)1 : rc[j] / safe;
-      const T sj = denom == (T)0 ? (T)0 : rc[j + 1] / safe;
-      cs[j] = cj;
-      sn[j] = sj;
-      const T gj1 = -sj * g[j];
-      g[j] = cj * g[j];
-      g[j + 1] = gj1;
-      const T cur = fab(gj1);
-      if (active) sc[2] = cur;
-      sc[0] = (active && cur / norm0 >= A.tol) ? (T)1 : (T)0;
-      for (int i = 0; i < j; ++i) cols[j * m + i] = rc[i];
-      cols[j * m + j] = cj * rc[j] + sj * rc[j + 1];
-    }
+    if (threadIdx.x == 0)
+      fg_column(j, m, active, h, norm0, A.tol, sc, rc, cs, sn, g, cols);
     __syncthreads();
   }
 
   // back-substitution on the rotated R, then x = s * sum_j y_j z_j
-  if (threadIdx.x == 0) {
-    for (int j = m - 1; j >= 0; --j) {
-      T acc = g[j];
-      for (int i = j + 1; i < m; ++i) acc = acc - cols[i * m + j] * y[i];
-      const T rjj = cols[j * m + j];
-      y[j] = rjj == (T)0 ? (T)0 : acc / rjj;
-    }
-    if (blockIdx.x == 0) {
-      A.stats[0] = sc[2] / norm0;
-      A.stats[1] = sc[1];
-    }
-  }
+  if (threadIdx.x == 0) fg_solve_y(m, norm0, sc, g, cols, y, A.stats);
   __syncthreads();
   for (int p = tid; p < n; p += nth) {
 #pragma unroll
@@ -695,13 +721,275 @@ fgmres_kernel(FgArgs<T, S> A) {
   }
 }
 
+// K6 at V = 7 and 13: the same cycle with K5's thread layout in the sweep
+// passes and the matvec.  A block is G = k5_groups<V>() groups of 32 lanes,
+// V warps each (1-D: thread t is lane t % 32 of row (t / 32) % V of group
+// t / (32 V)); warp a forms row a of the 32 nodes' block products, so each
+// block-row load is one coalesced read, and the node-major vectors are
+// staged through shared memory.  The blocks walk the 32-node groups
+// (grid-stride, the same groups in every pass); a sweep pass runs over the
+// lanes of the color-major node list order (the nodes sorted by color), so
+// its color's nodes are a contiguous run of lanes and their rows of the
+// bf16 blocks (cm: the color-major copy) are contiguous too.  The vector
+// updates of the Gram-Schmidt passes and the reductions run flat over the
+// n V entries.  Every value another thread wrote inside the launch is read
+// through L2 (__ldcg): the phases map entries to threads differently.
+template <int V>
+__host__ __device__ constexpr int fg_rows_threads() {
+  return 32 * V * k5_groups<V>();
+}
+
+// shared words of the staging area: per group (K + 2) vectors of 32 V
+// (sized for SU2K_MAXK offsets, so the grid does not depend on K)
+template <int V>
+__host__ __device__ constexpr int fg_rows_stage_words() {
+  return k5_groups<V>() * (SU2K_MAXK + 2) * 32 * V;
+}
+
+// 3 blocks per SM: the one-launch tier's largest field (npad <= 12,288
+// at m = 10, stencil_solve._fgmres_cap) is 384 groups, so at V = 13 every
+// group of a pass runs in one wave on 396 co-resident blocks; at 2 blocks
+// per SM (72 registers) 264 blocks took two rounds in some blocks and one
+// FGMRES(10) cycle at 9,072 nodes took ~1.0 ms instead of ~0.72.
+template <typename T, typename S, int V>
+__global__ void __launch_bounds__(32 * V * (512 / (32 * V)), 3)
+fgmres_rows_kernel(FgArgs<T, S> A) {
+  constexpr int G = k5_groups<V>();
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char fg_smem[];
+  T* sh = reinterpret_cast<T*>(fg_smem);
+  const int n = A.n, m = A.m;
+  T* wsum = sh;              // 32 warp partials
+  T* bc = sh + 32;           // reduction broadcast
+  T* sc = sh + 40;           // active, iters, res_hist, vact, vden
+  T* rc = sh + 48;           // m + 1: the new Hessenberg column
+  T* cs = rc + m + 1;        // m
+  T* sn = cs + m;            // m
+  T* g = sn + m;             // m + 1
+  T* y = g + m + 1;          // m
+  T* cols = y + m;           // m * m: rotated column j, row i at j*m + i
+  const int t = threadIdx.x;
+  const int l = t & 31, a = (t >> 5) % V, gl = (t >> 5) / V;
+  const int k = A.st.k;
+  // this group's staging: K neighbour vectors, r (or z), the row results
+  T* gx = sh + fg_smem_words(m) + (size_t)gl * (SU2K_MAXK + 2) * 32 * V;
+  T* gr = gx + (size_t)k * 32 * V;
+  T* gacc = gr + 32 * V;
+  const size_t nv = (size_t)n * V;
+  T* vb = A.ws;
+  T* zb = vb + (size_t)(m + 1) * nv;
+  T* zs = zb + (size_t)m * nv;
+  T* wv = zs + nv;
+  const long long tid = (long long)blockIdx.x * blockDim.x + t;
+  const long long nth = (long long)gridDim.x * blockDim.x;
+  const int ngroup = (n + 31) / 32;
+  const int npass = 2 * A.ncolor - 1;
+  const T tiny = (T)1e-300;   // 0 in float, as in the reference
+  int buf = 0;
+
+  // exact power-of-two scaling of b (krylov._pow2_scale)
+  T amax = (T)0;
+  for (long long e = tid; e < (long long)nv; e += nth) {
+    T u = fab(A.b[e]);
+    amax = u > amax ? u : amax;
+  }
+  amax = grid_reduce<T, true>(grid, amax, A.part, buf, wsum, bc);
+  const T s = amax > (T)0 ? pow2_floor(amax > tiny ? amax : tiny) : (T)1;
+  T ss = (T)0;
+  for (long long e = tid; e < (long long)nv; e += nth) {
+    T bv = A.b[e] / s;
+    ss += bv * bv;
+  }
+  const T beta = sq(grid_reduce<T, false>(grid, ss, A.part, buf, wsum, bc));
+  const T norm0 = beta > tiny ? beta : tiny;
+  for (long long e = tid; e < (long long)nv; e += nth)
+    vb[e] = (A.b[e] / s) / norm0;
+  if (t == 0) {
+    sc[0] = (beta / norm0 >= A.tol) ? (T)1 : (T)0;
+    sc[1] = (T)0;
+    sc[2] = beta;
+    sc[3] = (T)0;
+    sc[4] = (T)1;
+    g[0] = beta;
+  }
+  __syncthreads();
+
+  for (int j = 0; j < m; ++j) {
+    T* vj = vb + (size_t)j * nv;
+    T* zj = zb + (size_t)j * nv;
+    const bool vact = sc[3] != (T)0;
+    const T vden = sc[4];
+    // v_j: written in the phase before (v_0) or in the first pass's phase
+    // (j > 0: entry e of the normalised w, or v_{j-1} once the cycle
+    // stopped) by the flat entry mapping, so the first pass, which reads
+    // other nodes' entries, forms it on the fly with the same operations
+    auto vnew = [&](size_t e) {
+      if (j == 0) return (A.b[e] / s) / norm0;
+      return vact ? __ldcg(wv + e) / vden : __ldcg(vj - nv + e);
+    };
+    if (j > 0)
+      for (long long e = tid; e < (long long)nv; e += nth) vj[e] = vnew(e);
+    // z_j = sweep(v_j)
+    const T* zold = nullptr;
+    for (int i = 0; i < npass; ++i) {
+      const int color = i < A.ncolor ? i : 2 * A.ncolor - 2 - i;
+      const bool first = i == 0;
+      T* dst = ((npass - 1 - i) & 1) ? zs : zj;
+      for (int base = blockIdx.x * G; base < ngroup; base += gridDim.x * G) {
+        const int i0 = (base + gl) * 32;
+        {
+          // stage: element e = (node e / V, entry e % V) of each vector
+          const int e = a * 32 + l, ls = e / V, b = e - ls * V;
+          const int is = i0 + ls;
+          if (is < n) {
+            const int ps = A.order[is];
+            if (A.colors[ps] == color) {
+              const size_t idx = (size_t)ps * V + b;
+              gr[e] = first ? vnew(idx) : __ldcg(vj + idx);
+              for (int kk = 0; kk < k && !first; ++kk) {
+                const int q = ps + A.st.off[kk];
+                gx[kk * 32 * V + e] =
+                    q < 0 || q >= n ? (T)0 : __ldcg(zold + (size_t)q * V + b);
+              }
+            }
+          }
+        }
+        __syncthreads();
+        const int ii = i0 + l;
+        const int p = ii < n ? A.order[ii] : 0;
+        const bool mine = ii < n && A.colors[p] == color;
+        const int lane = A.cm ? ii : p;
+        if (mine) {
+          T acc = gr[l * V + a];
+          if (!first) {
+            T od = (T)0;
+            for (int kk = 0; kk < k; ++kk) {
+              const int q = p + A.st.off[kk];
+              if (q < 0 || q >= n) continue;
+              const S* blk = A.selp + ((size_t)kk * V * V + a * V) * n + lane;
+              const T* x = gx + kk * 32 * V + l * V;
+              T yv = (T)0;
+#pragma unroll
+              for (int b = 0; b < V; ++b)
+                yv += widen<T, S>(blk[(size_t)b * n]) * x[b];
+              od += yv;
+            }
+            acc = acc - od;
+          }
+          gacc[l * V + a] = acc;
+        }
+        __syncthreads();
+        if (ii < n) {
+          T zn;
+          if (mine) {
+            const T* dr = A.dinv + (size_t)a * V * n + lane;
+            zn = (T)0;
+#pragma unroll
+            for (int b = 0; b < V; ++b) zn += dr[(size_t)b * n] * gacc[l * V + b];
+          } else {
+            zn = first ? (T)0 : __ldcg(zold + (size_t)p * V + a);
+          }
+          dst[(size_t)p * V + a] = zn;
+        }
+        __syncthreads();
+      }
+      grid.sync();
+      zold = dst;
+    }
+    // w = A z_j (natural layout, 32 consecutive nodes a group), fused with
+    // the first Gram-Schmidt dot (v_0, w)
+    T part = (T)0;
+    for (int base = blockIdx.x * G; base < ngroup; base += gridDim.x * G) {
+      const int p0 = (base + gl) * 32;
+      T* gz = gr;                       // z of the group's own nodes
+      {
+        const int e = a * 32 + l;
+        const int ps = p0 + e / V;
+        if (ps < n) {
+          gz[e] = __ldcg(zj + (size_t)p0 * V + e);
+          for (int kk = 0; kk < k; ++kk) {
+            const int q = ps + A.st.off[kk];
+            gx[kk * 32 * V + e] =
+                q < 0 || q >= n ? (T)0
+                                : __ldcg(zj + (size_t)p0 * V + e
+                                         + (ptrdiff_t)A.st.off[kk] * V);
+          }
+        }
+      }
+      __syncthreads();
+      const int p = p0 + l;
+      if (p < n) {
+        T od = (T)0;
+        for (int kk = 0; kk < k; ++kk) {
+          const int q = p + A.st.off[kk];
+          if (q < 0 || q >= n) continue;
+          const T* blk = A.selm + ((size_t)kk * V * V + a * V) * n + p;
+          const T* xq = gx + kk * 32 * V + l * V;
+          T tv = (T)0;
+#pragma unroll
+          for (int b = 0; b < V; ++b) tv += blk[(size_t)b * n] * xq[b];
+          od += tv;
+        }
+        const T* dr = A.diag + (size_t)a * V * n + p;
+        T w = (T)0;
+#pragma unroll
+        for (int b = 0; b < V; ++b) w += dr[(size_t)b * n] * gz[l * V + b];
+        w = w + od;
+        const size_t e = (size_t)p * V + a;
+        wv[e] = w;
+        part += __ldcg(vb + e) * w;
+      }
+      __syncthreads();
+    }
+    T h = grid_reduce<T, false>(grid, part, A.part, buf, wsum, bc);
+    const bool active = sc[0] != (T)0;
+    // modified Gram-Schmidt: w -= h_ij v_i, then the next dot (or |w|^2)
+    for (int i = 0; i <= j; ++i) {
+      const T hij = active ? h : (i == j ? (T)1 : (T)0);
+      const T hm = active ? hij : (T)0;
+      if (t == 0) rc[i] = hij;
+      const T* vi = vb + (size_t)i * nv;
+      part = (T)0;
+      for (long long e = tid; e < (long long)nv; e += nth) {
+        T tv = __ldcg(wv + e) - hm * __ldcg(vi + e);
+        wv[e] = tv;
+        part += (i < j) ? __ldcg(vi + nv + e) * tv : tv * tv;
+      }
+      h = grid_reduce<T, false>(grid, part, A.part, buf, wsum, bc);
+    }
+    if (t == 0)
+      fg_column(j, m, active, h, norm0, A.tol, sc, rc, cs, sn, g, cols);
+    __syncthreads();
+  }
+
+  // back-substitution on the rotated R, then x = s * sum_j y_j z_j
+  if (t == 0) fg_solve_y(m, norm0, sc, g, cols, y, A.stats);
+  __syncthreads();
+  for (long long e = tid; e < (long long)nv; e += nth) {
+    T d = __ldcg(zb + e) * y[0];
+    for (int j = 1; j < m; ++j) d = d + y[j] * __ldcg(zb + (size_t)j * nv + e);
+    A.x[e] = d * s;
+  }
+}
+
 // The grid of a K6 launch: every block co-resident (the cooperative
-// launch's condition), at most one block per 256 nodes and at most the
-// partial buffers' capacity.  Wider blocks take more registers per thread,
-// so fewer blocks fit on an SM.
+// launch's condition) and at most the partial buffers' capacity.  V <= 3:
+// blocks of 256 threads, at most one per 256 nodes.  V >= 7 (the rows
+// kernel): as many blocks as fit on all the card's SMs at once (by the
+// occupancy of its registers and shared memory), at most one per G 32-node
+// groups.  Wider blocks take more registers per thread, so fewer blocks
+// fit on an SM.
+// K6's kernel at width V: the rows kernel at V >= 7, else a thread per node
+template <typename T, typename S, int V>
+const void* fgmres_entry() {
+  if constexpr (V > 3) return (const void*)fgmres_rows_kernel<T, S, V>;
+  else return (const void*)fgmres_kernel<T, S, V>;
+}
+
 template <typename T, typename S, int V>
 cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
-                        size_t* smem) {
+                        size_t* smem, int* threads) {
+  constexpr bool ROWS = V > 3;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -710,18 +998,21 @@ cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  *smem = (size_t)fg_smem_words(m) * sizeof(T);
-  auto kern = fgmres_kernel<T, S, V>;
+  *threads = ROWS ? fg_rows_threads<V>() : SU2K_FG_THREADS;
+  *smem = (size_t)(fg_smem_words(m) + (ROWS ? fg_rows_stage_words<V>() : 0))
+        * sizeof(T);
+  const void* kern = fgmres_entry<T, S, V>();
   if (*smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
     if (err != cudaSuccess) return err;
   }
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      SU2K_FG_THREADS, *smem);
+                                                      *threads, *smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  int b = (n + SU2K_FG_THREADS - 1) / SU2K_FG_THREADS;
+  const int per_block = ROWS ? 32 * k5_groups<V>() : SU2K_FG_THREADS;
+  int b = (n + per_block - 1) / per_block;
   b = b < per_sm * sms ? b : per_sm * sms;  // co-resident
   b = b < part_cap / 2 ? b : part_cap / 2;
   *blocks = b > 0 ? b : 1;
@@ -730,23 +1021,24 @@ cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
 
 template <typename T, typename S, int V>
 int launch_fgmres(FgArgs<T, S> A, int part_cap, cudaStream_t stream) {
-  int blocks = 0;
+  int blocks = 0, threads = 0;
   size_t smem = 0;
-  cudaError_t err = fgmres_grid<T, S, V>(A.n, A.m, part_cap, &blocks, &smem);
+  cudaError_t err = fgmres_grid<T, S, V>(A.n, A.m, part_cap, &blocks, &smem,
+                                         &threads);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&A};
-  err = cudaLaunchCooperativeKernel((const void*)fgmres_kernel<T, S, V>,
-                                    dim3(blocks), dim3(SU2K_FG_THREADS), args,
-                                    smem, stream);
+  err = cudaLaunchCooperativeKernel(fgmres_entry<T, S, V>(), dim3(blocks),
+                                    dim3(threads), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename S, int V>
 int grid_of(int n, int m, int part_cap) {
-  int blocks = 0;
+  int blocks = 0, threads = 0;
   size_t smem = 0;
-  cudaError_t err = fgmres_grid<T, S, V>(n, m, part_cap, &blocks, &smem);
+  cudaError_t err = fgmres_grid<T, S, V>(n, m, part_cap, &blocks, &smem,
+                                         &threads);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
@@ -766,12 +1058,13 @@ int grid_of(int n, int m, int part_cap) {
 template <typename T, typename S>
 int fgmres_v(int v, int n, const Stencil& st, int ncolor, int m, double tol,
              const void* selp, const void* selm, const void* dinv,
-             const void* diag, const void* colors, const void* b, void* x,
-             void* stats, void* ws, void* part, int part_cap,
-             cudaStream_t stream) {
+             const void* diag, const void* colors, const void* order, int cm,
+             const void* b, void* x, void* stats, void* ws, void* part,
+             int part_cap, cudaStream_t stream) {
   FgArgs<T, S> A{n, ncolor, m, st, (T)tol, (const S*)selp, (const T*)selm,
                  (const T*)dinv, (const T*)diag, (const int8_t*)colors,
-                 (const T*)b, (T*)x, (T*)stats, (T*)ws, (T*)part};
+                 (const int*)order, cm, (const T*)b, (T*)x, (T*)stats,
+                 (T*)ws, (T*)part};
   SU2K_BY_WIDTH(v, (launch_fgmres<T, S, V>(A, part_cap, stream)),
                 (int)cudaErrorInvalidValue)
 }
@@ -832,32 +1125,38 @@ extern "C" int su2k_stencil_sgs_matvec(
       colors, order, r, z, w, zbuf, s);
 }
 
+// order, cm: at V >= 7 the color-major node list (int32, n) and whether
+// selp and dinv are in its lane layout (else natural); ignored at V <= 3,
+// which read the natural layout
 extern "C" int su2k_stencil_fgmres(
     int is_f64, int sel_bf16, int v, int n, int k, const int* offs,
     int ncolor, int m, double tol, const void* selp, const void* selm,
-    const void* dinv, const void* diag, const void* colors, const void* b,
-    void* x, void* stats, void* ws, void* part, int part_cap, void* stream) {
+    const void* dinv, const void* diag, const void* colors,
+    const void* order, int cm, const void* b, void* x, void* stats,
+    void* ws, void* part, int part_cap, void* stream) {
   su2k::Stencil st;
   if (!su2k::make_stencil(k, offs, st) || (is_f64 && sel_bf16) || m < 1 ||
-      n < 1)
+      n < 1 || (v > 3 && order == nullptr) || (v <= 3 && cm))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64)
     return su2k::fgmres_v<double, double>(v, n, st, ncolor, m, tol, selp,
-                                          selm, dinv, diag, colors, b, x,
-                                          stats, ws, part, part_cap, s);
+                                          selm, dinv, diag, colors, order,
+                                          cm, b, x, stats, ws, part,
+                                          part_cap, s);
   if (sel_bf16)
     return su2k::fgmres_v<float, __nv_bfloat16>(v, n, st, ncolor, m, tol,
                                                 selp, selm, dinv, diag,
-                                                colors, b, x, stats, ws,
-                                                part, part_cap, s);
+                                                colors, order, cm, b, x,
+                                                stats, ws, part, part_cap, s);
   return su2k::fgmres_v<float, float>(v, n, st, ncolor, m, tol, selp, selm,
-                                      dinv, diag, colors, b, x, stats, ws,
-                                      part, part_cap, s);
+                                      dinv, diag, colors, order, cm, b, x,
+                                      stats, ws, part, part_cap, s);
 }
 
-// the grid (blocks of 256 threads) that su2k_stencil_fgmres takes for these
-// arguments on the current device, or minus a cudaError_t
+// the grid (blocks; of 256 threads at V <= 3, of 32 V k5_groups<V>() at
+// V >= 7) that su2k_stencil_fgmres takes for these arguments on the
+// current device, or minus a cudaError_t
 extern "C" int su2k_stencil_fgmres_grid(int is_f64, int sel_bf16, int v,
                                         int n, int m, int part_cap) {
   if ((is_f64 && sel_bf16) || m < 1 || n < 1)

@@ -23,10 +23,13 @@ error and adds one to its entry in ``launches``.
   K12 sst_assemble      csrc/sst_assemble.cu  (turbulence/sst_assemble.py)
   K13 edge_list_flux    csrc/edge_list.cu     (ops/edge_flux.py)
 T3, K8 and K13 share the per-edge device function of csrc/edge_side.cuh
-(compiled for the (dimension, species count) shapes of EDGE_SHAPES; K8's
-first pass is T3's slot pass under a kernel name of its own); K10 shares its species h/cp lookup and
-Stefan-Maxwell solve, and K10 and K11 its implicit AUSM+-up face
-(ausm_face, ausm_jac_entry).
+(compiled for the (dimension, species count) shapes of EDGE_SHAPES, and
+one run-time instance for every other shape up to 3D and 16 species; K8's
+first pass is T3's slot pass under a kernel name of its own); K10 shares
+its species h/cp lookup and Stefan-Maxwell solve (compiled for the species
+counts of IMPLICIT_SPECIES), and K10 and K11 (AUSM_SPECIES) its implicit
+AUSM+-up face (ausm_face, ausm_jac_entry); each has a run-time-count
+instance for the other counts.
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ _ARGTYPES = {
                                + [_P] * 11,
     "su2k_stencil_fgmres": [_I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int), _I, _I, _D]
-                           + [_P] * 10 + [_I, _P],
+                           + [_P] * 6 + [_I] + [_P] * 5 + [_I, _P],
     "su2k_stencil_fgmres_grid": [_I] * 6,
     "su2k_gradient_rows": [_I, _I, _I, _I, _I, _I,
                            ctypes.POINTER(ctypes.c_int)] + [_P] * 6,
@@ -292,15 +295,31 @@ def node_state(lib, lay, p, u, t_guess, turb_ke=None, lite=False):
 # is compiled for (SU2K_EDGE_BY_SHAPE in csrc/edge_side.cuh): the 9-species
 # combustion chemistry (the port's case, the reference combustor) in 2D and
 # 3D (the case on geometry.structured.box_mesh), the 3-species air of the
-# flat plate in 2D and of the 3D channel (tests/test_rans_3d.py)
+# flat plate in 2D and of the 3D channel (tests/test_rans_3d.py).  Every
+# other shape within MAX_DIM and MAX_SPECIES runs the run-time instance of
+# the same body (its work arrays in local memory).
 EDGE_SHAPES = ((2, 9), (2, 3), (3, 9), (3, 3))
+# SU2K_MAXD and SU2K_MAXS (csrc/common.cuh): the bounds of the run-time
+# instances of every kernel whose work arrays are sized by the counts
+MAX_DIM = 3
+MAX_SPECIES = 16
+
+
+def _check_species(name, ns):
+    if not 1 <= ns <= MAX_SPECIES:
+        raise ValueError(f"{name}: {ns} species; the kernels take 1 to "
+                         f"{MAX_SPECIES}")
 
 
 def _check_edge_shape(name, lay):
-    if (lay.ndim, lay.ns) not in EDGE_SHAPES:
+    """Whether the per-edge body runs a compiled instance at lay's
+    (dimension, species count) shape (False: the run-time instance);
+    raises past MAX_DIM or MAX_SPECIES."""
+    if not 1 <= lay.ndim <= MAX_DIM:
         raise ValueError(f"{name}: {lay.ndim}D with {lay.ns} species; the "
-                         "kernel is compiled for the (dimension, species) "
-                         f"shapes {EDGE_SHAPES}")
+                         f"kernels take 1D to {MAX_DIM}D")
+    _check_species(name, lay.ns)
+    return (lay.ndim, lay.ns) in EDGE_SHAPES
 
 
 def _edge_args(name, lib, lay, sc, consts, f_all, offsets, fam_normal,
@@ -498,6 +517,22 @@ def _check_stencil(name, selp, selm, dinv, diag, colors, r, offsets, ncolor,
     return n, v, k, sel_bf16
 
 
+def _node_order(name, colors, order, color_major, n, device):
+    """The sweep's node order: order checked, or the colors sorted here
+    (stencil_solve.color_order's result) when None and the blocks are in
+    the natural layout."""
+    if order is None:
+        if color_major:
+            raise ValueError(f"{name}: color-major blocks need their node "
+                             "order")
+        return torch.argsort(colors, stable=True).to(torch.int32)
+    if order.dtype != torch.int32 or tuple(order.shape) != (n,) \
+            or order.device != device or not order.is_contiguous():
+        raise ValueError(f"{name}: order must be a contiguous int32 ({n},) "
+                         f"tensor on {device}")
+    return order
+
+
 def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
                        ncolor, sweep=True, matvec=True, order=None,
                        color_major=False):
@@ -516,16 +551,9 @@ def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
     n, v, k, sel_bf16 = _check_stencil("stencil_sgs_matvec", selp_t, selm_t,
                                        dinv_t, diag_t, colors, r, offsets,
                                        ncolor, sweep)
-    if sweep and order is None:
-        if color_major:
-            raise ValueError("stencil_sgs_matvec: color-major blocks need "
-                             "their node order")
-        order = torch.argsort(colors, stable=True).to(torch.int32)
-    if sweep and (order.dtype != torch.int32 or tuple(order.shape) != (n,)
-                  or order.device != r.device
-                  or not order.is_contiguous()):
-        raise ValueError("stencil_sgs_matvec: order must be a contiguous "
-                         f"int32 ({n},) tensor on {r.device}")
+    if sweep:
+        order = _node_order("stencil_sgs_matvec", colors, order, color_major,
+                            n, r.device)
     z = torch.empty_like(r) if sweep else r
     zbuf = torch.empty_like(r) if sweep and ncolor > 1 else None
     w = torch.empty_like(r) if matvec else None
@@ -541,16 +569,39 @@ def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
     return z, w
 
 
+# K6 runs K5's warp-per-block-row mapping over the color-major node list
+# from this width up (fgmres_rows_kernel), a thread per node below
+K6_ROWS_MIN_V = 7
+
+
+def k6_groups(v):
+    """32-node groups per block of K6's rows kernel (k5_groups in
+    csrc/stencil_solve.cu): as many as fit 512 threads at V warps each."""
+    return 512 // (32 * v)
+
+
 def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
-                   m, tol):
+                   m, tol, order=None, color_major=False):
     """Kernel K6: one FGMRES(m) cycle preconditioned by the sweep, in one
     cooperative launch.  Returns (x (N, v), relative residual, iterations
-    as int32), the contract of krylov.fgmres without x0."""
+    as int32), the contract of krylov.fgmres without x0.  At v >=
+    K6_ROWS_MIN_V the sweep passes run over order (the nodes sorted by
+    color; sorted here when None) and color_major says that selp_t and
+    dinv_t are in its color-major lane layout (stencil_solve.
+    to_color_major); below it K6 reads the natural layout only."""
     n, v, k, sel_bf16 = _check_stencil("stencil_fgmres", selp_t, selm_t,
                                        dinv_t, diag_t, colors, b, offsets,
                                        ncolor)
     if not 1 <= m <= 64:
         raise ValueError(f"stencil_fgmres: 1 to 64 Krylov vectors, got {m}")
+    if v < K6_ROWS_MIN_V:
+        if color_major:
+            raise ValueError(f"stencil_fgmres: at v = {v} K6 reads the "
+                             "natural layout, not the color-major one")
+        order = None
+    else:
+        order = _node_order("stencil_fgmres", colors, order, color_major, n,
+                            b.device)
     x = torch.empty_like(b)
     stats = torch.empty((2,), dtype=b.dtype, device=b.device)
     ws = torch.empty(((2 * m + 3) * n * v,), dtype=b.dtype, device=b.device)
@@ -559,17 +610,20 @@ def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
     err = _lib().su2k_stencil_fgmres(
         int(b.dtype == torch.float64), int(sel_bf16), v, n, k, offs,
         int(ncolor), int(m), float(tol), _ptr(selp_t), _ptr(selm_t),
-        _ptr(dinv_t), _ptr(diag_t), _ptr(colors), _ptr(b), _ptr(x),
-        _ptr(stats), _ptr(ws), _ptr(part), _PART_CAP, _stream())
+        _ptr(dinv_t), _ptr(diag_t), _ptr(colors), _ptr(order),
+        int(bool(color_major)), _ptr(b), _ptr(x), _ptr(stats), _ptr(ws),
+        _ptr(part), _PART_CAP, _stream())
     _raise("stencil_fgmres", err)
     launches["stencil_fgmres"] += 1
     return x, stats[0], stats[1].to(torch.int32)
 
 
 def stencil_fgmres_grid(dtype, sel_bf16, v, n, m):
-    """The blocks (of 256 threads) of K6's cooperative grid for these
-    arguments on the current card: the co-resident blocks, at most one per
-    256 nodes (a host query; launches nothing)."""
+    """The blocks of K6's cooperative grid for these arguments on the
+    current card (a host query; launches nothing): the co-resident blocks,
+    at v < K6_ROWS_MIN_V of 256 threads and at most one per 256 nodes, at
+    v >= K6_ROWS_MIN_V of 32 v k6_groups(v) threads and at most one per
+    32 k6_groups(v) nodes."""
     if v not in STENCIL_WIDTHS:
         raise ValueError(f"stencil_fgmres_grid: block width {v}; the kernels "
                          f"are compiled for the widths {STENCIL_WIDTHS}")
@@ -631,12 +685,23 @@ def inlet_tc(tc, riemann, gamma, alpha):
 
 
 # ---------------------------------------------------------------- K10
+# The species counts K10 is compiled for (SU2K_IMPLICIT_BY_NS in
+# csrc/edge_implicit.cu): the 9-species case and the 3-species flat plate;
+# every other count up to MAX_SPECIES runs the run-time instance.
+IMPLICIT_SPECIES = (9, 3)
+
+
 def edge_implicit(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec,
                   muscl, use_limiter):
     """Kernel K10: per-family implicit edge flux (Kh, nVar, N) and edge
     Jacobian blocks j_i, j_j (Kh, nVar^2, N) from the stack f_all (R, N) of
     ops/edge_implicit.implicit_rows, in one launch for every family;
     consts = (m_infty, prandtl_turb, lewis_turb).  2D only."""
+    if lay.ndim != 2:
+        raise ValueError("edge_implicit: 2D only")
+    _check_species("edge_implicit", lay.ns)
+    if use_limiter and not muscl:
+        raise ValueError("edge_implicit: a limiter needs MUSCL")
     m_infty, pr_turb, le_turb = consts
     f_all = f_all.contiguous()
     fam_normal = fam_normal.contiguous()
@@ -649,10 +714,6 @@ def edge_implicit(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec,
     nrow, n = f_all.shape
     kh = len(offsets)
     from su2_tpu_torch.ops.edge_implicit import implicit_rows
-    if lay.ndim != 2:
-        raise ValueError("edge_implicit: 2D only")
-    if use_limiter and not muscl:
-        raise ValueError("edge_implicit: a limiter needs MUSCL")
     if nrow != implicit_rows(lay)["total"] \
             or fam_normal.shape != (kh, n, lay.ndim) \
             or fam_evec.shape != (kh, n, lay.ndim):
@@ -677,7 +738,8 @@ def edge_implicit(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec,
 
 # ---------------------------------------------------------------- K11
 # The species counts K11 is compiled for (SU2K_AUSM_BY_NS in
-# csrc/ausm_jac.cu): the case's 9, nVar = 13.
+# csrc/ausm_jac.cu): the case's 9, nVar = 13; every other count up to
+# MAX_SPECIES runs the run-time instance.
 AUSM_SPECIES = (9,)
 
 
@@ -688,13 +750,11 @@ def ausm_flux_jac(lay, v_i, v_j, normal, m_infty, s_i, s_j,
     (nVar, E) -> flux (nVar, E), jac_i, jac_j (nVar, nVar, E).
     Edge-major: the transposes, (E, nPrim) ... -> (E, nVar),
     (E, nVar, nVar).  A zero normal gives exact zeros."""
-    ins = [x.contiguous() for x in (v_i, v_j, normal, s_i, s_j)]
-    _check("ausm_flux_jac", *ins)
     if lay.ndim != 2:
         raise ValueError("ausm_flux_jac: 2D only")
-    if lay.ns not in AUSM_SPECIES:
-        raise ValueError(f"ausm_flux_jac: {lay.ns} species; the kernel is "
-                         f"compiled for {AUSM_SPECIES}")
+    _check_species("ausm_flux_jac", lay.ns)
+    ins = [x.contiguous() for x in (v_i, v_j, normal, s_i, s_j)]
+    _check("ausm_flux_jac", *ins)
     ne = ins[0].shape[0 if edge_major else 1]
     widths = (lay.nprim, lay.nprim, lay.ndim, lay.nvar, lay.nvar)
     for x, w in zip(ins, widths):

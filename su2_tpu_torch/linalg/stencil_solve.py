@@ -30,8 +30,11 @@ carried.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
+from su2_tpu_torch.kernels import K6_ROWS_MIN_V
 from su2_tpu_torch.linalg import krylov
 
 # ---------------------------------------------------------------------------
@@ -168,10 +171,24 @@ def fused_sst_solve_tier(npoint: int, offsets, dtype, ncolor: int,
 # ---------------------------------------------------------------------------
 # The color-major lane layout of K5's sweep operands
 # ---------------------------------------------------------------------------
+# color_order's results by colors tensor: id -> (weak reference to the
+# tensor, its version counter, the order); an entry leaves with its tensor
+_ORDERS: dict = {}
+
+
 def color_order(colors):
     """(N,) int32: the nodes sorted by color, in node order within a color
-    (the lanes of one color are a contiguous run)."""
-    return torch.argsort(colors, stable=True).to(torch.int32)
+    (the lanes of one color are a contiguous run).  Sorted once per colors
+    tensor (a run's static colors) and reused while the tensor is alive
+    and unchanged."""
+    key = id(colors)
+    hit = _ORDERS.get(key)
+    if hit is not None and hit[0]() is colors and hit[1] == colors._version:
+        return hit[2]
+    order = torch.argsort(colors, stable=True).to(torch.int32)
+    ref = weakref.ref(colors, lambda _, key=key: _ORDERS.pop(key, None))
+    _ORDERS[key] = (ref, colors._version, order)
+    return order
 
 
 def to_color_major(order, sel_t, dinv_t, sel_dtype):
@@ -240,11 +257,16 @@ def fgmres_plain(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
 # plain version
 # ---------------------------------------------------------------------------
 def fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor, m,
-           tol):
+           tol, order=None, color_major=False):
+    """K6 (order, color_major: kernels.stencil_fgmres) on a CUDA tensor,
+    the plain version over the natural layout on a CPU tensor."""
     if b.is_cuda:
         from su2_tpu_torch import kernels
         return kernels.stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors,
-                                      b, offsets, ncolor, m, tol)
+                                      b, offsets, ncolor, m, tol, order,
+                                      color_major)
+    if color_major:
+        raise ValueError("fgmres: the plain version reads the natural layout")
     return fgmres_plain(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets,
                         ncolor, m, tol)
 
@@ -260,11 +282,13 @@ class StencilSolveOps:
     ones.  The blocks the object holds decide the tier: the reference's
     precond_matvec_mixed and fgmres_mixed are precond_matvec and fgmres of
     an object built with sel_dtype=bf16.  one_launch: the solve is one K6
-    launch (fgmres), which reads the natural layout; otherwise, on the
-    card, K5's node order is made once here, and in the mixed tier the
-    sweep blocks and dinv are held in its color-major lane layout (the
-    bf16 copy takes the permutation; at full precision the sweep reads the
-    matvec's blocks where they lie, so no second copy is kept)."""
+    launch (fgmres).  On the card the sweep runs over the node order
+    (color_order, sorted once per colors tensor) wherever the kernel reads
+    it: in K5, and in K6 at v >= kernels.K6_ROWS_MIN_V; there, in the mixed
+    tier, the sweep blocks and dinv are held in its color-major lane layout
+    (the bf16 copy takes the permutation; at full precision the sweep reads
+    the matvec's blocks where they lie, so no second copy is kept).  K6 at
+    v < K6_ROWS_MIN_V reads the natural layout."""
 
     def __init__(self, mesh, sel_t, dinv, diag, colors, ncolor: int,
                  sel_dtype=None, one_launch=False):
@@ -293,8 +317,9 @@ class StencilSolveOps:
         self.selm_t = sel_t.contiguous()
         self.diag_t = diag_t.contiguous()
         sel_dtype = sel_t.dtype if sel_dtype is None else sel_dtype
+        v = int(round(diag_t.shape[0] ** 0.5))
         self.order = None
-        if self.selm_t.is_cuda and not one_launch:
+        if self.selm_t.is_cuda and (not one_launch or v >= K6_ROWS_MIN_V):
             self.order = color_order(colors)
         self.color_major = self.order is not None and sel_dtype != sel_t.dtype
         if self.color_major:
@@ -304,6 +329,7 @@ class StencilSolveOps:
             self.sel_t = self.selm_t if sel_dtype == sel_t.dtype \
                 else self.selm_t.to(sel_dtype)
             self.dinv_t = dinv_t.contiguous()
+        self.v = v
 
     def _sgs(self, r, sweep=True, matvec=True):
         """K5 on a CUDA tensor (over this object's node order and layout),
@@ -327,11 +353,14 @@ class StencilSolveOps:
         return self._sgs(x, sweep=False)[1]
 
     def fgmres(self, b, max_iter: int, tol: float):
-        """A whole FGMRES cycle as one launch; the (x, rel, iters) contract
-        of krylov.fgmres."""
-        if self.color_major:
-            raise ValueError("StencilSolveOps.fgmres: the operators were "
-                             "laid out for K5 (one_launch=False)")
+        """A whole FGMRES cycle as one launch, over this object's node
+        order and layout; the (x, rel, iters) contract of krylov.fgmres."""
+        if self.color_major and self.v < K6_ROWS_MIN_V:
+            raise ValueError("StencilSolveOps.fgmres: at v < "
+                             f"{K6_ROWS_MIN_V} K6 reads the natural layout; "
+                             "these operators were laid out color-major for "
+                             "K5 (one_launch=False)")
         return fgmres(self.sel_t, self.selm_t, self.dinv_t, self.diag_t,
                       self.colors, b, self.offsets, self.ncolor,
-                      int(max_iter), float(tol))
+                      int(max_iter), float(tol), self.order,
+                      self.color_major)

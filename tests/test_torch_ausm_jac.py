@@ -19,47 +19,31 @@ torch.set_num_threads(1)
 MIXED_YS = (0.01, 0.1, 0.59, 0.05, 0.15, 0.02, 0.03, 0.03, 0.02)
 
 
-def _edge_inputs(lay, n=300, seed=5):
-    """Random face states (numpy, edge-major): v_i, v_j (E, nPrim) with
-    subsonic and supersonic normal Mach numbers, dP/dU rows s_i, s_j
-    (E, nVar) and normals (E, 2), every tenth one zero (a pad slot)."""
-    rng = np.random.default_rng(seed)
-
-    def prim():
-        t = rng.uniform(300.0, 2500.0, n)
-        a = rng.uniform(300.0, 900.0, n)
-        vel = rng.normal(0.0, 20.0, (n, lay.ndim))
-        vel[::7] *= 40.0                      # |M| > 1 on some faces
-        p = rng.uniform(0.9e5, 1.2e5, n)
-        rho = rng.uniform(0.2, 1.5, n)
-        h = rng.normal(0.0, 1e6, n)
-        ys = rng.dirichlet(np.ones(lay.ns), n)
-        return np.concatenate([t[:, None], vel, p[:, None], rho[:, None],
-                               h[:, None], a[:, None], ys], axis=1)
-
-    normal = rng.normal(0.0, 0.01, (n, lay.ndim))
-    normal[::10] = 0.0
-    s = lambda: rng.normal(0.0, 1.0, (n, lay.nvar)) * np.r_[
-        1e2, np.full(lay.ndim, 10.0), 0.4, np.full(lay.ns, 1e5)]
-    return dict(v_i=prim(), v_j=prim(), normal=normal, s_i=s(), s_j=s())
-
-
-def _layouts():
+def _layouts(ns=9):
     from su2_tpu.state import Layout as JLayout
     from su2_tpu_torch.state import Layout
-    return JLayout(2, 9), Layout(2, 9)
+    return JLayout(2, ns), Layout(2, ns)
 
 
-@pytest.mark.parametrize("layout", ["feature_major", "edge_major"])
-def test_ausm_flux_jac_matches_pallas(layout):
+# (layout, species count): the case's 9 (ids as before), then the 3-species
+# air of the flat plate and a 5-species mixture, which K11 runs through its
+# run-time-count instance on the card
+AUSM_CASES = [(lay, ns) for ns in (9, 3, 5)
+              for lay in ("feature_major", "edge_major")]
+
+
+@pytest.mark.parametrize("layout,ns", AUSM_CASES,
+                         ids=[lay if ns == 9 else f"{lay}-{ns}"
+                              for lay, ns in AUSM_CASES])
+def test_ausm_flux_jac_matches_pallas(layout, ns):
     """The port's dispatchers on CPU tensors (ops/ausm_t.py, K11's plain
     version) against ausm_flux_jac_pallas_t (:91) and ausm_flux_jac_pallas
-    (:34) in interpret mode, f64, at 1e-12 x max over the valid slots; the
-    port's pad slots are exactly 0."""
+    (:34) in interpret mode, f64, at 1e-12 x max over the valid slots, at
+    9, 3 and 5 species; the port's pad slots are exactly 0."""
     from su2_tpu.pallas import edge_kernels as jek
     from su2_tpu_torch.ops import edge_kernels as ek
-    jlay, lay = _layouts()
-    r = _edge_inputs(lay)
+    jlay, lay = _layouts(ns)
+    r = th.ausm_edge_inputs(lay)
     m_inf = 0.0251
     J = lambda k: jnp.asarray(r[k])
     ins = ("v_i", "v_j", "normal", "s_i", "s_j")

@@ -333,6 +333,40 @@ def test_k10_kernel_matches_plain(card, tmp_path, variant, dtype):
         assert (np.moveaxis(g, 1, 0)[:, pad] == 0.0).all()
 
 
+K10_SPECIES = [(ns, var, dt) for ns in (9, 3, 5) for var in K10_VARIANTS
+               for dt in ("float64", "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,variant,dtype", K10_SPECIES,
+                         ids=[f"{ns}-{var}-{dt}"
+                              for ns, var, dt in K10_SPECIES])
+def test_k10_every_species_instance(card, tmp_path, ns, variant, dtype):
+    """K10 at 9 and 3 species (its compiled instances) and 5 (the
+    run-time-count instance), every (MUSCL, limiter) variant, on a cut of
+    the case's library (torch_helpers.implicit_shape_inputs) against
+    edge_implicit_plain: each output row of each family within 1e-10 (f64)
+    or 1e-4 (f32) of the row's max; the pad slots exactly 0."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_implicit as ei
+    muscl, limiter = K10_VARIANTS[variant]
+    _, args = th.implicit_shape_inputs(ns, tmp_path, getattr(torch, dtype),
+                                       card)
+    args = args[:8] + (muscl, limiter is not None)
+    kernels.reset_launches()
+    got = kernels.edge_implicit(*args)
+    assert kernels.launches["edge_implicit"] == 1
+    want = ei.edge_implicit_plain(*args)
+    pad = th.npy((args[6] == 0).all(-1))
+    tol = 1e-10 if dtype == "float64" else 1e-4
+    for g, w in zip(got, want):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert np.isfinite(g).all()
+        scale = np.abs(w).max(axis=-1, keepdims=True)
+        assert (np.abs(g - w) <= tol * scale).all()
+        assert (np.moveaxis(g, 1, 0)[:, pad] == 0.0).all()
+
+
 @pytest.mark.cuda
 def test_implicit_slice_launches(card, tmp_path, monkeypatch):
     """The implicit JACOBI case: K10 once per iteration (both families in
@@ -526,11 +560,13 @@ def test_k5_ragged_n_and_empty_color(card, n, variant):
 @pytest.mark.parametrize("sel_dtype", [torch.bfloat16, None],
                          ids=["mixed", "f32"])
 def test_stencil_solve_ops_layout_on_card(card, sel_dtype):
-    """On the card StencilSolveOps makes K5's node order once; in the mixed
-    tier it holds the bf16 sweep blocks and dinv color-major (and refuses
-    the one-launch K6 cycle, which reads the natural layout), at full
-    precision the natural blocks; one_launch keeps the natural layout.
-    precond_matvec equals the plain version on the natural blocks."""
+    """On the card StencilSolveOps makes the node order once per colors
+    tensor (for K5, and for K6 at v >= 7); in the mixed tier it holds the
+    bf16 sweep blocks and dinv color-major, at full precision the natural
+    blocks.  At v = 7 precond_matvec (K5) and fgmres (K6, one_launch or
+    not) equal the plain versions on the natural blocks; at v = 2 the
+    one-launch layout stays natural with no order, and K6 refuses blocks
+    laid out color-major for K5."""
     from types import SimpleNamespace
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import stencil_solve as ts
@@ -539,10 +575,11 @@ def test_stencil_solve_ops_layout_on_card(card, sel_dtype):
                               device=card)
     n = r.shape[0]
     mesh = SimpleNamespace(stencil_offsets=args["offsets"])
-    blk = lambda t: t.T.reshape(n, 7, 7)
-    ops = ts.StencilSolveOps(mesh, args["selm_t"], blk(args["dinv_t"]),
-                             blk(args["diag_t"]), args["colors"],
-                             args["ncolor"], sel_dtype=sel_dtype)
+    blk = lambda t, v=7: t.T.reshape(n, v, v)
+    mk = lambda a, v=7, **kw: ts.StencilSolveOps(
+        mesh, a["selm_t"], blk(a["dinv_t"], v), blk(a["diag_t"], v),
+        a["colors"], a["ncolor"], sel_dtype=sel_dtype, **kw)
+    ops = mk(args)
     assert ops.order.dtype == torch.int32
     assert ops.color_major == (sel_dtype is not None)
     kernels.reset_launches()
@@ -553,14 +590,23 @@ def test_stencil_solve_ops_layout_on_card(card, sel_dtype):
         w = th.npy(w)
         np.testing.assert_allclose(th.npy(g), w, rtol=1e-5,
                                    atol=1e-6 * np.abs(w).max())
-    if ops.color_major:
+    one = mk(args, one_launch=True)
+    assert one.order is ops.order
+    assert one.color_major == ops.color_major
+    wx, _, wit = ts.fgmres_plain(**args, b=r, m=10, tol=1e-6)
+    for o in (ops, one):
+        x, _, it = o.fgmres(r, 10, 1e-6)
+        assert int(it) == int(wit)
+        assert np.abs(th.npy(x) - th.npy(wx)).max() \
+            <= 2e-5 * np.abs(th.npy(wx)).max()
+    args2, r2 = th.stencil_args(th.band_system(2000, 2, (-9, -1, 1, 9), 2),
+                                torch.float32, mixed=sel_dtype is not None,
+                                device=card)
+    one2 = mk(args2, 2, one_launch=True)
+    assert one2.order is None and not one2.color_major
+    if sel_dtype is not None:
         with pytest.raises(ValueError):
-            ops.fgmres(r, 10, 1e-6)
-    one = ts.StencilSolveOps(mesh, args["selm_t"], blk(args["dinv_t"]),
-                             blk(args["diag_t"]), args["colors"],
-                             args["ncolor"], sel_dtype=sel_dtype,
-                             one_launch=True)
-    assert one.order is None and not one.color_major
+            mk(args2, 2).fgmres(r2, 10, 1e-6)
 
 
 K6_CASES = [(v, r) for v in VARIANTS for r in ("random", "tight", "scaled")
@@ -589,9 +635,11 @@ def test_k6_kernel_matches_plain(card, system, variant, rhs):
     x, rel, it = kernels.stencil_fgmres(**args, b=b, m=10, tol=tol)
     assert kernels.launches["stencil_fgmres"] == 1
     n, v = r.shape
+    per_block = 32 * kernels.k6_groups(v) if v >= kernels.K6_ROWS_MIN_V \
+        else 256
     assert 1 <= kernels.stencil_fgmres_grid(
         r.dtype, args["selp_t"].dtype == torch.bfloat16, v, n, 10) \
-        <= -(-n // 256)
+        <= -(-n // per_block)
     wx, wrel, wit = ts.fgmres_plain(**args, b=b, m=10, tol=tol)
     assert int(it) == int(wit)
     x, wx = th.npy(x), th.npy(wx)
@@ -602,6 +650,86 @@ def test_k6_kernel_matches_plain(card, system, variant, rhs):
                                    atol=1e-15)
     else:
         assert np.abs(x - wx).max() <= 2e-5 * scale
+
+
+K6_COLORINGS = [(c, v, var) for c in th.COLORINGS for v in (7, 13)
+                for var in VARIANTS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coloring,v,variant", K6_COLORINGS,
+                         ids=[f"{c}-v{v}-{var}"
+                              for c, v, var in K6_COLORINGS])
+def test_k6_colorings(card, coloring, v, variant):
+    """K6 at v = 7 and 13 (the warp-per-row kernel over the color-major
+    node list) on proper colorings with 2, 3 and 4 colors and on masks
+    that are not a proper coloring, with the sweep blocks and dinv in the
+    color-major lane layout and in the natural one: equal iterations to
+    the plain FGMRES(10), x at test_k6_kernel_matches_plain's pins (tol
+    1e-8 in f64; in f32 tol 1e-12, every iteration, as its 'tight' case:
+    an f32 cycle that stops near its rounding level stops at an iteration
+    the summation order decides)."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    offsets, nc = th.COLORINGS[coloring]
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    args, r = th.stencil_args(th.band_system(2037, v, offsets, nc, seed=5),
+                              dtype, mixed=variant == "mixed", device=card)
+    order, cm = _cm_layout(args)
+    tol = 1e-8 if variant == "float64" else 1e-12
+    wx, wrel, wit = ts.fgmres_plain(**args, b=r, m=10, tol=tol)
+    scale = max(np.abs(th.npy(wx)).max(), 1e-300)
+    for layout in (cm, dict(order=order), {}):
+        kernels.reset_launches()
+        x, rel, it = kernels.stencil_fgmres(**dict(args, **layout), b=r,
+                                            m=10, tol=tol)
+        assert kernels.launches["stencil_fgmres"] == 1
+        assert int(it) == int(wit)
+        x = th.npy(x)
+        if variant == "float64":
+            np.testing.assert_allclose(x, th.npy(wx), rtol=1e-9,
+                                       atol=1e-12 * scale)
+        else:
+            assert np.abs(x - th.npy(wx)).max() <= 2e-5 * scale
+
+
+K6_BIG = [(v, var) for v in (7, 13) for var in VARIANTS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,variant", K6_BIG,
+                         ids=[f"v{v}-{var}" for v, var in K6_BIG])
+def test_k6_rows_kernel_many_groups(card, v, variant):
+    """K6 at v = 7 and 13 on 30,011 nodes (more 32-node groups than the
+    grid has group slots, so blocks walk several groups a pass) over the
+    color-major layout, two right sides in turn on fresh workspaces, each
+    against the plain FGMRES(10) at test_k6_colorings' pins: no phase
+    reads an entry that another thread writes in the same phase (the
+    first sweep pass once read v_0 before its grid barrier)."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    offsets, nc = th.COLORINGS["proper2"]
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    args, r = th.stencil_args(th.band_system(30011, v, offsets, nc, seed=8),
+                              dtype, mixed=variant == "mixed", device=card)
+    n = r.shape[0]
+    groups = -(-n // 32)
+    assert kernels.stencil_fgmres_grid(
+        dtype, variant == "mixed", v, n, 10) * kernels.k6_groups(v) < groups
+    _, cm = _cm_layout(args)
+    tol = 1e-8 if variant == "float64" else 1e-12
+    rng = np.random.default_rng(3)
+    for b in (r, th.tt(rng.standard_normal(tuple(r.shape)), dtype).to(card)):
+        x, _, it = kernels.stencil_fgmres(**dict(args, **cm), b=b, m=10,
+                                          tol=tol)
+        wx, _, wit = ts.fgmres_plain(**args, b=b, m=10, tol=tol)
+        assert int(it) == int(wit)
+        x, wx = th.npy(x), th.npy(wx)
+        scale = max(np.abs(wx).max(), 1e-300)
+        if variant == "float64":
+            np.testing.assert_allclose(x, wx, rtol=1e-9, atol=1e-12 * scale)
+        else:
+            assert np.abs(x - wx).max() <= 2e-5 * scale
 
 
 @pytest.mark.cuda
@@ -684,6 +812,50 @@ def test_k11_kernel_matches_plain(card, tmp_path, dtype, layout):
     pad = th.npy(~sim.mesh.fam_valid_flat)
     assert pad.any()
     rtol, afrac = (1e-10, 1e-12) if dtype == torch.float64 else (1e-4, 1e-5)
+    for g, w in zip(got, want):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert g.shape == w.shape and np.isfinite(g).all()
+        assert (np.abs(g - w) <= rtol * np.abs(w)
+                + afrac * np.abs(w).max()).all()
+        assert (g[..., pad] == 0.0).all()
+
+
+K11_SPECIES = [(ns, lay, dt) for ns in (3, 5)
+               for lay in ("feature_major", "edge_major")
+               for dt in ("float64", "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,layout,dtype", K11_SPECIES,
+                         ids=[f"{ns}-{lay}-{dt}"
+                              for ns, lay, dt in K11_SPECIES])
+def test_k11_other_species_counts(card, ns, layout, dtype):
+    """K11 at 3 and 5 species (its run-time-count instance; 9 is
+    compiled) on random face states (torch_helpers.ausm_edge_inputs)
+    against ops/ausm_t.ausm_flux_t, both layouts, at
+    test_k11_kernel_matches_plain's pins; the pad slots exactly 0."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import ausm_t
+    from su2_tpu_torch.state import Layout
+    lay = Layout(2, ns)
+    assert ns not in kernels.AUSM_SPECIES
+    dt = getattr(torch, dtype)
+    r = th.ausm_edge_inputs(lay)
+    ins = [th.tt(r[k].T, dt).to(card).contiguous()
+           for k in ("v_i", "v_j", "normal", "s_i", "s_j")]
+    m_inf = 0.0251
+    want = ausm_t.ausm_flux_t(lay, *ins[:3], m_inf, *ins[3:])
+    kernels.reset_launches()
+    if layout == "feature_major":
+        got = kernels.ausm_flux_jac(lay, *ins[:3], m_inf, *ins[3:])
+    else:
+        got = kernels.ausm_flux_jac(lay, *(x.T for x in ins[:3]), m_inf,
+                                    *(x.T for x in ins[3:]),
+                                    edge_major=True)
+        got = (got[0].T, got[1].permute(1, 2, 0), got[2].permute(1, 2, 0))
+    assert kernels.launches["ausm_flux_jac"] == 1
+    pad = (r["normal"] == 0.0).all(1)
+    rtol, afrac = (1e-10, 1e-12) if dtype == "float64" else (1e-4, 1e-5)
     for g, w in zip(got, want):
         g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
         assert g.shape == w.shape and np.isfinite(g).all()
@@ -918,7 +1090,8 @@ def test_t3_k8_k13_share_edge_side_bitwise(card, tmp_path):
     assert torch.equal(lc13, lc[ks, ps]) and torch.equal(lv13, lv[ks, ps])
 
 
-SHAPES = [(nd, ns, dt) for nd, ns in ((2, 9), (2, 3), (3, 9), (3, 3))
+SHAPES = [(nd, ns, dt) for nd, ns in ((2, 9), (2, 3), (3, 9), (3, 3),
+                                      (2, 5), (2, 1), (3, 16))
           for dt in ("float64", "float32")]
 
 
@@ -927,13 +1100,16 @@ SHAPES = [(nd, ns, dt) for nd, ns in ((2, 9), (2, 3), (3, 9), (3, 3))
                          ids=[f"{nd}d-{ns}-{dt}" for nd, ns, dt in SHAPES])
 def test_edge_kernels_every_compiled_shape(card, tmp_path, nd, ns, dtype):
     """T3, K8 and K13 at every (dimension, species count) shape they are
-    compiled for (kernels.EDGE_SHAPES), on torch_helpers.
+    compiled for (kernels.EDGE_SHAPES) and at shapes their run-time
+    instance takes ((2, 5), (2, 1), (3, 16)), on torch_helpers.
     edge_shape_inputs: each against its plain version, every output row
     within 1e-10 (f64) or 1e-4 (f32) of its max; K8 the roll-subtract of
     T3's outputs bit for bit; K13 over the family slots' edges."""
+    from types import SimpleNamespace
     from su2_tpu_torch import kernels
     from su2_tpu_torch.ops import edge_flux as ef
-    assert (nd, ns) in kernels.EDGE_SHAPES
+    assert kernels._check_edge_shape("edge_flux", SimpleNamespace(
+        ndim=nd, ns=ns)) == ((nd, ns) in kernels.EDGE_SHAPES)
     dt = getattr(torch, dtype)
     mesh, head = th.edge_shape_inputs(nd, ns, tmp_path, dt, card)
     n = mesh.npoint

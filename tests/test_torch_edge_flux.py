@@ -179,33 +179,78 @@ def test_add_rows_sums_in_batch_order():
     assert np.array_equal(th.npy(one), want1)
 
 
+# (dimension, species count): shapes outside kernels.EDGE_SHAPES that the
+# run-time instance takes, then shapes past its bounds (3D, 16 species)
+OTHER_SHAPES = [(2, 5), (3, 16), (2, 1), (3, 17), (4, 9), (2, 0)]
+
+
 @pytest.mark.parametrize("name", ["edge_flux", "edge_win", "edge_list_flux"])
-@pytest.mark.parametrize("nd,ns", [(2, 5), (3, 16), (2, 1)],
-                         ids=["2d-5", "3d-16", "2d-1"])
+@pytest.mark.parametrize("nd,ns", OTHER_SHAPES,
+                         ids=[f"{nd}d-{ns}" for nd, ns in OTHER_SHAPES])
 def test_edge_kernels_refuse_other_shapes(name, nd, ns):
-    """T3, K8 and K13 are compiled for the (dimension, species count)
-    shapes of kernels.EDGE_SHAPES only: another shape raises a ValueError
-    that names it and the compiled ones, before anything is launched."""
+    """The shape dispatch of T3, K8 and K13: a (dimension, species count)
+    shape outside kernels.EDGE_SHAPES within 3D and 16 species passes the
+    check and goes to the run-time instance (the check returns False; the
+    compiled shapes return True); past those bounds the wrapper raises a
+    ValueError that names the shape, before anything is launched."""
     from types import SimpleNamespace
     from su2_tpu_torch import kernels
     lay = SimpleNamespace(ndim=nd, ns=ns)
-    with pytest.raises(ValueError, match=rf"{name}: {nd}D with {ns} species"
-                       r".*\(2, 9\), \(2, 3\), \(3, 9\), \(3, 3\)"):
+    if 1 <= nd <= kernels.MAX_DIM and 1 <= ns <= kernels.MAX_SPECIES:
+        assert kernels._check_edge_shape(name, lay) is False
+        return
+    with pytest.raises(ValueError, match=rf"{name}: "
+                       rf"({nd}D with {ns} species|{ns} species)"):
         getattr(kernels, name)(None, lay, None, None, None, None, None, None)
+
+
+def _compiled(source, macro):
+    """The arguments X(...) of the #define macro(X) in csrc/source."""
+    import os
+    import re
+    from su2_tpu_torch import kernels
+    with open(os.path.join(kernels.CSRC, source)) as fh:
+        line = re.search(rf"#define {macro}\(X\)(.*)", fh.read())
+    return tuple(tuple(int(a) for a in x.split(","))
+                 for x in re.findall(r"X\(([\d, ]+)\)", line.group(1)))
+
+
+@pytest.mark.parametrize("name,source,macro,listed", [
+    ("edge_implicit", "edge_implicit.cu", "SU2K_IMPLICIT_BY_NS",
+     "IMPLICIT_SPECIES"),
+    ("ausm_flux_jac", "ausm_jac.cu", "SU2K_AUSM_BY_NS", "AUSM_SPECIES")])
+def test_species_counts_match_the_compiled_instances(name, source, macro,
+                                                     listed):
+    """kernels.IMPLICIT_SPECIES (K10) and AUSM_SPECIES (K11) list the
+    species counts their #defines instantiate; every other count up to
+    kernels.MAX_SPECIES passes the wrappers' check (the run-time instance)
+    and 0 and 17 raise a ValueError that names the count."""
+    from types import SimpleNamespace
+    from su2_tpu_torch import kernels
+    assert tuple(c[0] for c in _compiled(source, macro)) \
+        == getattr(kernels, listed)
+    for ns in range(1, kernels.MAX_SPECIES + 1):
+        kernels._check_species(name, ns)
+    lay = SimpleNamespace(ndim=2, ns=17)
+    x = torch.zeros((1, 1), dtype=torch.float64)
+    for ns in (0, 17):
+        lay.ns = ns
+        with pytest.raises(ValueError, match=rf"{name}: {ns} species"):
+            if name == "edge_implicit":
+                kernels.edge_implicit(None, lay, None, (0, 0, 0), x, (1,),
+                                      x, x, True, True)
+            else:
+                kernels.ausm_flux_jac(lay, x, x, x, 0.0, x, x)
 
 
 def test_edge_shapes_match_the_compiled_instances():
     """kernels.EDGE_SHAPES lists the shapes SU2K_EDGE_BY_SHAPE instantiates
-    in csrc/edge_side.cuh, and every one of them passes the check."""
-    import os
-    import re
+    in csrc/edge_side.cuh, and every one of them passes the check as a
+    compiled instance."""
     from types import SimpleNamespace
     from su2_tpu_torch import kernels
-    with open(os.path.join(kernels.CSRC, "edge_side.cuh")) as fh:
-        line = re.search(r"#define SU2K_EDGE_BY_SHAPE\(X\)(.*)", fh.read())
-    compiled = tuple((int(a), int(b)) for a, b in
-                     re.findall(r"X\((\d+), (\d+)\)", line.group(1)))
+    compiled = _compiled("edge_side.cuh", "SU2K_EDGE_BY_SHAPE")
     assert compiled == kernels.EDGE_SHAPES
     for nd, ns in compiled:
-        kernels._check_edge_shape("edge_flux", SimpleNamespace(ndim=nd,
-                                                               ns=ns))
+        assert kernels._check_edge_shape(
+            "edge_flux", SimpleNamespace(ndim=nd, ns=ns)) is True

@@ -158,6 +158,49 @@ def test_k10_plain_matches_fused_edge_implicit_pallas(case):
             assert (g[:, pad] == 0.0).all(), f"{name} pad slots"
 
 
+@pytest.mark.parametrize("ns", [3, 5])
+def test_k10_plain_matches_pallas_at_other_species_counts(tmp_path, ns):
+    """K10's plain version at a cut of the case's library to its first ns
+    species (cases.shape_inputs: a random reacting state, MUSCL with a
+    random limiter) against fused_edge_implicit_pallas in interpret mode on
+    every family: flux, j_i and j_j to 1e-11 x max|output|, the pad slots
+    exactly 0.  On the card K10 runs 3 species through a compiled
+    instance and 5 through its run-time-count one."""
+    from types import SimpleNamespace
+    from su2_tpu.ops import viscous_t
+    from su2_tpu.pallas import edge_fused as ef
+    from su2_tpu.state import Layout as JLayout
+    from su2_tpu_torch.ops import edge_implicit as ei
+    mesh, args = th.implicit_shape_inputs(ns, tmp_path)
+    lib, lay, _, consts, f_all = args[:5]
+    flux, j_i, j_j = ei.edge_implicit_plain(*args)
+    f = th.npy(f_all)
+    npl = lambda x: th.npy(x)
+    jlib = SimpleNamespace(**{k: jnp.asarray(npl(getattr(lib, k))) for k in
+                              ("h_y", "h_y2", "cp_y", "cp_y2")})
+    sc = viscous_t.species_consts(npl(lib.mm), npl(lib.diff_vol),
+                                  jnp.float64)
+    kargs = (JLayout(2, ns), *consts, True, True,
+             (float(lib.t0), float(lib.dt), int(lib.nt)), sc)
+    tabs = (ef._hcp_tables(jlib, jnp.float64), jnp.asarray(npl(lib.mm))[:, None],
+            jnp.asarray(npl(lib.ri))[:, None])
+    for k, o in enumerate(mesh.fam_offsets):
+        want = ef.fused_edge_implicit_pallas(
+            *kargs, jnp.asarray(f), jnp.asarray(np.roll(f, -o, axis=1)),
+            jnp.asarray(npl(mesh.fam_normal[k]).T),
+            jnp.asarray(npl(mesh.fam_evec[k]).T), *tabs)
+        pad = th.npy((mesh.fam_normal[k] == 0).all(-1))
+        assert pad.any()
+        for name, got, w in zip(("flux", "j_i", "j_j"),
+                                (flux[k], j_i[k], j_j[k]), want):
+            g, w = th.npy(got), np.asarray(w)
+            assert np.isfinite(g).all(), name
+            np.testing.assert_allclose(g, w, rtol=0.0,
+                                       atol=1e-11 * np.abs(w).max(),
+                                       err_msg=f"{name} family {k}")
+            assert (g[:, pad] == 0.0).all(), f"{name} pad slots"
+
+
 def test_family_terms_match_jax(case):
     """res, diag and sel_t of fused_implicit_family_terms to 1e-10 x max,
     from node-major gradients and from the same gradients as feature-major

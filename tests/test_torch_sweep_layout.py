@@ -173,3 +173,32 @@ def test_stencil_solve_ops_natural_on_the_cpu():
                              sel_dtype=torch.bfloat16)
     assert ops.order is None and not ops.color_major
     assert torch.equal(ops.sel_t, args["selm_t"].to(torch.bfloat16))
+
+
+K6_CASES = [(c, v, mixed) for c, v in (("proper2", 13), ("roundrobin4", 7))
+            for mixed in (False, True)]
+
+
+@pytest.mark.parametrize("coloring,v,mixed", K6_CASES,
+                         ids=[f"{c}-v{v}-{'mixed' if m else 'f64'}"
+                              for c, v, m in K6_CASES])
+def test_color_major_fgmres_matches_plain(coloring, v, mixed):
+    """What K6 computes at v >= 7: one FGMRES(10) cycle (krylov.fgmres)
+    whose sweeps run over the color-major layout (the model of
+    torch_helpers.color_major_sgs_matvec, bf16 sweep blocks in the mixed
+    tier) gives fgmres_plain's iterations, and its x within the K6 card
+    pins (f64: rtol 1e-9, atol 1e-12 of max|x|; mixed 2e-5 of max|x|)."""
+    from su2_tpu_torch.linalg import krylov, stencil_solve as ts
+    dtype = torch.float32 if mixed else torch.float64
+    args, r = th.stencil_args(_system(coloring, v), dtype, mixed)
+    pm = lambda x: _color_major(args, x)
+    x, rel, it = krylov.fgmres(None, None, r, max_iter=10, tol=1e-8,
+                               precond_matvec=pm)
+    wx, wrel, wit = ts.fgmres_plain(**args, b=r, m=10, tol=1e-8)
+    assert int(it) == int(wit)
+    x, wx = th.npy(x).astype(np.float64), th.npy(wx).astype(np.float64)
+    scale = np.abs(wx).max()
+    if mixed:
+        assert np.abs(x - wx).max() <= 2e-5 * scale
+    else:
+        np.testing.assert_allclose(x, wx, rtol=1e-9, atol=1e-12 * scale)

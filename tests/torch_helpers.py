@@ -308,50 +308,44 @@ def edge_shape_inputs(nd, ns, directory, dtype=torch.float64, device="cpu",
     kernels' inputs at the (dimension, species count) shape: the case's
     9-species library cut to its first ns species, on channel_mesh(9, 7)
     (63 nodes) or box_mesh(6, 5, 4) (120 nodes), a random reacting state
-    (numpy seed) through the plain node state, random gradients."""
-    import dataclasses
-    from su2_tpu_torch import state as st
-    from su2_tpu_torch.chemistry import library as cl
-    from su2_tpu_torch.geometry.dual_grid import build_dual_grid
-    from su2_tpu_torch.geometry.mesh_data import mesh_arrays
-    from su2_tpu_torch.geometry.structured import box_mesh, channel_mesh
-    from su2_tpu_torch.ops import edge_flux as ef, viscous as vis
-    full = cl.load_library(cases.write_library(str(directory)), None, dtype)
-    kw = {f.name: getattr(full, f.name) for f in dataclasses.fields(full)}
-    for k in ("mm", "ri", "diff_vol", "h_form", "cp_y", "cp_y2", "h_y",
-              "h_y2", "s_y", "s_y2", "mu_y", "mu_y2", "ka_y", "ka_y2",
-              "stoich_r", "stoich_p"):
-        kw[k] = kw[k][:ns]
-    for k in ("exp_f", "exp_b"):
-        kw[k] = kw[k][:, :ns]
-    kw.update(nspecies=ns, species=full.species[:ns])
-    lib = type(full)(**kw).to(device)
-    raw = channel_mesh(9, 7) if nd == 2 else box_mesh(6, 5, 4)
-    mesh = mesh_arrays(build_dual_grid(raw), dtype, device)
-    lay, n = st.Layout(nd, ns), mesh.npoint
-    dev = lambda a: tt(a, dtype).to(device)
+    (numpy seed) through the plain node state, random gradients
+    (cases.shape_inputs)."""
+    x = cases.shape_inputs(nd, ns, str(directory), dtype, device, seed=seed)
+    return x["mesh"], x["explicit"]
+
+
+def implicit_shape_inputs(ns, directory, dtype=torch.float64, device="cpu",
+                          seed=8):
+    """(mesh, K10's arguments (lib, lay, species consts, consts, f_all,
+    offsets, normals, edge vectors, muscl, limiter)): the inputs of
+    cases.shape_inputs at (2, ns), MUSCL with the limiter."""
+    x = cases.shape_inputs(2, ns, str(directory), dtype, device, seed=seed)
+    mesh = x["mesh"]
+    return mesh, x["implicit"] + (mesh.fam_offsets, mesh.fam_normal,
+                                  mesh.fam_evec, True, True)
+
+
+def ausm_edge_inputs(lay, n=300, seed=5):
+    """Random face states (numpy, edge-major) for the AUSM+-up flux and
+    Jacobians: v_i, v_j (E, nPrim) with subsonic and supersonic normal Mach
+    numbers, dP/dU rows s_i, s_j (E, nVar) and normals (E, 2), every tenth
+    one zero (a pad slot)."""
     rng = np.random.default_rng(seed)
-    t = rng.uniform(500.0, 2500.0, n)
-    p = rng.uniform(0.9e5, 1.2e5, n)
-    vel = rng.normal(0.0, 20.0, (n, nd))
-    ys = rng.dirichlet(np.ones(ns), n)
-    h = npy(cl.mixture_enthalpy_plain(lib, dev(t), dev(ys)))
-    rgas = npy(cl.mixture_rgas(lib, dev(ys)))
-    rho = p / (rgas * t)
-    e = h - rgas * t + 0.5 * (vel * vel).sum(1)
-    u = np.concatenate([rho[:, None], rho[:, None] * vel, (rho * e)[:, None],
-                        rho[:, None] * ys], axis=1)
-    nsd = st.node_state_plain(lib, lay, dev(u), dev(t * 1.01),
-                              st.TSolveParams(tmin=200.0, tmax=5000.0))
-    scale = np.r_[100.0, [10.0] * nd, 1e3, [1.0] * ns]
-    grad = dev(rng.normal(0.0, 1.0, (n, 2 + nd + ns, nd))
-               * scale[None, :, None])
-    turb = vis.TurbFlowData(tke=dev(rng.uniform(0.0, 5.0, n)),
-                            mu_t=dev(rng.uniform(1e-5, 1e-3, n)),
-                            grad_tke=dev(rng.normal(0.0, 1.0, (n, nd))),
-                            sigma_k=dev(rng.uniform(0.85, 1.0, n)))
-    f_all = ef.stack_inputs(lay, nsd.v, grad,
-                            vis.Transport(nsd.mu, nsd.kappa), turb,
-                            turb.sigma_k, nsd.dpdu[:, lay.RHOE])
-    return mesh, (lib, lay, ef.species_consts_of(lib), (0.1, 0.72, 0.9, 1.0),
-                  f_all)
+
+    def prim():
+        t = rng.uniform(300.0, 2500.0, n)
+        a = rng.uniform(300.0, 900.0, n)
+        vel = rng.normal(0.0, 20.0, (n, lay.ndim))
+        vel[::7] *= 40.0                      # |M| > 1 on some faces
+        p = rng.uniform(0.9e5, 1.2e5, n)
+        rho = rng.uniform(0.2, 1.5, n)
+        h = rng.normal(0.0, 1e6, n)
+        ys = rng.dirichlet(np.ones(lay.ns), n)
+        return np.concatenate([t[:, None], vel, p[:, None], rho[:, None],
+                               h[:, None], a[:, None], ys], axis=1)
+
+    normal = rng.normal(0.0, 0.01, (n, lay.ndim))
+    normal[::10] = 0.0
+    s = lambda: rng.normal(0.0, 1.0, (n, lay.nvar)) * np.r_[
+        1e2, np.full(lay.ndim, 10.0), 0.4, np.full(lay.ns, 1e5)]
+    return dict(v_i=prim(), v_j=prim(), normal=normal, s_i=s(), s_j=s())
