@@ -21,8 +21,10 @@ Phases (one line each; any failure exits nonzero):
              the main path's mixed tier on the SST and the flow systems
              (and its matvec in float32); K5 and K6 read the layout
              StencilSolveOps makes (color-major bf16 sweep blocks in the
-             mixed tier; K6 over the node order at v = 7, 13); times,
-             bounds, K6's cooperative grid,
+             mixed tier; K6 over the node order at v = 7, 13); K6 at
+             v = 2, 3 also on band systems at the one-launch tier's cap
+             (12,288 nodes); times, bounds, K6's cooperative grid (v = 7,
+             13) or cluster (v = 2, 3),
              torch.sparse.mm on the matvec as BSR (or what it raised)
   5 step     5 coupled iterations of the 9,072-node case in float64 on the
              card (kernels, K6 for the SST solve) and on the CPU (plain
@@ -92,7 +94,9 @@ Phases (one line each; any failure exits nonzero):
              iterations of the explicit LU_SGS step on the 9,072-node
              triangle channel card vs CPU (K13 once per iteration, the SST
              solve in torch gather ops: K5/K6 never)
-  shapes     (after K13) T3, K8 and K13 at the (dimension, species)
+  shapes     (after K13) T2 (full and lite) at 5 and 16 species (its
+             run-time-count instance) on the 9,072-node channel's node
+             count, T3, K8 and K13 at the (dimension, species)
              shapes (2, 5), (2, 1) and (3, 16), K10 at 5 and 3 species and
              K11 at 3 and 5 species (every shape outside the compiled
              lists runs a kernel's run-time-count instance) against their
@@ -111,25 +115,37 @@ Run from the repository root:  python3 chip_smoke.py
 
     python3 chip_smoke.py --time-kernels [--root DIR]
 
-times K5, K6, K8 and K10 of the su2_tpu_torch in DIR (default: this
+times T2, K5, K6, K8 and K10 of the su2_tpu_torch in DIR (default: this
 checkout; another checkout, such as a parent commit unpacked with git
 archive, for an A/B comparison run in the order A B B A on one card) and
 prints, after the card's line, the SASS instructions and local loads (LDL)
-and stores (STL) of each kernel of SASS_SOURCES, then one JSON line: K5
-as the Krylov loop calls it (StencilSolveOps.precond_matvec in the tier
-solve_tier picks) on the systems of the third coupled step, the implicit
+and stores (STL) of each kernel of SASS_SOURCES (T2's node_state.cu among
+them), the barriers K6 is built from timed alone (BARRIER_BENCH_CU:
+cluster.sync() and K6's cluster reduction on 8 and 16 CTAs, grid.sync()
+on 36 and 132 blocks), then one JSON line: T2 full and lite
+(kernels.node_state) at 9,072 and 565,500 nodes on kernel_inputs' state,
+and the full pass again built from DIR's node_state.cu with
+T2_APPROX_FLAGS (approximate division and square root), guessed at the
+converged T and with no secant step (every node bisects);
+K5 as the Krylov loop calls it (StencilSolveOps.precond_matvec in the
+tier solve_tier picks) on the systems of the third coupled step, the implicit
 LU_SGS case's flow system (v = 13) and the explicit case's SST system
 (v = 2), at 142,317 and 565,500 nodes; K6 as a one-launch solve calls it
 (StencilSolveOps.fgmres, one FGMRES(10) cycle at tol 1e-6) on those
 systems at 9,072 nodes: the flow's in the mixed tier (bf16 sweep blocks)
-and at full precision, the SST's in its tier; K10
+and at full precision, the SST's in its tier (and in clusters of 8 and
+16 CTAs where DIR's kernels.stencil_fgmres takes cluster); K10
 (kernels.edge_implicit, MUSCL + Venkatakrishnan, both families) at 9,072
 and 565,500 nodes on k10_inputs' state; K8 and T3 + the roll-subtract at
-565,500 nodes on kernel_inputs' state; float32, cuda_time's median ms.
+565,500 nodes on kernel_inputs' state; float32, cuda_time's median ms
+(host work included) and, for T2 and K6, device_ms (the kernels alone,
+torch.profiler).
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import json
 import os
 import re
@@ -229,6 +245,8 @@ TC_T_TOT = 600.0        # T_tot of cases.with_total_conditions
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "mixed": 67e12}
 KRYLOV_M = 10           # LINEAR_SOLVER_ITER of the case (the cfg default)
+K6_CAP = 12288          # the one-launch tier's largest field at KRYLOV_M
+                        # (linalg/stencil_solve._fgmres_cap)
 # iterations of the implicit-flow slice runs per size: JACOBI, and LU_SGS
 IMPLICIT_NITERS = {"flagship": 10, "scaling": 5, "tier": 2}
 LUSGS_NITERS = {"flagship": 20, "scaling": 10, "tier": 3}
@@ -376,13 +394,19 @@ def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
 def kernel_inputs(sim, seed=0):
     """A mixed, reacting state at the case's shapes (numpy seed -> card):
     random T, P, velocity and composition, and random SST fields."""
+    return state_inputs(sim.lib, sim.lay, sim.mesh.npoint, sim.dtype,
+                        sim.tparams, seed)
+
+
+def state_inputs(lib, lay, n, dtype, tparams, seed=0):
+    """kernel_inputs for the library lib on the card at the layout lay and
+    n nodes (tparams: the temperature bounds)."""
     import numpy as np
     import torch
     from su2_tpu_torch import state as st
     from su2_tpu_torch.chemistry import library as cl
-    lib, lay, n = sim.lib, sim.lay, sim.mesh.npoint
     rng = np.random.default_rng(seed)
-    kw = dict(dtype=sim.dtype, device=sim.device)
+    kw = dict(dtype=dtype, device="cuda")
     t = torch.as_tensor(rng.uniform(500.0, 2500.0, n)).to(**kw)
     p = torch.as_tensor(rng.uniform(0.9e5, 1.2e5, n)).to(**kw)
     vel = torch.as_tensor(rng.normal(0.0, 20.0, (n, lay.ndim))).to(**kw)
@@ -401,8 +425,7 @@ def kernel_inputs(sim, seed=0):
     sigma_k = torch.as_tensor(rng.uniform(0.85, 1.0, n)).to(**kw)
     return dict(u=u, t_guess=t_guess, tke=tke, omt=omt, mu_t=mu_t,
                 grad_tke=grad_tke, sigma_k=sigma_k,
-                p=st.TSolveParams(tmin=sim.tparams.tmin,
-                                  tmax=sim.tparams.tmax))
+                p=st.TSolveParams(tmin=tparams.tmin, tmax=tparams.tmax))
 
 
 def kernel_phase(tmp, dtype_name, report):
@@ -963,10 +986,16 @@ def k13_phase(sim, dtype_name, report):
 OTHER_EDGE_SHAPES = ((2, 5), (2, 1), (3, 16))
 OTHER_K10_SPECIES = (5, 3)
 OTHER_K11_SPECIES = (3, 5)
+# T2's species counts outside kernels.NODE_STATE_SPECIES (its run-time
+# instance), on the 9,072-node channel's node count
+OTHER_T2_SPECIES = (5, 16)
 
 
 def shape_phase(tmp, report):
-    """T3, K8 and K13 at OTHER_EDGE_SHAPES, K10 at OTHER_K10_SPECIES (5
+    """T2 (full and lite) at OTHER_T2_SPECIES on kernel_inputs' state with
+    the case's library cut or cycled to that count (cases.species_cut),
+    against node_state_plain / node_state_lite_plain at its tolerances;
+    T3, K8 and K13 at OTHER_EDGE_SHAPES, K10 at OTHER_K10_SPECIES (5
     runs its run-time-count instance; 3, the flat plate's air, is
     compiled but off the main path) and K11 at OTHER_K11_SPECIES (its
     run-time-count instance), in float64 and float32, on
@@ -976,17 +1005,18 @@ def shape_phase(tmp, report):
     for bit, K13 over the family slots' edges; pad slots exactly 0 (K10,
     K11); float32 times beside the plain versions'."""
     import torch
-    from su2_tpu_torch import cases, kernels
+    from su2_tpu_torch import cases, kernels, state as st
+    from su2_tpu_torch.chemistry import library as cl
     from su2_tpu_torch.geometry.structured import box_mesh, channel_mesh
     from su2_tpu_torch.ops import ausm_t, edge_flux as ef
     from su2_tpu_torch.ops import edge_implicit as ei
     meshes = {2: channel_mesh(*SIZES["flagship"]), 3: box_mesh(24, 21, 18)}
     libdir = os.path.join(tmp, "shapes")
 
-    def check(name, key, dt, kfn, pfn, rows):
+    def check(name, key, dt, kfn, pfn, rows, per_row=True):
         got, want = rows(kfn()), rows(pfn())
         torch.cuda.synchronize()
-        err, scaled = compare(name, dt, got, want, per_row=True)
+        err, scaled = compare(name, dt, got, want, per_row=per_row)
         rec = dict(max_abs_err=err)
         if dt == "float32":
             rec.update(ms=cuda_time(kfn), plain_ms=cuda_time(pfn, reps=5))
@@ -999,6 +1029,23 @@ def shape_phase(tmp, report):
 
     for dt in ("float64", "float32"):
         dtype = getattr(torch, dt)
+        n = meshes[2].npoint
+        for ns in OTHER_T2_SPECIES:
+            if ns in kernels.NODE_STATE_SPECIES:
+                raise AssertionError(f"T2: {ns} species is a compiled count")
+            lib = cases.species_cut(cl.load_library(
+                cases.write_library(libdir), None, dtype), ns).to("cuda")
+            lay = st.Layout(2, ns)
+            x = state_inputs(lib, lay, n, dtype, st.TSolveParams())
+            a = (lib, lay, x["p"], x["u"], x["t_guess"], x["tke"])
+            b = (lib, lay, x["u"], x["t_guess"], x["p"], x["tke"])
+            check("node_state", f"{ns} species {n}", dt,
+                  lambda: list(kernels.node_state(*a))
+                  + list(kernels.node_state(*a, lite=True)),
+                  lambda: list(vars(st.node_state_plain(*b)).values())
+                  + list(vars(st.node_state_lite_plain(*b)).values()),
+                  list, per_row=False)
+            del lib, x, a, b
         for nd, ns in OTHER_EDGE_SHAPES:
             x = cases.shape_inputs(nd, ns, libdir, dtype, "cuda",
                                    raw_mesh=meshes[nd])
@@ -1239,16 +1286,18 @@ def k6_flops(args, n, v, m):
         + 2 * m * nv
 
 
-def k6_threads(v):
-    """Threads per block of K6 at width v (csrc/stencil_solve.cu)."""
+def k6_launch(v, grid):
+    """K6's launch at width v with stencil_fgmres_grid's count grid
+    (csrc/stencil_solve.cu), as words."""
     from su2_tpu_torch import kernels
     if v >= kernels.K6_ROWS_MIN_V:
-        return 32 * v * kernels.k6_groups(v)
-    return 256
+        return (f"cooperative grid {grid} blocks of "
+                f"{32 * v * kernels.k6_groups(v)} threads")
+    return f"cluster of {grid} CTAs of 1024 threads"
 
 
 def k6_barriers(ncolor, m):
-    """Grid-wide barriers of one K6 cycle (csrc/stencil_solve.cu)."""
+    """Launch-wide barriers of one K6 cycle (csrc/stencil_solve.cu)."""
     return 2 + m * (2 * ncolor + 1) + m * (m - 1) // 2
 
 
@@ -1286,6 +1335,11 @@ def stencil_phase(sims, flow_sims, report):
                              ("band7", 7, (-9, -1, 1, 9))):
         systems[name] = (lambda var, v=v, offsets=offsets: band_operands(
             v, offsets, var), dict.fromkeys(every, modes), True)
+        if v < kernels.K6_ROWS_MIN_V:
+            # K6's cluster at the one-launch tier's largest field
+            systems[f"{name}cap"] = (
+                lambda var, v=v, offsets=offsets: band_operands(
+                    v, offsets, var, n=K6_CAP), {}, True)
     for sname, (make, k5_modes, run_k6) in systems.items():
         for var in every:
             if not (k5_modes.get(var) or run_k6):
@@ -1432,9 +1486,8 @@ def k6_check(sname, var, args, r, b, report):
     phase("stencil", f"K6 {sname} {var}: iterations {iters} equal to the "
           f"plain version's, max error {err:.2e} of max|x|; kernel {ms:.4f} "
           f"ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]});"
-          f" {k6_barriers(args['ncolor'], KRYLOV_M)} grid barriers; "
-          f"cooperative grid {grid} blocks of {k6_threads(v)} threads "
-          f"(v = {v}); sweep blocks "
+          f" {k6_barriers(args['ncolor'], KRYLOV_M)} barriers; "
+          f"{k6_launch(v, grid)} (v = {v}); sweep blocks "
           + ("color-major" if lay["color_major"] else "natural"))
     report.setdefault("stencil_fgmres", {})[(sname, var)] = dict(
         max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
@@ -1918,25 +1971,30 @@ def print_pair(label, unfused, fused):
 
 
 # the sources whose kernels --time-kernels counts SASS instructions of: the
-# edge kernels (T3, K8, K13, K10), K11 and K5/K6
+# edge kernels (T3, K8, K13, K10), K11, K5/K6 and T2
 SASS_SOURCES = ("edge_flux.cu", "edge_win.cu", "edge_list.cu",
-                "edge_implicit.cu", "ausm_jac.cu", "stencil_solve.cu")
+                "edge_implicit.cu", "ausm_jac.cu", "stencil_solve.cu",
+                "node_state.cu")
 
 
 def sass_counts(root):
     """{kernel: [SASS instructions, LDL, STL]} of root's SASS_SOURCES
-    (nvcc -cubin with the build's flags, cuobjdump -sass)."""
+    (nvcc -cubin with the build's flags, one nvcc per source, all started
+    together; cuobjdump -sass)."""
     from su2_tpu_torch import kernels
     csrc = os.path.join(root, "su2_tpu_torch", "csrc")
     dump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
+        cubin = lambda src: os.path.join(tmp, src + ".cubin")
+        procs = [subprocess.Popen([kernels._nvcc(), *flags, "-cubin", "-o",
+                                   cubin(src), os.path.join(csrc, src)])
+                 for src in SASS_SOURCES]
+        if any([p.wait() for p in procs]):
+            raise RuntimeError("nvcc -cubin failed")
         for src in SASS_SOURCES:
-            cubin = os.path.join(tmp, src + ".cubin")
-            subprocess.run([kernels._nvcc(), *flags, "-cubin", "-o", cubin,
-                            os.path.join(csrc, src)], check=True)
-            text = subprocess.run([dump, "-sass", cubin], check=True,
+            text = subprocess.run([dump, "-sass", cubin(src)], check=True,
                                   capture_output=True, text=True).stdout
             name = None
             for line in text.splitlines():
@@ -1955,16 +2013,64 @@ def sass_counts(root):
     return out
 
 
-def time_kernels(tmp):
-    """{label: ms} of K5, K6, K8 and K10 as the module docstring's
-    --time-kernels describes them, through the calls that this checkout
-    and its parent share (StencilSolveOps, kernels.edge_implicit,
-    kernels.edge_win)."""
+def device_ms(fn, reps=20, warm=3):
+    """Device milliseconds per fn() call of the su2k kernels it launches
+    (torch.profiler, the mean over reps calls): the kernels alone, without
+    the host work that cuda_time's events include."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "su2k::" in e.name)
+    return us / 1e3 / reps
+
+
+# nvcc flags T2's full pass is timed under besides the library's own (what
+# sets its time, PERF.md §6): IEEE division and square root replaced by
+# the approximate ones (float only; double keeps IEEE)
+T2_APPROX_FLAGS = ("-prec-div=false", "-prec-sqrt=false")
+
+
+def t2_approx_lib(tmp):
+    """(ctypes library, ptxas line of node_state_kernel<float, 9, full>) of
+    node_state.cu alone, built with the kernel library's flags and
+    T2_APPROX_FLAGS, su2k_node_state bound as kernels binds it."""
+    import ctypes
     from su2_tpu_torch import kernels
+    so = os.path.join(tmp, "t2_approx.so")
+    proc = subprocess.run(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, *T2_APPROX_FLAGS, "-Xptxas",
+         "-v", "-shared", "-o", so, os.path.join(kernels.CSRC,
+                                                 "node_state.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc ({' '.join(T2_APPROX_FLAGS)}) failed:\n"
+                           f"{proc.stdout}")
+    lib = ctypes.CDLL(so)
+    lib.su2k_node_state.argtypes = kernels._ARGTYPES["su2k_node_state"]
+    lib.su2k_node_state.restype = ctypes.c_int
+    return lib, [ln for ln in ptxas_summary(proc.stdout)
+                 if "<float, 9, full>" in ln]
+
+
+def time_kernels(tmp):
+    """{label: ms} of T2, K5, K6, K8 and K10 as the module docstring's
+    --time-kernels describes them, through the calls that this checkout
+    and its parent share (kernels.node_state, StencilSolveOps,
+    kernels.edge_implicit, kernels.edge_win)."""
+    import torch
+    from su2_tpu_torch import kernels, state as st
     from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
     from su2_tpu_torch.ops import edge_flux as ef
     out = {}
+    approx = t2_approx_lib(tmp)
     for size in ("flagship", "scaling", "tier"):
         for name, implicit, v in (
                 ("flow", IMPLICIT_VARIANTS["venkatakrishnan"], 13),
@@ -1988,10 +2094,24 @@ def time_kernels(tmp):
                                                     torch.float32)
                 for sel in sels:
                     ops = make(sel, True)
-                    out[f"K6 {name} v={v} {n} "
-                        f"{str(sel).replace('torch.', '')}"] = dict(
-                        ms=cuda_time(lambda: ops.fgmres(r, KRYLOV_M, 1e-6),
-                                     reps=10))
+                    solve = lambda: ops.fgmres(r, KRYLOV_M, 1e-6)
+                    label = (f"K6 {name} v={v} {n} "
+                             f"{str(sel).replace('torch.', '')}")
+                    out[label] = dict(ms=cuda_time(solve, reps=10),
+                                      device_ms=device_ms(solve, reps=10))
+                    if v == 2 and "cluster" in inspect.signature(
+                            kernels.stencil_fgmres).parameters:
+                        # K6's cluster forced to 8 and to 16 CTAs
+                        plain = kernels.stencil_fgmres
+                        for c in (8, 16):
+                            kernels.stencil_fgmres = functools.partial(
+                                plain, cluster=c)
+                            try:
+                                out[f"{label} cluster {c}"] = dict(
+                                    ms=cuda_time(solve, reps=10),
+                                    device_ms=device_ms(solve, reps=10))
+                            finally:
+                                kernels.stencil_fgmres = plain
                     del ops
             else:
                 ops = make(sel_dtype, False)
@@ -1999,6 +2119,39 @@ def time_kernels(tmp):
                     ms=cuda_time(lambda: ops.precond_matvec(r)),
                     sweep_blocks=str(sel_dtype).replace("torch.", ""))
                 del ops
+            if name == "sst" and size != "scaling":
+                # T2, full and lite, and the full pass built with
+                # T2_APPROX_FLAGS
+                x = kernel_inputs(sim)
+                a = (sim.lib, sim.lay, x["p"], x["u"], x["t_guess"],
+                     x["tke"])
+                for lite in (False, True):
+                    call = lambda: kernels.node_state(*a, lite=lite)
+                    out[f"T2 {'lite' if lite else 'full'} {n}"] = dict(
+                        ms=cuda_time(call), device_ms=device_ms(call))
+                library = kernels._lib
+                kernels._lib = lambda: approx[0]
+                try:
+                    out[f"T2 full {n} approx div/sqrt"] = dict(
+                        device_ms=device_ms(lambda: kernels.node_state(*a)),
+                        ptxas=approx[1])
+                finally:
+                    kernels._lib = library
+                # the T solve's share of the full pass: guessed at the
+                # converged T (the secant stops at once), and with no
+                # secant step (every node bisects)
+                t_conv = st.node_state_plain(*a[:2], x["u"], x["t_guess"],
+                                             x["p"], x["tke"]).v[:, 0]
+                bis = st.TSolveParams(tmin=x["p"].tmin, tmax=x["p"].tmax,
+                                      secant_iters=0)
+                for label, tg, prm in (
+                        ("T converged", t_conv, x["p"]),
+                        ("bisection only", x["t_guess"], bis)):
+                    call = lambda: kernels.node_state(
+                        *a[:2], prm, x["u"], tg.contiguous(), x["tke"])
+                    out[f"T2 full {n} {label}"] = dict(
+                        device_ms=device_ms(call))
+                del x, a
             if name == "flow" and size != "scaling":
                 # K10, MUSCL + Venkatakrishnan, both families in one launch
                 args = k10_inputs(sim, torch.float32)[4]("venkatakrishnan")
@@ -2016,6 +2169,142 @@ def time_kernels(tmp):
     return out
 
 
+# The barriers K6 is built from, timed on their own (--time-kernels): us
+# per barrier over NIT back-to-back barriers in one launch, for
+# cluster.sync() and K6's cluster reduction (cluster_reduce in
+# su2_tpu_torch/csrc/stencil_solve.cu: warp shuffles, the block's partial,
+# a cluster barrier, the C partials over distributed shared memory) on one
+# cluster of 8 and of 16 CTAs of 1024 threads, and grid.sync() of a
+# cooperative grid of 36 (the former v = 2 grid at 9,072 nodes) and 132
+# blocks of 256 threads
+BARRIER_BENCH_CU = r"""
+#include <cooperative_groups.h>
+#include <cstdio>
+#include <cstdlib>
+namespace cg = cooperative_groups;
+#define NIT 1000
+
+__device__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void k_cluster_sync(float* out) {
+  cg::cluster_group cl = cg::this_cluster();
+  for (int i = 0; i < NIT; ++i) cl.sync();
+  if (threadIdx.x == 0 && blockIdx.x == 0) out[0] = 1.f;
+}
+
+__global__ void k_cluster_reduce(float* out) {
+  cg::cluster_group cl = cg::this_cluster();
+  __shared__ float wsum[32], cpart[2], bc;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  float acc = threadIdx.x;
+  int buf = 0;
+  for (int i = 0; i < NIT; ++i) {
+    float v = warp_sum(acc * 1e-3f);
+    if (lane == 0) wsum[wid] = v;
+    __syncthreads();
+    if (wid == 0) {
+      float s = lane < (int)(blockDim.x >> 5) ? wsum[lane] : 0.f;
+      s = warp_sum(s);
+      if (lane == 0) cpart[buf] = s;
+    }
+    cl.sync();
+    if (wid == 0) {
+      float s = lane < (int)cl.num_blocks()
+                    ? *cl.map_shared_rank(cpart + buf, (unsigned)lane)
+                    : 0.f;
+      s = warp_sum(s);
+      if (lane == 0) bc = s;
+    }
+    __syncthreads();
+    acc += bc * 1e-9f;
+    buf ^= 1;
+  }
+  cl.sync();
+  if (threadIdx.x == 0 && blockIdx.x == 0) out[0] = acc;
+}
+
+__global__ void k_grid_sync(float* out) {
+  cg::grid_group g = cg::this_grid();
+  for (int i = 0; i < NIT; ++i) g.sync();
+  if (threadIdx.x == 0 && blockIdx.x == 0) out[0] = 1.f;
+}
+
+static void check(cudaError_t e, const char* what) {
+  if (e != cudaSuccess) {
+    fprintf(stderr, "%s: %s\n", what, cudaGetErrorString(e));
+    exit(1);
+  }
+}
+
+// us per barrier of the second of two launches (cluster: c CTAs of 1024
+// threads in one cluster; else a cooperative grid of c blocks of 256)
+static float per_barrier(void (*kern)(float*), int c, bool cluster,
+                         float* buf) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[1];
+  cfg.gridDim = dim3(c);
+  cfg.blockDim = dim3(cluster ? 1024 : 256);
+  at[0].id = cluster ? cudaLaunchAttributeClusterDimension
+                     : cudaLaunchAttributeCooperative;
+  if (cluster) {
+    check(cudaFuncSetAttribute(
+              kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1),
+          "cluster attribute");
+    at[0].val.clusterDim.x = c;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+  } else {
+    at[0].val.cooperative = 1;
+  }
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaEvent_t a, b;
+  check(cudaEventCreate(&a), "event");
+  check(cudaEventCreate(&b), "event");
+  check(cudaLaunchKernelEx(&cfg, kern, buf), "launch");
+  check(cudaDeviceSynchronize(), "run");
+  check(cudaEventRecord(a), "event");
+  check(cudaLaunchKernelEx(&cfg, kern, buf), "launch");
+  check(cudaEventRecord(b), "event");
+  check(cudaEventSynchronize(b), "run");
+  float ms = 0.f;
+  check(cudaEventElapsedTime(&ms, a, b), "event");
+  return ms * 1e3f / NIT;
+}
+
+int main() {
+  float* buf = nullptr;
+  check(cudaMalloc(&buf, sizeof(float)), "malloc");
+  for (int c : {8, 16})
+    printf("cluster of %d CTAs x 1024 threads: cluster.sync %.3f us, "
+           "cluster_reduce %.3f us\n", c,
+           per_barrier(k_cluster_sync, c, true, buf),
+           per_barrier(k_cluster_reduce, c, true, buf));
+  for (int blocks : {36, 132})
+    printf("cooperative grid of %d blocks x 256 threads: grid.sync %.3f "
+           "us\n", blocks, per_barrier(k_grid_sync, blocks, false, buf));
+  return 0;
+}
+"""
+
+
+def barrier_lines(tmp):
+    """BARRIER_BENCH_CU built with the kernel library's nvcc flags and
+    run: its output lines."""
+    from su2_tpu_torch import kernels
+    src = os.path.join(tmp, "bench_barrier.cu")
+    exe = os.path.join(tmp, "bench_barrier")
+    with open(src, "w") as f:
+        f.write(BARRIER_BENCH_CU)
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    subprocess.run([kernels._nvcc(), *flags, "-o", exe, src], check=True)
+    return subprocess.run([exe], check=True, capture_output=True,
+                          text=True).stdout.strip().splitlines()
+
+
 def ab_main(root):
     """--time-kernels: see the module docstring."""
     from su2_tpu_torch import kernels
@@ -2025,6 +2314,8 @@ def ab_main(root):
     for name, (ni, ldl, stl) in sass_counts(root).items():
         print(f"sass {name}: {ni} instructions, {ldl} LDL, {stl} STL")
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as tmp:
+        for line in barrier_lines(tmp):
+            print(f"barrier {line}", flush=True)
         result = dict(root=root, card=card, **time_kernels(tmp))
     print(json.dumps(result), flush=True)
     return 0

@@ -1,4 +1,4 @@
-// Shared device helpers of the su2_tpu_torch kernels (T1-T4).
+// Shared device helpers of the su2_tpu_torch kernels.
 //
 // One spline evaluator serves every kernel: the equispaced-grid bin lookup
 // klo = clamp(int((clip(T) - t0)/dt) + 1, 1, nt - 1) of the reference's
@@ -58,5 +58,19 @@ __device__ __forceinline__ T spline_at(const Grid<T>& g, const Bin<T>& bn,
 
 template <typename T>
 __device__ __forceinline__ T clip_y(T y) { return y < (T)0 ? (T)1e-30 : y; }
+
+// f(i) for i in [0, N) with the loop unrolled (N a compile-time count), or
+// for i in [0, n) as a plain loop (N = 0: the count known at run time).
+// An array indexed only inside unrolled loops stays in registers; one
+// indexed by a run-time loop counter lives in local memory.
+template <int N, typename F>
+__device__ __forceinline__ void for_n(int n, F&& f) {
+  if constexpr (N > 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f(i);
+  } else {
+    for (int i = 0; i < n; ++i) f(i);
+  }
+}
 
 }  // namespace su2k

@@ -68,20 +68,6 @@ __device__ __forceinline__ void press_polys(T m, T alpha, T& pp, T& pm) {
                  - alpha * m * q
            : (T)0.5 * ((T)1 - fabs(m) / safe);
 }
-// f(i) for i in [0, N) with the loop unrolled (N a compile-time count), or
-// for i in [0, n) as a plain loop (N = 0: the count known at run time).
-// An array indexed only inside unrolled loops stays in registers; one
-// indexed by a run-time loop counter lives in local memory.
-template <int N, typename F>
-__device__ __forceinline__ void for_n(int n, F&& f) {
-  if constexpr (N > 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) f(i);
-  } else {
-    for (int i = 0; i < n; ++i) f(i);
-  }
-}
-
 // Species h, cp [J/kg] at temperature t from the tables h[S] h2[S] cp[S]
 // cp2[S] (each nt long); NS the species count if fixed at compile time,
 // else 0 and ns.

@@ -67,24 +67,46 @@
 // held.
 //
 // K6: at m = 10, nc = 2 a cycle has 2 + m (2nc + 1) + m (m - 1)/2 = 97
-// grid-wide barriers (sweep passes, one fused matvec-and-first-dot pass,
-// the j + 1 sequential modified Gram-Schmidt passes and the norm), while
-// its operands at 9,072 nodes (~2.5 MB with the basis at V = 2; ~50 MB at
-// V = 13 in the mixed tier, about the size of L2) sit in L2.  At V = 2 the
-// barriers bound it (~3 us a phase); at V = 13 the work of a phase did
-// (~22 us a phase with a thread per node: 36 blocks of 256 threads at
-// 9,072 nodes, each thread streaming its K V^2 block values one after the
-// other).  Design K6: one cooperative grid of co-resident blocks
-// (cudaLaunchCooperativeKernel), cg::this_grid().sync() as the barrier.  At
-// V = 2 and 3 (fgmres_kernel) a thread per node, at most one block of 256
-// threads per 256 nodes; at V = 7 and 13 (fgmres_rows_kernel) K5's warp
-// per block row over the color-major node list, the grid as many blocks as
-// fit on every SM at once (one per 32-node group at most).  Every
-// reduction is deterministic: block partials, then every block sums the
-// same partials in the same order, so the scalar recurrence (pow2 scaling,
-// Givens rotations, back-substitution) runs redundantly and identically in
-// each block, with no extra barrier.  Values written by other threads
-// inside the launch are read with __ldcg (L2, not a stale L1).
+// barriers across the whole launch (sweep passes, one fused
+// matvec-and-first-dot pass, the j + 1 sequential modified Gram-Schmidt
+// passes and the norm), while its operands at 9,072 nodes (~2.5 MB with
+// the basis at V = 2; ~50 MB at V = 13 in the mixed tier, about the size
+// of L2) sit in L2.  At V = 2 latency bounds it: the barriers and each
+// phase's dependent loads (~2.5 us a phase on 36 cooperative blocks of 256
+// threads at 9,072 nodes); at V = 13 the work of a phase did (~22 us a
+// phase with a thread per node, each thread streaming its K V^2 block
+// values one after the other).
+// Design K6 at V = 7 and 13 (fgmres_rows_kernel): one cooperative grid of
+// co-resident blocks (cudaLaunchCooperativeKernel), cg::this_grid().sync()
+// as the barrier, K5's warp per block row over the color-major node list,
+// the grid as many blocks as fit on every SM at once (one per 32-node
+// group at most); a reduction writes block partials to device memory and
+// every block sums them in the same order.
+// Design K6 at V = 2 and 3: one thread-block cluster (cudaLaunchKernelEx
+// with a cluster dimension) of C CTAs of 1024 threads: C = 16 where
+// cudaOccupancyMaxActiveClusters says such a cluster fits on the card, else
+// the portable 8 (or the size the caller names).  Every barrier is
+// cg::this_cluster().sync() (barrier.cluster arrive.release /
+// wait.acquire) over C SMs, ~0.75 us on the H100 against ~1.1 us for the
+// cooperative grid's grid.sync(); the reductions (cluster_reduce) take
+// each CTA's partial from its shared memory over distributed shared
+// memory in rank order.  A thread per node, the same nodes in every
+// phase.  Where every node has a thread (n <= C * 1024: the one-launch
+// tier's 12,288 nodes at C = 16) and the basis fits in shared memory (the
+// resident form of fgmres_cluster_kernel), each thread keeps its node's
+// Krylov basis in its CTA's shared memory and w in registers, so only z
+// goes through device memory; else the basis stays in device memory as in
+// the rows kernel.  The sweep and matvec start the K neighbour loads at
+// once (gather_nb).  A cluster needs no grid-wide co-residency, and its
+// launch can be captured in a CUDA graph.  Measured at 9,072 nodes
+// (PERF.md §6), a phase costs ~2.2 us: the barrier, the dependent
+// loads of the sweep and matvec, and each reduction's two block barriers
+// and shuffles.
+// Every reduction is deterministic (each block sums the same partials in
+// the same order), so the scalar recurrence (pow2 scaling, Givens
+// rotations, back-substitution) runs redundantly and identically in each
+// block, with no extra barrier.  Values written by other threads inside
+// the launch are read with __ldcg (L2: L1 is per SM).
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -93,7 +115,7 @@
 namespace cg = cooperative_groups;
 
 #define SU2K_MAXK 8       // stencil offsets (geometry/stencil.py MAX_OFFSETS)
-#define SU2K_FG_THREADS 256
+#define SU2K_FG_CLUSTER_THREADS 1024
 
 namespace su2k {
 
@@ -122,18 +144,11 @@ __device__ __forceinline__ double pow2_floor(double x) {
   return exp2(e < -120.0 ? -120.0 : (e > 120.0 ? 120.0 : e));
 }
 
-// x read through L2 when other blocks wrote it inside the same launch
-template <typename T, bool L2>
-__device__ __forceinline__ T ldx(const T* p) {
-  if constexpr (L2) return __ldcg(p);
-  else return *p;
-}
-
 // out = sum_k B_k[p] x[p + o_k], node p's blocks at lane `lane` of the
 // (K*V*V, n) rows (p itself in the natural layout); the products of one
 // block row are summed over b, then the offsets in order (the reference's
 // _offdiag)
-template <typename T, typename S, int V, bool L2>
+template <typename T, typename S, int V>
 __device__ __forceinline__ void offdiag_at(const S* __restrict__ sel,
                                            const T* x, int n, int p,
                                            int lane, const Stencil& st,
@@ -145,7 +160,7 @@ __device__ __forceinline__ void offdiag_at(const S* __restrict__ sel,
     if (q < 0 || q >= n) continue;
     T xq[V];
 #pragma unroll
-    for (int b = 0; b < V; ++b) xq[b] = ldx<T, L2>(x + (size_t)q * V + b);
+    for (int b = 0; b < V; ++b) xq[b] = x[(size_t)q * V + b];
     const S* blk = sel + (size_t)kk * V * V * n + lane;
 #pragma unroll
     for (int a = 0; a < V; ++a) {
@@ -173,47 +188,16 @@ __device__ __forceinline__ void bapply_at(const T* __restrict__ blk, int n,
   }
 }
 
-// one color pass of K6's sweep at node p; first: z_old is 0 (r - 0 = r)
-template <typename T, typename S, int V, bool L2>
-__device__ __forceinline__ void sweep_at(const S* __restrict__ selp,
-                                         const T* __restrict__ dinv,
-                                         const int8_t* __restrict__ colors,
-                                         const T (&r)[V], const T* zold,
-                                         T* znew, int n, int p,
-                                         const Stencil& st, int color,
-                                         bool first) {
-  T zn[V];
-  if (colors[p] == color) {
-    T acc[V];
-    if (first) {
-#pragma unroll
-      for (int a = 0; a < V; ++a) acc[a] = r[a];
-    } else {
-      T od[V];
-      offdiag_at<T, S, V, L2>(selp, zold, n, p, p, st, od);
-#pragma unroll
-      for (int a = 0; a < V; ++a) acc[a] = r[a] - od[a];
-    }
-    bapply_at<T, V>(dinv, n, p, acc, zn);
-  } else {
-#pragma unroll
-    for (int a = 0; a < V; ++a)
-      zn[a] = first ? (T)0 : ldx<T, L2>(zold + (size_t)p * V + a);
-  }
-#pragma unroll
-  for (int a = 0; a < V; ++a) znew[(size_t)p * V + a] = zn[a];
-}
-
 // w[p] = diag[p] z[p] + sum_k B_k[p] z[p + o_k]
-template <typename T, int V, bool L2>
+template <typename T, int V>
 __device__ __forceinline__ void matvec_at(const T* __restrict__ selm,
                                           const T* __restrict__ diag,
                                           const T* z, int n, int p,
                                           const Stencil& st, T (&w)[V]) {
   T zp[V], od[V];
 #pragma unroll
-  for (int a = 0; a < V; ++a) zp[a] = ldx<T, L2>(z + (size_t)p * V + a);
-  offdiag_at<T, T, V, L2>(selm, z, n, p, p, st, od);
+  for (int a = 0; a < V; ++a) zp[a] = z[(size_t)p * V + a];
+  offdiag_at<T, T, V>(selm, z, n, p, p, st, od);
   bapply_at<T, V>(diag, n, p, zp, w);
 #pragma unroll
   for (int a = 0; a < V; ++a) w[a] += od[a];
@@ -390,7 +374,7 @@ __global__ void sgs_pass_lane_kernel(int n, Stencil st, int color, int first,
     for (int a = 0; a < V; ++a) acc[a] = r[(size_t)p * V + a];
     if (!first) {
       T od[V];
-      offdiag_at<T, S, V, false>(selp, zold, n, p, lane, st, od);
+      offdiag_at<T, S, V>(selp, zold, n, p, lane, st, od);
 #pragma unroll
       for (int a = 0; a < V; ++a) acc[a] = acc[a] - od[a];
     }
@@ -413,7 +397,7 @@ __global__ void matvec_lane_kernel(int n, Stencil st,
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   T w[V];
-  matvec_at<T, V, false>(selm, diag, x, n, p, st, w);
+  matvec_at<T, V>(selm, diag, x, n, p, st, w);
 #pragma unroll
   for (int a = 0; a < V; ++a) y[(size_t)p * V + a] = w[a];
 }
@@ -475,7 +459,7 @@ struct FgArgs {
   T* x;
   T* stats;     // [relative residual, iterations]
   T* ws;        // V (m+1), Z (m), sweep scratch, w: each n*V
-  T* part;      // 2 * gridDim.x block partials
+  T* part;      // rows kernel: 2 * gridDim.x block partials
 };
 
 template <typename T, bool MAX>
@@ -511,6 +495,38 @@ __device__ T grid_reduce(cg::grid_group& grid, T v, T* part, int& buf,
       T u = __ldcg(pb + i);
       s = MAX ? (u > s ? u : s) : s + u;
     }
+    s = warp_red<T, MAX>(s);
+    if (lane == 0) *bcast = s;
+  }
+  __syncthreads();
+  T tot = *bcast;
+  buf ^= 1;
+  return tot;
+}
+
+// The same over the cluster, returned to every thread; one cluster
+// barrier.  Each CTA's partial goes into its own shared memory (cpart: two
+// slots, alternating, so a CTA that runs ahead never overwrites a partial
+// another CTA has yet to read); after the barrier lane r of warp 0 reads
+// CTA r's partial over distributed shared memory and the warp sums them
+// with warp_red's tree: the same sum, bit for bit, in every CTA.
+template <typename T, bool MAX>
+__device__ T cluster_reduce(cg::cluster_group& cl, T v, T* cpart, int& buf,
+                            T* wsum, T* bcast) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  v = warp_red<T, MAX>(v);
+  if (lane == 0) wsum[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    T s = lane < (int)(blockDim.x >> 5) ? wsum[lane] : (T)0;
+    s = warp_red<T, MAX>(s);
+    if (lane == 0) cpart[buf] = s;
+  }
+  cl.sync();
+  if (wid == 0) {
+    T s = lane < (int)cl.num_blocks()
+              ? *cl.map_shared_rank(cpart + buf, (unsigned)lane)
+              : (T)0;
     s = warp_red<T, MAX>(s);
     if (lane == 0) *bcast = s;
   }
@@ -577,13 +593,132 @@ __device__ void fg_solve_y(int m, T norm0, const T* sc, const T* g,
   }
 }
 
+// K6 at V = 2, 3: x's K neighbour V-vectors of node p, every load started
+// at once (the offsets unrolled to SU2K_MAXK under a kk < k guard), so a
+// pass waits for one L2 round trip instead of one per offset; zero where
+// the neighbour is skipped.  Written by other CTAs in the launch: __ldcg.
+template <typename T, int V>
+__device__ __forceinline__ void gather_nb(const T* x, int n, int p,
+                                          const Stencil& st,
+                                          T (&xq)[SU2K_MAXK][V]) {
+#pragma unroll
+  for (int kk = 0; kk < SU2K_MAXK; ++kk) {
+    const int q = p + st.off[kk];
+    const bool ok = kk < st.k && q >= 0 && q < n;
+#pragma unroll
+    for (int b = 0; b < V; ++b)
+      xq[kk][b] = ok ? __ldcg(x + (size_t)q * V + b) : (T)0;
+  }
+}
+
+// out = sum_k B_k[p] xq[k] over the neighbours inside [0, n), summed as
+// offdiag_at sums (over b, then the offsets in order)
 template <typename T, typename S, int V>
-__global__ void __launch_bounds__(SU2K_FG_THREADS)
-fgmres_kernel(FgArgs<T, S> A) {
-  cg::grid_group grid = cg::this_grid();
+__device__ __forceinline__ void offdiag_nb(const S* __restrict__ sel, int n,
+                                           int p, const Stencil& st,
+                                           const T (&xq)[SU2K_MAXK][V],
+                                           T (&out)[V]) {
+#pragma unroll
+  for (int a = 0; a < V; ++a) out[a] = (T)0;
+#pragma unroll
+  for (int kk = 0; kk < SU2K_MAXK; ++kk) {
+    const int q = p + st.off[kk];
+    if (kk >= st.k || q < 0 || q >= n) continue;
+    const S* blk = sel + (size_t)kk * V * V * n + p;
+#pragma unroll
+    for (int a = 0; a < V; ++a) {
+      T y = (T)0;
+#pragma unroll
+      for (int b = 0; b < V; ++b)
+        y += widen<T, S>(blk[(size_t)(a * V + b) * n]) * xq[kk][b];
+      out[a] += y;
+    }
+  }
+}
+
+// one color pass of K6's sweep at node p (first: z_old is 0, r - 0 = r),
+// gather_nb's loads started before the color test
+template <typename T, typename S, int V>
+__device__ __forceinline__ void sweep_nb(const S* __restrict__ selp,
+                                         const T* __restrict__ dinv,
+                                         const int8_t* __restrict__ colors,
+                                         const T (&r)[V], const T* zold,
+                                         T* znew, int n, int p,
+                                         const Stencil& st, int color,
+                                         bool first) {
+  T xq[SU2K_MAXK][V], zo[V], zn[V];
+  if (!first) {
+    gather_nb<T, V>(zold, n, p, st, xq);
+#pragma unroll
+    for (int a = 0; a < V; ++a) zo[a] = __ldcg(zold + (size_t)p * V + a);
+  }
+  if (colors[p] == color) {
+    T acc[V];
+    if (first) {
+#pragma unroll
+      for (int a = 0; a < V; ++a) acc[a] = r[a];
+    } else {
+      T od[V];
+      offdiag_nb<T, S, V>(selp, n, p, st, xq, od);
+#pragma unroll
+      for (int a = 0; a < V; ++a) acc[a] = r[a] - od[a];
+    }
+    bapply_at<T, V>(dinv, n, p, acc, zn);
+  } else {
+#pragma unroll
+    for (int a = 0; a < V; ++a) zn[a] = first ? (T)0 : zo[a];
+  }
+#pragma unroll
+  for (int a = 0; a < V; ++a) znew[(size_t)p * V + a] = zn[a];
+}
+
+// matvec_at with gather_nb's loads
+template <typename T, int V>
+__device__ __forceinline__ void matvec_nb(const T* __restrict__ selm,
+                                          const T* __restrict__ diag,
+                                          const T* z, int n, int p,
+                                          const Stencil& st, T (&w)[V]) {
+  T xq[SU2K_MAXK][V], zp[V], od[V];
+  gather_nb<T, V>(z, n, p, st, xq);
+#pragma unroll
+  for (int a = 0; a < V; ++a) zp[a] = __ldcg(z + (size_t)p * V + a);
+  offdiag_nb<T, T, V>(selm, n, p, st, xq, od);
+  bapply_at<T, V>(diag, n, p, zp, w);
+#pragma unroll
+  for (int a = 0; a < V; ++a) w[a] += od[a];
+}
+
+// f(p) for each node p of this thread in K6's cluster kernel: its own
+// node (RES: a thread per node), else its nodes grid-stride
+template <bool RES, typename F>
+__device__ __forceinline__ void fg_each(int tid, int nth, int n, F&& f) {
+  if (RES) {
+    if (tid < n) f(tid);
+  } else {
+    for (int p = tid; p < n; p += nth) f(p);
+  }
+}
+
+// K6 at V = 2, 3: the cycle in one cluster, a thread per node, the same
+// nodes in every phase (the module comment); every barrier is a cluster
+// barrier.  RES, the resident form (every node has a thread of its own,
+// n <= C * 1024, and the threads' bases fit in shared memory): the basis
+// v_0 .. v_{m-1} of the thread's node lives in its CTA's shared memory and
+// w in its registers, so the Gram-Schmidt passes (j + 2 of the
+// m (2 nc + 1) + m (m - 1)/2 + 2 barriers of step j) read and write no
+// device memory, and only z (read by the neighbours in the sweep passes and
+// the matvec) goes through it.  Else both live in device memory (ws) and
+// each thread walks its nodes grid-stride.  The arithmetic is the same in
+// both forms.
+template <typename T, typename S, int V, bool RES>
+__global__ void __launch_bounds__(SU2K_FG_CLUSTER_THREADS, 1)
+fgmres_cluster_kernel(FgArgs<T, S> A) {
+  cg::cluster_group cl = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char fg_smem[];
   T* sh = reinterpret_cast<T*>(fg_smem);
   const int n = A.n, m = A.m;
+  T* cpart = sh + fg_smem_words(m);   // 2 partial slots
+  T* vsm = cpart + 2;                 // RES: the basis, [i][a][thread]
   T* wsum = sh;              // 32 warp partials
   T* bc = sh + 32;           // reduction broadcast
   T* sc = sh + 40;           // active, iters, res_hist, vact, vden
@@ -594,43 +729,57 @@ fgmres_kernel(FgArgs<T, S> A) {
   T* y = g + m + 1;          // m
   T* cols = y + m;           // m * m: rotated column j, row i at j*m + i
   const size_t nv = (size_t)n * V;
-  T* vb = A.ws;
+  T* vb = A.ws;                       // !RES: the basis, [i][node][a]
   T* zb = vb + (size_t)(m + 1) * nv;
   T* zs = zb + (size_t)m * nv;
-  T* wv = zs + nv;
+  T* wv = zs + nv;                    // !RES: w
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nth = gridDim.x * blockDim.x;
   const int npass = 2 * A.ncolor - 1;
   const T tiny = (T)1e-300;   // 0 in float, as in the reference
   int buf = 0;
+  T wr[V];                            // RES: w
+  // entry a of the basis vector v_i and of w at node p
+  auto vv = [&](int i, int p, int a) -> T& {
+    if constexpr (RES)
+      return vsm[((size_t)i * V + a) * blockDim.x + threadIdx.x];
+    else
+      return vb[(size_t)i * nv + (size_t)p * V + a];
+  };
+  auto ww = [&](int p, int a) -> T& {
+    if constexpr (RES)
+      return wr[a];
+    else
+      return wv[(size_t)p * V + a];
+  };
 
   // exact power-of-two scaling of b (krylov._pow2_scale)
   T amax = (T)0;
-  for (int p = tid; p < n; p += nth) {
+  fg_each<RES>(tid, nth, n, [&](int p) {
 #pragma unroll
     for (int a = 0; a < V; ++a) {
       T u = fab(A.b[(size_t)p * V + a]);
       amax = u > amax ? u : amax;
     }
-  }
-  amax = grid_reduce<T, true>(grid, amax, A.part, buf, wsum, bc);
+  });
+  amax = cluster_reduce<T, true>(cl, amax, cpart, buf, wsum, bc);
   const T s = amax > (T)0 ? pow2_floor(amax > tiny ? amax : tiny) : (T)1;
 
   T ss = (T)0;
-  for (int p = tid; p < n; p += nth) {
+  fg_each<RES>(tid, nth, n, [&](int p) {
 #pragma unroll
     for (int a = 0; a < V; ++a) {
       T bv = A.b[(size_t)p * V + a] / s;
       ss += bv * bv;
     }
-  }
-  const T beta = sq(grid_reduce<T, false>(grid, ss, A.part, buf, wsum, bc));
+  });
+  const T beta = sq(cluster_reduce<T, false>(cl, ss, cpart, buf, wsum, bc));
   const T norm0 = beta > tiny ? beta : tiny;
-  for (int p = tid; p < n; p += nth) {
+  fg_each<RES>(tid, nth, n, [&](int p) {
 #pragma unroll
     for (int a = 0; a < V; ++a)
-      vb[(size_t)p * V + a] = (A.b[(size_t)p * V + a] / s) / norm0;
-  }
+      vv(0, p, a) = (A.b[(size_t)p * V + a] / s) / norm0;
+  });
   if (threadIdx.x == 0) {
     sc[0] = (beta / norm0 >= A.tol) ? (T)1 : (T)0;
     sc[1] = (T)0;
@@ -642,83 +791,90 @@ fgmres_kernel(FgArgs<T, S> A) {
   __syncthreads();
 
   for (int j = 0; j < m; ++j) {
-    T* vj = vb + (size_t)j * nv;
     T* zj = zb + (size_t)j * nv;
     const bool vact = sc[3] != (T)0;
     const T vden = sc[4];
-    // z_j = sweep(v_j); v_j itself is formed in the first pass
+    // v_j: the normalised w (v_{j-1} once the cycle stopped)
+    if (j > 0)
+      fg_each<RES>(tid, nth, n, [&](int p) {
+#pragma unroll
+        for (int a = 0; a < V; ++a)
+          vv(j, p, a) = vact ? ww(p, a) / vden : vv(j - 1, p, a);
+      });
+    // z_j = sweep(v_j)
     const T* zold = nullptr;
     for (int i = 0; i < npass; ++i) {
       const int c = i < A.ncolor ? i : 2 * A.ncolor - 2 - i;
       T* dst = ((npass - 1 - i) & 1) ? zs : zj;
-      for (int p = tid; p < n; p += nth) {
+      fg_each<RES>(tid, nth, n, [&](int p) {
         T r[V];
-        if (i == 0 && j > 0) {
 #pragma unroll
-          for (int a = 0; a < V; ++a) {
-            const size_t e = (size_t)p * V + a;
-            T t = vact ? wv[e] / vden : vj[e - nv];
-            vj[e] = t;
-            r[a] = t;
-          }
-        } else {
-#pragma unroll
-          for (int a = 0; a < V; ++a) r[a] = vj[(size_t)p * V + a];
-        }
-        sweep_at<T, S, V, true>(A.selp, A.dinv, A.colors, r, zold, dst, n,
-                                p, A.st, c, i == 0);
-      }
-      grid.sync();
+        for (int a = 0; a < V; ++a) r[a] = vv(j, p, a);
+        sweep_nb<T, S, V>(A.selp, A.dinv, A.colors, r, zold, dst, n, p,
+                          A.st, c, i == 0);
+      });
+      cl.sync();
       zold = dst;
     }
     // w = A z_j, fused with the first Gram-Schmidt dot (v_0, w)
     T part = (T)0;
-    for (int p = tid; p < n; p += nth) {
+    fg_each<RES>(tid, nth, n, [&](int p) {
       T w[V];
-      matvec_at<T, V, true>(A.selm, A.diag, zj, n, p, A.st, w);
+      matvec_nb<T, V>(A.selm, A.diag, zj, n, p, A.st, w);
 #pragma unroll
       for (int a = 0; a < V; ++a) {
-        wv[(size_t)p * V + a] = w[a];
-        part += vb[(size_t)p * V + a] * w[a];
+        ww(p, a) = w[a];
+        part += vv(0, p, a) * w[a];
       }
-    }
-    T h = grid_reduce<T, false>(grid, part, A.part, buf, wsum, bc);
+    });
+    T h = cluster_reduce<T, false>(cl, part, cpart, buf, wsum, bc);
     const bool active = sc[0] != (T)0;
     // modified Gram-Schmidt: w -= h_ij v_i, then the next dot (or |w|^2)
     for (int i = 0; i <= j; ++i) {
       const T hij = active ? h : (i == j ? (T)1 : (T)0);
       const T hm = active ? hij : (T)0;
       if (threadIdx.x == 0) rc[i] = hij;
-      const T* vi = vb + (size_t)i * nv;
       part = (T)0;
-      for (int p = tid; p < n; p += nth) {
+      fg_each<RES>(tid, nth, n, [&](int p) {
 #pragma unroll
         for (int a = 0; a < V; ++a) {
-          const size_t e = (size_t)p * V + a;
-          T t = wv[e] - hm * vi[e];
-          wv[e] = t;
-          part += (i < j) ? vi[e + nv] * t : t * t;
+          T t = ww(p, a) - hm * vv(i, p, a);
+          ww(p, a) = t;
+          part += (i < j) ? vv(i + 1, p, a) * t : t * t;
         }
-      }
-      h = grid_reduce<T, false>(grid, part, A.part, buf, wsum, bc);
+      });
+      h = cluster_reduce<T, false>(cl, part, cpart, buf, wsum, bc);
     }
     if (threadIdx.x == 0)
       fg_column(j, m, active, h, norm0, A.tol, sc, rc, cs, sn, g, cols);
     __syncthreads();
   }
 
+  // the last partials have been read; a CTA leaves only once every CTA
+  // of the cluster has got here (its shared memory is read remotely)
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
   // back-substitution on the rotated R, then x = s * sum_j y_j z_j
   if (threadIdx.x == 0) fg_solve_y(m, norm0, sc, g, cols, y, A.stats);
   __syncthreads();
-  for (int p = tid; p < n; p += nth) {
+  fg_each<RES>(tid, nth, n, [&](int p) {
 #pragma unroll
     for (int a = 0; a < V; ++a) {
       const size_t e = (size_t)p * V + a;
       T d = zb[e] * y[0];
-      for (int j = 1; j < m; ++j) d = d + y[j] * zb[(size_t)j * nv + e];
+      // the basis entries 8 at a time, loaded before they are summed
+      for (int j0 = 1; j0 < m; j0 += 8) {
+        T zz[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          zz[u] = j0 + u < m ? zb[(size_t)(j0 + u) * nv + e] : (T)0;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (j0 + u < m) d = d + y[j0 + u] * zz[u];
+      }
       A.x[e] = d * s;
     }
-  }
+  });
+  asm volatile("barrier.cluster.wait;" ::: "memory");
 }
 
 // K6 at V = 7 and 13: the same cycle with K5's thread layout in the sweep
@@ -972,24 +1128,15 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
   }
 }
 
-// The grid of a K6 launch: every block co-resident (the cooperative
-// launch's condition) and at most the partial buffers' capacity.  V <= 3:
-// blocks of 256 threads, at most one per 256 nodes.  V >= 7 (the rows
-// kernel): as many blocks as fit on all the card's SMs at once (by the
+// The grid of K6's rows kernel (V >= 7): every block co-resident (the
+// cooperative launch's condition) and at most the partial buffers'
+// capacity: as many blocks as fit on all the card's SMs at once (by the
 // occupancy of its registers and shared memory), at most one per G 32-node
 // groups.  Wider blocks take more registers per thread, so fewer blocks
 // fit on an SM.
-// K6's kernel at width V: the rows kernel at V >= 7, else a thread per node
-template <typename T, typename S, int V>
-const void* fgmres_entry() {
-  if constexpr (V > 3) return (const void*)fgmres_rows_kernel<T, S, V>;
-  else return (const void*)fgmres_kernel<T, S, V>;
-}
-
 template <typename T, typename S, int V>
 cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
                         size_t* smem, int* threads) {
-  constexpr bool ROWS = V > 3;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -998,10 +1145,9 @@ cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  *threads = ROWS ? fg_rows_threads<V>() : SU2K_FG_THREADS;
-  *smem = (size_t)(fg_smem_words(m) + (ROWS ? fg_rows_stage_words<V>() : 0))
-        * sizeof(T);
-  const void* kern = fgmres_entry<T, S, V>();
+  *threads = fg_rows_threads<V>();
+  *smem = (size_t)(fg_smem_words(m) + fg_rows_stage_words<V>()) * sizeof(T);
+  const void* kern = (const void*)fgmres_rows_kernel<T, S, V>;
   if (*smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
@@ -1011,7 +1157,7 @@ cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
                                                       *threads, *smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int per_block = ROWS ? 32 * k5_groups<V>() : SU2K_FG_THREADS;
+  const int per_block = 32 * k5_groups<V>();
   int b = (n + per_block - 1) / per_block;
   b = b < per_sm * sms ? b : per_sm * sms;  // co-resident
   b = b < part_cap / 2 ? b : part_cap / 2;
@@ -1019,26 +1165,132 @@ cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
   return cudaSuccess;
 }
 
+// the launch configuration of K6's cluster kernel (V <= 3): one cluster of
+// c CTAs of SU2K_FG_CLUSTER_THREADS threads; at points at storage for its
+// one attribute
+inline cudaLaunchConfig_t fg_cluster_config(int c, size_t smem,
+                                            cudaStream_t stream,
+                                            cudaLaunchAttribute* at) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c);
+  cfg.blockDim = dim3(SU2K_FG_CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = c;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The cluster size of K6's kernel kern at V <= 3 with smem bytes of
+// dynamic shared memory: want (1 to 16), or with want 0 the non-portable
+// 16 where cudaOccupancyMaxActiveClusters says one such cluster fits on
+// this card, else the portable 8; an error where the card cannot launch
+// clusters or the size does not fit.
+template <typename K>
+cudaError_t fg_cluster_size(K* kern, size_t smem, int want, int* csize) {
+  int dev = 0, ok = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&ok, cudaDevAttrClusterLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!ok) return cudaErrorNotSupported;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tries[2] = {want ? want : 16, want ? want : 8};
+  for (int c : tries) {
+    cudaLaunchAttribute at[1];
+    cudaLaunchConfig_t cfg = fg_cluster_config(c, smem, 0, at);
+    int fit = 0;
+    err = cudaOccupancyMaxActiveClusters(&fit, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (fit >= 1) {
+      *csize = c;
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+// K6's cluster at V <= 3: the resident form (fgmres_cluster_kernel with
+// RES) where its cluster gives every node a thread and its shared memory
+// holds the basis, else the form with the basis in device memory; *kern,
+// the cluster size and the dynamic shared memory of the launch
 template <typename T, typename S, int V>
-int launch_fgmres(FgArgs<T, S> A, int part_cap, cudaStream_t stream) {
-  int blocks = 0, threads = 0;
-  size_t smem = 0;
-  cudaError_t err = fgmres_grid<T, S, V>(A.n, A.m, part_cap, &blocks, &smem,
-                                         &threads);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&A};
-  err = cudaLaunchCooperativeKernel(fgmres_entry<T, S, V>(), dim3(blocks),
-                                    dim3(threads), args, smem, stream);
+cudaError_t fg_cluster_plan(int n, int m, int want,
+                            void (**kern)(FgArgs<T, S>), int* csize,
+                            size_t* smem) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t base = (size_t)(fg_smem_words(m) + 2) * sizeof(T);
+  const size_t res = base + (size_t)m * V * SU2K_FG_CLUSTER_THREADS
+                              * sizeof(T);
+  if (res <= (size_t)optin) {
+    err = fg_cluster_size(fgmres_cluster_kernel<T, S, V, true>, res, want,
+                          csize);
+    if (err == cudaSuccess && n <= *csize * SU2K_FG_CLUSTER_THREADS) {
+      *kern = fgmres_cluster_kernel<T, S, V, true>;
+      *smem = res;
+      return cudaSuccess;
+    }
+  }
+  *kern = fgmres_cluster_kernel<T, S, V, false>;
+  *smem = base;
+  return fg_cluster_size(fgmres_cluster_kernel<T, S, V, false>, base, want,
+                         csize);
+}
+
+template <typename T, typename S, int V>
+int launch_fgmres(FgArgs<T, S> A, int part_cap, int cluster,
+                  cudaStream_t stream) {
+  cudaError_t err;
+  if constexpr (V <= 3) {
+    void (*kern)(FgArgs<T, S>) = nullptr;
+    int c = 0;
+    size_t smem = 0;
+    err = fg_cluster_plan<T, S, V>(A.n, A.m, cluster, &kern, &c, &smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute at[1];
+    cudaLaunchConfig_t cfg = fg_cluster_config(c, smem, stream, at);
+    err = cudaLaunchKernelEx(&cfg, kern, A);
+  } else {
+    int blocks = 0, threads = 0;
+    size_t smem = 0;
+    err = fgmres_grid<T, S, V>(A.n, A.m, part_cap, &blocks, &smem,
+                               &threads);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {&A};
+    err = cudaLaunchCooperativeKernel((const void*)fgmres_rows_kernel<T, S, V>,
+                                      dim3(blocks), dim3(threads), args, smem,
+                                      stream);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// blocks of K6's launch: the cluster size at V <= 3, the cooperative grid
+// at V >= 7
 template <typename T, typename S, int V>
-int grid_of(int n, int m, int part_cap) {
+int grid_of(int n, int m, int part_cap, int cluster) {
   int blocks = 0, threads = 0;
   size_t smem = 0;
-  cudaError_t err = fgmres_grid<T, S, V>(n, m, part_cap, &blocks, &smem,
-                                         &threads);
+  cudaError_t err;
+  if constexpr (V <= 3) {
+    void (*kern)(FgArgs<T, S>) = nullptr;
+    err = fg_cluster_plan<T, S, V>(n, m, cluster, &kern, &blocks, &smem);
+  } else
+    err = fgmres_grid<T, S, V>(n, m, part_cap, &blocks, &smem, &threads);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
@@ -1060,18 +1312,18 @@ int fgmres_v(int v, int n, const Stencil& st, int ncolor, int m, double tol,
              const void* selp, const void* selm, const void* dinv,
              const void* diag, const void* colors, const void* order, int cm,
              const void* b, void* x, void* stats, void* ws, void* part,
-             int part_cap, cudaStream_t stream) {
+             int part_cap, int cluster, cudaStream_t stream) {
   FgArgs<T, S> A{n, ncolor, m, st, (T)tol, (const S*)selp, (const T*)selm,
                  (const T*)dinv, (const T*)diag, (const int8_t*)colors,
                  (const int*)order, cm, (const T*)b, (T*)x, (T*)stats,
                  (T*)ws, (T*)part};
-  SU2K_BY_WIDTH(v, (launch_fgmres<T, S, V>(A, part_cap, stream)),
+  SU2K_BY_WIDTH(v, (launch_fgmres<T, S, V>(A, part_cap, cluster, stream)),
                 (int)cudaErrorInvalidValue)
 }
 
 template <typename T, typename S>
-int fgmres_grid_v(int v, int n, int m, int part_cap) {
-  SU2K_BY_WIDTH(v, (grid_of<T, S, V>(n, m, part_cap)),
+int fgmres_grid_v(int v, int n, int m, int part_cap, int cluster) {
+  SU2K_BY_WIDTH(v, (grid_of<T, S, V>(n, m, part_cap, cluster)),
                 -(int)cudaErrorInvalidValue)
 }
 
@@ -1127,42 +1379,48 @@ extern "C" int su2k_stencil_sgs_matvec(
 
 // order, cm: at V >= 7 the color-major node list (int32, n) and whether
 // selp and dinv are in its lane layout (else natural); ignored at V <= 3,
-// which read the natural layout
+// which read the natural layout.  part: the rows kernel's block partials
+// (part_cap values).  cluster: at V <= 3 the cluster size (1 to 16), or 0
+// for 16 where it fits on the card, else 8
 extern "C" int su2k_stencil_fgmres(
     int is_f64, int sel_bf16, int v, int n, int k, const int* offs,
     int ncolor, int m, double tol, const void* selp, const void* selm,
     const void* dinv, const void* diag, const void* colors,
     const void* order, int cm, const void* b, void* x, void* stats,
-    void* ws, void* part, int part_cap, void* stream) {
+    void* ws, void* part, int part_cap, int cluster, void* stream) {
   su2k::Stencil st;
   if (!su2k::make_stencil(k, offs, st) || (is_f64 && sel_bf16) || m < 1 ||
-      n < 1 || (v > 3 && order == nullptr) || (v <= 3 && cm))
+      n < 1 || (v > 3 && order == nullptr) || (v <= 3 && cm) ||
+      cluster < 0 || cluster > 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64)
     return su2k::fgmres_v<double, double>(v, n, st, ncolor, m, tol, selp,
                                           selm, dinv, diag, colors, order,
                                           cm, b, x, stats, ws, part,
-                                          part_cap, s);
+                                          part_cap, cluster, s);
   if (sel_bf16)
-    return su2k::fgmres_v<float, __nv_bfloat16>(v, n, st, ncolor, m, tol,
-                                                selp, selm, dinv, diag,
-                                                colors, order, cm, b, x,
-                                                stats, ws, part, part_cap, s);
+    return su2k::fgmres_v<float, __nv_bfloat16>(
+        v, n, st, ncolor, m, tol, selp, selm, dinv, diag, colors, order, cm,
+        b, x, stats, ws, part, part_cap, cluster, s);
   return su2k::fgmres_v<float, float>(v, n, st, ncolor, m, tol, selp, selm,
                                       dinv, diag, colors, order, cm, b, x,
-                                      stats, ws, part, part_cap, s);
+                                      stats, ws, part, part_cap, cluster, s);
 }
 
-// the grid (blocks; of 256 threads at V <= 3, of 32 V k5_groups<V>() at
-// V >= 7) that su2k_stencil_fgmres takes for these arguments on the
-// current device, or minus a cudaError_t
+// the blocks su2k_stencil_fgmres launches for these arguments on the
+// current device: at V <= 3 the cluster's CTAs (of 1024 threads), at
+// V >= 7 the cooperative grid (of 32 V k5_groups<V>() threads); or minus a
+// cudaError_t
 extern "C" int su2k_stencil_fgmres_grid(int is_f64, int sel_bf16, int v,
-                                        int n, int m, int part_cap) {
-  if ((is_f64 && sel_bf16) || m < 1 || n < 1)
+                                        int n, int m, int part_cap,
+                                        int cluster) {
+  if ((is_f64 && sel_bf16) || m < 1 || n < 1 || cluster < 0 || cluster > 16)
     return -(int)cudaErrorInvalidValue;
-  if (is_f64) return su2k::fgmres_grid_v<double, double>(v, n, m, part_cap);
+  if (is_f64)
+    return su2k::fgmres_grid_v<double, double>(v, n, m, part_cap, cluster);
   if (sel_bf16)
-    return su2k::fgmres_grid_v<float, __nv_bfloat16>(v, n, m, part_cap);
-  return su2k::fgmres_grid_v<float, float>(v, n, m, part_cap);
+    return su2k::fgmres_grid_v<float, __nv_bfloat16>(v, n, m, part_cap,
+                                                     cluster);
+  return su2k::fgmres_grid_v<float, float>(v, n, m, part_cap, cluster);
 }

@@ -28,8 +28,9 @@ one run-time instance for every other shape up to 3D and 16 species; K8's
 first pass is T3's slot pass under a kernel name of its own); K10 shares
 its species h/cp lookup and Stefan-Maxwell solve (compiled for the species
 counts of IMPLICIT_SPECIES), and K10 and K11 (AUSM_SPECIES) its implicit
-AUSM+-up face (ausm_face, ausm_jac_entry); each has a run-time-count
-instance for the other counts.
+AUSM+-up face (ausm_face, ausm_jac_entry); T2 is compiled for the counts
+of NODE_STATE_SPECIES; each has a run-time-count instance for the other
+counts.
 """
 
 from __future__ import annotations
@@ -81,8 +82,8 @@ _ARGTYPES = {
                                + [_P] * 11,
     "su2k_stencil_fgmres": [_I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int), _I, _I, _D]
-                           + [_P] * 6 + [_I] + [_P] * 5 + [_I, _P],
-    "su2k_stencil_fgmres_grid": [_I] * 6,
+                           + [_P] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
+    "su2k_stencil_fgmres_grid": [_I] * 7,
     "su2k_gradient_rows": [_I, _I, _I, _I, _I, _I,
                            ctypes.POINTER(ctypes.c_int)] + [_P] * 6,
     "su2k_edge_win": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I,
@@ -236,6 +237,12 @@ def mixture_enthalpy(lib, t: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- T2
+# The species counts T2 is compiled for (SU2K_NODE_STATE_BY_NS in
+# csrc/node_state.cu): the 9-species case and the 3-species flat plate;
+# every other count up to MAX_SPECIES runs the run-time instance.
+NODE_STATE_SPECIES = (9, 3)
+
+
 def _node_tables(lib):
     def make():
         from su2_tpu_torch.chemistry.library import wilke_consts
@@ -251,6 +258,10 @@ def _node_tables(lib):
 def node_state(lib, lay, p, u, t_guess, turb_ke=None, lite=False):
     """Kernel T2.  Returns the fields of state.NodeState (full) or
     state.NodeStateLite (lite), node-major."""
+    _check_species("node_state", lay.ns)
+    if not 1 <= lay.ndim <= MAX_DIM:
+        raise ValueError(f"node_state: {lay.ndim}D; the kernels take 1D to "
+                         f"{MAX_DIM}D")
     u = u.contiguous()
     t_guess = t_guess.contiguous()
     tke = None if turb_ke is None else turb_ke.contiguous()
@@ -471,8 +482,8 @@ def chem_source(lib, prm, t, rho, ys, omega_turb=None):
 
 
 # ------------------------------------------------------------------ K5, K6
-# Work space of the K6 block partials: two buffers of at most 4,096 blocks
-# (the co-resident blocks of any card at 256 threads).
+# Work space of the block partials of K6's cooperative grid (v >= 7): two
+# buffers of at most 4,096 blocks (more than any card holds at once).
 _PART_CAP = 2 * 4096
 # The block widths K5 and K6 are compiled for (SU2K_BY_WIDTH in
 # csrc/stencil_solve.cu): 2 (the SST's system) and 3, the flow's 7 and 13.
@@ -570,7 +581,8 @@ def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
 
 
 # K6 runs K5's warp-per-block-row mapping over the color-major node list
-# from this width up (fgmres_rows_kernel), a thread per node below
+# in one cooperative grid from this width up (fgmres_rows_kernel), a thread
+# per node in one thread-block cluster below (fgmres_cluster_kernel)
 K6_ROWS_MIN_V = 7
 
 
@@ -581,14 +593,18 @@ def k6_groups(v):
 
 
 def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
-                   m, tol, order=None, color_major=False):
+                   m, tol, order=None, color_major=False, cluster=0):
     """Kernel K6: one FGMRES(m) cycle preconditioned by the sweep, in one
-    cooperative launch.  Returns (x (N, v), relative residual, iterations
-    as int32), the contract of krylov.fgmres without x0.  At v >=
+    launch (a cooperative grid at v >= K6_ROWS_MIN_V, one thread-block
+    cluster below).  Returns (x (N, v), relative residual, iterations as
+    int32), the contract of krylov.fgmres without x0.  At v >=
     K6_ROWS_MIN_V the sweep passes run over order (the nodes sorted by
     color; sorted here when None) and color_major says that selp_t and
     dinv_t are in its color-major lane layout (stencil_solve.
-    to_color_major); below it K6 reads the natural layout only."""
+    to_color_major); below it K6 reads the natural layout only.  cluster
+    (below K6_ROWS_MIN_V, 1 to 16) forces the cluster's CTAs; 0, as every
+    solver call leaves it, takes 16 where the card fits such a cluster,
+    else the portable 8 (16 measured faster at 9,072 nodes; PERF.md §6)."""
     n, v, k, sel_bf16 = _check_stencil("stencil_fgmres", selp_t, selm_t,
                                        dinv_t, diag_t, colors, b, offsets,
                                        ncolor)
@@ -605,31 +621,33 @@ def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
     x = torch.empty_like(b)
     stats = torch.empty((2,), dtype=b.dtype, device=b.device)
     ws = torch.empty(((2 * m + 3) * n * v,), dtype=b.dtype, device=b.device)
-    part = torch.empty((_PART_CAP,), dtype=b.dtype, device=b.device)
+    part = torch.empty((_PART_CAP,), dtype=b.dtype, device=b.device) \
+        if v >= K6_ROWS_MIN_V else None
     offs = (ctypes.c_int * k)(*[int(o) for o in offsets])
     err = _lib().su2k_stencil_fgmres(
         int(b.dtype == torch.float64), int(sel_bf16), v, n, k, offs,
         int(ncolor), int(m), float(tol), _ptr(selp_t), _ptr(selm_t),
         _ptr(dinv_t), _ptr(diag_t), _ptr(colors), _ptr(order),
         int(bool(color_major)), _ptr(b), _ptr(x), _ptr(stats), _ptr(ws),
-        _ptr(part), _PART_CAP, _stream())
+        _ptr(part), _PART_CAP, int(cluster), _stream())
     _raise("stencil_fgmres", err)
     launches["stencil_fgmres"] += 1
     return x, stats[0], stats[1].to(torch.int32)
 
 
-def stencil_fgmres_grid(dtype, sel_bf16, v, n, m):
-    """The blocks of K6's cooperative grid for these arguments on the
-    current card (a host query; launches nothing): the co-resident blocks,
-    at v < K6_ROWS_MIN_V of 256 threads and at most one per 256 nodes, at
-    v >= K6_ROWS_MIN_V of 32 v k6_groups(v) threads and at most one per
-    32 k6_groups(v) nodes."""
+def stencil_fgmres_grid(dtype, sel_bf16, v, n, m, cluster=0):
+    """The blocks of K6's launch for these arguments on the current card (a
+    host query; launches nothing): at v < K6_ROWS_MIN_V the cluster size C,
+    CTAs of 1024 threads (stencil_fgmres's cluster, with 0 16 where such
+    a cluster fits, else 8); at v >= K6_ROWS_MIN_V the co-resident blocks
+    of the cooperative grid, of 32 v k6_groups(v) threads and at most one
+    per 32 k6_groups(v) nodes."""
     if v not in STENCIL_WIDTHS:
         raise ValueError(f"stencil_fgmres_grid: block width {v}; the kernels "
                          f"are compiled for the widths {STENCIL_WIDTHS}")
     blocks = _lib().su2k_stencil_fgmres_grid(
         int(dtype == torch.float64), int(bool(sel_bf16)), int(v), int(n),
-        int(m), _PART_CAP)
+        int(m), _PART_CAP, int(cluster))
     if blocks <= 0:
         _raise("stencil_fgmres_grid", -blocks)
     return blocks

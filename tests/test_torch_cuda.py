@@ -79,6 +79,63 @@ def test_t2_kernel_matches_plain(lib, card, lite):
                            [f"field{i}" for i in range(len(want))])
 
 
+T2_SPECIES = [(ns, dt) for ns in (9, 3, 5, 16)
+              for dt in ("float64", "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,dtype", T2_SPECIES,
+                         ids=[f"{ns}sp-{dt}" for ns, dt in T2_SPECIES])
+def test_t2_every_species_instance(card, tmp_path, ns, dtype):
+    """T2 at its compiled species counts (kernels.NODE_STATE_SPECIES: 9
+    and 3) and at 5 and 16 (its run-time-count instance; the case's
+    library cut or cycled by cases.species_cut), full and lite, against
+    node_state_plain / node_state_lite_plain on the card at chip_smoke.py's
+    node_state tolerances (f64 rtol 1e-10, atol 1e-12 of the field's max;
+    f32 2e-4, 1e-6): the secant path, the bisection path (secant budget 1
+    from 4999 K, as tests/test_torch_node_state.py) and the non-physical
+    flags (a negative partial density, a vanishing density; the flags
+    exactly).  The lite variant's u, v, flags, mu and X equal the full
+    variant's bit for bit."""
+    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch.chemistry import library as tl
+    dt = getattr(torch, dtype)
+    man = th.cases.write_library(str(tmp_path))
+    lib64 = th.cases.species_cut(tl.load_library(man), ns).to(card)
+    lib = th.cases.species_cut(tl.load_library(man, None, dt), ns).to(card)
+    lay = st.Layout(2, ns)
+    assert (ns in kernels.NODE_STATE_SPECIES) == (ns in (9, 3))
+
+    def h_rgas(t, ys):
+        tt, yy = th.tt(t).to(card), th.tt(ys).to(card)
+        return (th.npy(tl.mixture_enthalpy_plain(lib64, tt, yy)),
+                th.npy(tl.mixture_rgas(lib64, yy)))
+
+    u, t_guess, tke = th.random_conserved(h_rgas, ns, 2, N, seed=3)
+    flagged = u.copy()
+    flagged[3, lay.RHOS] = -1.0e-4
+    flagged[7, lay.RHO] = 1.0e-20
+    bis = st.TSolveParams(secant_iters=1, secant_tol=1e-30)
+    rtol, afrac = (1e-10, 1e-12) if dtype == "float64" else (2e-4, 1e-6)
+    for label, uu, tg, p in (
+            ("secant", u, t_guess, st.TSolveParams()),
+            ("bisection", u, np.full(N, 4999.0), bis),
+            ("flags", flagged, t_guess, st.TSolveParams())):
+        uu, tg, tk = (th.tt(a, dt).to(card) for a in (uu, tg, tke))
+        full = kernels.node_state(lib, lay, p, uu, tg, tk)
+        lite = kernels.node_state(lib, lay, p, uu, tg, tk, lite=True)
+        for got, plain in ((full, st.node_state_plain),
+                           (lite, st.node_state_lite_plain)):
+            want = list(vars(plain(lib, lay, uu, tg, p, tk)).values())
+            th.assert_fields_close(got, want, rtol, afrac,
+                                   [f"{label} field{i}"
+                                    for i in range(len(want))])
+        if label == "flags":
+            assert bool(full[2][3]) and bool(full[2][7])
+        for i, j in ((0, 0), (1, 1), (2, 2), (5, 4), (7, 5)):
+            assert torch.equal(full[i], lite[j]), (label, i)
+
+
 @pytest.mark.cuda
 def test_t3_kernel_matches_plain(card, tmp_path):
     from su2_tpu_torch import kernels, state as st
@@ -617,7 +674,8 @@ K6_CASES = [(v, r) for v in VARIANTS for r in ("random", "tight", "scaled")
 @pytest.mark.parametrize("variant,rhs", K6_CASES)
 @pytest.mark.parametrize("system", list(BANDS))
 def test_k6_kernel_matches_plain(card, system, variant, rhs):
-    """K6 (one cooperative launch) against the plain FGMRES(10) over the
+    """K6 (one launch: a cooperative grid at v = 7, 13, a cluster of 8 or
+    16 CTAs at v = 2, 3) against the plain FGMRES(10) over the
     plain sweep, at the JAX package's pins (tests/test_stencil.py:259-262,
     315-317): equal iterations; f64 x rtol 1e-9, atol 1e-12 of max|x|, rel
     rtol 1e-8 (atol 1e-15: at tol 1e-12 rel ends at rounding level, where
@@ -635,11 +693,12 @@ def test_k6_kernel_matches_plain(card, system, variant, rhs):
     x, rel, it = kernels.stencil_fgmres(**args, b=b, m=10, tol=tol)
     assert kernels.launches["stencil_fgmres"] == 1
     n, v = r.shape
-    per_block = 32 * kernels.k6_groups(v) if v >= kernels.K6_ROWS_MIN_V \
-        else 256
-    assert 1 <= kernels.stencil_fgmres_grid(
-        r.dtype, args["selp_t"].dtype == torch.bfloat16, v, n, 10) \
-        <= -(-n // per_block)
+    grid = kernels.stencil_fgmres_grid(
+        r.dtype, args["selp_t"].dtype == torch.bfloat16, v, n, 10)
+    if v >= kernels.K6_ROWS_MIN_V:
+        assert 1 <= grid <= -(-n // (32 * kernels.k6_groups(v)))
+    else:
+        assert grid in (8, 16)          # the cluster's CTAs
     wx, wrel, wit = ts.fgmres_plain(**args, b=b, m=10, tol=tol)
     assert int(it) == int(wit)
     x, wx = th.npy(x), th.npy(wx)
@@ -730,6 +789,70 @@ def test_k6_rows_kernel_many_groups(card, v, variant):
             np.testing.assert_allclose(x, wx, rtol=1e-9, atol=1e-12 * scale)
         else:
             assert np.abs(x - wx).max() <= 2e-5 * scale
+
+
+K6_CLUSTER_SIZES = [(v, n, var, c) for v in (2, 3)
+                    for n in (700, 9072, 12288) for var in VARIANTS
+                    for c in (16, 8)]
+
+
+def _k6_pins(x, wx, variant):
+    """test_k6_colorings' pins on x against the plain cycle's wx."""
+    x, wx = th.npy(x), th.npy(wx)
+    scale = max(np.abs(wx).max(), 1e-300)
+    if variant == "float64":
+        np.testing.assert_allclose(x, wx, rtol=1e-9, atol=1e-12 * scale)
+    else:
+        assert np.abs(x - wx).max() <= 2e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,n,variant,cluster", K6_CLUSTER_SIZES,
+                         ids=[f"v{v}-{n}-{var}-c{c}"
+                              for v, n, var, c in K6_CLUSTER_SIZES])
+def test_k6_cluster_sizes(card, monkeypatch, v, n, variant, cluster):
+    """K6 at v = 2, 3 (one thread-block cluster of 16 or 8 CTAs of 1,024
+    threads, forced by stencil_fgmres's cluster; the resident form where
+    every node has a thread, the streamed one past 8,192 nodes at 8 CTAs
+    and in f64 at v = 3) on a field smaller than one CTA (700 nodes), at
+    the flagship 9,072 nodes and at the one-launch tier's cap of 12,288
+    (stencil_solve._fgmres_cap(10)), on a proper 2-coloring, against the
+    plain FGMRES(10) at test_k6_colorings' pins (tol 1e-8 in f64, 1e-12
+    otherwise): two right sides solved in turn, each on fresh memory
+    filled with NaN (every torch.empty of the wrapper), so no phase reads
+    an entry before the barrier after the phase that writes it; and the
+    same solve twice, equal bit for bit (the reductions are
+    deterministic)."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    offsets, nc = th.COLORINGS["proper2"]
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    args, r = th.stencil_args(th.band_system(n, v, offsets, nc, seed=9),
+                              dtype, mixed=variant == "mixed", device=card)
+    assert kernels.stencil_fgmres_grid(dtype, variant == "mixed", v, n, 10,
+                                       cluster=cluster) == cluster
+    tol = 1e-8 if variant == "float64" else 1e-12
+    empty = torch.empty
+
+    def nan_empty(*a, **kw):
+        t = empty(*a, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    rng = np.random.default_rng(4)
+    for b in (r, th.tt(rng.standard_normal(tuple(r.shape)), dtype).to(card)):
+        monkeypatch.setattr(torch, "empty", nan_empty)
+        kernels.reset_launches()
+        x, rel, it = kernels.stencil_fgmres(**args, b=b, m=10, tol=tol,
+                                            cluster=cluster)
+        assert kernels.launches["stencil_fgmres"] == 1
+        monkeypatch.setattr(torch, "empty", empty)
+        wx, _, wit = ts.fgmres_plain(**args, b=b, m=10, tol=tol)
+        assert int(it) == int(wit)
+        _k6_pins(x, wx, variant)
+        x2, rel2, it2 = kernels.stencil_fgmres(**args, b=b, m=10, tol=tol,
+                                               cluster=cluster)
+        assert torch.equal(x2, x) and torch.equal(rel2, rel) \
+            and int(it2) == int(it)
 
 
 @pytest.mark.cuda

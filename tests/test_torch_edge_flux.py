@@ -218,13 +218,16 @@ def _compiled(source, macro):
 @pytest.mark.parametrize("name,source,macro,listed", [
     ("edge_implicit", "edge_implicit.cu", "SU2K_IMPLICIT_BY_NS",
      "IMPLICIT_SPECIES"),
-    ("ausm_flux_jac", "ausm_jac.cu", "SU2K_AUSM_BY_NS", "AUSM_SPECIES")])
+    ("ausm_flux_jac", "ausm_jac.cu", "SU2K_AUSM_BY_NS", "AUSM_SPECIES"),
+    ("node_state", "node_state.cu", "SU2K_NODE_STATE_BY_NS",
+     "NODE_STATE_SPECIES")])
 def test_species_counts_match_the_compiled_instances(name, source, macro,
                                                      listed):
-    """kernels.IMPLICIT_SPECIES (K10) and AUSM_SPECIES (K11) list the
-    species counts their #defines instantiate; every other count up to
-    kernels.MAX_SPECIES passes the wrappers' check (the run-time instance)
-    and 0 and 17 raise a ValueError that names the count."""
+    """kernels.IMPLICIT_SPECIES (K10), AUSM_SPECIES (K11) and
+    NODE_STATE_SPECIES (T2) list the species counts their #defines
+    instantiate; every other count up to kernels.MAX_SPECIES passes the
+    wrappers' check (the run-time instance) and 0 and 17 raise a ValueError
+    that names the count."""
     from types import SimpleNamespace
     from su2_tpu_torch import kernels
     assert tuple(c[0] for c in _compiled(source, macro)) \
@@ -239,6 +242,8 @@ def test_species_counts_match_the_compiled_instances(name, source, macro,
             if name == "edge_implicit":
                 kernels.edge_implicit(None, lay, None, (0, 0, 0), x, (1,),
                                       x, x, True, True)
+            elif name == "node_state":
+                kernels.node_state(None, lay, None, x, x)
             else:
                 kernels.ausm_flux_jac(lay, x, x, x, 0.0, x, x)
 

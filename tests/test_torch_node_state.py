@@ -1,7 +1,9 @@
 """Plain version of kernel T2 (state.node_state_plain / node_state_lite_plain)
 against the XLA chain of tests/test_node_state.py:45-66 and the Pallas
 node_state kernel in interpret mode: secant path, bisection path and the
-non-physical flags."""
+non-physical flags, on the case's 9 species and on both libraries cut to 3
+(T2's other compiled count) and 5 species (its run-time instance on the
+card)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -16,15 +18,42 @@ N = 160
 NAMES = ["u_clip", "v", "nonphys", "dtdu", "dpdu", "mu", "kappa", "xs"]
 
 
+# (species count, reference): the case's 9 species under the ids these
+# tests had before the cut counts, then the libraries cut to 3 and 5
+CASES = [(ns, ref) for ns in (9, 3, 5)
+         for ref in ("xla_chain", "pallas_interpret")]
+IDS = [ref if ns == 9 else f"{ns}sp-{ref}" for ns, ref in CASES]
+
+
 @pytest.fixture(scope="module")
-def setup(tmp_path_factory):
+def setups(tmp_path_factory):
+    """setups(ns): the fixture tuple on the libraries cut to ns species
+    (th.jax_species_cut, cases.species_cut), made once per count."""
+    made = {}
+
+    def get(ns):
+        if ns not in made:
+            made[ns] = _make(tmp_path_factory, ns)
+        return made[ns]
+    return get
+
+
+@pytest.fixture(scope="module")
+def setup(setups):
+    return setups(9)
+
+
+def _make(tmp_path_factory, ns):
     from su2_tpu import state as jst
     from su2_tpu.chemistry import library as jl
     from su2_tpu_torch import state as tst
     from su2_tpu_torch.chemistry import library as tl
     man = th.cases.write_library(str(tmp_path_factory.mktemp("ns")))
     jlib, tlib = jl.load_library(man), tl.load_library(man)
-    ns, nd = tlib.nspecies, 2
+    if ns != tlib.nspecies:
+        jlib, tlib = th.jax_species_cut(jlib, ns), \
+            th.cases.species_cut(tlib, ns)
+    nd = 2
 
     def h_rgas(t, ys):
         jt, jy = jnp.asarray(t), jnp.asarray(ys)
@@ -70,22 +99,25 @@ def _compare(setup, u, t_guess, ref, **tp):
                                np.asarray(want[4])[:, tlay.RHOE], rtol=1e-12)
 
 
-@pytest.mark.parametrize("ref", ["xla_chain", "pallas_interpret"])
-def test_t2_plain_secant_path(setup, ref):
+@pytest.mark.parametrize("ns,ref", CASES, ids=IDS)
+def test_t2_plain_secant_path(setups, ns, ref):
+    setup = setups(ns)
     _compare(setup, setup[4], setup[5], ref)
 
 
-@pytest.mark.parametrize("ref", ["xla_chain", "pallas_interpret"])
-def test_t2_plain_bisection_path(setup, ref):
+@pytest.mark.parametrize("ns,ref", CASES, ids=IDS)
+def test_t2_plain_bisection_path(setups, ns, ref):
     """Secant budget 1 from a far-off guess: most cells bisect."""
+    setup = setups(ns)
     _compare(setup, setup[4], np.full(N, 4999.0), ref, secant_iters=1,
              secant_tol=1e-30)
 
 
-@pytest.mark.parametrize("ref", ["xla_chain", "pallas_interpret"])
-def test_t2_plain_nonphys_flags(setup, ref):
+@pytest.mark.parametrize("ns,ref", CASES, ids=IDS)
+def test_t2_plain_nonphys_flags(setups, ns, ref):
     """Negative partial density and vanishing rho are flagged like the
     chain (tests/test_node_state.py:104-110)."""
+    setup = setups(ns)
     lay = setup[3]
     u = setup[4].copy()
     u[3, lay.RHOS] = -1.0e-4

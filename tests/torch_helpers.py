@@ -156,6 +156,24 @@ def chemlib_numpy(jlib) -> dict:
     return d
 
 
+def jax_species_cut(jlib, ns):
+    """su2_tpu's ChemLib jlib cut to ns species as cases.species_cut cuts
+    the port's library: its first ns, or past its count its species again
+    in order (copies named name_1, ...); the reactions keep their rates and
+    take the kept species' stoichiometry and orders."""
+    import dataclasses
+    idx = np.arange(ns) % jlib.nspecies
+    kw = {k: getattr(jlib, k)[idx] for k in (
+        "mm", "ri", "diff_vol", "h_form", "cp_y", "cp_y2", "h_y", "h_y2",
+        "s_y", "s_y2", "mu_y", "mu_y2", "ka_y", "ka_y2", "stoich_r",
+        "stoich_p")}
+    kw.update({k: getattr(jlib, k)[:, idx] for k in ("exp_f", "exp_b")})
+    names = tuple(jlib.species[i % jlib.nspecies]
+                  + ("" if i < jlib.nspecies else f"_{i // jlib.nspecies}")
+                  for i in range(ns))
+    return dataclasses.replace(jlib, nspecies=ns, species=names, **kw)
+
+
 def tt(x, dtype=torch.float64):
     """numpy / JAX array -> CPU tensor (a copy)."""
     return torch.as_tensor(np.array(x)).to(dtype)
@@ -188,7 +206,8 @@ def random_conserved(h_rgas, ns, nd, n, seed):
     p = rng.uniform(0.9e5, 1.2e5, n)
     vel = rng.normal(0.0, 20.0, (n, nd))
     # fuel, water, oxygen and the carbon oxides; radicals and H2 at traces
-    alpha = np.array([1.0, 1.0, 1.0, 1.0, 1.0] + [0.05] * (ns - 5))
+    # (a mixture of fewer species: its first ns of those)
+    alpha = np.array(([1.0] * 5 + [0.05] * max(ns - 5, 0))[:ns])
     ys = rng.dirichlet(alpha, n)
     h, rgas = h_rgas(t, ys)
     rho = p / (rgas * t)
