@@ -7,10 +7,16 @@ Phases (one line each; any failure exits nonzero):
              source, all started together)
   3 kernels  T1-T4 against their plain torch versions on the card, at the
              9,072-node case's shapes, in float64 and float32, with times;
-             K7 (WLS and GG, beside torch.sparse.mm of the same operator)
-             and K8 (beside T3 + the roll-subtract) at the 565,500-node
-             case's shapes, K9 on a batch the size of that case's inlet
-             (377 vertices), in float64 and float32
+             T4 also at its other instances (the case cut to 3 species,
+             compiled, and to 5, the run-time instance) on the primitive
+             rows' column views, one CUDA launch a call; K7 (WLS and
+             GG, beside torch.sparse.mm of the same operator; its window
+             form, and forced to its streamed form; a 3D box's 6 offsets,
+             streamed, and 8 2D offsets, the run-time-K instance, one
+             CUDA launch a call) and K8 (beside T3 + the
+             roll-subtract) at the 565,500-node case's shapes, K9 on a
+             batch the size of that case's inlet (377 vertices), in
+             float64 and float32
   4 stencil  K5 (sweep + matvec, sweep only, matvec only) and K6 (one
              FGMRES(10) cycle) against their plain versions, in float64,
              float32 and mixed (bf16 sweep blocks): on the SST systems
@@ -113,9 +119,11 @@ The line before the last is the JSON kernel report; the last line is
 
 Run from the repository root:  python3 chip_smoke.py
 
-    python3 chip_smoke.py --time-kernels [--root DIR]
+    python3 chip_smoke.py --time-kernels [--root DIR] [--only K7,T4]
+    python3 chip_smoke.py --bitwise DIR
 
-times T2, K5, K6, K8 and K10 of the su2_tpu_torch in DIR (default: this
+times T2, K5, K6, K7, K8, K10 and T4 (or those --only names) of the
+su2_tpu_torch in DIR (default: this
 checkout; another checkout, such as a parent commit unpacked with git
 archive, for an A/B comparison run in the order A B B A on one card) and
 prints, after the card's line, the SASS instructions and local loads (LDL)
@@ -137,9 +145,19 @@ and at full precision, the SST's in its tier (and in clusters of 8 and
 16 CTAs where DIR's kernels.stencil_fgmres takes cluster); K10
 (kernels.edge_implicit, MUSCL + Venkatakrishnan, both families) at 9,072
 and 565,500 nodes on k10_inputs' state; K8 and T3 + the roll-subtract at
-565,500 nodes on kernel_inputs' state; float32, cuda_time's median ms
-(host work included) and, for T2 and K6, device_ms (the kernels alone,
-torch.profiler).
+565,500 nodes on kernel_inputs' state; K7 and T4 as time_k7_t4 says
+(K7's sweeps at 565,500 nodes, also with every offset 0 and, where DIR's
+source caps its offset loop, built with the cap at the mesh's K; T4 at
+9,072 and 565,500 nodes on the step's column views); float32, cuda_time's
+median ms (host work included) and, for T2, K6, K7 and T4, device_ms (the
+kernels alone, torch.profiler; K7 and T4 also every device operation of
+the call and its CUDA launches, call_profile).
+
+    python3 chip_smoke.py --bitwise DIR
+
+holds K7 and T4 of this checkout against those of the checkout DIR bit
+for bit on the 565,500-node case's inputs, in float32 and float64
+(bitwise_main).
 """
 
 from __future__ import annotations
@@ -511,6 +529,41 @@ def kernel_phase(tmp, dtype_name, report):
         report.setdefault(name, {})[dtype_name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
             bound_by=bound[1], library_ms=None)
+    # T4's instances (kernels.CHEM_SHAPES): the case (9 species, above),
+    # the case cut to 3 species (compiled) and to 5 (the run-time
+    # instance), each on the primitive-row views and omega_t as a column
+    # of a turbulence state, as the step passes them, PaSR on and off; the
+    # wrapper puts one operation on the card (no copies)
+    from su2_tpu_torch import cases
+    turb = torch.stack([x["tke"], x["omt"]], dim=1)
+    for ns in (lay.ns, 3, 5):
+        libc = lib if ns == lay.ns else cases.species_cut(lib, ns)
+        layc = st.Layout(lay.ndim, ns)
+        rows = torch.zeros((n, layc.nprim), dtype=dtype, device="cuda")
+        yc = ys[:, :ns] / ys[:, :ns].sum(dim=1, keepdim=True)
+        rows[:, layc.T], rows[:, layc.PRHO], rows[:, layc.YS:] = tt, rho, yc
+        views = (rows[:, layc.T], rows[:, layc.PRHO], rows[:, layc.YS:])
+        kfn = lambda: [kernels.chem_source(libc, prm, *views, turb[:, 1]),
+                       kernels.chem_source(libc, prm, *views, None)]
+        got = kfn()
+        want = [es.chemistry_source_plain(libc, prm, tt, rho, yc, x["omt"]),
+                es.chemistry_source_plain(libc, prm, tt, rho, yc, None)]
+        torch.cuda.synchronize()
+        err, scaled = compare("chem_source", dtype_name, got, want)
+        _, ops = call_profile(lambda: kernels.chem_source(
+            libc, prm, *views, turb[:, 1]), reps=10)
+        if ops != 1:
+            raise AssertionError(f"chem_source: {ops} CUDA launches a call "
+                                 "on row views, expected 1")
+        report["chem_source"][f"shape {ns} species {dtype_name}"] = dict(
+            max_abs_err=err, ms=cuda_time(kfn))
+        inst = ("compiled" if (ns, libc.nreactions) in kernels.CHEM_SHAPES
+                else "run-time")
+        phase("kernels", f"chem_source {ns} species ({libc.nreactions} "
+              f"reactions, {inst} instance) {dtype_name} on row views: "
+              f"max_abs_err {err:.3e} "
+              f"({scaled:.2e} of its field's max), {ops:.1f} CUDA "
+              "launches a call")
     # bisection path and its flags (secant budget 1, far-off guess)
     if dtype_name == "float64":
         pb = st.TSolveParams(secant_iters=1, secant_tol=1e-30)
@@ -639,10 +692,58 @@ def tier_kernel_phase(sim, dtype_name, report):
                                  f"{dev:.2e} of the max")
         ins = [q, mesh.gg_snormal if gg else mesh.wls_coeff] + (
             [mesh.bnd_accum_normal, mesh.volume] if gg else [])
+        plan = kernels.k7_plan(n, ng, mesh.stencil_offsets,
+                               q.element_size())
         record("gradient_rows", f"{dtype_name} {mode}", got, want, kfn, pfn,
                ins, 3 * kk * d * ng * n + (3 * d * ng * n if gg else 0),
-               lib_ms=lib_ms, extra=f" (torch.sparse.mm CSR, off by "
-               f"{dev:.1e} of the max)")
+               lib_ms=lib_ms, extra=f" ({plan.form}, window {plan.window}; "
+               f"torch.sparse.mm CSR, off by {dev:.1e} of the max)")
+    # K7's other forms and instances at this node count: the channel's
+    # sweep forced to the streamed form (kernels.k7_plan's keyword), a 3D
+    # box's six offsets (87 x 65 x 100 nodes: no window fits, the plan
+    # streams; compiled) and eight 2D offsets (the channel's and its
+    # diagonals: the run-time-K instance, windowed), the latter two on
+    # random coefficients, volumes and boundary normals; each wrapper call
+    # one operation on the card (no transpose)
+    from types import SimpleNamespace
+    rng = np.random.default_rng(9)
+    t = lambda a: torch.as_tensor(a).to(sim.device, dtype)
+
+    def synth(offs, dd):
+        return SimpleNamespace(
+            npoint=n, ndim=dd, stencil_offsets=offs,
+            wls_coeff=t(rng.standard_normal((len(offs), n, dd))),
+            gg_snormal=t(rng.standard_normal((len(offs), n, dd))),
+            bnd_accum_normal=t(rng.standard_normal((n, dd))),
+            volume=t(rng.uniform(0.5, 2.0, n)))
+
+    ny = int(mesh.stencil_offsets[-1])
+    for label, m, window in (
+            ("channel streamed", mesh, 0),
+            ("3D box", synth((-6500, -100, -1, 1, 100, 6500), 3), None),
+            ("8 offsets", synth((-ny - 1, -ny, -ny + 1, -1, 1, ny - 1, ny,
+                                 ny + 1), 2), None)):
+        dd, kk = m.ndim, len(m.stencil_offsets)
+        plan = kernels.k7_plan(n, ng, m.stencil_offsets, q.element_size(),
+                               window)
+        for mode in ("WLS", "GG"):
+            gg = mode == "GG"
+            coef = m.gg_snormal if gg else m.wls_coeff
+            extra = (m.bnd_accum_normal, m.volume) if gg else ()
+            kfn = lambda: [kernels.gradient_rows(q, coef, m.stencil_offsets,
+                                                 *extra, window=window)]
+            pfn = lambda: [tg.gradient_rows_plain(m, q, mode)]
+            got, want = kfn(), pfn()
+            torch.cuda.synchronize()
+            _, ops = call_profile(kfn, reps=10)
+            if ops != 1:
+                raise AssertionError(f"K7 {label}: {ops} CUDA launches a "
+                                     "call, expected 1")
+            record("gradient_rows", f"{dtype_name} {mode} {label}", got,
+                   want, kfn, pfn, [q, coef, *extra],
+                   3 * kk * dd * ng * n + (3 * dd * ng * n if gg else 0),
+                   extra=f" ({plan.form}, window {plan.window}; {ops:.1f} "
+                         "CUDA launches a call)")
     # K8: the stack of the tier's main path, from K7's rows
     eargs = edge_win_args(sim, mesh, lib, x, nsd, q)
     f_all, sc = eargs[4], eargs[2]
@@ -1970,17 +2071,22 @@ def print_pair(label, unfused, fused):
           f"{fmt(fused)}")
 
 
-# the sources whose kernels --time-kernels counts SASS instructions of: the
-# edge kernels (T3, K8, K13, K10), K11, K5/K6 and T2
-SASS_SOURCES = ("edge_flux.cu", "edge_win.cu", "edge_list.cu",
-                "edge_implicit.cu", "ausm_jac.cu", "stencil_solve.cu",
-                "node_state.cu")
+# the sources whose kernels --time-kernels counts SASS instructions of, by
+# the tag of the kernels they hold: the edge kernels (T3, K8, K13, K10),
+# K11, K5/K6, T2, K7 and T4
+SASS_SOURCES = {"edge_flux.cu": {"K8"}, "edge_win.cu": {"K8"},
+                "edge_list.cu": {"K8"}, "edge_implicit.cu": {"K10"},
+                "ausm_jac.cu": {"K10"}, "stencil_solve.cu": {"K5", "K6"},
+                "node_state.cu": {"T2"}, "gradients_tiled.cu": {"K7"},
+                "chem_source.cu": {"T4"}}
+# the kernels --time-kernels times (--only takes a subset)
+TIMED = frozenset({"T2", "K5", "K6", "K7", "K8", "K10", "T4"})
 
 
-def sass_counts(root):
-    """{kernel: [SASS instructions, LDL, STL]} of root's SASS_SOURCES
-    (nvcc -cubin with the build's flags, one nvcc per source, all started
-    together; cuobjdump -sass)."""
+def sass_counts(root, only=TIMED):
+    """{kernel: [SASS instructions, LDL, STL]} of root's SASS_SOURCES of
+    the kernels of only (nvcc -cubin with the build's flags, one nvcc per
+    source, all started together; cuobjdump -sass)."""
     from su2_tpu_torch import kernels
     csrc = os.path.join(root, "su2_tpu_torch", "csrc")
     dump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
@@ -1988,12 +2094,13 @@ def sass_counts(root):
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         cubin = lambda src: os.path.join(tmp, src + ".cubin")
+        srcs = [src for src, tags in SASS_SOURCES.items() if tags & only]
         procs = [subprocess.Popen([kernels._nvcc(), *flags, "-cubin", "-o",
                                    cubin(src), os.path.join(csrc, src)])
-                 for src in SASS_SOURCES]
+                 for src in srcs]
         if any([p.wait() for p in procs]):
             raise RuntimeError("nvcc -cubin failed")
-        for src in SASS_SOURCES:
+        for src in srcs:
             text = subprocess.run([dump, "-sass", cubin(src)], check=True,
                                   capture_output=True, text=True).stdout
             name = None
@@ -2015,21 +2122,44 @@ def sass_counts(root):
 
 def device_ms(fn, reps=20, warm=3):
     """Device milliseconds per fn() call of the su2k kernels it launches
-    (torch.profiler, the mean over reps calls): the kernels alone, without
-    the host work that cuda_time's events include."""
+    (torch.profiler, profiled): the kernels alone, without the host work
+    that cuda_time's events include."""
+    return profiled(fn, reps, warm, lambda e: "su2k::" in e.name)[0]
+
+
+def profiled(fn, reps, warm, keep):
+    """(device ms of the CUDA events e with keep(e), CUDA kernel launches
+    of the runtime) per fn() call, each the median over three
+    torch.profiler windows of reps calls: a window taken after another
+    sometimes loses device events, or holds some of the one before (the
+    runtime's launch calls, host events, are counted whole)."""
+    import statistics
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "su2k::" in e.name)
-    return us / 1e3 / reps
+    ms, launches = [], []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = prof.events()
+        ms.append(sum(e.time_range.elapsed_us() for e in ev
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and keep(e)) / 1e3 / reps)
+        launches.append(sum("LaunchKernel" in e.name for e in ev
+                            if e.device_type
+                            == torch.autograd.DeviceType.CPU) / reps)
+    return statistics.median(ms), statistics.median(launches)
+
+
+def call_profile(fn, reps=20, warm=3):
+    """(device ms, CUDA kernel launches) per fn() call of everything fn
+    puts on the card (kernels of any name, copies, sets; profiled)."""
+    return profiled(fn, reps, warm, lambda e: True)
 
 
 # nvcc flags T2's full pass is timed under besides the library's own (what
@@ -2060,16 +2190,21 @@ def t2_approx_lib(tmp):
                  if "<float, 9, full>" in ln]
 
 
-def time_kernels(tmp):
-    """{label: ms} of T2, K5, K6, K8 and K10 as the module docstring's
-    --time-kernels describes them, through the calls that this checkout
-    and its parent share (kernels.node_state, StencilSolveOps,
-    kernels.edge_implicit, kernels.edge_win)."""
+def time_kernels(tmp, only=TIMED):
+    """{label: ms} of the kernels of only (tags of TIMED) as the module
+    docstring's --time-kernels describes them, through the calls that this
+    checkout and its parent share (kernels.node_state, StencilSolveOps,
+    kernels.edge_implicit, kernels.edge_win, kernels.gradient_rows,
+    kernels.chem_source)."""
     import torch
     from su2_tpu_torch import kernels, state as st
     from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
     from su2_tpu_torch.ops import edge_flux as ef
     out = {}
+    if only & {"K7", "T4"}:
+        time_k7_t4(tmp, out, only)
+    if not only & {"T2", "K5", "K6", "K8", "K10"}:
+        return out
     approx = t2_approx_lib(tmp)
     for size in ("flagship", "scaling", "tier"):
         for name, implicit, v in (
@@ -2167,6 +2302,159 @@ def time_kernels(tmp):
     out[f"T3 + roll-subtract {n}"] = dict(ms=cuda_time(
         lambda: ef.roll_subtract(eargs[5], *kernels.edge_flux(*eargs))))
     return out
+
+
+# nvcc flags T4 is timed under besides the library's own (--time-kernels):
+# approximate division, square root, exp and pow in float (double keeps
+# IEEE)
+T4_FAST_FLAGS = ("-use_fast_math",)
+
+
+def t4_fast_lib(tmp):
+    """(ctypes library, ptxas lines of its float chem_source kernels) of
+    the checkout's chem_source.cu alone, built with the kernel library's
+    flags and T4_FAST_FLAGS, su2k_chem_source bound as kernels binds
+    it."""
+    import ctypes
+    from su2_tpu_torch import kernels
+    so = os.path.join(tmp, "t4_fast.so")
+    proc = subprocess.run(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, *T4_FAST_FLAGS, "-Xptxas",
+         "-v", "-shared", "-o", so, os.path.join(kernels.CSRC,
+                                                 "chem_source.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc ({' '.join(T4_FAST_FLAGS)}) failed:\n"
+                           f"{proc.stdout}")
+    lib = ctypes.CDLL(so)
+    lib.su2k_chem_source.argtypes = kernels._ARGTYPES["su2k_chem_source"]
+    lib.su2k_chem_source.restype = ctypes.c_int
+    return lib, [ln for ln in ptxas_summary(proc.stdout)
+                 if "chem_source_kernel<float" in ln]
+
+
+def k7_kcap_lib(tmp, k):
+    """(ctypes library or None, {build: ptxas lines of grad_rows_kernel
+    <float, ...>}) of the checkout's gradients_tiled.cu built alone with
+    the kernel library's flags twice: as it is, and with its offset cap
+    SU2K_MAXKS compiled at k (the library None where the source has no
+    such cap), su2k_gradient_rows bound as kernels binds it."""
+    import ctypes
+    from su2_tpu_torch import kernels
+    with open(os.path.join(kernels.CSRC, "gradients_tiled.cu")) as f:
+        src = f.read()
+    cap = "#define SU2K_MAXKS 16"
+    builds = {"as is": src}
+    if cap in src:
+        builds[f"SU2K_MAXKS {k}"] = src.replace(cap, f"#define SU2K_MAXKS {k}")
+    procs = {}
+    for label, text in builds.items():
+        name = "k7_" + re.sub(r"\W+", "_", label)
+        with open(os.path.join(tmp, name + ".cu"), "w") as f:
+            f.write(text)
+        procs[label] = (os.path.join(tmp, name + ".so"), subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC,
+             "-Xptxas", "-v", "-shared", "-o", os.path.join(tmp, name + ".so"),
+             os.path.join(tmp, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    lines, lib = {}, None
+    for label, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc (K7 {label}) failed:\n{log}")
+        lines[label] = [ln for ln in ptxas_summary(log) if "float" in ln]
+        if label != "as is":
+            lib = ctypes.CDLL(so)
+            lib.su2k_gradient_rows.argtypes = kernels._ARGTYPES[
+                "su2k_gradient_rows"]
+            lib.su2k_gradient_rows.restype = ctypes.c_int
+    return lib, lines
+
+
+def time_k7_t4(tmp, out, only):
+    """K7 (WLS) at 565,500 nodes on the step's two sweeps (nG = 13, the
+    flow's gradient set; nG = 15, the set with (k, omega) of the merged
+    turbulence sweep), and again with every offset 0 (every tap on the
+    node itself) and, where the checkout's source has an offset cap, from
+    a throwaway build with the cap at the mesh's K; T4 (PaSR on) at 9,072
+    and 565,500 nodes on the primitive rows of kernel_inputs' state, its
+    inputs the column views the step passes (chemistry_source_residual).
+    Each: event ms (host included), device_ms (the su2k kernel alone) and
+    call_profile (every device operation of the call, and its CUDA
+    launches)."""
+    import numpy as np
+    import torch
+    from su2_tpu_torch import kernels, state as st
+
+    if "T4" in only:
+        fast = t4_fast_lib(tmp)
+
+    def timed(label, call, **extra):
+        dev_all, ops = call_profile(call)
+        out[label] = dict(ms=cuda_time(call), device_ms=device_ms(call),
+                          call_device_ms=dev_all, call_launches=ops,
+                          **extra)
+
+    for size in ("flagship", "tier"):
+        sim = make_case(tmp, *SIZES[size], torch.float32, "cuda")
+        n, lay, mesh = sim.mesh.npoint, sim.lay, sim.mesh
+        if "T4" in only:
+            x = kernel_inputs(sim)
+            v = st.node_state_plain(sim.lib, lay, x["u"], x["t_guess"],
+                                    x["p"], x["tke"]).v
+            turb = torch.stack([x["tke"], x["omt"]], dim=1)
+            cols = (v[:, lay.T], v[:, lay.PRHO], v[:, lay.YS:lay.YS + lay.ns],
+                    turb[:, 1])
+            call = lambda: kernels.chem_source(sim.lib, sim.params, *cols)
+            timed(f"T4 {n}", call)
+            # the same source built with approximate math (T4_FAST_FLAGS):
+            # the share of T4's time its IEEE arithmetic takes
+            library = kernels._lib
+            kernels._lib = lambda: fast[0]
+            try:
+                out[f"T4 {n} {' '.join(T4_FAST_FLAGS)}"] = dict(
+                    device_ms=device_ms(call), ptxas=fast[1])
+            finally:
+                kernels._lib = library
+            del x, v, turb, cols
+        if "K7" in only and size == "tier":
+            _, _, x, _, q = tier_state(sim, torch.float32)
+            rng = np.random.default_rng(7)
+            kq = torch.as_tensor(rng.uniform(0.1, 10.0, (n, 2))).to(q)
+            offs = list(mesh.stencil_offsets)
+            k = len(offs)
+            capped, ptx = k7_kcap_lib(tmp, k)
+            for ng, qq in ((13, q), (15, torch.cat([q, kq], dim=1))):
+                assert qq.shape[1] == ng
+                a = (qq, mesh.wls_coeff, offs)
+                timed(f"K7 nG={ng} {n}", lambda: kernels.gradient_rows(*a),
+                      ptxas=ptx["as is"])
+                timed(f"K7 nG={ng} {n} offsets 0",
+                      lambda: kernels.gradient_rows(qq, mesh.wls_coeff,
+                                                    [0] * k))
+                if "window" in inspect.signature(
+                        kernels.gradient_rows).parameters:
+                    # the checkout's other forms: streamed, and a window of
+                    # 1,024 nodes (256 threads) beside k7_plan's
+                    plan = functools.partial(kernels.k7_plan, n, ng, offs,
+                                             4)
+                    for w in (0, 1024):
+                        timed(f"K7 nG={ng} {n} window {w}",
+                              lambda: kernels.gradient_rows(*a, window=w),
+                              plan=plan(w)._asdict())
+                    out[f"K7 nG={ng} {n}"]["plan"] = plan()._asdict()
+                if capped is not None:
+                    library = kernels._lib
+                    kernels._lib = lambda: capped
+                    try:
+                        timed(f"K7 nG={ng} {n} SU2K_MAXKS {k}",
+                              lambda: kernels.gradient_rows(*a),
+                              ptxas=ptx[f"SU2K_MAXKS {k}"])
+                    finally:
+                        kernels._lib = library
+            del x, q, kq
+        del sim
+        torch.cuda.empty_cache()
 
 
 # The barriers K6 is built from, timed on their own (--time-kernels): us
@@ -2305,18 +2593,62 @@ def barrier_lines(tmp):
                           text=True).stdout.strip().splitlines()
 
 
-def ab_main(root):
+def bitwise_main(other):
+    """--bitwise DIR: K7 (WLS and GG, the flow's 13 gradient variables)
+    and T4 (PaSR on, the step's column views) of this checkout against
+    those of the checkout DIR (its kernels.py loaded as a module of its
+    own, its library built from its sources) on the 565,500-node case's
+    inputs (tier_state) in float32 and float64: one JSON line, per output
+    whether it is bit for bit the other's, else how many values differ
+    and the largest difference relative to the output's max."""
+    import importlib.util
+    import torch
+    from su2_tpu_torch import kernels
+    spec = importlib.util.spec_from_file_location(
+        "other_kernels", os.path.join(other, "su2_tpu_torch", "kernels.py"))
+    okern = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(okern)
+    card = card_line()
+    result = dict(other=other, card=card)
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
+        sim = make_case(tmp, *SIZES["tier"], torch.float32, "cuda")
+        for dtype in (torch.float32, torch.float64):
+            mesh, lib, x, nsd, q = tier_state(sim, dtype)
+            lay, v = sim.lay, nsd.v
+            omt = torch.stack([x["tke"], x["omt"]], dim=1)[:, 1]
+            cols = (v[:, lay.T], v[:, lay.PRHO], v[:, lay.YS:], omt)
+            calls = {
+                "K7 WLS": lambda k: k.gradient_rows(q, mesh.wls_coeff,
+                                                    mesh.stencil_offsets),
+                "K7 GG": lambda k: k.gradient_rows(
+                    q, mesh.gg_snormal, mesh.stencil_offsets,
+                    mesh.bnd_accum_normal, mesh.volume),
+                "T4": lambda k: k.chem_source(lib, sim.params, *cols)}
+            for name, call in calls.items():
+                a, b = call(kernels), call(okern)
+                torch.cuda.synchronize()
+                diff = (a.double() - b.double()).abs()
+                result[f"{name} {str(dtype)[6:]}"] = dict(
+                    bitwise=bool(torch.equal(a, b)),
+                    differing=int((a != b).sum()), of=a.numel(),
+                    max_rel=(diff.max() / b.double().abs().max()).item())
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def ab_main(root, only=TIMED):
     """--time-kernels: see the module docstring."""
     from su2_tpu_torch import kernels
     card = card_line()
     print(f"card: {card}; root {root}", flush=True)
     kernels.build()
-    for name, (ni, ldl, stl) in sass_counts(root).items():
+    for name, (ni, ldl, stl) in sass_counts(root, only).items():
         print(f"sass {name}: {ni} instructions, {ldl} LDL, {stl} STL")
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as tmp:
-        for line in barrier_lines(tmp):
-            print(f"barrier {line}", flush=True)
-        result = dict(root=root, card=card, **time_kernels(tmp))
+        if "K6" in only:
+            for line in barrier_lines(tmp):
+                print(f"barrier {line}", flush=True)
+        result = dict(root=root, card=card, **time_kernels(tmp, only))
     print(json.dumps(result), flush=True)
     return 0
 
@@ -2327,7 +2659,16 @@ def main():
                                  "on one NVIDIA GPU (see the docstring)")
     ap.add_argument("--time-kernels", action="store_true")
     ap.add_argument("--root", default=HERE)
+    ap.add_argument("--bitwise", metavar="DIR",
+                    help="K7 and T4 against those of the checkout DIR, bit "
+                    "for bit (bitwise_main)")
+    ap.add_argument("--only", default=",".join(sorted(TIMED)),
+                    help="--time-kernels: the kernels to time, a comma "
+                    "list of " + ", ".join(sorted(TIMED)))
     opt = ap.parse_args()
+    only = frozenset(opt.only.split(","))
+    if not only or not only <= TIMED:
+        ap.error(f"--only takes tags of {sorted(TIMED)}")
     root = os.path.abspath(opt.root)
     sys.path.insert(0, root)
     try:
@@ -2342,7 +2683,9 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     if opt.time_kernels:
-        return ab_main(root)
+        return ab_main(root, only)
+    if opt.bitwise:
+        return bitwise_main(os.path.abspath(opt.bitwise))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()

@@ -6,8 +6,9 @@ one nvcc per source, all started together, then one link.  A hash of the
 sources names the library, so an edited source rebuilds.
 Every kernel launches on torch.cuda.current_stream(), allocates nothing
 and returns its cudaError_t; each wrapper below checks device, dtype,
-shape and contiguity, allocates the outputs, launches, raises on a nonzero
-error and adds one to its entry in ``launches``.
+shape and contiguity (T4 and K12 read strided views in place), allocates
+the outputs, launches, raises on a nonzero error and adds one to its
+entry in ``launches``.
 
   T1 mixture_enthalpy  csrc/thermo.cu       (chemistry/library.py)
   T2 node_state        csrc/node_state.cu   (state.py)
@@ -29,8 +30,9 @@ first pass is T3's slot pass under a kernel name of its own); K10 shares
 its species h/cp lookup and Stefan-Maxwell solve (compiled for the species
 counts of IMPLICIT_SPECIES), and K10 and K11 (AUSM_SPECIES) its implicit
 AUSM+-up face (ausm_face, ausm_jac_entry); T2 is compiled for the counts
-of NODE_STATE_SPECIES; each has a run-time-count instance for the other
-counts.
+of NODE_STATE_SPECIES, T4 for the (species, reaction) counts of
+CHEM_SHAPES, K7 for the (offset count, dimension) stencils of
+K7_STENCILS; each has a run-time-count instance for the other counts.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -75,8 +78,11 @@ _ARGTYPES = {
                         _D] + [_P] * 15,
     "su2k_edge_flux": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I,
                        _D, _D, _D, _D, _D, _D, _D] + [_P] * 9,
-    "su2k_chem_source": [_I, _I, _I, _I, _I, _D, _D] + [_P] * 6
-                        + [_D, _D, _P, _P],
+    "su2k_chem_source": [_I, _I, _I, _I, _I, _D, _D, _I, ctypes.POINTER(_P),
+                         ctypes.POINTER(ctypes.c_longlong),
+                         ctypes.POINTER(_I), ctypes.POINTER(_I),
+                         ctypes.POINTER(_I), _P, ctypes.POINTER(_D), _D, _D,
+                         _P, _P],
     "su2k_stencil_sgs_matvec": [_I, _I, _I, _I, _I,
                                 ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I]
                                + [_P] * 11,
@@ -85,7 +91,8 @@ _ARGTYPES = {
                            + [_P] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
     "su2k_stencil_fgmres_grid": [_I] * 7,
     "su2k_gradient_rows": [_I, _I, _I, _I, _I, _I,
-                           ctypes.POINTER(ctypes.c_int)] + [_P] * 6,
+                           ctypes.POINTER(ctypes.c_int), _I, _I, _I,
+                           ctypes.c_longlong] + [_P] * 6,
     "su2k_edge_win": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I,
                       _D, _D, _D, _D, _D, _D, _D] + [_P] * 12,
     "su2k_inlet_tc": [_I, _I, _I, _D, _D, _D, _D, _D, _D, _I, _D, _I, _D]
@@ -179,7 +186,7 @@ def _lib():
     return _loaded
 
 
-def _check(name, *tensors):
+def _check(name, *tensors, contiguous=True):
     dev = tensors[0].device
     dtype = tensors[0].dtype
     if dtype not in (torch.float32, torch.float64):
@@ -189,7 +196,7 @@ def _check(name, *tensors):
             raise ValueError(f"{name}: every tensor must be on {dev}")
         if x.dtype != dtype:
             raise TypeError(f"{name}: mixed dtypes {x.dtype} and {dtype}")
-        if not x.is_contiguous():
+        if contiguous and not x.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
@@ -443,6 +450,18 @@ def edge_list_flux(lib, lay, sc, consts, f_all, edges, edge_normal, coords):
 
 
 # ---------------------------------------------------------------- T4
+# The (species, reaction) counts T4 is compiled for (SU2K_CHEM_BY_SR in
+# csrc/chem_source.cu): the 9-species, 2-reaction case and the case cut to
+# 3 species; every other shape up to MAX_SPECIES species and MAX_REACTIONS
+# (SU2K_MAXR) reactions runs the run-time instance.
+CHEM_SHAPES = ((9, 2), (3, 2))
+MAX_REACTIONS = 8
+# SU2K_CHEM_SRCS: the row sources T4 stages its inputs from; CHEM_SPAN: the
+# widest column span chem_sources gives one source
+CHEM_SOURCES = 4
+CHEM_SPAN = 32
+
+
 def _chem_tables(lib):
     def make():
         arr = torch.stack([lib.arr_a, lib.arr_beta, lib.arr_ta, lib.arr_a_b,
@@ -459,23 +478,68 @@ def _chem_tables(lib):
     return _cached(lib, "_k_chem_tables", make)
 
 
+def chem_sources(fields):
+    """T4's row sources of the (N,) or (N, w) input views fields (T, rho,
+    Y[, omega_t]; 2-D views with unit column stride): a view joins a source
+    of the same storage and row stride while the source's columns span at
+    most CHEM_SPAN and its row stride.  Returns ([(storage element offset,
+    row stride, width)] per source, its storage tensor's index in fields,
+    [(source, column)] per field)."""
+    srcs, owner, at = [], [], []
+    for f, x in enumerate(fields):
+        key = (x.untyped_storage().data_ptr(), x.stride(0))
+        off, w = x.storage_offset(), x.shape[1] if x.ndim == 2 else 1
+        for i, (lo, stride, width) in enumerate(srcs):
+            new_lo = min(lo, off)
+            new_hi = max(lo + width, off + w)
+            if key == owner[i][1] \
+                    and new_hi - new_lo <= min(stride, CHEM_SPAN):
+                srcs[i] = (new_lo, stride, new_hi - new_lo)
+                break
+        else:
+            srcs.append((off, x.stride(0), w))
+            owner.append((f, key))
+            i = len(srcs) - 1
+        at.append((i, off))
+    return (srcs, [o for o, _ in owner],
+            [(i, off - srcs[i][0]) for i, off in at])
+
+
 def chem_source(lib, prm, t, rho, ys, omega_turb=None):
     """Kernel T4: species production omega (N, S) [kg/(m^3 s)]; PaSR when
-    omega_turb is given."""
-    t, rho, ys = t.contiguous(), rho.contiguous(), ys.contiguous()
-    omt = None if omega_turb is None else omega_turb.contiguous()
-    tab, cst = _chem_tables(lib)
-    _check("chem_source", t, rho, ys, tab, cst,
-           *(() if omt is None else (omt,)))
-    n, ns = t.shape[0], lib.nspecies
-    if rho.shape != (n,) or ys.shape != (n, ns) \
-            or (omt is not None and omt.shape != (n,)):
+    omega_turb is given.  t, rho, omega_turb (N,) and ys (N, S) may be
+    column views of wider rows (the step passes those of the primitive
+    rows and the turbulence state): the kernel stages them in place
+    (chem_sources); a view without unit column stride is copied."""
+    n, ns, nr = t.shape[0], lib.nspecies, lib.nreactions
+    _check_species("chem_source", ns)
+    if not 1 <= nr <= MAX_REACTIONS:
+        raise ValueError(f"chem_source: {nr} reactions; the kernel takes 1 "
+                         f"to {MAX_REACTIONS}")
+    fields = [t, rho, ys] + ([] if omega_turb is None else [omega_turb])
+    if t.ndim != 1 or rho.shape != (n,) or ys.shape != (n, ns) \
+            or (omega_turb is not None and omega_turb.shape != (n,)):
         raise ValueError("chem_source: t, rho, omega_turb (N,), ys (N, S)")
-    out = torch.empty_like(ys)
+    fields = [x if x.stride(-1) == 1 or x.ndim == 1 and x.stride(0) >= 1
+              else x.contiguous() for x in fields]
+    tab, cst = _chem_tables(lib)
+    _check("chem_source", tab, cst, *fields, contiguous=False)
+    host = _cached(lib, "_k_chem_host", lambda: (
+        ctypes.c_double * cst.numel())(*cst.double().cpu().tolist()))
+    srcs, owner, at = chem_sources(fields)
+    k = len(srcs)
+    item = t.element_size()
+    ptrs = [fields[f].untyped_storage().data_ptr() + lo * item
+            for f, (lo, _, _) in zip(owner, srcs)]
+    fsrc = [i for i, _ in at] + [-1] * (4 - len(at))
+    fcol = [c for _, c in at] + [0] * (4 - len(at))
+    out = torch.empty((n, ns), dtype=t.dtype, device=t.device)
     err = _lib().su2k_chem_source(
-        int(t.dtype == torch.float64), n, ns, lib.nreactions, lib.nt,
-        lib.t0, lib.dt, _ptr(t), _ptr(rho), _ptr(ys), _ptr(omt), _ptr(tab),
-        _ptr(cst), float(prm.c_mu), float(prm.pasr_lb), _ptr(out), _stream())
+        int(t.dtype == torch.float64), n, ns, nr, lib.nt, lib.t0, lib.dt, k,
+        (_P * k)(*ptrs), (ctypes.c_longlong * k)(*[st for _, st, _ in srcs]),
+        (_I * k)(*[w for _, _, w in srcs]), (_I * 4)(*fsrc), (_I * 4)(*fcol),
+        _ptr(tab), host, float(prm.c_mu), float(prm.pasr_lb), _ptr(out),
+        _stream())
     _raise("chem_source", err)
     launches["chem_source"] += 1
     return out
@@ -654,28 +718,107 @@ def stencil_fgmres_grid(dtype, sel_bf16, v, n, m, cluster=0):
 
 
 # ---------------------------------------------------------------- K7
-def gradient_rows(q, coef, offsets, bnd=None, vol=None):
+# The (offset count, dimension) stencils K7 is compiled for (SU2K_K7_BY_KD
+# in csrc/gradients_tiled.cu): the 2D quad channel's 4 offsets and the 3D
+# hex box's 6; every other count up to K7_MAX_OFFSETS runs the run-time-K
+# instance.  The window form's nodes per thread and largest window
+# (SU2K_K7_NPT, SU2K_K7_MAXW): a window is a whole number of warps' nodes.
+K7_STENCILS = ((4, 2), (6, 3))
+K7_MAX_OFFSETS = 16
+K7_NODES_PER_THREAD = 4
+K7_MAX_WINDOW = 2048
+K7_GRANULE = 32 * K7_NODES_PER_THREAD
+# the H100 (sm_90): shared memory of an SM and the most one block may take,
+# the 1 KB the runtime reserves per block, and the SM count
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK = 232_448
+SMEM_RESERVED = 1_024
+H100_SMS = 132
+
+
+class K7Plan(NamedTuple):
+    """K7's form: "window" (T nodes per block, hlo / hhi rows staged before
+    / after them, smem bytes of shared memory per block) or "streamed"
+    (the other fields 0)."""
+    form: str
+    window: int
+    hlo: int
+    hhi: int
+    smem: int
+
+
+def k7_plan(n, ng, offsets, itemsize, window=None):
+    """K7's form for q (n, ng) of itemsize-byte values and these stencil
+    offsets.  The window form stages the rows q[s - hlo, s + T + hhi) of a
+    block's T nodes (hlo, hhi: the largest backward and forward offset)
+    plus a 16-byte pad, T a multiple of K7_GRANULE up to K7_MAX_WINDOW:
+    where two blocks fit an SM (else one) with windows that stage at most
+    K + 1 rows a node (the streamed form's taps and the node's own), T is
+    the smallest that covers the nodes in as few waves of blocks over the
+    card's H100_SMS SMs as the largest such window does.  Else the streamed form.  window
+    forces a form (as no solver does): 0 the streamed one, T > 0 a window
+    of T nodes (ValueError where it is no such T or does not fit)."""
+    hlo = max(0, -min(offsets))
+    hhi = max(0, max(offsets))
+    streamed = K7Plan("streamed", 0, 0, 0, 0)
+    smem = lambda t: ((t + hlo + hhi) * ng + 16 // itemsize) * itemsize
+    if window == 0:
+        return streamed
+    if window is not None:
+        if window < 1 or window % K7_GRANULE or window > K7_MAX_WINDOW \
+                or smem(window) > SMEM_PER_BLOCK or hlo >= n or hhi >= n:
+            raise ValueError(f"k7_plan: a window of {window} nodes does not "
+                             f"fit ({smem(window)} bytes, offsets {hlo} / "
+                             f"{hhi}, {n} nodes; a multiple of {K7_GRANULE} "
+                             f"up to {K7_MAX_WINDOW})")
+        return K7Plan("window", window, hlo, hhi, smem(window))
+    if hlo >= n or hhi >= n:
+        return streamed
+    g = K7_GRANULE
+    tmin = max(g, -(-(hlo + hhi) // (len(offsets) * g)) * g)
+    for ctas in (2, 1):
+        budget = min(SMEM_PER_SM // ctas - SMEM_RESERVED, SMEM_PER_BLOCK)
+        tmax = min(K7_MAX_WINDOW,
+                   ((budget // itemsize - 16 // itemsize) // ng - hlo - hhi)
+                   // g * g)
+        if tmax < tmin:
+            continue
+        slots = ctas * H100_SMS
+        waves = -(-n // (slots * tmax))
+        t = -(-n // (waves * slots * g)) * g
+        t = min(max(t, tmin), tmax)
+        return K7Plan("window", t, hlo, hhi, smem(t))
+    return streamed
+
+
+def gradient_rows(q, coef, offsets, bnd=None, vol=None, window=None):
     """Kernel K7: the stencil gradient rows (nG*d, N) of q (N, nG): WLS
     with coef the (K, N, d) WLS coefficients, or GG with coef the signed
-    dual normals, bnd (N, d) and vol (N,) given."""
+    dual normals, bnd (N, d) and vol (N,) given.  The form is k7_plan's;
+    window forces one (k7_plan's keyword: tests and measurements only)."""
     gg = bnd is not None
-    qt = q.T.contiguous()                       # (nG, N): coalesced reads
+    q = q.contiguous()
     coef = coef.contiguous()
     extra = (bnd.contiguous(), vol.contiguous()) if gg else ()
-    _check("gradient_rows", qt, coef, *extra)
-    ng, n = qt.shape
+    _check("gradient_rows", q, coef, *extra)
+    n, ng = q.shape
     k = len(offsets)
     d = coef.shape[-1]
     if coef.shape != (k, n, d) or (gg and (extra[0].shape != (n, d)
                                            or extra[1].shape != (n,))):
         raise ValueError("gradient_rows: q (N, nG), coef (K, N, d), "
                          "bnd (N, d), vol (N,)")
-    out = torch.empty((ng * d, n), dtype=qt.dtype, device=qt.device)
+    if not 1 <= k <= K7_MAX_OFFSETS:
+        raise ValueError(f"gradient_rows: {k} offsets; the kernel takes 1 "
+                         f"to {K7_MAX_OFFSETS}")
+    plan = k7_plan(n, ng, offsets, q.element_size(), window)
+    out = torch.empty((ng * d, n), dtype=q.dtype, device=q.device)
     offs = (ctypes.c_int * k)(*[int(o) for o in offsets])
     err = _lib().su2k_gradient_rows(
-        int(qt.dtype == torch.float64), int(gg), n, ng, d, k, offs, _ptr(qt),
-        _ptr(coef), _ptr(extra[0]) if gg else None,
-        _ptr(extra[1]) if gg else None, _ptr(out), _stream())
+        int(q.dtype == torch.float64), int(gg), n, ng, d, k, offs,
+        plan.window, plan.hlo, plan.hhi, plan.smem, _ptr(q), _ptr(coef),
+        _ptr(extra[0]) if gg else None, _ptr(extra[1]) if gg else None,
+        _ptr(out), _stream())
     _raise("gradient_rows", err)
     launches["gradient_rows"] += 1
     return out

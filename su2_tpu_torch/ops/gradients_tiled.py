@@ -6,7 +6,9 @@ stencil offsets taken in order (the roll path's order) and neighbours
 wrapped mod nP.  GG divides by the volume where it is positive and by 1
 elsewhere, as the TPU kernel does.  The TPU kernel's lane windows and
 tile plan are not ported: on CUDA tensors the sweep is kernel K7
-(csrc/gradients_tiled.cu), one thread per node; on CPU
+(csrc/gradients_tiled.cu), reading q node-major in place: a block stages
+its nodes' window of rows in shared memory, or, where no window fits,
+each thread streams its node's taps (kernels.k7_plan); on CPU
 tensors ``gradient_rows_plain``, whose elementwise arithmetic is that of
 ops/gradients.green_gauss / weighted_least_squares, so its rows equal the
 node-major gradient bitwise where every volume is positive.

@@ -186,3 +186,95 @@ def test_kernel_wrappers_refuse_cpu_tensors(libs):
     with pytest.raises(ValueError, match="must be on"):
         kernels.mixture_enthalpy(tlib, th.tt(np.full(4, 1000.0)),
                                  th.tt(np.full((4, tlib.nspecies), 0.1)))
+
+
+def _rows(tlib, t, rho, ys, omt):
+    """The primitive rows (N, nPrim) and a turbulence state (N, 2) holding
+    (T, rho, Y) and omega_t where the step keeps them (2D layout), and
+    their column views, as chemistry_source_residual passes them."""
+    from su2_tpu_torch import state as st
+    lay = st.Layout(2, tlib.nspecies)
+    v = torch.full((t.shape[0], lay.nprim), float("nan"), dtype=torch.float64)
+    v[:, lay.T], v[:, lay.PRHO], v[:, lay.YS:] = th.tt(t), th.tt(rho), \
+        th.tt(ys)
+    turb = torch.stack([torch.ones(t.shape[0], dtype=torch.float64),
+                        th.tt(omt)], dim=1)
+    return v[:, lay.T], v[:, lay.PRHO], v[:, lay.YS:], turb[:, 1]
+
+
+@pytest.mark.parametrize("ref", ["xla_chain", "pallas_interpret"])
+@pytest.mark.parametrize("pasr", [True, False])
+def test_t4_plain_on_row_views_matches_jax(libs, pasr, ref):
+    """T4 reads its inputs in place from the primitive rows and the
+    turbulence state: the plain version on those column views equals it
+    on contiguous copies bit for bit, and su2_tpu's chain / Pallas
+    chem_source (interpret mode) at test_t4_plain_matches_jax's
+    tolerances."""
+    from su2_tpu.pallas import chem_source as pcs
+    from su2_tpu_torch.solvers import euler as es
+    jlib, tlib = libs
+    t, rho, ys, omt = th.random_gas(tlib.nspecies, N, seed=8)
+    views = _rows(tlib, t, rho, ys, omt)
+    assert not any(x.is_contiguous() for x in views)
+    o = views[3] if pasr else None
+    got = es.chemistry_source_plain(tlib, _Prm, *views[:3], o)
+    assert torch.equal(got, es.chemistry_source_plain(
+        tlib, _Prm, *(x.contiguous() for x in views[:3]),
+        None if o is None else o.contiguous()))
+    jx = [jnp.asarray(a) for a in (t, rho, ys, omt)]
+    jomt = jx[3] if pasr else None
+    if ref == "xla_chain":
+        want = _jax_chain(jlib, jx[0], jx[1], jx[2], jomt)
+    else:
+        want = pcs.chem_source(jlib, _Prm, jx[0], jx[1], jx[2], jomt)
+    np.testing.assert_allclose(th.npy(got), np.asarray(want), rtol=1e-9,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("layout", ["rows", "contiguous", "wide", "no_pasr"])
+def test_chem_sources_groups_views(libs, layout):
+    """kernels.chem_sources: the step's views become two row sources (the
+    primitive rows, one full row each; omega_t's column of the turbulence
+    state), contiguous inputs four, columns of a wide tensor one source
+    each once their span passes CHEM_SPAN; every field's column is where
+    it lies in its source."""
+    from su2_tpu_torch import kernels
+    tlib = libs[1]
+    ns = tlib.nspecies
+    t, rho, ys, omt = th.random_gas(ns, N, seed=9)
+    if layout in ("rows", "no_pasr"):
+        fields = list(_rows(tlib, t, rho, ys, omt))
+        nprim = fields[0].stride(0)
+        want = [(0, nprim, nprim), (1, 2, 1)]
+        cols = [(0, 0), (0, 4), (0, 7), (1, 0)]
+        if layout == "no_pasr":
+            fields, want, cols = fields[:3], want[:1], cols[:3]
+    elif layout == "contiguous":
+        fields = [th.tt(a) for a in (t, rho, ys, omt)]
+        want = [(0, 1, 1), (0, 1, 1), (0, ns, ns), (0, 1, 1)]
+        cols = [(0, 0), (1, 0), (2, 0), (3, 0)]
+    else:
+        wide = torch.zeros((N, 100), dtype=torch.float64)
+        fields = [wide[:, 0], wide[:, 40], wide[:, 1:1 + ns], wide[:, 2]]
+        want = [(0, 100, 1 + ns), (40, 100, 1)]
+        cols = [(0, 0), (1, 0), (0, 1), (0, 2)]
+    srcs, owner, at = kernels.chem_sources(fields)
+    assert srcs == want and at == cols
+    assert len(owner) == len(srcs) <= kernels.CHEM_SOURCES
+    for (i, c), x in zip(at, fields):
+        lo, stride, width = srcs[i]
+        w = x.shape[1] if x.ndim == 2 else 1
+        assert x.stride(0) == stride and c + w <= width
+        assert x.storage_offset() == lo + c
+
+
+def test_t4_wrapper_refuses_cpu_tensors(libs):
+    """T4 launches on CUDA tensors or raises; it never runs a CPU one,
+    strided or not."""
+    from su2_tpu_torch import kernels
+    tlib = libs[1]
+    t, rho, ys, omt = th.random_gas(tlib.nspecies, N, seed=10)
+    for views in (_rows(tlib, t, rho, ys, omt),
+                  [th.tt(a) for a in (t, rho, ys, omt)]):
+        with pytest.raises(ValueError, match="must be on"):
+            kernels.chem_source(tlib, _Prm, *views)

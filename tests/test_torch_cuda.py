@@ -204,6 +204,160 @@ def test_k7_kernel_matches_plain(card, tmp_path, mode, dtype):
                                atol=afrac * np.abs(want).max())
 
 
+# K7's stencils on the card, (n, offsets, d): the 2D quad channel's 4
+# offsets and the 3D hex box's 6 (kernels.K7_STENCILS, compiled), 8 2D and
+# 5 3D offsets and 2 on a 90-node ring whose window wraps more than once
+# (the run-time-K instance); n is no multiple of any window
+K7_CASES = {"2d-k4": (2037, (-37, -1, 1, 37), 2),
+            "3d-k6": (1530, (-90, -9, -1, 1, 9, 90), 3),
+            "2d-k8": (1111, (-38, -37, -36, -1, 1, 36, 37, 38), 2),
+            "3d-k5": (999, (-100, -1, 1, 10, 100), 3),
+            "ring-k2": (90, (-89, 3), 2)}
+
+
+def _k7_mesh(card, n, offsets, d, dtype, seed):
+    """Random coefficients, boundary normals and volumes (a tenth of them
+    0: GG divides those by 1) of a stencil mesh on the card."""
+    from types import SimpleNamespace
+    rng = np.random.default_rng(seed)
+    k = len(offsets)
+    t = lambda a: th.tt(a, dtype).to(card)
+    vol = np.where(rng.random(n) < 0.1, 0.0, rng.uniform(0.5, 2.0, n))
+    return SimpleNamespace(
+        npoint=n, ndim=d, stencil_offsets=offsets,
+        wls_coeff=t(rng.standard_normal((k, n, d))),
+        gg_snormal=t(rng.standard_normal((k, n, d))),
+        bnd_accum_normal=t(rng.standard_normal((n, d))), volume=t(vol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", ["WLS", "GG"])
+@pytest.mark.parametrize("stencil", list(K7_CASES))
+def test_k7_forms_match_plain(card, monkeypatch, stencil, mode, dtype):
+    """K7's window form as kernels.k7_plan picks it and forced to 128 and
+    256 nodes (windows that wrap past 0 and n), and its streamed form
+    (window=0), at nG = 1, 2, 13, 15 and on a q whose storage starts 4
+    bytes past a 16-byte boundary, against gradient_rows_plain at
+    chip_smoke.py's K7 tolerances (f64 rtol 1e-11, atol 1e-13 of the max;
+    f32 1e-5, 1e-6); every fresh tensor of the wrapper NaN-filled; one
+    launch a call."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import gradients_tiled as tg
+    n, offs, d = K7_CASES[stencil]
+    mesh = _k7_mesh(card, n, offs, d, dtype, seed=n)
+    assert ((len(offs), d) in kernels.K7_STENCILS) == (stencil in
+                                                       ("2d-k4", "3d-k6"))
+    gg = mode == "GG"
+    coef = mesh.gg_snormal if gg else mesh.wls_coeff
+    extra = (mesh.bnd_accum_normal, mesh.volume) if gg else (None, None)
+    rtol, afrac = (1e-11, 1e-13) if dtype == torch.float64 else (1e-5, 1e-6)
+    rng = np.random.default_rng(7)
+    empty = torch.empty
+
+    def nan_empty(*a, **kw):
+        t = empty(*a, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    for ng in (1, 2, 13, 15):
+        qs = [th.tt(rng.standard_normal((n, ng)), dtype).to(card)]
+        if ng == 13:
+            buf = th.tt(rng.standard_normal(n * ng + 1), dtype).to(card)
+            qs.append(buf[1:].view(n, ng))
+        for q in qs:
+            want = th.npy(tg.gradient_rows_plain(mesh, q, mode))
+            for window in (None, 0, 128, 256):
+                plan = kernels.k7_plan(n, ng, offs, q.element_size(), window)
+                assert plan.form == ("streamed" if window == 0
+                                     else "window")
+                monkeypatch.setattr(torch, "empty", nan_empty)
+                kernels.reset_launches()
+                got = kernels.gradient_rows(q, coef, offs, *extra,
+                                            window=window)
+                torch.cuda.synchronize()
+                monkeypatch.setattr(torch, "empty", empty)
+                assert kernels.launches["gradient_rows"] == 1
+                np.testing.assert_allclose(
+                    th.npy(got), want, rtol=rtol,
+                    atol=afrac * np.abs(want).max(),
+                    err_msg=f"nG {ng} window {window} plan {plan}")
+
+
+# T4's (species, reactions) shapes: the compiled (9, 2) and (3, 2) (the
+# case cut to 3 species; kernels.CHEM_SHAPES) and the run-time instance at
+# 1, 5 and 16 species
+T4_SPECIES = [(ns, dt) for ns in (9, 3, 1, 5, 16)
+              for dt in ("float64", "float32")]
+
+
+def t4_gas(ns, n, seed):
+    """Random (T, rho, Y, omega_t) at ns species with vanishing species (Y
+    = 0 and 1e-16: the kernel's guards)."""
+    t, rho, ys, omt = th.random_gas(max(ns, 3), n, seed)
+    ys = ys[:, :ns] / np.maximum(ys[:, :ns].sum(1, keepdims=True), 1e-300)
+    ys[: n // 4, 0] = 0.0
+    ys[n // 4: n // 2, -1] = 1e-16
+    return t, rho, ys, omt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,dtype", T4_SPECIES,
+                         ids=[f"{ns}sp-{dt}" for ns, dt in T4_SPECIES])
+def test_t4_every_instance(card, tmp_path, monkeypatch, ns, dtype):
+    """T4 at its compiled (S, R) shapes and its run-time instance, both
+    chemistry variants of the case (backward rates from Keq, and the
+    second reaction's explicit backward Arrhenius rate), PaSR on and off,
+    on contiguous inputs and on the column views of primitive rows and a
+    turbulence state (as chemistry_source_residual passes them), against
+    chemistry_source_plain at chip_smoke.py's T4 tolerances (f64 rtol
+    1e-9, atol 1e-12 of the max; f32 5e-3, 2e-5); every fresh tensor of
+    the wrapper NaN-filled; one launch a call."""
+    for backward in (False, True):
+        _t4_check(card, tmp_path / str(backward), monkeypatch, ns, dtype,
+                  backward)
+
+
+def _t4_check(card, path, monkeypatch, ns, dtype, backward):
+    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch.chemistry import library as tl
+    from su2_tpu_torch.solvers import euler as es
+    dt = getattr(torch, dtype)
+    path.mkdir()
+    man = th.cases.write_library(str(path), backward)
+    lib = th.cases.species_cut(tl.load_library(man, None, dt), ns).to(card)
+    assert ((ns, lib.nreactions) in kernels.CHEM_SHAPES) == (ns in (9, 3))
+    lay = st.Layout(2, ns)
+    t, rho, ys, omt = (th.tt(a, dt).to(card) for a in t4_gas(ns, N, 6))
+    v = torch.full((N, lay.nprim), float("nan"), dtype=dt, device=card)
+    v[:, lay.T], v[:, lay.PRHO], v[:, lay.YS:] = t, rho, ys
+    turb = torch.stack([torch.ones_like(omt), omt], dim=1)
+    layouts = {"contiguous": (t, rho, ys, omt),
+               "rows": (v[:, lay.T], v[:, lay.PRHO], v[:, lay.YS:],
+                        turb[:, 1])}
+    rtol, afrac = (1e-9, 1e-12) if dtype == "float64" else (5e-3, 2e-5)
+    empty = torch.empty
+
+    def nan_empty(*a, **kw):
+        x = empty(*a, **kw)
+        return x.fill_(float("nan")) if x.is_floating_point() else x
+
+    for label, (a, b, c, o) in layouts.items():
+        for pasr in (True, False):
+            monkeypatch.setattr(torch, "empty", nan_empty)
+            kernels.reset_launches()
+            got = kernels.chem_source(lib, _Prm, a, b, c, o if pasr else None)
+            torch.cuda.synchronize()
+            monkeypatch.setattr(torch, "empty", empty)
+            assert kernels.launches["chem_source"] == 1
+            want = th.npy(es.chemistry_source_plain(
+                lib, _Prm, t, rho, ys, omt if pasr else None))
+            np.testing.assert_allclose(
+                th.npy(got), want, rtol=rtol,
+                atol=afrac * np.abs(want).max(),
+                err_msg=f"{label}, PaSR {pasr}, backward {backward}")
+
+
 @pytest.mark.cuda
 def test_k8_kernel_matches_plain(card, tmp_path):
     """K8 (the edge terms summed per node, one launch) against T3's plain

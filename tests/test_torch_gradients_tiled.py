@@ -132,3 +132,101 @@ def test_compute_gradients_in_the_tier_is_the_rows_view(monkeypatch):
         rows = tg.gradient_rows_plain(tm, q, mode)
         assert torch.equal(got, tgr.rows_to_grad(rows, 6, tm.ndim))
         assert torch.equal(es.compute_gradient_rows(tm, prm, q), rows)
+
+
+@pytest.mark.parametrize("mode", ["WLS", "GG"])
+def test_k7_plain_on_column_views(meshes, mode):
+    """K7 reads q in place, node-major: the plain version on q as a column
+    view of wider rows equals it on a contiguous copy bit for bit, and
+    the JAX package's tiled sweep (interpret mode) at its pin."""
+    from su2_tpu.pallas import gradients_tiled as gt
+    from su2_tpu_torch.ops import gradients_tiled as tg
+    jm, tm = meshes
+    q = th.tt(_q(tm.npoint, 9, 13))[:, 2:7]
+    assert not q.is_contiguous()
+    got = tg.gradient_rows_plain(tm, q, mode)
+    assert torch.equal(got, tg.gradient_rows_plain(tm, q.contiguous(), mode))
+    want = np.asarray(gt.gradient_tiled_rows(jm, jnp.asarray(th.npy(q)),
+                                             mode))
+    np.testing.assert_allclose(th.npy(got), want, rtol=1e-11,
+                               atol=1e-13 * max(np.abs(want).max(), 1.0))
+
+
+# kernels.k7_plan on the smoke sizes' channels (nx x ny nodes, offsets -ny,
+# -1, 1, ny), in f32 and f64, and on a mesh whose halo fits no window:
+# (nodes, nG, ny, itemsize) -> (form, window, shared bytes, blocks an SM:
+# 2 at least two, 1 exactly one)
+K7_PLANS = {
+    "9072": ((9_072, 13, 48, 4), ("window", 128, 11_664, 2)),
+    "142317": ((142_317, 13, 189, 4), ("window", 640, 52_952, 2)),
+    "565500-nG13": ((565_500, 13, 377, 4), ("window", 1152, 99_128, 2)),
+    "565500-nG15": ((565_500, 15, 377, 4), ("window", 1152, 114_376, 2)),
+    "565500-nG13-f64": ((565_500, 13, 377, 8), ("window", 256, 105_056, 2)),
+    "565500-nG15-f64": ((565_500, 15, 377, 8),
+                        ("window", 1152, 228_736, 1)),
+    "3000x3000": ((9_000_000, 13, 3_000, 4), ("streamed", 0, 0, 0)),
+    "halo-10000": ((1_000_000, 13, 10_000, 4), ("streamed", 0, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(K7_PLANS))
+def test_k7_plan(case):
+    """Windows of whole warps' nodes (K7_GRANULE) that let two blocks
+    share an SM (else one), stage at most K + 1 rows a node, and cover the
+    nodes in as few waves of blocks over the H100's 132 SMs as the largest
+    such window: at 565,500 nodes 1,152 in f32 (491 windows, two waves of
+    264 blocks; 1,024 would leave a third wave of 25), in f64 256 at nG =
+    13 and 1,152 one block an SM at nG = 15; 640 at 142,317 nodes (one
+    wave), 128 at 9,072; the streamed form where the halo of +-ny rows
+    fits no window.  Forced forms: 0 streams, a window must be a multiple
+    of K7_GRANULE that fits."""
+    from su2_tpu_torch import kernels
+    (n, ng, ny, item), (form, window, smem, per_sm) = K7_PLANS[case]
+    offs = (-ny, -1, 1, ny)
+    plan = kernels.k7_plan(n, ng, offs, item)
+    assert (plan.form, plan.window, plan.smem) == (form, window, smem)
+    if form == "window":
+        assert (plan.hlo, plan.hhi) == (ny, ny)
+        assert plan.smem == ((window + 2 * ny) * ng + 16 // item) * item
+        assert window % kernels.K7_GRANULE == 0
+        fit = kernels.SMEM_PER_SM // (plan.smem + kernels.SMEM_RESERVED)
+        assert fit >= 2 if per_sm == 2 else fit == 1
+    assert kernels.k7_plan(n, ng, offs, item, window=0).form == "streamed"
+    if ((128 + 2 * ny) * ng + 16 // item) * item <= kernels.SMEM_PER_BLOCK:
+        forced = kernels.k7_plan(n, ng, offs, item, window=128)
+        assert (forced.form, forced.window) == ("window", 128)
+    else:
+        with pytest.raises(ValueError, match="does not fit"):
+            kernels.k7_plan(n, ng, offs, item, window=128)
+    with pytest.raises(ValueError, match="does not fit"):
+        kernels.k7_plan(n, ng, offs, item, window=100)
+
+
+def test_k7_plan_offsets_are_the_channels():
+    """The channel's stencil is the 4 offsets k7_plan's cases assume, and
+    both the channel and the 3D box hit K7's compiled (K, d) stencils."""
+    from su2_tpu.geometry.structured import box_mesh
+    from su2_tpu_torch import kernels
+    _, tm = _meshes("channel")
+    assert tuple(tm.stencil_offsets) == (-th.CHANNEL[1], -1, 1,
+                                         th.CHANNEL[1])
+    assert (len(tm.stencil_offsets), tm.ndim) in kernels.K7_STENCILS
+    from su2_tpu_torch.geometry.dual_grid import build_dual_grid as tgrid
+    from su2_tpu_torch.geometry.mesh_data import mesh_arrays as tarrays
+    from su2_tpu_torch.io.mesh import RawMesh
+    raw = box_mesh(6, 5, 4)
+    box = tarrays(tgrid(RawMesh(ndim=raw.ndim, coords=raw.coords,
+                                elem_types=raw.elem_types,
+                                elem_nodes=raw.elem_nodes,
+                                markers=raw.markers,
+                                marker_types=raw.marker_types)))
+    assert (len(box.stencil_offsets), box.ndim) in kernels.K7_STENCILS
+
+
+def test_k7_wrapper_refuses_cpu_tensors():
+    """K7 launches on CUDA tensors or raises; it never runs a CPU one."""
+    from su2_tpu_torch import kernels
+    _, tm = _meshes("channel")
+    with pytest.raises(ValueError, match="must be on"):
+        kernels.gradient_rows(th.tt(_q(tm.npoint, 3, 1)), tm.wls_coeff,
+                              tm.stencil_offsets)
