@@ -92,11 +92,15 @@ Phases (one line each; any failure exits nonzero):
              solve's K5/K6 in stencil_solve.fused_sst_solve_tier's tier,
              timed and profiled, each printed beside the unfused run of
              its size; every other run asserts K12 never launched
-  K13 phase  (after K12) K13 (the explicit edge terms over an edge list)
-             against its plain version on the scrambled triangle channel
+  K13 phase  (after K12) K13 (the explicit edge terms over an edge list,
+             summed per node) on the scrambled triangle channel
              (cases.tri_channel_mesh, no static stencil: the gather path)
              at 9,072 nodes in float64 and float32 and at 142,317 in
-             float32, per output row, with times and bounds; then 5 f64
+             float32, the stack node-major: the edge pass and the call
+             (edge pass + node sums) against their plain versions per
+             output row, the node sums scatter_edges_mixed's bit for
+             bit, with times, the call's device operations, bounds and
+             torch.sparse.mm beside the sums; then 5 f64
              iterations of the explicit LU_SGS step on the 9,072-node
              triangle channel card vs CPU (K13 once per iteration, the SST
              solve in torch gather ops: K5/K6 never)
@@ -122,7 +126,8 @@ Run from the repository root:  python3 chip_smoke.py
     python3 chip_smoke.py --time-kernels [--root DIR] [--only K7,T4]
     python3 chip_smoke.py --bitwise DIR
 
-times T2, K5, K6, K7, K8, K10 and T4 (or those --only names) of the
+times T1, T2, K5, K6, K7, K8, K9, K10, T4, K12 and K13 (or those --only
+names) of the
 su2_tpu_torch in DIR (default: this
 checkout; another checkout, such as a parent commit unpacked with git
 archive, for an A/B comparison run in the order A B B A on one card) and
@@ -148,16 +153,24 @@ and 565,500 nodes on k10_inputs' state; K8 and T3 + the roll-subtract at
 565,500 nodes on kernel_inputs' state; K7 and T4 as time_k7_t4 says
 (K7's sweeps at 565,500 nodes, also with every offset 0 and, where DIR's
 source caps its offset loop, built with the cap at the mesh's K; T4 at
-9,072 and 565,500 nodes on the step's column views); float32, cuda_time's
-median ms (host work included) and, for T2, K6, K7 and T4, device_ms (the
-kernels alone, torch.profiler; K7 and T4 also every device operation of
-the call and its CUDA launches, call_profile).
+9,072 and 565,500 nodes on the step's column views); K13 as time_k13
+says (the edge pass and the whole call on the 9,072- and 142,317-node
+triangle channel; K8's slot pass at 565,500 nodes, the same per-edge
+body); T1, K9 and K12 as time_t1_k9_k12 says (T1 on a boundary batch,
+K9 on the 565,500-node case's inlet, K12 at 9,072 and 565,500 nodes with
+its bound); float32, cuda_time's median ms (host work included) and, for
+T1, T2, K6, K7, K9, T4, K12 and K13, device_ms (the kernels alone,
+torch.profiler; T1, K7, K9, T4, K12 and K13 also every device operation
+of the call by name and its CUDA launches, time_call).  The default run
+prints no device ms: profiler windows late in a long process lose device
+events (PERF.md).
 
     python3 chip_smoke.py --bitwise DIR
 
 holds K7 and T4 of this checkout against those of the checkout DIR bit
-for bit on the 565,500-node case's inputs, in float32 and float64
-(bitwise_main).
+for bit on the 565,500-node case's inputs, and K13's per-edge outputs and
+node sums on the 9,072- and 142,317-node triangle channel, in float32 and
+float64 (bitwise_main).
 """
 
 from __future__ import annotations
@@ -650,7 +663,6 @@ def tier_kernel_phase(sim, dtype_name, report):
     shapes of the 565,500-node case (its mesh and library converted to the
     dtype) on a random reacting state; K9 on a random inflow batch of the
     size of the case's inlet."""
-    import dataclasses
     import numpy as np
     import torch
     from su2_tpu_torch import kernels
@@ -764,8 +776,32 @@ def tier_kernel_phase(sim, dtype_name, report):
            extra=f" ({kh * n} edge evaluations per call; T3 + "
                  f"roll-subtract at these shapes {t3_ms:.4f} ms)")
     report["edge_win"]["edge_evaluations_per_call"] = kh * n
-    # K9: a random inflow batch about the 600 K fuel stream (the
-    # distribution of tests/test_torch_inlet_tc.py), inlet-sized
+    # K9 (k9_inputs), inlet-sized
+    for sec in ((15, 1) if dtype == torch.float64 else (15,)):
+        tcs, tcx = k9_inputs(sim, lib, mesh, dtype, sec)
+        nv = tcx[0].shape[0]
+        kfn = lambda: [itc.solve(tcs, *tcx)]
+        pfn = lambda: [itc.solve_plain(tcs, *tcx)]
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        # operations: a lower bound of two spline evaluations (~30
+        # operations each) per vertex; the iterations depend on the data
+        record("inlet_tc", dtype_name if sec == 15
+               else f"{dtype_name} bisection path", got, want, kfn, pfn,
+               tcx + [tcs.y, tcs.y2], 60 * nv,
+               extra=f" ({nv} vertices, secant budget {sec})")
+
+
+def k9_inputs(sim, lib, mesh, dtype, sec):
+    """K9's arguments (itc.solve's): the TOTAL_CONDITIONS inlet at TC_T_TOT
+    of the first species with a secant budget of sec, and a random inflow
+    batch (Riemann invariant, gamma, flow angle) about the 600 K fuel
+    stream (the distribution of tests/test_torch_inlet_tc.py), one value
+    for each vertex of mesh's inlet."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from su2_tpu_torch.solvers import inlet_tc as itc
     nv = int(mesh.markers["inlet"][0].shape[0])
     rng = np.random.default_rng(4)
     gamma = rng.uniform(1.06, 1.2, nv)
@@ -775,18 +811,7 @@ def tier_kernel_phase(sim, dtype_name, report):
     al = rng.uniform(-1.0, -0.8, nv)
     tcx = [torch.as_tensor(v).to(sim.device, dtype) for v in (rm, gamma, al)]
     tc = itc.total_conditions_t(lib, np.eye(lib.nspecies)[0], TC_T_TOT)
-    for sec in ((15, 1) if dtype == torch.float64 else (15,)):
-        tcs = dataclasses.replace(tc, sec_iters=sec)
-        kfn = lambda: [itc.solve(tcs, *tcx)]
-        pfn = lambda: [itc.solve_plain(tcs, *tcx)]
-        got, want = kfn(), pfn()
-        torch.cuda.synchronize()
-        # operations: a lower bound of two spline evaluations (~30
-        # operations each) per vertex; the iterations depend on the data
-        record("inlet_tc", dtype_name if sec == 15
-               else f"{dtype_name} bisection path", got, want, kfn, pfn,
-               tcx + [tc.y, tc.y2], 60 * nv,
-               extra=f" ({nv} vertices, secant budget {sec})")
+    return dataclasses.replace(tc, sec_iters=sec), tcx
 
 
 def k10_rows_read(lay, muscl, limiter):
@@ -1013,13 +1038,7 @@ def sst_kernel_phase(sim, dtype_name, report):
         raise AssertionError(f"K12 {dtype_name}: a wall row's residual or "
                              "off-diagonal block is not 0")
     ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
-    # bytes: each field as the kernel reads it (rho and the velocity are
-    # columns of the primitive rows: their n and n d values), the mesh's
-    # volume, coordinates and stencil geometry, the outputs; operations: a
-    # lower bound read off the kernel, ~90 per offset and ~50 per node
-    ins = list(args[2:16]) + [mesh.volume, mesh.coords, mesh.gg_snormal,
-                              mesh.stencil_pvec]
-    bound = bound_of(nbytes(ins + got), n * (90 * k + 50), dtype_name)
+    bound = k12_bound(args, got, dtype_name)
     key = f"{dtype_name} {n}"
     phase("k12", f"sst_assemble {key}: max_abs_err {err:.3e} ({scaled:.2e} "
           f"of its field's max; each row within {TOL[('sst_assemble', dtype_name)][1]}"
@@ -1031,54 +1050,130 @@ def sst_kernel_phase(sim, dtype_name, report):
         bound_by=bound[1], library_ms=None)
 
 
+def k12_bound(args, got, dtype_name):
+    """bound_of K12 on sst_assemble's arguments args and outputs got.
+    Bytes: each field as the kernel reads it (rho and the velocity are
+    columns of the primitive rows: their n and n d values), the mesh's
+    volume, coordinates and stencil geometry, the outputs; operations: a
+    lower bound read off the kernel, ~90 per offset and ~50 per node."""
+    mesh = args[0]
+    n, k = mesh.npoint, len(mesh.stencil_offsets)
+    ins = list(args[2:16]) + [mesh.volume, mesh.coords, mesh.gg_snormal,
+                              mesh.stencil_pvec]
+    return bound_of(nbytes(ins + got), n * (90 * k + 50), dtype_name)
+
+
 def k13_phase(sim, dtype_name, report):
-    """K13 against its plain version (ops/edge_flux.edge_list_flux_plain)
-    on sim's triangle mesh, from a mixed reacting state (kernel_inputs):
-    per output row against the row's max, with times and the bound."""
+    """K13 on sim's triangle mesh from a mixed reacting state (k13_state),
+    the stack node-major as the main path holds it: the edge pass
+    (kernels.edge_list_flux) against edge_list_flux_plain and the call
+    (kernels.edge_list_terms: the edge pass, then the node sums) against
+    edge_list_terms_plain, per output row against the row's max; the node
+    sums (kernels.edge_list_sums) equal to mesh.scatter_edges_mixed of the
+    pass's rows bit for bit; the call's CUDA launches (2).  Times, bounds,
+    and torch.sparse.mm of the signed incidence (N x E, CSR) with the flux
+    rows beside the sums (device ms: --time-kernels --only K13, in a
+    process of its own)."""
     import torch
-    from su2_tpu_torch import kernels, state as st
-    from su2_tpu_torch.ops import edge_flux as ef, viscous as vis
-    from su2_tpu_torch.solvers import euler as es
-    lib, lay, mesh, prm = sim.lib, sim.lay, sim.mesh, sim.params
-    x = kernel_inputs(sim)
-    nsd = st.node_state_plain(lib, lay, x["u"], x["t_guess"], x["p"],
-                              x["tke"])
-    grad = es.compute_gradients(mesh, prm, vis.ns_gradient_vars(
-        lib, lay, nsd.v, nsd.xs))
-    turb = vis.TurbFlowData(tke=x["tke"], mu_t=x["mu_t"],
-                            grad_tke=x["grad_tke"], sigma_k=x["sigma_k"])
-    f_all = ef.stack_inputs(lay, nsd.v, grad, vis.Transport(nsd.mu,
-                                                            nsd.kappa),
-                            turb, x["sigma_k"], nsd.dpdu[:, lay.RHOE])
-    sc = ef.species_consts_of(lib)
-    args = (lib, lay, sc, (prm.m_infty, prm.prandtl_lam, prm.prandtl_turb,
-                           prm.lewis_turb), f_all, mesh.edges,
-            mesh.edge_normal, mesh.coords)
-    kfn = lambda: list(kernels.edge_list_flux(*args))
-    pfn = lambda: list(ef.edge_list_flux_plain(*args))
-    got, want = kfn(), pfn()
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_flux as ef
+    lib, lay, mesh = sim.lib, sim.lay, sim.mesh
+    nv, n, ne = lay.nvar, mesh.npoint, mesh.nedge
+    state = k13_state(sim)
+    args = k13_args(sim, state, True)
+    f_nodes = args[4].T
+    call_args = args[:4] + (f_nodes, mesh)
+    kernels.reset_launches()
+    got = list(kernels.edge_list_flux(*args))
+    want = list(ef.edge_list_flux_plain(*args))
+    got_call = list(kernels.edge_list_terms(*call_args))
+    want_call = list(ef.edge_list_terms_plain(*call_args))
     torch.cuda.synchronize()
+    launched = (kernels.launches["edge_list_flux"],
+                kernels.launches["edge_list_sum"])
+    if launched != (2, 1):
+        raise AssertionError(f"K13: edge pass and sums launched {launched} "
+                             "times, expected (2, 1)")
     # one row each for lc and lv
+    rows3 = lambda o: [o[0], o[1][None], o[2][None]]
+    err_pass, _ = compare("edge_list_flux", dtype_name, rows3(got),
+                          rows3(want), per_row=True)
     err, scaled = compare("edge_list_flux", dtype_name,
-                          [got[0], got[1][None], got[2][None]],
-                          [want[0], want[1][None], want[2][None]],
+                          rows3([got_call[0].T] + got_call[1:]),
+                          rows3([want_call[0].T] + want_call[1:]),
                           per_row=True)
-    ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
-    # bytes: the stack, the coordinates, the edge list, the normals and the
-    # h/cp tables read once, the outputs written once; operations: ~2,000
-    # per edge, as T3's
-    ins = [f_all, mesh.coords, mesh.edges, mesh.edge_normal, lib.h_y,
-           lib.h_y2, lib.cp_y, lib.cp_y2, lib.mm, sc.sm_den]
-    bound = bound_of(nbytes(ins + got), 2000 * mesh.nedge, dtype_name)
-    key = f"{dtype_name} {mesh.npoint}"
-    phase("k13", f"edge_list_flux {key} ({mesh.nedge} edges): max_abs_err "
-          f"{err:.3e} ({scaled:.2e} of its field's max; each row within "
-          f"{TOL[('edge_list_flux', dtype_name)][1]} of its max) kernel "
-          f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms "
-          f"({bound[1]}, {nbytes(ins + got) / 1e6:.2f} MB)")
+    rows = torch.cat([got[0].T, got[1][:, None], got[2][:, None]], 1)
+    sums = kernels.edge_list_sums(mesh, rows)
+    res, lams = mesh.scatter_edges_mixed(rows[:, :nv], rows[:, nv:])
+    for name, a, b in (("res", sums[0], res), ("lc", sums[1], lams[:, 0]),
+                       ("lv", sums[2], lams[:, 1]),
+                       ("the call", got_call[0], res)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K13 {dtype_name} {n}: node sums {name} "
+                                 "not scatter_edges_mixed's bit for bit")
+    # the signed incidence (N x E) as CSR, for torch.sparse.mm
+    slots = mesh.node_edges_t.reshape(-1, n).T
+    sign = mesh.node_sign_t.reshape(-1, n).T
+    keep = slots < ne
+    inc = torch.sparse_coo_tensor(
+        torch.stack([torch.arange(n, device=slots.device)[:, None]
+                     .expand_as(slots)[keep], slots[keep]]),
+        sign[keep], (n, ne)).coalesce().to_sparse_csr()
+    flux_rows = rows[:, :nv].contiguous()
+    lib_err = ((torch.sparse.mm(inc, flux_rows) - res).abs().max()
+               / res.abs().max()).item()
+    t = dict(
+        call=cuda_time(lambda: kernels.edge_list_terms(*call_args)),
+        edge_pass=cuda_time(lambda: kernels.edge_list_flux(*args)),
+        sums=cuda_time(lambda: kernels.edge_list_sums(mesh, rows)),
+        plain=cuda_time(lambda: ef.edge_list_terms_plain(*call_args)),
+        plain_pass=cuda_time(lambda: ef.edge_list_flux_plain(*args)),
+        plain_sums=cuda_time(lambda: mesh.scatter_edges_mixed(
+            rows[:, :nv], rows[:, nv:])),
+        library=cuda_time(lambda: torch.sparse.mm(inc, flux_rows)))
+    # the runtime's launch calls are host events, counted whole
+    _, ops = call_profile(lambda: kernels.edge_list_terms(*call_args),
+                          reps=10)
+    if ops != 2:
+        raise AssertionError(f"K13 {dtype_name} {n}: {ops} CUDA launches a "
+                             "call, expected 2 (edge pass, node sums)")
+    # bytes: each input read once, each output written once; operations
+    # ~2,000 per edge evaluation, as T3's
+    tabs = [lib.h_y, lib.h_y2, lib.cp_y, lib.cp_y2, lib.mm,
+            ef.species_consts_of(lib).sm_den]
+    geo = [f_nodes, mesh.edges, mesh.edge_normal, mesh.coords]
+    node_slots = [mesh.node_edges_t, mesh.node_sign_t]
+    b_pass = bound_of(nbytes(geo + tabs + [rows]), 2000 * ne, dtype_name)
+    b_sums = bound_of(nbytes([rows] + node_slots + list(sums)), 0,
+                      dtype_name)
+    b_call = bound_of(nbytes(geo + tabs + node_slots + list(sums)),
+                      2000 * ne, dtype_name)
+    key = f"{dtype_name} {n}"
+    phase("k13", f"{key} ({ne} edges): the call (edge_list_terms) "
+          f"max_abs_err {err:.3e} ({scaled:.2e} of its field's max; each "
+          f"row within {TOL[('edge_list_flux', dtype_name)][1]} of its "
+          f"max), the edge pass {err_pass:.3e}, the node sums "
+          f"scatter_edges_mixed's bit for bit; call {t['call']:.4f} ms "
+          f"({ops:.0f} CUDA launches) plain {t['plain']:.4f} ms "
+          f"bound {b_call[0]:.4f} ms "
+          f"({b_call[1]}); edge pass {t['edge_pass']:.4f} ms plain "
+          f"{t['plain_pass']:.4f} bound {b_pass[0]:.4f}; sums "
+          f"{t['sums']:.4f} ms plain {t['plain_sums']:.4f} "
+          f"torch.sparse.mm {t['library']:.4f} (max diff {lib_err:.2e} of "
+          "the residual's max) "
+          f"bound {b_sums[0]:.4f}")
     report.setdefault("edge_list_flux", {})[key] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-        bound_by=bound[1], library_ms=None)
+        max_abs_err=err, ms=t["call"], plain_ms=t["plain"],
+        bound_ms=b_call[0], bound_by=b_call[1], library_ms=None,
+        cuda_launches_per_call=ops,
+        edge_pass=dict(kernel="edge_list_kernel", max_abs_err=err_pass,
+                       ms=t["edge_pass"], plain_ms=t["plain_pass"], bound_ms=b_pass[0],
+                       bound_by=b_pass[1], library_ms=None),
+        node_sums=dict(kernel="edge_list_sum_kernel", bitwise=True,
+                       ms=t["sums"], plain_ms=t["plain_sums"], bound_ms=b_sums[0],
+                       bound_by=b_sums[1], library_ms=t["library"],
+                       library="torch.sparse.mm, signed incidence (CSR) "
+                       "x flux rows"))
 
 
 # the shapes of the shape phase outside the kernels' compiled lists: T3,
@@ -1103,7 +1198,8 @@ def shape_phase(tmp, report):
     cases.shape_inputs (the case's library cut to the species count, a
     random reacting state) against their plain versions at the compiled
     shapes' per-row tolerances; K8 the roll-subtract of T3's outputs bit
-    for bit, K13 over the family slots' edges; pad slots exactly 0 (K10,
+    for bit, K13's edge pass over the family slots' edges and its whole
+    call over the mesh's edge list; pad slots exactly 0 (K10,
     K11); float32 times beside the plain versions'."""
     import torch
     from su2_tpu_torch import cases, kernels, state as st
@@ -1171,6 +1267,11 @@ def shape_phase(tmp, report):
             check("edge_list_flux", key, dt,
                   lambda: kernels.edge_list_flux(*head, *lst),
                   lambda: ef.edge_list_flux_plain(*head, *lst), nodes)
+            whole = head[:4] + (head[4].T.contiguous(), mesh)
+            check("edge_list_flux", f"{key} call (edge list)", dt,
+                  lambda: kernels.edge_list_terms(*whole),
+                  lambda: ef.edge_list_terms_plain(*whole),
+                  lambda o: [o[0].T, o[1][None], o[2][None]])
             flux = t3[0].reshape(len(fam[0]), lay.nvar, n)
             win = kernels.edge_win(*head, *fam)
             for g, w in zip(win, ef.roll_subtract(fam[0], flux, t3[1],
@@ -1627,7 +1728,7 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
     imp = implicit is not None
     want = {"edge_win": 5 * (tier and not imp),
             "edge_flux": 5 * (not tier and not imp and not tri),
-            "edge_list_flux": 5 * tri,
+            "edge_list_flux": 5 * tri, "edge_list_sum": 5 * tri,
             "edge_implicit": 5 * imp, "chem_source": 5 * (not imp),
             "gradient_rows": 10 * tier, "inlet_tc": 5 * total_conditions,
             "sst_assemble": 5 * fused}
@@ -1686,7 +1787,7 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False):
     want = {"ausm_flux_jac": 5 * imp, "chem_source": 5 * (not imp),
             "node_state": 5, "edge_implicit": 0, "edge_flux": 0,
             "edge_win": 0, "gradient_rows": 5 * tier, "sst_assemble": 0,
-            "edge_list_flux": 0}
+            "edge_list_flux": 0, "edge_list_sum": 0}
     lusgs = imp and prec != "JACOBI"
     one = lusgs and sts.solve_tier(n, sim.mesh.stencil_offsets, sim.lay.nvar,
                                    torch.float64, sim.ncolor, KRYLOV_M)[1]
@@ -1964,6 +2065,7 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     want = {"node_state": (1 if lam else 2) * niter,
             "edge_flux": 0 if tier or imp or lam or tri else niter,
             "edge_list_flux": niter if tri else 0,
+            "edge_list_sum": niter if tri else 0,
             "edge_win": niter if tier and not (imp or lam) else 0,
             "edge_implicit": niter if imp and not lam else 0,
             "ausm_flux_jac": niter if imp and lam else 0,
@@ -2073,20 +2175,23 @@ def print_pair(label, unfused, fused):
 
 # the sources whose kernels --time-kernels counts SASS instructions of, by
 # the tag of the kernels they hold: the edge kernels (T3, K8, K13, K10),
-# K11, K5/K6, T2, K7 and T4
-SASS_SOURCES = {"edge_flux.cu": {"K8"}, "edge_win.cu": {"K8"},
-                "edge_list.cu": {"K8"}, "edge_implicit.cu": {"K10"},
+# K11, K5/K6, T2, K7 and T4; K13's runs count T3's and K8's too (the
+# per-edge body they share)
+SASS_SOURCES = {"edge_flux.cu": {"K8", "K13"}, "edge_win.cu": {"K8", "K13"},
+                "edge_list.cu": {"K8", "K13"}, "edge_implicit.cu": {"K10"},
                 "ausm_jac.cu": {"K10"}, "stencil_solve.cu": {"K5", "K6"},
                 "node_state.cu": {"T2"}, "gradients_tiled.cu": {"K7"},
                 "chem_source.cu": {"T4"}}
 # the kernels --time-kernels times (--only takes a subset)
-TIMED = frozenset({"T2", "K5", "K6", "K7", "K8", "K10", "T4"})
+TIMED = frozenset({"T1", "T2", "K5", "K6", "K7", "K8", "K9", "K10", "T4",
+                   "K12", "K13"})
 
 
 def sass_counts(root, only=TIMED):
-    """{kernel: [SASS instructions, LDL, STL]} of root's SASS_SOURCES of
-    the kernels of only (nvcc -cubin with the build's flags, one nvcc per
-    source, all started together; cuobjdump -sass)."""
+    """({kernel: [SASS instructions, LDL, STL]}, ptxas lines) of root's
+    SASS_SOURCES of the kernels of only (nvcc -cubin -Xptxas -v with the
+    build's flags, one nvcc per source, all started together; cuobjdump
+    -sass)."""
     from su2_tpu_torch import kernels
     csrc = os.path.join(root, "su2_tpu_torch", "csrc")
     dump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
@@ -2095,11 +2200,15 @@ def sass_counts(root, only=TIMED):
     with tempfile.TemporaryDirectory() as tmp:
         cubin = lambda src: os.path.join(tmp, src + ".cubin")
         srcs = [src for src, tags in SASS_SOURCES.items() if tags & only]
-        procs = [subprocess.Popen([kernels._nvcc(), *flags, "-cubin", "-o",
-                                   cubin(src), os.path.join(csrc, src)])
+        procs = [subprocess.Popen([kernels._nvcc(), *flags, "-Xptxas", "-v",
+                                   "-cubin", "-o", cubin(src),
+                                   os.path.join(csrc, src)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
                  for src in srcs]
-        if any([p.wait() for p in procs]):
-            raise RuntimeError("nvcc -cubin failed")
+        logs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc -cubin failed:\n" + "\n".join(logs))
         for src in srcs:
             text = subprocess.run([dump, "-sass", cubin(src)], check=True,
                                   capture_output=True, text=True).stdout
@@ -2117,7 +2226,7 @@ def sass_counts(root, only=TIMED):
                     out[name][0] += 1
                     out[name][1] += op.startswith("LDL")
                     out[name][2] += op.startswith("STL")
-    return out
+    return out, [ln for log in logs for ln in ptxas_summary(log)]
 
 
 def device_ms(fn, reps=20, warm=3):
@@ -2129,17 +2238,18 @@ def device_ms(fn, reps=20, warm=3):
 
 def profiled(fn, reps, warm, keep):
     """(device ms of the CUDA events e with keep(e), CUDA kernel launches
-    of the runtime) per fn() call, each the median over three
-    torch.profiler windows of reps calls: a window taken after another
-    sometimes loses device events, or holds some of the one before (the
-    runtime's launch calls, host events, are counted whole)."""
+    of the runtime, {name: device ms} of those events by name) per fn()
+    call, each the median over three torch.profiler windows of reps calls:
+    a window taken after another sometimes loses device events, or holds
+    some of the one before (the runtime's launch calls, host events, are
+    counted whole)."""
     import statistics
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    ms, launches = [], []
+    launches, by_name = [], []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2147,19 +2257,36 @@ def profiled(fn, reps, warm, keep):
                 fn()
             torch.cuda.synchronize()
         ev = prof.events()
-        ms.append(sum(e.time_range.elapsed_us() for e in ev
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and keep(e)) / 1e3 / reps)
+        ops = {}
+        for e in ev:
+            if e.device_type == torch.autograd.DeviceType.CUDA and keep(e):
+                ops[e.name[:96]] = ops.get(e.name[:96], 0.0) \
+                    + e.time_range.elapsed_us() / 1e3 / reps
+        by_name.append(ops)
         launches.append(sum("LaunchKernel" in e.name for e in ev
                             if e.device_type
                             == torch.autograd.DeviceType.CPU) / reps)
-    return statistics.median(ms), statistics.median(launches)
+    names = sorted({k for ops in by_name for k in ops})
+    return (statistics.median(sum(ops.values()) for ops in by_name),
+            statistics.median(launches),
+            {k: statistics.median(ops.get(k, 0.0) for ops in by_name)
+             for k in names})
 
 
 def call_profile(fn, reps=20, warm=3):
     """(device ms, CUDA kernel launches) per fn() call of everything fn
     puts on the card (kernels of any name, copies, sets; profiled)."""
-    return profiled(fn, reps, warm, lambda e: True)
+    return profiled(fn, reps, warm, lambda e: True)[:2]
+
+
+def time_call(out, label, call, **extra):
+    """out[label]: event ms (host included), device_ms (the su2k kernels
+    alone), and the call's device ms, CUDA launches and device operations
+    by name (profiled, every device event)."""
+    dev_all, ops, by_name = profiled(call, 20, 3, lambda e: True)
+    out[label] = dict(ms=cuda_time(call), device_ms=device_ms(call),
+                      call_device_ms=dev_all, call_launches=ops,
+                      ops=by_name, **extra)
 
 
 # nvcc flags T2's full pass is timed under besides the library's own (what
@@ -2195,7 +2322,9 @@ def time_kernels(tmp, only=TIMED):
     docstring's --time-kernels describes them, through the calls that this
     checkout and its parent share (kernels.node_state, StencilSolveOps,
     kernels.edge_implicit, kernels.edge_win, kernels.gradient_rows,
-    kernels.chem_source)."""
+    kernels.chem_source, kernels.edge_list_flux,
+    ops.edge_flux.fused_interior_terms, kernels.mixture_enthalpy,
+    solvers.inlet_tc.solve, turbulence.sst_assemble.sst_assemble)."""
     import torch
     from su2_tpu_torch import kernels, state as st
     from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
@@ -2203,6 +2332,10 @@ def time_kernels(tmp, only=TIMED):
     out = {}
     if only & {"K7", "T4"}:
         time_k7_t4(tmp, out, only)
+    if "K13" in only:
+        time_k13(tmp, out)
+    if only & {"T1", "K9", "K12"}:
+        time_t1_k9_k12(tmp, out, only)
     if not only & {"T2", "K5", "K6", "K8", "K10"}:
         return out
     approx = t2_approx_lib(tmp)
@@ -2304,6 +2437,110 @@ def time_kernels(tmp, only=TIMED):
     return out
 
 
+def k13_state(sim):
+    """fused_interior_terms' per-node inputs (v, grad, trans, turb,
+    sigma_k, dpdu_e) on sim's mesh: kernel_inputs' mixed reacting state
+    through the plain node state and gradients."""
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.ops import viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    lib, lay, mesh, prm = sim.lib, sim.lay, sim.mesh, sim.params
+    x = kernel_inputs(sim)
+    nsd = st.node_state_plain(lib, lay, x["u"], x["t_guess"], x["p"],
+                              x["tke"])
+    grad = es.compute_gradients(mesh, prm, vis.ns_gradient_vars(
+        lib, lay, nsd.v, nsd.xs))
+    turb = vis.TurbFlowData(tke=x["tke"], mu_t=x["mu_t"],
+                            grad_tke=x["grad_tke"], sigma_k=x["sigma_k"])
+    return (nsd.v, grad, vis.Transport(nsd.mu, nsd.kappa), turb,
+            x["sigma_k"], nsd.dpdu[:, lay.RHOE])
+
+
+def k13_args(sim, state, node_major):
+    """kernels.edge_list_flux's arguments on sim's edge list from
+    k13_state's inputs, the stack (R, N) node-major (a transposed view of
+    ops.edge_flux.stack_nodes, as the main path holds it) or
+    feature-major (stack_inputs)."""
+    from su2_tpu_torch.ops import edge_flux as ef
+    lay, mesh, prm = sim.lay, sim.mesh, sim.params
+    f_all = (ef.stack_nodes(lay, *state).T if node_major
+             else ef.stack_inputs(lay, *state))
+    return (sim.lib, lay, ef.species_consts_of(sim.lib),
+            (prm.m_infty, prm.prandtl_lam, prm.prandtl_turb, prm.lewis_turb),
+            f_all, mesh.edges, mesh.edge_normal, mesh.coords)
+
+
+def time_k13(tmp, out):
+    """K13 on the triangle channel (9,072 and 142,317 nodes, f32) through
+    the calls both checkouts have: kernels.edge_list_flux (the edge pass,
+    on the checkout's stack form: node-major where ops.edge_flux has
+    stack_nodes) and ops.edge_flux.fused_interior_terms (the call: stack,
+    edge pass, node sums), each with time_call (its device operations by
+    name); then K8 at 565,500 nodes: its edge_win_slot_kernel runs the
+    same per-edge body over coalesced family slots (evaluations: slots
+    per call)."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_flux as ef
+    for size in TRI_NITERS:
+        sim = make_case(tmp, *SIZES[size], torch.float32, "cuda", tri=True)
+        n, ne = sim.mesh.npoint, sim.mesh.nedge
+        state = k13_state(sim)
+        args = k13_args(sim, state, hasattr(ef, "stack_nodes"))
+        time_call(out, f"K13 edge pass {n}",
+                  lambda: kernels.edge_list_flux(*args), edges=ne)
+        time_call(out, f"K13 call {n}", lambda: ef.fused_interior_terms(
+            sim.lib, sim.lay, sim.mesh, sim.params, *state), edges=ne)
+        del sim, state, args
+        torch.cuda.empty_cache()
+    sim = make_case(tmp, *SIZES["tier"], torch.float32, "cuda")
+    eargs = edge_win_args(sim, *tier_state(sim, torch.float32))
+    n = sim.mesh.npoint
+    time_call(out, f"K8 {n}", lambda: kernels.edge_win(*eargs),
+              evaluations=len(eargs[5]) * n)
+    del sim, eargs
+    torch.cuda.empty_cache()
+
+
+def time_t1_k9_k12(tmp, out, only):
+    """The kernels of only among T1, K9 and K12 in f32, each with
+    time_call: T1 (kernels.mixture_enthalpy) on kernel_phase's boundary
+    batch of the 9,072-node case, K9 (solvers.inlet_tc.solve) on
+    k9_inputs' inflow batch of the 565,500-node case's inlet (377
+    vertices), K12 (turbulence.sst_assemble.sst_assemble) on sst_inputs'
+    arguments at 9,072 and 565,500 nodes, with its bound (k12_bound)."""
+    import torch
+    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch.solvers import inlet_tc as itc
+    from su2_tpu_torch.turbulence import sst_assemble as sa
+    for size in ("flagship", "tier"):
+        sim = make_case(tmp, *SIZES[size], torch.float32, "cuda")
+        n = sim.mesh.npoint
+        if "T1" in only and size == "flagship":
+            x = kernel_inputs(sim)
+            v = st.node_state_plain(sim.lib, sim.lay, x["u"], x["t_guess"],
+                                    x["p"], x["tke"]).v
+            nb = sim.bcs[-1].nodes.shape[0]
+            tb = v[:nb, sim.lay.T].contiguous()
+            yb = v[:nb, sim.lay.YS:sim.lay.YS + sim.lay.ns].contiguous()
+            time_call(out, f"T1 {nb} boundary nodes",
+                      lambda: kernels.mixture_enthalpy(sim.lib, tb, yb))
+            del x, v
+        if "K9" in only and size == "tier":
+            tcs, tcx = k9_inputs(sim, sim.lib, sim.mesh, torch.float32, 15)
+            time_call(out, f"K9 {tcx[0].shape[0]} vertices",
+                      lambda: itc.solve(tcs, *tcx))
+        if "K12" in only:
+            args = sst_inputs(sim)
+            fn = lambda: list(sa.sst_assemble(*args))
+            time_call(out, f"K12 {n}", fn)
+            bound = k12_bound(args, fn(), "float32")
+            out[f"K12 {n}"].update(bound_ms=bound[0], bound_by=bound[1])
+            del args
+        del sim
+        torch.cuda.empty_cache()
+
+
 # nvcc flags T4 is timed under besides the library's own (--time-kernels):
 # approximate division, square root, exp and pow in float (double keeps
 # IEEE)
@@ -2389,11 +2626,7 @@ def time_k7_t4(tmp, out, only):
     if "T4" in only:
         fast = t4_fast_lib(tmp)
 
-    def timed(label, call, **extra):
-        dev_all, ops = call_profile(call)
-        out[label] = dict(ms=cuda_time(call), device_ms=device_ms(call),
-                          call_device_ms=dev_all, call_launches=ops,
-                          **extra)
+    timed = functools.partial(time_call, out)
 
     for size in ("flagship", "tier"):
         sim = make_case(tmp, *SIZES[size], torch.float32, "cuda")
@@ -2593,14 +2826,50 @@ def barrier_lines(tmp):
                           text=True).stdout.strip().splitlines()
 
 
+def bit_diff(a, b):
+    """Whether a is b bit for bit, else how many values differ and the
+    largest difference relative to b's max."""
+    import torch
+    diff = (a.double() - b.double()).abs()
+    return dict(bitwise=bool(torch.equal(a, b)),
+                differing=int((a != b).sum()), of=a.numel(),
+                max_rel=(diff.max() / b.double().abs().max()).item())
+
+
+def k13_bitwise(tmp, size, dtype, okern, result):
+    """K13 of this checkout against the kernels module okern of another on
+    the triangle channel of SIZES[size] (k13_state's inputs): the edge
+    pass's flux, lc and lv (kernels.edge_list_flux; the other's on the
+    feature-major stack), and the call's node sums (this checkout's
+    fused_interior_terms; the other's edge-list branch as PRs 9-13 ran it:
+    its edge_list_flux, then mesh.scatter_edges_mixed)."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_flux as ef
+    sim = make_case(tmp, *SIZES[size], dtype, "cuda", tri=True)
+    state = k13_state(sim)
+    mine = list(kernels.edge_list_flux(*k13_args(sim, state, True)))
+    theirs = list(okern.edge_list_flux(*k13_args(sim, state, False)))
+    mine += list(ef.fused_interior_terms(sim.lib, sim.lay, sim.mesh,
+                                         sim.params, *state))
+    res, lams = sim.mesh.scatter_edges_mixed(
+        theirs[0].T, torch.stack(theirs[1:3], dim=1))
+    theirs += [res, lams[:, 0], lams[:, 1]]
+    torch.cuda.synchronize()
+    tag = f"K13 {sim.mesh.npoint} {str(dtype)[6:]}"
+    for name, a, b in zip(("flux", "lc", "lv", "res", "lc sums", "lv sums"),
+                          mine, theirs):
+        result[f"{tag} {name}"] = bit_diff(a, b)
+
+
 def bitwise_main(other):
     """--bitwise DIR: K7 (WLS and GG, the flow's 13 gradient variables)
     and T4 (PaSR on, the step's column views) of this checkout against
     those of the checkout DIR (its kernels.py loaded as a module of its
     own, its library built from its sources) on the 565,500-node case's
-    inputs (tier_state) in float32 and float64: one JSON line, per output
-    whether it is bit for bit the other's, else how many values differ
-    and the largest difference relative to the output's max."""
+    inputs (tier_state), and K13 (k13_bitwise) on the 9,072- and
+    142,317-node triangle channel, in float32 and float64: one JSON line,
+    per output whether it is bit for bit the other's (bit_diff)."""
     import importlib.util
     import torch
     from su2_tpu_torch import kernels
@@ -2627,11 +2896,12 @@ def bitwise_main(other):
             for name, call in calls.items():
                 a, b = call(kernels), call(okern)
                 torch.cuda.synchronize()
-                diff = (a.double() - b.double()).abs()
-                result[f"{name} {str(dtype)[6:]}"] = dict(
-                    bitwise=bool(torch.equal(a, b)),
-                    differing=int((a != b).sum()), of=a.numel(),
-                    max_rel=(diff.max() / b.double().abs().max()).item())
+                result[f"{name} {str(dtype)[6:]}"] = bit_diff(a, b)
+        del sim, mesh, lib, x, nsd, q
+        torch.cuda.empty_cache()
+        for size in TRI_NITERS:
+            for dtype in (torch.float32, torch.float64):
+                k13_bitwise(tmp, size, dtype, okern, result)
     print(json.dumps(result), flush=True)
     return 0
 
@@ -2642,8 +2912,11 @@ def ab_main(root, only=TIMED):
     card = card_line()
     print(f"card: {card}; root {root}", flush=True)
     kernels.build()
-    for name, (ni, ldl, stl) in sass_counts(root, only).items():
+    counts, ptxas = sass_counts(root, only)
+    for name, (ni, ldl, stl) in counts.items():
         print(f"sass {name}: {ni} instructions, {ldl} LDL, {stl} STL")
+    for line in ptxas:
+        print(f"ptxas {line}")
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as tmp:
         if "K6" in only:
             for line in barrier_lines(tmp):
@@ -2660,8 +2933,8 @@ def main():
     ap.add_argument("--time-kernels", action="store_true")
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--bitwise", metavar="DIR",
-                    help="K7 and T4 against those of the checkout DIR, bit "
-                    "for bit (bitwise_main)")
+                    help="K7, T4 and K13 against those of the checkout "
+                    "DIR, bit for bit (bitwise_main)")
     ap.add_argument("--only", default=",".join(sorted(TIMED)),
                     help="--time-kernels: the kernels to time, a comma "
                     "list of " + ", ".join(sorted(TIMED)))
@@ -2864,7 +3137,8 @@ def main():
     # nodes (MUSCL + Venkatakrishnan), K11 f32 feature-major at 9,072 nodes
     # (the laminar implicit case's family slots; edge-major and 565,500
     # nodes beside it), K12 f32 at 9,072 nodes, K13 f32 on the 9,072-node
-    # triangle channel (f64 and 142,317 nodes beside it)
+    # triangle channel (f64 and 142,317 nodes beside it; the call: edge
+    # pass and node sums, each also on its own)
     main_use = {"stencil_sgs_matvec": ("flow142317", "mixed", "sgs_matvec"),
                 "stencil_fgmres": ("flow9072", "mixed"),
                 "gradient_rows": "float32 WLS",
@@ -2894,6 +3168,9 @@ def main():
         if name == "edge_list_flux":
             row["float64"] = report[name]["float64 9072"]
             row["at_142317"] = report[name]["float32 142317"]
+            # its second launch, the node sums (counted apart)
+            row["node_sum_launches"] = sum(c["edge_list_sum"]
+                                           for _, c, _ in runs)
         if name == "stencil_sgs_matvec":
             mv = report[name][("flow142317", "float32", "matvec")]
             row["matvec_only"] = {k: mv[k] for k in (

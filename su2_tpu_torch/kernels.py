@@ -22,7 +22,8 @@ entry in ``launches``.
   K10 edge_implicit     csrc/edge_implicit.cu (ops/edge_implicit.py)
   K11 ausm_flux_jac     csrc/ausm_jac.cu      (ops/edge_kernels.py)
   K12 sst_assemble      csrc/sst_assemble.cu  (turbulence/sst_assemble.py)
-  K13 edge_list_flux    csrc/edge_list.cu     (ops/edge_flux.py)
+  K13 edge_list_flux    csrc/edge_list.cu     (ops/edge_flux.py; the
+      edge pass, and edge_list_sums, the node sums: edge_list_terms)
 T3, K8 and K13 share the per-edge device function of csrc/edge_side.cuh
 (compiled for the (dimension, species count) shapes of EDGE_SHAPES, and
 one run-time instance for every other shape up to 3D and 16 species; K8's
@@ -67,7 +68,7 @@ launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
             "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0,
             "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0,
             "edge_implicit": 0, "ausm_flux_jac": 0, "sst_assemble": 0,
-            "edge_list_flux": 0}
+            "edge_list_flux": 0, "edge_list_sum": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,7 +101,8 @@ _ARGTYPES = {
     "su2k_edge_implicit": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
                            _I, _D, _D, _D, _D, _D, _D, _I, _I] + [_P] * 9,
     "su2k_ausm_flux_jac": [_I, _I, _I, _I, _I, _D] + [_P] * 9,
-    "su2k_edge_list": [_I] * 6 + [_D] * 7 + [_P] * 10,
+    "su2k_edge_list": [_I] * 6 + [_D] * 7 + [_P] * 8,
+    "su2k_edge_list_sum": [_I] * 5 + [_P] * 5,
     "su2k_sst_assemble": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
                           ctypes.POINTER(_D), ctypes.POINTER(_P),
                           ctypes.POINTER(ctypes.c_longlong)] + [_P] * 7,
@@ -340,6 +342,16 @@ def _check_edge_shape(name, lay):
     return (lay.ndim, lay.ns) in EDGE_SHAPES
 
 
+def _edge_tables(lib, sc):
+    """The h/cp spline tables and the constants (mm, Stefan-Maxwell
+    denominators) of the per-edge body, built once per library."""
+    tab = _cached(lib, "_k_hcp_table", lambda: torch.cat(
+        [lib.h_y, lib.h_y2, lib.cp_y, lib.cp_y2]).contiguous())
+    cst = _cached(lib, "_k_edge_consts", lambda: torch.cat(
+        [lib.mm, sc.sm_den.reshape(-1)]).contiguous())
+    return tab, cst
+
+
 def _edge_args(name, lib, lay, sc, consts, f_all, offsets, fam_normal,
                fam_evec):
     """Checked, contiguous operands of T3/K8 and the argument tail of their
@@ -349,10 +361,7 @@ def _edge_args(name, lib, lay, sc, consts, f_all, offsets, fam_normal,
     f_all = f_all.contiguous()
     fam_normal = fam_normal.contiguous()
     fam_evec = fam_evec.contiguous()
-    tab = _cached(lib, "_k_hcp_table", lambda: torch.cat(
-        [lib.h_y, lib.h_y2, lib.cp_y, lib.cp_y2]).contiguous())
-    cst = _cached(lib, "_k_edge_consts", lambda: torch.cat(
-        [lib.mm, sc.sm_den.reshape(-1)]).contiguous())
+    tab, cst = _edge_tables(lib, sc)
     _check(name, f_all, fam_normal, fam_evec, tab, cst)
     nrow, n = f_all.shape
     kh = len(offsets)
@@ -409,44 +418,93 @@ def edge_win(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec):
 
 
 # ---------------------------------------------------------------- K13
-def edge_list_flux(lib, lay, sc, consts, f_all, edges, edge_normal, coords):
-    """Kernel K13: the interior edge terms of every edge (i, j) of the
-    list edges (E, 2) int64, from the columns i and j of the stack f_all
-    (R, N), the area normals edge_normal (E, d) and coords (N, d).
-    Returns flux (nVar, E), lc (E,), lv (E,) in edge order."""
-    _check_edge_shape("edge_list_flux", lay)
+def _edge_list_rows(name, lib, lay, sc, consts, f_nodes, edges, edge_normal,
+                    coords):
+    """K13's edge pass: rows (E, nVar + 2), each edge's flux, lc and lv,
+    from the node-major stack f_nodes (N, R), contiguous and 16-byte
+    aligned (a fresh allocation is)."""
     m_infty, pr_lam, pr_turb, le_turb = consts
-    f_all = f_all.contiguous()
     edge_normal = edge_normal.contiguous()
     coords = coords.contiguous()
     edges = edges.contiguous()
-    tab = _cached(lib, "_k_hcp_table", lambda: torch.cat(
-        [lib.h_y, lib.h_y2, lib.cp_y, lib.cp_y2]).contiguous())
-    cst = _cached(lib, "_k_edge_consts", lambda: torch.cat(
-        [lib.mm, sc.sm_den.reshape(-1)]).contiguous())
-    _check("edge_list_flux", f_all, edge_normal, coords, tab, cst)
+    tab, cst = _edge_tables(lib, sc)
+    _check(name, f_nodes, edge_normal, coords, tab, cst)
     from su2_tpu_torch.ops.edge_flux import stack_rows
-    nrow, n = f_all.shape
+    n, nrow = f_nodes.shape
     ne = edges.shape[0]
-    if nrow != stack_rows(lay)["total"] or edges.shape != (ne, 2) \
-            or edges.dtype != torch.int64 or edges.device != f_all.device \
+    if nrow != stack_rows(lay)["total"] or f_nodes.data_ptr() % 16 \
+            or edges.shape != (ne, 2) or edges.dtype != torch.int64 \
+            or edges.device != f_nodes.device \
             or edge_normal.shape != (ne, lay.ndim) \
             or coords.shape != (n, lay.ndim):
-        raise ValueError("edge_list_flux: f_all (R, N), edges (E, 2) int64 "
-                         "on the same device, edge_normal (E, d), coords "
-                         "(N, d)")
-    kw = dict(dtype=f_all.dtype, device=f_all.device)
-    flux = torch.empty((lay.nvar, ne), **kw)
-    lc = torch.empty((ne,), **kw)
-    lv = torch.empty((ne,), **kw)
+        raise ValueError(f"{name}: the stack (N, R) node-major, 16-byte "
+                         "aligned, edges (E, 2) int64 on the same device, "
+                         "edge_normal (E, d), coords (N, d)")
+    rows = torch.empty((ne, lay.nvar + 2), dtype=f_nodes.dtype,
+                       device=f_nodes.device)
     err = _lib().su2k_edge_list(
-        int(f_all.dtype == torch.float64), n, ne, lay.ndim, lay.ns, lib.nt,
+        int(f_nodes.dtype == torch.float64), n, ne, lay.ndim, lay.ns, lib.nt,
         lib.t0, lib.dt, m_infty, pr_lam, pr_turb, le_turb, sc.mm_sum,
-        _ptr(f_all), _ptr(edges), _ptr(edge_normal), _ptr(coords),
-        _ptr(tab), _ptr(cst), _ptr(flux), _ptr(lc), _ptr(lv), _stream())
-    _raise("edge_list_flux", err)
+        _ptr(f_nodes), _ptr(edges), _ptr(edge_normal), _ptr(coords),
+        _ptr(tab), _ptr(cst), _ptr(rows), _stream())
+    _raise(name, err)
     launches["edge_list_flux"] += 1
-    return flux, lc, lv
+    return rows
+
+
+def edge_list_flux(lib, lay, sc, consts, f_all, edges, edge_normal, coords):
+    """Kernel K13's edge pass: the interior edge terms of every edge (i, j)
+    of the list edges (E, 2) int64, from the columns i and j of the stack
+    f_all (R, N), the area normals edge_normal (E, d) and coords (N, d).
+    f_all is read in place where it is the transposed view of a node-major
+    stack (ops/edge_flux.stack_nodes(...).T); a feature-major one is
+    copied node-major first.  Returns flux (nVar, E), lc (E,), lv (E,) in
+    edge order: views of the pass's edge-major rows (E, nVar + 2)."""
+    _check_edge_shape("edge_list_flux", lay)
+    f_nodes = f_all.T
+    if not f_nodes.is_contiguous() or f_nodes.data_ptr() % 16:
+        f_nodes = f_nodes.clone(memory_format=torch.contiguous_format)
+    rows = _edge_list_rows("edge_list_flux", lib, lay, sc, consts, f_nodes,
+                           edges, edge_normal, coords)
+    nv = lay.nvar
+    return rows[:, :nv].T, rows[:, nv], rows[:, nv + 1]
+
+
+def edge_list_sums(mesh, rows):
+    """Kernel K13's node sums: the edge rows (E, nVar + 2) summed per node
+    of mesh in slot order, the first nVar columns times node_sign_t, the
+    last two (lc, lv) times its absolute value, pad slots zero: bit for bit
+    mesh.scatter_edges_mixed(rows[:, :nVar], rows[:, nVar:]).  Returns res
+    (N, nVar), lc (N,), lv (N,): views of one (N, nVar + 2) tensor."""
+    rows = rows.contiguous()
+    slots, sign = mesh.node_edges_t, mesh.node_sign_t
+    _check("edge_list_sums", rows, sign)
+    n, ne, deg = mesh.npoint, mesh.nedge, mesh.max_degree
+    cw = rows.shape[1]
+    if rows.shape != (ne, cw) or cw < 3 or slots.dtype != torch.int64 \
+            or slots.device != rows.device or slots.shape != (deg * n,) \
+            or sign.shape != (deg * n,):
+        raise ValueError("edge_list_sums: rows (E, nVar + 2) of mesh's "
+                         "edges; node_edges_t int64 and node_sign_t "
+                         "(max_degree * N,) on the same device")
+    out = torch.empty((n, cw), dtype=rows.dtype, device=rows.device)
+    err = _lib().su2k_edge_list_sum(
+        int(rows.dtype == torch.float64), n, ne, cw - 2, deg, _ptr(rows),
+        _ptr(slots), _ptr(sign), _ptr(out), _stream())
+    _raise("edge_list_sums", err)
+    launches["edge_list_sum"] += 1
+    return out[:, :cw - 2], out[:, cw - 2], out[:, cw - 1]
+
+
+def edge_list_terms(lib, lay, sc, consts, f_nodes, mesh):
+    """Kernel K13, the whole call (two launches): the edge pass over mesh's
+    edge list from the node-major stack f_nodes (N, R) read in place, then
+    the node sums (edge_list_sums).  Returns res (N, nVar), lc (N,), lv
+    (N,)."""
+    _check_edge_shape("edge_list_terms", lay)
+    rows = _edge_list_rows("edge_list_terms", lib, lay, sc, consts, f_nodes,
+                           mesh.edges, mesh.edge_normal, mesh.coords)
+    return edge_list_sums(mesh, rows)
 
 
 # ---------------------------------------------------------------- T4

@@ -16,9 +16,11 @@ deterministic and without atomics; from TILED_MIN_NODES nodes up
 node sums in one launch, from a stack built straight from the gradient
 rows.  On CPU tensors ``edge_flux_plain`` and the roll-subtract serve both.
 
-Other meshes (the edge list): kernel K13 (csrc/edge_list.cu) on CUDA
-tensors, ``edge_list_flux_plain`` on CPU tensors, then one
-mesh.scatter_edges_mixed (gather + slot sum, no atomics).
+Other meshes (the edge list): the stack node-major (``stack_nodes``, no
+transpose), then on CUDA tensors kernel K13 (csrc/edge_list.cu: the edge
+pass reads the stack in place, a second launch sums per node in slot
+order), on CPU tensors ``edge_list_terms_plain`` (``edge_list_flux_plain``
+and one mesh.scatter_edges_mixed: gather + slot sum, no atomics).
 """
 
 from __future__ import annotations
@@ -109,27 +111,49 @@ def edge_list_flux_plain(lib, lay, sc, consts, f_all, edges, edge_normal,
                       edge_normal.T, (coords[j] - coords[i]).T)
 
 
-def stack_inputs(lay, v, grad, trans, turb, sigma_k, dpdu_e,
-                 grad_rows=None):
-    """The feature-major per-node stack F (R, nP) of stack_rows; grad is
-    the NS gradient set [T, u.., P, X..] (nP, nG, d), whose pressure row
-    the viscous flux does not read.  With grad_rows (nG*d, nP) (the tier's
-    feature-major rows) the stack is built from them, with no node-major
-    transpose of the gradients."""
+def edge_list_terms_plain(lib, lay, sc, consts, f_nodes, mesh):
+    """Plain version of kernel K13's whole call (kernels.edge_list_terms):
+    edge_list_flux_plain over mesh's edge list from the node-major stack
+    f_nodes (nP, R), then one mesh.scatter_edges_mixed.  Returns res (nP,
+    nVar), lc (nP,), lv (nP,)."""
+    flux, lc, lv = edge_list_flux_plain(lib, lay, sc, consts, f_nodes.T,
+                                        mesh.edges, mesh.edge_normal,
+                                        mesh.coords)
+    res, lams = mesh.scatter_edges_mixed(flux.T, torch.stack([lc, lv], dim=1))
+    return res, lams[:, 0], lams[:, 1]
+
+
+def stack_nodes(lay, v, grad, trans, turb, sigma_k, dpdu_e):
+    """The per-node stack of stack_rows node-major, F^T (nP, R): each
+    node's R inputs one contiguous row; grad is the NS gradient set [T,
+    u.., P, X..] (nP, nG, d), whose pressure row the viscous flux does not
+    read: the rows before and after it are taken as two views (no index
+    tensor, no copy to the card)."""
     nd, ns = lay.ndim, lay.ns
     n = v.shape[0]
+    return torch.cat([
+        v, grad[:, :1 + nd].reshape(n, -1),
+        grad[:, 2 + nd:2 + nd + ns].reshape(n, -1),
+        trans.mu[:, None], trans.kappa[:, None], turb.mu_t[:, None],
+        turb.tke[:, None], turb.grad_tke, (dpdu_e + 1.0)[:, None],
+        sigma_k[:, None]], dim=1)
+
+
+def stack_inputs(lay, v, grad, trans, turb, sigma_k, dpdu_e,
+                 grad_rows=None):
+    """The feature-major per-node stack F (R, nP) of stack_rows: stack_nodes
+    transposed.  With grad_rows (nG*d, nP) (the tier's feature-major rows)
+    the stack is built from them, with no node-major transpose of the
+    gradients."""
+    nd = lay.ndim
     if grad_rows is not None:
         return torch.cat([
             v.T, grad_rows[:(1 + nd) * nd], grad_rows[(2 + nd) * nd:],
             trans.mu[None], trans.kappa[None], turb.mu_t[None],
             turb.tke[None], turb.grad_tke.T, (dpdu_e + 1.0)[None],
             sigma_k[None]], dim=0).contiguous()
-    sel = [0] + list(range(1, 1 + nd)) + list(range(2 + nd, 2 + nd + ns))
-    gsel = grad[:, sel, :].reshape(n, (1 + nd + ns) * nd)
-    return torch.cat([
-        v, gsel, trans.mu[:, None], trans.kappa[:, None], turb.mu_t[:, None],
-        turb.tke[:, None], turb.grad_tke, (dpdu_e + 1.0)[:, None],
-        sigma_k[:, None]], dim=1).T.contiguous()
+    return stack_nodes(lay, v, grad, trans, turb, sigma_k,
+                       dpdu_e).T.contiguous()
 
 
 def roll_subtract(offsets, fluxes, lcs, lvs):
@@ -162,23 +186,21 @@ def fused_interior_terms(lib, lay, mesh, prm, v, grad, trans, turb, sigma_k,
     Stencil meshes, below TILED_MIN_NODES: the per-slot fluxes (T3 on the
     card) and the roll-subtract here; from it up (grad_rows given): the
     node sums in one launch of K8 on the card, edge_win_plain on the CPU.
-    Other meshes: the per-edge terms of the edge list (K13 on the card,
-    edge_list_flux_plain on the CPU) and one scatter_edges_mixed."""
-    f_all = stack_inputs(lay, v, grad, trans, turb, sigma_k, dpdu_e,
-                         grad_rows)
+    Other meshes: the node-major stack, then the per-edge terms of the
+    edge list summed per node (K13's two launches on the card,
+    edge_list_terms_plain on the CPU)."""
     sc = species_consts_of(lib)
     consts = (float(prm.m_infty), float(prm.prandtl_lam),
               float(prm.prandtl_turb), float(prm.lewis_turb))
     if v.is_cuda:
         from su2_tpu_torch import kernels
     if mesh.fam_offsets is None:
-        args = (lib, lay, sc, consts, f_all, mesh.edges, mesh.edge_normal,
-                mesh.coords)
-        flux, lc, lv = (kernels.edge_list_flux(*args) if v.is_cuda
-                        else edge_list_flux_plain(*args))
-        res, lams = mesh.scatter_edges_mixed(flux.T,
-                                             torch.stack([lc, lv], dim=1))
-        return res, lams[:, 0], lams[:, 1]
+        args = (lib, lay, sc, consts, stack_nodes(lay, v, grad, trans, turb,
+                                                  sigma_k, dpdu_e), mesh)
+        return (kernels.edge_list_terms(*args) if v.is_cuda
+                else edge_list_terms_plain(*args))
+    f_all = stack_inputs(lay, v, grad, trans, turb, sigma_k, dpdu_e,
+                         grad_rows)
     args = (lib, lay, sc, consts, f_all, mesh.fam_offsets, mesh.fam_normal,
             mesh.fam_evec)
     if v.is_cuda:

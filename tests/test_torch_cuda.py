@@ -1334,6 +1334,98 @@ def test_k13_kernel_matches_plain(card, tmp_path, dtype):
         assert (np.abs(g - w) <= afrac * np.abs(w).max(1, keepdims=True)).all()
 
 
+def _k13_call_args(sim, seed=13):
+    """kernels.edge_list_terms' arguments on sim's triangle mesh: the stack
+    of _k13_stack node-major, as fused_interior_terms holds it."""
+    head = _k13_stack(sim, seed)
+    return head[:4] + (head[4].T.contiguous(), sim.mesh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_k13_call_matches_plain(card, tmp_path, dtype):
+    """K13's whole call (kernels.edge_list_terms: the edge pass on the
+    node-major stack, then the node sums) against edge_list_terms_plain on
+    the 9,072-node scrambled triangle channel: every output row within
+    1e-10 (f64) or 1e-4 (f32) of its max; one launch of each kernel."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_flux as ef
+    sim = _tri_card_sim(card, th.write_case(tmp_path), (189, 48), dtype)
+    args = _k13_call_args(sim)
+    kernels.reset_launches()
+    got = kernels.edge_list_terms(*args)
+    assert (kernels.launches["edge_list_flux"],
+            kernels.launches["edge_list_sum"]) == (1, 1)
+    want = ef.edge_list_terms_plain(*args)
+    afrac = 1e-10 if dtype == torch.float64 else 1e-4
+    for g, w in zip((got[0].T, got[1][None], got[2][None]),
+                    (want[0].T, want[1][None], want[2][None])):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert np.isfinite(g).all()
+        assert (np.abs(g - w) <= afrac * np.abs(w).max(1, keepdims=True)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("which", ["tri", "quad"])
+def test_k13_sums_equal_scatter_edges_mixed(card, tmp_path, which, dtype):
+    """K13's node sums (kernels.edge_list_sums) equal the torch gather and
+    slot sum mesh.scatter_edges_mixed on the card bit for bit: on random
+    edge rows (magnitudes over 16 decades) of the 9,072-node triangle
+    channel and of the quad channel's edge list, and on the edge pass's
+    own rows, where the call (edge_list_terms) gives the same sums."""
+    from su2_tpu_torch import kernels
+    sim = (_tri_card_sim(card, th.write_case(tmp_path), (189, 48), dtype)
+           if which == "tri" else
+           _card_sim(card, th.write_case(tmp_path), dtype))
+    mesh = sim.mesh
+    rng = np.random.default_rng(16)
+    rows = th.tt(rng.standard_normal((mesh.nedge, 15)) * 10.0 ** rng.uniform(
+        -8, 8, (mesh.nedge, 1)), dtype).to(card)
+    cases = [rows]
+    if which == "tri":
+        args = _k13_call_args(sim)
+        flux, lc, lv = kernels.edge_list_flux(*args[:4], args[4].T,
+                                              mesh.edges, mesh.edge_normal,
+                                              mesh.coords)
+        cases.append(torch.cat([flux.T, lc[:, None], lv[:, None]], 1))
+    for r in cases:
+        got = kernels.edge_list_sums(mesh, r)
+        res, lams = mesh.scatter_edges_mixed(r[:, :13], r[:, 13:])
+        for g, w in zip(got, (res, lams[:, 0], lams[:, 1])):
+            assert torch.equal(g, w)
+    if which == "tri":
+        for g, w in zip(kernels.edge_list_terms(*args), got):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_k13_edge_pass_reads_either_stack(card, tmp_path, dtype):
+    """kernels.edge_list_flux gives the same outputs bit for bit from the
+    node-major stack read in place (a transposed view, the main path's
+    form) and from the feature-major stack (copied node-major first), also
+    where the node-major rows start off a 16-byte boundary (copied)."""
+    from su2_tpu_torch import kernels
+    sim = _tri_card_sim(card, th.write_case(tmp_path), (189, 48), dtype)
+    mesh = sim.mesh
+    args = _k13_call_args(sim)
+    geo = (mesh.edges, mesh.edge_normal, mesh.coords)
+    f_nodes = args[4]
+    big = torch.empty(f_nodes.numel() + 1, dtype=dtype, device=card)
+    off = big[1:].view(f_nodes.shape)
+    off.copy_(f_nodes)
+    assert off.data_ptr() % 16 != 0
+    want = kernels.edge_list_flux(*args[:4], f_nodes.T.contiguous(), *geo)
+    for f_all in (f_nodes.T, off.T):
+        for g, w in zip(kernels.edge_list_flux(*args[:4], f_all, *geo),
+                        want):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 def test_t3_k8_k13_share_edge_side_bitwise(card, tmp_path):
     """After edge_side took the endpoint columns and the edge geometry as
@@ -1421,17 +1513,43 @@ def test_edge_kernels_every_compiled_shape(card, tmp_path, nd, ns, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nd,ns,dtype", SHAPES,
+                         ids=[f"{nd}d-{ns}-{dt}" for nd, ns, dt in SHAPES])
+def test_k13_call_every_compiled_shape(card, tmp_path, nd, ns, dtype):
+    """K13's whole call (kernels.edge_list_terms) at the shapes of
+    test_edge_kernels_every_compiled_shape over the mesh's edge list, on
+    torch_helpers.edge_shape_inputs with the stack node-major: against
+    edge_list_terms_plain, every output row within 1e-10 (f64) or 1e-4
+    (f32) of its max."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_flux as ef
+    dt = getattr(torch, dtype)
+    mesh, head = th.edge_shape_inputs(nd, ns, tmp_path, dt, card)
+    args = head[:4] + (head[4].T.contiguous(), mesh)
+    got = kernels.edge_list_terms(*args)
+    want = ef.edge_list_terms_plain(*args)
+    afrac = 1e-10 if dt == torch.float64 else 1e-4
+    for g, w in zip((got[0].T, got[1][None], got[2][None]),
+                    (want[0].T, want[1][None], want[2][None])):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert np.isfinite(g).all()
+        assert (np.abs(g - w) <= afrac * np.abs(w).max(1, keepdims=True)).all()
+
+
+@pytest.mark.cuda
 def test_tri_slice_launches(card, tmp_path):
     """The explicit LU_SGS step on the 153-node scrambled triangle
-    channel: K13 once per iteration, T2 twice, T4 once; T3, K8, K5, K6,
-    K7, K10 and K12 never (the SST solve is the torch gather sweep)."""
+    channel: K13 once per iteration (its edge pass and its node sums), T2
+    twice, T4 once; T3, K8, K5, K6, K7, K10 and K12 never (the SST solve
+    is the torch gather sweep)."""
     from su2_tpu_torch import kernels
     sim = _tri_card_sim(card, th.write_case(tmp_path), th.CHANNEL,
                         torch.float64)
     kernels.reset_launches()
     _, _, hist, _ = sim.run(3, quiet=True)
     assert np.isfinite(hist).all()
-    want = {"edge_list_flux": 3, "node_state": 6, "chem_source": 3,
+    want = {"edge_list_flux": 3, "edge_list_sum": 3, "node_state": 6,
+            "chem_source": 3,
             "edge_flux": 0, "edge_win": 0, "stencil_fgmres": 0,
             "stencil_sgs_matvec": 0, "gradient_rows": 0,
             "edge_implicit": 0, "sst_assemble": 0}
