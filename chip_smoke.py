@@ -42,7 +42,23 @@ Phases (one line each; any failure exits nonzero):
              and the tier forced (K7's rows feeding K10), and with LU_SGS
              (the flow's 13 x 13 system through K5 past the full-precision
              gate, the SST's through K6)
-  6 slice    Simulation.run: 9,072 nodes x 50, 142,317 nodes x 20 and
+  graph      (between 5 and 6) every path of the kernel table through the
+             step's captured CUDA graph (Simulation.run's chunks are
+             replays of it): explicit LU_SGS at 9,072 (T1-T4, K6 as a
+             cluster), 142,317 (K5 at v = 2) and 565,500 nodes (K7, K8),
+             implicit LU_SGS at 9,072 (K10, K6 cooperative at v = 13) and
+             142,317 (K5 at v = 13), laminar implicit LU_SGS (K11), the
+             triangle channel (K13), a TOTAL_CONDITIONS inlet (K9) and the
+             fused SST assembly (K12), float32: 5 replays against 5 eager
+             iterations from one state, bit for bit in the state and the
+             history rows; one eager step under
+             torch.cuda.set_sync_debug_mode("error"); the captured launches
+             per replay against the eager step's; the su2k kernels of the
+             replays on the card (torch.profiler) against the eager
+             step's; capture seconds (graph_check)
+  6 slice    Simulation.run (replays of the captured graph, chunks of 25),
+             then the same iterations through the eager step (ms/iter of
+             both side by side): 9,072 nodes x 50, 142,317 nodes x 20 and
              565,500 nodes x 10 (the tier: K7 twice and K8 once per
              iteration, T3 never; profiled once) in float32 with LU_SGS;
              finite residuals, kernel launch counts (K6 once per iteration
@@ -52,9 +68,13 @@ Phases (one line each; any failure exits nonzero):
              142,317 nodes x 3 in float64 (K5 ten times per iteration);
              each size with LINEAR_SOLVER_PREC= JACOBI (the path that
              bypasses K5/K6) and with LU_SGS in the order J, L, each timed
-             and then profiled over 3 iterations (torch.profiler: CUDA
-             launches and device-busy ms per iteration, the launches per
-             stage of the step, step_groups); the implicit-flow case in
+             and then profiled over 3 eager iterations (torch.profiler: CUDA
+             launches, CUDA API calls and device-busy ms per iteration, the
+             launches per stage of the step, step_groups) and 3 replays
+             (device kernels, CUDA API calls and device-busy ms per
+             iteration, profile_run); the launch counts of a run are the
+             graph's replays' (each replay adds the launches its capture
+             recorded), checked equal to the eager step's; the implicit-flow case in
              float32, timed and profiled (K10 and T2 twice per iteration,
              T3, K8 and T4 never): with JACOBI at 9,072 x 10, 142,317 x 5
              and 565,500 x 2 (K5 and K6 never), with LU_SGS at 9,072 x 20
@@ -164,6 +184,20 @@ torch.profiler; T1, K7, K9, T4, K12 and K13 also every device operation
 of the call by name and its CUDA launches, time_call).  The default run
 prints no device ms: profiler windows late in a long process lose device
 events (PERF.md).
+
+    python3 chip_smoke.py --run-loop [--root DIR]
+
+times the run loop of the su2_tpu_torch in DIR (default: this checkout)
+on RUN_LOOP_PATHS (9,072 nodes explicit and implicit LU_SGS, 565,500
+implicit LU_SGS; float32, the default SST assembly), after a 2-iteration
+warm-up: where DIR's Simulation has a captured graph, eager (A: the step
+from the host, eager_iterations) against graph (B: run(niter, chunk=25))
+in the order A B B A, the eager step's profile (CUDA launches, API calls,
+busy ms per iteration), the peak memory of one eager step and of the
+capture (memory_mb) and the capture seconds; without one (a parent checkout) run(niter, chunk=25)
+twice; for both the run's profile over one chunk of 3 iterations
+(profile_run: device kernels, su2k kernels, busy ms, CUDA API calls per
+iteration).  One JSON line per path, then one for all.
 
     python3 chip_smoke.py --bitwise DIR
 
@@ -1960,10 +1994,13 @@ def launches_by_group(events, groups):
 def profile_steps(sim, state, niter=3):
     """(CUDA kernel launches, device-busy ms, {su2k kernel: device ms},
     {other device op: device ms} of the three largest, {stage path:
-    launches}) per iteration over niter coupled steps, from
-    torch.profiler: launches are the runtime's launch calls, busy the
-    summed device time of kernels, copies and sets; the stages are those
-    of step_groups."""
+    launches}, CUDA API calls, device span ms) per iteration over niter
+    eager steps, from torch.profiler: launches are the runtime's launch
+    calls, busy the summed device time of kernels, copies and sets; the
+    stages are those of step_groups; the span from the first of those on
+    the device to the end of the last, the window of busy (idle: 1 -
+    busy / span; the profiler's own host work, which slows an eager
+    step, is in it)."""
     import functools
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1993,13 +2030,18 @@ def profile_steps(sim, state, niter=3):
     events = prof.events()
     names = {g for _, _, g in groups}
     by_group = launches_by_group(events, names)
-    launches, busy_us, ours, other = 0, 0.0, {}, {}
+    launches, busy_us, ours, other, api = 0, 0.0, {}, {}, 0
+    lo, hi = float("inf"), float("-inf")
     for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                and _is_api(e.name):
+            api += 1
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if e.name in names:
                 continue        # a range's device-side copy, not work
             us = e.time_range.elapsed_us()
             busy_us += us
+            lo, hi = min(lo, e.time_range.start), max(hi, e.time_range.end)
             m = re.search(r"su2k::(\w+)_kernel", e.name)
             if m:
                 ours[m.group(1)] = ours.get(m.group(1), 0.0) + us
@@ -2013,16 +2055,214 @@ def profile_steps(sim, state, niter=3):
             {k: round(us / 1e3 / niter, 4) for k, us in sorted(ours.items())},
             {k: round(us / 1e3 / niter, 4) for k, us in top},
             {k: c / niter for k, c in sorted(by_group.items(),
-                                             key=lambda kv: -kv[1])})
+                                             key=lambda kv: -kv[1])},
+            api / niter, (hi - lo) / 1e3 / niter)
+
+
+def run_state(out, lam):
+    """The carry (u, T[, q, mu_t, grad_k, sigma_k]) of a run's result."""
+    return (out[0], out[1]) + (() if lam else tuple(out[3]))
+
+
+def eager_iterations(sim, state, niter, chunk=25):
+    """niter iterations of sim's step run eagerly (Simulation._body: sim.
+    _step, each kernel launched from the host, and its history row) from
+    state, the rows of each chunk copied to the host at once: the run
+    loop before the graph.  Returns the final state."""
+    import torch
+    it = 0
+    while it < niter:
+        k = min(chunk, niter - it)
+        rows = []
+        for _ in range(k):
+            state, row = sim._body(state, None, None)
+            rows.append(row)
+        torch.stack(rows).cpu()
+        it += k
+    return state
+
+
+def _is_api(name):
+    """A CUDA runtime or driver call among the profiler's host events."""
+    return re.match(r"cu(da)?[A-Z]", name) is not None
+
+
+def profile_run(sim, state, niter=3):
+    """One chunk of niter iterations of sim.run from state (niter replays of
+    the step's graph and the chunk's copies), from torch.profiler: (device
+    kernels per iteration, {su2k kernel: launches per iteration}, device
+    busy ms per iteration, host CUDA API calls per iteration, {API call:
+    calls per iteration}, device span ms per iteration: from the start of
+    the chunk's first device operation to the end of its last, the window
+    of busy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    lam = not sim.turbulent
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.run(niter, u=state[0], t_guess=state[1],
+                turb_state=None if lam else state[2:], quiet=True,
+                chunk=niter)
+        torch.cuda.synchronize()
+    kernels_n, ours, busy_us, api = 0, {}, 0.0, {}
+    lo, hi = float("inf"), float("-inf")
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            lo, hi = min(lo, e.time_range.start), max(hi, e.time_range.end)
+            if not e.name.startswith(("Memcpy", "Memset")):
+                kernels_n += 1
+            m = re.search(r"su2k::(\w+)_kernel", e.name)
+            if m:
+                ours[m.group(1)] = ours.get(m.group(1), 0) + 1
+        elif _is_api(e.name):
+            api[e.name] = api.get(e.name, 0) + 1
+    return (kernels_n / niter, {k: c / niter for k, c in sorted(ours.items())},
+            busy_us / 1e3 / niter, sum(api.values()) / niter,
+            {k: c / niter for k, c in sorted(api.items())},
+            (hi - lo) / 1e3 / niter)
+
+
+def su2k_by_name(fn):
+    """{su2k kernel: device launches} of fn(), from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        m = re.search(r"su2k::(\w+)_kernel", e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            out[m.group(1)] = out.get(m.group(1), 0) + 1
+    return out
+
+
+def graph_check(sim, label, niter=5):
+    """The main path of sim through its CUDA graph against the eager step:
+    after a 2-iteration warm-up run (which captures the graph), one eager
+    step under torch.cuda.set_sync_debug_mode("error") (no host sync or
+    pageable copy on the step's path), then niter iterations through the
+    graph (Simulation._multistep: niter replays) and niter eager
+    iterations (Simulation._body: sim._step and the history row) from the
+    same state, bit for bit in the state and every history row; the
+    wrappers' launches of the eager iterations and the launch counts of
+    the replays (no wrapper runs in a replay) each equal the graph's
+    captured launches per replay times niter; on the card
+    (torch.profiler), each su2k kernel launched as many times in niter
+    replays as in niter eager iterations, give or take one (a profiler
+    window now and then loses a device event, PERF.md §7).  Prints one
+    line; returns the captured launches per replay."""
+    import torch
+    from su2_tpu_torch import kernels
+    lam = not sim.turbulent
+    state = run_state(sim.run(2, quiet=True), lam)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sim._step(*state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    kernels.reset_launches()
+    carry, rows = state, []
+    for _ in range(niter):
+        carry, row = sim._body(carry, None, None)
+        rows.append(row)
+    eager = dict(kernels.launches)
+    kernels.reset_launches()
+    gcarry, block = sim._multistep(state, niter)
+    replayed = dict(kernels.launches)
+    names = ("u", "t", "q", "mu_t", "grad_k", "sigma_k")
+    for name, a, b in zip(names, gcarry, carry):
+        if not torch.equal(a, b):
+            raise AssertionError(f"graph {label}: {name} after {niter} "
+                                 "replays differs from the eager step's "
+                                 f"(max {(a - b).abs().max().item():.3e})")
+    if not torch.equal(block, torch.stack(rows)):
+        raise AssertionError(f"graph {label}: the history rows differ from "
+                             "the eager step's")
+    g = sim._graph
+    per = {k: c for k, c in g.per_replay.items() if c}
+    for k in kernels.launches:
+        if not eager[k] == replayed[k] == niter * g.per_replay[k]:
+            raise AssertionError(
+                f"graph {label}: {k} launched {eager[k]} times in {niter} "
+                f"eager iterations, counted {replayed[k]} in {niter} "
+                f"replays, {g.per_replay[k]} per replay captured")
+    prof_eager = su2k_by_name(lambda: eager_iterations(sim, state, niter))
+    prof_graph = su2k_by_name(lambda: sim._multistep(state, niter))
+    off = {k: (prof_graph.get(k, 0), prof_eager.get(k, 0))
+           for k in set(prof_graph) | set(prof_eager)
+           if abs(prof_graph.get(k, 0) - prof_eager.get(k, 0)) > 1}
+    if off:
+        raise AssertionError(f"graph {label}: su2k kernels on the card "
+                             f"(launches in {niter} replays, in {niter} "
+                             f"eager iterations) {off}")
+    phase("graph", f"{label} ({sim.mesh.npoint} nodes, "
+          f"{str(sim.dtype).split('.')[-1]}): {niter} iterations through "
+          f"the captured graph bit for bit the eager step's (state and "
+          f"history); no host sync in an eager step; capture "
+          f"{g.capture_s:.3f} s; launches per replay {per}; su2k kernels "
+          f"on the card per replay (profiler) "
+          f"{ {k: c / niter for k, c in sorted(prof_graph.items())} }, per "
+          f"eager iteration "
+          f"{ {k: c / niter for k, c in sorted(prof_eager.items())} }")
+    return per
+
+
+def graph_phase(tmp, sims, lusgs, lam, tri):
+    """graph_check, float32, on the paths that together launch every
+    kernel: explicit LU_SGS at 9,072 nodes (T1-T4, K6 as one cluster at
+    v = 2), 142,317 (K5 at v = 2) and 565,500 (K7, K8), implicit LU_SGS at
+    9,072 (K10, K6 cooperative at v = 13) and 142,317 (K5 at v = 13), the
+    laminar implicit LU_SGS case (K11), the triangle channel (K13), a
+    TOTAL_CONDITIONS inlet (K9) and the fused SST assembly (K12).  Fails
+    unless every kernel launched inside a graph."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.turbulence import sst
+    seen = set()
+    for label, sim in (("explicit LU_SGS", sims["flagship"]),
+                       ("implicit LU_SGS", lusgs["flagship"]),
+                       ("laminar implicit LU_SGS", lam["flagship"]),
+                       ("triangles, explicit LU_SGS", tri["flagship"]),
+                       ("explicit LU_SGS", sims["scaling"]),
+                       ("implicit LU_SGS", lusgs["scaling"]),
+                       ("explicit LU_SGS, the >= 200k-node tier",
+                        sims["tier"])):
+        seen |= set(graph_check(sim, label))
+        sim.drop_graph()
+    seen |= set(graph_check(make_case(
+        tmp, *SIZES["flagship"], torch.float32, "cuda",
+        total_conditions=True), "explicit LU_SGS, TOTAL_CONDITIONS inlet"))
+    os.environ["SU2_TPU_SST_ASSEMBLE"] = "pallas"
+    try:
+        seen |= set(graph_check(make_case(
+            tmp, *SIZES["flagship"], torch.float32, "cuda"),
+            "explicit LU_SGS, fused SST assembly"))
+    finally:
+        del os.environ["SU2_TPU_SST_ASSEMBLE"]
+        sst.set_assemble_mode("unfused")
+    torch.cuda.empty_cache()
+    missing = sorted(set(kernels.launches) - seen)
+    if missing:
+        raise AssertionError(f"graph: {missing} launched in no graph")
 
 
 def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
                 stats=None):
-    """Time niter iterations of Simulation.run after a 2-iteration warm-up,
-    check the history, the state and the launch counts, print one line;
-    profile: also 3 profiled iterations.  Returns the launch counts;
-    stats, a dict, receives ms/iter and the profile's launches and busy
-    ms per iteration."""
+    """Time niter iterations of Simulation.run (chunks of 25: replays of
+    the step's CUDA graph) after a 2-iteration warm-up (which captures
+    it), then the same iterations through the eager step from the same
+    start; check the history, the state and the launch counts (the
+    replays' launches, niter times the graph's per_replay, equal to the
+    eager step's), print one line; profile: also 3 profiled eager iterations
+    and 3 profiled replays.  The graph is dropped at the end.  Returns the
+    launch counts of the graph run; stats, a dict, receives ms/iter
+    (graph and eager) and the profiles' launches, kernels, API calls and
+    busy ms per iteration."""
     import numpy as np
     import torch
     from su2_tpu_torch import kernels
@@ -2032,8 +2272,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     # the fused SST assembly, where sst_step's gate holds (LU_SGS)
     fused = not lam and prec != "JACOBI" and sst.assemble_mode() == "fused"
     # warm-up outside the counted, timed run
-    out = sim.run(2, quiet=True)
-    u, t, ts = out[0], out[1], None if lam else out[3]
+    start = run_state(sim.run(2, quiet=True), lam)
+    u, t, ts = start[0], start[1], None if lam else start[2:]
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -2044,6 +2284,19 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     u, t, hist = out[:3]
     ts = None if lam else out[3]
     counts = dict(kernels.launches)
+    if counts != {k: niter * c for k, c in sim._graph.per_replay.items()}:
+        raise AssertionError(f"{size}: the graph run's launches {counts} "
+                             f"are not {niter} replays' "
+                             f"{sim._graph.per_replay}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eager_iterations(sim, start, niter)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    if dict(kernels.launches) != counts:
+        raise AssertionError(f"{size}: the graph run's launches {counts} "
+                             f"differ from the eager step's "
+                             f"{dict(kernels.launches)}")
     if len(hist) != niter or not np.isfinite(hist).all() \
             or not torch.isfinite(u).all():
         raise AssertionError(f"{size}: non-finite residual history or state")
@@ -2109,18 +2362,29 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     if not om_max > 0.0:
         raise AssertionError(f"{size}: no species production")
     ms = wall * 1e3 / niter
+    eager_ms = eager_wall * 1e3 / niter
     prof = ""
     if stats is not None:
-        stats["ms"] = ms
+        stats.update(ms=ms, eager_ms=eager_ms)
     if profile:
-        cuda_launches, busy, ours, top, by_group = profile_steps(
-            sim, (u, t) + (() if lam else tuple(ts)))
+        state = (u, t) + (() if lam else tuple(ts))
+        cuda_launches, busy, ours, top, by_group, api, p_ms = profile_steps(
+            sim, state)
+        g_kern, _, g_busy, g_api, g_api_by, g_ms = profile_run(sim, state)
         if stats is not None:
-            stats.update(launches=cuda_launches, busy=busy)
-        prof = (f", profiled: {cuda_launches:.1f} CUDA launches/iter, "
-                f"device busy {busy:.3f} ms/iter, su2k kernels' device "
-                f"ms/iter {ours}, the largest other device ops' ms/iter "
-                f"{top}, CUDA launches/iter by stage {by_group}")
+            stats.update(launches=cuda_launches, busy=busy, api=api,
+                         span=p_ms, graph_kernels=g_kern, graph_busy=g_busy,
+                         graph_api=g_api, graph_span=g_ms)
+        prof = (f", profiled: eager {cuda_launches:.1f} CUDA launches/iter "
+                f"({api:.1f} CUDA API calls/iter), device busy {busy:.3f} "
+                f"of a {p_ms:.3f} ms/iter device span (idle "
+                f"{1 - busy / p_ms:.1%}), "
+                f"su2k kernels' device ms/iter {ours}, the largest "
+                f"other device ops' ms/iter {top}, CUDA launches/iter by "
+                f"stage {by_group}; graph {g_kern:.1f} device kernels per "
+                f"replay, {g_api:.2f} CUDA API calls/iter {g_api_by}, "
+                f"device busy {g_busy:.3f} of a {g_ms:.3f} ms/iter device "
+                f"span (idle {1 - g_busy / g_ms:.1%})")
     dt = str(sim.dtype).split(".")[-1]
     if n_tc:
         prec = f"{prec}, TOTAL_CONDITIONS inlet"
@@ -2132,11 +2396,13 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
         prec = f"{prec}, fused SST assembly (K12)"
     if tri:
         prec = f"{prec}, triangle channel ({sim.mesh.nedge} edges, K13)"
-    phase("slice", f"{n} nodes {dt} {prec} x {niter}: {ms:.3f} ms/iter, "
-          f"{n / (ms * 1e3):.3f} Mcell-updates/s, log10 rms[rho] "
-          f"{hist[0][0]:.4f} -> {hist[-1][0]:.4f}, max|omega| "
-          f"{om_max:.4g} kg/(m^3 s), kernel launches {counts}{prof} "
-          f"({card})")
+    phase("slice", f"{n} nodes {dt} {prec} x {niter}: graph {ms:.3f} "
+          f"ms/iter, eager {eager_ms:.3f} ms/iter, {n / (ms * 1e3):.3f} "
+          f"Mcell-updates/s, log10 rms[rho] {hist[0][0]:.4f} -> "
+          f"{hist[-1][0]:.4f}, max|omega| {om_max:.4g} kg/(m^3 s), kernel "
+          f"launches {counts}{prof} ({card})")
+    sim.drop_graph()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2164,11 +2430,15 @@ def fused_slice(tmp, size, niter, card, implicit=None):
 
 
 def print_pair(label, unfused, fused):
-    """One line: the unfused and the fused run of one size side by side."""
+    """One line: the unfused and the fused run of one size side by side
+    (idle: 1 - busy / the profiled window's device span)."""
     def fmt(st):
-        return (f"{st['ms']:.3f} ms/iter, {st['launches']:.1f} CUDA "
-                f"launches/iter, device busy {st['busy']:.3f} ms/iter "
-                f"(idle {1 - st['busy'] / st['ms']:.0%})")
+        return (f"graph {st['ms']:.3f} ms/iter (device busy "
+                f"{st['graph_busy']:.3f}, idle "
+                f"{1 - st['graph_busy'] / st['graph_span']:.1%}), eager "
+                f"{st['eager_ms']:.3f} ms/iter ({st['launches']:.1f} CUDA "
+                f"launches/iter, device busy {st['busy']:.3f}, idle "
+                f"{1 - st['busy'] / st['span']:.1%})")
     phase("fused", f"{label}: unfused {fmt(unfused)}; fused (K12) "
           f"{fmt(fused)}")
 
@@ -2926,11 +3196,101 @@ def ab_main(root, only=TIMED):
     return 0
 
 
+# --run-loop: the paths the run loop is timed on (label, size, implicit
+# flow, iterations), float32, LU_SGS, the default SST assembly
+RUN_LOOP_PATHS = (("9072 explicit LU_SGS", "flagship", False, 50),
+                  ("9072 implicit LU_SGS", "flagship", True, 20),
+                  ("565500 implicit LU_SGS", "tier", True, 10))
+
+
+def memory_mb(fn):
+    """(peak allocated MiB above the allocation before fn(), reserved MiB
+    fn() added) on the card."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    res = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (round((torch.cuda.max_memory_allocated() - base) / 2 ** 20, 1),
+            round((torch.cuda.memory_reserved() - res) / 2 ** 20, 1))
+
+
+def wall_ms(fn, niter):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / niter
+
+
+def run_loop_main(root):
+    """--run-loop: see the module docstring."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.driver import Simulation
+    card = card_line()
+    print(f"card: {card}; root {root}", flush=True)
+    kernels.build()
+    graph = hasattr(Simulation, "rans_multistep")
+    result = dict(root=root, card=card, graph=graph, paths={})
+    imp = IMPLICIT_VARIANTS["venkatakrishnan"]
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as tmp:
+        for label, size, implicit, niter in RUN_LOOP_PATHS:
+            sim = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                            implicit=imp if implicit else None)
+            rec = result["paths"][label] = {"niter": niter}
+            init = (sim.u0, sim.t0) + tuple(sim.initial_turb_state())
+            if graph:
+                rec["eager_memory_mb"] = memory_mb(
+                    lambda: sim._step(*init))
+                rec["graph_memory_mb"] = memory_mb(
+                    lambda: sim._multistep(init, 1))
+                rec["capture_s"] = round(sim._graph.capture_s, 4)
+            state = run_state(sim.run(2, quiet=True), False)
+
+            def run(state=state, sim=sim, niter=niter):
+                sim.run(niter, u=state[0], t_guess=state[1],
+                        turb_state=state[2:], quiet=True, chunk=25)
+            if graph:
+                def eager(state=state, sim=sim, niter=niter):
+                    eager_iterations(sim, state, niter)
+                ms = [wall_ms(f, niter) for f in (eager, run, run, eager)]
+                rec["eager_ms"] = [round(ms[0], 4), round(ms[3], 4)]
+                rec["graph_ms"] = [round(ms[1], 4), round(ms[2], 4)]
+                launches, busy, ours, _, _, api, p_ms = profile_steps(
+                    sim, state)
+                rec["eager_profile"] = dict(
+                    cuda_launches=launches, api_calls=api,
+                    busy_ms=round(busy, 4), span_ms=round(p_ms, 4),
+                    su2k_ms=ours)
+            else:
+                rec["run_ms"] = [round(wall_ms(run, niter), 4)
+                                 for _ in range(2)]
+            kern, ours, busy, api, api_by, p_ms = profile_run(sim, state)
+            rec["run_profile"] = dict(
+                kernels=kern, su2k=ours, busy_ms=round(busy, 4),
+                span_ms=round(p_ms, 4), api_calls=api, api_by_name=api_by)
+            print(json.dumps({label: rec}), flush=True)
+            if graph:
+                sim.drop_graph()
+            del sim
+            torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of su2_tpu_torch "
                                  "on one NVIDIA GPU (see the docstring)")
     ap.add_argument("--time-kernels", action="store_true")
+    ap.add_argument("--run-loop", action="store_true",
+                    help="time the run loop of the checkout --root on "
+                    "RUN_LOOP_PATHS (run_loop_main)")
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--bitwise", metavar="DIR",
                     help="K7, T4 and K13 against those of the checkout "
@@ -2957,6 +3317,8 @@ def main():
         return 1
     if opt.time_kernels:
         return ab_main(root, only)
+    if opt.run_loop:
+        return run_loop_main(root)
     if opt.bitwise:
         return bitwise_main(os.path.abspath(opt.bitwise))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3053,6 +3415,9 @@ def main():
         step_phase(tmp, implicit=main_imp)
         step_phase(tmp, tier=True, implicit=main_imp)
         step_phase(tmp, implicit=main_imp, prec="LU_SGS")
+        # every path of the kernel table through its captured CUDA graph,
+        # bit for bit the eager step (each kernel inside a graph)
+        graph_phase(tmp, sims, lusgs, lam, tri)
         # each run: (label, launch counts, iterations)
         runs = []
         for size, niter in niters.items():

@@ -15,7 +15,11 @@ outer iteration is the segregated sequence of iteration_structure.cpp
 updated flow state; a laminar one is the flow system alone
 (_make_explicit_step, _make_implicit_step).  Setup stays on
 the host (NumPy); the step runs on the tensors' device — the CUDA kernels
-on a card, their plain versions on the CPU.
+on a card, their plain versions on the CPU.  The main loop runs the step
+in chunks (rans_multistep, flow_multistep): on a card each iteration is
+one replay of a CUDA graph captured from the step (StepGraph), with one
+copy of the chunk's residuals to the host; on the CPU the step runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -73,7 +77,6 @@ def _unported(cfg: Config):
          f"CONV_NUM_METHOD_FLOW= {cfg.conv_num_method_flow}",
          "su2_tpu.ops"),
         (cfg.mglevel > 0, "multigrid", "su2_tpu.multigrid"),
-        (cfg.ignition, "IGNITION= YES", "su2_tpu.driver"),
         (cfg.unsteady_simulation not in ("NO", "STEADY", "TIME_STEPPING"),
          "dual time stepping", "su2_tpu.solvers.ns"),
         (bool(cfg.marker_periodic), "periodic markers",
@@ -83,7 +86,6 @@ def _unported(cfg: Config):
          "sources", "su2_tpu.solvers.euler"),
         (cfg.system_measurements == "US", "US units", "su2_tpu.units"),
         (cfg.restart_sol, "RESTART_SOL= YES", "su2_tpu.io.restart"),
-        (cfg.cfl_adapt, "CFL_ADAPT= YES", "su2_tpu.driver"),
         (cfg.linear_solver != "FGMRES", f"LINEAR_SOLVER= "
          f"{cfg.linear_solver}", "su2_tpu.linalg.krylov"),
         (cfg.linear_solver_prec not in ("JACOBI", "LU_SGS", "ILU0"),
@@ -199,6 +201,7 @@ class Simulation:
                 self.grid.node_nbrs, self.device)
         self.turbulent = cfg.turbulent
         self.history = None
+        self._graph = None
         self.u0, self.t0 = self.freestream_solution()
         if not self.turbulent:
             # laminar: no wall distance or SST state, tke_inf stays 0
@@ -282,38 +285,59 @@ class Simulation:
         SST closures), explicit or implicit (EULER_IMPLICIT: the linearised
         system solved by FGMRES with the JACOBI preconditioner or the
         multicolor SGS sweep of LU_SGS/ILU0), then the implicit SST
-        system."""
+        system.  step(u, t_guess, q, mu_t, grad_k, sigma_k, ignite=None,
+        cfl=None): ignite, the IGNITION window flag (a 0-d bool tensor or a
+        bool; None: off); cfl, the CFL number (a 0-d tensor on the step's
+        device or a float; None: CFL_NUMBER)."""
         lib, lay, mesh, prm, bcs = (self.lib, self.lay, self.mesh,
                                     self.params, self.bcs)
         tparams = self.tparams
         lower, upper = self.lower, self.upper
         cfg = self.cfg
         turb_phase = self._make_turb_phase()
+        ignition = cfg.ignition
+        t_ign = cfg.ignition_temperature
+        fuel_i = lay.YS + cfg.fuel_index
+        ox_i = lay.YS + cfg.oxidizer_index
 
-        def flow_dt(v, lam_v, lam_c=None):
+        def ignite_v(v, ignite):
+            """T -> T_ign in the fuel-rich mixing nodes during the ignition
+            window (SetPrimitive_Variables, solver_direct_reactive.cpp
+            :1013-1024: only the primitive T is overridden): a select on a
+            device mask, no host sync."""
+            cond = (v[:, fuel_i] > 0.4) & (v[:, ox_i] > 0.2) \
+                & (v[:, lay.T] < t_ign)
+            if isinstance(ignite, torch.Tensor):
+                cond = cond & ignite
+            elif not ignite:
+                cond = torch.zeros_like(cond)
+            t_new = torch.where(cond, t_ign, v[:, lay.T])
+            return torch.cat([t_new[:, None], v[:, lay.T + 1:]], dim=1)
+
+        def flow_dt(v, cfl, lam_v, lam_c=None):
             dt, min_dt, _ = timestep.local_time_step(
-                mesh, lay, v, prm.cfl, prm.max_dt, lam_visc=lam_v,
+                mesh, lay, v, cfl, prm.max_dt, lam_visc=lam_v,
                 lam_inv=lam_c)
             return timestep.apply_time_marching(
                 dt, min_dt, cfg.unsteady_simulation, cfg.unst_timestep,
                 cfg.unst_cfl_number), min_dt
 
-        def implicit_flow(u, v, nsd, turb, omega_t):
+        def implicit_flow(u, v, nsd, turb, omega_t, cfl):
             lam_v = ns.viscous_lambda(lib, mesh, lay, prm, v,
                                       vis.Transport(nsd.mu, nsd.kappa),
                                       nsd.dpdu, turb)
-            dt, min_dt = flow_dt(v, lam_v)
+            dt, min_dt = flow_dt(v, cfl, lam_v)
             u_new, wall_mask, flow_fb, rms, rmax = self._implicit_update(
                 u, nsd, turb, omega_t, dt)
             return u_new, wall_mask, dt, min_dt, flow_fb, rms, rmax
 
-        def explicit_flow(u, v, nsd, turb, omega_t):
+        def explicit_flow(u, v, nsd, turb, omega_t, cfl):
             res, wall_mask, trans, _, lams, flow_fb = ns.ns_assemble(
                 lib, lay, mesh, prm, bcs, v, nsd, turb, omega_t)
             lam_c = timestep.boundary_lambda_inv(mesh, lay, v, lams[0])
             lam_v = ns.viscous_lambda_boundary(lib, mesh, lay, prm, v, trans,
                                                nsd.dpdu, turb, lams[1])
-            dt, min_dt = flow_dt(v, lam_v, lam_c)
+            dt, min_dt = flow_dt(v, cfl, lam_v, lam_c)
             u = ns.enforce_wall_velocity(lay, u, wall_mask)
             u_new, rms, rmax = es.explicit_euler_update(
                 lay, mesh, u, res, dt, lower, upper)
@@ -321,15 +345,22 @@ class Simulation:
 
         flow = implicit_flow if cfg.implicit_flow else explicit_flow
 
-        def step(u, t_guess, q, mu_t, grad_k, sigma_k):
+        def step(u, t_guess, q, mu_t, grad_k, sigma_k, ignite=None,
+                 cfl=None):
+            cfl = prm.cfl if cfl is None else cfl
             tke = q[:, 0]
             omega_t = q[:, 1]
             nsd = st.node_state(lib, lay, u, t_guess, tparams, turb_ke=tke)
             u, v, nonphys = nsd.u, nsd.v, nsd.nonphys
+            if ignition:
+                # the derived fields follow the overridden T: the bundle is
+                # recomputed from v, as su2_tpu's step does with nsd None
+                v = ignite_v(v, ignite)
+                nsd = st.derived_state(lib, lay, u, v, nonphys)
             turb = vis.TurbFlowData(tke=tke, mu_t=mu_t,
                                     grad_tke=grad_k[:, 0, :], sigma_k=sigma_k)
             u_new, wall_mask, dt, min_dt, flow_fb, rms, rmax = flow(
-                u, v, nsd, turb, omega_t)
+                u, v, nsd, turb, omega_t, cfl)
             u_new = ns.enforce_wall_velocity(lay, u_new, wall_mask)
             return turb_phase(u_new, v, tke, q, mu_t, grad_k, dt, flow_fb,
                               rms, rmax, nonphys.sum(), min_dt)
@@ -371,7 +402,7 @@ class Simulation:
         ExplicitRK_Iteration, solver_direct_reactive.cpp:2456) at the
         first stage's local time step, each stage from the stage-0 state
         with the wall velocity enforced.  step(u, t_guess) -> (u, T, rms,
-        rmax, nonphysical count, min dt)."""
+        rmax, nonphysical count, min dt); cfl as the RANS step's."""
         lib, lay, mesh, prm, bcs = (self.lib, self.lay, self.mesh,
                                     self.params, self.bcs)
         tparams, lower, upper = self.tparams, self.lower, self.upper
@@ -385,13 +416,14 @@ class Simulation:
                 lib, lay, mesh, prm, bcs, nsd.v, nsd, None, None)
             return nsd, res, wall_mask, trans
 
-        def step(u, t_guess):
+        def step(u, t_guess, cfl=None):
+            cfl = prm.cfl if cfl is None else cfl
             nsd, res, wall_mask, trans = assemble(u, t_guess)
             v, nonphys = nsd.v, nsd.nonphys
             lam_v = ns.viscous_lambda(lib, mesh, lay, prm, v, trans,
                                       nsd.dpdu, None)
             dt, min_dt, _ = timestep.local_time_step(
-                mesh, lay, v, prm.cfl, prm.max_dt, lam_visc=lam_v)
+                mesh, lay, v, cfl, prm.max_dt, lam_visc=lam_v)
             u_old = ns.enforce_wall_velocity(lay, nsd.u, wall_mask)
             u_new, rms, rmax = es.explicit_euler_update(
                 lay, mesh, u_old, res, dt, lower, upper, alpha=alphas[0])
@@ -413,18 +445,20 @@ class Simulation:
         the local time step from the viscous spectral radius (no time
         marching), then the implicit update, the flow system assembled on
         the family slots (K11) as a FamilyJacobian.  step(u, t_guess) ->
-        (u, T, rms, rmax, nonphysical count, min dt)."""
+        (u, T, rms, rmax, nonphysical count, min dt); cfl as the RANS
+        step's."""
         lib, lay, mesh, prm = self.lib, self.lay, self.mesh, self.params
         tparams = self.tparams
 
-        def step(u, t_guess):
+        def step(u, t_guess, cfl=None):
+            cfl = prm.cfl if cfl is None else cfl
             nsd = st.node_state(lib, lay, u, t_guess, tparams)
             v = nsd.v
             lam_v = ns.viscous_lambda(lib, mesh, lay, prm, v,
                                       vis.Transport(nsd.mu, nsd.kappa),
                                       nsd.dpdu, None)
             dt, min_dt, _ = timestep.local_time_step(
-                mesh, lay, v, prm.cfl, prm.max_dt, lam_visc=lam_v)
+                mesh, lay, v, cfl, prm.max_dt, lam_visc=lam_v)
             u_new, wall_mask, _, rms, rmax = self._implicit_update(
                 nsd.u, nsd, None, None, dt)
             u_new = ns.enforce_wall_velocity(lay, u_new, wall_mask)
@@ -479,52 +513,156 @@ class Simulation:
             self.lay.nvar, 2 if self.turbulent else 0,
             cfl=self.cfg.cfl_number)
 
+    # ------------------------------------------------------------------
+    def _hist_width(self):
+        """Columns of a history row: rms and rmax (nVar each), the SST's
+        rms (2, RANS only), the nonphysical count and min dt."""
+        return 2 * self.lay.nvar + (2 if self.turbulent else 0) + 2
+
+    def _body(self, carry, ignite, cfl):
+        """One iteration of self._step from carry: (the new carry, its
+        history row, as _hist_width lays it out)."""
+        if self.turbulent:
+            out = self._step(*carry, ignite, cfl=cfl)
+        else:
+            out = self._step(*carry, cfl=cfl)
+        nc = len(carry)
+        *vecs, nerr, min_dt = out[nc:]
+        return out[:nc], torch.cat([*vecs, nerr[None].to(min_dt.dtype),
+                                    min_dt[None]])
+
+    def _multistep(self, carry, k, ignites=None, cfl=None):
+        """k iterations from carry: (the final carry, the (k, W) history
+        rows).  On a card k replays of the step's graph (StepGraph,
+        captured at the first call, again where k outgrows its history);
+        on the CPU the step k times.  ignites: (k,) IGNITION flags (None:
+        off); cfl: a float or 0-d tensor (None: CFL_NUMBER)."""
+        if self.device.type == "cuda":
+            g = self._graph
+            if g is None or k > g.hist.shape[0]:
+                self._graph = None
+                g = self._graph = StepGraph(
+                    self._body, carry, self._hist_width(),
+                    max(k, DEFAULT_CHUNK), self.params.cfl,
+                    ignition=self.turbulent and self.cfg.ignition)
+            return g.run(carry, k, ignites,
+                         self.params.cfl if cfl is None else cfl)
+        rows = []
+        for j in range(k):
+            carry, row = self._body(
+                carry, None if ignites is None else bool(ignites[j]), cfl)
+            rows.append(row)
+        return tuple(carry), torch.stack(rows)
+
+    def _split_history(self, block):
+        """The (k, W) history rows as su2_tpu's stacked histories: (rms,
+        rmax, turb_rms (RANS only), nerr, min_dt)."""
+        nv = self.lay.nvar
+        parts = [block[:, :nv], block[:, nv:2 * nv]]
+        if self.turbulent:
+            parts.append(block[:, 2 * nv:2 * nv + 2])
+        return tuple(parts) + (block[:, -2].to(torch.int64), block[:, -1])
+
+    def rans_multistep(self, u, t_guess, q, mu_t, grad_k, sigma_k, ignites,
+                       cfl=None):
+        """K = len(ignites) coupled iterations as one device program (the
+        JAX package's lax.scan; here replays of the step's CUDA graph on a
+        card).  ignites: the (K,) per-iteration IGNITION window flags;
+        cfl: None (CFL_NUMBER), a float or a 0-d tensor.  Returns the final
+        carry (u, t, q, mu_t, grad_k, sigma_k) and the stacked
+        per-iteration (rms, rmax, turb_rms, nerr, min_dt), (K, .) device
+        tensors."""
+        if not self.turbulent:
+            raise ValueError("rans_multistep: a laminar Simulation runs "
+                             "flow_multistep")
+        carry, block = self._multistep(
+            (u, t_guess, q, mu_t, grad_k, sigma_k), len(ignites), ignites,
+            cfl)
+        return carry, self._split_history(block)
+
+    def flow_multistep(self, u, t_guess, k: int, cfl=None):
+        """K flow-only (laminar) iterations as one device program, as
+        rans_multistep.  Returns the final (u, t) and the stacked (rms,
+        rmax, nerr, min_dt)."""
+        if self.turbulent:
+            raise ValueError("flow_multistep: a REACTIVE_RANS Simulation "
+                             "runs rans_multistep")
+        carry, block = self._multistep((u, t_guess), k, None, cfl)
+        return carry, self._split_history(block)
+
+    def drop_graph(self):
+        """Free the captured step graph and its memory pool; the next chunk
+        on the card captures it again."""
+        self._graph = None
+
     def run(self, niter: int | None = None, log_every: int = 1, u=None,
             t_guess=None, turb_state=None, quiet=False, chunk: int = 1):
-        """Main iteration loop.  Every `chunk` iterations the per-iteration
-        residuals come back to the host in one copy, for the NaN check, the
-        history file, the log and the convergence test.
+        """Main iteration loop (the JAX package's run and _run_chunked):
+        chunks of `chunk` iterations through _multistep (on a card, replays
+        of the step's CUDA graph; the trailing k < chunk iterations are one
+        shorter chunk of the same graph).  Each chunk's residuals come back
+        to the host in one copy, for the NaN check (raised at the first
+        bad iteration, before any row of its chunk is written), the
+        history file, the log and the RESIDUAL test (detected at its
+        iteration, the history cut there; the state is the chunk's last).
+        IGNITION: iteration it runs with the window flag it <
+        IGNITION_ITER.  CFL_ADAPT runs one iteration per chunk: the host
+        updates the CFL from the density residuals after each
+        (SetCFL_Number) and the next iteration reads it.
         Returns (u, t_guess, hist (niter, nVar) log10 RMS, turb_state), or
         laminar (u, t_guess, hist)."""
         cfg = self.cfg
         turbulent = self.turbulent
         niter = niter if niter is not None else cfg.ext_iter
-        u = self.u0 if u is None else u
-        t_guess = self.t0 if t_guess is None else t_guess
+        carry = (self.u0 if u is None else u,
+                 self.t0 if t_guess is None else t_guess)
         if turbulent:
-            q, mu_t, grad_k, sigma_k = (turb_state if turb_state is not None
-                                        else self.initial_turb_state())
+            carry += tuple(turb_state if turb_state is not None
+                           else self.initial_turb_state())
         nv, nt = self.lay.nvar, 2 if turbulent else 0
+        adapt = cfg.cfl_adapt
+        per_chunk = 1 if adapt else max(chunk, 1)
+        cfl_now = float(cfg.cfl_number)
+        rho_res_old = None
         hist = []
         rms0 = None
         start = time.time()
         it = 0
         converged = False
         while it < niter and not converged:
-            k = min(max(chunk, 1), niter - it)
-            outs = []
-            for _ in range(k):
-                if turbulent:
-                    (u, t_guess, q, mu_t, grad_k, sigma_k, rms, _rmax,
-                     turb_rms, nerr, min_dt) = self._step(
-                        u, t_guess, q, mu_t, grad_k, sigma_k)
-                    rms = torch.cat([rms, turb_rms])
-                else:
-                    u, t_guess, rms, _rmax, nerr, min_dt = self._step(
-                        u, t_guess)
-                outs.append(torch.cat([rms, nerr[None].to(rms.dtype),
-                                       min_dt[None]]))
-            block = torch.stack(outs).cpu().double().numpy()
+            k = min(per_chunk, niter - it)
+            ignites = (np.arange(it, it + k) < cfg.ignition_iter
+                       if turbulent and cfg.ignition else None)
+            carry, block = self._multistep(carry, k, ignites,
+                                           cfl_now if adapt else None)
+            block = block.cpu().double().numpy()
+            bad = np.isnan(block[:, :nv]).any(axis=1)
+            if bad.any():
+                raise RuntimeError(f"NaN residual at iteration "
+                                   f"{it + int(np.argmax(bad))}")
             for j in range(k):
                 gi = it + j
-                rms_np, trms_np = block[j, :nv], block[j, nv:nv + nt]
-                if np.isnan(rms_np).any():
-                    raise RuntimeError(f"NaN residual at iteration {gi}")
+                rms_np = block[j, :nv]
                 log_rms = np.log10(np.maximum(rms_np, 1e-300))
-                log_trms = np.log10(np.maximum(trms_np, 1e-300))
+                log_trms = np.log10(np.maximum(
+                    block[j, 2 * nv:2 * nv + nt], 1e-300))
                 hist.append(log_rms)
                 if rms0 is None:
                     rms0 = log_rms.copy()
+                if adapt:
+                    # SetCFL_Number (output_structure.cpp:5975): CFL *=
+                    # (res_old/res_new)^power, power from CFL_ADAPT_PARAM
+                    p = cfg.cfl_adapt_param
+                    rho_new = max(float(rms_np[self.lay.RHO]), 1e-300)
+                    rho_old = rho_new if rho_res_old is None else rho_res_old
+                    div = rho_old / rho_new
+                    power = p[0] if div < 1.0 else p[1]
+                    if abs(rho_new - rho_old) <= rho_new * 1e-8 and gi != 0:
+                        div, power = 0.1, p[1]
+                    cfl_now *= div ** power
+                    cfl_now = min(max(cfl_now, 1.001 * p[2]), 0.999 * p[3])
+                    rho_res_old = rho_new
+                    self.cfl_now = cfl_now
                 if self.history is not None and gi % cfg.wrt_con_freq == 0:
                     self.history.write(gi, log_rms,
                                        log_trms if turbulent else None,
@@ -535,8 +673,8 @@ class Simulation:
                                  if turbulent else "")
                     print(f"{gi:6d}  Res[Rho]: {log_rms[self.lay.RHO]: .6f}  "
                           f"Res[RhoE]: {log_rms[self.lay.RHOE]: .6f}  "
-                          f"{turb_cols}dt_min: {block[j, nv + nt + 1]:.3e}  "
-                          f"nonphys: {int(block[j, nv + nt])}  "
+                          f"{turb_cols}dt_min: {block[j, -1]:.3e}  "
+                          f"nonphys: {int(block[j, -2])}  "
                           f"({time.time() - start:.1f}s)")
                 if cfg.conv_criteria == "RESIDUAL" \
                         and gi > cfg.startconv_iter:
@@ -548,8 +686,112 @@ class Simulation:
                         break
             it += k
         if not turbulent:
-            return u, t_guess, np.array(hist)
-        return u, t_guess, np.array(hist), (q, mu_t, grad_k, sigma_k)
+            return carry[0], carry[1], np.array(hist)
+        return carry[0], carry[1], np.array(hist), tuple(carry[2:])
+
+
+class StepGraph:
+    """One iteration of a Simulation's step captured as a CUDA graph,
+    replayed on static buffers: the carry (copied back in place inside
+    the graph), the (cap,) IGNITION flags and the 0-d CFL, and a (cap, W)
+    history.  The iteration reads its flag at a 0-d int64 slot, writes its
+    history row there (index_copy_) and adds one to the slot.  A chunk of
+    k iterations loads the carry and the flags, zeroes the slot and
+    replays k times; the history's first k rows then hold the chunk's
+    residuals.
+
+    The capture follows one eager iteration on a side stream: it builds
+    the kernels' library, their lazily made tables and the sweep's node
+    orders outside the graph's memory pool.  Every host value the step
+    reads (the SST assembly mode, the constants a kernel wrapper passes,
+    K6's grid) is read at capture, as su2_tpu's jit reads it at trace.  A
+    capture that fails raises its error; nothing runs the eager step in
+    its place.  The kernel wrappers' counts during the capture, which
+    launches nothing, are taken back out of kernels.launches and kept as
+    per_replay; each replay adds them to kernels.launches, which no
+    wrapper touches during a replay."""
+
+    def __init__(self, body, carry, width, cap, cfl, ignition=False):
+        from su2_tpu_torch import kernels
+        dev = carry[0].device
+        dtype = carry[0].dtype
+        self.body = body
+        t0 = time.perf_counter()
+        with torch.cuda.device(dev):
+            self.carry = tuple(x.clone() for x in carry)
+            self.ignites = (torch.zeros((cap,), dtype=torch.bool,
+                                        device=dev) if ignition else None)
+            self.cfl = torch.full((), cfl, dtype=dtype, device=dev)
+            self.slot = torch.zeros((), dtype=torch.int64, device=dev)
+            self.hist = torch.zeros((cap, width), dtype=dtype, device=dev)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._iteration()
+            torch.cuda.current_stream().wait_stream(side)
+            before = dict(kernels.launches)
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self._iteration()
+            finally:
+                self.per_replay = {name: kernels.launches[name] - c
+                                   for name, c in before.items()}
+                kernels.launches.update(before)
+            torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+
+    def _iteration(self):
+        at = self.slot.view(1)
+        ignite = (None if self.ignites is None
+                  else self.ignites.index_select(0, at).view(()))
+        new, row = self.body(self.carry, ignite, self.cfl)
+        for buf, x in zip(self.carry, new):
+            buf.copy_(x)
+        self.hist.index_copy_(0, at, row[None])
+        self.slot.add_(1)
+
+    def run(self, carry, k, ignites, cfl):
+        """k iterations from carry with the flags ignites ((k,) numpy or
+        tensor; None: off) and the CFL cfl (float or 0-d tensor): (the
+        final carry, the (k, W) history rows), new tensors."""
+        from su2_tpu_torch import kernels
+        if k > self.hist.shape[0]:
+            raise ValueError(f"StepGraph.run: {k} iterations; at most "
+                             f"{self.hist.shape[0]}")
+        for buf, x in zip(self.carry, carry):
+            if buf is not x:
+                buf.copy_(x)
+        if self.ignites is not None:
+            if ignites is None:
+                self.ignites.zero_()
+            else:
+                self.ignites[:k].copy_(torch.as_tensor(ignites))
+        if isinstance(cfl, torch.Tensor):
+            self.cfl.copy_(cfl)
+        else:
+            self.cfl.fill_(cfl)
+        self.slot.zero_()
+        for _ in range(k):
+            self.graph.replay()
+            for name, c in self.per_replay.items():
+                kernels.launches[name] += c
+        return tuple(x.clone() for x in self.carry), self.hist[:k].clone()
+
+
+# the main loop's chunk where SU2_TPU_CHUNK sets none (su2_tpu's main)
+DEFAULT_CHUNK = 25
+
+
+def chunk_size(cfg: Config, env=None) -> int:
+    """Iterations per chunk of the CLI's main loop (su2_tpu.driver.main):
+    SU2_TPU_CHUNK=<K> where set (at least 1), else 1 under CFL_ADAPT (the
+    host updates the CFL every iteration) and DEFAULT_CHUNK otherwise."""
+    env = os.environ if env is None else env
+    val = env.get("SU2_TPU_CHUNK")
+    if val is not None:
+        return max(1, int(val))
+    return 1 if cfg.cfl_adapt else DEFAULT_CHUNK
 
 
 # what the CLI writes (MARKER_PLOTTING only selects markers of the files it
@@ -577,5 +819,5 @@ def main(argv=None):
     sim = Simulation(cfg, dtype=dtype, device="cpu" if cpu else "cuda")
     print(NO_SOLUTION_FILES)
     sim.enable_output()
-    sim.run(niter, chunk=25)
+    sim.run(niter, chunk=chunk_size(cfg))
     return 0

@@ -8,7 +8,9 @@ Every kernel launches on torch.cuda.current_stream(), allocates nothing
 and returns its cudaError_t; each wrapper below checks device, dtype,
 shape and contiguity (T4 and K12 read strided views in place), allocates
 the outputs, launches, raises on a nonzero error and adds one to its
-entry in ``launches``.
+entry in ``launches``.  A replay of a captured CUDA graph
+(driver.StepGraph) calls no wrapper: it launches the kernel nodes its
+capture recorded and adds those to ``launches``.
 
   T1 mixture_enthalpy  csrc/thermo.cu       (chemistry/library.py)
   T2 node_state        csrc/node_state.cu   (state.py)
@@ -63,7 +65,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCE_FLAGS = {"inlet_tc.cu": ("-fmad=false",),
                 "sst_assemble.cu": ("-fmad=false",)}
 
-# launches of each kernel since the last reset_launches()
+# launches of each kernel since the last reset_launches(): the wrappers'
+# and the replays' of captured graphs (driver.StepGraph)
 launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
             "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0,
             "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0,

@@ -48,11 +48,13 @@ def max_lambda_inv(mesh: MeshArrays, lay: Layout, v: torch.Tensor):
 
 
 def local_time_step(mesh: MeshArrays, lay: Layout, v: torch.Tensor,
-                    cfl: float, max_dt: float = 1e6, lam_visc=None,
-                    k_v: float = 0.25, lam_inv=None):
+                    cfl: float | torch.Tensor, max_dt: float = 1e6,
+                    lam_visc=None, k_v: float = 0.25, lam_inv=None):
     """Per-node dt = CFL*Vol/lambda_inv, with the viscous bound
     CFL*K_v*Vol^2/lambda_visc when given (NS SetTime_Step, :5216-5220).
-    Returns (dt, min_dt, max_dt_seen)."""
+    cfl: a float, or a 0-d tensor on v's device (CFL_ADAPT's value, read
+    by a captured step from its buffer).  Returns (dt, min_dt,
+    max_dt_seen)."""
     lam = max_lambda_inv(mesh, lay, v) if lam_inv is None else lam_inv
     vol = mesh.volume
     vol_ok = vol > EPS

@@ -116,15 +116,22 @@ def enforce_wall_velocity(lay: Layout, u, wall_mask):
                      dim=1)
 
 
+def viscous_rows(lay: Layout, grad, dim=1):
+    """The viscous flux's rows [T, u.., X..] of the NS gradient set [T,
+    u.., P, X..] along dim: the rows before and after the pressure row,
+    two views joined (no index tensor, no copy from the host)."""
+    nd, ns_ = lay.ndim, lay.ns
+    return torch.cat([grad.narrow(dim, 0, 1 + nd),
+                      grad.narrow(dim, 2 + nd, ns_)], dim=dim)
+
+
 def _laminar_edge_viscous(lib, lay, prm, v, grad, trans, dtdu, gi, gj,
                           normal, evec, implicit):
     """The laminar viscous flux (and with implicit its Jacobians),
     feature-major (ops/viscous_t.py, plain torch ops), on the edge slots
     whose endpoint fields gi(x), gj(x) gather from the last (node) axis of
     x."""
-    nd, ns_ = lay.ndim, lay.ns
-    sel = [0] + list(range(1, 1 + nd)) + list(range(2 + nd, 2 + nd + ns_))
-    g = grad[:, sel, :].permute(1, 2, 0)
+    g = viscous_rows(lay, grad).permute(1, 2, 0)
     vi, vj = gi(v.T), gj(v.T)
     tmean = 0.5 * (vi[lay.T] + vj[lay.T])
     jkw = dict(s_i=gi(dtdu.T), s_j=gj(dtdu.T)) if implicit else {}
@@ -264,12 +271,12 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
             jkw = dict(s_i=s_b, s_j=s_b)
         else:
             cf = ausm_t.ausm_flux_t(lay, vbt, vgt, nrm, prm.m_infty)
-        sel = [0] + list(range(1, 1 + nd)) + list(range(2 + nd, 2 + nd + ns_))
         if grad is not None:
-            g_n = grad[nodes][:, sel, :].permute(1, 2, 0)
+            g_n = viscous_rows(lay, grad[nodes]).permute(1, 2, 0)
         else:
             # the boundary columns of the rows (ng*d, nb) -> (ng', d, nb)
-            g_n = grad_rows[:, nodes].reshape(ngv, nd, -1)[sel]
+            g_n = viscous_rows(lay, grad_rows[:, nodes].reshape(ngv, nd, -1),
+                               dim=0)
         tmean = 0.5 * (vbt[lay.T] + vgt[lay.T])
         mu_b, ka_b = trans.mu[nodes], trans.kappa[nodes]
         tb = (None,) * 7
@@ -320,7 +327,7 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
             continue
         nodes = bc.nodes
         area = torch.linalg.norm(bc.normal, dim=1)
-        wall_mask[nodes] = True
+        wall_mask.index_fill_(0, nodes, True)
         if bc.kind == "isothermal_wall":
             twall = bc.params["twall"]
             tj = v[bc.nn, lay.T]

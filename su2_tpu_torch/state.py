@@ -210,15 +210,22 @@ class NodeStateLite:
     xs: torch.Tensor
 
 
-def node_state_plain(lib, lay, u, t_guess, p: TSolveParams, turb_ke=None):
-    """Plain chain of kernel T2 (full variant)."""
-    uc, v, nonphys = cons2prim(lib, lay, u, t_guess, p, turb_ke=turb_ke)
+def derived_state(lib, lay, u, v, nonphys) -> NodeState:
+    """The bundle of the primitives v in plain torch ops: dT/dU, dP/dU,
+    transport and mole fractions from v (the step recomputes them after
+    the IGNITION override changed v's temperature)."""
     t = v[:, lay.T]
     ys = v[:, lay.YS:lay.YS + lay.ns]
     return NodeState(
-        uc, v, nonphys, dtdu(lib, lay, v), dpdu(lib, lay, v),
+        u, v, nonphys, dtdu(lib, lay, v), dpdu(lib, lay, v),
         cl.mixture_viscosity(lib, t, ys), cl.mixture_conductivity(lib, t, ys),
         cl.molar_from_mass(lib, ys))
+
+
+def node_state_plain(lib, lay, u, t_guess, p: TSolveParams, turb_ke=None):
+    """Plain chain of kernel T2 (full variant)."""
+    uc, v, nonphys = cons2prim(lib, lay, u, t_guess, p, turb_ke=turb_ke)
+    return derived_state(lib, lay, uc, v, nonphys)
 
 
 def node_state_lite_plain(lib, lay, u, t_guess, p: TSolveParams,

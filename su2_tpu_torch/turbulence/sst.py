@@ -456,10 +456,24 @@ def _wall_rows(mesh, bcs, mu, rho):
             dnn = torch.linalg.norm(mesh.coords[bc.nn] - mesh.coords[nodes],
                                     dim=1)
             w_wall = 60.0 * mu[bc.nn] / (rho[bc.nn] * BETA_1 * dnn * dnn)
-            wall_mask[nodes] = True
+            wall_mask.index_fill_(0, nodes, True)
             w_wall_full[nodes] = w_wall
     return wall_mask, torch.stack([torch.zeros_like(w_wall_full),
                                    w_wall_full], dim=1)
+
+
+# (LOWER, UPPER) as tensors by (dtype, device): made once, so the step
+# copies nothing from the host (a captured step may not)
+_BOUND_TENSORS = {}
+
+
+def _bounds(dtype, device):
+    key = (dtype, device)
+    if key not in _BOUND_TENSORS:
+        _BOUND_TENSORS[key] = tuple(torch.tensor(b, dtype=dtype,
+                                                 device=device)
+                                    for b in (LOWER, UPPER))
+    return _BOUND_TENSORS[key]
 
 
 def _update(scfg, q, sol, rho_old, rho, wall_mask, q_wall, grad_k, grad_w,
@@ -467,9 +481,7 @@ def _update(scfg, q, sol, rho_old, rho, wall_mask, q_wall, grad_k, grad_w,
     """(q_new, outs): the relaxed conservative update, clipped, the wall
     rows rescaled by rho_old/rho and clipped like every other row; the eddy
     viscosity and sigma_k of the new state."""
-    dtype = q.dtype
-    lower = torch.tensor(LOWER, dtype=dtype, device=q.device)
-    upper = torch.tensor(UPPER, dtype=dtype, device=q.device)
+    lower, upper = _bounds(q.dtype, q.device)
     q_new = (rho_old[:, None] * q + scfg.relax * sol) / rho[:, None]
     q_new = torch.minimum(torch.maximum(q_new, lower), upper)
     q_wall_c = torch.minimum(torch.maximum(

@@ -428,28 +428,40 @@ def test_k9_kernel_matches_plain(card, tmp_path, dtype):
             rtol=1e-12 if dtype == torch.float64 else 1e-6)
 
 
+def _run_launches(sim, niter=3):
+    """(sim.run(niter)'s result, the kernel launches of that run): a
+    one-iteration run first captures the step's CUDA graph, so the run's
+    launches are its replays', niter times the capture's (no wrapper runs
+    in a replay)."""
+    from su2_tpu_torch import kernels
+    sim.run(1, quiet=True)
+    kernels.reset_launches()
+    out = sim.run(niter, quiet=True)
+    counts = dict(kernels.launches)
+    assert counts == {k: niter * c for k, c in sim._graph.per_replay.items()}
+    return out, counts
+
+
 @pytest.mark.cuda
 def test_slice_launches_every_kernel(card, tmp_path):
-    from su2_tpu_torch import kernels
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
     from su2_tpu_torch.geometry.structured import channel_mesh
     sim = Simulation(Config(text=th.write_case(tmp_path)),
                      raw_mesh=channel_mesh(*th.CHANNEL), device=card)
-    kernels.reset_launches()
-    _, _, hist, _ = sim.run(3, quiet=True)
+    (_, _, hist, _), launched = _run_launches(sim)
     assert np.isfinite(hist).all()
-    assert kernels.launches["node_state"] == 6
-    assert kernels.launches["edge_flux"] == 3
-    assert kernels.launches["chem_source"] == 3
-    assert kernels.launches["mixture_enthalpy"] >= 3
+    assert launched["node_state"] == 6
+    assert launched["edge_flux"] == 3
+    assert launched["chem_source"] == 3
+    assert launched["mixture_enthalpy"] >= 3
     # LU_SGS at 153 nodes: the whole FGMRES cycle in one launch
-    assert kernels.launches["stencil_fgmres"] == 3
-    assert kernels.launches["stencil_sgs_matvec"] == 0
+    assert launched["stencil_fgmres"] == 3
+    assert launched["stencil_sgs_matvec"] == 0
     # below the tier: no gradient rows, no windowed edge kernel
-    assert kernels.launches["gradient_rows"] == 0
-    assert kernels.launches["edge_win"] == 0
-    assert kernels.launches["inlet_tc"] == 0
+    assert launched["gradient_rows"] == 0
+    assert launched["edge_win"] == 0
+    assert launched["inlet_tc"] == 0
 
 
 @pytest.mark.cuda
@@ -458,19 +470,17 @@ def test_slice_launches_in_the_tier(card, tmp_path, monkeypatch):
     K7 for the flow sweep and the merged turbulence sweep (two per
     iteration: the case's methods match); the TOTAL_CONDITIONS inlet
     launches K9 once per iteration."""
-    from su2_tpu_torch import kernels
     from su2_tpu_torch.ops import gradients
     monkeypatch.setattr(gradients, "TILED_MIN_NODES", 0)
     sim = _card_sim(card, th.case_variant(th.write_case(tmp_path),
                                           "total_conditions"))
-    kernels.reset_launches()
-    _, _, hist, _ = sim.run(3, quiet=True)
+    (_, _, hist, _), launched = _run_launches(sim)
     assert np.isfinite(hist).all()
-    assert kernels.launches["edge_win"] == 3
-    assert kernels.launches["edge_flux"] == 0
-    assert kernels.launches["gradient_rows"] == 6
-    assert kernels.launches["inlet_tc"] == 3
-    assert kernels.launches["node_state"] == 6
+    assert launched["edge_win"] == 3
+    assert launched["edge_flux"] == 0
+    assert launched["gradient_rows"] == 6
+    assert launched["inlet_tc"] == 3
+    assert launched["node_state"] == 6
 
 
 # the (muscl, limiter) variants of K10 (cases.with_implicit_flow)
@@ -583,21 +593,19 @@ def test_implicit_slice_launches(card, tmp_path, monkeypatch):
     """The implicit JACOBI case: K10 once per iteration (both families in
     one launch) and T2 twice; T3, K8, T4, K5 and K6 never; with the tier
     forced, K10 reads K7's rows (two K7 sweeps per iteration)."""
-    from su2_tpu_torch import kernels
     from su2_tpu_torch.ops import gradients
     text = th.with_implicit(th.write_case(tmp_path))
     for tier in (False, True):
         if tier:
             monkeypatch.setattr(gradients, "TILED_MIN_NODES", 0)
         sim = _card_sim(card, text)
-        kernels.reset_launches()
-        _, _, hist, _ = sim.run(3, quiet=True)
+        (_, _, hist, _), launched = _run_launches(sim)
         assert np.isfinite(hist).all()
         want = {"edge_implicit": 3, "node_state": 6, "edge_flux": 0,
                 "edge_win": 0, "chem_source": 0, "stencil_fgmres": 0,
                 "stencil_sgs_matvec": 0, "gradient_rows": 6 * tier}
-        assert {k: kernels.launches[k] for k in want} == want
-        assert kernels.launches["mixture_enthalpy"] >= 3
+        assert {k: launched[k] for k in want} == want
+        assert launched["mixture_enthalpy"] >= 3
 
 
 # the tiers of the implicit LU_SGS case at 153 nodes: (dtype, forced
@@ -625,7 +633,6 @@ def test_implicit_lusgs_slice_launches(card, tmp_path, monkeypatch, tier):
     Krylov vector (FGMRES(10): 20 per iteration); K10 once and T2 twice
     per iteration, T3, K8 and T4 never; the flow's sweep blocks bf16 in
     the mixed tier."""
-    from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import blockcsr, stencil_solve as ts
     dtype, patch, k6, k5 = LUSGS_TIERS[tier]
     for name, fn in patch.items():
@@ -640,16 +647,16 @@ def test_implicit_lusgs_slice_launches(card, tmp_path, monkeypatch, tier):
     monkeypatch.setattr(blockcsr, "make_solver_ops_stencil_t", spy)
     sim = _card_sim(card, th.with_implicit(th.write_case(tmp_path),
                                            prec="LU_SGS"), dtype)
-    kernels.reset_launches()
-    _, _, hist, _ = sim.run(3, quiet=True)
+    (_, _, hist, _), launched = _run_launches(sim)
     assert np.isfinite(hist).all()
     want = {"stencil_fgmres": 3 * k6, "stencil_sgs_matvec": 3 * k5,
             "edge_implicit": 3, "node_state": 6, "edge_flux": 0,
             "edge_win": 0, "chem_source": 0, "gradient_rows": 0}
-    assert {k: kernels.launches[k] for k in want} == want
-    # the flow's system, then the SST's, in every iteration
+    assert {k: launched[k] for k in want} == want
+    # the flow's system, then the SST's, in every eager iteration: the
+    # graph's warm-up and its capture (the replays run no Python)
     sweep = torch.bfloat16 if tier == "mixed-f32" else dtype
-    assert sweep_dtypes == [sweep] * 6
+    assert sweep_dtypes == [sweep] * 4
 
 
 BANDS = {"band2": (2, (-9, -8, -7, -1, 1, 7, 8, 9)),
@@ -1149,20 +1156,18 @@ def test_laminar_slice_launches(card, tmp_path, implicit):
     iteration and K6 once (the flow's solve, one launch at 153 nodes), T2
     once; explicit, T4 and T2 once per iteration; K10, T3, K8 never (no
     SST fields), K11 never in the explicit step."""
-    from su2_tpu_torch import kernels
     text = th.cases.with_laminar(th.with_prec(th.write_case(tmp_path),
                                               "LU_SGS"))
     if implicit:
         text = th.with_implicit(text, prec="LU_SGS")
     sim = _card_sim(card, text)
-    kernels.reset_launches()
-    u, _, hist = sim.run(3, quiet=True)
+    (u, _, hist), launched = _run_launches(sim)
     assert np.isfinite(hist).all() and torch.isfinite(u).all()
     want = {"ausm_flux_jac": 3 * implicit, "stencil_fgmres": 3 * implicit,
             "stencil_sgs_matvec": 0, "chem_source": 3 * (not implicit),
             "node_state": 3, "edge_implicit": 0, "edge_flux": 0,
             "edge_win": 0, "gradient_rows": 0, "inlet_tc": 0}
-    assert {k: kernels.launches[k] for k in want} == want
+    assert {k: launched[k] for k in want} == want
 
 
 def _k12_inputs(card, dtype, feature_major=False, seed=12):
@@ -1242,7 +1247,6 @@ def test_fused_slice_launches(card, tmp_path, monkeypatch, implicit):
     iteration, the SST's solve in stencil_solve.fused_sst_solve_tier's
     tier (one K6 launch at 153 nodes; the implicit flow's solve one more),
     T2 twice; unset, K12 never.  Any other value raises."""
-    from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import stencil_solve as ts
     from su2_tpu_torch.turbulence import sst
     text = th.write_case(tmp_path)
@@ -1255,8 +1259,7 @@ def test_fused_slice_launches(card, tmp_path, monkeypatch, implicit):
     try:
         sim = _card_sim(card, text, torch.float32)
         assert sst.assemble_mode() == "fused"
-        kernels.reset_launches()
-        _, _, hist, _ = sim.run(3, quiet=True)
+        (_, _, hist, _), launched = _run_launches(sim)
     finally:
         sst.set_assemble_mode("unfused")
     assert np.isfinite(hist).all()
@@ -1267,11 +1270,10 @@ def test_fused_slice_launches(card, tmp_path, monkeypatch, implicit):
     want = {"sst_assemble": 3, "stencil_fgmres": 3 * (1 + implicit),
             "stencil_sgs_matvec": 0, "node_state": 6,
             "edge_implicit": 3 * implicit}
-    assert {k: kernels.launches[k] for k in want} == want
+    assert {k: launched[k] for k in want} == want
     monkeypatch.delenv("SU2_TPU_SST_ASSEMBLE")
-    kernels.reset_launches()
-    _card_sim(card, text, torch.float32).run(2, quiet=True)
-    assert kernels.launches["sst_assemble"] == 0
+    _, launched = _run_launches(_card_sim(card, text, torch.float32), 2)
+    assert launched["sst_assemble"] == 0
 
 
 def _k13_stack(sim, seed=13):
@@ -1542,15 +1544,134 @@ def test_tri_slice_launches(card, tmp_path):
     channel: K13 once per iteration (its edge pass and its node sums), T2
     twice, T4 once; T3, K8, K5, K6, K7, K10 and K12 never (the SST solve
     is the torch gather sweep)."""
-    from su2_tpu_torch import kernels
     sim = _tri_card_sim(card, th.write_case(tmp_path), th.CHANNEL,
                         torch.float64)
-    kernels.reset_launches()
-    _, _, hist, _ = sim.run(3, quiet=True)
+    (_, _, hist, _), launched = _run_launches(sim)
     assert np.isfinite(hist).all()
     want = {"edge_list_flux": 3, "edge_list_sum": 3, "node_state": 6,
             "chem_source": 3,
             "edge_flux": 0, "edge_win": 0, "stencil_fgmres": 0,
             "stencil_sgs_matvec": 0, "gradient_rows": 0,
             "edge_implicit": 0, "sst_assemble": 0}
-    assert {k: kernels.launches[k] for k in want} == want
+    assert {k: launched[k] for k in want} == want
+
+
+def _eager(sim, state, niter, ignites=None, cfl=None):
+    """niter eager iterations (Simulation._body: sim._step and its history
+    row): (the final state, the (niter, W) rows)."""
+    rows = []
+    for j in range(niter):
+        state, row = sim._body(
+            state, None if ignites is None else bool(ignites[j]), cfl)
+        rows.append(row)
+    return tuple(state), torch.stack(rows)
+
+
+def _assert_same(got, want):
+    (gc, gh), (wc, wh) = got, want
+    assert len(gc) == len(wc)
+    for a, b in zip(gc, wc):
+        assert torch.equal(a, b)
+    assert torch.equal(gh, wh)
+
+
+def _graph_text(tmp_path, implicit):
+    text = th.write_case(tmp_path)
+    return th.with_implicit(text, prec="LU_SGS") if implicit else text
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("implicit", [False, True],
+                         ids=["explicit", "implicit"])
+def test_graph_matches_eager_bitwise(card, tmp_path, implicit, dtype):
+    """Five iterations of the LU_SGS step (explicit flow, or implicit:
+    K10 and two K6 solves) through the captured graph (_multistep: five
+    replays) equal five eager iterations from the same state bit for
+    bit, state and history rows; the capture's launches per replay are
+    one eager iteration's, and the call counts its warm-up iteration and
+    five replays of them."""
+    from su2_tpu_torch import kernels
+    sim = _card_sim(card, _graph_text(tmp_path, implicit), dtype)
+    state = (sim.u0, sim.t0) + tuple(sim.initial_turb_state())
+    state = _eager(sim, state, 2)[0]
+    kernels.reset_launches()
+    want = _eager(sim, state, 5)
+    eager = dict(kernels.launches)
+    kernels.reset_launches()
+    got = sim._multistep(state, 5)
+    _assert_same(got, want)
+    assert {k: 5 * c for k, c in sim._graph.per_replay.items()} == eager
+    assert dict(kernels.launches) == {
+        k: 6 * c for k, c in sim._graph.per_replay.items()}
+    assert eager["stencil_fgmres"] == 5 * (1 + implicit)
+
+
+@pytest.mark.cuda
+def test_graph_tail_chunk_and_second_run(card, tmp_path):
+    """run(7, chunk=3): two chunks and a tail chunk of one iteration, all
+    replays of one graph, equal seven eager iterations bit for bit; a
+    second run on the same Simulation replays the same graph and agrees
+    again; a chunk past the history's rows captures anew."""
+    sim = _card_sim(card, th.write_case(tmp_path))
+    state = (sim.u0, sim.t0) + tuple(sim.initial_turb_state())
+    want_c, want_h = _eager(sim, state, 7)
+    for run in range(2):
+        u, t, hist, turb = sim.run(7, quiet=True, chunk=3)
+        if run == 0:
+            graph = sim._graph
+        assert sim._graph is graph
+        _assert_same(((u, t) + tuple(turb), torch.zeros(0)),
+                     (want_c, torch.zeros(0)))
+        rms = th.npy(want_h[:, :sim.lay.nvar]).astype(np.float64)
+        assert np.array_equal(hist, np.log10(np.maximum(rms, 1e-300)))
+    k = graph.hist.shape[0] + 1
+    got = sim._multistep(state, k)
+    assert sim._graph is not graph and sim._graph.hist.shape[0] == k
+    _assert_same(got, _eager(sim, state, k))
+
+
+@pytest.mark.cuda
+def test_graph_ignition_and_cfl_buffers(card, tmp_path):
+    """IGNITION flags and the CFL reach the captured step through its
+    buffers: the graph with flags (1, 1, 0) and with a changed CFL equals
+    the eager step with the same ignite and cfl arguments bit for bit, and
+    differs from the run without them."""
+    text = "\n".join([th.write_case(tmp_path), "IGNITION= YES",
+                      "IGNITION_ITER= 2", "OXIDIZER_INDEX= 2"])
+    sim = _card_sim(card, text)
+    rich = (0.45, 0.05, 0.3, 0.04, 0.08, 0.02, 0.02, 0.02, 0.02)
+    state = (th.tt(th.mixed_state(sim, ys=rich, seed=3)).to(card),
+             sim.t0) + tuple(sim.initial_turb_state())
+    flags = np.array([True, True, False])
+    got = sim._multistep(state, 3, flags)
+    _assert_same(got, _eager(sim, state, 3, flags))
+    off = sim._multistep(state, 3, np.zeros(3, bool))
+    _assert_same(off, _eager(sim, state, 3))
+    assert not torch.equal(got[0][1], off[0][1])
+    cfl = torch.tensor(0.05, dtype=sim.dtype, device=card)
+    slow = sim._multistep(state, 2, None, 0.05)
+    _assert_same(slow, _eager(sim, state, 2, cfl=cfl))
+    assert not torch.equal(slow[1][:, -1], off[1][:2, -1])
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(card, tmp_path):
+    """A step that cannot be captured (it reads a value back to the host)
+    makes the chunk raise the capture's error; the run does not go on
+    through the eager step, and no graph is kept."""
+    sim = _card_sim(card, th.write_case(tmp_path))
+    step = sim._step
+
+    def syncing(*args, **kw):
+        out = step(*args, **kw)
+        float(out[0].sum())
+        return out
+    sim._step = syncing
+    with pytest.raises(RuntimeError):
+        sim.run(3, quiet=True, chunk=3)
+    assert sim._graph is None
+    sim._step = step
+    u, _, hist, _ = sim.run(2, quiet=True)
+    assert np.isfinite(hist).all() and sim._graph is not None
