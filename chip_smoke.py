@@ -138,6 +138,22 @@ Phases (one line each; any failure exits nonzero):
              JACOBI, each timed and profiled (K13 once per iteration; T3,
              K8, K5, K6, K7 and K12 never); every stencil-mesh run asserts
              K13 never launched
+  output     (after 6) Simulation.run(50, chunk=25) of the 9,072-node
+             explicit LU_SGS case in float32 through the captured graph
+             with WRT_SOL_FREQ= 25 (the writes between chunks: one T2
+             launch each beside the replays): the restart, history,
+             surface and volume files (TECPLOT, TECPLOT_BINARY, PARAVIEW,
+             FIELDVIEW), the restart read back through RESTART_SOL= YES to
+             the run's final u and q bit for bit; from that restart in
+             float64, card vs CPU: the recomputed mu_t, grad_k, sigma_k
+             and 5 iterations, then monitor_forces over both walls and
+             forces_breakdown.dat; one line of times with the card's name
+             and power limit: write_solution at 9,072 and 565,500 nodes,
+             ms/iter of 20 iterations with MARKER_MONITORING (chunk 1)
+             beside chunk 25 without (output_phase).  CGNS (OUTPUT_FORMAT=
+             CGNS_SOL, MESH_FORMAT= CGNS) needs h5py, an optional
+             dependency this script does not take on:
+             tests/test_torch_output.py holds it on the CPU
 The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}.
 
@@ -146,8 +162,8 @@ Run from the repository root:  python3 chip_smoke.py
     python3 chip_smoke.py --time-kernels [--root DIR] [--only K7,T4]
     python3 chip_smoke.py --bitwise DIR
 
-times T1, T2, K5, K6, K7, K8, K9, K10, T4, K12 and K13 (or those --only
-names) of the
+times T1, T2, K5, K6, K7, K8, K9, K10, K11, T4, K12 and K13 (or those
+--only names) of the
 su2_tpu_torch in DIR (default: this
 checkout; another checkout, such as a parent commit unpacked with git
 archive, for an A/B comparison run in the order A B B A on one card) and
@@ -178,12 +194,14 @@ says (the edge pass and the whole call on the 9,072- and 142,317-node
 triangle channel; K8's slot pass at 565,500 nodes, the same per-edge
 body); T1, K9 and K12 as time_t1_k9_k12 says (T1 on a boundary batch,
 K9 on the 565,500-node case's inlet, K12 at 9,072 and 565,500 nodes with
-its bound); float32, cuda_time's median ms (host work included) and, for
-T1, T2, K6, K7, K9, T4, K12 and K13, device_ms (the kernels alone,
-torch.profiler; T1, K7, K9, T4, K12 and K13 also every device operation
-of the call by name and its CUDA launches, time_call).  The default run
-prints no device ms: profiler windows late in a long process lose device
-events (PERF.md).
+its bound); K11 as time_k11 says (feature-major, the laminar implicit
+case's family slots at 9,072 and 565,500 nodes, with its bound);
+float32, cuda_time's median ms (host work included) and, for T1, T2, K6,
+K7, K9, K11, T4, K12 and K13, device_ms (the kernels alone,
+torch.profiler; T1, K7, K9, K11, T4, K12 and K13 also every device
+operation of the call by name and its CUDA launches, time_call).  The
+default run prints no device ms: profiler windows late in a long process
+lose device events (PERF.md).
 
     python3 chip_smoke.py --run-loop [--root DIR]
 
@@ -214,6 +232,7 @@ import inspect
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -433,12 +452,12 @@ def compare(name, dt, got, want, per_row=False):
 
 def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
               total_conditions=False, implicit=None, laminar=False,
-              tri=False):
+              tri=False, settings=None):
     """The synthetic case on channel_mesh(nx, ny); implicit: (muscl,
     limiter) of the implicit-flow variant, whose flow and SST systems are
     solved with prec as well; laminar: KIND_TURB_MODEL= NONE; tri: on
     cases.tri_channel_mesh(nx, ny) (triangles, scrambled node order, no
-    static stencil)."""
+    static stencil); settings: {cfg key: value} lines added last."""
     from su2_tpu_torch import cases
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
@@ -451,6 +470,7 @@ def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
         text = cases.with_implicit_flow(text, *implicit, prec=prec)
     if laminar:
         text = cases.with_laminar(text)
+    text += "".join(f"\n{k}= {v}" for k, v in (settings or {}).items())
     raw = cases.tri_channel_mesh(nx, ny) if tri else channel_mesh(nx, ny)
     return Simulation(Config(text=text), raw_mesh=raw, dtype=dtype,
                       device=device)
@@ -967,17 +987,17 @@ def implicit_kernel_phase(sim, dtype_name, report, variants):
             bound_by=bound[1], library_ms=None)
 
 
-def ausm_kernel_phase(sim, dtype_name, report):
-    """K11 against its plain version (ops/ausm_t.ausm_flux_t) on the
-    family-slot inputs of the laminar implicit case sim (its mesh and
-    library converted to the dtype): the limited MUSCL face states of a
-    random reacting state, as convective_system_fam builds them, in the
-    feature-major layout of the main path (edge_kernels.py:91) and the
-    edge-major one (:34); per output row, the pad slots exactly 0."""
+def k11_inputs(sim, dtype_name):
+    """K11's arguments on the family-slot inputs of the laminar implicit
+    case sim (its mesh and library converted to the dtype): the limited
+    MUSCL face states of a random reacting state, as
+    convective_system_fam builds them, feature-major (the main path);
+    (lay, [v_i, v_j, normals, s_i, s_j], M_inf, family slots, operations,
+    pad-slot mask)."""
     from types import SimpleNamespace
     import torch
-    from su2_tpu_torch import kernels, state as st
-    from su2_tpu_torch.ops import ausm_t, limiters, viscous as vis
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.ops import limiters, viscous as vis
     from su2_tpu_torch.solvers import euler as es
     dtype = getattr(torch, dtype_name)
     mesh, lib = sim.mesh.to(dtype=dtype), sim.lib.to(dtype=dtype)
@@ -994,16 +1014,31 @@ def ausm_kernel_phase(sim, dtype_name, report):
     v_i, s_i, v_j, s_j = es.muscl_reconstruct_fam(
         lib, lay, mesh, prm, nsd.v, grad.permute(1, 2, 0), lim)
     ins = [v_i, v_j, mesh.fam_normal_flat.T.contiguous(), s_i, s_j]
-    ins_e = [t.T.contiguous() for t in ins]
-    m_inf = prm.m_infty
     ne, nv = v_i.shape[1], lay.nvar
-    pad = ~mesh.fam_valid_flat
     # operations per edge, a lower bound read off the kernel: ~500 for the
     # flux and the 4 nVar column vectors, ~8 per entry of the two blocks
     flops = ne * (500 + 16 * nv * nv)
+    return lay, ins, prm.m_infty, ne, flops, ~mesh.fam_valid_flat
+
+
+def k11_rows(out, nv, ne):
+    """K11's outputs (feature-major) as rows: the flux rows, each entry
+    of the two Jacobians."""
+    return [out[0], out[1].reshape(nv * nv, ne), out[2].reshape(nv * nv, ne)]
+
+
+def ausm_kernel_phase(sim, dtype_name, report):
+    """K11 against its plain version (ops/ausm_t.ausm_flux_t) on
+    k11_inputs, in the feature-major layout of the main path
+    (edge_kernels.py:91) and the edge-major one (:34); per output row,
+    the pad slots exactly 0."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import ausm_t
+    lay, ins, m_inf, ne, flops, pad = k11_inputs(sim, dtype_name)
+    ins_e = [t.T.contiguous() for t in ins]
+    rows = lambda out: k11_rows(out, lay.nvar, ne)
     want = ausm_t.ausm_flux_t(lay, *ins[:3], m_inf, *ins[3:])
-    rows = lambda out: [out[0], out[1].reshape(nv * nv, ne),
-                        out[2].reshape(nv * nv, ne)]
     for layout, edge_major in (("feature-major", False),
                                ("edge-major", True)):
         args = ins_e if edge_major else ins
@@ -1024,7 +1059,7 @@ def ausm_kernel_phase(sim, dtype_name, report):
         plain_ms = cuda_time(lambda: ausm_t.ausm_flux_t(
             lay, *ins[:3], m_inf, *ins[3:]))
         bound = bound_of(nbytes(ins + got), flops, dtype_name)
-        key = f"{dtype_name} {mesh.npoint} {layout}"
+        key = f"{dtype_name} {sim.mesh.npoint} {layout}"
         phase("k11", f"ausm_flux_jac {key}: max_abs_err {err:.3e} "
               f"({scaled:.2e} of its row's max) kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}); "
@@ -2443,18 +2478,227 @@ def print_pair(label, unfused, fused):
           f"{fmt(fused)}")
 
 
+# the output phase: the 9,072-node explicit LU_SGS case run OUTPUT_NITER
+# iterations in chunks of 25 with WRT_SOL_FREQ= OUTPUT_FREQ, the volume
+# formats it writes (CGNS_SOL and MESH_FORMAT= CGNS need h5py, an
+# optional dependency this script does not take on:
+# tests/test_torch_output.py covers them on the CPU), the monitored
+# walls, the monitoring run's iterations
+OUTPUT_NITER, OUTPUT_FREQ = 50, 25
+OUTPUT_FORMATS = {"TECPLOT": "flow.dat", "TECPLOT_BINARY": "flow.plt",
+                  "PARAVIEW": "flow.vtk", "FIELDVIEW": "flow.uns"}
+MONITORED = ("lower_wall", "upper_wall")
+MONITOR_NITER = 20
+
+
+def force_scale(sim):
+    """The scale of sim's force coefficients over MARKER_MONITORING: the
+    coefficient of the freestream pressure on every monitored vertex (the
+    markers' summed |normal|, times the largest moment arm over the
+    reference length where above 1).  A coefficient differences
+    pressures of ~1e5 Pa down to O(1), so the state's atol 1e-12*max|p|
+    carries over to it as 1e-12 times this scale."""
+    import numpy as np
+    cfg, grid = sim.cfg, sim.grid
+    _, _, p_inf, rho_inf, vel_inf, _ = sim.freestream_primitives()
+    q_dyn = 0.5 * rho_inf * float(np.dot(vel_inf, vel_inf)) \
+        * (cfg.ref_area if cfg.ref_area > 0 else 1.0)
+    tags = cfg.marker_monitoring
+    arm = max(np.abs(grid.coords[grid.bnd_nodes[t]]
+                     - cfg.ref_origin_moment_x).max() for t in tags)
+    area = sum(np.abs(grid.bnd_normal[t]).sum() for t in tags)
+    return p_inf * area * max(1.0, arm / cfg.ref_length) / q_dyn
+
+
+def forces_leaves(forces, where="forces"):
+    """[(name, value)] of monitor_forces' dict: totals, splits, per
+    marker."""
+    if isinstance(forces, dict):
+        return [x for k in sorted(forces)
+                for x in forces_leaves(forces[k], f"{where}.{k}")]
+    if isinstance(forces, tuple):
+        return [x for i, f in enumerate(forces)
+                for x in forces_leaves(f, f"{where}[{i}]")]
+    return [(where, float(forces))]
+
+
+def close_f64(label, got, want, names, scale=None):
+    """Card (got) against CPU (want) float64 tensors at rtol 1e-9, atol
+    1e-12*max|field| (scale: max|field| given); the largest difference
+    over its field's max."""
+    import torch
+    worst = 0.0
+    for nm, a, b in zip(names, got, want):
+        a, b = torch.as_tensor(a).cpu().double(), torch.as_tensor(b).double()
+        sc = b.abs().max().item() if scale is None else scale
+        err = (a - b).abs()
+        if not bool(torch.isfinite(a).all()) or not bool(
+                (err <= 1e-9 * b.abs() + 1e-12 * sc).all()):
+            raise AssertionError(f"output: {label} {nm}: card vs CPU max err "
+                                 f"{err.max().item():.3e} outside rtol 1e-9,"
+                                 f" atol 1e-12*{sc:.3e}")
+        if sc > 0.0:
+            worst = max(worst, err.max().item() / sc)
+    return worst
+
+
+def output_phase(tmp, card, big):
+    """The output phase (after 6): run(OUTPUT_NITER, chunk=25) of the
+    9,072-node explicit LU_SGS case in f32 through the graph with
+    WRT_SOL_FREQ= OUTPUT_FREQ (the writes between chunks, outside the
+    graph: the launches are the replays' and one T2 a write), the restart,
+    history and surface files and the volume file in each of
+    OUTPUT_FORMATS; RESTART_SOL= YES reads the restart back to the run's
+    final u and q bit for bit in file order.  In f64 from that restart,
+    card vs CPU: the recomputed mu_t, grad_k, sigma_k (T2 and the gradient
+    on the card) and run(5); then monitor_forces over MONITORED on the
+    restarted run's state and forces_breakdown.dat.  One line of times:
+    write_solution at 9,072 nodes and on big (the 565,500-node case), and
+    ms/iter of MONITOR_NITER iterations with MARKER_MONITORING (chunk 1,
+    forces in every history row) beside the same at chunk 25 without."""
+    import numpy as np
+    import torch
+    from su2_tpu_torch import kernels
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "output")
+    os.makedirs(out)
+    flag = SIZES["flagship"]
+    sim = make_case(tmp, *flag, torch.float32, "cuda",
+                    settings={"WRT_SOL_FREQ": OUTPUT_FREQ})
+    sim.run(1, quiet=True, chunk=25)        # captures the step's graph
+    sim.enable_output(out)
+    kernels.reset_launches()
+    u, t, hist, turb = sim.run(OUTPUT_NITER, quiet=True, chunk=25)
+    counts = dict(kernels.launches)
+    want = {k: OUTPUT_NITER * c for k, c in sim._graph.per_replay.items()}
+    want["node_state"] += OUTPUT_NITER // OUTPUT_FREQ
+    if counts != want or not np.isfinite(hist).all():
+        raise AssertionError(f"output: run({OUTPUT_NITER}) launched {counts}"
+                             f", expected {want} (the replays and one T2 a "
+                             "write), finite history "
+                             f"{np.isfinite(hist).all()}")
+    pair = (turb[0], turb[1])
+    for fmt, name in OUTPUT_FORMATS.items():
+        if fmt != "TECPLOT":
+            sim.cfg.output_format = fmt
+            sim.write_solution(u, t, pair)
+    sim.cfg.output_format = "TECPLOT"
+    names = ["restart_flow.dat", "history.dat", "surface_flow.dat",
+             *OUTPUT_FORMATS.values()]
+    sizes = {nm: os.path.getsize(os.path.join(out, nm)) for nm in names}
+    if not all(sizes.values()):
+        raise AssertionError(f"output: empty files {sizes}")
+    restart = os.path.join(out, "restart_flow.dat")
+    back = make_case(tmp, *flag, torch.float32, "cuda",
+                     settings={"RESTART_SOL": "YES",
+                               "SOLUTION_FLOW_FILENAME": restart})
+    if not (np.array_equal(back.to_file_order(back.u0.cpu().numpy()),
+                           sim.to_file_order(u.cpu().numpy()))
+            and np.array_equal(
+                back.to_file_order(back.initial_turb_state()[0].cpu().numpy()),
+                sim.to_file_order(turb[0].cpu().numpy()))):
+        raise AssertionError("output: the restart read back is not the run's"
+                             " final u and q bit for bit")
+    phase("output", f"run({OUTPUT_NITER}, chunk=25) at {sim.mesh.npoint} "
+          f"nodes f32 with WRT_SOL_FREQ= {OUTPUT_FREQ}: launches the "
+          f"replays' and one T2 a write; wrote {sizes} (bytes); RESTART_SOL "
+          "reads back its final u and q bit for bit in file order")
+    del back
+    # f64 from that restart, card vs CPU
+    rs = {"RESTART_SOL": "YES", "SOLUTION_FLOW_FILENAME": restart}
+    gpu, cpu = (make_case(tmp, *flag, torch.float64, dev, settings=rs)
+                for dev in ("cuda", "cpu"))
+    turb_names = ("q", "mu_t", "grad_k", "sigma_k")
+    w_post = close_f64("restart post-processing", gpu.initial_turb_state(),
+                       cpu.initial_turb_state(), turb_names)
+    og, oc = gpu.run(5, quiet=True, chunk=5), cpu.run(5, quiet=True, chunk=5)
+    w_run = close_f64("5 iterations from the restart",
+                      og[:3] + tuple(og[3]), oc[:3] + tuple(oc[3]),
+                      ("u", "t", "hist") + turb_names)
+    mon = {"MARKER_MONITORING": f"( {', '.join(MONITORED)} )"}
+    gm, cm = (make_case(tmp, *flag, torch.float64, dev, settings=mon)
+              for dev in ("cuda", "cpu"))
+    state = (oc[0], oc[1], (oc[3][0], oc[3][1]))
+    kernels.reset_launches()
+    fg = gm.monitor_forces(*(x.cuda() for x in state[:2]),
+                           tuple(x.cuda() for x in state[2]))
+    if kernels.launches["node_state"] != 1:
+        raise AssertionError("output: monitor_forces on the card ran no T2")
+    fc = cm.monitor_forces(*state)
+    lg, lc = forces_leaves(fg), forces_leaves(fc)
+    if [k for k, _ in lg] != [k for k, _ in lc]:
+        raise AssertionError("output: the card's and the CPU's forces differ "
+                             "in their keys")
+    w_forces = close_f64("monitor_forces", [v for _, v in lg],
+                         [v for _, v in lc], [k for k, _ in lg],
+                         scale=force_scale(cm))
+    breakdown = os.path.join(out, "forces_breakdown.dat")
+    gm.write_forces_breakdown(*(x.cuda() for x in state[:2]),
+                              tuple(x.cuda() for x in state[2]),
+                              path=breakdown)
+    if not os.path.getsize(breakdown):
+        raise AssertionError("output: empty forces_breakdown.dat")
+    phase("output", f"f64 from the restart, card vs CPU within rtol 1e-9, "
+          f"atol 1e-12*max|field|: recomputed mu_t, grad_k, sigma_k "
+          f"(largest difference {w_post:.3e} of its field's max), 5 "
+          f"iterations ({w_run:.3e}); monitor_forces over {MONITORED} "
+          f"({len(lg)} coefficients, atol 1e-12 x the pressure force scale "
+          f"{force_scale(cm):.3e}: {w_forces:.3e}); forces_breakdown.dat "
+          f"{os.path.getsize(breakdown)} bytes")
+    del gpu, cpu, gm, cm
+    # times: write_solution at 9,072 and 565,500 nodes; monitoring
+    times = {}
+    t0 = time.perf_counter()
+    sim.write_solution(u, t, pair)
+    times[f"write_solution {sim.mesh.npoint} s"] = time.perf_counter() - t0
+    big_out = os.path.join(tmp, "output_big")
+    os.makedirs(big_out)
+    big.enable_output(big_out)
+    bturb = big.initial_turb_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big.write_solution(big.u0, big.t0, (bturb[0], bturb[1]))
+    times[f"write_solution {big.mesh.npoint} s"] = time.perf_counter() - t0
+    big.history = big.out_dir = None
+    del bturb
+    shutil.rmtree(big_out)
+    ms = make_case(tmp, *flag, torch.float32, "cuda",
+                   settings={"MARKER_MONITORING": mon["MARKER_MONITORING"]})
+    ms.run(2, quiet=True)                   # captures the step's graph
+    os.makedirs(os.path.join(out, "monitored"))
+    ms.enable_output(os.path.join(out, "monitored"))
+    mon_ms = wall_ms(lambda: ms.run(MONITOR_NITER, quiet=True, chunk=1),
+                     MONITOR_NITER)
+    plain_ms = wall_ms(lambda: sim.run(MONITOR_NITER, quiet=True, chunk=25),
+                       MONITOR_NITER)
+    rows = [ln for ln in open(os.path.join(ms.out_dir, "history.dat"))
+            if ln[:1].isdigit()]
+    if len(rows) != MONITOR_NITER or float(rows[-1].split(",")[2]) <= 0.0:
+        raise AssertionError("output: the monitored run's history has no "
+                             "drag in its rows")
+    times["monitored ms/iter (chunk 1)"] = mon_ms
+    times["ms/iter (chunk 25, no monitoring)"] = plain_ms
+    times["phase s"] = time.perf_counter() - t_phase
+    phase("output", f"{card}: " + "; ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
+    print(json.dumps({"output_times": {k: round(v, 4)
+                                       for k, v in times.items()},
+                      "card": card}), flush=True)
+
+
 # the sources whose kernels --time-kernels counts SASS instructions of, by
 # the tag of the kernels they hold: the edge kernels (T3, K8, K13, K10),
 # K11, K5/K6, T2, K7 and T4; K13's runs count T3's and K8's too (the
 # per-edge body they share)
 SASS_SOURCES = {"edge_flux.cu": {"K8", "K13"}, "edge_win.cu": {"K8", "K13"},
                 "edge_list.cu": {"K8", "K13"}, "edge_implicit.cu": {"K10"},
-                "ausm_jac.cu": {"K10"}, "stencil_solve.cu": {"K5", "K6"},
+                "ausm_jac.cu": {"K10", "K11"},
+                "stencil_solve.cu": {"K5", "K6"},
                 "node_state.cu": {"T2"}, "gradients_tiled.cu": {"K7"},
                 "chem_source.cu": {"T4"}}
 # the kernels --time-kernels times (--only takes a subset)
-TIMED = frozenset({"T1", "T2", "K5", "K6", "K7", "K8", "K9", "K10", "T4",
-                   "K12", "K13"})
+TIMED = frozenset({"T1", "T2", "K5", "K6", "K7", "K8", "K9", "K10", "K11",
+                   "T4", "K12", "K13"})
 
 
 def sass_counts(root, only=TIMED):
@@ -2606,6 +2850,8 @@ def time_kernels(tmp, only=TIMED):
         time_k13(tmp, out)
     if only & {"T1", "K9", "K12"}:
         time_t1_k9_k12(tmp, out, only)
+    if "K11" in only:
+        time_k11(tmp, out)
     if not only & {"T2", "K5", "K6", "K8", "K10"}:
         return out
     approx = t2_approx_lib(tmp)
@@ -2808,6 +3054,29 @@ def time_t1_k9_k12(tmp, out, only):
             out[f"K12 {n}"].update(bound_ms=bound[0], bound_by=bound[1])
             del args
         del sim
+        torch.cuda.empty_cache()
+
+
+def time_k11(tmp, out):
+    """K11 (kernels.ausm_flux_jac, feature-major: the main path's layout)
+    in f32 on k11_inputs of the laminar implicit LU_SGS case at 9,072 and
+    565,500 nodes, with time_call and its bound (bound_of: the inputs and
+    the outputs once, k11_inputs' operations)."""
+    import torch
+    from su2_tpu_torch import kernels
+    for size in ("flagship", "tier"):
+        sim = make_case(tmp, *SIZES[size], torch.float32, "cuda", "LU_SGS",
+                        implicit=IMPLICIT_VARIANTS["venkatakrishnan"],
+                        laminar=True)
+        lay, ins, m_inf, ne, flops, _ = k11_inputs(sim, "float32")
+        call = lambda: kernels.ausm_flux_jac(lay, *ins[:3], m_inf, *ins[3:])
+        label = f"K11 {sim.mesh.npoint}"
+        time_call(out, label, call)
+        bound = bound_of(nbytes(ins + k11_rows(call(), lay.nvar, ne)), flops,
+                         "float32")
+        out[label].update(bound_ms=bound[0], bound_by=bound[1],
+                          family_slots=ne)
+        del sim, ins
         torch.cuda.empty_cache()
 
 
@@ -3493,6 +3762,8 @@ def main():
                 jac, size, niter, card, prec="JACOBI", profile=True), niter))
             runs.append((f"{n} triangles LU_SGS", slice_phase(
                 tri[size], size, niter, card, profile=True), niter))
+        # solution output, restart and force monitoring between chunks
+        output_phase(tmp, card, sims["tier"])
 
     # each kernel's numbers at its main-path use: T1-T4 in f32 at 9,072
     # nodes, K5 mixed on the implicit LU_SGS case's flow system at 142,317

@@ -19,7 +19,10 @@ on a card, their plain versions on the CPU.  The main loop runs the step
 in chunks (rans_multistep, flow_multistep): on a card each iteration is
 one replay of a CUDA graph captured from the step (StepGraph), with one
 copy of the chunk's residuals to the host; on the CPU the step runs
-eagerly.
+eagerly.  Between chunks the host writes the history, the solution
+files (restart, volume, surface: write_solution) and the force
+coefficients over MARKER_MONITORING (monitor_forces), and tests CAUCHY;
+RESTART_SOL starts from a restart file.
 """
 
 from __future__ import annotations
@@ -85,17 +88,12 @@ def _unported(cfg: Config):
         (cfg.axisymmetric or cfg.gravity_force, "axisymmetric/gravity "
          "sources", "su2_tpu.solvers.euler"),
         (cfg.system_measurements == "US", "US units", "su2_tpu.units"),
-        (cfg.restart_sol, "RESTART_SOL= YES", "su2_tpu.io.restart"),
         (cfg.linear_solver != "FGMRES", f"LINEAR_SOLVER= "
          f"{cfg.linear_solver}", "su2_tpu.linalg.krylov"),
         (cfg.linear_solver_prec not in ("JACOBI", "LU_SGS", "ILU0"),
          f"LINEAR_SOLVER_PREC= {cfg.linear_solver_prec}",
          blockcsr.UNPORTED_PREC.get(cfg.linear_solver_prec,
                                     "su2_tpu.linalg.blockcsr")),
-        (bool(cfg.marker_monitoring), "MARKER_MONITORING (force "
-         "coefficients and forces_breakdown.dat)", "su2_tpu.solvers.forces"),
-        (cfg.conv_criteria == "CAUCHY", "CONV_CRITERIA= CAUCHY",
-         "su2_tpu.driver"),
     ]
     for bad, what, where in checks:
         if bad:
@@ -136,12 +134,9 @@ class Simulation:
         self.lib = self.lib_host.to(self.device)
 
         if raw_mesh is None:
-            if cfg.mesh_format != "SU2":
-                raise NotImplementedError(
-                    f"MESH_FORMAT= {cfg.mesh_format}: not ported; "
-                    "su2_tpu.io.cgns_mesh has it")
-            from su2_tpu_torch.io.mesh import read_su2_mesh
-            raw_mesh = read_su2_mesh(cfg.resolve(cfg.mesh_filename))
+            from su2_tpu_torch.io.cgns_mesh import read_mesh
+            raw_mesh = read_mesh(cfg.resolve(cfg.mesh_filename),
+                                 cfg.mesh_format)
         raw = raw_mesh
         self.raw = raw
         self.perm = None
@@ -201,8 +196,18 @@ class Simulation:
                 self.grid.node_nbrs, self.device)
         self.turbulent = cfg.turbulent
         self.history = None
+        self.out_dir = None         # enable_output: where solutions go
+        self._cauchy_hist = []      # CAUCHY's functional, every run
         self._graph = None
         self.u0, self.t0 = self.freestream_solution()
+        self.turb_restart = None
+        if cfg.restart_sol:
+            try:
+                self.u0, self.turb_restart = self.load_restart_state()
+            except FileNotFoundError:
+                print(f"There is no flow restart file!! "
+                      f"{cfg.resolve(cfg.solution_flow_filename)}.")
+                raise
         if not self.turbulent:
             # laminar: no wall distance or SST state, tke_inf stays 0
             self._step = (self._make_implicit_step() if cfg.implicit_flow
@@ -270,9 +275,31 @@ class Simulation:
                 torch.as_tensor(t_guess).to(self.device, self.dtype))
 
     def initial_turb_state(self):
-        """(q, mu_t, grad_k, sigma_k) at the freestream turbulence state."""
+        """(q, mu_t, grad_k, sigma_k) at the freestream turbulence state,
+        or under RESTART_SOL q from the restart file and mu_t, grad_k and
+        sigma_k recomputed from the restarted state (the reference's
+        turbulent LoadRestart ends in Postprocessing): one node-state pass
+        (T2 on the card) and two gradient sweeps."""
         n = self.mesh.npoint
         kw = dict(dtype=self.dtype, device=self.device)
+        if self.turb_restart is not None:
+            q0 = torch.as_tensor(self.turb_restart).to(**kw)
+            lay = self.lay
+            nsd = st.node_state(self.lib, lay, self.u0, self.t0,
+                                self.tparams, turb_ke=q0[:, 0])
+            v = nsd.v
+            grad = es.compute_gradients(
+                self.mesh, self.params,
+                vis.ns_gradient_vars(self.lib, lay, v, xs=nsd.xs))
+            strain, _ = sst.strain_and_vorticity(lay, grad)
+            gq = es.compute_gradients(self.mesh, self.params, q0)
+            f1, f2, _ = sst.blending(q0[:, 0], q0[:, 1], gq[:, 0, :],
+                                     gq[:, 1, :], nsd.mu, v[:, lay.PRHO],
+                                     self.wall_dist)
+            mu_t0 = sst.eddy_viscosity(v[:, lay.PRHO], q0[:, 0], q0[:, 1],
+                                       strain, f2)
+            return (q0, mu_t0, gq,
+                    f1 * sst.SIGMA_K1 + (1.0 - f1) * sst.SIGMA_K2)
         q0 = torch.tensor([[self.kine_inf, self.omega_inf]], **kw).repeat(n, 1)
         mu_t0 = torch.full((n,), min(self.mut_inf, 1.0), **kw)
         grad_k0 = torch.zeros((n, 2, self.lay.ndim), **kw)
@@ -503,15 +530,169 @@ class Simulation:
         return turb_phase
 
     # ------------------------------------------------------------------
+    def load_restart_state(self):
+        """RESTART_SOL= YES: the conserved state (a tensor in the node
+        order of the Simulation) and the SST's (k, omega) (numpy, None when
+        laminar) of the SU2-format restart SOLUTION_FLOW_FILENAME
+        (Load_Restart, solver_direct_reactive.cpp:566; SST columns
+        solver_direct_turbulent.cpp:2839)."""
+        from su2_tpu_torch.io import restart as rio
+        path = self.cfg.resolve(self.cfg.solution_flow_filename)
+        nturb = 2 if self.cfg.turbulent else 0
+        u, turb = rio.read_restart(path, self.lay.ndim, self.lay.nvar, nturb)
+        if self.perm is not None:
+            u = u[self.perm]
+            turb = turb[self.perm] if turb is not None else None
+        return torch.as_tensor(u).to(self.device, self.dtype), turb
+
+    def to_file_order(self, arr):
+        """A per-node host array from the node order of the Simulation
+        (stencil renumbering, self.perm) back to the mesh file's: the
+        order of every file it writes or reads."""
+        arr = np.asarray(arr)
+        if self.perm is None:
+            return arr
+        out = np.empty_like(arr)
+        out[self.perm] = arr
+        return out
+
     def enable_output(self, out_dir: str | None = None):
-        """Write the convergence history (history writer of the JAX
-        package's COutput role; no turbulence columns when laminar)."""
+        """Turn on the history file (no turbulence columns when laminar)
+        and the solution files of write_solution, in out_dir (default: the
+        working directory): the COutput role."""
         from su2_tpu_torch.io.output import HistoryWriter
         base = out_dir or os.getcwd()
+        self.out_dir = base
         self.history = HistoryWriter(
             os.path.join(base, self.cfg.conv_filename + ".dat"),
             self.lay.nvar, 2 if self.turbulent else 0,
             cfl=self.cfg.cfl_number)
+
+    def write_solution(self, u, t_guess, turb=None):
+        """The restart file, the OUTPUT_FORMAT volume file and the surface
+        file over MARKER_PLOTTING (every marker where it lists none) of
+        the state (u, t_guess, turb = (q, mu_t) or None), in the mesh
+        file's node order, into enable_output's directory: one node-state
+        pass on the state's device (T2 on the card), then host NumPy."""
+        from su2_tpu_torch.io import output as out, restart as rio
+        cfg = self.cfg
+        base = self.out_dir or os.getcwd()
+        nsd = st.node_state(self.lib, self.lay, u, t_guess, self.tparams,
+                            turb_ke=turb[0][:, 0] if turb is not None
+                            else None)
+        unpermute = self.to_file_order
+        rio.write_restart(os.path.join(base, cfg.restart_flow_filename),
+                          self.raw.coords,
+                          unpermute(nsd.u.cpu().numpy()),
+                          unpermute(turb[0].cpu().numpy())
+                          if turb is not None else None)
+        fields = out._volume_fields(self, nsd.u, nsd.v, nsd.mu,
+                                    *(turb if turb is not None else ()))
+        fields = {k: unpermute(c) for k, c in fields.items()}
+        vol = os.path.join(base, cfg.volume_flow_filename)
+        if cfg.output_format == "PARAVIEW":
+            out.write_paraview_volume(vol + ".vtk", self.raw, fields)
+        elif cfg.output_format == "FIELDVIEW":
+            out.write_fieldview_volume(vol + ".uns", self.raw, fields,
+                                       mach=cfg.mach_number, aoa=cfg.aoa,
+                                       reynolds=cfg.reynolds_number)
+        elif cfg.output_format == "TECPLOT_BINARY":
+            out.write_tecplot_binary_volume(vol + ".plt", self.raw, fields)
+        elif cfg.output_format == "CGNS_SOL":
+            from su2_tpu_torch.io.cgns_out import write_cgns_volume
+            write_cgns_volume(vol + ".cgns", self.raw, fields)
+        else:
+            out.write_tecplot_volume(vol + ".dat", self.raw, fields)
+        tags = [t for t in cfg.marker_plotting or list(self.raw.markers)
+                if t in self.grid.bnd_nodes]
+        if tags:
+            nodes = np.unique(np.concatenate(
+                [self.grid.bnd_nodes[t] for t in tags]))
+            if self.perm is not None:
+                nodes = np.sort(self.perm[nodes])
+            out.write_surface_csv(
+                os.path.join(base, cfg.surface_flow_filename + ".dat"),
+                self.raw, fields, nodes)
+
+    def forces_inputs(self, u, t_guess, turb=None):
+        """(markers, v, grad, mu, kappa, coords, mu_t) of
+        solvers.forces.surface_forces over MARKER_MONITORING: markers
+        {tag: (row ids, normal)}, the rest host arrays at the monitored
+        nodes' rows (grad: the NS gradient set's T and velocity rows; mu_t
+        None when laminar).  One node-state pass (T2 on the card) and one
+        gradient sweep (K7 from 200k nodes) on the state's device, then
+        one copy of the rows to the host."""
+        lay, nd = self.lay, self.lay.ndim
+        tags = [t for t in self.cfg.marker_monitoring
+                if t in self.grid.bnd_nodes]
+        nodes = (np.unique(np.concatenate([self.grid.bnd_nodes[t]
+                                           for t in tags]))
+                 if tags else np.zeros(0, np.int64))
+        nsd = st.node_state(self.lib, lay, u, t_guess, self.tparams,
+                            turb_ke=turb[0][:, 0] if turb is not None
+                            else None)
+        grad = es.compute_gradients(
+            self.mesh, self.params,
+            vis.ns_gradient_vars(self.lib, lay, nsd.v, xs=nsd.xs))
+        idx = torch.as_tensor(nodes, device=self.device)
+        cols = [nsd.v, grad[:, :1 + nd, :].flatten(1), nsd.mu[:, None],
+                nsd.kappa[:, None], self.mesh.coords]
+        if turb is not None:
+            cols.append(turb[1][:, None])
+        widths = [c.shape[1] for c in cols]
+        rows = torch.cat([c.index_select(0, idx) for c in cols],
+                         dim=1).cpu().numpy()
+        v, g, mu, kappa, coords, *mu_t = np.split(
+            rows, np.cumsum(widths)[:-1], axis=1)
+        np_dtype = rows.dtype
+        markers = {t: (np.searchsorted(nodes, self.grid.bnd_nodes[t]),
+                       self.grid.bnd_normal[t].astype(np_dtype))
+                   for t in tags}
+        return (markers, v, g.reshape(len(nodes), 1 + nd, nd), mu[:, 0],
+                kappa[:, 0], coords, mu_t[0][:, 0] if mu_t else None)
+
+    def monitor_forces(self, u, t_guess, turb=None):
+        """Force coefficients over MARKER_MONITORING (COutput monitoring)
+        of the state (u, t_guess, turb = (q, mu_t) or None)."""
+        from su2_tpu_torch.solvers import forces as ff
+        cfg = self.cfg
+        markers, v, grad, mu, kappa, coords, mu_t = self.forces_inputs(
+            u, t_guess, turb)
+        _, _, p_inf, rho_inf, vel_inf, _ = self.freestream_primitives()
+        ref_area = cfg.ref_area if cfg.ref_area > 0 else 1.0
+        return ff.surface_forces(
+            self.lay, v, grad, mu, kappa, markers, p_inf, rho_inf, vel_inf,
+            ref_area, viscous=cfg.viscous, mu_t=mu_t, coords=coords,
+            origin=(cfg.ref_origin_moment_x, cfg.ref_origin_moment_y,
+                    cfg.ref_origin_moment_z),
+            ref_len=cfg.ref_length, aoa_deg=cfg.aoa)
+
+    def write_forces_breakdown(self, u, t_guess, turb=None, path=None):
+        """forces_breakdown.dat at the end of a run (SetForces_Breakdown):
+        BREAKDOWN_FILENAME (relative to the working directory) or path.
+        Returns monitor_forces' coefficients."""
+        from su2_tpu_torch.io import output as out
+        forces = self.monitor_forces(u, t_guess, turb)
+        _, t_inf, p_inf, rho_inf, vel_inf, e_inf = \
+            self.freestream_primitives()
+        fs = {
+            "ndim": self.lay.ndim,
+            "Free-stream static pressure": f"{p_inf:g} Pa.",
+            "Free-stream temperature": f"{t_inf:g} K.",
+            "Free-stream density": f"{rho_inf:g} kg/m^3.",
+            "Free-stream velocity":
+                f"({', '.join(f'{x:g}' for x in vel_inf)}) m/s. "
+                f"Magnitude: {float(np.linalg.norm(vel_inf)):g} m/s.",
+            "Free-stream total energy per unit mass":
+                f"{e_inf:g} m^2/s^2.",
+            "Mach number (non-dim)": f"{self.cfg.mach_number:g}",
+            "Angle of attack (AoA)": f"{self.cfg.aoa:g} deg.",
+            "Reference area": f"{self.cfg.ref_area:g} m^2.",
+            "Reference length (moments)": f"{self.cfg.ref_length:g} m.",
+        }
+        out.write_forces_breakdown(
+            path or self.cfg.breakdown_filename, self.cfg, forces, fs)
+        return forces
 
     # ------------------------------------------------------------------
     def _hist_width(self):
@@ -599,16 +780,27 @@ class Simulation:
             t_guess=None, turb_state=None, quiet=False, chunk: int = 1):
         """Main iteration loop (the JAX package's run and _run_chunked):
         chunks of `chunk` iterations through _multistep (on a card, replays
-        of the step's CUDA graph; the trailing k < chunk iterations are one
-        shorter chunk of the same graph).  Each chunk's residuals come back
-        to the host in one copy, for the NaN check (raised at the first
-        bad iteration, before any row of its chunk is written), the
-        history file, the log and the RESIDUAL test (detected at its
-        iteration, the history cut there; the state is the chunk's last).
+        of the step's CUDA graph).  Each chunk's residuals come back to
+        the host in one copy, for the NaN check (raised at the first bad
+        iteration, before any row of its chunk is written), the history
+        file, the log and the RESIDUAL test (detected at its iteration,
+        the history cut there; the state is the chunk's last).
         IGNITION: iteration it runs with the window flag it <
         IGNITION_ITER.  CFL_ADAPT runs one iteration per chunk: the host
         updates the CFL from the density residuals after each
         (SetCFL_Number) and the next iteration reads it.
+
+        The host work follows su2_tpu's numbering.  su2_tpu runs whole
+        chunks while one fits (_run_chunked: after a chunk, the solution
+        where the iterations done divide by WRT_SOL_FREQ) and every other
+        iteration alone (its run, which chunk 1 and CFL_ADAPT select
+        throughout: after iteration it, the history row's forces under
+        MARKER_MONITORING, the solution where it > 0 divides by
+        WRT_SOL_FREQ, and CONV_CRITERIA= CAUCHY on the monitored CD or CL
+        past STARTCONV_ITER).  Here those iterations run as one shorter
+        chunk that ends at each iteration whose state the host reads; the
+        host reads the chunk's final carry, outside the graph.  Solutions
+        are written after enable_output only.
         Returns (u, t_guess, hist (niter, nVar) log10 RMS, turb_state), or
         laminar (u, t_guess, hist)."""
         cfg = self.cfg
@@ -622,6 +814,28 @@ class Simulation:
         nv, nt = self.lay.nvar, 2 if turbulent else 0
         adapt = cfg.cfl_adapt
         per_chunk = 1 if adapt else max(chunk, 1)
+        # the iterations su2_tpu runs in whole chunks
+        nfull = niter // per_chunk * per_chunk if per_chunk > 1 else 0
+        monitor = bool(cfg.marker_monitoring)
+        cauchy = monitor and cfg.conv_criteria == "CAUCHY"
+        writing = self.out_dir is not None
+
+        def needs_forces(gi):
+            """Forces after iteration gi (run alone by su2_tpu): for its
+            history row, or for CAUCHY."""
+            return ((self.history is not None and monitor
+                     and gi % cfg.wrt_con_freq == 0)
+                    or (cauchy and gi > cfg.startconv_iter))
+
+        def reads_state(gi):
+            """Host work after iteration gi (run alone by su2_tpu) that
+            reads its state: forces, or a solution write."""
+            return needs_forces(gi) or (writing and gi > 0
+                                        and gi % cfg.wrt_sol_freq == 0)
+
+        def turb_of(carry):
+            return (carry[2], carry[3]) if turbulent else None
+
         cfl_now = float(cfg.cfl_number)
         rho_res_old = None
         hist = []
@@ -631,6 +845,8 @@ class Simulation:
         converged = False
         while it < niter and not converged:
             k = min(per_chunk, niter - it)
+            if it >= nfull:
+                k = next((j + 1 for j in range(k) if reads_state(it + j)), k)
             ignites = (np.arange(it, it + k) < cfg.ignition_iter
                        if turbulent and cfg.ignition else None)
             carry, block = self._multistep(carry, k, ignites,
@@ -642,6 +858,7 @@ class Simulation:
                                    f"{it + int(np.argmax(bad))}")
             for j in range(k):
                 gi = it + j
+                alone = gi >= nfull
                 rms_np = block[j, :nv]
                 log_rms = np.log10(np.maximum(rms_np, 1e-300))
                 log_trms = np.log10(np.maximum(
@@ -663,10 +880,19 @@ class Simulation:
                     cfl_now = min(max(cfl_now, 1.001 * p[2]), 0.999 * p[3])
                     rho_res_old = rho_new
                     self.cfl_now = cfl_now
+                # an iteration run alone whose state the host reads ends
+                # its chunk: carry is its state
+                forces = (self.monitor_forces(carry[0], carry[1],
+                                              turb_of(carry))
+                          if alone and needs_forces(gi) else None)
                 if self.history is not None and gi % cfg.wrt_con_freq == 0:
                     self.history.write(gi, log_rms,
                                        log_trms if turbulent else None,
+                                       forces=forces,
                                        lin_iters=cfg.linear_solver_iter)
+                if alone and writing and gi > 0 \
+                        and gi % cfg.wrt_sol_freq == 0:
+                    self.write_solution(carry[0], carry[1], turb_of(carry))
                 if not quiet and gi % log_every == 0:
                     turb_cols = (f"Res[k]: {log_trms[0]: .4f}  "
                                  f"Res[w]: {log_trms[1]: .4f}  "
@@ -684,7 +910,22 @@ class Simulation:
                             > cfg.residual_reduction):
                         converged = True
                         break
+                elif cauchy and alone and gi > cfg.startconv_iter:
+                    # a Cauchy series on the monitored functional
+                    # (integration_structure.cpp:425)
+                    self._cauchy_hist.append(
+                        forces["CD"] if cfg.cauchy_func_flow == "DRAG"
+                        else forces["CL"])
+                    ne = cfg.cauchy_elems
+                    if len(self._cauchy_hist) > ne and np.abs(np.diff(
+                            self._cauchy_hist[-ne:])).mean() \
+                            < cfg.cauchy_eps:
+                        converged = True
+                        break
             it += k
+            if not converged and writing and it <= nfull \
+                    and it % cfg.wrt_sol_freq == 0:
+                self.write_solution(carry[0], carry[1], turb_of(carry))
         if not turbulent:
             return carry[0], carry[1], np.array(hist)
         return carry[0], carry[1], np.array(hist), tuple(carry[2:])
@@ -786,19 +1027,13 @@ DEFAULT_CHUNK = 25
 def chunk_size(cfg: Config, env=None) -> int:
     """Iterations per chunk of the CLI's main loop (su2_tpu.driver.main):
     SU2_TPU_CHUNK=<K> where set (at least 1), else 1 under CFL_ADAPT (the
-    host updates the CFL every iteration) and DEFAULT_CHUNK otherwise."""
+    host updates the CFL every iteration) or MARKER_MONITORING (forces in
+    every history row) and DEFAULT_CHUNK otherwise."""
     env = os.environ if env is None else env
     val = env.get("SU2_TPU_CHUNK")
     if val is not None:
         return max(1, int(val))
-    return 1 if cfg.cfl_adapt else DEFAULT_CHUNK
-
-
-# what the CLI writes (MARKER_PLOTTING only selects markers of the files it
-# does not write)
-NO_SOLUTION_FILES = ("su2_tpu_torch writes the history file only: no "
-                     "solution, restart or surface file (su2_tpu.io.output "
-                     "writes them)")
+    return 1 if cfg.cfl_adapt or cfg.marker_monitoring else DEFAULT_CHUNK
 
 
 def main(argv=None):
@@ -817,7 +1052,11 @@ def main(argv=None):
     dtype = torch.float64 if os.environ.get("SU2_TPU_DTYPE") == "float64" \
         else torch.float32
     sim = Simulation(cfg, dtype=dtype, device="cpu" if cpu else "cuda")
-    print(NO_SOLUTION_FILES)
     sim.enable_output()
-    sim.run(niter, chunk=chunk_size(cfg))
+    out = sim.run(niter, chunk=chunk_size(cfg))
+    u, t_guess = out[0], out[1]
+    turb = (out[3][0], out[3][1]) if sim.turbulent else None
+    sim.write_solution(u, t_guess, turb)
+    if cfg.marker_monitoring:
+        sim.write_forces_breakdown(u, t_guess, turb)
     return 0

@@ -1675,3 +1675,63 @@ def test_graph_capture_failure_raises(card, tmp_path):
     sim._step = step
     u, _, hist, _ = sim.run(2, quiet=True)
     assert np.isfinite(hist).all() and sim._graph is not None
+
+
+@pytest.mark.cuda
+def test_restart_reads_back_the_run_bitwise(card, tmp_path):
+    """f32: run(6, chunk=3) through the graph with WRT_SOL_FREQ= 3 writes
+    the restart after 3 and 6 iterations (between chunks, outside the
+    graph); RESTART_SOL= YES reads the last one back: its u and q (as the
+    restarted run starts from them) are the run's final carry bit for
+    bit (an f32 value survives the restart's 15 digits)."""
+    text = th.with_lines(th.write_case(tmp_path), WRT_SOL_FREQ=3)
+    sim = _card_sim(card, text, torch.float32)
+    sim.enable_output(str(tmp_path))
+    u, _, hist, turb = sim.run(6, quiet=True, chunk=3)
+    assert np.isfinite(hist).all() and sim._graph is not None
+    assert (tmp_path / "flow.dat").is_file()
+    back = _card_sim(card, th.with_lines(
+        text, RESTART_SOL="YES",
+        SOLUTION_FLOW_FILENAME=str(tmp_path / "restart_flow.dat")),
+        torch.float32)
+    assert torch.equal(back.u0, u)
+    assert torch.equal(back.initial_turb_state()[0], turb[0])
+
+
+def _forces_leaves(forces):
+    if isinstance(forces, dict):
+        return [x for k in sorted(forces) for x in _forces_leaves(forces[k])]
+    if isinstance(forces, tuple):
+        return [x for f in forces for x in _forces_leaves(f)]
+    return [float(forces)]
+
+
+@pytest.mark.cuda
+def test_restart_and_forces_card_vs_cpu(card, tmp_path):
+    """f64, from a restart of a mixed state: the recomputed mu_t, grad_k
+    and sigma_k (T2 and the gradient on the card) agree with the CPU's at
+    rtol 1e-9, atol 1e-12 max|field|; monitor_forces over both walls
+    (T2 on the card, the markers' rows copied to the host) at rtol 1e-9,
+    atol 1e-12 th.force_scale."""
+    from su2_tpu_torch import kernels
+    text = th.write_case(tmp_path)
+    src = th.torch_sim(text)
+    src.enable_output(str(tmp_path))
+    src.write_solution(th.tt(th.mixed_state(
+        src, ys=(0.01, 0.1, 0.59, 0.05, 0.15, 0.02, 0.03, 0.03, 0.02),
+        seed=1)), src.t0, src.initial_turb_state()[:2])
+    rtext = th.with_lines(
+        text, RESTART_SOL="YES",
+        SOLUTION_FLOW_FILENAME=str(tmp_path / "restart_flow.dat"),
+        MARKER_MONITORING="( lower_wall, upper_wall )")
+    gpu, cpu = _card_sim(card, rtext), th.torch_sim(rtext)
+    kernels.reset_launches()
+    g = gpu.initial_turb_state()
+    assert kernels.launches["node_state"] == 1
+    c = cpu.initial_turb_state()
+    th.assert_fields_close(g, c, 1e-9, 1e-12,
+                           ("q", "mu_t", "grad_k", "sigma_k"))
+    fg = _forces_leaves(gpu.monitor_forces(gpu.u0, gpu.t0, g[:2]))
+    fc = _forces_leaves(cpu.monitor_forces(cpu.u0, cpu.t0, c[:2]))
+    np.testing.assert_allclose(fg, fc, rtol=1e-9,
+                               atol=1e-12 * th.force_scale(cpu))

@@ -42,12 +42,7 @@ def text(tmp_path_factory):
                         "JACOBI")
 
 
-def with_lines(text, **settings):
-    """The cfg text with each KEY= value of settings (replacing the
-    text's own)."""
-    lines = [ln for ln in text.splitlines()
-             if not ln.startswith(tuple(settings))]
-    return "\n".join(lines + [f"{k}= {v}" for k, v in settings.items()])
+with_lines = th.with_lines
 
 
 def variant_text(text, kind):
@@ -247,12 +242,17 @@ def test_cfl_adapt_matches_jax(text, tmp_path):
 
 @pytest.mark.parametrize("env,adapt,want", [
     ({}, False, 25), ({}, True, 1), ({"SU2_TPU_CHUNK": "4"}, False, 4),
-    ({"SU2_TPU_CHUNK": "5"}, True, 5), ({"SU2_TPU_CHUNK": "0"}, False, 1)])
+    ({"SU2_TPU_CHUNK": "5"}, True, 5), ({"SU2_TPU_CHUNK": "0"}, False, 1),
+    ({}, "monitor", 1)])
 def test_main_chunk(text, tmp_path, monkeypatch, env, adapt, want):
     """The CLI's chunk (su2_tpu's main): SU2_TPU_CHUNK where set (at least
-    1), else 1 under CFL_ADAPT and 25 otherwise; main passes it to run."""
+    1), else 1 under CFL_ADAPT or MARKER_MONITORING ("monitor") and 25
+    otherwise; main passes it to run (here a stub returning the start
+    state, which main writes)."""
     from su2_tpu_torch import driver
-    cfg_text = with_lines(text, CFL_ADAPT="YES" if adapt else "NO")
+    cfg_text = with_lines(text, CFL_ADAPT="YES" if adapt is True else "NO")
+    if adapt == "monitor":
+        cfg_text = with_lines(cfg_text, MARKER_MONITORING="( lower_wall )")
     cfg = tmp_path / "case.cfg"
     cfg.write_text(cfg_text.replace("CONFIG_LIB_FILE", "MESH_FILENAME= "
                                     "channel.su2\nCONFIG_LIB_FILE"))
@@ -264,9 +264,12 @@ def test_main_chunk(text, tmp_path, monkeypatch, env, adapt, want):
         monkeypatch.setenv(k, v)
     monkeypatch.chdir(tmp_path)
     chunks = []
-    monkeypatch.setattr(driver.Simulation, "run",
-                        lambda self, niter, chunk=1, **kw: chunks.append(
-                            (niter, chunk)))
+
+    def run(self, niter, chunk=1, **kw):
+        chunks.append((niter, chunk))
+        return self.u0, self.t0, np.zeros((0, self.lay.nvar)), \
+            self.initial_turb_state()
+    monkeypatch.setattr(driver.Simulation, "run", run)
     assert driver.main([str(cfg), "3", "--cpu"]) == 0
     assert chunks == [(3, want)]
     assert driver.chunk_size(driver.Config(str(cfg)), env) == want

@@ -154,9 +154,8 @@ def test_run_chunks_and_history(text, tmp_path):
 UNPORTED = [
     ({"LINEAR_SOLVER_PREC": "LINELET"}, "su2_tpu.linalg.linelet"),
     ({"SPATIAL_ORDER_FLOW": "2ND_ORDER"}, "su2_tpu.solvers.euler"),
-    ({"MARKER_MONITORING": "( lower_wall, upper_wall )"},
-     "su2_tpu.solvers.forces"),
-    ({"CONV_CRITERIA": "CAUCHY"}, "su2_tpu.driver"),
+    ({"MGLEVEL": "1"}, "su2_tpu.multigrid"),
+    ({"SYSTEM_MEASUREMENTS": "US"}, "su2_tpu.units"),
     ({"KIND_TURB_MODEL": "NONE", "LINEAR_SOLVER": "BCGSTAB"},
      "su2_tpu.linalg.krylov"),
     ({"CONV_NUM_METHOD_FLOW": "ROE"}, "su2_tpu.ops"),
@@ -170,10 +169,9 @@ UNPORTED = [
                  + f"-{w}") for o, w in UNPORTED])
 def test_unported_options_raise(text, settings, where):
     """Options outside the port raise, naming the su2_tpu module that runs
-    them: explicit flow with MUSCL (convective_residual), the force
-    monitoring and the CAUCHY convergence test it has no counterpart of,
-    BCGSTAB, also in a laminar run (KIND_TURB_MODEL= NONE, which the port
-    runs since the laminar slice)."""
+    them: explicit flow with MUSCL (convective_residual), multigrid, US
+    units, BCGSTAB, also in a laminar run (KIND_TURB_MODEL= NONE, which
+    the port runs since the laminar slice)."""
     lines = [ln for ln in text.splitlines()
              if not ln.startswith(tuple(settings))]
     with pytest.raises(NotImplementedError, match=where.replace(".", r"\.")):
@@ -207,17 +205,16 @@ def test_cli_two_iterations(tmp_path):
 
 def _cli_implicit(tmp_path, prec):
     """The implicit-flow case with prec through the CLI with --cpu: exits
-    0, says on a line of its own that it writes no solution file, and the
-    history has 2 finite rows."""
-    from su2_tpu_torch.driver import NO_SOLUTION_FILES
+    0, writes the restart and the volume file, and the history has 2
+    finite rows."""
     cfg, env = _cli_case(tmp_path)
     cfg.write_text(th.with_implicit(cfg.read_text(), prec=prec))
     proc = subprocess.run([sys.executable, "-m", "su2_tpu_torch", "--cpu",
                            str(cfg), "2"], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert NO_SOLUTION_FILES in proc.stdout.splitlines()
-    assert "su2_tpu.io.output" in NO_SOLUTION_FILES
+    assert (tmp_path / "restart_flow.dat").is_file()
+    assert (tmp_path / "flow.dat").is_file()
     with open(tmp_path / "history.dat") as f:
         rows = [ln for ln in f.read().splitlines()
                 if ln and ln[0].isdigit()]

@@ -66,17 +66,48 @@ def torch_sim(text, shape=CHANNEL):
                       dtype=torch.float64, device="cpu")
 
 
-def tri_meshes(shape=CHANNEL, seed=0):
-    """(JAX RawMesh, port RawMesh) of cases.tri_channel_mesh(*shape, seed):
-    the channel split into triangles, nodes in a seeded random order."""
+def jax_raw(raw):
+    """The port's RawMesh raw as a copy in su2_tpu's RawMesh."""
     from su2_tpu.io.mesh import RawMesh
-    raw = cases.tri_channel_mesh(*shape, seed=seed)
     return RawMesh(ndim=raw.ndim, coords=raw.coords.copy(),
                    elem_types=raw.elem_types.copy(),
                    elem_nodes=raw.elem_nodes.copy(),
                    markers={t: m.copy() for t, m in raw.markers.items()},
                    marker_types={t: m.copy()
-                                 for t, m in raw.marker_types.items()}), raw
+                                 for t, m in raw.marker_types.items()})
+
+
+def tri_meshes(shape=CHANNEL, seed=0):
+    """(JAX RawMesh, port RawMesh) of cases.tri_channel_mesh(*shape, seed):
+    the channel split into triangles, nodes in a seeded random order."""
+    raw = cases.tri_channel_mesh(*shape, seed=seed)
+    return jax_raw(raw), raw
+
+
+def force_scale(sim):
+    """The scale of the port Simulation sim's force coefficients over
+    MARKER_MONITORING: the coefficient of the freestream pressure on every
+    monitored vertex (the markers' summed |normal|, times the largest
+    moment arm over the reference length where above 1).  A coefficient
+    differences pressures of ~1e5 Pa down to O(1), so a state's atol
+    ATOL_FRAC*max|p| carries over to it as ATOL_FRAC times this scale."""
+    cfg, grid = sim.cfg, sim.grid
+    _, _, p_inf, rho_inf, vel_inf, _ = sim.freestream_primitives()
+    q_dyn = 0.5 * rho_inf * float(np.dot(vel_inf, vel_inf)) \
+        * (cfg.ref_area if cfg.ref_area > 0 else 1.0)
+    tags = cfg.marker_monitoring
+    arm = max(np.abs(grid.coords[grid.bnd_nodes[t]]
+                     - cfg.ref_origin_moment_x).max() for t in tags)
+    area = sum(np.abs(grid.bnd_normal[t]).sum() for t in tags)
+    return p_inf * area * max(1.0, arm / cfg.ref_length) / q_dyn
+
+
+def with_lines(text, **settings):
+    """The cfg text with each KEY= value of settings (replacing the
+    text's own)."""
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith(tuple(settings))]
+    return "\n".join(lines + [f"{k}= {v}" for k, v in settings.items()])
 
 
 def tri_sims(text, shape=CHANNEL, seed=0):
