@@ -154,6 +154,18 @@ Phases (one line each; any failure exits nonzero):
              CGNS_SOL, MESH_FORMAT= CGNS) needs h5py, an optional
              dependency this script does not take on:
              tests/test_torch_output.py holds it on the CPU
+  options    (before graph) the slice's options (OPTION_PATHS) at 9,072
+             nodes in float64, card vs CPU through the entry points a
+             user calls: dual time BDF2 explicit and BDF1 implicit
+             LU_SGS (run_unsteady, 2 physical steps of 2 inner
+             iterations), explicit MUSCL on the channel and the triangle
+             channel (T1 on the face rows), CLIPPING_TEMPRATURE (T2),
+             BCGSTAB on the implicit LU_SGS case (the flow's and the
+             SST's solves through K5's sweep-only and matvec-only forms,
+             counted exactly) and LINELET on the implicit case (3
+             iterations of run from 10 card iterations); each then
+             through graph_check (options_phase); T2 with the clip
+             against its plain version in phase 3
 The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}.
 
@@ -192,9 +204,10 @@ source caps its offset loop, built with the cap at the mesh's K; T4 at
 9,072 and 565,500 nodes on the step's column views); K13 as time_k13
 says (the edge pass and the whole call on the 9,072- and 142,317-node
 triangle channel; K8's slot pass at 565,500 nodes, the same per-edge
-body); T1, K9 and K12 as time_t1_k9_k12 says (T1 on a boundary batch,
-K9 on the 565,500-node case's inlet, K12 at 9,072 and 565,500 nodes with
-its bound); K11 as time_k11 says (feature-major, the laminar implicit
+body); T1, K9 and K12 as time_t1_k9_k12 says (T1 on a boundary batch
+and on the 565,500-node case's MUSCL face rows with its bound, K9 on the
+565,500-node case's inlet, K12 at 9,072 and 565,500 nodes with its
+bound); K11 as time_k11 says (feature-major, the laminar implicit
 case's family slots at 9,072 and 565,500 nodes, with its bound);
 float32, cuda_time's median ms (host work included) and, for T1, T2, K6,
 K7, K9, K11, T4, K12 and K13, device_ms (the kernels alone,
@@ -217,9 +230,17 @@ twice; for both the run's profile over one chunk of 3 iterations
 (profile_run: device kernels, su2k kernels, busy ms, CUDA API calls per
 iteration).  One JSON line per path, then one for all.
 
+    python3 chip_smoke.py --time-options
+
+times the slice's options in float32 (options_time_main): the explicit
+LU_SGS case first order and with MUSCL at 9,072 and 565,500 nodes, the
+implicit LU_SGS case with FGMRES, BCGSTAB and LINELET at 9,072, dual time
+per physical step, T1 on the 565,500-node MUSCL face rows; one JSON line.
+
     python3 chip_smoke.py --bitwise DIR
 
-holds K7 and T4 of this checkout against those of the checkout DIR bit
+holds T2 (CLIPPING_TEMPRATURE off), K7 and T4 of this checkout against
+those of the checkout DIR bit
 for bit on the 565,500-node case's inputs, and K13's per-edge outputs and
 node sums on the 9,072- and 142,317-node triangle channel, in float32 and
 float64 (bitwise_main).
@@ -641,6 +662,33 @@ def kernel_phase(tmp, dtype_name, report):
         err, scaled = compare("node_state", dtype_name, got, want)
         phase("kernels", f"node_state float64 bisection path: max_abs_err "
               f"{err:.3e} ({scaled:.2e} of its field's max)")
+    # CLIPPING_TEMPRATURE: the guess 10 % off at every other node, where
+    # the clip to [0.95, 1.05] t_guess binds; full and lite
+    from dataclasses import replace
+    pc = replace(p, clip_temp=True)
+    tg = x["t_guess"] * torch.where(
+        torch.arange(n, device="cuda") % 2 == 0, 1.1, 1.0).to(dtype)
+    kfn = lambda: (list(kernels.node_state(lib, lay, pc, x["u"], tg,
+                                           x["tke"]))
+                   + list(kernels.node_state(lib, lay, pc, x["u"], tg,
+                                             x["tke"], lite=True)))
+    got = kfn()
+    want = (list(vars(st.node_state_plain(lib, lay, x["u"], tg, pc,
+                                          x["tke"])).values())
+            + list(vars(st.node_state_lite_plain(lib, lay, x["u"], tg, pc,
+                                                 x["tke"])).values()))
+    torch.cuda.synchronize()
+    err, scaled = compare("node_state", dtype_name, got, want)
+    free = kernels.node_state(lib, lay, p, x["u"], tg, x["tke"])[1][:, 0]
+    binds = int(((free - got[1][:, 0]).abs() > 1.0).sum())
+    if not 0 < binds < n:
+        raise AssertionError(f"node_state clip: binds at {binds} of {n}")
+    ms = cuda_time(kfn)
+    report["node_state"][f"clip {dtype_name}"] = dict(
+        max_abs_err=err, ms=ms, nodes_clipped=binds)
+    phase("kernels", f"node_state {dtype_name} with CLIPPING_TEMPRATURE "
+          f"(binds at {binds} of {n} nodes), full + lite: max_abs_err "
+          f"{err:.3e} ({scaled:.2e} of its field's max), {ms:.4f} ms")
 
 
 def grad_operator(mesh, mode, dtype):
@@ -1417,11 +1465,11 @@ def capture_systems(sim, steps=3):
     make_ops, fgmres = blockcsr.make_solver_ops_stencil_t, krylov.fgmres
 
     def rec_ops(mesh, diag, sel_t, kind, colors=None, ncolor=0,
-                linear_iter=5):
+                linear_iter=5, *more, **kw):
         sys_ = rec.setdefault(diag.shape[-1], {})
         sys_.update(diag=diag, sel_t=sel_t, colors=colors, ncolor=ncolor)
         mv, pc, pm, solve = make_ops(mesh, diag, sel_t, kind, colors, ncolor,
-                                     linear_iter)
+                                     linear_iter, *more, **kw)
         if solve is None:
             return mv, pc, pm, None
 
@@ -1985,7 +2033,7 @@ def step_groups():
             (viscous_t, "viscous_flux_t", "boundary flux and Jacobians"),
             (es, "convective_system_fam", "convective system"),
             (es, "convective_residual", "convective residual"),
-            (ns, "_laminar_edge_viscous", "laminar viscous flux"),
+            (ns, "_edge_viscous", "edge-list viscous flux"),
             (es, "chemistry_source_system", "chemistry source"),
             (es, "chemistry_source_residual", "chemistry source"),
             (blockcsr, "block_diag_inv", "block inverse"),
@@ -2099,18 +2147,19 @@ def run_state(out, lam):
     return (out[0], out[1]) + (() if lam else tuple(out[3]))
 
 
-def eager_iterations(sim, state, niter, chunk=25):
+def eager_iterations(sim, state, niter, chunk=25, dual=None):
     """niter iterations of sim's step run eagerly (Simulation._body: sim.
     _step, each kernel launched from the host, and its history row) from
-    state, the rows of each chunk copied to the host at once: the run
-    loop before the graph.  Returns the final state."""
+    state (dual: the (u_n, u_nm1) of dual time stepping), the rows of each
+    chunk copied to the host at once: the run loop before the graph.
+    Returns the final state."""
     import torch
     it = 0
     while it < niter:
         k = min(chunk, niter - it)
         rows = []
         for _ in range(k):
-            state, row = sim._body(state, None, None)
+            state, row = sim._body(state, None, None, dual)
             rows.append(row)
         torch.stack(rows).cpu()
         it += k
@@ -2177,7 +2226,9 @@ def su2k_by_name(fn):
 
 def graph_check(sim, label, niter=5):
     """The main path of sim through its CUDA graph against the eager step:
-    after a 2-iteration warm-up run (which captures the graph), one eager
+    after a 2-iteration warm-up run (which captures the graph; under dual
+    time stepping two inner iterations of a physical step from the
+    freestream, whose state is then both u_n and u_nm1), one eager
     step under torch.cuda.set_sync_debug_mode("error") (no host sync or
     pageable copy on the step's path), then niter iterations through the
     graph (Simulation._multistep: niter replays) and niter eager
@@ -2193,21 +2244,28 @@ def graph_check(sim, label, niter=5):
     import torch
     from su2_tpu_torch import kernels
     lam = not sim.turbulent
-    state = run_state(sim.run(2, quiet=True), lam)
+    dual = kw = None
+    if sim.dual_order:
+        start = (sim.u0, sim.t0) + tuple(sim.initial_turb_state())
+        state, _ = sim._multistep(start, 2, dual=(sim.u0, sim.u0))
+        dual = (state[0], state[0])
+        kw = dict(u_n=dual[0], u_nm1=dual[1])
+    else:
+        state = run_state(sim.run(2, quiet=True), lam)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        sim._step(*state)
+        sim._step(*state, **(kw or {}))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     kernels.reset_launches()
     carry, rows = state, []
     for _ in range(niter):
-        carry, row = sim._body(carry, None, None)
+        carry, row = sim._body(carry, None, None, dual)
         rows.append(row)
     eager = dict(kernels.launches)
     kernels.reset_launches()
-    gcarry, block = sim._multistep(state, niter)
+    gcarry, block = sim._multistep(state, niter, dual=dual)
     replayed = dict(kernels.launches)
     names = ("u", "t", "q", "mu_t", "grad_k", "sigma_k")
     for name, a, b in zip(names, gcarry, carry):
@@ -2226,8 +2284,10 @@ def graph_check(sim, label, niter=5):
                 f"graph {label}: {k} launched {eager[k]} times in {niter} "
                 f"eager iterations, counted {replayed[k]} in {niter} "
                 f"replays, {g.per_replay[k]} per replay captured")
-    prof_eager = su2k_by_name(lambda: eager_iterations(sim, state, niter))
-    prof_graph = su2k_by_name(lambda: sim._multistep(state, niter))
+    prof_eager = su2k_by_name(lambda: eager_iterations(sim, state, niter,
+                                                       dual=dual))
+    prof_graph = su2k_by_name(lambda: sim._multistep(state, niter,
+                                                     dual=dual))
     off = {k: (prof_graph.get(k, 0), prof_eager.get(k, 0))
            for k in set(prof_graph) | set(prof_eager)
            if abs(prof_graph.get(k, 0) - prof_eager.get(k, 0)) > 1}
@@ -2247,18 +2307,20 @@ def graph_check(sim, label, niter=5):
     return per
 
 
-def graph_phase(tmp, sims, lusgs, lam, tri):
+def graph_phase(tmp, sims, lusgs, lam, tri, seen):
     """graph_check, float32, on the paths that together launch every
     kernel: explicit LU_SGS at 9,072 nodes (T1-T4, K6 as one cluster at
     v = 2), 142,317 (K5 at v = 2) and 565,500 (K7, K8), implicit LU_SGS at
     9,072 (K10, K6 cooperative at v = 13) and 142,317 (K5 at v = 13), the
     laminar implicit LU_SGS case (K11), the triangle channel (K13), a
-    TOTAL_CONDITIONS inlet (K9) and the fused SST assembly (K12).  Fails
-    unless every kernel launched inside a graph."""
+    TOTAL_CONDITIONS inlet (K9) and the fused SST assembly (K12).  seen:
+    the launch counts options_phase's graphs showed (K5's sweep-only and
+    matvec-only forms).  Fails unless every kernel launched inside a
+    graph."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.turbulence import sst
-    seen = set()
+    seen = set(seen)
     for label, sim in (("explicit LU_SGS", sims["flagship"]),
                        ("implicit LU_SGS", lusgs["flagship"]),
                        ("laminar implicit LU_SGS", lam["flagship"]),
@@ -2284,6 +2346,138 @@ def graph_phase(tmp, sims, lusgs, lam, tri):
     missing = sorted(set(kernels.launches) - seen)
     if missing:
         raise AssertionError(f"graph: {missing} launched in no graph")
+
+
+# the slice's options (cfg lines over the case; implicit: the implicit
+# LU_SGS case): label -> (implicit, triangle channel, cfg lines)
+DUAL_LINES = dict(UNST_TIMESTEP="2e-5", UNST_INT_ITER="2")
+MUSCL_LINES = dict(SPATIAL_ORDER_FLOW="2ND_ORDER_LIMITER",
+                   SLOPE_LIMITER_FLOW="VENKATAKRISHNAN")
+OPTION_PATHS = {
+    "dual time BDF2, explicit": (False, False, dict(
+        DUAL_LINES, UNSTEADY_SIMULATION="DUAL_TIME_STEPPING-2ND_ORDER")),
+    "dual time BDF1, implicit LU_SGS": (True, False, dict(
+        DUAL_LINES, UNSTEADY_SIMULATION="DUAL_TIME_STEPPING-1ST_ORDER")),
+    "explicit MUSCL": (False, False, MUSCL_LINES),
+    "explicit MUSCL, triangles": (False, True, MUSCL_LINES),
+    "CLIPPING_TEMPRATURE": (False, False, dict(CLIPPING_TEMPRATURE="YES")),
+    "BCGSTAB, implicit LU_SGS": (True, False, dict(LINEAR_SOLVER="BCGSTAB")),
+    "LINELET, implicit": (True, False, dict(LINEAR_SOLVER_PREC="LINELET")),
+}
+OPTION_NITER = 3
+
+
+def option_case(tmp, label, dtype, device, size="flagship"):
+    """OPTION_PATHS[label] on the channel of SIZES[size]."""
+    implicit, tri, lines = OPTION_PATHS[label]
+    return make_case(tmp, *SIZES[size], dtype, device,
+                     "LU_SGS", tri=tri, settings=lines,
+                     implicit=IMPLICIT_VARIANTS["venkatakrishnan"]
+                     if implicit else None)
+
+
+def option_want(sim, niter):
+    """{kernel: launches} of niter iterations of an OPTION_PATHS case that
+    the card run must show (per-form K5 counts of BCGSTAB's and LINELET's
+    solves exactly: BCGSTAB(m) takes 2m + 1 matvecs and 2m sweeps, FGMRES
+    m matvecs), and the kernels it must not launch."""
+    cfg = sim.cfg
+    imp, tri = cfg.implicit_flow, sim.mesh.stencil_offsets is None
+    muscl = cfg.muscl_flow and not imp
+    want = {"node_state": 2 * niter, "edge_implicit": niter * imp,
+            "chem_source": niter * (not imp),
+            "edge_flux": niter * (not imp and not muscl and not tri),
+            "edge_list_flux": 0}
+    if cfg.linear_solver == "BCGSTAB":
+        want.update(stencil_sweep_only=2 * 2 * KRYLOV_M * niter,
+                    stencil_matvec_only=2 * (2 * KRYLOV_M + 1) * niter,
+                    stencil_fgmres=0)
+    elif cfg.linear_solver_prec == "LINELET":
+        want.update(stencil_sweep_only=0,
+                    stencil_matvec_only=KRYLOV_M * niter)
+    else:
+        want.update(stencil_sweep_only=0, stencil_matvec_only=0)
+    return want
+
+
+def options_phase(tmp, runs):
+    """The slice's options (OPTION_PATHS) in float64 at 9,072 nodes, card
+    against CPU through the entry points a user calls: run_unsteady (2
+    physical steps of 2 inner iterations, its u and T from 10 card
+    iterations of the dual-time step, the turbulence state the
+    freestream's) under dual time stepping, else run (OPTION_NITER
+    iterations, one chunk of graph replays) from the state of 10 card
+    iterations; state, history and
+    turbulence state within rtol 1e-9, atol 1e-12 max|field|; the card
+    run's launches (option_want; T1 on the MUSCL face rows: at least two
+    launches an iteration) appended to runs; then graph_check of the card
+    case (bit for bit its eager step).  Returns the launch counts the
+    graphs showed."""
+    import torch
+    from su2_tpu_torch import kernels
+    seen = set()
+    for label in OPTION_PATHS:
+        t0 = time.perf_counter()
+        gpu = option_case(tmp, label, torch.float64, "cuda")
+        cpu = option_case(tmp, label, torch.float64, "cpu")
+        if gpu.dual_order:
+            niter = 2 * gpu.cfg.unst_int_iter
+            # both start from the state of 10 card iterations of the
+            # dual-time step (which capture its graph), as step_phase's
+            # comparisons start from a developed state
+            start = (gpu.u0, gpu.t0) + tuple(gpu.initial_turb_state())
+            dev, _ = gpu._multistep(start, 10, dual=(gpu.u0, gpu.u0))
+            gpu.u0, gpu.t0 = dev[0], dev[1]
+            cpu.u0, cpu.t0 = dev[0].cpu(), dev[1].cpu()
+            kernels.reset_launches()
+            got = gpu.run_unsteady(2, quiet=True)
+            counts = dict(kernels.launches)
+            want = cpu.run_unsteady(2, quiet=True)
+        else:
+            niter = OPTION_NITER
+            start = run_state(gpu.run(10, quiet=True), False)
+            kernels.reset_launches()
+            got = gpu.run(niter, u=start[0], t_guess=start[1],
+                          turb_state=start[2:], quiet=True, chunk=niter)
+            counts = dict(kernels.launches)
+            cs = tuple(x.cpu() for x in start)
+            want = cpu.run(niter, u=cs[0], t_guess=cs[1], turb_state=cs[2:],
+                           quiet=True, chunk=niter)
+        worst = 0.0
+        names = ("u", "t", "hist", "q", "mu_t", "grad_k", "sigma_k")
+        for nm, a, b in zip(names, got[:3] + tuple(got[3]),
+                            want[:3] + tuple(want[3])):
+            a = torch.as_tensor(a).cpu().double()
+            b = torch.as_tensor(b).double()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{label}: non-finite {nm}")
+            err = (a - b).abs()
+            if not bool((err <= 1e-9 * b.abs()
+                         + 1e-12 * b.abs().max()).all()):
+                raise AssertionError(f"{label} {nm}: card vs CPU max err "
+                                     f"{err.max().item():.3e} outside rtol "
+                                     "1e-9, atol 1e-12*max|field|")
+            worst = max(worst, err.max().item()
+                        / max(b.abs().max().item(), 1e-300))
+        for k, c in option_want(gpu, niter).items():
+            if counts[k] != c:
+                raise AssertionError(f"{label}: {k} launched {counts[k]} "
+                                     f"times in {niter} card iterations, "
+                                     f"expected {c}")
+        muscl = gpu.cfg.muscl_flow and not gpu.cfg.implicit_flow
+        if muscl and counts["mixture_enthalpy"] < 2 * niter:
+            raise AssertionError(f"{label}: T1 launched "
+                                 f"{counts['mixture_enthalpy']} times")
+        runs.append((f"{gpu.mesh.npoint} f64 {label}", counts, niter))
+        phase("options", f"{label}: {niter} iterations at "
+              f"{gpu.mesh.npoint} nodes f64, card vs CPU within rtol 1e-9,"
+              f" atol 1e-12*max|field| (largest difference {worst:.3e} of "
+              f"its field's max); card launches {counts}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        seen |= set(graph_check(gpu, f"{label} (f64)"))
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    return seen
 
 
 def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
@@ -3018,10 +3212,51 @@ def time_k13(tmp, out):
     torch.cuda.empty_cache()
 
 
+def muscl_face_inputs(sim):
+    """(T (2E,), Y (2E, S)) of the explicit MUSCL step's face rows on sim's
+    edge list, both sides (the rows its T1 call reads, made contiguous):
+    kernel_inputs' state through the plain node state, T reconstructed
+    from the plain gradients at the edge midpoints, Y the node's.  Only
+    calls both checkouts of an A/B run share."""
+    import torch
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.solvers import euler as es
+    lay, mesh = sim.lay, sim.mesh
+    x = kernel_inputs(sim)
+    v = st.node_state_plain(sim.lib, lay, x["u"], x["t_guess"], x["p"],
+                            x["tke"]).v
+    g = es.compute_gradients(mesh, sim.params, es.gradient_vars(lay, v))
+    i, j = mesh.edges[:, 0], mesh.edges[:, 1]
+    half = 0.5 * (mesh.coords[j] - mesh.coords[i])
+    t = torch.cat([v[i, lay.T] + (g[i, 0] * half).sum(1),
+                   v[j, lay.T] - (g[j, 0] * half).sum(1)])
+    ys = torch.cat([v[i, lay.YS:], v[j, lay.YS:]]).contiguous()
+    return t.contiguous(), ys
+
+
+def time_t1_faces(sim, out):
+    """T1 (kernels.mixture_enthalpy) on muscl_face_inputs' rows with
+    time_call and its bound (bytes: T, Y and h once; operations: as
+    kernel_phase counts them)."""
+    from su2_tpu_torch import kernels
+    t, ys = muscl_face_inputs(sim)
+    call = lambda: kernels.mixture_enthalpy(sim.lib, t, ys)
+    label = f"T1 {t.shape[0]} MUSCL face rows ({sim.mesh.npoint} nodes)"
+    time_call(out, label, call)
+    lib = sim.lib
+    bound = bound_of(nbytes([t, ys, call(), lib.h_y, lib.h_y2, lib.mm]),
+                     12 * lib.nspecies * t.shape[0],
+                     str(t.dtype).split(".")[-1])
+    out[label].update(bound_ms=bound[0], bound_by=bound[1],
+                      device_share_of_bound=bound[0]
+                      / out[label]["device_ms"])
+
+
 def time_t1_k9_k12(tmp, out, only):
     """The kernels of only among T1, K9 and K12 in f32, each with
     time_call: T1 (kernels.mixture_enthalpy) on kernel_phase's boundary
-    batch of the 9,072-node case, K9 (solvers.inlet_tc.solve) on
+    batch of the 9,072-node case and on the 565,500-node case's MUSCL
+    face rows (time_t1_faces), K9 (solvers.inlet_tc.solve) on
     k9_inputs' inflow batch of the 565,500-node case's inlet (377
     vertices), K12 (turbulence.sst_assemble.sst_assemble) on sst_inputs'
     arguments at 9,072 and 565,500 nodes, with its bound (k12_bound)."""
@@ -3042,6 +3277,8 @@ def time_t1_k9_k12(tmp, out, only):
             time_call(out, f"T1 {nb} boundary nodes",
                       lambda: kernels.mixture_enthalpy(sim.lib, tb, yb))
             del x, v
+        if "T1" in only and size == "tier":
+            time_t1_faces(sim, out)
         if "K9" in only and size == "tier":
             tcs, tcx = k9_inputs(sim, sim.lib, sim.mesh, torch.float32, 15)
             time_call(out, f"K9 {tcx[0].shape[0]} vertices",
@@ -3402,7 +3639,8 @@ def k13_bitwise(tmp, size, dtype, okern, result):
 
 
 def bitwise_main(other):
-    """--bitwise DIR: K7 (WLS and GG, the flow's 13 gradient variables)
+    """--bitwise DIR: T2 (full and lite, CLIPPING_TEMPRATURE off), K7 (WLS
+    and GG, the flow's 13 gradient variables)
     and T4 (PaSR on, the step's column views) of this checkout against
     those of the checkout DIR (its kernels.py loaded as a module of its
     own, its library built from its sources) on the 565,500-node case's
@@ -3425,7 +3663,14 @@ def bitwise_main(other):
             lay, v = sim.lay, nsd.v
             omt = torch.stack([x["tke"], x["omt"]], dim=1)[:, 1]
             cols = (v[:, lay.T], v[:, lay.PRHO], v[:, lay.YS:], omt)
+            t2 = (lib, lay, x["p"], x["u"], x["t_guess"], x["tke"])
             calls = {
+                # every output, each exactly widened to float64
+                "T2 full": lambda k: torch.cat(
+                    [o.double().flatten() for o in k.node_state(*t2)]),
+                "T2 lite": lambda k: torch.cat(
+                    [o.double().flatten()
+                     for o in k.node_state(*t2, lite=True)]),
                 "K7 WLS": lambda k: k.gradient_rows(q, mesh.wls_coeff,
                                                     mesh.stencil_offsets),
                 "K7 GG": lambda k: k.gradient_rows(
@@ -3552,6 +3797,81 @@ def run_loop_main(root):
     return 0
 
 
+def time_run(sim, niter):
+    """ms/iter of niter iterations of sim.run (replays of the step's graph,
+    chunks of 25) after a 2-iteration warm-up that captures it, and
+    profile_run's device kernels per replay, device busy and span ms per
+    iteration from its final state; the graph is dropped after."""
+    import torch
+    start = run_state(sim.run(2, quiet=True), False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.run(niter, u=start[0], t_guess=start[1], turb_state=start[2:],
+                  quiet=True, chunk=25)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / niter
+    if not torch.isfinite(out[0]).all():
+        raise AssertionError("time_run: non-finite state")
+    kern, ours, busy, _, _, span = profile_run(sim, run_state(out, False))
+    sim.drop_graph()
+    torch.cuda.empty_cache()
+    return dict(ms=ms, kernels_per_iter=kern, su2k_per_iter=ours,
+                busy_ms=busy, span_ms=span)
+
+
+def options_time_main(root):
+    """--time-options: the slice's options on the card in float32, timed
+    through Simulation.run (time_run) in one call: the explicit LU_SGS
+    case first order and with MUSCL (Venkatakrishnan) at 9,072 x 50 and
+    565,500 x 10; the implicit LU_SGS case (MUSCL + Venkatakrishnan) at
+    9,072 x 20 with FGMRES, BCGSTAB and LINELET; dual time BDF2 on the
+    explicit case at 9,072 nodes (UNST_INT_ITER 25: ms per physical step
+    of run_unsteady over 4 steps, after a 1-step run that captures the
+    graph); T1 on the 565,500-node MUSCL face rows (time_t1_faces).  One
+    JSON line."""
+    import torch
+    from su2_tpu_torch import kernels
+    card = card_line()
+    kernels.build()
+    result = dict(root=root, card=card)
+    venk = IMPLICIT_VARIANTS["venkatakrishnan"]
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as tmp:
+        for size, niter in (("flagship", 50), ("tier", 10)):
+            for label, lines in (("first order", {}),
+                                 ("MUSCL", MUSCL_LINES)):
+                sim = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                                settings=lines)
+                key = f"{sim.mesh.npoint} explicit LU_SGS {label}"
+                result[key] = time_run(sim, niter)
+                print(f"options {key}: {result[key]}", flush=True)
+                if size == "tier" and label == "MUSCL":
+                    time_t1_faces(sim, result)
+                del sim
+        for label, lines in (("FGMRES LU_SGS", {}),
+                             ("BCGSTAB LU_SGS", dict(LINEAR_SOLVER="BCGSTAB")),
+                             ("FGMRES LINELET",
+                              dict(LINEAR_SOLVER_PREC="LINELET"))):
+            sim = make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
+                            implicit=venk, settings=lines)
+            key = f"{sim.mesh.npoint} implicit {label}"
+            result[key] = time_run(sim, 20)
+            print(f"options {key}: {result[key]}", flush=True)
+            del sim
+        sim = make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
+                        settings=dict(OPTION_PATHS[
+                            "dual time BDF2, explicit"][2],
+                            UNST_INT_ITER="25"))
+        sim.run_unsteady(1, quiet=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run_unsteady(4, quiet=True)
+        torch.cuda.synchronize()
+        result[f"{sim.mesh.npoint} dual time BDF2 explicit, 25 inner"] = \
+            dict(ms_per_physical_step=(time.perf_counter() - t0) * 1e3 / 4)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of su2_tpu_torch "
@@ -3560,6 +3880,8 @@ def main():
     ap.add_argument("--run-loop", action="store_true",
                     help="time the run loop of the checkout --root on "
                     "RUN_LOOP_PATHS (run_loop_main)")
+    ap.add_argument("--time-options", action="store_true",
+                    help="time the slice's options (options_time_main)")
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--bitwise", metavar="DIR",
                     help="K7, T4 and K13 against those of the checkout "
@@ -3588,6 +3910,8 @@ def main():
         return ab_main(root, only)
     if opt.run_loop:
         return run_loop_main(root)
+    if opt.time_options:
+        return options_time_main(root)
     if opt.bitwise:
         return bitwise_main(os.path.abspath(opt.bitwise))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3684,11 +4008,14 @@ def main():
         step_phase(tmp, implicit=main_imp)
         step_phase(tmp, tier=True, implicit=main_imp)
         step_phase(tmp, implicit=main_imp, prec="LU_SGS")
-        # every path of the kernel table through its captured CUDA graph,
-        # bit for bit the eager step (each kernel inside a graph)
-        graph_phase(tmp, sims, lusgs, lam, tri)
         # each run: (label, launch counts, iterations)
         runs = []
+        # the slice's options: dual time, explicit MUSCL, CLIPPING,
+        # BCGSTAB and LINELET, card vs CPU in f64 and through the graph
+        seen = options_phase(tmp, runs)
+        # every path of the kernel table through its captured CUDA graph,
+        # bit for bit the eager step (each kernel inside a graph)
+        graph_phase(tmp, sims, lusgs, lam, tri, seen)
         for size, niter in niters.items():
             runs.append((str(sims[size].mesh.npoint), slice_phase(
                 sims[size], size, niter, card, profile=size == "tier"),
@@ -3807,7 +4134,15 @@ def main():
             # its second launch, the node sums (counted apart)
             row["node_sum_launches"] = sum(c["edge_list_sum"]
                                            for _, c, _ in runs)
+        if name == "node_state":
+            row["clip"] = {dt: report[name][f"clip {dt}"]
+                           for dt in ("float32", "float64")}
         if name == "stencil_sgs_matvec":
+            # its sweep-only and matvec-only forms (BCGSTAB's operators,
+            # LINELET's matvec), counted apart as well
+            for form in ("sweep_only", "matvec_only"):
+                row[f"{form}_launches"] = sum(c[f"stencil_{form}"]
+                                              for _, c, _ in runs)
             mv = report[name][("flow142317", "float32", "matvec")]
             row["matvec_only"] = {k: mv[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "library")}

@@ -62,6 +62,7 @@ namespace su2k {
 struct TSolve {
   double tmin, tmax, secant_tol, bisect_tol;
   int secant_iters, bisect_iters;
+  int clip;   // CLIPPING_TEMPRATURE: T within [0.95, 1.05] t_guess
 };
 
 // table buffer rows, each nt long: h[S] h2[S] cp[S] cp2[S] mu[S] mu2[S]
@@ -212,6 +213,13 @@ node_state_kernel(
       if (f > (T)0) ta = tm; else tbb = tm;
     }
     t = tbis;
+  }
+  if (tp.clip) {
+    // CLIPPING_TEMPRATURE (:505-506): the plain version's clamp to
+    // [0.95, 1.05] t_guess, before the bounds' clip
+    const T lo = (T)0.95 * t_guess[p], hi = (T)1.05 * t_guess[p];
+    t = t < lo ? lo : t;
+    t = t > hi ? hi : t;
   }
   nonphys |= (t < (T)tp.tmin) || (t > (T)tp.tmax);
   t = t < (T)tp.tmin ? (T)tp.tmin : (t > (T)tp.tmax ? (T)tp.tmax : t);
@@ -375,7 +383,8 @@ extern "C" int su2k_node_state(int is_f64, int lite, int n, int nd, int ns,
                                int nt, double t0, double dt, double tmin,
                                double tmax, int secant_iters,
                                double secant_tol, int bisect_iters,
-                               double bisect_tol, const void* u,
+                               double bisect_tol, int clip_temp,
+                               const void* u,
                                const void* t_guess, const void* tke,
                                const void* tab, const void* cst, void* u_out,
                                void* v_out, void* nonphys, void* dtdu,
@@ -385,7 +394,7 @@ extern "C" int su2k_node_state(int is_f64, int lite, int n, int nd, int ns,
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   su2k::TSolve tp{tmin, tmax, secant_tol, bisect_tol, secant_iters,
-                  bisect_iters};
+                  bisect_iters, clip_temp};
   cudaStream_t st = (cudaStream_t)stream;
   if (is_f64)
     return su2k::node_state_by_ns<double>(

@@ -6,10 +6,11 @@ reactive Navier-Stokes, with SST and PaSR (KIND_TURB_MODEL= SST) or
 laminar (NONE), and the AUSM scheme, on meshes with a static neighbour
 stencil; the explicit-flow RANS step also on meshes without one (the
 gather path: triangles, nodes in any order).  The flow is explicit
-(first order; laminar also Runge-Kutta), or implicit (EULER_IMPLICIT,
-first order or MUSCL with or without a limiter);
-the flow and SST systems are solved by FGMRES with the multicolor SGS
-(LU_SGS, ILU0) or JACOBI preconditioner.  One RANS
+(first order or MUSCL; laminar also Runge-Kutta), or implicit
+(EULER_IMPLICIT, first order or MUSCL with or without a limiter);
+the flow and SST systems are solved by FGMRES or BCGSTAB with the
+multicolor SGS (LU_SGS, ILU0), LINELET (the flow's system; the SST's takes
+the sweep) or JACOBI preconditioner.  One RANS
 outer iteration is the segregated sequence of iteration_structure.cpp
 :531-550: flow system (with SST closures), then the SST system on the
 updated flow state; a laminar one is the flow system alone
@@ -22,7 +23,9 @@ copy of the chunk's residuals to the host; on the CPU the step runs
 eagerly.  Between chunks the host writes the history, the solution
 files (restart, volume, surface: write_solution) and the force
 coefficients over MARKER_MONITORING (monitor_forces), and tests CAUCHY;
-RESTART_SOL starts from a restart file.
+RESTART_SOL starts from a restart file.  Dual time stepping
+(DUAL_TIME_STEPPING-1ST/2ND_ORDER) runs the RANS step as the inner
+iterations of run_unsteady, on the card as replays of the same graph.
 """
 
 from __future__ import annotations
@@ -73,24 +76,20 @@ def _unported(cfg: Config):
          f"{cfg.kind_turb_model}", "su2_tpu.turbulence"),
         (cfg.turbulent and not cfg.implicit_turb, "explicit turbulence",
          "su2_tpu.driver"),
-        (cfg.muscl_flow and not cfg.implicit_flow,
-         "MUSCL reconstruction with explicit flow (convective_residual)",
-         "su2_tpu.solvers.euler"),
         (cfg.conv_num_method_flow != "AUSM",
          f"CONV_NUM_METHOD_FLOW= {cfg.conv_num_method_flow}",
          "su2_tpu.ops"),
         (cfg.mglevel > 0, "multigrid", "su2_tpu.multigrid"),
-        (cfg.unsteady_simulation not in ("NO", "STEADY", "TIME_STEPPING"),
-         "dual time stepping", "su2_tpu.solvers.ns"),
+        (cfg.unsteady_simulation not in ("NO", "STEADY", "TIME_STEPPING")
+         and not dual_time_order(cfg), f"UNSTEADY_SIMULATION= "
+         f"{cfg.unsteady_simulation}", "su2_tpu.driver"),
         (bool(cfg.marker_periodic), "periodic markers",
          "su2_tpu.geometry.periodic"),
         (cfg.grid_movement, "grid movement", "su2_tpu.motion"),
         (cfg.axisymmetric or cfg.gravity_force, "axisymmetric/gravity "
          "sources", "su2_tpu.solvers.euler"),
         (cfg.system_measurements == "US", "US units", "su2_tpu.units"),
-        (cfg.linear_solver != "FGMRES", f"LINEAR_SOLVER= "
-         f"{cfg.linear_solver}", "su2_tpu.linalg.krylov"),
-        (cfg.linear_solver_prec not in ("JACOBI", "LU_SGS", "ILU0"),
+        (cfg.linear_solver_prec not in ("JACOBI",) + blockcsr.SGS_KINDS,
          f"LINEAR_SOLVER_PREC= {cfg.linear_solver_prec}",
          blockcsr.UNPORTED_PREC.get(cfg.linear_solver_prec,
                                     "su2_tpu.linalg.blockcsr")),
@@ -98,6 +97,16 @@ def _unported(cfg: Config):
     for bad, what, where in checks:
         if bad:
             raise NotImplementedError(f"{what}: not ported; {where} has it")
+
+
+# UNSTEADY_SIMULATION values of dual time stepping and their BDF order
+DUAL_TIME_ORDERS = {"DUAL_TIME_STEPPING-1ST_ORDER": 1, "DT_STEPPING_1ST": 1,
+                    "DUAL_TIME_STEPPING-2ND_ORDER": 2, "DT_STEPPING_2ND": 2}
+
+
+def dual_time_order(cfg: Config) -> int:
+    """The BDF order of the cfg's dual time stepping, 0 without it."""
+    return DUAL_TIME_ORDERS.get(cfg.unsteady_simulation, 0)
 
 
 # SU2_TPU_SST_ASSEMBLE, the reference's switch: its values and the SST
@@ -194,6 +203,15 @@ class Simulation:
                 and (cfg.implicit_flow or cfg.turbulent):
             self.colors, self.ncolor = blockcsr.sweep_colors(
                 self.grid.node_nbrs, self.device)
+        # wall-normal lines of the flow system's LINELET preconditioner,
+        # their index maps on the device (linelet.LineMaps)
+        self.lines = None
+        if cfg.implicit_flow and cfg.linear_solver_prec == "LINELET":
+            from su2_tpu_torch.linalg import linelet
+            lines = linelet.build_linelets(self.mesh, self.bcs)
+            if lines is not None:
+                self.lines = linelet.line_maps(self.mesh, lines)
+        self.dual_order = dual_time_order(cfg)
         self.turbulent = cfg.turbulent
         self.history = None
         self.out_dir = None         # enable_output: where solutions go
@@ -310,12 +328,16 @@ class Simulation:
     def _make_rans_step(self):
         """Segregated REACTIVE_RANS outer iteration: the flow system (with
         SST closures), explicit or implicit (EULER_IMPLICIT: the linearised
-        system solved by FGMRES with the JACOBI preconditioner or the
-        multicolor SGS sweep of LU_SGS/ILU0), then the implicit SST
-        system.  step(u, t_guess, q, mu_t, grad_k, sigma_k, ignite=None,
-        cfl=None): ignite, the IGNITION window flag (a 0-d bool tensor or a
-        bool; None: off); cfl, the CFL number (a 0-d tensor on the step's
-        device or a float; None: CFL_NUMBER)."""
+        system solved by FGMRES or BCGSTAB with the JACOBI preconditioner,
+        the multicolor SGS sweep of LU_SGS/ILU0 or LINELET's lines), then
+        the implicit SST system.  step(u, t_guess, q, mu_t, grad_k,
+        sigma_k, ignite=None, cfl=None, u_n=None, u_nm1=None): ignite, the
+        IGNITION window flag
+        (a 0-d bool tensor or a bool; None: off); cfl, the CFL number (a
+        0-d tensor on the step's device or a float; None: CFL_NUMBER);
+        u_n, u_nm1, under dual time stepping, the conserved states of the
+        last two physical steps (ns.add_dual_time; the explicit pseudo
+        time step at most 2/3 of the physical one)."""
         lib, lay, mesh, prm, bcs = (self.lib, self.lay, self.mesh,
                                     self.params, self.bcs)
         tparams = self.tparams
@@ -326,6 +348,7 @@ class Simulation:
         t_ign = cfg.ignition_temperature
         fuel_i = lay.YS + cfg.fuel_index
         ox_i = lay.YS + cfg.oxidizer_index
+        dual_order, dt_phys = self.dual_order, cfg.unst_timestep
 
         def ignite_v(v, ignite):
             """T -> T_ign in the fuel-rich mixing nodes during the ignition
@@ -345,26 +368,42 @@ class Simulation:
             dt, min_dt, _ = timestep.local_time_step(
                 mesh, lay, v, cfl, prm.max_dt, lam_visc=lam_v,
                 lam_inv=lam_c)
-            return timestep.apply_time_marching(
+            dt = timestep.apply_time_marching(
                 dt, min_dt, cfg.unsteady_simulation, cfg.unst_timestep,
-                cfg.unst_cfl_number), min_dt
+                cfg.unst_cfl_number)
+            if dual_order and not cfg.implicit_flow:
+                # the pseudo time step bounded by the physical one
+                # (SetTime_Step dual-time branch, :2160-2166)
+                dt = torch.clamp(dt, max=2.0 / 3.0 * dt_phys)
+            return dt, min_dt
 
-        def implicit_flow(u, v, nsd, turb, omega_t, cfl):
+        def implicit_flow(u, v, nsd, turb, omega_t, cfl, dual):
             lam_v = ns.viscous_lambda(lib, mesh, lay, prm, v,
                                       vis.Transport(nsd.mu, nsd.kappa),
                                       nsd.dpdu, turb)
             dt, min_dt = flow_dt(v, cfl, lam_v)
             u_new, wall_mask, flow_fb, rms, rmax = self._implicit_update(
-                u, nsd, turb, omega_t, dt)
+                u, nsd, turb, omega_t, dt, dual)
             return u_new, wall_mask, dt, min_dt, flow_fb, rms, rmax
 
-        def explicit_flow(u, v, nsd, turb, omega_t, cfl):
+        def explicit_flow(u, v, nsd, turb, omega_t, cfl, dual):
             res, wall_mask, trans, _, lams, flow_fb = ns.ns_assemble(
                 lib, lay, mesh, prm, bcs, v, nsd, turb, omega_t)
-            lam_c = timestep.boundary_lambda_inv(mesh, lay, v, lams[0])
-            lam_v = ns.viscous_lambda_boundary(lib, mesh, lay, prm, v, trans,
-                                               nsd.dpdu, turb, lams[1])
+            if lams is None:
+                # MUSCL: no fused edge pass, whose spectral radii the
+                # explicit step reads; both are summed here
+                lam_c = None
+                lam_v = ns.viscous_lambda(lib, mesh, lay, prm, v, trans,
+                                          nsd.dpdu, turb)
+            else:
+                lam_c = timestep.boundary_lambda_inv(mesh, lay, v, lams[0])
+                lam_v = ns.viscous_lambda_boundary(lib, mesh, lay, prm, v,
+                                                   trans, nsd.dpdu, turb,
+                                                   lams[1])
             dt, min_dt = flow_dt(v, cfl, lam_v, lam_c)
+            if dual:
+                res, _ = ns.add_dual_time(lay, mesh, res, None, u, *dual,
+                                          dt_phys, dual_order)
             u = ns.enforce_wall_velocity(lay, u, wall_mask)
             u_new, rms, rmax = es.explicit_euler_update(
                 lay, mesh, u, res, dt, lower, upper)
@@ -373,8 +412,15 @@ class Simulation:
         flow = implicit_flow if cfg.implicit_flow else explicit_flow
 
         def step(u, t_guess, q, mu_t, grad_k, sigma_k, ignite=None,
-                 cfl=None):
+                 cfl=None, u_n=None, u_nm1=None):
             cfl = prm.cfl if cfl is None else cfl
+            dual = None
+            if dual_order:
+                if u_n is None:
+                    raise ValueError("dual time stepping: the step needs "
+                                     "u_n (and u_nm1); run_unsteady "
+                                     "passes them")
+                dual = (u_n, u_n if u_nm1 is None else u_nm1)
             tke = q[:, 0]
             omega_t = q[:, 1]
             nsd = st.node_state(lib, lay, u, t_guess, tparams, turb_ke=tke)
@@ -387,36 +433,35 @@ class Simulation:
             turb = vis.TurbFlowData(tke=tke, mu_t=mu_t,
                                     grad_tke=grad_k[:, 0, :], sigma_k=sigma_k)
             u_new, wall_mask, dt, min_dt, flow_fb, rms, rmax = flow(
-                u, v, nsd, turb, omega_t, cfl)
+                u, v, nsd, turb, omega_t, cfl, dual)
             u_new = ns.enforce_wall_velocity(lay, u_new, wall_mask)
             return turb_phase(u_new, v, tke, q, mu_t, grad_k, dt, flow_fb,
                               rms, rmax, nonphys.sum(), min_dt)
 
         return step
 
-    def _implicit_update(self, u, nsd, turb, omega_t, dt):
+    def _implicit_update(self, u, nsd, turb, omega_t, dt, dual=None):
         """The implicit flow update at the local time step dt: assemble
-        the system (turb None: laminar), solve it by FGMRES (one K6 launch
-        where the tier has one), relax, clip.  Returns (u_new, wall_mask,
-        flux-BC ghost batch, rms, rmax) of the residual."""
+        the system (turb None: laminar; dual = (u_n, u_nm1): with the dual
+        time source and diagonal), solve it by FGMRES (one K6 launch where
+        the tier has one) or BCGSTAB, relax, clip.  Returns (u_new,
+        wall_mask, flux-BC ghost batch, rms, rmax) of the residual."""
         cfg = self.cfg
         res, wall_mask, _, _, jac, flow_fb = ns.ns_assemble(
             self.lib, self.lay, self.mesh, self.params, self.bcs, nsd.v, nsd,
             turb, omega_t, dt=dt)
+        if dual:
+            res, jac = ns.add_dual_time(self.lay, self.mesh, res, jac, u,
+                                        *dual, cfg.unst_timestep,
+                                        self.dual_order)
         u = ns.enforce_wall_velocity(self.lay, u, wall_mask)
         rhs = -res
-        mv, pc, pm, solve = blockcsr.make_solver_ops(
+        ops = blockcsr.make_solver_ops(
             self.mesh, jac, cfg.linear_solver_prec, self.colors, self.ncolor,
-            linear_iter=cfg.linear_solver_iter)
-        if solve is not None:
-            # the whole FGMRES cycle in one launch (K6)
-            sol, _, _ = solve(rhs, cfg.linear_solver_iter,
-                              cfg.linear_solver_error)
-        else:
-            sol, _, _ = krylov.fgmres(mv, pc, rhs,
-                                      max_iter=cfg.linear_solver_iter,
-                                      tol=cfg.linear_solver_error,
-                                      precond_matvec=pm)
+            linear_iter=cfg.linear_solver_iter, lines=self.lines,
+            solver=cfg.linear_solver)
+        sol = krylov.solve(cfg.linear_solver, ops, rhs,
+                           cfg.linear_solver_iter, cfg.linear_solver_error)
         u_new = u + cfg.relaxation_factor_flow * sol
         u_new = torch.minimum(torch.maximum(u_new, self.lower), self.upper)
         rms = torch.sqrt((rhs * rhs).mean(0))
@@ -568,12 +613,15 @@ class Simulation:
             self.lay.nvar, 2 if self.turbulent else 0,
             cfl=self.cfg.cfl_number)
 
-    def write_solution(self, u, t_guess, turb=None):
+    def write_solution(self, u, t_guess, turb=None, suffix=""):
         """The restart file, the OUTPUT_FORMAT volume file and the surface
         file over MARKER_PLOTTING (every marker where it lists none) of
         the state (u, t_guess, turb = (q, mu_t) or None), in the mesh
         file's node order, into enable_output's directory: one node-state
-        pass on the state's device (T2 on the card), then host NumPy."""
+        pass on the state's device (T2 on the card), then host NumPy.
+        suffix: the restart file's unsteady name stem_<suffix>.ext
+        (GetUnsteady_FileName; run_unsteady passes the physical step as
+        %05d)."""
         from su2_tpu_torch.io import output as out, restart as rio
         cfg = self.cfg
         base = self.out_dir or os.getcwd()
@@ -581,7 +629,11 @@ class Simulation:
                             turb_ke=turb[0][:, 0] if turb is not None
                             else None)
         unpermute = self.to_file_order
-        rio.write_restart(os.path.join(base, cfg.restart_flow_filename),
+        rname = cfg.restart_flow_filename
+        if suffix:
+            stem, ext = os.path.splitext(rname)
+            rname = f"{stem}_{suffix}{ext}"
+        rio.write_restart(os.path.join(base, rname),
                           self.raw.coords,
                           unpermute(nsd.u.cpu().numpy()),
                           unpermute(turb[0].cpu().numpy())
@@ -700,11 +752,13 @@ class Simulation:
         rms (2, RANS only), the nonphysical count and min dt."""
         return 2 * self.lay.nvar + (2 if self.turbulent else 0) + 2
 
-    def _body(self, carry, ignite, cfl):
-        """One iteration of self._step from carry: (the new carry, its
-        history row, as _hist_width lays it out)."""
+    def _body(self, carry, ignite, cfl, dual=None):
+        """One iteration of self._step from carry (dual: (u_n, u_nm1) of
+        dual time stepping): (the new carry, its history row, as
+        _hist_width lays it out)."""
         if self.turbulent:
-            out = self._step(*carry, ignite, cfl=cfl)
+            kw = {} if dual is None else dict(u_n=dual[0], u_nm1=dual[1])
+            out = self._step(*carry, ignite, cfl=cfl, **kw)
         else:
             out = self._step(*carry, cfl=cfl)
         nc = len(carry)
@@ -712,12 +766,13 @@ class Simulation:
         return out[:nc], torch.cat([*vecs, nerr[None].to(min_dt.dtype),
                                     min_dt[None]])
 
-    def _multistep(self, carry, k, ignites=None, cfl=None):
+    def _multistep(self, carry, k, ignites=None, cfl=None, dual=None):
         """k iterations from carry: (the final carry, the (k, W) history
         rows).  On a card k replays of the step's graph (StepGraph,
         captured at the first call, again where k outgrows its history);
         on the CPU the step k times.  ignites: (k,) IGNITION flags (None:
-        off); cfl: a float or 0-d tensor (None: CFL_NUMBER)."""
+        off); cfl: a float or 0-d tensor (None: CFL_NUMBER); dual: (u_n,
+        u_nm1) of dual time stepping, read by every iteration."""
         if self.device.type == "cuda":
             g = self._graph
             if g is None or k > g.hist.shape[0]:
@@ -725,13 +780,15 @@ class Simulation:
                 g = self._graph = StepGraph(
                     self._body, carry, self._hist_width(),
                     max(k, DEFAULT_CHUNK), self.params.cfl,
-                    ignition=self.turbulent and self.cfg.ignition)
+                    ignition=self.turbulent and self.cfg.ignition,
+                    dual=dual)
             return g.run(carry, k, ignites,
-                         self.params.cfl if cfl is None else cfl)
+                         self.params.cfl if cfl is None else cfl, dual)
         rows = []
         for j in range(k):
             carry, row = self._body(
-                carry, None if ignites is None else bool(ignites[j]), cfl)
+                carry, None if ignites is None else bool(ignites[j]), cfl,
+                dual)
             rows.append(row)
         return tuple(carry), torch.stack(rows)
 
@@ -802,8 +859,13 @@ class Simulation:
         host reads the chunk's final carry, outside the graph.  Solutions
         are written after enable_output only.
         Returns (u, t_guess, hist (niter, nVar) log10 RMS, turb_state), or
-        laminar (u, t_guess, hist)."""
+        laminar (u, t_guess, hist).  A dual time stepping cfg runs through
+        run_unsteady; here it raises."""
         cfg = self.cfg
+        if self.dual_order:
+            raise ValueError(
+                f"UNSTEADY_SIMULATION= {cfg.unsteady_simulation}: dual time "
+                "stepping runs through Simulation.run_unsteady, not run")
         turbulent = self.turbulent
         niter = niter if niter is not None else cfg.ext_iter
         carry = (self.u0 if u is None else u,
@@ -931,12 +993,62 @@ class Simulation:
         return carry[0], carry[1], np.array(hist), tuple(carry[2:])
 
 
+    def run_unsteady(self, n_steps: int | None = None, quiet=False):
+        """Dual time stepping (the JAX package's run_unsteady): n_steps
+        physical steps of UNST_TIMESTEP (default UNST_TIME / UNST_TIMESTEP,
+        at least 1), each UNST_INT_ITER inner iterations of the RANS step
+        in pseudo time from the freestream (or RESTART_SOL) state, with
+        the BDF source of the last two physical steps' states.  The inner
+        iterations of a physical step are one chunk (_multistep: on a card
+        replays of the step's graph, which reads u_n and u_nm1 from two
+        static buffers), then one copy of its last residual row to the
+        host: the NaN check and the log.  After enable_output the solution
+        is written every WRT_SOL_FREQ_DUALTIME physical steps, the restart
+        as restart_flow_%05d.  Returns (u, t_guess, hist (n_steps, nVar)
+        log10 RMS of each step's last inner iteration, turb_state)."""
+        if not self.turbulent:
+            raise ValueError("run_unsteady drives the REACTIVE_RANS step; "
+                             "dual time stepping of the laminar step is not "
+                             "run (su2_tpu.driver's run_unsteady neither)")
+        if not self.dual_order:
+            raise ValueError(
+                f"run_unsteady: UNSTEADY_SIMULATION= "
+                f"{self.cfg.unsteady_simulation} is not dual time stepping")
+        cfg = self.cfg
+        dt_phys = cfg.unst_timestep
+        if n_steps is None:
+            n_steps = max(1, int(cfg.unst_time / dt_phys))
+        nv = self.lay.nvar
+        carry = (self.u0, self.t0) + tuple(self.initial_turb_state())
+        dual = (carry[0], carry[0])
+        hist = []
+        for step_i in range(n_steps):
+            carry, block = self._multistep(carry, cfg.unst_int_iter,
+                                           dual=dual)
+            rms_np = block[-1, :nv].cpu().double().numpy()
+            if np.isnan(rms_np).any():
+                raise RuntimeError(f"NaN residual at physical step {step_i}")
+            log_rms = np.log10(np.maximum(rms_np, 1e-300))
+            hist.append(log_rms)
+            if not quiet:
+                print(f"phys step {step_i:5d} t={dt_phys * (step_i + 1):.4e}"
+                      f"  Res[Rho]: {log_rms[self.lay.RHO]: .6f}")
+            if self.out_dir is not None \
+                    and (step_i + 1) % cfg.wrt_sol_freq_dualtime == 0:
+                self.write_solution(carry[0], carry[1], (carry[2], carry[3]),
+                                    suffix=f"{step_i:05d}")
+            dual = (carry[0], dual[0])
+        return carry[0], carry[1], np.array(hist), tuple(carry[2:])
+
+
 class StepGraph:
     """One iteration of a Simulation's step captured as a CUDA graph,
     replayed on static buffers: the carry (copied back in place inside
-    the graph), the (cap,) IGNITION flags and the 0-d CFL, and a (cap, W)
-    history.  The iteration reads its flag at a 0-d int64 slot, writes its
-    history row there (index_copy_) and adds one to the slot.  A chunk of
+    the graph), the (cap,) IGNITION flags, the 0-d CFL, under dual time
+    stepping the states u_n and u_nm1 of the last two physical steps, and
+    a (cap, W) history.  The iteration reads its flag at a 0-d int64
+    slot, writes its history row there (index_copy_) and adds one to the
+    slot.  A chunk of
     k iterations loads the carry and the flags, zeroes the slot and
     replays k times; the history's first k rows then hold the chunk's
     residuals.
@@ -952,7 +1064,8 @@ class StepGraph:
     per_replay; each replay adds them to kernels.launches, which no
     wrapper touches during a replay."""
 
-    def __init__(self, body, carry, width, cap, cfl, ignition=False):
+    def __init__(self, body, carry, width, cap, cfl, ignition=False,
+                 dual=None):
         from su2_tpu_torch import kernels
         dev = carry[0].device
         dtype = carry[0].dtype
@@ -963,6 +1076,8 @@ class StepGraph:
             self.ignites = (torch.zeros((cap,), dtype=torch.bool,
                                         device=dev) if ignition else None)
             self.cfl = torch.full((), cfl, dtype=dtype, device=dev)
+            self.dual = (None if dual is None
+                         else tuple(x.clone() for x in dual))
             self.slot = torch.zeros((), dtype=torch.int64, device=dev)
             self.hist = torch.zeros((cap, width), dtype=dtype, device=dev)
             side = torch.cuda.Stream()
@@ -986,16 +1101,18 @@ class StepGraph:
         at = self.slot.view(1)
         ignite = (None if self.ignites is None
                   else self.ignites.index_select(0, at).view(()))
-        new, row = self.body(self.carry, ignite, self.cfl)
+        new, row = self.body(self.carry, ignite, self.cfl, self.dual)
         for buf, x in zip(self.carry, new):
             buf.copy_(x)
         self.hist.index_copy_(0, at, row[None])
         self.slot.add_(1)
 
-    def run(self, carry, k, ignites, cfl):
+    def run(self, carry, k, ignites, cfl, dual=None):
         """k iterations from carry with the flags ignites ((k,) numpy or
-        tensor; None: off) and the CFL cfl (float or 0-d tensor): (the
-        final carry, the (k, W) history rows), new tensors."""
+        tensor; None: off), the CFL cfl (float or 0-d tensor) and under
+        dual time stepping dual = (u_n, u_nm1), copied into the buffers on
+        the device: (the final carry, the (k, W) history rows), new
+        tensors."""
         from su2_tpu_torch import kernels
         if k > self.hist.shape[0]:
             raise ValueError(f"StepGraph.run: {k} iterations; at most "
@@ -1003,6 +1120,11 @@ class StepGraph:
         for buf, x in zip(self.carry, carry):
             if buf is not x:
                 buf.copy_(x)
+        if (dual is None) != (self.dual is None):
+            raise ValueError("StepGraph.run: the dual time states are "
+                             "given where the capture had none, or missing")
+        for buf, x in zip(self.dual or (), dual or ()):
+            buf.copy_(x)
         if self.ignites is not None:
             if ignites is None:
                 self.ignites.zero_()
@@ -1048,6 +1170,12 @@ def main(argv=None):
               "the plain torch versions on the CPU", file=sys.stderr)
         return 2
     cfg = Config(argv[0])
+    if dual_time_order(cfg):
+        print(f"su2_tpu_torch: UNSTEADY_SIMULATION= "
+              f"{cfg.unsteady_simulation}: the CLI runs the steady loop "
+              "(Simulation.run); dual time stepping runs through "
+              "Simulation.run_unsteady", file=sys.stderr)
+        return 2
     niter = int(argv[1]) if len(argv) > 1 else None
     dtype = torch.float64 if os.environ.get("SU2_TPU_DTYPE") == "float64" \
         else torch.float32

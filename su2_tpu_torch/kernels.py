@@ -66,12 +66,16 @@ SOURCE_FLAGS = {"inlet_tc.cu": ("-fmad=false",),
                 "sst_assemble.cu": ("-fmad=false",)}
 
 # launches of each kernel since the last reset_launches(): the wrappers'
-# and the replays' of captured graphs (driver.StepGraph)
+# and the replays' of captured graphs (driver.StepGraph); K5's sweep-only
+# and matvec-only forms (BCGSTAB's preconditioner and matvec, LINELET's
+# matvec) are also counted apart, as stencil_sweep_only and
+# stencil_matvec_only
 launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
             "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0,
             "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0,
             "edge_implicit": 0, "ausm_flux_jac": 0, "sst_assemble": 0,
-            "edge_list_flux": 0, "edge_list_sum": 0}
+            "edge_list_flux": 0, "edge_list_sum": 0,
+            "stencil_sweep_only": 0, "stencil_matvec_only": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,7 +83,7 @@ _D = ctypes.c_double
 _ARGTYPES = {
     "su2k_mixture_enthalpy": [_I, _I, _I, _I, _D, _D] + [_P] * 7,
     "su2k_node_state": [_I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _I, _D, _I,
-                        _D] + [_P] * 15,
+                        _D, _I] + [_P] * 15,
     "su2k_edge_flux": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I,
                        _D, _D, _D, _D, _D, _D, _D] + [_P] * 9,
     "su2k_chem_source": [_I, _I, _I, _I, _I, _D, _D, _I, ctypes.POINTER(_P),
@@ -269,7 +273,8 @@ def _node_tables(lib):
 
 def node_state(lib, lay, p, u, t_guess, turb_ke=None, lite=False):
     """Kernel T2.  Returns the fields of state.NodeState (full) or
-    state.NodeStateLite (lite), node-major."""
+    state.NodeStateLite (lite), node-major; p.clip_temp: CLIPPING_TEMPRATURE
+    (T within [0.95, 1.05] t_guess before the [tmin, tmax] clip)."""
     _check_species("node_state", lay.ns)
     if not 1 <= lay.ndim <= MAX_DIM:
         raise ValueError(f"node_state: {lay.ndim}D; the kernels take 1D to "
@@ -302,7 +307,8 @@ def node_state(lib, lay, p, u, t_guess, turb_ke=None, lite=False):
     err = _lib().su2k_node_state(
         int(u.dtype == torch.float64), int(lite), n, lay.ndim, lay.ns,
         lib.nt, lib.t0, lib.dt, p.tmin, p.tmax, p.secant_iters,
-        p.secant_tol, p.bisect_iters, p.bisect_tol, _ptr(u), _ptr(t_guess),
+        p.secant_tol, p.bisect_iters, p.bisect_tol, int(p.clip_temp),
+        _ptr(u), _ptr(t_guess),
         _ptr(tke), _ptr(tab), _ptr(cst), _ptr(u_out), _ptr(v),
         _ptr(nonphys), _ptr(dtdu), _ptr(dpdu), _ptr(gm1), _ptr(mu),
         _ptr(kappa), _ptr(xs), _stream())
@@ -702,6 +708,9 @@ def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
         _ptr(r), _ptr(z) if sweep else None, _ptr(w), _ptr(zbuf), _stream())
     _raise("stencil_sgs_matvec", err)
     launches["stencil_sgs_matvec"] += 1
+    if not (sweep and matvec):
+        launches["stencil_sweep_only" if sweep else "stencil_matvec_only"] \
+            += 1
     return z, w
 
 

@@ -8,8 +8,10 @@ the edge is absent), and a solve goes to the stencil kernels
 (BlockJacobian, the JAX package's form) and the matvec and the multicolor
 sweep gather through the padded node-edge table in plain torch ops, as
 the JAX package runs them in XLA.  This module also carries the JACOBI
-preconditioner and the coloring of the multicolor SGS sweep of the
-default LU_SGS (and ILU0, which the reference maps to the same sweep).
+preconditioner, the coloring of the multicolor SGS sweep of the default
+LU_SGS (and ILU0, which the reference maps to the same sweep, as it maps
+LINELET where no lines are given), and the LINELET preconditioner's
+family-major form of a stencil system (linalg/linelet.py).
 """
 
 from __future__ import annotations
@@ -162,15 +164,30 @@ def sweep_colors(node_nbrs, device) -> tuple[torch.Tensor, int]:
 
 # preconditioners of the reference that this package does not carry, with
 # the su2_tpu module that has each
-UNPORTED_PREC = {"LINELET": "su2_tpu.linalg.linelet",
-                 "LU_SGS_SEQ": "su2_tpu.linalg.seq_sgs",
+UNPORTED_PREC = {"LU_SGS_SEQ": "su2_tpu.linalg.seq_sgs",
                  "LU_SGS_WAVE": "su2_tpu.linalg.wavefront"}
+# the preconditioners that run the multicolor SGS sweep (LINELET where
+# the system has no lines)
+SGS_KINDS = ("LU_SGS", "ILU0", "LINELET")
+
+
+def sel_t_to_family(mesh: MeshArrays, sel_t: torch.Tensor, v: int):
+    """(off_ij, off_ji) family-major lane-layout blocks (v*v, Kh*nP) of a
+    StencilJacobianT's sel_t (the JAX package's sel_t_to_family; the
+    inverse of family_sel): family k's off_ij is the block row of offset
+    +o_k, its off_ji the block row of -o_k shifted to the i node."""
+    vv = v * v
+    pos = {int(o): i for i, o in enumerate(mesh.stencil_offsets)}
+    blk = lambda o: sel_t[pos[o] * vv:(pos[o] + 1) * vv]
+    fam = [int(o) for o in mesh.fam_offsets]
+    return (torch.cat([blk(o) for o in fam], dim=1),
+            torch.cat([torch.roll(blk(-o), -o, dims=1) for o in fam], dim=1))
 
 
 def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
                               sel_t: torch.Tensor, kind: str = "JACOBI",
                               colors=None, ncolor: int = 0,
-                              linear_iter: int = 5):
+                              linear_iter: int = 5, solver: str = "FGMRES"):
     """(matvec, precond, precond_matvec | None, solve | None) from
     lane-layout off-diagonal blocks.
 
@@ -183,7 +200,9 @@ def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
     reference's resident and windowed mixed kernels and its split of a
     sweep-only kernel plus an XLA matvec.  The whole FGMRES cycle is one
     launch (`solve(b, max_iter, tol)`) where the tier's one-launch
-    predicate holds at Krylov budget linear_iter."""
+    predicate holds at Krylov budget linear_iter.  solver= "BCGSTAB" (the
+    JAX package's bcgstab calls its sweep-only and matvec-only kernels):
+    the sweep-only and matvec-only K5 forms, never the one-launch cycle."""
     if kind in UNPORTED_PREC:
         raise NotImplementedError(
             f"LINEAR_SOLVER_PREC= {kind}: not ported; "
@@ -191,12 +210,13 @@ def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
     dinv = block_diag_inv(diag)
     v = diag.shape[-1]
     offsets = tuple(int(o) for o in mesh.stencil_offsets)
-    if kind not in ("LU_SGS", "ILU0") or colors is None:
+    if kind not in SGS_KINDS or colors is None:
         mv = lambda x: _bmv(diag, x) + sts.offdiag_plain(sel_t, x, offsets,
                                                          v)
         return mv, (lambda r: block_jacobi_apply(dinv, r)), None, None
     sel_dtype, one = sts.solve_tier(mesh.npoint, offsets, v, diag.dtype,
                                     ncolor, linear_iter)
+    one = one and solver != "BCGSTAB"
     ops = sts.StencilSolveOps(mesh, sel_t, dinv, diag, colors, ncolor,
                               sel_dtype=sel_dtype, one_launch=one)
     return ops.matvec, ops.precond, ops.precond_matvec, \
@@ -205,25 +225,54 @@ def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
 
 def make_solver_ops_fam(mesh: MeshArrays, jac: FamilyJacobian,
                         kind: str = "JACOBI", colors=None, ncolor: int = 0,
-                        linear_iter: int = 5):
+                        linear_iter: int = 5, solver: str = "FGMRES"):
     """make_solver_ops_stencil_t of a FamilyJacobian (the JAX package's
     make_solver_ops_fam): the same tiers (stencil_solve.solve_tier), K5/K6
     on the lane-layout blocks of family_sel."""
     return make_solver_ops_stencil_t(mesh, jac.diag, family_sel(mesh, jac),
-                                     kind, colors, ncolor, linear_iter)
+                                     kind, colors, ncolor, linear_iter,
+                                     solver)
+
+
+def make_linelet_ops(mesh: MeshArrays, jac, lines, colors, ncolor):
+    """(matvec, precond, None, None) of LINEAR_SOLVER_PREC= LINELET with
+    lines (linelet.line_maps of the family slots) on a stencil system
+    (StencilJacobianT or FamilyJacobian; the JAX package converts the
+    former with sel_t_to_family): the linelet preconditioner, and the
+    matvec through StencilSolveOps (K5's matvec-only form on the card) on
+    the lane-layout blocks of family_sel."""
+    from su2_tpu_torch.linalg import linelet
+    v = jac.diag.shape[-1]
+    if isinstance(jac, StencilJacobianT):
+        oij, oji = sel_t_to_family(mesh, jac.sel_t, v)
+        jac = FamilyJacobian(diag=jac.diag, off_ij=oij, off_ji=oji)
+    dinv = block_diag_inv(jac.diag)
+    pc = linelet.make_linelet_apply(lines, jac.diag, jac.off_ij,
+                                    jac.off_ji, dinv)
+    ops = sts.StencilSolveOps(mesh, family_sel(mesh, jac), dinv, jac.diag,
+                              colors, ncolor)
+    return ops.matvec, pc, None, None
 
 
 def make_solver_ops(mesh: MeshArrays, jac, kind: str = "JACOBI",
-                    colors=None, ncolor: int = 0, linear_iter: int = 5):
+                    colors=None, ncolor: int = 0, linear_iter: int = 5,
+                    lines=None, solver: str = "FGMRES"):
     """(matvec, precond, precond_matvec | None, solve | None) of an
     implicit system: a StencilJacobianT (the RANS step), a FamilyJacobian
     (the laminar step) or, on a mesh without a static stencil, a
     BlockJacobian (the JAX package's gather tail: the neighbour blocks
     gathered once, the matvec and the multicolor sweep, or JACOBI, in
-    torch ops; no kernel)."""
+    torch ops; no kernel).  LINELET with lines (linelet.line_maps):
+    make_linelet_ops; without
+    (the SST's system, a mesh without walls) the multicolor sweep.
+    solver: the LINEAR_SOLVER the operators serve (BCGSTAB: no one-launch
+    cycle)."""
+    if kind == "LINELET" and lines is not None \
+            and not isinstance(jac, BlockJacobian):
+        return make_linelet_ops(mesh, jac, lines, colors, ncolor)
     if isinstance(jac, FamilyJacobian):
         return make_solver_ops_fam(mesh, jac, kind, colors, ncolor,
-                                   linear_iter)
+                                   linear_iter, solver)
     if isinstance(jac, BlockJacobian):
         if kind in UNPORTED_PREC:
             raise NotImplementedError(
@@ -232,11 +281,11 @@ def make_solver_ops(mesh: MeshArrays, jac, kind: str = "JACOBI",
         dinv = block_diag_inv(jac.diag)
         sel = gather_offdiag(mesh, jac)
         mv = lambda x: matvec(mesh, jac, sel, x)
-        if kind in ("LU_SGS", "ILU0") and colors is not None:
+        if kind in SGS_KINDS and colors is not None:
             pc = lambda r: multicolor_sgs_apply(mesh, sel, dinv, colors,
                                                 ncolor, r)
         else:
             pc = lambda r: block_jacobi_apply(dinv, r)
         return mv, pc, None, None
     return make_solver_ops_stencil_t(mesh, jac.diag, jac.sel_t, kind,
-                                     colors, ncolor, linear_iter)
+                                     colors, ncolor, linear_iter, solver)

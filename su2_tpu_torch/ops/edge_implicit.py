@@ -74,6 +74,45 @@ def _hcp(lib, t):
     return cl.species_enthalpy(lib, t).T, cl.species_cp(lib, t).T
 
 
+def muscl_reconstruct(lay, v, g, lim, ev, dxsign):
+    """The MUSCL face values (T, velocity (d, E), P) of one edge side,
+    feature-major, at the midpoint x + dxsign ev / 2 from the node state v
+    (nPrim, E) and the gradients g (2+d, d, E) of [T, u.., P], limited by
+    lim (2+d, E) unless lim is None; and the mask of the faces where T or
+    P <= EPS, which keep the node state (the JAX package's _muscl_rows)."""
+    nd = lay.ndim
+    dx = dxsign * 0.5 * ev
+    q = torch.cat([v[lay.T][None], v[lay.VX:lay.VX + nd], v[lay.P][None]])
+    proj = g[:, 0] * dx[0][None]
+    for d in range(1, nd):
+        proj = proj + g[:, d] * dx[d][None]
+    if lim is not None:
+        proj = proj * lim
+    qr = q + proj
+    t_r, vel_r, p_r = qr[0], qr[1:1 + nd], qr[1 + nd]
+    return t_r, vel_r, p_r, (t_r <= EPS) | (p_r <= EPS)
+
+
+def muscl_face_rows(lib, lay, v, g, lim, ev, dxsign):
+    """The MUSCL face state (nPrim, E) of one edge side of the explicit
+    step (the JAX package's _muscl_rows): muscl_reconstruct's T, velocity
+    and P, the node's Y, and rho, h and a recomputed from the library at
+    the face T (h by cl.mixture_enthalpy: kernel T1 on the card); the node
+    state where T or P <= EPS."""
+    t_r, vel_r, p_r, bad = muscl_reconstruct(lay, v, g, lim, ev, dxsign)
+    ys = v[lay.YS:lay.YS + lay.ns]
+    ys_rows = ys.T
+    rgas = cl.mixture_rgas(lib, ys_rows)
+    rho_r = p_r / (rgas * t_r)
+    h_r = cl.mixture_enthalpy(lib, t_r, ys_rows) \
+        + 0.5 * (vel_r * vel_r).sum(0)
+    gamma_r, _ = cl.frozen_gamma_sound(lib, t_r, ys_rows)
+    a_r = torch.sqrt(gamma_r * p_r / rho_r)
+    vface = torch.cat([t_r[None], vel_r, p_r[None], rho_r[None], h_r[None],
+                       a_r[None], ys], dim=0)
+    return torch.where(bad[None], v, vface)
+
+
 def face_state(lib, lay, v, g, lim, dpdu, ev, dxsign, muscl):
     """(v_face (nPrim, E), its dP/dU rows (nVar, E)) of one edge side,
     feature-major: the node state v (nPrim, E) with its dP/dU rows dpdu
@@ -86,16 +125,7 @@ def face_state(lib, lay, v, g, lim, dpdu, ev, dxsign, muscl):
     nd, ns = lay.ndim, lay.ns
     if not muscl:
         return v, dpdu
-    dx = dxsign * 0.5 * ev
-    q = torch.cat([v[lay.T][None], v[lay.VX:lay.VX + nd], v[lay.P][None]])
-    proj = g[:, 0] * dx[0][None]
-    for d in range(1, nd):
-        proj = proj + g[:, d] * dx[d][None]
-    if lim is not None:
-        proj = proj * lim
-    qr = q + proj
-    t_r, vel_r, p_r = qr[0], qr[1:1 + nd], qr[1 + nd]
-    bad = (t_r <= EPS) | (p_r <= EPS)
+    t_r, vel_r, p_r, bad = muscl_reconstruct(lay, v, g, lim, ev, dxsign)
     t_face = torch.where(bad, v[lay.T], t_r)
     ys = v[lay.YS:lay.YS + ns]
     ysc = viscous_t._clip_ys_t(ys)

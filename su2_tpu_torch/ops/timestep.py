@@ -35,6 +35,14 @@ def max_lambda_inv(mesh: MeshArrays, lay: Layout, v: torch.Tensor):
     boundary vertices)."""
     vel = v[:, lay.VX:lay.VX + lay.ndim]
     a = v[:, lay.A]
+    if mesh.fam_offsets is None:
+        # the edge list (meshes without a static stencil)
+        i, j = mesh.edges[:, 0], mesh.edges[:, 1]
+        proj_i = (vel[i] * mesh.edge_normal).sum(1)
+        proj_j = (vel[j] * mesh.edge_normal).sum(1)
+        lam_e = (torch.abs(0.5 * (proj_i + proj_j)) + 0.5 * (a[i] + a[j])) \
+            * mesh.edge_area
+        return boundary_lambda_inv(mesh, lay, v, mesh.sum_edges_abs(lam_e))
     lam = torch.zeros_like(a)
     for k, o in enumerate(mesh.fam_offsets):
         nrm = mesh.fam_normal[k]

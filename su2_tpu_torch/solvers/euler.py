@@ -339,14 +339,28 @@ def compute_gradient_rows(mesh, prm: EulerParams, q):
     return gradients.gradient_rows(mesh, q, prm.grad_method)
 
 
-def convective_residual(lib, lay, mesh, prm, v):
-    """First-order AUSM+-up residual over the edge list, scattered to the
-    nodes by mesh.scatter_edges (Upwind_Residual, the laminar explicit
-    step)."""
+def convective_residual(lib, lay, mesh, prm, v, grad=None, lim=None):
+    """AUSM+-up residual over the edge list, scattered to the nodes by
+    mesh.scatter_edges (Upwind_Residual; the explicit steps without a
+    fused edge pass: laminar, and MUSCL).  First order, or with prm.muscl
+    between the MUSCL face states of the gradients grad (nP, nG, d) of
+    [T, u.., P, ...] and the limiter lim (nP, 2+d) under prm.use_limiter
+    (the JAX package's muscl_reconstruct over the edge list;
+    ops/edge_implicit.muscl_face_rows, T1 on the card for h)."""
     from su2_tpu_torch.ops import ausm_t
     i, j = mesh.edges[:, 0], mesh.edges[:, 1]
-    flux = ausm_t.ausm_flux_t(lay, v[i].T, v[j].T, mesh.edge_normal.T,
-                              prm.m_infty)
+    v_i, v_j = v[i].T, v[j].T
+    if prm.muscl:
+        from su2_tpu_torch.ops.edge_implicit import muscl_face_rows
+        nd = lay.ndim
+        g = grad[:, :2 + nd].permute(1, 2, 0)
+        lt = lim.T if prm.use_limiter else None
+        ev = (mesh.coords[j] - mesh.coords[i]).T
+        v_i = muscl_face_rows(lib, lay, v_i, g[..., i],
+                              None if lt is None else lt[:, i], ev, 1.0)
+        v_j = muscl_face_rows(lib, lay, v_j, g[..., j],
+                              None if lt is None else lt[:, j], ev, -1.0)
+    flux = ausm_t.ausm_flux_t(lay, v_i, v_j, mesh.edge_normal.T, prm.m_infty)
     return mesh.scatter_edges(flux.T)
 
 

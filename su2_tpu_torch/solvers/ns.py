@@ -7,7 +7,9 @@ terms, weak flux BCs with their viscous part, weak slip walls, the
 chemistry source, strong isothermal/heat-flux walls and the viscous
 spectral radius.  Explicit: the interior terms by kernel T3 on the card
 (K8 on the gradient rows of K7 from TILED_MIN_NODES nodes up) and the
-chemistry source by kernel T4.  Implicit: the interior terms and their
+chemistry source by kernel T4; with MUSCL the JAX package's edge-list
+branch in torch ops (edge_list_interior: MUSCL faces, h by T1, and the
+edge viscous flux).  Implicit: the interior terms and their
 edge Jacobians by kernel K10 (ops/edge_implicit.py), with MUSCL and the
 limiters, plus the boundary, slip-wall, source and isothermal-wall
 Jacobians, the wall momentum rows and the time diagonal, as a
@@ -25,7 +27,7 @@ batch order (euler.add_rows), without atomics.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -95,6 +97,17 @@ def viscous_lambda(lib: ChemLib, mesh: MeshArrays, lay: Layout,
     on = turb is not None
     cpg = None if on else _cv(lib, lay, v, gamma)
     rho = v[:, lay.PRHO]
+    if mesh.fam_offsets is None:
+        # the edge list (the explicit MUSCL step on a mesh without a
+        # stencil): edge means, gamma of node i (:5138)
+        i, j = mesh.edges[:, 0], mesh.edges[:, 1]
+        mean = lambda x: None if x is None else 0.5 * (x[i] + x[j])
+        lam_e = _visc_lam12(prm, on, mean(trans.mu), mean(trans.kappa),
+                            mean(turb.mu_t) if on else None, gamma[i],
+                            mean(cpg)) * mesh.edge_area ** 2 / mean(rho)
+        return viscous_lambda_boundary(lib, mesh, lay, prm, v, trans,
+                                       dpdu_full, turb,
+                                       mesh.sum_edges_abs(lam_e))
     lam = torch.zeros_like(rho)
     for k, o in enumerate(mesh.fam_offsets):
         area2 = (mesh.fam_normal[k] ** 2).sum(1)
@@ -106,6 +119,26 @@ def viscous_lambda(lib: ChemLib, mesh: MeshArrays, lay: Layout,
         lam = lam + lam_e + torch.roll(lam_e, int(o), dims=0)
     return viscous_lambda_boundary(lib, mesh, lay, prm, v, trans, dpdu_full,
                                    turb, lam)
+
+
+def add_dual_time(lay: Layout, mesh: MeshArrays, res, jac, u, u_n, u_nm1,
+                  dt_phys: float, order: int):
+    """Dual-time source (SetResidual_DualTime, solver_direct_reactive.cpp
+    :2172): the BDF1 (order 1) or BDF2 physical time derivative added to
+    the pseudo-steady residual, and with the implicit system jac (None:
+    explicit) its diagonal Vol/dt or 3/2 Vol/dt on every block."""
+    vol = mesh.volume[:, None]
+    if order == 1:
+        src = vol * (u - u_n) / dt_phys
+        diag_coef = mesh.volume / dt_phys
+    else:
+        src = vol * (3.0 * u - 4.0 * u_n + u_nm1) / (2.0 * dt_phys)
+        diag_coef = 1.5 * mesh.volume / dt_phys
+    res = res + src
+    if jac is not None:
+        eye = torch.eye(lay.nvar, dtype=u.dtype, device=u.device)
+        jac = replace(jac, diag=jac.diag + diag_coef[:, None, None] * eye)
+    return res, jac
 
 
 def enforce_wall_velocity(lay: Layout, u, wall_mask):
@@ -125,45 +158,53 @@ def viscous_rows(lay: Layout, grad, dim=1):
                       grad.narrow(dim, 2 + nd, ns_)], dim=dim)
 
 
-def _laminar_edge_viscous(lib, lay, prm, v, grad, trans, dtdu, gi, gj,
-                          normal, evec, implicit):
-    """The laminar viscous flux (and with implicit its Jacobians),
-    feature-major (ops/viscous_t.py, plain torch ops), on the edge slots
-    whose endpoint fields gi(x), gj(x) gather from the last (node) axis of
-    x."""
+def _edge_viscous(lib, lay, prm, v, grad, trans, dtdu, gi, gj, normal,
+                  evec, implicit, turb=None):
+    """The viscous flux (and with implicit its Jacobians), feature-major
+    (ops/viscous_t.py, plain torch ops), on the edge slots whose endpoint
+    fields gi(x), gj(x) gather from the last (node) axis of x: laminar
+    with turb None, else with the SST closure (sigma_k of the i node)."""
     g = viscous_rows(lay, grad).permute(1, 2, 0)
     vi, vj = gi(v.T), gj(v.T)
     tmean = 0.5 * (vi[lay.T] + vj[lay.T])
     jkw = dict(s_i=gi(dtdu.T), s_j=gj(dtdu.T)) if implicit else {}
+    tb = (None,) * 7
+    if turb is not None:
+        gk = turb.grad_tke.T
+        tb = (gi(turb.mu_t), gj(turb.mu_t), gi(turb.tke), gj(turb.tke),
+              gi(gk), gj(gk), gi(turb.sigma_k))
     return viscous_t.viscous_flux_t(
         lay, edge_flux.species_consts_of(lib), vi, vj, gi(g), gj(g), normal,
         evec, gi(trans.mu), gj(trans.mu), gi(trans.kappa), gj(trans.kappa),
-        None, None, None, None, None, None, None,
-        cl.species_enthalpy(lib, tmean).T, cl.species_cp(lib, tmean).T,
+        *tb, cl.species_enthalpy(lib, tmean).T, cl.species_cp(lib, tmean).T,
         prm.prandtl_turb, prm.lewis_turb, **jkw)
 
 
-def _laminar_interior(lib, lay, mesh, prm, v, grad, lim, nsd, trans,
-                      implicit):
-    """Interior terms of the laminar step (the JAX package's ns_assemble
-    with turb None).  Explicit: the AUSM+-up residual over the edge list
-    minus the scattered viscous flux.  Implicit, on the family slots:
+def edge_list_interior(lib, lay, mesh, prm, v, grad, lim, trans, turb):
+    """Interior terms of the explicit steps without a fused edge pass (the
+    JAX package's ns_assemble edge-list branch: the laminar step, and
+    MUSCL): the AUSM+-up residual over the edge list (MUSCL faces under
+    prm.muscl) minus the scattered viscous flux (turb None: laminar)."""
+    i, j = mesh.edges[:, 0], mesh.edges[:, 1]
+    vflux = _edge_viscous(lib, lay, prm, v, grad, trans, None,
+                          lambda x: x[..., i], lambda x: x[..., j],
+                          mesh.edge_normal.T,
+                          (mesh.coords[j] - mesh.coords[i]).T, False, turb)
+    return es.convective_residual(lib, lay, mesh, prm, v, grad, lim) \
+        - mesh.scatter_edges(vflux.T)
+
+
+def _laminar_interior(lib, lay, mesh, prm, v, grad, lim, nsd, trans):
+    """Implicit interior terms of the laminar step (the JAX package's
+    ns_assemble with turb None), on the family slots:
     convective_system_fam (K11) and the laminar viscous flux and
     Jacobians, pad slots masked; returns (res, diag, off_ij, off_ji) with
     the off-diagonal blocks in the lane layout (blockcsr.FamilyJacobian)."""
     nvar = lay.nvar
-    if not implicit:
-        i, j = mesh.edges[:, 0], mesh.edges[:, 1]
-        vflux = _laminar_edge_viscous(
-            lib, lay, prm, v, grad, trans, None, lambda x: x[..., i],
-            lambda x: x[..., j], mesh.edge_normal.T,
-            (mesh.coords[j] - mesh.coords[i]).T, False)
-        return es.convective_residual(lib, lay, mesh, prm, v) \
-            - mesh.scatter_edges(vflux.T)
     res, diag, off_ij, off_ji = es.convective_system_fam(
         lib, lay, mesh, prm, v, grad, lim, nsd.dpdu)
     valid = mesh.fam_valid_flat
-    vflux, vjac_i, vjac_j = _laminar_edge_viscous(
+    vflux, vjac_i, vjac_j = _edge_viscous(
         lib, lay, prm, v, grad, trans, nsd.dtdu,
         lambda x: mesh.fam_gather_i(x, dim=-1),
         lambda x: mesh.fam_gather_j(x, dim=-1), mesh.fam_normal_flat.T,
@@ -199,7 +240,9 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
                 bcs, v, nsd, turb: TurbFlowData | None, omega_turb,
                 dt=None):
     """NS residual, with the SST coupling unless turb is None (laminar);
-    with dt the implicit system.
+    with dt the implicit system.  Explicit RANS with MUSCL runs the
+    edge-list branch (edge_list_interior), as the JAX package leaves its
+    fused edge kernel out under MUSCL.
 
     nsd: the node-state bundle (state.NodeState) of this iteration.
     Returns (res, wall_mask, trans, grad (None in the rows tier of the RANS
@@ -207,20 +250,24 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     (lam_conv, lam_visc), the interior sums of the spectral radii (None in
     the laminar step, which sums them itself), else the implicit system
     (time diagonal Vol/dt included): a StencilJacobianT, or in the
-    laminar step a FamilyJacobian."""
+    laminar step a FamilyJacobian; extra is None also under explicit
+    MUSCL, whose spectral radii the caller sums (viscous_lambda)."""
     implicit = dt is not None
     laminar = turb is None
+    # the explicit steps without a fused edge pass: laminar, and MUSCL
+    edge_list = not implicit and (laminar or prm.muscl)
     n = v.shape[0]
     nd, ns_ = lay.ndim, lay.ns
     q = viscous.ns_gradient_vars(lib, lay, v, xs=nsd.xs)
     ngv = q.shape[1]
     # >= TILED_MIN_NODES: feature-major gradient rows (K7) feed the edge
     # kernels (K8, K10) and the boundary gather directly; the laminar
-    # step, which has no fused edge kernel, reads them node-major
+    # step and explicit MUSCL, which have no fused edge kernel, read them
+    # node-major
     grad_rows = grad = None
     if gradients.use_tiled(mesh):
         grad_rows = es.compute_gradient_rows(mesh, prm, q)
-        if laminar:
+        if laminar or edge_list:
             grad = gradients.rows_to_grad(grad_rows, ngv, nd)
             grad_rows = None
     else:
@@ -229,7 +276,7 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     trans = viscous.Transport(mu=nsd.mu, kappa=nsd.kappa)
 
     lim = None
-    if implicit and prm.use_limiter:
+    if (implicit or prm.muscl) and prm.use_limiter:
         qlim = es.gradient_vars(lay, v)
         glim = grad[:, :2 + nd, :] if grad is not None else \
             gradients.rows_to_grad(grad_rows[:(2 + nd) * nd], 2 + nd, nd)
@@ -237,13 +284,12 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
                if prm.limiter_kind == "BARTH_JESPERSEN" else
                limiters.venkatakrishnan(mesh, qlim, glim, prm.limiter_coeff,
                                         prm.ref_elem_length))
-    if laminar:
-        out = _laminar_interior(lib, lay, mesh, prm, v, grad, lim, nsd,
-                                trans, implicit)
-        if implicit:
-            res, diag, off_ij, off_ji = out
-        else:
-            res = out
+    if edge_list:
+        res = edge_list_interior(lib, lay, mesh, prm, v, grad, lim, trans,
+                                 turb)
+    elif laminar:
+        res, diag, off_ij, off_ji = _laminar_interior(
+            lib, lay, mesh, prm, v, grad, lim, nsd, trans)
     elif implicit:
         res, diag, sel_t = edge_implicit.fused_implicit_family_terms(
             lib, lay, mesh, prm, v, grad, lim, dpdu_full, nsd.dtdu, trans,
@@ -359,7 +405,7 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     res = enforce_wall_velocity(lay, res, wall_mask)
     if not implicit:
         return res, wall_mask, trans, grad, \
-            None if laminar else (lam_c, lam_v), fb
+            None if edge_list else (lam_c, lam_v), fb
 
     # momentum rows of wall nodes: identity on the diagonal, zero off it
     # (DeleteValsRowi)

@@ -260,10 +260,6 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
                         0.0)
     diag = diag + delta[:, None, None] * eye2
     rhs = -res
-    if scfg.linear_solver != "FGMRES":
-        raise NotImplementedError(
-            f"LINEAR_SOLVER= {scfg.linear_solver}: not ported; "
-            "su2_tpu.linalg.krylov has it")
     if mesh.stencil_offsets is not None:
         fam_off = torch.where(wall_mask[None, :, None], 0.0, off)
         zrow = torch.zeros_like(fam_off[0, :, 0])[None]
@@ -271,9 +267,10 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
         for k in range(fam_off.shape[0]):
             sel_rows += [fam_off[k, :, 0][None], zrow, zrow,
                          fam_off[k, :, 1][None]]
-        mv, pc, pm, solve = blockcsr.make_solver_ops_stencil_t(
+        ops = blockcsr.make_solver_ops_stencil_t(
             mesh, diag, torch.cat(sel_rows), scfg.linear_prec, scfg.colors,
-            scfg.ncolor, linear_iter=scfg.linear_iter)
+            scfg.ncolor, linear_iter=scfg.linear_iter,
+            solver=scfg.linear_solver)
     else:
         # the wall rows of the edge blocks: off_ij belongs to node i's
         # row, off_ji to node j's
@@ -283,15 +280,12 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs, q, v,
         jac = blockcsr.BlockJacobian(
             diag=diag, off_ij=torch.where(iw[:, None, None], 0.0, off_ij),
             off_ji=torch.where(jw[:, None, None], 0.0, off_ji))
-        mv, pc, pm, solve = blockcsr.make_solver_ops(
+        ops = blockcsr.make_solver_ops(
             mesh, jac, scfg.linear_prec, scfg.colors, scfg.ncolor,
-            linear_iter=scfg.linear_iter)
-    if solve is not None:
-        # the whole FGMRES cycle in one launch (linalg/stencil_solve.py)
-        sol, _, _ = solve(rhs, scfg.linear_iter, scfg.linear_tol)
-    else:
-        sol, _, _ = krylov.fgmres(mv, pc, rhs, max_iter=scfg.linear_iter,
-                                  tol=scfg.linear_tol, precond_matvec=pm)
+            linear_iter=scfg.linear_iter, solver=scfg.linear_solver)
+    # BCGSTAB, or FGMRES (one launch where the tier has it)
+    sol = krylov.solve(scfg.linear_solver, ops, rhs, scfg.linear_iter,
+                       scfg.linear_tol)
     rms = torch.sqrt((rhs * rhs).mean(0))
     q_new, outs = _update(scfg, q, sol, rho_old, rho, wall_mask, q_wall,
                           grad_k, grad_w, mu, dist, strain_mag, gq)

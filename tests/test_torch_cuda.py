@@ -137,6 +137,60 @@ def test_t2_every_species_instance(card, tmp_path, ns, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ns,dtype", T2_SPECIES,
+                         ids=[f"{ns}sp-{dt}" for ns, dt in T2_SPECIES])
+def test_t2_clip_every_instance(card, tmp_path, ns, dtype):
+    """CLIPPING_TEMPRATURE in T2 at every instance, full and lite: with a
+    guess 10 % off at half the nodes (the clip binds there) against
+    node_state_plain / node_state_lite_plain with the clip, at the
+    tolerances of test_t2_every_species_instance; guessed at the
+    unclipped solve's own T (the clip cannot bind), the clipped outputs
+    equal the unclipped ones bit for bit, so the clip adds no rounding
+    where it stays off (chip_smoke.py --bitwise holds the unclipped T2
+    against the parent commit's build)."""
+    from dataclasses import replace
+    from su2_tpu_torch import kernels, state as st
+    from su2_tpu_torch.chemistry import library as tl
+    dt = getattr(torch, dtype)
+    man = th.cases.write_library(str(tmp_path))
+    lib64 = th.cases.species_cut(tl.load_library(man), ns).to(card)
+    lib = th.cases.species_cut(tl.load_library(man, None, dt), ns).to(card)
+    lay = st.Layout(2, ns)
+
+    def h_rgas(t, ys):
+        tt, yy = th.tt(t).to(card), th.tt(ys).to(card)
+        return (th.npy(tl.mixture_enthalpy_plain(lib64, tt, yy)),
+                th.npy(tl.mixture_rgas(lib64, yy)))
+
+    u, t_guess, tke = th.random_conserved(h_rgas, ns, 2, N, seed=5)
+    off = t_guess * np.where(np.random.default_rng(6).random(N) < 0.5, 1.1,
+                             1.0)
+    clip = st.TSolveParams(clip_temp=True)
+    rtol, afrac = (1e-10, 1e-12) if dtype == "float64" else (2e-4, 1e-6)
+    uu, tk = th.tt(u, dt).to(card), th.tt(tke, dt).to(card)
+    for lite, plain in ((False, st.node_state_plain),
+                        (True, st.node_state_lite_plain)):
+        tg = th.tt(off, dt).to(card)
+        got = kernels.node_state(lib, lay, clip, uu, tg, tk, lite=lite)
+        want = list(vars(plain(lib, lay, uu, tg, clip, tk)).values())
+        th.assert_fields_close(got, want, rtol, afrac,
+                               [f"clip field{i}" for i in range(len(want))])
+        free = kernels.node_state(lib, lay, replace(clip, clip_temp=False),
+                                  uu, tg, tk, lite=lite)
+        assert 0 < int(((free[1][:, 0] - got[1][:, 0]).abs() > 1.0).sum()) \
+            < N
+        tg = kernels.node_state(lib, lay, replace(clip, clip_temp=False),
+                                uu, th.tt(t_guess, dt).to(card), tk,
+                                lite=lite)[1][:, 0].contiguous()
+        on = kernels.node_state(lib, lay, clip, uu, tg, tk, lite=lite)
+        free = kernels.node_state(lib, lay, replace(clip, clip_temp=False),
+                                  uu, tg, tk, lite=lite)
+        assert bool(((free[1][:, 0] / tg - 1.0).abs() < 0.01).all())
+        for a, b in zip(on, free):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_t3_kernel_matches_plain(card, tmp_path):
     from su2_tpu_torch import kernels, state as st
     from su2_tpu_torch.config import Config
@@ -1556,13 +1610,13 @@ def test_tri_slice_launches(card, tmp_path):
     assert {k: launched[k] for k in want} == want
 
 
-def _eager(sim, state, niter, ignites=None, cfl=None):
+def _eager(sim, state, niter, ignites=None, cfl=None, dual=None):
     """niter eager iterations (Simulation._body: sim._step and its history
     row): (the final state, the (niter, W) rows)."""
     rows = []
     for j in range(niter):
         state, row = sim._body(
-            state, None if ignites is None else bool(ignites[j]), cfl)
+            state, None if ignites is None else bool(ignites[j]), cfl, dual)
         rows.append(row)
     return tuple(state), torch.stack(rows)
 
@@ -1580,32 +1634,95 @@ def _graph_text(tmp_path, implicit):
     return th.with_implicit(text, prec="LU_SGS") if implicit else text
 
 
+# the graph test's paths: (implicit flow, cfg lines, K6 solves per
+# iteration); the dual-time paths read u_n, u_nm1 from the graph's buffers
+DUAL2 = dict(UNSTEADY_SIMULATION="DUAL_TIME_STEPPING-2ND_ORDER",
+             UNST_TIMESTEP="2e-5")
+GRAPH_PATHS = {
+    "explicit": (False, {}, 1), "implicit": (True, {}, 2),
+    "dual-explicit": (False, DUAL2, 1),
+    "dual-implicit": (True, dict(DUAL2, UNSTEADY_SIMULATION=(
+        "DUAL_TIME_STEPPING-1ST_ORDER")), 2),
+    "muscl": (False, dict(SPATIAL_ORDER_FLOW="2ND_ORDER_LIMITER",
+                          SLOPE_LIMITER_FLOW="VENKATAKRISHNAN"), 1),
+    "clip": (False, dict(CLIPPING_TEMPRATURE="YES"), 1),
+    "bcgstab": (True, dict(LINEAR_SOLVER="BCGSTAB"), 0),
+    "linelet": (True, dict(LINEAR_SOLVER_PREC="LINELET"), 1)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("implicit", [False, True],
-                         ids=["explicit", "implicit"])
-def test_graph_matches_eager_bitwise(card, tmp_path, implicit, dtype):
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graph_matches_eager_bitwise(card, tmp_path, path, dtype):
     """Five iterations of the LU_SGS step (explicit flow, or implicit:
-    K10 and two K6 solves) through the captured graph (_multistep: five
-    replays) equal five eager iterations from the same state bit for
-    bit, state and history rows; the capture's launches per replay are
-    one eager iteration's, and the call counts its warm-up iteration and
-    five replays of them."""
+    K10 and two K6 solves; dual time with the states of two physical
+    steps, explicit MUSCL, CLIPPING_TEMPRATURE, BCGSTAB (K5's sweep-only
+    and matvec-only forms), the flow's LINELET) through the captured
+    graph (_multistep: five replays) equal five eager iterations from the
+    same state bit for bit, state and history rows; the capture's
+    launches per replay are one eager iteration's, and the call counts
+    its warm-up iteration and five replays of them."""
     from su2_tpu_torch import kernels
-    sim = _card_sim(card, _graph_text(tmp_path, implicit), dtype)
+    implicit, lines, k6 = GRAPH_PATHS[path]
+    sim = _card_sim(card, th.with_lines(_graph_text(tmp_path, implicit),
+                                        **lines), dtype)
     state = (sim.u0, sim.t0) + tuple(sim.initial_turb_state())
-    state = _eager(sim, state, 2)[0]
+    dual = None
+    if sim.dual_order:
+        dual = (state[0], state[0])
+        state = _eager(sim, state, 2, dual=dual)[0]
+        dual = (state[0], dual[0])
+    state = _eager(sim, state, 2, dual=dual)[0]
     kernels.reset_launches()
-    want = _eager(sim, state, 5)
+    want = _eager(sim, state, 5, dual=dual)
     eager = dict(kernels.launches)
     kernels.reset_launches()
-    got = sim._multistep(state, 5)
+    got = sim._multistep(state, 5, dual=dual)
     _assert_same(got, want)
     assert {k: 5 * c for k, c in sim._graph.per_replay.items()} == eager
     assert dict(kernels.launches) == {
         k: 6 * c for k, c in sim._graph.per_replay.items()}
-    assert eager["stencil_fgmres"] == 5 * (1 + implicit)
+    assert eager["stencil_fgmres"] == 5 * k6
+    bcg = path == "bcgstab"
+    assert (eager["stencil_sweep_only"] > 0) == bcg
+    assert (eager["stencil_matvec_only"] > 0) == (bcg or path == "linelet")
+
+
+@pytest.mark.cuda
+def test_bcgstab_lusgs_launches_k5_forms(card, tmp_path):
+    """The implicit LU_SGS case with LINEAR_SOLVER= BCGSTAB at 153 nodes:
+    per iteration the flow's (v = 13) and the SST's (v = 2) BCGSTAB(10)
+    each launch K5's matvec-only form 21 times (the start and two per
+    iteration) and its sweep-only form 20 times, and no K6 or (z, A z)
+    form; the run stays finite."""
+    text = th.with_lines(_graph_text(tmp_path, True), LINEAR_SOLVER="BCGSTAB")
+    sim = _card_sim(card, text)
+    (_, _, hist, _), launched = _run_launches(sim)
+    assert np.isfinite(hist).all()
+    assert launched["stencil_matvec_only"] == 3 * 2 * 21
+    assert launched["stencil_sweep_only"] == 3 * 2 * 20
+    assert launched["stencil_sgs_matvec"] == 3 * 2 * 41
+    assert launched["stencil_fgmres"] == 0
+
+
+@pytest.mark.cuda
+def test_run_unsteady_card_vs_cpu(card, tmp_path):
+    """run_unsteady (explicit BDF2, 2 physical steps of 3 inner
+    iterations; each step one chunk of graph replays) on the card against
+    the CPU in float64: state and history within rtol 1e-9, atol 1e-12
+    max|field|."""
+    from su2_tpu_torch.config import Config
+    from su2_tpu_torch.driver import Simulation
+    from su2_tpu_torch.geometry.structured import channel_mesh
+    text = th.with_lines(th.write_case(tmp_path), UNST_INT_ITER="3", **DUAL2)
+    out = [Simulation(Config(text=text), raw_mesh=channel_mesh(*th.CHANNEL),
+                      dtype=torch.float64, device=d).run_unsteady(
+                          2, quiet=True) for d in (card, "cpu")]
+    (gu, gt, gh, gs), (cu, ct, ch, cs) = out
+    th.assert_fields_close([gu, gt, gh, *gs], [cu, ct, ch, *cs], 1e-9,
+                           1e-12, ["u", "t", "hist", "q", "mu_t", "grad_k",
+                                   "sigma_k"])
 
 
 @pytest.mark.cuda

@@ -126,8 +126,8 @@ def test_t2_plain_nonphys_flags(setups, ns, ref):
 
 
 def test_node_state_dispatch_cpu(setup):
-    """state.node_state takes the plain chain for CPU tensors and refuses
-    the unported CLIPPING_TEMPRATURE option by name."""
+    """state.node_state takes the plain chain for CPU tensors, also with
+    CLIPPING_TEMPRATURE (clip_temp), which the plain chain honours."""
     from su2_tpu_torch import state as tst
     _, tlib, _, tlay, u, t_guess, tke = setup
     p = tst.TSolveParams()
@@ -136,6 +136,8 @@ def test_node_state_dispatch_cpu(setup):
                              th.tt(tke))
     for k in vars(b):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
-    with pytest.raises(NotImplementedError, match="su2_tpu.state"):
-        tst.node_state(tlib, tlay, th.tt(u), th.tt(t_guess),
-                       tst.TSolveParams(clip_temp=True))
+    pc = tst.TSolveParams(clip_temp=True)
+    a = tst.node_state(tlib, tlay, th.tt(u), th.tt(t_guess), pc)
+    b = tst.node_state_plain(tlib, tlay, th.tt(u), th.tt(t_guess), pc)
+    for k in vars(b):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k

@@ -152,15 +152,14 @@ def test_run_chunks_and_history(text, tmp_path):
 
 
 UNPORTED = [
-    ({"LINEAR_SOLVER_PREC": "LINELET"}, "su2_tpu.linalg.linelet"),
-    ({"SPATIAL_ORDER_FLOW": "2ND_ORDER"}, "su2_tpu.solvers.euler"),
+    ({"LINEAR_SOLVER_PREC": "LU_SGS_WAVE"}, "su2_tpu.linalg.wavefront"),
+    ({"LINEAR_SOLVER_PREC": "LU_SGS_SEQ"}, "su2_tpu.linalg.seq_sgs"),
     ({"MGLEVEL": "1"}, "su2_tpu.multigrid"),
     ({"SYSTEM_MEASUREMENTS": "US"}, "su2_tpu.units"),
-    ({"KIND_TURB_MODEL": "NONE", "LINEAR_SOLVER": "BCGSTAB"},
-     "su2_tpu.linalg.krylov"),
+    ({"CONV_NUM_METHOD_FLOW": "HLLC"}, "su2_tpu.ops"),
     ({"CONV_NUM_METHOD_FLOW": "ROE"}, "su2_tpu.ops"),
     ({"KIND_TURB_MODEL": "SA"}, "su2_tpu.turbulence"),
-    ({"LINEAR_SOLVER": "BCGSTAB"}, "su2_tpu.linalg.krylov"),
+    ({"GRID_MOVEMENT": "YES"}, "su2_tpu.motion"),
 ]
 
 
@@ -169,9 +168,9 @@ UNPORTED = [
                  + f"-{w}") for o, w in UNPORTED])
 def test_unported_options_raise(text, settings, where):
     """Options outside the port raise, naming the su2_tpu module that runs
-    them: explicit flow with MUSCL (convective_residual), multigrid, US
-    units, BCGSTAB, also in a laminar run (KIND_TURB_MODEL= NONE, which
-    the port runs since the laminar slice)."""
+    them: the wavefront and the sequential (host callback) LU-SGS sweeps,
+    multigrid, US units, the HLLC and Roe schemes, the SA model and grid
+    movement."""
     lines = [ln for ln in text.splitlines()
              if not ln.startswith(tuple(settings))]
     with pytest.raises(NotImplementedError, match=where.replace(".", r"\.")):
