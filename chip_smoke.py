@@ -58,7 +58,7 @@ Phases (one line each; any failure exits nonzero):
              step's; capture seconds (graph_check)
   6 slice    Simulation.run (replays of the captured graph, chunks of 25),
              then the same iterations through the eager step (ms/iter of
-             both side by side): 9,072 nodes x 50, 142,317 nodes x 20 and
+             both side by side): 9,072 nodes x 25, 142,317 nodes x 20 and
              565,500 nodes x 10 (the tier: K7 twice and K8 once per
              iteration, T3 never; profiled once) in float32 with LU_SGS;
              finite residuals, kernel launch counts (K6 once per iteration
@@ -107,7 +107,7 @@ Phases (one line each; any failure exits nonzero):
              5 f64 iterations card vs CPU with the fused SST assembly
              (K12 once per iteration), explicit LU_SGS and implicit LU_SGS
   fused      (in 6) SU2_TPU_SST_ASSEMBLE=pallas through Simulation: explicit
-             LU_SGS at 9,072 x 50, 142,317 x 20, 565,500 x 10 and implicit
+             LU_SGS at 9,072 x 25, 142,317 x 20, 565,500 x 10 and implicit
              LU_SGS at 9,072 x 20, K12 once per iteration and the SST
              solve's K5/K6 in stencil_solve.fused_sst_solve_tier's tier,
              timed and profiled, each printed beside the unfused run of
@@ -134,10 +134,27 @@ Phases (one line each; any failure exits nonzero):
              box), float64 and float32, per output row at the compiled
              shapes' tolerances, with float32 times
   tri        (at the end of 6) Simulation.run on the triangle channel in
-             float32: 9,072 x 50 and 142,317 x 20 with LU_SGS and with
+             float32: 9,072 x 25 and 142,317 x 20 with LU_SGS and with
              JACOBI, each timed and profiled (K13 once per iteration; T3,
              K8, K5, K6, K7 and K12 never); every stencil-mesh run asserts
              K13 never launched
+  gather     (after the K13 phase) meshes without a static stencil,
+             implicit and laminar: K11 against its plain version on the
+             implicit triangle channel's edge rows (MUSCL +
+             Venkatakrishnan; 9,072 nodes in float64 and float32, 142,317
+             in float32), K13 on the 136,161-node tet box (cases.
+             tet_box_mesh(81, 41, 41), (3, 9)) in float32, then 5 f64
+             iterations card vs CPU of the implicit triangle channel with
+             LU_SGS and with LINELET (K11 once per iteration, the solves
+             in torch gather ops), its laminar implicit JACOBI step and
+             the explicit LU_SGS step of the 19,844-node tet box; in the
+             graph phase the implicit triangle channel (LU_SGS, LINELET),
+             its laminar implicit case and the 19,844-node tet box; at
+             the end of 6 their slices, float32, timed and profiled with
+             the device ms of each stage (device_ms_by_group): implicit
+             LU_SGS and JACOBI at 9,072 x 20 and 142,317 x 5, laminar
+             explicit and implicit JACOBI at 9,072 x 20, the tet box at
+             136,161 x 10
   output     (after 6) Simulation.run(50, chunk=25) of the 9,072-node
              explicit LU_SGS case in float32 through the captured graph
              with WRT_SOL_FREQ= 25 (the writes between chunks: one T2
@@ -216,16 +233,19 @@ operation of the call by name and its CUDA launches, time_call).  The
 default run prints no device ms: profiler windows late in a long process
 lose device events (PERF.md).
 
-    python3 chip_smoke.py --run-loop [--root DIR]
+    python3 chip_smoke.py --run-loop [--gather] [--root DIR]
 
 times the run loop of the su2_tpu_torch in DIR (default: this checkout)
 on RUN_LOOP_PATHS (9,072 nodes explicit and implicit LU_SGS, 565,500
-implicit LU_SGS; float32, the default SST assembly), after a 2-iteration
+implicit LU_SGS; with --gather GATHER_RUN_LOOP_PATHS instead: the
+implicit triangle channel with LU_SGS and JACOBI at 9,072 and 142,317
+nodes, its laminar explicit and implicit cases at 9,072, the 136,161-node
+tet box; float32, the default SST assembly), after a 2-iteration
 warm-up: where DIR's Simulation has a captured graph, eager (A: the step
 from the host, eager_iterations) against graph (B: run(niter, chunk=25))
 in the order A B B A, the eager step's profile (CUDA launches, API calls,
-busy ms per iteration), the peak memory of one eager step and of the
-capture (memory_mb) and the capture seconds; without one (a parent checkout) run(niter, chunk=25)
+busy ms per iteration, device ms by stage), the peak memory of one eager
+step and of the capture (memory_mb) and the capture seconds; without one (a parent checkout) run(niter, chunk=25)
 twice; for both the run's profile over one chunk of 3 iterations
 (profile_run: device kernels, su2k kernels, busy ms, CUDA API calls per
 iteration).  One JSON line per path, then one for all.
@@ -343,7 +363,7 @@ IMPLICIT_VARIANTS = {"venkatakrishnan": (True, "VENKATAKRISHNAN"),
 SIZES = {"flagship": (189, 48), "scaling": (753, 189), "tier": (1500, 377)}
 # the triangle-channel runs (cases.tri_channel_mesh of the same node grids:
 # 9,072 nodes / 26,743 edges and 142,317 / 425,068): iterations per size
-TRI_NITERS = {"flagship": 50, "scaling": 20}
+TRI_NITERS = {"flagship": 25, "scaling": 20}
 TC_T_TOT = 600.0        # T_tot of cases.with_total_conditions
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM bytes/s
 # and non-tensor FLOP/s per type, for the bound of each kernel
@@ -358,10 +378,24 @@ LUSGS_NITERS = {"flagship": 20, "scaling": 10, "tier": 3}
 # iterations of the laminar implicit LU_SGS slice runs (the explicit one
 # at 9,072 nodes runs the flagship's count too)
 LAMINAR_NITERS = {"flagship": 20, "tier": 3}
+# meshes without a static stencil, implicit and laminar: the
+# implicit triangle channel's slice iterations per size (LU_SGS and
+# JACOBI; the laminar runs take the flagship's), and the tet box
+# (cases.tet_box_mesh, 9 species) of the f64 step check (19,844 nodes)
+# and of the slice (136,161 nodes, TET_NITER iterations)
+TRI_IMPLICIT_NITERS = {"flagship": 20, "scaling": 5}
+TET_STEP = (41, 22, 22)
+TET_SLICE = (81, 41, 41)
+TET_NITER = 10
+
+
+T_START = time.perf_counter()
 
 
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f"[{name}] {msg} [+{time.perf_counter() - T_START:.1f} s]",
+          flush=True)
 
 
 def card_line():
@@ -473,12 +507,14 @@ def compare(name, dt, got, want, per_row=False):
 
 def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
               total_conditions=False, implicit=None, laminar=False,
-              tri=False, settings=None):
+              tri=False, settings=None, nz=None):
     """The synthetic case on channel_mesh(nx, ny); implicit: (muscl,
     limiter) of the implicit-flow variant, whose flow and SST systems are
     solved with prec as well; laminar: KIND_TURB_MODEL= NONE; tri: on
     cases.tri_channel_mesh(nx, ny) (triangles, scrambled node order, no
-    static stencil); settings: {cfg key: value} lines added last."""
+    static stencil); nz: on cases.tet_box_mesh(nx, ny, nz) (tetrahedra,
+    scrambled, no static stencil) with cases.with_box_markers' walls;
+    settings: {cfg key: value} lines added last."""
     from su2_tpu_torch import cases
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
@@ -493,6 +529,9 @@ def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
         text = cases.with_laminar(text)
     text += "".join(f"\n{k}= {v}" for k, v in (settings or {}).items())
     raw = cases.tri_channel_mesh(nx, ny) if tri else channel_mesh(nx, ny)
+    if nz is not None:
+        text = cases.with_box_markers(text)
+        raw = cases.tet_box_mesh(nx, ny, nz)
     return Simulation(Config(text=text), raw_mesh=raw, dtype=dtype,
                       device=device)
 
@@ -1115,6 +1154,69 @@ def ausm_kernel_phase(sim, dtype_name, report):
         report.setdefault("ausm_flux_jac", {})[key] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
             bound_by=bound[1], library_ms=None)
+
+
+def k11_edge_inputs(sim, dtype_name):
+    """K11's arguments on the edge rows of the triangle channel's implicit
+    case sim (no static stencil; its mesh and library converted to the
+    dtype): euler.edge_faces of a random reacting state (limited MUSCL
+    face states over the edge list), feature-major, as
+    euler.convective_system passes them; (lay, [v_i, v_j, normals, s_i,
+    s_j], M_inf, edges, operations)."""
+    from types import SimpleNamespace
+    import torch
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.ops import limiters, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    dtype = getattr(torch, dtype_name)
+    mesh, lib = sim.mesh.to(dtype=dtype), sim.lib.to(dtype=dtype)
+    lay, prm = sim.lay, sim.params
+    x = kernel_inputs(SimpleNamespace(lib=lib, lay=lay, mesh=mesh,
+                                      dtype=dtype, device=sim.device,
+                                      tparams=sim.tparams))
+    nsd = st.node_state(lib, lay, x["u"], x["t_guess"], x["p"])
+    grad = es.compute_gradients(mesh, prm, vis.ns_gradient_vars(
+        lib, lay, nsd.v, nsd.xs))
+    lim = limiters.venkatakrishnan(mesh, es.gradient_vars(lay, nsd.v),
+                                   grad[:, :2 + lay.ndim], prm.limiter_coeff,
+                                   prm.ref_elem_length)
+    v_i, v_j, s_i, s_j = es.edge_faces(lib, lay, mesh, prm, nsd.v, grad, lim,
+                                       nsd.dpdu)
+    ins = [v_i, v_j, mesh.edge_normal.T.contiguous(), s_i.contiguous(),
+           s_j.contiguous()]
+    ne, nv = mesh.nedge, lay.nvar
+    # operations per edge as k11_inputs counts them
+    return lay, ins, prm.m_infty, ne, ne * (500 + 16 * nv * nv)
+
+
+def ausm_edge_phase(sim, dtype_name, report):
+    """K11 against its plain version (ops/ausm_t.ausm_flux_t) on the edge
+    rows of the triangle channel's implicit case (k11_edge_inputs), the
+    feature-major layout of euler.convective_system; per output row, with
+    times and the bound."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import ausm_t
+    lay, ins, m_inf, ne, flops = k11_edge_inputs(sim, dtype_name)
+    rows = lambda out: k11_rows(out, lay.nvar, ne)
+    want = ausm_t.ausm_flux_t(lay, *ins[:3], m_inf, *ins[3:])
+    kfn = lambda: kernels.ausm_flux_jac(lay, *ins[:3], m_inf, *ins[3:])
+    got = rows(kfn())
+    torch.cuda.synchronize()
+    err, scaled = compare("ausm_flux_jac", dtype_name, got, rows(want),
+                          per_row=True)
+    ms = cuda_time(kfn)
+    plain_ms = cuda_time(lambda: ausm_t.ausm_flux_t(
+        lay, *ins[:3], m_inf, *ins[3:]))
+    bound = bound_of(nbytes(ins + got), flops, dtype_name)
+    key = f"{dtype_name} {sim.mesh.npoint} edge rows"
+    phase("k11", f"ausm_flux_jac {key} (triangle channel, {ne} edges): "
+          f"max_abs_err {err:.3e} ({scaled:.2e} of its row's max) kernel "
+          f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms "
+          f"({bound[1]})")
+    report.setdefault("ausm_flux_jac", {})[key] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+        bound_by=bound[1], library_ms=None)
 
 
 def sst_inputs(sim, steps=3):
@@ -1815,7 +1917,7 @@ def k6_check(sname, var, args, r, b, report):
 
 
 def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
-               prec="JACOBI", fused=False, tri=False):
+               prec="JACOBI", fused=False, tri=False, tet=None):
     """5 coupled iterations, card vs CPU, from the state after 10 card
     iterations of the flagship-class case; tier=True forces the
     >= 200k-node tier on both sides (TILED_MIN_NODES = 0: K7 and K8, or
@@ -1827,7 +1929,10 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
     SST's one K6 launch); fused the fused SST assembly on both sides (K12
     once per iteration, the SST's solve in the fused tier: one K6 launch
     in f64 at 9,072 nodes); tri the triangle channel (the gather path: K13
-    once per iteration, the SST's solve in torch gather ops)."""
+    once per iteration, the SST's solve in torch gather ops; implicit: the
+    edge-list system, K11 once per iteration, both solves in torch gather
+    ops, LINELET's lines over the edge list); tet, a shape of
+    cases.tet_box_mesh (explicit: K13 at (3, 9), the 3D gather WLS)."""
     from su2_tpu_torch.ops import gradients
     from su2_tpu_torch.turbulence import sst
     saved = gradients.TILED_MIN_NODES
@@ -1837,24 +1942,29 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
         sst.set_assemble_mode("fused")
     try:
         worst, counts, sim = _step_compare(tmp, total_conditions, implicit,
-                                           prec, tri=tri)
+                                           prec, tri=tri, tet=tet)
     finally:
         gradients.TILED_MIN_NODES = saved
         sst.set_assemble_mode("unfused")
     n = sim.mesh.npoint
     imp = implicit is not None
+    gather = tri or tet is not None
     want = {"edge_win": 5 * (tier and not imp),
-            "edge_flux": 5 * (not tier and not imp and not tri),
-            "edge_list_flux": 5 * tri, "edge_list_sum": 5 * tri,
-            "edge_implicit": 5 * imp, "chem_source": 5 * (not imp),
+            "edge_flux": 5 * (not tier and not imp and not gather),
+            "edge_list_flux": 5 * (gather and not imp),
+            "edge_list_sum": 5 * (gather and not imp),
+            "edge_implicit": 5 * (imp and not gather),
+            "ausm_flux_jac": 5 * (imp and gather),
+            "chem_source": 5 * (not imp),
             "gradient_rows": 10 * tier, "inlet_tc": 5 * total_conditions,
             "sst_assemble": 5 * fused}
-    if tri:
-        want.update(stencil_fgmres=0, stencil_sgs_matvec=0)
     if imp:
         lusgs = prec != "JACOBI"
         want.update(stencil_fgmres=5 * lusgs,
                     stencil_sgs_matvec=5 * KRYLOV_M * lusgs)
+    if gather:
+        want.update(stencil_fgmres=0, stencil_sgs_matvec=0,
+                    stencil_sweep_only=0, stencil_matvec_only=0)
     if fused and not imp:
         _, one = fused_sst_tier(sim)
         want.update(stencil_fgmres=5 * one,
@@ -1876,18 +1986,28 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
     if tri:
         what = ("the triangle channel (no static stencil: K13, the SST "
                 "solve's LU_SGS in torch gather ops)")
+        if imp:
+            what = (f"the implicit flow on the triangle channel (no static "
+                    f"stencil: K11 on the edge rows, {prec} over the "
+                    "gathered blocks in torch ops)")
+    if tet is not None:
+        what = ("explicit LU_SGS on the tet box (no static stencil: K13 at "
+                "(3, 9), the 3D gather WLS)")
     phase("step", f"5 iterations at {n} nodes f64 with {what}, card vs CPU "
           f"within rtol 1e-9, atol 1e-12*max|field| (largest difference "
           f"{worst:.3e} of its field's max); card launches {counts}")
 
 
-def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False):
+def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False,
+                       tri=False):
     """5 laminar iterations (KIND_TURB_MODEL= NONE), card vs CPU, from the
     state after 10 card iterations of the flagship-class case: explicit
     (T4 once per iteration), or implicit (muscl, limiter) with prec (K11
     once per iteration; LU_SGS: the flow's 13 x 13 solve in f64's tier);
     tier=True forces the >= 200k-node tier on both sides (K7's rows, read
-    node-major by the laminar edge terms)."""
+    node-major by the laminar edge terms); tri the triangle channel (no
+    static stencil: implicit, K11 on the edge rows and the solve in torch
+    gather ops)."""
     import torch
     from su2_tpu_torch.linalg import stencil_solve as sts
     from su2_tpu_torch.ops import gradients
@@ -1896,7 +2016,7 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False):
         gradients.TILED_MIN_NODES = 0
     try:
         worst, counts, sim = _step_compare(tmp, False, implicit, prec,
-                                           laminar=True)
+                                           laminar=True, tri=tri)
     finally:
         gradients.TILED_MIN_NODES = saved
     n = sim.mesh.npoint
@@ -1905,7 +2025,7 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False):
             "node_state": 5, "edge_implicit": 0, "edge_flux": 0,
             "edge_win": 0, "gradient_rows": 5 * tier, "sst_assemble": 0,
             "edge_list_flux": 0, "edge_list_sum": 0}
-    lusgs = imp and prec != "JACOBI"
+    lusgs = imp and prec != "JACOBI" and not tri
     one = lusgs and sts.solve_tier(n, sim.mesh.stencil_offsets, sim.lay.nvar,
                                    torch.float64, sim.ncolor, KRYLOV_M)[1]
     want.update(stencil_fgmres=5 * one,
@@ -1916,23 +2036,24 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False):
                                  f"times in the 5 compared card iterations,"
                                  f" expected {c}")
     what = (f"implicit ({prec}, K11)" if imp else "explicit (T4)") \
-        + (" with the >= 200k-node tier forced (K7)" if tier else "")
+        + (" with the >= 200k-node tier forced (K7)" if tier else "") \
+        + (" on the triangle channel (K11 on the edge rows)" if tri else "")
     phase("step", f"5 laminar iterations at {n} nodes f64, {what}, card vs "
           f"CPU within rtol 1e-9, atol 1e-12*max|field| (largest difference "
           f"{worst:.3e} of its field's max); card launches {counts}")
 
 
 def _step_compare(tmp, total_conditions, implicit=None, prec="JACOBI",
-                  laminar=False, tri=False):
+                  laminar=False, tri=False, tet=None):
     import torch
     from su2_tpu_torch import kernels
     prec = "LU_SGS" if implicit is None and not laminar else prec
-    gpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cuda", prec,
-                    total_conditions=total_conditions, implicit=implicit,
-                    laminar=laminar, tri=tri)
-    cpu = make_case(tmp, *SIZES["flagship"], torch.float64, "cpu", prec,
-                    total_conditions=total_conditions, implicit=implicit,
-                    laminar=laminar, tri=tri)
+    shape, nz = (tet[:2], tet[2]) if tet is not None \
+        else (SIZES["flagship"], None)
+    gpu, cpu = (make_case(tmp, *shape, torch.float64, dev, prec,
+                          total_conditions=total_conditions,
+                          implicit=implicit, laminar=laminar, tri=tri,
+                          nz=nz) for dev in ("cuda", "cpu"))
     ncarry = 2 if laminar else 6
     s_gpu = (gpu.u0, gpu.t0) + (() if laminar
                                 else tuple(gpu.initial_turb_state()))
@@ -2007,7 +2128,7 @@ def step_groups():
     solve"."""
     from su2_tpu_torch import state as st
     from su2_tpu_torch.geometry.mesh_data import MeshArrays
-    from su2_tpu_torch.linalg import blockcsr, krylov
+    from su2_tpu_torch.linalg import blockcsr, krylov, linelet
     from su2_tpu_torch.linalg.stencil_solve import StencilSolveOps
     from su2_tpu_torch.ops import (ausm_t, edge_flux, edge_implicit,
                                    limiters, viscous_t)
@@ -2032,6 +2153,8 @@ def step_groups():
             (ausm_t, "ausm_flux_t", "boundary flux and Jacobians"),
             (viscous_t, "viscous_flux_t", "boundary flux and Jacobians"),
             (es, "convective_system_fam", "convective system"),
+            (es, "convective_system", "convective system"),
+            (es, "edge_faces", "edge face states"),
             (es, "convective_residual", "convective residual"),
             (ns, "_edge_viscous", "edge-list viscous flux"),
             (es, "chemistry_source_system", "chemistry source"),
@@ -2039,6 +2162,8 @@ def step_groups():
             (blockcsr, "block_diag_inv", "block inverse"),
             (StencilSolveOps, "__init__", "sweep block layout"),
             (krylov, "fgmres", "FGMRES"),
+            (krylov, "bcgstab", "BCGSTAB"),
+            (linelet, "make_linelet_apply", "line factorisation"),
             (StencilSolveOps, "fgmres", "FGMRES"),
             (sst, "sst_step", "SST solve"),
             (sst, "blending", "SST blending"),
@@ -2048,42 +2173,99 @@ def step_groups():
             (sst, "_update", "SST update")]
 
 
+def _group_chain(e, groups, memo):
+    """The group ranges that enclose the host event e, outer first, read
+    up the profiler's host event tree (cpu_parent); memo: {id: chain} of
+    the events already walked."""
+    chain = memo.get(id(e))
+    if chain is None:
+        p = e.cpu_parent
+        chain = () if p is None else _group_chain(p, groups, memo) + (
+            (p,) if p.name in groups else ())
+        memo[id(e)] = chain
+    return chain
+
+
+def _group_path(chain):
+    """A chain's "/"-joined names, a group called from itself named
+    once."""
+    names = []
+    for a in chain:
+        if not names or names[-1] != a.name:
+            names.append(a.name)
+    return "/".join(names)
+
+
 def launches_by_group(events, groups):
     """{nested group path: launches} from profiler events: each launch
     goes to the chain of group ranges that enclose it on the host (outer
     first, "/"-joined, a group called from itself named once; "other"
     outside every range).  The ranges' device-side copies are not
     used."""
-    import torch
-    cpu = torch.autograd.DeviceType.CPU
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in events
-                   if e.name in groups and e.device_type == cpu)
-    counts = {}
+    memo, counts = {}, {}
     for e in events:
         if "LaunchKernel" not in e.name \
                 and "LaunchCooperativeKernel" not in e.name:
             continue
-        t = e.time_range.start
-        path = []
-        for a, b, name in spans:
-            if a <= t <= b and (not path or path[-1] != name):
-                path.append(name)
-        key = "/".join(path) if path else "other"
+        key = _group_path(_group_chain(e, groups, memo)) or "other"
         counts[key] = counts.get(key, 0) + 1
     return counts
+
+
+def device_ms_by_group(events, groups):
+    """{nested group path: device ms} from profiler events: the device
+    time of the kernels each group range launched outside the group
+    ranges nested in it (its exclusive time; paths as launches_by_group
+    names them, a group called from itself counted in its outer call),
+    and "other" for the rest of the kernels' device time."""
+    import torch
+    cpu = torch.autograd.DeviceType.CPU
+
+    def dev_us(e):
+        for attr in ("device_time_total", "cuda_time_total"):
+            v = getattr(e, attr, None)
+            if v is not None:
+                return v
+        return 0.0
+
+    memo = {}
+    chain = lambda e: _group_chain(e, groups, memo)
+    counted = lambda e: not any(a.name == e.name for a in chain(e))
+    ranges = [e for e in events if e.device_type == cpu
+              and e.name in groups]
+    excl, path = {}, {}
+    for e in ranges:
+        if not counted(e):
+            continue
+        anc = chain(e)
+        path[id(e)] = _group_path(anc + (e,))
+        excl[id(e)] = excl.get(id(e), 0.0) + dev_us(e)
+        # the nearest enclosing counted range loses it
+        parent = next((a for a in reversed(anc) if counted(a)), None)
+        if parent is not None:
+            excl[id(parent)] = excl.get(id(parent), 0.0) - dev_us(e)
+    out = {}
+    for k, us in excl.items():
+        out[path[k]] = out.get(path[k], 0.0) + us
+    top = sum(dev_us(e) for e in ranges if not chain(e))
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in groups)
+    out["other"] = busy - top
+    return {k: v / 1e3 for k, v in out.items()}
 
 
 def profile_steps(sim, state, niter=3):
     """(CUDA kernel launches, device-busy ms, {su2k kernel: device ms},
     {other device op: device ms} of the three largest, {stage path:
-    launches}, CUDA API calls, device span ms) per iteration over niter
-    eager steps, from torch.profiler: launches are the runtime's launch
-    calls, busy the summed device time of kernels, copies and sets; the
-    stages are those of step_groups; the span from the first of those on
-    the device to the end of the last, the window of busy (idle: 1 -
-    busy / span; the profiler's own host work, which slows an eager
-    step, is in it)."""
+    launches}, CUDA API calls, device span ms, {stage path: device ms})
+    per iteration over niter eager steps, from torch.profiler: launches
+    are the runtime's launch calls, busy the summed device time of
+    kernels, copies and sets; the stages are those of step_groups (device
+    ms: device_ms_by_group, each stage's own kernels); the span from the
+    first of those on the device to the end of the last, the window of
+    busy (idle: 1 - busy / span; the profiler's own host work, which
+    slows an eager step, is in it)."""
     import functools
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2113,6 +2295,7 @@ def profile_steps(sim, state, niter=3):
     events = prof.events()
     names = {g for _, _, g in groups}
     by_group = launches_by_group(events, names)
+    ms_by_group = device_ms_by_group(events, names)
     launches, busy_us, ours, other, api = 0, 0.0, {}, {}, 0
     lo, hi = float("inf"), float("-inf")
     for e in events:
@@ -2139,7 +2322,9 @@ def profile_steps(sim, state, niter=3):
             {k: round(us / 1e3 / niter, 4) for k, us in top},
             {k: c / niter for k, c in sorted(by_group.items(),
                                              key=lambda kv: -kv[1])},
-            api / niter, (hi - lo) / 1e3 / niter)
+            api / niter, (hi - lo) / 1e3 / niter,
+            {k: round(ms / niter, 4) for k, ms in sorted(
+                ms_by_group.items(), key=lambda kv: -kv[1])})
 
 
 def run_state(out, lam):
@@ -2307,16 +2492,18 @@ def graph_check(sim, label, niter=5):
     return per
 
 
-def graph_phase(tmp, sims, lusgs, lam, tri, seen):
+def graph_phase(tmp, sims, lusgs, lam, tri, seen, gather=()):
     """graph_check, float32, on the paths that together launch every
     kernel: explicit LU_SGS at 9,072 nodes (T1-T4, K6 as one cluster at
     v = 2), 142,317 (K5 at v = 2) and 565,500 (K7, K8), implicit LU_SGS at
     9,072 (K10, K6 cooperative at v = 13) and 142,317 (K5 at v = 13), the
     laminar implicit LU_SGS case (K11), the triangle channel (K13), a
-    TOTAL_CONDITIONS inlet (K9) and the fused SST assembly (K12).  seen:
-    the launch counts options_phase's graphs showed (K5's sweep-only and
-    matvec-only forms).  Fails unless every kernel launched inside a
-    graph."""
+    TOTAL_CONDITIONS inlet (K9) and the fused SST assembly (K12); then
+    gather's (label, sim) pairs (the paths without a static stencil:
+    implicit and laminar triangles, K11 on the edge rows; the tet box,
+    K13 at (3, 9)).  seen: the launch counts options_phase's graphs
+    showed (K5's sweep-only and matvec-only forms).  Fails unless every
+    kernel launched inside a graph."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.turbulence import sst
@@ -2328,8 +2515,10 @@ def graph_phase(tmp, sims, lusgs, lam, tri, seen):
                        ("explicit LU_SGS", sims["scaling"]),
                        ("implicit LU_SGS", lusgs["scaling"]),
                        ("explicit LU_SGS, the >= 200k-node tier",
-                        sims["tier"])):
-        seen |= set(graph_check(sim, label))
+                        sims["tier"])) + tuple(gather):
+        # the gather paths' eager steps are the slowest: 2 iterations
+        seen |= set(graph_check(sim, label, 2 if (label, sim) in gather
+                                else 5))
         sim.drop_graph()
     seen |= set(graph_check(make_case(
         tmp, *SIZES["flagship"], torch.float32, "cuda",
@@ -2474,21 +2663,23 @@ def options_phase(tmp, runs):
               f" atol 1e-12*max|field| (largest difference {worst:.3e} of "
               f"its field's max); card launches {counts}; "
               f"{time.perf_counter() - t0:.1f} s")
-        seen |= set(graph_check(gpu, f"{label} (f64)"))
+        seen |= set(graph_check(gpu, f"{label} (f64)", 3))
         del gpu, cpu
         torch.cuda.empty_cache()
     return seen
 
 
 def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
-                stats=None):
+                stats=None, prof_iters=3):
     """Time niter iterations of Simulation.run (chunks of 25: replays of
     the step's CUDA graph) after a 2-iteration warm-up (which captures
     it), then the same iterations through the eager step from the same
     start; check the history, the state and the launch counts (the
     replays' launches, niter times the graph's per_replay, equal to the
     eager step's), print one line; profile: also 3 profiled eager iterations
-    and 3 profiled replays.  The graph is dropped at the end.  Returns the
+    and 3 profiled replays (prof_iters of each: 1 on the paths of ~10,000
+    kernels an iteration, whose profiles' events take longest to read).
+    The graph is dropped at the end.  Returns the
     launch counts of the graph run; stats, a dict, receives ms/iter
     (graph and eager) and the profiles' launches, kernels, API calls and
     busy ms per iteration."""
@@ -2541,16 +2732,17 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     # implicit flow: K10 instead of T3/K8, the source system in torch ops;
     # laminar: one node state, no fused edge kernel, implicit through K11
     imp = sim.cfg.implicit_flow
-    # the triangle channel (no static stencil): K13 for T3, the SST solve
-    # in torch gather ops
+    # meshes without a static stencil (triangles, tetrahedra): K13 for T3
+    # (explicit RANS), K11 for K10 (implicit), the solves in torch gather
+    # ops
     tri = sim.mesh.stencil_offsets is None
     want = {"node_state": (1 if lam else 2) * niter,
             "edge_flux": 0 if tier or imp or lam or tri else niter,
-            "edge_list_flux": niter if tri else 0,
-            "edge_list_sum": niter if tri else 0,
+            "edge_list_flux": niter if tri and not (imp or lam) else 0,
+            "edge_list_sum": niter if tri and not (imp or lam) else 0,
             "edge_win": niter if tier and not (imp or lam) else 0,
-            "edge_implicit": niter if imp and not lam else 0,
-            "ausm_flux_jac": niter if imp and lam else 0,
+            "edge_implicit": niter if imp and not (lam or tri) else 0,
+            "ausm_flux_jac": niter if imp and (lam or tri) else 0,
             "gradient_rows": sweeps * niter if tier else 0,
             "chem_source": 0 if imp else niter, "inlet_tc": n_tc * niter,
             "sst_assemble": niter if fused else 0}
@@ -2563,9 +2755,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
                              f"{counts['mixture_enthalpy']} < {niter}")
     table = (LAMINAR_STENCIL_PER_ITER if lam else
              IMPLICIT_STENCIL_PER_ITER if imp else STENCIL_PER_ITER)
-    per = dict(table[size])
-    if tri:
-        per = {k: 0 for k in per}
+    per = ({k: 0 for k in table["flagship"]} if tri
+           else dict(table[size]))
     if fused:
         # the SST's solve in the fused tier in place of the unfused one
         _, one = fused_sst_tier(sim)
@@ -2597,20 +2788,24 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
         stats.update(ms=ms, eager_ms=eager_ms)
     if profile:
         state = (u, t) + (() if lam else tuple(ts))
-        cuda_launches, busy, ours, top, by_group, api, p_ms = profile_steps(
-            sim, state)
-        g_kern, _, g_busy, g_api, g_api_by, g_ms = profile_run(sim, state)
+        (cuda_launches, busy, ours, top, by_group, api, p_ms,
+         ms_by_group) = profile_steps(sim, state, prof_iters)
+        g_kern, _, g_busy, g_api, g_api_by, g_ms = profile_run(sim, state,
+                                                               prof_iters)
         if stats is not None:
             stats.update(launches=cuda_launches, busy=busy, api=api,
                          span=p_ms, graph_kernels=g_kern, graph_busy=g_busy,
-                         graph_api=g_api, graph_span=g_ms)
+                         graph_api=g_api, graph_span=g_ms,
+                         ms_by_stage=ms_by_group)
         prof = (f", profiled: eager {cuda_launches:.1f} CUDA launches/iter "
                 f"({api:.1f} CUDA API calls/iter), device busy {busy:.3f} "
                 f"of a {p_ms:.3f} ms/iter device span (idle "
                 f"{1 - busy / p_ms:.1%}), "
                 f"su2k kernels' device ms/iter {ours}, the largest "
                 f"other device ops' ms/iter {top}, CUDA launches/iter by "
-                f"stage {by_group}; graph {g_kern:.1f} device kernels per "
+                f"stage {by_group}, device ms/iter by stage (each stage's "
+                f"own kernels) {ms_by_group}; graph {g_kern:.1f} device "
+                "kernels per "
                 f"replay, {g_api:.2f} CUDA API calls/iter {g_api_by}, "
                 f"device busy {g_busy:.3f} of a {g_ms:.3f} ms/iter device "
                 f"span (idle {1 - g_busy / g_ms:.1%})")
@@ -2624,7 +2819,9 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     if fused:
         prec = f"{prec}, fused SST assembly (K12)"
     if tri:
-        prec = f"{prec}, triangle channel ({sim.mesh.nedge} edges, K13)"
+        kern = "K11" if imp else "K13"
+        shape = "triangle channel" if sim.lay.ndim == 2 else "tet box"
+        prec = f"{prec}, {shape} ({sim.mesh.nedge} edges, {kern})"
     phase("slice", f"{n} nodes {dt} {prec} x {niter}: graph {ms:.3f} "
           f"ms/iter, eager {eager_ms:.3f} ms/iter, {n / (ms * 1e3):.3f} "
           f"Mcell-updates/s, log10 rms[rho] {hist[0][0]:.4f} -> "
@@ -3712,9 +3909,24 @@ def ab_main(root, only=TIMED):
 
 # --run-loop: the paths the run loop is timed on (label, size, implicit
 # flow, iterations), float32, LU_SGS, the default SST assembly
-RUN_LOOP_PATHS = (("9072 explicit LU_SGS", "flagship", False, 50),
-                  ("9072 implicit LU_SGS", "flagship", True, 20),
-                  ("565500 implicit LU_SGS", "tier", True, 10))
+RUN_LOOP_PATHS = (("9072 explicit LU_SGS", "flagship", {}, 50),
+                  ("9072 implicit LU_SGS", "flagship", {"implicit": True}, 20),
+                  ("565500 implicit LU_SGS", "tier", {"implicit": True}, 10))
+# --run-loop --gather: the paths without a static stencil (label, size,
+# make_case keywords, implicit: the main implicit variant; iterations);
+# size "tet" is TET_SLICE
+GATHER_RUN_LOOP_PATHS = tuple(
+    (f"{n} {label}", size, kw, niter)
+    for n, size, niter in (("9072", "flagship", 20), ("142317", "scaling", 5))
+    for label, kw in (
+        ("triangles implicit LU_SGS", dict(implicit=True, tri=True)),
+        ("triangles implicit JACOBI", dict(implicit=True, tri=True,
+                                           prec="JACOBI")))) + (
+    ("9072 triangles laminar explicit", "flagship",
+     dict(laminar=True, tri=True, prec="JACOBI"), 20),
+    ("9072 triangles laminar implicit JACOBI", "flagship",
+     dict(implicit=True, laminar=True, tri=True, prec="JACOBI"), 20),
+    ("136161 tetrahedra explicit LU_SGS", "tet", {}, TET_NITER))
 
 
 def memory_mb(fn):
@@ -3741,7 +3953,7 @@ def wall_ms(fn, niter):
     return (time.perf_counter() - t0) * 1e3 / niter
 
 
-def run_loop_main(root):
+def run_loop_main(root, paths=RUN_LOOP_PATHS):
     """--run-loop: see the module docstring."""
     import torch
     from su2_tpu_torch import kernels
@@ -3753,34 +3965,42 @@ def run_loop_main(root):
     result = dict(root=root, card=card, graph=graph, paths={})
     imp = IMPLICIT_VARIANTS["venkatakrishnan"]
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as tmp:
-        for label, size, implicit, niter in RUN_LOOP_PATHS:
-            sim = make_case(tmp, *SIZES[size], torch.float32, "cuda",
-                            implicit=imp if implicit else None)
+        for label, size, kw, niter in paths:
+            kw = dict(kw, implicit=imp if kw.get("implicit") else None)
+            if size == "tet":
+                sim = make_case(tmp, *TET_SLICE[:2], torch.float32, "cuda",
+                                nz=TET_SLICE[2], **kw)
+            else:
+                sim = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                                **kw)
+            lam = not sim.turbulent
             rec = result["paths"][label] = {"niter": niter}
-            init = (sim.u0, sim.t0) + tuple(sim.initial_turb_state())
+            init = (sim.u0, sim.t0) + (() if lam
+                                        else tuple(sim.initial_turb_state()))
             if graph:
                 rec["eager_memory_mb"] = memory_mb(
                     lambda: sim._step(*init))
                 rec["graph_memory_mb"] = memory_mb(
                     lambda: sim._multistep(init, 1))
                 rec["capture_s"] = round(sim._graph.capture_s, 4)
-            state = run_state(sim.run(2, quiet=True), False)
+            state = run_state(sim.run(2, quiet=True), lam)
 
-            def run(state=state, sim=sim, niter=niter):
+            def run(state=state, sim=sim, niter=niter, lam=lam):
                 sim.run(niter, u=state[0], t_guess=state[1],
-                        turb_state=state[2:], quiet=True, chunk=25)
+                        turb_state=None if lam else state[2:], quiet=True,
+                        chunk=25)
             if graph:
                 def eager(state=state, sim=sim, niter=niter):
                     eager_iterations(sim, state, niter)
                 ms = [wall_ms(f, niter) for f in (eager, run, run, eager)]
                 rec["eager_ms"] = [round(ms[0], 4), round(ms[3], 4)]
                 rec["graph_ms"] = [round(ms[1], 4), round(ms[2], 4)]
-                launches, busy, ours, _, _, api, p_ms = profile_steps(
-                    sim, state)
+                launches, busy, ours, _, _, api, p_ms, by_stage = \
+                    profile_steps(sim, state)
                 rec["eager_profile"] = dict(
                     cuda_launches=launches, api_calls=api,
                     busy_ms=round(busy, 4), span_ms=round(p_ms, 4),
-                    su2k_ms=ours)
+                    su2k_ms=ours, device_ms_by_stage=by_stage)
             else:
                 rec["run_ms"] = [round(wall_ms(run, niter), 4)
                                  for _ in range(2)]
@@ -3880,6 +4100,9 @@ def main():
     ap.add_argument("--run-loop", action="store_true",
                     help="time the run loop of the checkout --root on "
                     "RUN_LOOP_PATHS (run_loop_main)")
+    ap.add_argument("--gather", action="store_true",
+                    help="--run-loop: on GATHER_RUN_LOOP_PATHS (the paths "
+                    "without a static stencil) instead")
     ap.add_argument("--time-options", action="store_true",
                     help="time the slice's options (options_time_main)")
     ap.add_argument("--root", default=HERE)
@@ -3909,7 +4132,8 @@ def main():
     if opt.time_kernels:
         return ab_main(root, only)
     if opt.run_loop:
-        return run_loop_main(root)
+        return run_loop_main(root, GATHER_RUN_LOOP_PATHS if opt.gather
+                             else RUN_LOOP_PATHS)
     if opt.time_options:
         return options_time_main(root)
     if opt.bitwise:
@@ -3930,7 +4154,7 @@ def main():
         phase("build", line)
 
     report = {}
-    niters = {"flagship": 50, "scaling": 20, "tier": 10}
+    niters = {"flagship": 25, "scaling": 20, "tier": 10}
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
         for dt in ("float64", "float32"):
             kernel_phase(tmp, dt, report)
@@ -3997,6 +4221,41 @@ def main():
         for size in TRI_NITERS:
             k13_phase(tri[size], "float32", report)
         step_phase(tmp, tri=True)
+        # meshes without a static stencil, implicit and laminar:
+        # the triangle channel's implicit case (MUSCL + Venkatakrishnan)
+        # with LU_SGS and JACOBI at 9,072 and 142,317 nodes (K11 on its
+        # edge rows: f64 and f32 at 9,072, f32 at 142,317), its laminar
+        # case explicit and implicit (JACOBI) at 9,072, the tet box at
+        # 136,161 (K13 at (3, 9)); then the f64 step checks
+        tri_imp, lam_tri = {}, {}
+        for size in TRI_IMPLICIT_NITERS:
+            for prec in ("LU_SGS", "JACOBI"):
+                t0 = time.perf_counter()
+                tri_imp[(size, prec)] = sim = make_case(
+                    tmp, *SIZES[size], torch.float32, "cuda", prec,
+                    implicit=main_imp, tri=True)
+                phase("k11", f"{sim.mesh.npoint}-node triangle channel, "
+                      f"implicit {prec} case built in "
+                      f"{time.perf_counter() - t0:.1f} s")
+        for label, implicit in (("explicit", None), ("implicit", main_imp)):
+            lam_tri[label] = make_case(tmp, *SIZES["flagship"],
+                                       torch.float32, "cuda", "JACOBI",
+                                       implicit=implicit, laminar=True,
+                                       tri=True)
+        for dt in ("float64", "float32"):
+            ausm_edge_phase(tri_imp[("flagship", "LU_SGS")], dt, report)
+        ausm_edge_phase(tri_imp[("scaling", "LU_SGS")], "float32", report)
+        t0 = time.perf_counter()
+        tet = make_case(tmp, *TET_SLICE[:2], torch.float32, "cuda",
+                        nz=TET_SLICE[2])
+        phase("k13", f"{tet.mesh.npoint}-node tet box ({tet.mesh.nedge} "
+              f"edges, {tet.ncolor} sweep colors) built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        k13_phase(tet, "float32", report)
+        step_phase(tmp, implicit=main_imp, prec="LU_SGS", tri=True)
+        step_phase(tmp, implicit=main_imp, prec="LINELET", tri=True)
+        laminar_step_phase(tmp, implicit=main_imp, prec="JACOBI", tri=True)
+        step_phase(tmp, tet=TET_STEP)
         # T3/K8/K13, K10 and K11 at shapes outside their compiled lists
         shape_phase(tmp, report)
         laminar_step_phase(tmp)
@@ -4015,11 +4274,16 @@ def main():
         seen = options_phase(tmp, runs)
         # every path of the kernel table through its captured CUDA graph,
         # bit for bit the eager step (each kernel inside a graph)
-        graph_phase(tmp, sims, lusgs, lam, tri, seen)
-        for size, niter in niters.items():
-            runs.append((str(sims[size].mesh.npoint), slice_phase(
-                sims[size], size, niter, card, profile=size == "tier"),
-                niter))
+        gather = (
+            ("triangles, implicit LU_SGS", tri_imp[("flagship", "LU_SGS")]),
+            ("triangles, implicit LINELET", make_case(
+                tmp, *SIZES["flagship"], torch.float32, "cuda", "LINELET",
+                implicit=main_imp, tri=True)),
+            ("triangles, laminar implicit JACOBI", lam_tri["implicit"]),
+            ("tetrahedra, explicit LU_SGS", make_case(
+                tmp, *TET_STEP[:2], torch.float32, "cuda", nz=TET_STEP[2])))
+        graph_phase(tmp, sims, lusgs, lam, tri, seen, gather)
+        del gather
         # the TOTAL_CONDITIONS inlet on the main path: K9 once per iteration
         runs.append(("9072 TOTAL_CONDITIONS", slice_phase(
             make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
@@ -4038,8 +4302,9 @@ def main():
                             prec="JACOBI")
             slice_phase(jac, size, niter, card, prec="JACOBI", profile=True)
             unf = {}
-            slice_phase(sims[size], size, niter, card, profile=True,
-                        stats=unf)
+            runs.append((str(sims[size].mesh.npoint), slice_phase(
+                sims[size], size, niter, card, profile=True, stats=unf),
+                niter))
             counts, fus = fused_slice(tmp, size, niter, card)
             runs.append((f"{sims[size].mesh.npoint} fused", counts, niter))
             pairs[f"{sims[size].mesh.npoint} nodes explicit LU_SGS"] = (
@@ -4089,6 +4354,32 @@ def main():
                 jac, size, niter, card, prec="JACOBI", profile=True), niter))
             runs.append((f"{n} triangles LU_SGS", slice_phase(
                 tri[size], size, niter, card, profile=True), niter))
+        # meshes without a static stencil, implicit and laminar: the
+        # triangle channel's implicit case (K11 once per iteration, both
+        # solves in torch gather ops) with LU_SGS, then JACOBI, its
+        # laminar case, the tet box (K13 at (3, 9)); each timed and
+        # profiled, with the device ms of each stage
+        for size, niter in TRI_IMPLICIT_NITERS.items():
+            for prec in ("LU_SGS", "JACOBI"):
+                sim = tri_imp.pop((size, prec))
+                runs.append((f"{sim.mesh.npoint} triangles implicit {prec}",
+                             slice_phase(sim, size, niter, card, prec=prec,
+                                         profile=True, prof_iters=1),
+                             niter))
+                del sim
+        for label, sim in lam_tri.items():
+            runs.append((f"{sim.mesh.npoint} triangles laminar {label}",
+                         slice_phase(sim, "flagship",
+                                     LAMINAR_NITERS["flagship"], card,
+                                     prec="JACOBI", profile=True,
+                                     prof_iters=1 if label == "implicit"
+                                     else 3),
+                         LAMINAR_NITERS["flagship"]))
+        del lam_tri
+        runs.append((f"{tet.mesh.npoint} tetrahedra LU_SGS", slice_phase(
+            tet, "tet", TET_NITER, card, profile=True), TET_NITER))
+        del tet
+        torch.cuda.empty_cache()
         # solution output, restart and force monitoring between chunks
         output_phase(tmp, card, sims["tier"])
 
@@ -4125,12 +4416,18 @@ def main():
         if name == "ausm_flux_jac":
             row["edge_major"] = report[name]["float32 9072 edge-major"]
             row["at_565500"] = report[name]["float32 565500 feature-major"]
+            # the implicit triangle channel's edge rows
+            row["edge_rows"] = {k: v for k, v in report[name].items()
+                                if k.endswith("edge rows")}
         if name == "sst_assemble":
             row["float64"] = report[name]["float64 9072"]
             row["at_565500"] = report[name]["float32 565500"]
         if name == "edge_list_flux":
             row["float64"] = report[name]["float64 9072"]
             row["at_142317"] = report[name]["float32 142317"]
+            # (3, 9): the tet box of the slice
+            row["tet_box"] = report[name][
+                f"float32 {TET_SLICE[0] * TET_SLICE[1] * TET_SLICE[2]}"]
             # its second launch, the node sums (counted apart)
             row["node_sum_launches"] = sum(c["edge_list_sum"]
                                            for _, c, _ in runs)

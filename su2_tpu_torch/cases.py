@@ -35,7 +35,9 @@ library cut to its first ns species and a random reacting state on it.
 ``tri_channel_mesh(nx, ny, seed)`` is the channel as a mesh generator
 would leave it: every quad split into two triangles, the nodes in a
 seeded random order, so no static neighbour stencil exists and both
-packages take the gather path.
+packages take the gather path; ``tet_box_mesh(nx, ny, nz, seed)`` is the
+same for box_mesh's hexes, each split into six tetrahedra
+(``with_box_markers`` puts the case on its markers).
 """
 
 from __future__ import annotations
@@ -257,6 +259,70 @@ def tri_channel_mesh(nx: int, ny: int, seed: int = 0):
                    elem_nodes=inv[tris],
                    markers={t: inv[m] for t, m in quad.markers.items()},
                    marker_types=dict(quad.marker_types))
+
+
+def tet_box_mesh(nx: int, ny: int, nz: int, seed: int = 0):
+    """geometry.structured.box_mesh(nx, ny, nz) with each hex split into
+    the six tetrahedra (VTK 10) of the path from its lowest to its highest
+    corner (one per order of the three axes), wound like box_mesh's hexes;
+    every face's diagonal joins its lowest and highest corners, so the
+    split is conformal across faces, and the boundary quads are split
+    along the same diagonals into triangles (VTK 5) in their winding.
+    Nodes numbered by np.random.default_rng(seed).permutation as in
+    tri_channel_mesh.  Markers inlet, outlet, y_min, y_max, z_min, z_max.
+    Returns a RawMesh."""
+    from itertools import permutations
+    from su2_tpu_torch.geometry.structured import box_mesh
+    from su2_tpu_torch.io.mesh import RawMesh
+    box = box_mesh(nx, ny, nz)
+    hexes = box.elem_nodes
+    # hex corner (di, dj, dk) -> its place in box_mesh's node order
+    corner = {(0, 0, 0): 0, (1, 0, 0): 1, (1, 1, 0): 2, (0, 1, 0): 3,
+              (0, 0, 1): 4, (1, 0, 1): 5, (1, 1, 1): 6, (0, 1, 1): 7}
+    tets = []
+    for order in permutations(range(3)):
+        path, c = [(0, 0, 0)], [0, 0, 0]
+        for ax in order:
+            c[ax] = 1
+            path.append(tuple(c))
+        idx = [corner[x] for x in path]
+        # the tet's orientation is the parity of the axis order
+        odd = sum(order[a] > order[b] for a in range(3)
+                  for b in range(a + 1, 3)) % 2
+        if odd:
+            idx[1], idx[2] = idx[2], idx[1]
+        tets.append(hexes[:, idx])
+    tets = np.stack(tets, 1).reshape(-1, 4)
+    csum = box.coords.sum(1)
+    markers = {}
+    for tag, quads in box.markers.items():
+        lo = np.argmin(csum[quads], axis=1)
+        on_ac = (lo % 2 == 0)[:, None]
+        a, b, c, d = quads.T
+        first = np.where(on_ac, np.stack([a, b, c], 1), np.stack([a, b, d], 1))
+        second = np.where(on_ac, np.stack([a, c, d], 1),
+                          np.stack([b, c, d], 1))
+        markers[tag] = np.stack([first, second], 1).reshape(-1, 3)
+    perm = np.random.default_rng(seed).permutation(box.npoint)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    return RawMesh(ndim=3, coords=box.coords[perm],
+                   elem_types=np.full(tets.shape[0], 10, dtype=np.int32),
+                   elem_nodes=inv[tets],
+                   markers={t: inv[m] for t, m in markers.items()},
+                   marker_types={t: np.full(m.shape[0], 5, dtype=np.int32)
+                                 for t, m in markers.items()})
+
+
+def with_box_markers(text: str) -> str:
+    """The cfg text on tet_box_mesh's (or box_mesh's) markers: the fuel
+    inlet and the outlet as in the channel, the isothermal 600 K walls at
+    y_min and y_max, symmetry (slip) at z_min and z_max."""
+    lines = [ln for ln in text.splitlines()
+             if not ln.startswith(("MARKER_ISOTHERMAL", "MARKER_SYM"))]
+    return "\n".join(lines + [
+        "MARKER_ISOTHERMAL = (y_min, 600.0, y_max, 600.0)",
+        "MARKER_SYM = (z_min, z_max)"]) + "\n"
 
 
 def species_cut(lib, ns: int):

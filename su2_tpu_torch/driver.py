@@ -4,10 +4,10 @@ REACTIVE_NAVIER_STOKES step (torch).
 Port of the JAX package's Simulation for one configuration family:
 reactive Navier-Stokes, with SST and PaSR (KIND_TURB_MODEL= SST) or
 laminar (NONE), and the AUSM scheme, on meshes with a static neighbour
-stencil; the explicit-flow RANS step also on meshes without one (the
-gather path: triangles, nodes in any order).  The flow is explicit
-(first order or MUSCL; laminar also Runge-Kutta), or implicit
-(EULER_IMPLICIT, first order or MUSCL with or without a limiter);
+stencil and on meshes without one (the gather path: triangles or
+tetrahedra, nodes in any order).  The flow is explicit (first order or
+MUSCL; laminar also Runge-Kutta), or implicit (EULER_IMPLICIT, first
+order or MUSCL with or without a limiter; 2D only);
 the flow and SST systems are solved by FGMRES or BCGSTAB with the
 multicolor SGS (LU_SGS, ILU0), LINELET (the flow's system; the SST's takes
 the sweep) or JACOBI preconditioner.  One RANS
@@ -165,7 +165,6 @@ class Simulation:
             raise NotImplementedError("3D implicit flow: not ported; "
                                       "su2_tpu.ops.viscous_t has it")
         self.mesh = mesh_arrays(self.grid, dtype, self.device)
-        ns.check_mesh(self.mesh, cfg.implicit_flow, not cfg.turbulent)
         self.lay = Layout(self.grid.ndim, cfg.nspecies)
         self.tparams = TSolveParams(tmin=cfg.temperature_min,
                                     tmax=cfg.temperature_max,
@@ -204,13 +203,17 @@ class Simulation:
             self.colors, self.ncolor = blockcsr.sweep_colors(
                 self.grid.node_nbrs, self.device)
         # wall-normal lines of the flow system's LINELET preconditioner,
-        # their index maps on the device (linelet.LineMaps)
+        # their index maps on the device (linelet.LineMaps) into the family
+        # slots of a stencil system or, without a static stencil, the edge
+        # list of a BlockJacobian
         self.lines = None
         if cfg.implicit_flow and cfg.linear_solver_prec == "LINELET":
             from su2_tpu_torch.linalg import linelet
             lines = linelet.build_linelets(self.mesh, self.bcs)
             if lines is not None:
-                self.lines = linelet.line_maps(self.mesh, lines)
+                self.lines = linelet.line_maps(
+                    self.mesh, lines,
+                    family=self.mesh.fam_offsets is not None)
         self.dual_order = dual_time_order(cfg)
         self.turbulent = cfg.turbulent
         self.history = None

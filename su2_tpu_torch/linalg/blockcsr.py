@@ -10,8 +10,9 @@ sweep gather through the padded node-edge table in plain torch ops, as
 the JAX package runs them in XLA.  This module also carries the JACOBI
 preconditioner, the coloring of the multicolor SGS sweep of the default
 LU_SGS (and ILU0, which the reference maps to the same sweep, as it maps
-LINELET where no lines are given), and the LINELET preconditioner's
-family-major form of a stencil system (linalg/linelet.py).
+LINELET where no lines are given), and the LINELET operators
+(linalg/linelet.py) over the family slots of a stencil system or the
+edge list of a BlockJacobian.
 """
 
 from __future__ import annotations
@@ -236,13 +237,29 @@ def make_solver_ops_fam(mesh: MeshArrays, jac: FamilyJacobian,
 
 def make_linelet_ops(mesh: MeshArrays, jac, lines, colors, ncolor):
     """(matvec, precond, None, None) of LINEAR_SOLVER_PREC= LINELET with
-    lines (linelet.line_maps of the family slots) on a stencil system
-    (StencilJacobianT or FamilyJacobian; the JAX package converts the
-    former with sel_t_to_family): the linelet preconditioner, and the
-    matvec through StencilSolveOps (K5's matvec-only form on the card) on
-    the lane-layout blocks of family_sel."""
+    lines (linelet.line_maps): on a stencil system (StencilJacobianT or
+    FamilyJacobian; the JAX package converts the former with
+    sel_t_to_family; lines of the family slots) the linelet
+    preconditioner, and the matvec through StencilSolveOps (K5's
+    matvec-only form on the card) on the lane-layout blocks of
+    family_sel; on a BlockJacobian (lines of the edge list, the JAX
+    package's family=False) the linelet preconditioner over the
+    edge-major blocks and the gather matvec in torch ops."""
     from su2_tpu_torch.linalg import linelet
     v = jac.diag.shape[-1]
+    edge_list = isinstance(jac, BlockJacobian)
+    if lines.family == edge_list:
+        raise ValueError("make_linelet_ops: the lines index the family "
+                         "slots of a stencil system, or the edge list of "
+                         "a BlockJacobian (line_maps family=)")
+    if edge_list:
+        ne, vv = jac.off_ij.shape[0], v * v
+        dinv = block_diag_inv(jac.diag)
+        pc = linelet.make_linelet_apply(
+            lines, jac.diag, jac.off_ij.reshape(ne, vv).T,
+            jac.off_ji.reshape(ne, vv).T, dinv)
+        sel = gather_offdiag(mesh, jac)
+        return (lambda x: matvec(mesh, jac, sel, x)), pc, None, None
     if isinstance(jac, StencilJacobianT):
         oij, oji = sel_t_to_family(mesh, jac.sel_t, v)
         jac = FamilyJacobian(diag=jac.diag, off_ij=oij, off_ji=oji)
@@ -262,13 +279,12 @@ def make_solver_ops(mesh: MeshArrays, jac, kind: str = "JACOBI",
     (the laminar step) or, on a mesh without a static stencil, a
     BlockJacobian (the JAX package's gather tail: the neighbour blocks
     gathered once, the matvec and the multicolor sweep, or JACOBI, in
-    torch ops; no kernel).  LINELET with lines (linelet.line_maps):
-    make_linelet_ops; without
-    (the SST's system, a mesh without walls) the multicolor sweep.
+    torch ops; no kernel).  LINELET with lines (linelet.line_maps, of the
+    family slots or of the edge list): make_linelet_ops; without (the
+    SST's system, a mesh without walls) the multicolor sweep.
     solver: the LINEAR_SOLVER the operators serve (BCGSTAB: no one-launch
     cycle)."""
-    if kind == "LINELET" and lines is not None \
-            and not isinstance(jac, BlockJacobian):
+    if kind == "LINELET" and lines is not None:
         return make_linelet_ops(mesh, jac, lines, colors, ncolor)
     if isinstance(jac, FamilyJacobian):
         return make_solver_ops_fam(mesh, jac, kind, colors, ncolor,

@@ -5,7 +5,8 @@ Green-Gauss (SetPrimitive_Gradient_GG, solver_direct_reactive.cpp
 :1170-1326).  On static-stencil meshes the WLS normal-equation inverse is
 folded into per-offset coefficients at setup, so a gradient is K rolls and
 multiply-adds; on other meshes both gather over the edge list and the
-padded neighbour table (2D WLS; 3D there is not ported).  ``q`` is
+padded neighbour table (WLS: the Cholesky-through-R form in 2D, the
+normal equations with an adjugate inverse in 3D).  ``q`` is
 (nP, nG); results are (nP, nG, d).
 
 From TILED_MIN_NODES nodes up the JAX package runs every gradient sweep
@@ -73,8 +74,8 @@ def green_gauss(mesh: MeshArrays, q: torch.Tensor) -> torch.Tensor:
 def weighted_least_squares(mesh: MeshArrays, q: torch.Tensor) -> torch.Tensor:
     """Inverse-distance-weighted LS gradient with the reference's
     singular-matrix guard (gradient 0): per-offset coefficients on stencil
-    meshes, else the Cholesky-through-R form over the padded neighbour
-    table (2D)."""
+    meshes, else over the padded neighbour table the Cholesky-through-R
+    form (2D) or _wls_3d."""
     if mesh.wls_coeff is not None:
         grad = None
         for k, o in enumerate(mesh.stencil_offsets):
@@ -82,10 +83,8 @@ def weighted_least_squares(mesh: MeshArrays, q: torch.Tensor) -> torch.Tensor:
             part = mesh.wls_coeff[k][:, None, :] * dq[:, :, None]
             grad = part if grad is None else grad + part
         return grad
-    if mesh.ndim != 2:
-        raise NotImplementedError(
-            "3D weighted least squares without a static stencil: not "
-            "ported; su2_tpu.ops.gradients (_wls_3d) has it")
+    if mesh.ndim == 3:
+        return _wls_3d(mesh, q)
     dx = mesh.coords[mesh.node_nbrs] - mesh.coords[:, None, :]  # (nP, D, 2)
     w = (dx * dx).sum(-1)
     valid = (w > EPS) & (mesh.nbr_mask > 0.5)
@@ -112,3 +111,39 @@ def weighted_least_squares(mesh: MeshArrays, q: torch.Tensor) -> torch.Tensor:
     gx = cx * s00[:, None] + cy * s01[:, None]
     gy = cx * s01[:, None] + cy * s11[:, None]
     return torch.stack([gx, gy], dim=-1)
+
+
+def _wls_3d(mesh: MeshArrays, q: torch.Tensor) -> torch.Tensor:
+    """3D inverse-distance-weighted LS over the padded neighbour table (the
+    JAX package's _wls_3d): the normal equations A g = b, A = sum w dx dx^T
+    and b = sum w dx dq with w = 1/|dx|^2, solved by the 3 x 3 adjugate
+    inverse; a node whose det(A) is below EPS gets the gradient 0 (the
+    reference's singular-matrix guard)."""
+    dx = mesh.coords[mesh.node_nbrs] - mesh.coords[:, None, :]  # (nP, D, 3)
+    w = (dx * dx).sum(-1)
+    valid = (w > EPS) & (mesh.nbr_mask > 0.5)
+    invw = torch.where(valid, 1.0 / torch.where(valid, w, 1.0), 0.0)
+    # elementwise products summed over the slots (no batched GEMM, whose
+    # algorithm a captured graph may pick apart from the eager step)
+    wdx = invw[..., None] * dx                                   # (nP, D, 3)
+    a = (wdx[..., :, None] * dx[..., None, :]).sum(1)           # (nP, 3, 3)
+    dq = q[mesh.node_nbrs] - q[:, None, :]                      # (nP, D, nG)
+    b = (wdx[..., :, None] * dq[..., None, :]).sum(1)           # (nP, 3, nG)
+    c00 = a[:, 1, 1] * a[:, 2, 2] - a[:, 1, 2] * a[:, 2, 1]
+    c01 = a[:, 0, 2] * a[:, 2, 1] - a[:, 0, 1] * a[:, 2, 2]
+    c02 = a[:, 0, 1] * a[:, 1, 2] - a[:, 0, 2] * a[:, 1, 1]
+    c10 = a[:, 1, 2] * a[:, 2, 0] - a[:, 1, 0] * a[:, 2, 2]
+    c11 = a[:, 0, 0] * a[:, 2, 2] - a[:, 0, 2] * a[:, 2, 0]
+    c12 = a[:, 0, 2] * a[:, 1, 0] - a[:, 0, 0] * a[:, 1, 2]
+    c20 = a[:, 1, 0] * a[:, 2, 1] - a[:, 1, 1] * a[:, 2, 0]
+    c21 = a[:, 0, 1] * a[:, 2, 0] - a[:, 0, 0] * a[:, 2, 1]
+    c22 = a[:, 0, 0] * a[:, 1, 1] - a[:, 0, 1] * a[:, 1, 0]
+    det = a[:, 0, 0] * c00 + a[:, 0, 1] * c10 + a[:, 0, 2] * c20
+    singular = torch.abs(det) < EPS
+    inv_det = torch.where(singular, 0.0,
+                          1.0 / torch.where(singular, 1.0, det))
+    ainv = torch.stack([torch.stack([c00, c01, c02], dim=-1),
+                        torch.stack([c10, c11, c12], dim=-1),
+                        torch.stack([c20, c21, c22], dim=-1)], dim=-2) \
+        * inv_det[:, None, None]
+    return (ainv[:, None] * b.transpose(1, 2)[:, :, None, :]).sum(-1)

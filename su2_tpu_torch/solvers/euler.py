@@ -1,6 +1,7 @@
 """Reactive Euler layer (torch): weak boundary states and their dP/dU,
-the slip-wall Jacobian, the laminar steps' convective residual and
-family-major convective system (kernel K11), the chemistry source and its
+the slip-wall Jacobian, the edge-list convective residual, the
+family-major (laminar implicit) and edge-list (implicit without a static
+stencil) convective systems (kernel K11), the chemistry source and its
 Jacobian, and the explicit update.
 
 Port of the parts of the JAX package's solvers/euler.py that the coupled
@@ -415,6 +416,55 @@ def convective_system_fam(lib, lay, mesh, prm, v, grad, lim, dpdu_full,
     res = mesh.fam_scatter(flux, dim=-1).T
     diag = mesh.fam_accum(jac_i, -jac_j, dim=-1).T.reshape(n, nvar, nvar)
     return res, diag, jac_j, -jac_i
+
+
+def edge_faces(lib, lay, mesh, prm, v, grad, lim, dpdu_full):
+    """The face states of the edge list and their dP/dU rows,
+    feature-major ((nPrim, E), (nPrim, E), (nVar, E), (nVar, E): v_i, v_j,
+    s_i, s_j): the endpoint rows gathered as they are (v.T[:, i], which
+    K11 reads without a copy), or under prm.muscl the MUSCL states at the
+    edge midpoints (ops/edge_implicit.face_state over the per-edge vector
+    coords[j] - coords[i]).  grad: node-major gradients (nP, nG, d) of
+    [T, u.., P, ...]; lim (nP, 2+d) or None."""
+    i, j = mesh.edges[:, 0], mesh.edges[:, 1]
+    vt = v.T
+    if not prm.muscl:
+        st_ = dpdu_full.T
+        return vt[:, i], vt[:, j], st_[:, i], st_[:, j]
+    from su2_tpu_torch.ops.edge_implicit import face_state
+    nd = lay.ndim
+    g = grad[:, :2 + nd].permute(1, 2, 0)
+    lt = lim.T if prm.use_limiter and lim is not None else None
+    ev = (mesh.coords[j] - mesh.coords[i]).T
+    v_i, s_i = face_state(lib, lay, vt[:, i], g[..., i],
+                          None if lt is None else lt[:, i], None, ev, 1.0,
+                          True)
+    v_j, s_j = face_state(lib, lay, vt[:, j], g[..., j],
+                          None if lt is None else lt[:, j], None, ev, -1.0,
+                          True)
+    return v_i, v_j, s_i, s_j
+
+
+def convective_system(lib, lay, mesh, prm, v, grad, lim, dpdu_full):
+    """Edge-list convective residual and edge Jacobians, AUSM+-up (the JAX
+    package's convective_system, Upwind_Residual implicit path,
+    solver_direct_reactive.cpp:2687-2768; meshes without a static
+    stencil): the flux and both Jacobians between edge_faces' states, of
+    every edge in one K11 launch on the card (ops/edge_kernels.py), the
+    residual by mesh.scatter_edges and the diagonal by
+    mesh.accumulate_sides, both in slot order.  Returns res (nP, nVar) and
+    a blockcsr.BlockJacobian with the edge-major off-diagonal blocks
+    off_ij = jac_j, off_ji = -jac_i."""
+    from su2_tpu_torch.linalg.blockcsr import BlockJacobian
+    from su2_tpu_torch.ops import edge_kernels
+    v_i, v_j, s_i, s_j = edge_faces(lib, lay, mesh, prm, v, grad, lim,
+                                    dpdu_full)
+    flux, jac_i, jac_j = edge_kernels.ausm_flux_jac_t(
+        lay, v_i, v_j, mesh.edge_normal.T, prm.m_infty, s_i, s_j)
+    jac_i, jac_j = jac_i.permute(2, 0, 1), jac_j.permute(2, 0, 1)
+    res = mesh.scatter_edges(flux.T)
+    diag = mesh.accumulate_sides(jac_i, -jac_j)
+    return res, BlockJacobian(diag=diag, off_ij=jac_j, off_ji=-jac_i)
 
 
 def chemistry_source_plain(lib, prm, t, rho, ys, omega_turb=None):

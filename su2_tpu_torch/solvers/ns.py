@@ -14,8 +14,10 @@ edge Jacobians by kernel K10 (ops/edge_implicit.py), with MUSCL and the
 limiters, plus the boundary, slip-wall, source and isothermal-wall
 Jacobians, the wall momentum rows and the time diagonal, as a
 StencilJacobianT.  On a mesh without a static stencil the explicit RANS
-interior terms run over the edge list (K13 on the card); implicit flow
-and laminar runs there are refused (check_mesh).
+interior terms run over the edge list (K13 on the card), and the implicit
+system, RANS and laminar, is the JAX package's edge-list branch: the
+convective system by kernel K11 (euler.convective_system) and the edge
+viscous flux and Jacobians, as a BlockJacobian (_edge_list_system).
 Laminar (REACTIVE_NAVIER_STOKES, turb None), as the
 JAX package runs it without its fused kernels: explicit, the AUSM+-up and
 viscous fluxes over the edge list (mesh.scatter_edges); implicit, on the
@@ -34,7 +36,8 @@ import torch
 from su2_tpu_torch.chemistry import library as cl
 from su2_tpu_torch.chemistry.library import ChemLib
 from su2_tpu_torch.geometry.mesh_data import MeshArrays
-from su2_tpu_torch.linalg.blockcsr import FamilyJacobian, StencilJacobianT
+from su2_tpu_torch.linalg.blockcsr import (BlockJacobian, FamilyJacobian,
+                                           StencilJacobianT)
 from su2_tpu_torch.ops import (ausm_t, edge_flux, edge_implicit, gradients,
                                limiters, viscous, viscous_t)
 from su2_tpu_torch.ops.viscous import TurbFlowData
@@ -219,21 +222,25 @@ def _laminar_interior(lib, lay, mesh, prm, v, grad, lim, nsd, trans):
     return res, diag, off_ij - vjac_j, off_ji + vjac_i
 
 
-def check_mesh(mesh: MeshArrays, implicit: bool, laminar: bool) -> None:
-    """Refuse the steps that need a static stencil on a mesh without one:
-    implicit flow (the edge-list convective system) and laminar runs (the
-    family-slot spectral radius and implicit system).  Simulation calls it
-    before any step; ns_assemble assumes it passed."""
-    if mesh.stencil_offsets is not None:
-        return
-    if implicit:
-        raise NotImplementedError(
-            "implicit flow on a mesh without a static stencil: not ported; "
-            "su2_tpu.solvers.euler (convective_system) has it")
-    if laminar:
-        raise NotImplementedError(
-            "laminar runs (KIND_TURB_MODEL= NONE) on a mesh without a "
-            "static stencil: not ported; su2_tpu.solvers.ns has it")
+def _edge_list_system(lib, lay, mesh, prm, v, grad, lim, nsd, trans,
+                      turb):
+    """Implicit interior terms on a mesh without a static stencil (the JAX
+    package's ns_assemble edge-list branch, RANS and, with turb None,
+    laminar): euler.convective_system (K11 on the card) and the viscous
+    flux and Jacobians over the edge list (sigma_k of the i node); returns
+    (res, diag, off_ij, off_ji) with the edge-major off-diagonal blocks of
+    a blockcsr.BlockJacobian."""
+    res, jac = es.convective_system(lib, lay, mesh, prm, v, grad, lim,
+                                    nsd.dpdu)
+    i, j = mesh.edges[:, 0], mesh.edges[:, 1]
+    vflux, vjac_i, vjac_j = _edge_viscous(
+        lib, lay, prm, v, grad, trans, nsd.dtdu, lambda x: x[..., i],
+        lambda x: x[..., j], mesh.edge_normal.T,
+        (mesh.coords[j] - mesh.coords[i]).T, True, turb)
+    vjac_i, vjac_j = vjac_i.permute(2, 0, 1), vjac_j.permute(2, 0, 1)
+    diag = jac.diag + mesh.accumulate_sides(-vjac_i, vjac_j)
+    res = res - mesh.scatter_edges(vflux.T)
+    return res, diag, jac.off_ij - vjac_j, jac.off_ji + vjac_i
 
 
 def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
@@ -249,13 +256,17 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     step), extra, flux-BC ghost batch): extra is, when dt is None,
     (lam_conv, lam_visc), the interior sums of the spectral radii (None in
     the laminar step, which sums them itself), else the implicit system
-    (time diagonal Vol/dt included): a StencilJacobianT, or in the
-    laminar step a FamilyJacobian; extra is None also under explicit
+    (time diagonal Vol/dt included): a StencilJacobianT, in the laminar
+    step a FamilyJacobian, on a mesh without a static stencil a
+    BlockJacobian (RANS and laminar); extra is None also under explicit
     MUSCL, whose spectral radii the caller sums (viscous_lambda)."""
     implicit = dt is not None
     laminar = turb is None
     # the explicit steps without a fused edge pass: laminar, and MUSCL
     edge_list = not implicit and (laminar or prm.muscl)
+    # the implicit system on a mesh without a static stencil: edge-major
+    # blocks (blockcsr.BlockJacobian)
+    gather = implicit and mesh.fam_offsets is None
     n = v.shape[0]
     nd, ns_ = lay.ndim, lay.ns
     q = viscous.ns_gradient_vars(lib, lay, v, xs=nsd.xs)
@@ -287,6 +298,9 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     if edge_list:
         res = edge_list_interior(lib, lay, mesh, prm, v, grad, lim, trans,
                                  turb)
+    elif gather:
+        res, diag, off_ij, off_ji = _edge_list_system(
+            lib, lay, mesh, prm, v, grad, lim, nsd, trans, turb)
     elif laminar:
         res, diag, off_ij, off_ji = _laminar_interior(
             lib, lay, mesh, prm, v, grad, lim, nsd, trans)
@@ -416,7 +430,15 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     diag = torch.where((wall_mask[:, None] & mom[None])[:, :, None], eye[None],
                        diag)
     row_mom = mom.repeat_interleave(nvar)
-    if laminar:
+    if gather:
+        # edge-major blocks: off_ij's rows belong to node i, off_ji's to j
+        iw = wall_mask[mesh.edges[:, 0]]
+        jw = wall_mask[mesh.edges[:, 1]]
+        off_ij = torch.where((iw[:, None] & mom[None])[:, :, None], 0.0,
+                             off_ij)
+        off_ji = torch.where((jw[:, None] & mom[None])[:, :, None], 0.0,
+                             off_ji)
+    elif laminar:
         # family slots: off_ij's rows belong to node i, off_ji's to node j
         iw = mesh.fam_gather_i(wall_mask)
         jw = mesh.fam_gather_j(wall_mask)
@@ -432,8 +454,12 @@ def ns_assemble(lib: ChemLib, lay: Layout, mesh: MeshArrays, prm: NSParams,
     diag = diag + delta[:, None, None] * eye
     diag = torch.where(ok[:, None, None], diag, eye[None])
     res = torch.where(ok[:, None], res, 0.0)
-    jac = (FamilyJacobian(diag=diag, off_ij=off_ij, off_ji=off_ji)
-           if laminar else StencilJacobianT(diag=diag, sel_t=sel_t))
+    if gather:
+        jac = BlockJacobian(diag=diag, off_ij=off_ij, off_ji=off_ji)
+    elif laminar:
+        jac = FamilyJacobian(diag=diag, off_ij=off_ij, off_ji=off_ji)
+    else:
+        jac = StencilJacobianT(diag=diag, sel_t=sel_t)
     return res, wall_mask, trans, grad, jac, fb
 
 

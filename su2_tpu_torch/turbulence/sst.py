@@ -499,15 +499,34 @@ def wall_distance(coords: np.ndarray, wall_points: np.ndarray,
         return np.full(coords.shape[0], 1e10)
     out = np.empty(coords.shape[0])
     if coords.shape[0] >= 200_000:
+        # |a|^2 + |b|^2 - (2a).b, the product one GEMM a chunk; the sums
+        # and the minimum over row blocks that stay in cache
         w2 = (wall_points ** 2).sum(-1)
+        rows = max(1, (1 << 18) // wall_points.shape[0])
         for s in range(0, coords.shape[0], chunk):
             blk = coords[s:s + chunk]
-            d2 = ((blk ** 2).sum(-1)[:, None] + w2[None, :]
-                  - 2.0 * blk @ wall_points.T)
-            out[s:s + chunk] = np.sqrt(np.maximum(d2.min(axis=1), 0.0))
+            a2 = (blk ** 2).sum(-1)
+            g = 2.0 * blk @ wall_points.T
+            dmin = np.empty(blk.shape[0])
+            for r in range(0, blk.shape[0], rows):
+                d2 = np.add(a2[r:r + rows, None], w2[None, :])
+                np.subtract(d2, g[r:r + rows], out=d2)
+                dmin[r:r + rows] = d2.min(axis=1)
+            out[s:s + chunk] = np.sqrt(np.maximum(dmin, 0.0))
         return out
-    for s in range(0, coords.shape[0], chunk):
-        blk = coords[s:s + chunk]
-        d2 = ((blk[:, None, :] - wall_points[None, :, :]) ** 2).sum(-1)
-        out[s:s + chunk] = np.sqrt(d2.min(axis=1))
+    # the elementwise form, its squares summed over the coordinates in
+    # order as .sum(-1) sums them (bit for bit), one coordinate at a time
+    # in place, over row blocks whose (rows, nW) buffers stay in cache
+    rows = max(1, (1 << 18) // wall_points.shape[0])
+    wt = np.ascontiguousarray(wall_points.T)
+    for s in range(0, coords.shape[0], rows):
+        blk = coords[s:s + rows]
+        d2 = np.subtract(blk[:, 0, None], wt[None, 0])
+        np.multiply(d2, d2, out=d2)
+        dk = np.empty_like(d2)
+        for k in range(1, coords.shape[1]):
+            np.subtract(blk[:, k, None], wt[None, k], out=dk)
+            np.multiply(dk, dk, out=dk)
+            np.add(d2, dk, out=d2)
+        out[s:s + rows] = np.sqrt(d2.min(axis=1))
     return out

@@ -1,5 +1,7 @@
 """The CUDA kernels T1-T4 and K5-K13 against their plain torch versions on
-the card, and the slice's launch counts.  Every test needs a CUDA device
+the card (K11 also on the triangle channel's edge rows), and the slice's
+launch counts and graph replays (also on meshes without a static
+stencil).  Every test needs a CUDA device
 and skips without one.  This file imports no JAX, so on a machine without it run it
 alone, past the suite's JAX conftest:
 
@@ -1610,6 +1612,56 @@ def test_tri_slice_launches(card, tmp_path):
     assert {k: launched[k] for k in want} == want
 
 
+def _k11_edge_inputs(card, tmp_path, dtype):
+    """K11's operands on the edge rows of the 9,072-node triangle
+    channel's implicit case (MUSCL + Venkatakrishnan): euler.edge_faces of
+    a mixed state, feature-major, as convective_system passes them."""
+    from su2_tpu_torch import state as st
+    from su2_tpu_torch.ops import limiters, viscous as vis
+    from su2_tpu_torch.solvers import euler as es
+    text = th.with_implicit(th.write_case(tmp_path), prec="LU_SGS")
+    sim = _tri_card_sim(card, text, (189, 48), dtype)
+    lib, lay, mesh, prm = sim.lib, sim.lay, sim.mesh, sim.params
+    u = th.tt(th.mixed_state(sim, seed=4), dtype).to(card)
+    nsd = st.node_state_plain(lib, lay, u, sim.t0, sim.tparams)
+    grad = es.compute_gradients(mesh, prm,
+                                vis.ns_gradient_vars(lib, lay, nsd.v, nsd.xs))
+    lim = limiters.venkatakrishnan(mesh, es.gradient_vars(lay, nsd.v),
+                                   grad[:, :2 + lay.ndim], prm.limiter_coeff,
+                                   prm.ref_elem_length)
+    v_i, v_j, s_i, s_j = es.edge_faces(lib, lay, mesh, prm, nsd.v, grad, lim,
+                                       nsd.dpdu)
+    return sim, (v_i, v_j, mesh.edge_normal.T.contiguous(), s_i, s_j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_k11_edge_rows_match_plain(card, tmp_path, dtype):
+    """K11 against ausm_t.ausm_flux_t on the 9,072-node triangle
+    channel's edge rows (26,743 edges, MUSCL face states): every output
+    within 1e-12 (f64) or 1e-5 (f32) of its field's max, relative 1e-10 /
+    1e-4 per entry; one launch per call; the first-order rows
+    (v.T[:, i]) reach it contiguous, without a copy."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import ausm_t
+    sim, ins = _k11_edge_inputs(card, tmp_path, dtype)
+    lay, m_inf = sim.lay, sim.params.m_infty
+    assert ins[0].shape[1] == sim.mesh.nedge == 26743
+    want = ausm_t.ausm_flux_t(lay, *ins[:3], m_inf, *ins[3:])
+    kernels.reset_launches()
+    got = kernels.ausm_flux_jac(lay, *ins[:3], m_inf, *ins[3:])
+    assert kernels.launches["ausm_flux_jac"] == 1
+    rtol, afrac = (1e-10, 1e-12) if dtype == torch.float64 else (1e-4, 1e-5)
+    for g, w in zip(got, want):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert g.shape == w.shape and np.isfinite(g).all()
+        assert (np.abs(g - w) <= rtol * np.abs(w)
+                + afrac * np.abs(w).max()).all()
+    i = sim.mesh.edges[:, 0]
+    assert sim.u0.T[:, i].is_contiguous()
+
+
 def _eager(sim, state, niter, ignites=None, cfl=None, dual=None):
     """niter eager iterations (Simulation._body: sim._step and its history
     row): (the final state, the (niter, W) rows)."""
@@ -1687,6 +1739,57 @@ def test_graph_matches_eager_bitwise(card, tmp_path, path, dtype):
     bcg = path == "bcgstab"
     assert (eager["stencil_sweep_only"] > 0) == bcg
     assert (eager["stencil_matvec_only"] > 0) == (bcg or path == "linelet")
+
+
+# the graph test's paths on meshes without a static stencil: (cfg text
+# from the case, the tet box); ausm_flux_jac launches per iteration
+GATHER_GRAPH_PATHS = {
+    "tri-implicit-lusgs": (lambda t: th.with_implicit(t, prec="LU_SGS"),
+                           False, 1),
+    "tri-implicit-linelet": (lambda t: th.with_implicit(t, prec="LINELET"),
+                             False, 1),
+    "tri-laminar-implicit": (lambda t: th.with_implicit(
+        th.cases.with_laminar(t), prec="JACOBI"), False, 1),
+    "tri-laminar-explicit": (th.cases.with_laminar, False, 0),
+    "tet-explicit": (th.cases.with_box_markers, True, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("path", list(GATHER_GRAPH_PATHS))
+def test_gather_graph_matches_eager_bitwise(card, tmp_path, path, dtype):
+    """Five iterations on the 153-node scrambled triangle channel
+    (implicit RANS with LU_SGS or LINELET and laminar implicit JACOBI: the
+    edge-list system, K11 once per iteration; laminar explicit) or the
+    180-node tet box (explicit LU_SGS: K13 at (3, 9), the 3D gather WLS)
+    through the captured graph equal five eager iterations from the same
+    state bit for bit, state and history rows; K5, K6, K10 never."""
+    from su2_tpu_torch import cases, kernels
+    from su2_tpu_torch.config import Config
+    from su2_tpu_torch.driver import Simulation
+    cfg_of, tet, k11 = GATHER_GRAPH_PATHS[path]
+    raw = (cases.tet_box_mesh(6, 6, 5) if tet
+           else cases.tri_channel_mesh(*th.CHANNEL))
+    sim = Simulation(Config(text=cfg_of(th.write_case(tmp_path))),
+                     raw_mesh=raw, dtype=dtype, device=card)
+    assert sim.mesh.stencil_offsets is None
+    state = (sim.u0, sim.t0) + (tuple(sim.initial_turb_state())
+                                if sim.turbulent else ())
+    state = _eager(sim, state, 2)[0]
+    kernels.reset_launches()
+    want = _eager(sim, state, 5)
+    eager = dict(kernels.launches)
+    kernels.reset_launches()
+    got = sim._multistep(state, 5)
+    _assert_same(got, want)
+    assert {k: 5 * c for k, c in sim._graph.per_replay.items()} == eager
+    assert eager["ausm_flux_jac"] == 5 * k11
+    assert eager["edge_list_flux"] == 5 * (sim.turbulent
+                                           and not sim.cfg.implicit_flow)
+    for k in ("stencil_fgmres", "stencil_sgs_matvec", "stencil_sweep_only",
+              "stencil_matvec_only", "edge_implicit", "edge_flux"):
+        assert eager[k] == 0, k
 
 
 @pytest.mark.cuda

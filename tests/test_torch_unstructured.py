@@ -4,7 +4,8 @@ scrambled triangle channel (cases.tri_channel_mesh(17, 9)): the mesh
 arrays, the edge-to-node sums, the gradients, kernel K13's plain version
 against su2_tpu's fused_edge_flux_pallas (interpret mode), ns_assemble,
 the edge-list SST step and its BlockJacobian solve, three coupled
-iterations of the step, the refusals and the CLI."""
+iterations of the step and the CLI (implicit flow, laminar runs and 3D
+there: tests/test_torch_unstructured_implicit.py)."""
 
 import dataclasses
 import os
@@ -144,17 +145,6 @@ def test_gradients_match_jax(sims, method):
     want = np.asarray(want)
     np.testing.assert_allclose(th.npy(got), want, rtol=1e-12,
                                atol=1e-12 * np.abs(want).max())
-
-
-def test_wls_3d_without_stencil_raises():
-    """3D WLS on a mesh without a stencil is refused, naming su2_tpu's
-    module."""
-    from types import SimpleNamespace
-    from su2_tpu_torch.ops import gradients as tg
-    mesh = SimpleNamespace(wls_coeff=None, ndim=3)
-    with pytest.raises(NotImplementedError,
-                       match=r"su2_tpu\.ops\.gradients"):
-        tg.weighted_least_squares(mesh, torch.zeros((4, 2)))
 
 
 @pytest.fixture(scope="module")
@@ -407,27 +397,6 @@ def test_three_coupled_iterations_match_jax(tmp_path, variant, prec):
                                    v[:, lay.PRHO], v[:, lay.YS:],
                                    t_state[2][:, 1])
     assert float(om.abs().max()) > 1e-2
-
-
-@pytest.mark.parametrize("how,where", [
-    ("implicit", r"su2_tpu\.solvers\.euler"),
-    ("laminar", r"su2_tpu\.solvers\.ns"),
-    ("laminar_implicit", r"su2_tpu\.solvers\.euler")])
-def test_unstructured_refusals(text, how, where):
-    """Implicit flow and laminar runs on the triangle channel are refused
-    by Simulation before any step, naming the su2_tpu module that runs
-    them."""
-    from su2_tpu_torch.config import Config
-    from su2_tpu_torch.driver import Simulation
-    from su2_tpu_torch import cases
-    t = text
-    if "laminar" in how:
-        t = cases.with_laminar(t)
-    if "implicit" in how:
-        t = th.with_implicit(t)
-    with pytest.raises(NotImplementedError, match=where):
-        Simulation(Config(text=t), raw_mesh=cases.tri_channel_mesh(17, 9),
-                   dtype=torch.float64, device="cpu")
 
 
 def test_cli_tri_two_iterations(tmp_path):
