@@ -1,6 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of su2_tpu_torch on one NVIDIA GPU: build, check, drive.
 
+Sizes: SIZES names the channel's three, the 9,072-node flagship class,
+the 142,317-node scaling point and TIER_N (263,900) nodes of the
+>= 200k-node tier; the 3D boxes and tet boxes are BOX_* and TET_*.
+Below, "the tier" is that size.
+
 Phases (one line each; any failure exits nonzero):
   1 device   the card's name and power limit, CUDA and nvcc versions
   2 build    nvcc builds the kernels from su2_tpu_torch/csrc (one nvcc per
@@ -14,7 +19,7 @@ Phases (one line each; any failure exits nonzero):
              form, and forced to its streamed form; a 3D box's 6 offsets,
              streamed, and 8 2D offsets, the run-time-K instance, one
              CUDA launch a call) and K8 (beside T3 + the
-             roll-subtract) at the 565,500-node case's shapes, K9 on a
+             roll-subtract) at the TIER_N-node case's shapes, K9 on a
              batch the size of that case's inlet (377 vertices), in
              float64 and float32
   4 stencil  K5 (sweep + matvec, sweep only, matvec only) and K6 (one
@@ -23,7 +28,7 @@ Phases (one line each; any failure exits nonzero):
              (v = 2) the port assembles at 9,072 and 142,317 nodes, on the
              implicit LU_SGS case's flow systems (v = 13: K6 at 9,072 nodes,
              K5 at 142,317) and on band systems (v = 2, 3, 7) with
-             round-robin (not proper) colorings; at 565,500 nodes K5 in
+             round-robin (not proper) colorings; at TIER_N nodes K5 in
              the main path's mixed tier on the SST and the flow systems
              (and its matvec in float32); K5 and K6 read the layout
              StencilSolveOps makes (color-major bf16 sweep blocks in the
@@ -32,24 +37,28 @@ Phases (one line each; any failure exits nonzero):
              (12,288 nodes); times, bounds, K6's cooperative grid (v = 7,
              13) or cluster (v = 2, 3),
              torch.sparse.mm on the matvec as BSR (or what it raised)
-  5 step     5 coupled iterations of the 9,072-node case in float64 on the
-             card (kernels, K6 for the SST solve) and on the CPU (plain
-             versions) from one state; again with the >= 200k-node tier
+  5 step     (first, after 2: step_checks) 5 coupled iterations of the
+             9,072-node case in float64 on the card (kernels, K6 for the
+             SST solve) and on the CPU (plain versions) from one state,
+             the CPU's in CPU_WORKERS worker processes beside the card's
+             phases, compared with the card's before 6 (finish_steps,
+             which prints the lines); again with the >= 200k-node tier
              forced on both sides (K7 and K8 against their plain versions
              inside the step), and with a TOTAL_CONDITIONS inlet (K9); the
              implicit-flow case (EULER_IMPLICIT, MUSCL + Venkatakrishnan:
              K10 once per iteration) the same way with JACOBI, with JACOBI
              and the tier forced (K7's rows feeding K10), and with LU_SGS
              (the flow's 13 x 13 system through K5 past the full-precision
-             gate, the SST's through K6)
+             gate, the SST's through K6); and the f64 checks the phases
+             below name
   graph      (between 5 and 6) every path of the kernel table through the
              step's captured CUDA graph (Simulation.run's chunks are
              replays of it): explicit LU_SGS at 9,072 (T1-T4, K6 as a
-             cluster), 142,317 (K5 at v = 2) and 565,500 nodes (K7, K8),
+             cluster), 142,317 (K5 at v = 2) and TIER_N nodes (K7, K8),
              implicit LU_SGS at 9,072 (K10, K6 cooperative at v = 13) and
              142,317 (K5 at v = 13), laminar implicit LU_SGS (K11), the
              triangle channel (K13), a TOTAL_CONDITIONS inlet (K9) and the
-             fused SST assembly (K12), float32: 5 replays against 5 eager
+             fused SST assembly (K12), float32: 3 replays against 3 eager
              iterations from one state, bit for bit in the state and the
              history rows; one eager step under
              torch.cuda.set_sync_debug_mode("error"); the captured launches
@@ -58,57 +67,61 @@ Phases (one line each; any failure exits nonzero):
              step's; capture seconds (graph_check)
   6 slice    Simulation.run (replays of the captured graph, chunks of 25),
              then the same iterations through the eager step (ms/iter of
-             both side by side): 9,072 nodes x 25, 142,317 nodes x 20 and
-             565,500 nodes x 10 (the tier: K7 twice and K8 once per
-             iteration, T3 never; profiled once) in float32 with LU_SGS;
+             both side by side): 9,072 nodes x 10, 142,317 nodes x 5 and
+             the tier x 3 (K7 twice and K8 once per iteration, T3 never)
+             in float32 with LU_SGS; 142,317 nodes x 3 in float64 (K5 at
+             full precision in the Krylov loop);
              finite residuals, kernel launch counts (K6 once per iteration
              at 9,072 nodes, K5 ten times per iteration at the larger
              sizes), ms/iter and Mcell-updates/s; 9,072 nodes x 10 with a
              TOTAL_CONDITIONS inlet (K9 once per iteration, profiled);
-             142,317 nodes x 3 in float64 (K5 ten times per iteration);
-             each size with LINEAR_SOLVER_PREC= JACOBI (the path that
-             bypasses K5/K6) and with LU_SGS in the order J, L, each timed
-             and then profiled over 3 eager iterations (torch.profiler: CUDA
+             at every size LINEAR_SOLVER_PREC= JACOBI (the path that
+             bypasses K5/K6) before LU_SGS; each timed
+             and then profiled over an eager iteration (torch.profiler: CUDA
              launches, CUDA API calls and device-busy ms per iteration, the
-             launches per stage of the step, step_groups) and 3 replays
+             launches per stage of the step, step_groups) and a replay
              (device kernels, CUDA API calls and device-busy ms per
              iteration, profile_run); the launch counts of a run are the
              graph's replays' (each replay adds the launches its capture
              recorded), checked equal to the eager step's; the implicit-flow case in
              float32, timed and profiled (K10 and T2 twice per iteration,
-             T3, K8 and T4 never): with JACOBI at 9,072 x 10, 142,317 x 5
-             and 565,500 x 2 (K5 and K6 never), with LU_SGS at 9,072 x 20
+             T3, K8 and T4 never): with JACOBI at 9,072 x 5, 142,317 x 3
+             and the tier x 2 (K5 and K6 never), with LU_SGS at 9,072 x 10
              (K6 twice per iteration: the flow's mixed one-launch tier and
-             the SST's, K5 never), 142,317 x 10 and 565,500 x 3 (K5 twenty
+             the SST's, K5 never), 142,317 x 5 and the tier x 3 (K5 twenty
              times per iteration, K6 never)
   K10 phase  (between 4 and 5) K10 (compiled for 9 and 3 species) against
              its plain version at 9,072 nodes
              in float64 and float32 for the four (MUSCL, limiter) variants
-             and at 142,317 and 565,500 nodes in float32 (the latter's
+             and at 142,317 and TIER_N nodes in float32 (the latter's
              stack from K7's gradient rows, as the tier's ns_assemble builds
              it), per output row, with times
   K11 phase  (after K10) K11 (the AUSM+-up flux and both Jacobians) against
              its plain version on the laminar implicit case's family slots
              (limited MUSCL face states): 9,072 nodes in float64 and
-             float32, 565,500 in float32, feature-major (the main path) and
+             float32, the tier in float32, feature-major (the main path) and
              edge-major, per output row, pad slots exactly 0, with times;
-             then 5 laminar (KIND_TURB_MODEL= NONE) f64 iterations card vs
-             CPU at 9,072 nodes: explicit (T4), implicit LU_SGS (K11, the
-             flow's solve), implicit JACOBI with the tier forced (K7)
+             the step checks hold 5 laminar (KIND_TURB_MODEL= NONE) f64
+             iterations card vs CPU at 9,072 nodes: explicit (T4),
+             implicit LU_SGS (K11, the flow's solve), implicit JACOBI
+             with the tier forced (K7)
   laminar    (at the end of 6) the laminar implicit LU_SGS case at 9,072 x
-             20 (K11 and K6 once per iteration) and 565,500 x 3 (K11 once,
+             10 (K11 and K6 once per iteration) and the tier x 3 (K11 once,
              K5 ten times, K7 once per iteration) and the laminar explicit
-             case at 9,072 x 20 (T4 once per iteration, K11 never), each
+             case at 9,072 x 10 (T4 once per iteration, K11 never), each
              timed and profiled
   K12 phase  (after K11) K12 (the fused SST assembly) against its plain
              version on the SST inputs of the explicit LU_SGS case's third
              iteration, with its wall rows: 9,072 nodes in float64 and
-             float32, 565,500 in float32, per output row, with times; then
-             5 f64 iterations card vs CPU with the fused SST assembly
-             (K12 once per iteration), explicit LU_SGS and implicit LU_SGS
+             float32, the tier in float32, per output row, with times;
+             the step checks hold 5 f64 iterations card vs CPU with the
+             fused SST assembly (K12 once per iteration), explicit LU_SGS
+             and implicit LU_SGS
   fused      (in 6) SU2_TPU_SST_ASSEMBLE=pallas through Simulation: explicit
-             LU_SGS at 9,072 x 25, 142,317 x 20, 565,500 x 10 and implicit
-             LU_SGS at 9,072 x 20, K12 once per iteration and the SST
+             LU_SGS at 9,072 x 10, 142,317 x 5 and the tier x 3 (the
+             larger two: the SST's solve in fused_sst_solve_tier's
+             per-iteration K5 tier) and implicit LU_SGS at 9,072 x 10, K12
+             once per iteration and the SST
              solve's K5/K6 in stencil_solve.fused_sst_solve_tier's tier,
              timed and profiled, each printed beside the unfused run of
              its size; every other run asserts K12 never launched
@@ -120,7 +133,7 @@ Phases (one line each; any failure exits nonzero):
              (edge pass + node sums) against their plain versions per
              output row, the node sums scatter_edges_mixed's bit for
              bit, with times, the call's device operations, bounds and
-             torch.sparse.mm beside the sums; then 5 f64
+             torch.sparse.mm beside the sums; the step checks hold 5 f64
              iterations of the explicit LU_SGS step on the 9,072-node
              triangle channel card vs CPU (K13 once per iteration, the SST
              solve in torch gather ops: K5/K6 never)
@@ -134,7 +147,7 @@ Phases (one line each; any failure exits nonzero):
              box), float64 and float32, per output row at the compiled
              shapes' tolerances, with float32 times
   tri        (at the end of 6) Simulation.run on the triangle channel in
-             float32: 9,072 x 25 and 142,317 x 20 with LU_SGS and with
+             float32: 9,072 x 10 and 142,317 x 10 with LU_SGS and with
              JACOBI, each timed and profiled (K13 once per iteration; T3,
              K8, K5, K6, K7 and K12 never); every stencil-mesh run asserts
              K13 never launched
@@ -143,18 +156,43 @@ Phases (one line each; any failure exits nonzero):
              implicit triangle channel's edge rows (MUSCL +
              Venkatakrishnan; 9,072 nodes in float64 and float32, 142,317
              in float32), K13 on the 136,161-node tet box (cases.
-             tet_box_mesh(81, 41, 41), (3, 9)) in float32, then 5 f64
-             iterations card vs CPU of the implicit triangle channel with
-             LU_SGS and with LINELET (K11 once per iteration, the solves
-             in torch gather ops), its laminar implicit JACOBI step and
-             the explicit LU_SGS step of the 19,844-node tet box; in the
-             graph phase the implicit triangle channel (LU_SGS, LINELET),
-             its laminar implicit case and the 19,844-node tet box; at
-             the end of 6 their slices, float32, timed and profiled with
-             the device ms of each stage (device_ms_by_group): implicit
-             LU_SGS and JACOBI at 9,072 x 20 and 142,317 x 5, laminar
-             explicit and implicit JACOBI at 9,072 x 20, the tet box at
-             136,161 x 10
+             tet_box_mesh(81, 41, 41), (3, 9)) in float32; the step
+             checks hold 5 f64 iterations card vs CPU of the 9,072-node
+             implicit triangle channel with LU_SGS and with LINELET (K11
+             once per iteration, the solves in torch gather ops), its
+             laminar implicit JACOBI step and the explicit LU_SGS step
+             of the 19,844-node tet box; in the graph phase the implicit
+             triangle channel (LU_SGS, LINELET), its laminar implicit
+             case and the 19,844-node tet box; at the end of 6 their
+             slices, float32, timed and profiled with the device ms of
+             each stage (device_ms_by_group): implicit LU_SGS and JACOBI
+             at 9,072 x 10 and 142,317 x 3, laminar explicit and implicit
+             JACOBI at 9,072 x 10, the tet box at 136,161 x 5
+  3D         (after the gather phases) the 3D implicit flow (MUSCL +
+             Venkatakrishnan, box_mesh with cases.with_box_markers'
+             walls, box_phase): K10 at (3, 9) against its plain version
+             on the 8,000-node box (float64 and float32, the four
+             variants) and at 136,161 and 262,701 nodes (float32, the
+             latter's stack from K7's rows), at (3, 3) on the 3-species
+             case (cases.SPECIES_3) at 8,000 and 136,161; K11 in 3D on the
+             laminar box's family slots (8,000 float64 and float32,
+             136,161 float32) and on the implicit tet box's edge rows
+             (19,844 nodes, float64 and float32); K5 and K6 at v = 14 and
+             8 on the box's flow systems (K6 at 8,000 nodes, where the
+             one-launch tier holds, K5 at 136,161) and on band systems
+             with 6 offsets, in float64, float32 and mixed; the step
+             checks hold 5 f64 iterations card vs CPU of the implicit
+             RANS and laminar LU_SGS steps on the 10,260-node box and of
+             the implicit LU_SGS step of the 19,844-node tet box; in the
+             graph phase
+             the box's RANS, 3-species and laminar steps at 8,000 nodes,
+             its 5-species JACOBI step there (K10's run-time count), its
+             RANS step at 136,161 and the 19,844-node tet box's implicit
+             step; at
+             the end of 6 the box slices (BOX_SLICES: implicit LU_SGS at
+             8,000 x 20, 136,161 x 10 and 262,701 x 3, JACOBI at 136,161 x
+             5, the 3-species and laminar boxes at 136,161), float32,
+             timed and profiled with the device ms of each stage
   output     (after 6) Simulation.run(50, chunk=25) of the 9,072-node
              explicit LU_SGS case in float32 through the captured graph
              with WRT_SOL_FREQ= 25 (the writes between chunks: one T2
@@ -165,7 +203,7 @@ Phases (one line each; any failure exits nonzero):
              float64, card vs CPU: the recomputed mu_t, grad_k, sigma_k
              and 5 iterations, then monitor_forces over both walls and
              forces_breakdown.dat; one line of times with the card's name
-             and power limit: write_solution at 9,072 and 565,500 nodes,
+             and power limit: write_solution at 9,072 and TIER_N nodes,
              ms/iter of 20 iterations with MARKER_MONITORING (chunk 1)
              beside chunk 25 without (output_phase).  CGNS (OUTPUT_FORMAT=
              CGNS_SOL, MESH_FORMAT= CGNS) needs h5py, an optional
@@ -201,31 +239,31 @@ and stores (STL) of each kernel of SASS_SOURCES (T2's node_state.cu among
 them), the barriers K6 is built from timed alone (BARRIER_BENCH_CU:
 cluster.sync() and K6's cluster reduction on 8 and 16 CTAs, grid.sync()
 on 36 and 132 blocks), then one JSON line: T2 full and lite
-(kernels.node_state) at 9,072 and 565,500 nodes on kernel_inputs' state,
+(kernels.node_state) at 9,072 and TIER_N nodes on kernel_inputs' state,
 and the full pass again built from DIR's node_state.cu with
 T2_APPROX_FLAGS (approximate division and square root), guessed at the
 converged T and with no secant step (every node bisects);
 K5 as the Krylov loop calls it (StencilSolveOps.precond_matvec in the
 tier solve_tier picks) on the systems of the third coupled step, the implicit
 LU_SGS case's flow system (v = 13) and the explicit case's SST system
-(v = 2), at 142,317 and 565,500 nodes; K6 as a one-launch solve calls it
+(v = 2), at 142,317 and TIER_N nodes; K6 as a one-launch solve calls it
 (StencilSolveOps.fgmres, one FGMRES(10) cycle at tol 1e-6) on those
 systems at 9,072 nodes: the flow's in the mixed tier (bf16 sweep blocks)
 and at full precision, the SST's in its tier (and in clusters of 8 and
 16 CTAs where DIR's kernels.stencil_fgmres takes cluster); K10
 (kernels.edge_implicit, MUSCL + Venkatakrishnan, both families) at 9,072
-and 565,500 nodes on k10_inputs' state; K8 and T3 + the roll-subtract at
-565,500 nodes on kernel_inputs' state; K7 and T4 as time_k7_t4 says
-(K7's sweeps at 565,500 nodes, also with every offset 0 and, where DIR's
+and TIER_N nodes on k10_inputs' state; K8 and T3 + the roll-subtract at
+TIER_N nodes on kernel_inputs' state; K7 and T4 as time_k7_t4 says
+(K7's sweeps at TIER_N nodes, also with every offset 0 and, where DIR's
 source caps its offset loop, built with the cap at the mesh's K; T4 at
-9,072 and 565,500 nodes on the step's column views); K13 as time_k13
+9,072 and TIER_N nodes on the step's column views); K13 as time_k13
 says (the edge pass and the whole call on the 9,072- and 142,317-node
-triangle channel; K8's slot pass at 565,500 nodes, the same per-edge
+triangle channel; K8's slot pass at TIER_N nodes, the same per-edge
 body); T1, K9 and K12 as time_t1_k9_k12 says (T1 on a boundary batch
-and on the 565,500-node case's MUSCL face rows with its bound, K9 on the
-565,500-node case's inlet, K12 at 9,072 and 565,500 nodes with its
+and on the TIER_N-node case's MUSCL face rows with its bound, K9 on the
+TIER_N-node case's inlet, K12 at 9,072 and TIER_N nodes with its
 bound); K11 as time_k11 says (feature-major, the laminar implicit
-case's family slots at 9,072 and 565,500 nodes, with its bound);
+case's family slots at 9,072 and TIER_N nodes, with its bound);
 float32, cuda_time's median ms (host work included) and, for T1, T2, K6,
 K7, K9, K11, T4, K12 and K13, device_ms (the kernels alone,
 torch.profiler; T1, K7, K9, K11, T4, K12 and K13 also every device
@@ -233,14 +271,16 @@ operation of the call by name and its CUDA launches, time_call).  The
 default run prints no device ms: profiler windows late in a long process
 lose device events (PERF.md).
 
-    python3 chip_smoke.py --run-loop [--gather] [--root DIR]
+    python3 chip_smoke.py --run-loop [--gather | --box] [--root DIR]
 
 times the run loop of the su2_tpu_torch in DIR (default: this checkout)
-on RUN_LOOP_PATHS (9,072 nodes explicit and implicit LU_SGS, 565,500
+on RUN_LOOP_PATHS (9,072 nodes explicit and implicit LU_SGS, TIER_N
 implicit LU_SGS; with --gather GATHER_RUN_LOOP_PATHS instead: the
 implicit triangle channel with LU_SGS and JACOBI at 9,072 and 142,317
 nodes, its laminar explicit and implicit cases at 9,072, the 136,161-node
-tet box; float32, the default SST assembly), after a 2-iteration
+tet box; with --box BOX_RUN_LOOP_PATHS: the 3D implicit box at 8,000
+and 136,161 nodes, its 3-species and laminar cases, the implicit tet box;
+float32, the default SST assembly), after a 2-iteration
 warm-up: where DIR's Simulation has a captured graph, eager (A: the step
 from the host, eager_iterations) against graph (B: run(niter, chunk=25))
 in the order A B B A, the eager step's profile (CUDA launches, API calls,
@@ -253,17 +293,19 @@ iteration).  One JSON line per path, then one for all.
     python3 chip_smoke.py --time-options
 
 times the slice's options in float32 (options_time_main): the explicit
-LU_SGS case first order and with MUSCL at 9,072 and 565,500 nodes, the
+LU_SGS case first order and with MUSCL at 9,072 and TIER_N nodes, the
 implicit LU_SGS case with FGMRES, BCGSTAB and LINELET at 9,072, dual time
-per physical step, T1 on the 565,500-node MUSCL face rows; one JSON line.
+per physical step, T1 on the TIER_N-node MUSCL face rows; one JSON line.
 
     python3 chip_smoke.py --bitwise DIR
 
 holds T2 (CLIPPING_TEMPRATURE off), K7 and T4 of this checkout against
 those of the checkout DIR bit
-for bit on the 565,500-node case's inputs, and K13's per-edge outputs and
-node sums on the 9,072- and 142,317-node triangle channel, in float32 and
-float64 (bitwise_main).
+for bit on the TIER_N-node case's inputs, K13's per-edge outputs and
+node sums on the 9,072- and 142,317-node triangle channel, and K10 (every
+variant; 9, 3 and 5 species) and K11 (both layouts) in 2D, in float32
+and float64, and compares the SASS of each 2D instance of K10 and K11
+with DIR's (bitwise_main, sass_2d_diff).
 """
 
 from __future__ import annotations
@@ -302,7 +344,7 @@ KERNELS = {
                  "su2_tpu/pallas/edge_fused.py:346"),
     "inlet_tc": ("su2_tpu_torch/csrc/inlet_tc.cu",
                  "su2_tpu/pallas/inlet_tc.py:74"),
-    "edge_implicit": ("su2_tpu_torch/csrc/edge_implicit.cu",
+    "edge_implicit": ("su2_tpu_torch/csrc/edge_implicit.cuh",
                       "su2_tpu/pallas/edge_fused.py:721"),
     "ausm_flux_jac": ("su2_tpu_torch/csrc/ausm_jac.cu",
                       "su2_tpu/pallas/edge_kernels.py:34,91"),
@@ -358,12 +400,15 @@ TOL = {
 IMPLICIT_VARIANTS = {"venkatakrishnan": (True, "VENKATAKRISHNAN"),
                      "muscl": (True, None), "first_order": (False, None),
                      "barth_jespersen": (True, "BARTH_JESPERSEN")}
-# the 9,072-node flagship class, the 142,317-node scaling point and the
-# 565,500-node size of the >= 200k-node tier (the README's round-5 point)
-SIZES = {"flagship": (189, 48), "scaling": (753, 189), "tier": (1500, 377)}
+# the 9,072-node flagship class, the 142,317-node scaling point and a
+# size of the >= 200k-node tier, TIER_N nodes: the same solve tiers and
+# K7/K8 tier as larger sizes, at a build and run time the whole script's
+# limit holds
+SIZES = {"flagship": (189, 48), "scaling": (753, 189), "tier": (700, 377)}
+TIER_N = SIZES["tier"][0] * SIZES["tier"][1]
 # the triangle-channel runs (cases.tri_channel_mesh of the same node grids:
 # 9,072 nodes / 26,743 edges and 142,317 / 425,068): iterations per size
-TRI_NITERS = {"flagship": 25, "scaling": 20}
+TRI_NITERS = {"flagship": 10, "scaling": 10}
 TC_T_TOT = 600.0        # T_tot of cases.with_total_conditions
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM bytes/s
 # and non-tensor FLOP/s per type, for the bound of each kernel
@@ -373,23 +418,47 @@ KRYLOV_M = 10           # LINEAR_SOLVER_ITER of the case (the cfg default)
 K6_CAP = 12288          # the one-launch tier's largest field at KRYLOV_M
                         # (linalg/stencil_solve._fgmres_cap)
 # iterations of the implicit-flow slice runs per size: JACOBI, and LU_SGS
-IMPLICIT_NITERS = {"flagship": 10, "scaling": 5, "tier": 2}
-LUSGS_NITERS = {"flagship": 20, "scaling": 10, "tier": 3}
+IMPLICIT_NITERS = {"flagship": 5, "scaling": 3, "tier": 2}
+LUSGS_NITERS = {"flagship": 10, "scaling": 5, "tier": 3}
 # iterations of the laminar implicit LU_SGS slice runs (the explicit one
 # at 9,072 nodes runs the flagship's count too)
-LAMINAR_NITERS = {"flagship": 20, "tier": 3}
+LAMINAR_NITERS = {"flagship": 10, "tier": 3}
 # meshes without a static stencil, implicit and laminar: the
 # implicit triangle channel's slice iterations per size (LU_SGS and
 # JACOBI; the laminar runs take the flagship's), and the tet box
-# (cases.tet_box_mesh, 9 species) of the f64 step check (19,844 nodes)
-# and of the slice (136,161 nodes, TET_NITER iterations)
-TRI_IMPLICIT_NITERS = {"flagship": 20, "scaling": 5}
+# (cases.tet_box_mesh, 9 species) of the f64 step checks and the graph
+# checks (19,844 nodes) and of the slice (136,161 nodes, TET_NITER
+# iterations)
+TRI_IMPLICIT_NITERS = {"flagship": 10, "scaling": 3}
 TET_STEP = (41, 22, 22)
 TET_SLICE = (81, 41, 41)
-TET_NITER = 10
+TET_NITER = 5
+# the 3D implicit flow (MUSCL + Venkatakrishnan) on geometry.structured.
+# box_mesh with cases.with_box_markers' walls: the box of the f64 step
+# checks (10,260 nodes), the kernel phases' box (8,000 nodes: the flow's
+# one-launch K6 tier in f32 at v = 14 ends at ~8,300 nodes with the box's
+# 6 offsets, solve_tier), and the slices (BOX_SLICES: label -> box,
+# make_case keywords, iterations): the 9-species case with LU_SGS at
+# 8,000, 136,161 and 262,701 nodes (K7's >= 200k-node tier), with JACOBI
+# at 136,161, the 3-species case (cases.SPECIES_3, v = 8) and the laminar
+# case (K11) at 136,161
+BOX_STEP = (27, 20, 19)
+BOX_KERNELS = (20, 20, 20)
+BOX_SCALING = (81, 41, 41)
+BOX_TIER = (101, 51, 51)
+BOX_SLICES = (
+    ("8000 box implicit LU_SGS", BOX_KERNELS, {}, 20),
+    ("136161 box implicit LU_SGS", BOX_SCALING, {}, 10),
+    ("136161 box implicit JACOBI", BOX_SCALING, dict(prec="JACOBI"), 5),
+    ("262701 box implicit LU_SGS", BOX_TIER, {}, 3),
+    ("136161 box 3 species implicit LU_SGS", BOX_SCALING,
+     dict(species="3"), 5),
+    ("136161 box laminar implicit LU_SGS", BOX_SCALING,
+     dict(laminar=True), 3))
 
 
 T_START = time.perf_counter()
+T_START_WALL = time.time()
 
 
 def phase(name, msg):
@@ -507,20 +576,28 @@ def compare(name, dt, got, want, per_row=False):
 
 def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
               total_conditions=False, implicit=None, laminar=False,
-              tri=False, settings=None, nz=None):
+              tri=False, settings=None, nz=None, box=False, species=None):
     """The synthetic case on channel_mesh(nx, ny); implicit: (muscl,
     limiter) of the implicit-flow variant, whose flow and SST systems are
     solved with prec as well; laminar: KIND_TURB_MODEL= NONE; tri: on
     cases.tri_channel_mesh(nx, ny) (triangles, scrambled node order, no
     static stencil); nz: on cases.tet_box_mesh(nx, ny, nz) (tetrahedra,
-    scrambled, no static stencil) with cases.with_box_markers' walls;
-    settings: {cfg key: value} lines added last."""
+    scrambled, no static stencil), with box on geometry.structured.
+    box_mesh(nx, ny, nz) (hexahedra, a static stencil of 6 offsets), with
+    cases.with_box_markers' walls; species "3": the 3-species mixture
+    cases.SPECIES_3, "5": the case's first 5 species (both reactions;
+    K10's run-time count), each in its own library directory; settings:
+    {cfg key: value} lines added last."""
     from su2_tpu_torch import cases
     from su2_tpu_torch.config import Config
     from su2_tpu_torch.driver import Simulation
-    from su2_tpu_torch.geometry.structured import channel_mesh
-    text = cases.write_case(tmp).replace("LINEAR_SOLVER_PREC= LU_SGS",
-                                         f"LINEAR_SOLVER_PREC= {prec}")
+    from su2_tpu_torch.geometry.structured import box_mesh, channel_mesh
+    mixture = {None: cases.SPECIES, "3": cases.SPECIES_3,
+               "5": cases.SPECIES[:5]}[species]
+    if species is not None:
+        tmp = os.path.join(tmp, f"species{species}")
+    text = cases.write_case(tmp, species=mixture).replace(
+        "LINEAR_SOLVER_PREC= LU_SGS", f"LINEAR_SOLVER_PREC= {prec}")
     if total_conditions:
         text = cases.with_total_conditions(text)
     if implicit is not None:
@@ -531,7 +608,7 @@ def make_case(tmp, nx, ny, dtype, device, prec="LU_SGS",
     raw = cases.tri_channel_mesh(nx, ny) if tri else channel_mesh(nx, ny)
     if nz is not None:
         text = cases.with_box_markers(text)
-        raw = cases.tet_box_mesh(nx, ny, nz)
+        raw = box_mesh(nx, ny, nz) if box else cases.tet_box_mesh(nx, ny, nz)
     return Simulation(Config(text=text), raw_mesh=raw, dtype=dtype,
                       device=device)
 
@@ -801,7 +878,7 @@ def edge_win_args(sim, mesh, lib, x, nsd, q):
 
 def tier_kernel_phase(sim, dtype_name, report):
     """K7 (WLS and GG), K8 and K9 against their plain versions at the
-    shapes of the 565,500-node case (its mesh and library converted to the
+    shapes of the TIER_N-node case (its mesh and library converted to the
     dtype) on a random reacting state; K9 on a random inflow batch of the
     size of the case's inlet."""
     import numpy as np
@@ -955,6 +1032,14 @@ def k9_inputs(sim, lib, mesh, dtype, sec):
     return dataclasses.replace(tc, sec_iters=sec), tcx
 
 
+def dim_tag(lay):
+    """The report keys' mark of a 3D layout, with its species count where
+    it is not the case's 9 ("" in 2D, whose keys predate 3D)."""
+    if lay.ndim != 3:
+        return ""
+    return " 3D" + ("" if lay.ns == 9 else f" {lay.ns} species")
+
+
 def k10_rows_read(lay, muscl, limiter):
     """Rows of the implicit stack (edge_implicit.implicit_rows) that K10
     reads in the variant: with MUSCL not the dP/dU rows (the face state
@@ -1021,10 +1106,11 @@ def k10_inputs(sim, dtype):
     return mesh, lib, sc, grad is None, args_of
 
 
-def implicit_kernel_phase(sim, dtype_name, report, variants):
+def implicit_kernel_phase(sim, dtype_name, report, variants,
+                          plain_reps=5):
     """K10 against its plain version at the shapes of the implicit case sim
     (k10_inputs): per output row of every family, the pad slots exactly
-    0."""
+    0; the plain version timed over plain_reps calls."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.ops import edge_implicit as ei
@@ -1056,13 +1142,13 @@ def implicit_kernel_phase(sim, dtype_name, report, variants):
                          == 0).all()):
                 raise AssertionError(f"K10 {name} {dtype_name}: nonzero "
                                      "output on a pad slot")
-        ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
+        ms, plain_ms = cuda_time(kfn), cuda_time(pfn, reps=plain_reps)
         # the stack's bytes: only the rows this variant reads
         ins = [mesh.fam_normal, mesh.fam_evec, lib.h_y, lib.h_y2,
                lib.cp_y, lib.cp_y2, lib.mm, sc.sm_den, lib.ri]
         stack = k10_rows_read(lay, muscl, limiter) * n * f_all.element_size()
         bound = bound_of(stack + nbytes(ins + got), flops, dtype_name)
-        key = f"{dtype_name} {n} {name}"
+        key = f"{dtype_name} {n}{dim_tag(lay)} {name}"
         phase("k10", f"edge_implicit {key}: max_abs_err {err:.3e} "
               f"({scaled:.2e} of its row's max) kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}); "
@@ -1146,7 +1232,7 @@ def ausm_kernel_phase(sim, dtype_name, report):
         plain_ms = cuda_time(lambda: ausm_t.ausm_flux_t(
             lay, *ins[:3], m_inf, *ins[3:]))
         bound = bound_of(nbytes(ins + got), flops, dtype_name)
-        key = f"{dtype_name} {sim.mesh.npoint} {layout}"
+        key = f"{dtype_name} {sim.mesh.npoint}{dim_tag(lay)} {layout}"
         phase("k11", f"ausm_flux_jac {key}: max_abs_err {err:.3e} "
               f"({scaled:.2e} of its row's max) kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]}); "
@@ -1209,8 +1295,9 @@ def ausm_edge_phase(sim, dtype_name, report):
     plain_ms = cuda_time(lambda: ausm_t.ausm_flux_t(
         lay, *ins[:3], m_inf, *ins[3:]))
     bound = bound_of(nbytes(ins + got), flops, dtype_name)
-    key = f"{dtype_name} {sim.mesh.npoint} edge rows"
-    phase("k11", f"ausm_flux_jac {key} (triangle channel, {ne} edges): "
+    key = f"{dtype_name} {sim.mesh.npoint}{dim_tag(lay)} edge rows"
+    shape = "triangle channel" if lay.ndim == 2 else "tet box"
+    phase("k11", f"ausm_flux_jac {key} ({shape}, {ne} edges): "
           f"max_abs_err {err:.3e} ({scaled:.2e} of its row's max) kernel "
           f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms "
           f"({bound[1]})")
@@ -1399,8 +1486,10 @@ def k13_phase(sim, dtype_name, report):
 # K8 and K13 ((dimension, species)), K10 and K11 (species counts, 2D), on
 # 9,072-node meshes (channel_mesh(189, 48), box_mesh(24, 21, 18))
 OTHER_EDGE_SHAPES = ((2, 5), (2, 1), (3, 16))
-OTHER_K10_SPECIES = (5, 3)
-OTHER_K11_SPECIES = (3, 5)
+# K10's and K11's (dimension, species count) shapes off the main path's:
+# (2, 3) and (3, 3) compiled (K10) or run-time (K11), 5 run-time
+OTHER_K10_SHAPES = ((2, 5), (2, 3), (3, 5))
+OTHER_K11_SHAPES = ((2, 3), (2, 5), (3, 3), (3, 5))
 # T2's species counts outside kernels.NODE_STATE_SPECIES (its run-time
 # instance), on the 9,072-node channel's node count
 OTHER_T2_SPECIES = (5, 16)
@@ -1410,10 +1499,10 @@ def shape_phase(tmp, report):
     """T2 (full and lite) at OTHER_T2_SPECIES on kernel_inputs' state with
     the case's library cut or cycled to that count (cases.species_cut),
     against node_state_plain / node_state_lite_plain at its tolerances;
-    T3, K8 and K13 at OTHER_EDGE_SHAPES, K10 at OTHER_K10_SPECIES (5
-    runs its run-time-count instance; 3, the flat plate's air, is
-    compiled but off the main path) and K11 at OTHER_K11_SPECIES (its
-    run-time-count instance), in float64 and float32, on
+    T3, K8 and K13 at OTHER_EDGE_SHAPES, K10 at OTHER_K10_SHAPES (5
+    species runs its run-time-count instance; 3, the flat plate's air, is
+    compiled, on the main path in 3D only) and K11 at OTHER_K11_SHAPES
+    (its run-time-count instances), in float64 and float32, on
     cases.shape_inputs (the case's library cut to the species count, a
     random reacting state) against their plain versions at the compiled
     shapes' per-row tolerances; K8 the roll-subtract of T3's outputs bit
@@ -1426,7 +1515,7 @@ def shape_phase(tmp, report):
     from su2_tpu_torch.geometry.structured import box_mesh, channel_mesh
     from su2_tpu_torch.ops import ausm_t, edge_flux as ef
     from su2_tpu_torch.ops import edge_implicit as ei
-    meshes = {2: channel_mesh(*SIZES["flagship"]), 3: box_mesh(24, 21, 18)}
+    meshes = {2: channel_mesh(*SIZES["flagship"]), 3: box_mesh(*BOX_KERNELS)}
     libdir = os.path.join(tmp, "shapes")
 
     def check(name, key, dt, kfn, pfn, rows, per_row=True):
@@ -1499,13 +1588,14 @@ def shape_phase(tmp, report):
                     raise AssertionError(f"K8 {key} {dt}: not T3's "
                                          "roll-subtract bit for bit")
             del x, head, t3, win
-        for ns in OTHER_K10_SPECIES:
-            x = cases.shape_inputs(2, ns, libdir, dtype, "cuda",
-                                   raw_mesh=meshes[2])
+        for nd, ns in OTHER_K10_SHAPES:
+            x = cases.shape_inputs(nd, ns, libdir, dtype, "cuda",
+                                   raw_mesh=meshes[nd])
             mesh = x["mesh"]
             args = x["implicit"] + (mesh.fam_offsets, mesh.fam_normal,
                                     mesh.fam_evec, True, True)
-            got = check("edge_implicit", f"{ns} species {mesh.npoint}", dt,
+            got = check("edge_implicit",
+                        f"{ns} species {mesh.npoint}{dim_tag(x['lay'])}", dt,
                         lambda: kernels.edge_implicit(*args),
                         lambda: ei.edge_implicit_plain(*args),
                         lambda o: [t.flatten(0, 1) for t in o])
@@ -1517,9 +1607,9 @@ def shape_phase(tmp, report):
                     raise AssertionError(f"K10 {ns} species {dt}: nonzero "
                                          "output on a pad slot")
             del x, args, got
-        for ns in OTHER_K11_SPECIES:
-            x = cases.shape_inputs(2, ns, libdir, dtype, "cuda",
-                                   raw_mesh=meshes[2])
+        for nd, ns in OTHER_K11_SHAPES:
+            x = cases.shape_inputs(nd, ns, libdir, dtype, "cuda",
+                                   raw_mesh=meshes[nd])
             lay, ins = x["lay"], x["faces"]
             m_inf = 0.1
             ne, nv = ins[0].shape[1], lay.nvar
@@ -1535,8 +1625,8 @@ def shape_phase(tmp, report):
                             1, 2, 0)))(kernels.ausm_flux_jac(
                                 lay, *ins_e[:3], m_inf, *ins_e[3:],
                                 edge_major=True)))):
-                got = check("ausm_flux_jac", f"{ns} species {ne} slots "
-                            f"{layout}", dt, kfn, pfn, rows)
+                got = check("ausm_flux_jac", f"{ns} species {ne} slots"
+                            f"{dim_tag(lay)} {layout}", dt, kfn, pfn, rows)
                 pad = ~x["mesh"].fam_valid_flat
                 if not all(bool((t[:, pad] == 0).all()) for t in got):
                     raise AssertionError(f"K11 {ns} species {layout} {dt}: "
@@ -1727,12 +1817,10 @@ def stencil_phase(sims, flow_sims, report):
     SST systems the port assembles at 9,072 and 142,317 nodes (v = 2), the
     implicit LU_SGS case's flow systems (v = 13: K6 at 9,072 nodes, K5 at
     142,317), and band systems with dense blocks (v = 2, 3 and 7); at
-    565,500 nodes K5 in the main path's mixed tier on the SST and the flow
+    TIER_N nodes K5 in the main path's mixed tier on the SST and the flow
     systems (and its matvec in f32, beside torch.sparse.mm).  K5 reads the
     layout StencilSolveOps makes for the Krylov loop (solve_layout)."""
-    import torch
     from su2_tpu_torch import kernels
-    from su2_tpu_torch.linalg import stencil_solve as ts
     every = ("float64", "float32", "mixed")
     modes = ("sgs_matvec", "sgs", "matvec")
     tier = {"mixed": ("sgs_matvec",), "float32": ("matvec",)}
@@ -1761,6 +1849,40 @@ def stencil_phase(sims, flow_sims, report):
             systems[f"{name}cap"] = (
                 lambda var, v=v, offsets=offsets: band_operands(
                     v, offsets, var, n=K6_CAP), {}, True)
+    stencil_checks(systems, report)
+
+
+def box_stencil_phase(flow_sims, report):
+    """K5 and K6 at the 3D flow's block widths against their plain
+    versions, in f64, f32 and mixed: the flow systems (v = 14 and, with
+    cases.SPECIES_3, 8) that the box's implicit LU_SGS steps assemble
+    (flow_sims: label -> (sim, whether the solve is one K6 cycle): K6 on
+    those, K5's three modes on the others) and band systems of both
+    widths with the box's 6 offsets and round-robin colors."""
+    every = ("float64", "float32", "mixed")
+    modes = ("sgs_matvec", "sgs", "matvec")
+    systems = {}
+    for label, (sim, one) in flow_sims.items():
+        rec = capture_systems(sim)[sim.lay.nvar]
+        systems[label] = (
+            lambda var, sim=sim, rec=rec: system_operands(sim, rec, var),
+            {} if one else dict.fromkeys(every, modes), one)
+    for v in (8, 14):
+        systems[f"band{v} 3D"] = (
+            lambda var, v=v: band_operands(v, (-400, -20, -1, 1, 20, 400),
+                                           var),
+            dict.fromkeys(every, modes), True)
+    stencil_checks(systems, report)
+
+
+def stencil_checks(systems, report):
+    """K5 and K6 against their plain versions on systems (name -> (the
+    operands of a variant, K5's modes by variant, whether to run K6)), as
+    stencil_phase describes."""
+    import torch
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    every = ("float64", "float32", "mixed")
     for sname, (make, k5_modes, run_k6) in systems.items():
         for var in every:
             if not (k5_modes.get(var) or run_k6):
@@ -1824,6 +1946,106 @@ def stencil_phase(sims, flow_sims, report):
                         library_ms=lib_ms, library=lib_txt.strip() or None)
             if run_k6:
                 k6_check(sname, var, args, r, b, report)
+
+
+def box_phase(tmp, report):
+    """The 3D implicit flow (MUSCL + Venkatakrishnan) on box_mesh and the
+    tet box, float32 cases built here (returned by label for graph_phase
+    and box_slices): K10 at (3, 9) against its plain version on the
+    8,000-node box (f64 and f32, the four variants) and at 136,161 and
+    262,701 nodes (f32, the latter's stack from K7's rows), at (3, 3) on
+    the 3-species case at 8,000 (f64, f32) and 136,161 (f32); K11 in 3D
+    on the laminar box's family slots (8,000 f64 and f32, 136,161 f32)
+    and on the implicit tet box's edge rows (TET_STEP, f64 and f32); K5
+    and K6 at v = 14 and 8 (box_stencil_phase).  (The f64 step checks of
+    these paths are step_checks'.)"""
+    import torch
+    venk = IMPLICIT_VARIANTS["venkatakrishnan"]
+    f32 = torch.float32
+    sims = {}
+
+    def build(label, shape, **kw):
+        t0 = time.perf_counter()
+        kw.setdefault("implicit", venk)
+        sim = make_case(tmp, *shape[:2], f32, "cuda",
+                        kw.pop("prec", "LU_SGS"), box=kw.pop("box", True),
+                        **kw)
+        phase("box", f"{label}: {sim.mesh.npoint} nodes, stencil "
+              f"{sim.mesh.stencil_offsets}, {sim.ncolor} sweep colors, "
+              f"built in {time.perf_counter() - t0:.1f} s")
+        sims[label] = sim
+        return sim
+
+    box = build("box", BOX_KERNELS, nz=BOX_KERNELS[2])
+    box3 = build("box 3 species", BOX_KERNELS, nz=BOX_KERNELS[2],
+                 species="3")
+    lam = build("box laminar", BOX_KERNELS, nz=BOX_KERNELS[2], laminar=True)
+    # 5 species: K10's run-time count at v = 10, a width K5/K6 are not
+    # compiled for, so JACOBI
+    build("box 5 species", BOX_KERNELS, nz=BOX_KERNELS[2], species="5",
+          prec="JACOBI")
+    tet = build("tet box", TET_STEP, nz=TET_STEP[2], box=False)
+    big = build("box 136161", BOX_SCALING, nz=BOX_SCALING[2])
+    big3 = build("box 136161 3 species", BOX_SCALING, nz=BOX_SCALING[2],
+                 species="3")
+    for dt in ("float64", "float32"):
+        implicit_kernel_phase(box, dt, report, list(IMPLICIT_VARIANTS),
+                              plain_reps=3)
+        implicit_kernel_phase(box3, dt, report, ["venkatakrishnan"],
+                              plain_reps=3)
+        ausm_kernel_phase(lam, dt, report)
+        ausm_edge_phase(tet, dt, report)
+    for sim in (big, big3):
+        implicit_kernel_phase(sim, "float32", report, ["venkatakrishnan"],
+                              plain_reps=3)
+    tier = build("box 262701", BOX_TIER, nz=BOX_TIER[2])
+    implicit_kernel_phase(tier, "float32", report, ["venkatakrishnan"],
+                          plain_reps=3)
+    lam_big = build("box 136161 laminar", BOX_SCALING, nz=BOX_SCALING[2],
+                    laminar=True)
+    ausm_kernel_phase(lam_big, "float32", report)
+    box_stencil_phase({f"flow3d{s.mesh.npoint} v{s.lay.nvar}": (
+        s, flow_one_launch(s)) for s in (box, box3, big, big3)}, report)
+    return sims
+
+
+def box_graphs(sims):
+    """(label, sim) of the 3D implicit paths for graph_phase: the box's
+    RANS (K10 at (3, 9), the flow's K6 at v = 14), 3-species (K10 at
+    (3, 3), K6 at v = 8), laminar (K11 in 3D) LU_SGS steps at 8,000
+    nodes, the 5-species JACOBI step there (K10's run-time count), the
+    RANS step at 136,161 (K5 at v = 14) and the tet box's implicit LU_SGS
+    step (K11 on the edge rows)."""
+    out = tuple((f"3D {label}, implicit LU_SGS", sims[label]) for label in (
+        "box", "box 3 species", "box laminar", "box 136161", "tet box"))
+    return out + (("3D box 5 species, implicit JACOBI",
+                   sims.pop("box 5 species")),)
+
+
+def box_slices(tmp, card, runs, sims):
+    """BOX_SLICES through slice_phase, float32, timed and profiled (with
+    the device ms of each stage); the cases box_phase built are reused
+    where they match and dropped after their run."""
+    import torch
+    venk = IMPLICIT_VARIANTS["venkatakrishnan"]
+    reuse = {"8000 box implicit LU_SGS": "box",
+             "136161 box implicit LU_SGS": "box 136161",
+             "262701 box implicit LU_SGS": "box 262701",
+             "136161 box 3 species implicit LU_SGS": "box 136161 3 species",
+             "136161 box laminar implicit LU_SGS": "box 136161 laminar"}
+    for label, shape, kw, niter in BOX_SLICES:
+        sim = sims.pop(reuse.get(label), None)
+        if sim is None:
+            sim = make_case(tmp, *shape[:2], torch.float32, "cuda",
+                            kw.get("prec", "LU_SGS"), implicit=venk,
+                            nz=shape[2], box=True,
+                            **{k: v for k, v in kw.items() if k != "prec"})
+        runs.append((label, slice_phase(
+            sim, "box", niter, card, prec=kw.get("prec", "LU_SGS"),
+            profile=True), niter))
+        del sim
+        torch.cuda.empty_cache()
+    sims.clear()
 
 
 def bsr_time(args, r, n, v):
@@ -1917,7 +2139,8 @@ def k6_check(sname, var, args, r, b, report):
 
 
 def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
-               prec="JACOBI", fused=False, tri=False, tet=None):
+               prec="JACOBI", fused=False, tri=False, tet=None, box=None,
+               species=None):
     """5 coupled iterations, card vs CPU, from the state after 10 card
     iterations of the flagship-class case; tier=True forces the
     >= 200k-node tier on both sides (TILED_MIN_NODES = 0: K7 and K8, or
@@ -1932,7 +2155,13 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
     once per iteration, the SST's solve in torch gather ops; implicit: the
     edge-list system, K11 once per iteration, both solves in torch gather
     ops, LINELET's lines over the edge list); tet, a shape of
-    cases.tet_box_mesh (explicit: K13 at (3, 9), the 3D gather WLS)."""
+    cases.tet_box_mesh (explicit: K13 at (3, 9), the 3D gather WLS;
+    implicit: K11 on the edge rows, the solves in torch gather ops); box,
+    a shape of box_mesh (implicit: K10 in 3D, the solves' K5/K6 at
+    v = nVar and 2 in their tiers, stencil_per_iter), species "3" the
+    3-species mixture (v = 8).  The card's half runs here, the CPU's in
+    a worker process (_cpu_steps); the comparison and the line come in
+    finish_steps."""
     from su2_tpu_torch.ops import gradients
     from su2_tpu_torch.turbulence import sst
     saved = gradients.TILED_MIN_NODES
@@ -1941,8 +2170,9 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
     if fused:
         sst.set_assemble_mode("fused")
     try:
-        worst, counts, sim = _step_compare(tmp, total_conditions, implicit,
-                                           prec, tri=tri, tet=tet)
+        compare, counts, sim = _step_compare(
+            tmp, total_conditions, implicit, prec, tri=tri, tet=tet,
+            box=box, species=species, tier=tier, fused=fused)
     finally:
         gradients.TILED_MIN_NODES = saved
         sst.set_assemble_mode("unfused")
@@ -1962,6 +2192,8 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
         lusgs = prec != "JACOBI"
         want.update(stencil_fgmres=5 * lusgs,
                     stencil_sgs_matvec=5 * KRYLOV_M * lusgs)
+    if box is not None:
+        want.update({k: 5 * c for k, c in stencil_per_iter(sim, prec).items()})
     if gather:
         want.update(stencil_fgmres=0, stencil_sgs_matvec=0,
                     stencil_sweep_only=0, stencil_matvec_only=0)
@@ -1993,13 +2225,22 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
     if tet is not None:
         what = ("explicit LU_SGS on the tet box (no static stencil: K13 at "
                 "(3, 9), the 3D gather WLS)")
-    phase("step", f"5 iterations at {n} nodes f64 with {what}, card vs CPU "
-          f"within rtol 1e-9, atol 1e-12*max|field| (largest difference "
-          f"{worst:.3e} of its field's max); card launches {counts}")
+        if imp:
+            what = (f"the implicit flow on the tet box (no static stencil: "
+                    f"K11 in 3D on the edge rows, {prec} over the gathered "
+                    "blocks in torch ops)")
+    if box is not None:
+        what = (f"the implicit flow on the 3D box ({sim.lay.ns} species: "
+                f"K10 at (3, {sim.lay.ns}), {prec}: "
+                f"{stencil_per_iter(sim, prec)} per iteration)")
+    compare(lambda worst: phase(
+        "step", f"5 iterations at {n} nodes f64 with {what}, card vs CPU "
+        f"within rtol 1e-9, atol 1e-12*max|field| (largest difference "
+        f"{worst:.3e} of its field's max); card launches {counts}"))
 
 
 def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False,
-                       tri=False):
+                       tri=False, box=None):
     """5 laminar iterations (KIND_TURB_MODEL= NONE), card vs CPU, from the
     state after 10 card iterations of the flagship-class case: explicit
     (T4 once per iteration), or implicit (muscl, limiter) with prec (K11
@@ -2007,7 +2248,8 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False,
     tier=True forces the >= 200k-node tier on both sides (K7's rows, read
     node-major by the laminar edge terms); tri the triangle channel (no
     static stencil: implicit, K11 on the edge rows and the solve in torch
-    gather ops)."""
+    gather ops); box, a shape of box_mesh (K11 in 3D on the family
+    slots).  The CPU's half and the line as in step_phase."""
     import torch
     from su2_tpu_torch.linalg import stencil_solve as sts
     from su2_tpu_torch.ops import gradients
@@ -2015,8 +2257,9 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False,
     if tier:
         gradients.TILED_MIN_NODES = 0
     try:
-        worst, counts, sim = _step_compare(tmp, False, implicit, prec,
-                                           laminar=True, tri=tri)
+        compare, counts, sim = _step_compare(tmp, False, implicit, prec,
+                                             laminar=True, tri=tri, box=box,
+                                             tier=tier)
     finally:
         gradients.TILED_MIN_NODES = saved
     n = sim.mesh.npoint
@@ -2037,54 +2280,227 @@ def laminar_step_phase(tmp, implicit=None, prec="JACOBI", tier=False,
                                  f" expected {c}")
     what = (f"implicit ({prec}, K11)" if imp else "explicit (T4)") \
         + (" with the >= 200k-node tier forced (K7)" if tier else "") \
-        + (" on the triangle channel (K11 on the edge rows)" if tri else "")
-    phase("step", f"5 laminar iterations at {n} nodes f64, {what}, card vs "
-          f"CPU within rtol 1e-9, atol 1e-12*max|field| (largest difference "
-          f"{worst:.3e} of its field's max); card launches {counts}")
+        + (" on the triangle channel (K11 on the edge rows)" if tri else "") \
+        + (" on the 3D box (K11 in 3D)" if box is not None else "")
+    compare(lambda worst: phase(
+        "step", f"5 laminar iterations at {n} nodes f64, {what}, card vs "
+        f"CPU within rtol 1e-9, atol 1e-12*max|field| (largest difference "
+        f"{worst:.3e} of its field's max); card launches {counts}"))
 
 
 def _step_compare(tmp, total_conditions, implicit=None, prec="JACOBI",
-                  laminar=False, tri=False, tet=None):
+                  laminar=False, tri=False, tet=None, box=None, species=None,
+                  tier=False, fused=False):
+    """The card's half of a step check: the f64 case on the card, 10
+    iterations, then STEP_CHECK_ITERS compared ones, whose start goes to
+    a worker for the CPU's half (_cpu_steps; tier and fused: the settings
+    the caller holds for the card's, held there too).  Returns (compare,
+    the card's launches over the compared iterations, the card's case):
+    compare(line) queues the comparison for finish_steps, which calls
+    line with the largest difference over its field's max."""
     import torch
     from su2_tpu_torch import kernels
     prec = "LU_SGS" if implicit is None and not laminar else prec
-    shape, nz = (tet[:2], tet[2]) if tet is not None \
+    three = tet if tet is not None else box
+    shape, nz = (three[:2], three[2]) if three is not None \
         else (SIZES["flagship"], None)
-    gpu, cpu = (make_case(tmp, *shape, torch.float64, dev, prec,
-                          total_conditions=total_conditions,
-                          implicit=implicit, laminar=laminar, tri=tri,
-                          nz=nz) for dev in ("cuda", "cpu"))
+    kw = dict(total_conditions=total_conditions, implicit=implicit,
+              laminar=laminar, tri=tri, nz=nz, box=box is not None,
+              species=species)
+    gpu = make_case(tmp, *shape, torch.float64, "cuda", prec, **kw)
     ncarry = 2 if laminar else 6
     s_gpu = (gpu.u0, gpu.t0) + (() if laminar
                                 else tuple(gpu.initial_turb_state()))
     for _ in range(10):
         s_gpu = gpu._step(*s_gpu)[:ncarry]
-    s_cpu = tuple(x.cpu() for x in s_gpu)
     names = (("u", "t", "rms", "rmax", "nonphys", "min_dt") if laminar else
              ("u", "t", "q", "mu_t", "grad_k", "sigma_k", "rms", "rmax",
               "turb_rms", "nonphys", "min_dt"))
-    worst = 0.0
+    job = dict(tmp=tmp, shape=tuple(shape), prec=prec, case=kw, tier=tier,
+               fused=fused, ncarry=ncarry, nout=len(names),
+               start=[x.detach().cpu().numpy() for x in s_gpu])
+    result = cpu_pool().apply_async(_cpu_steps, (job,))
     kernels.reset_launches()
-    for it in range(5):
+    card = []
+    for _ in range(STEP_CHECK_ITERS):
         og = gpu._step(*s_gpu)
-        oc = cpu._step(*s_cpu)
-        for nm, a, b in zip(names, og, oc):
-            a = a.cpu().double()
-            b = b.double()
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"step {it}: non-finite {nm}")
-            err = (a - b).abs()
-            bound = 1e-9 * b.abs() + 1e-12 * b.abs().max()
-            if not bool((err <= bound).all()):
-                raise AssertionError(
-                    f"step {it} {nm}: card vs CPU max err "
-                    f"{err.max().item():.3e} outside rtol 1e-9, "
-                    "atol 1e-12*max|field|")
-            scale = b.abs().max().item()
-            if scale > 0.0:
-                worst = max(worst, err.max().item() / scale)
-        s_gpu, s_cpu = tuple(og[:ncarry]), tuple(oc[:ncarry])
-    return worst, dict(kernels.launches), gpu
+        card.append([x.detach().cpu() for x in og[:len(names)]])
+        s_gpu = tuple(og[:ncarry])
+    counts = dict(kernels.launches)
+
+    def compare(line):
+        PENDING_STEPS.append((result, card, names, line))
+    return compare, counts, gpu
+
+
+# the f64 step checks: STEP_CHECK_ITERS compared iterations each; their
+# CPU halves run in CPU_WORKERS worker processes of CPU_THREADS torch
+# threads each (the card's process keeps the other cores: its case
+# builds and eager steps are host-bound), beside the card's phases from
+# step_checks until finish_steps (before 6), so the plain versions on
+# the CPU take none of the run's time but the wait
+STEP_CHECK_ITERS = 5
+CPU_WORKERS, CPU_THREADS = 2, 2
+PENDING_STEPS = []
+_POOL = []
+
+
+def cpu_pool():
+    """The worker pool of the step checks' CPU halves (spawned on first
+    use: no CUDA in a worker)."""
+    if not _POOL:
+        import multiprocessing
+        _POOL.append(multiprocessing.get_context("spawn").Pool(
+            CPU_WORKERS, _cpu_worker_init, (CPU_THREADS,)))
+    return _POOL[0]
+
+
+def stop_cpu_pool(wait):
+    """End the workers: after their queue (wait) or at once."""
+    while _POOL:
+        pool = _POOL.pop()
+        if wait:
+            pool.close()
+        else:
+            pool.terminate()
+        pool.join()
+
+
+def _cpu_worker_init(threads):
+    import torch
+    torch.set_num_threads(threads)
+
+
+def _cpu_steps(job):
+    """A step check's CPU half, in a worker: the f64 case of
+    _step_compare's keywords on the CPU (its case files in a directory of
+    the worker's own), STEP_CHECK_ITERS steps from the card's start;
+    returns each step's outputs as numpy arrays and the wall clock
+    (time.time()) at its end."""
+    import torch
+    from su2_tpu_torch.ops import gradients
+    from su2_tpu_torch.turbulence import sst
+    saved = gradients.TILED_MIN_NODES
+    if job["tier"]:
+        gradients.TILED_MIN_NODES = 0
+    if job["fused"]:
+        sst.set_assemble_mode("fused")
+    try:
+        tmp = os.path.join(job["tmp"], f"cpu{os.getpid()}")
+        os.makedirs(tmp, exist_ok=True)
+        sim = make_case(tmp, *job["shape"], torch.float64, "cpu",
+                        job["prec"], **job["case"])
+        state = tuple(torch.from_numpy(x) for x in job["start"])
+        out = []
+        for _ in range(STEP_CHECK_ITERS):
+            oc = sim._step(*state)
+            out.append([x.detach().clone().numpy()
+                        for x in oc[:job["nout"]]])
+            state = tuple(oc[:job["ncarry"]])
+        return out, time.time()
+    finally:
+        gradients.TILED_MIN_NODES = saved
+        sst.set_assemble_mode("unfused")
+
+
+def finish_steps():
+    """Wait for the step checks' CPU halves and end the workers; hold each
+    card iteration against the CPU's (rtol 1e-9, atol 1e-12*max|field|,
+    every output, every iteration) and print the check's line."""
+    import torch
+    t0 = time.perf_counter()
+    n = len(PENDING_STEPS)
+    last = 0.0
+    while PENDING_STEPS:
+        result, card, names, line = PENDING_STEPS.pop(0)
+        cpu, ended = result.get()
+        last = max(last, ended)
+        if len(cpu) != len(card):
+            raise AssertionError(f"step: {len(cpu)} CPU iterations against "
+                                 f"{len(card)} on the card")
+        worst = 0.0
+        for it, (og, oc) in enumerate(zip(card, cpu)):
+            for nm, a, b in zip(names, og, oc):
+                a = a.double()
+                b = torch.from_numpy(b).double()
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"step {it}: non-finite {nm}")
+                err = (a - b).abs()
+                bound = 1e-9 * b.abs() + 1e-12 * b.abs().max()
+                if not bool((err <= bound).all()):
+                    raise AssertionError(
+                        f"step {it} {nm}: card vs CPU max err "
+                        f"{err.max().item():.3e} outside rtol 1e-9, "
+                        "atol 1e-12*max|field|")
+                scale = b.abs().max().item()
+                if scale > 0.0:
+                    worst = max(worst, err.max().item() / scale)
+        line(worst)
+    stop_cpu_pool(wait=True)
+    phase("step", f"{n} step checks' CPU halves (in {CPU_WORKERS} worker "
+          f"processes of {CPU_THREADS} threads) done, the last at "
+          f"+{last - T_START_WALL:.1f} s; waited "
+          f"{time.perf_counter() - t0:.1f} s for them here")
+
+
+def step_checks(tmp):
+    """Every f64 step check (step_phase, laminar_step_phase: the card's
+    halves here), those with the longest CPU halves first: the tet box's
+    implicit LU_SGS and explicit LU_SGS (TET_STEP), the triangle
+    channel's implicit LU_SGS and LINELET, the 3D box's implicit RANS and
+    laminar LU_SGS (BOX_STEP), the triangle channel's laminar implicit
+    JACOBI and explicit LU_SGS, then the channel's (9,072 nodes)."""
+    venk = IMPLICIT_VARIANTS["venkatakrishnan"]
+    step_phase(tmp, implicit=venk, prec="LU_SGS", tet=TET_STEP)
+    step_phase(tmp, implicit=venk, prec="LU_SGS", tri=True)
+    step_phase(tmp, tet=TET_STEP)
+    step_phase(tmp, implicit=venk, prec="LINELET", tri=True)
+    step_phase(tmp, implicit=venk, prec="LU_SGS", box=BOX_STEP)
+    laminar_step_phase(tmp, implicit=venk, prec="LU_SGS", box=BOX_STEP)
+    laminar_step_phase(tmp, implicit=venk, prec="JACOBI", tri=True)
+    step_phase(tmp, tri=True)
+    step_phase(tmp, fused=True)
+    step_phase(tmp, implicit=venk, prec="LU_SGS", fused=True)
+    laminar_step_phase(tmp)
+    laminar_step_phase(tmp, implicit=venk, prec="LU_SGS")
+    laminar_step_phase(tmp, implicit=venk, tier=True)
+    step_phase(tmp)
+    step_phase(tmp, tier=True)
+    step_phase(tmp, total_conditions=True)
+    step_phase(tmp, implicit=venk)
+    step_phase(tmp, tier=True, implicit=venk)
+    step_phase(tmp, implicit=venk, prec="LU_SGS")
+
+
+def stencil_per_iter(sim, prec):
+    """The K5 and K6 launches per iteration of sim's step from its solves'
+    tiers (linalg/stencil_solve.solve_tier at Krylov budget KRYLOV_M): per
+    solve one K6 cycle where the tier is one launch, else KRYLOV_M K5
+    (z, A z); the solves are the implicit flow's (v = nVar) and the
+    unfused SST's (v = 2) with an SGS-class preconditioner on a stencil
+    mesh, none with JACOBI or without a stencil."""
+    from su2_tpu_torch.linalg import stencil_solve as sts
+    out = {"stencil_fgmres": 0, "stencil_sgs_matvec": 0}
+    if prec == "JACOBI" or sim.mesh.stencil_offsets is None:
+        return out
+    widths = ([sim.lay.nvar] if sim.cfg.implicit_flow else []) \
+        + ([2] if sim.turbulent else [])
+    for v in widths:
+        one = sts.solve_tier(sim.mesh.npoint, sim.mesh.stencil_offsets, v,
+                             sim.dtype, sim.ncolor, KRYLOV_M)[1]
+        if one:
+            out["stencil_fgmres"] += 1
+        else:
+            out["stencil_sgs_matvec"] += KRYLOV_M
+    return out
+
+
+def flow_one_launch(sim):
+    """Whether the implicit flow's solve of sim (v = nVar) is one K6 cycle
+    in its tier."""
+    from su2_tpu_torch.linalg import stencil_solve as sts
+    return sts.solve_tier(sim.mesh.npoint, sim.mesh.stencil_offsets,
+                          sim.lay.nvar, sim.dtype, sim.ncolor, KRYLOV_M)[1]
 
 
 def fused_sst_tier(sim):
@@ -2097,7 +2513,7 @@ def fused_sst_tier(sim):
 
 # the stencil kernels' launches per iteration with LU_SGS: the explicit
 # step's SST solve, one K6 cycle at 9,072 nodes, KRYLOV_M K5 (z, A z) at
-# 142,317 and 565,500 (the mixed tier); the implicit step's flow (v = 13)
+# 142,317 and TIER_N (the mixed tier); the implicit step's flow (v = 13)
 # and SST (v = 2) solves, one K6 cycle each at 9,072 nodes (the mixed
 # one-launch tier for the flow), KRYLOV_M K5 each at the larger sizes
 STENCIL_PER_ITER = {
@@ -2495,7 +2911,7 @@ def graph_check(sim, label, niter=5):
 def graph_phase(tmp, sims, lusgs, lam, tri, seen, gather=()):
     """graph_check, float32, on the paths that together launch every
     kernel: explicit LU_SGS at 9,072 nodes (T1-T4, K6 as one cluster at
-    v = 2), 142,317 (K5 at v = 2) and 565,500 (K7, K8), implicit LU_SGS at
+    v = 2), 142,317 (K5 at v = 2) and TIER_N (K7, K8), implicit LU_SGS at
     9,072 (K10, K6 cooperative at v = 13) and 142,317 (K5 at v = 13), the
     laminar implicit LU_SGS case (K11), the triangle channel (K13), a
     TOTAL_CONDITIONS inlet (K9) and the fused SST assembly (K12); then
@@ -2518,7 +2934,7 @@ def graph_phase(tmp, sims, lusgs, lam, tri, seen, gather=()):
                         sims["tier"])) + tuple(gather):
         # the gather paths' eager steps are the slowest: 2 iterations
         seen |= set(graph_check(sim, label, 2 if (label, sim) in gather
-                                else 5))
+                                else 3))
         sim.drop_graph()
     seen |= set(graph_check(make_case(
         tmp, *SIZES["flagship"], torch.float32, "cuda",
@@ -2670,15 +3086,16 @@ def options_phase(tmp, runs):
 
 
 def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
-                stats=None, prof_iters=3):
+                stats=None, prof_iters=1):
     """Time niter iterations of Simulation.run (chunks of 25: replays of
     the step's CUDA graph) after a 2-iteration warm-up (which captures
     it), then the same iterations through the eager step from the same
     start; check the history, the state and the launch counts (the
     replays' launches, niter times the graph's per_replay, equal to the
-    eager step's), print one line; profile: also 3 profiled eager iterations
-    and 3 profiled replays (prof_iters of each: 1 on the paths of ~10,000
-    kernels an iteration, whose profiles' events take longest to read).
+    eager step's), print one line; profile: also prof_iters profiled eager
+    iterations and as many profiled replays (1 by default: reading a
+    profile's events takes seconds, and the run's time limit holds every
+    slice).
     The graph is dropped at the end.  Returns the
     launch counts of the graph run; stats, a dict, receives ms/iter
     (graph and eager) and the profiles' launches, kernels, API calls and
@@ -2756,7 +3173,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     table = (LAMINAR_STENCIL_PER_ITER if lam else
              IMPLICIT_STENCIL_PER_ITER if imp else STENCIL_PER_ITER)
     per = ({k: 0 for k in table["flagship"]} if tri
-           else dict(table[size]))
+           else dict(table[size]) if size in table
+           else stencil_per_iter(sim, "LU_SGS"))
     if fused:
         # the SST's solve in the fused tier in place of the unfused one
         _, one = fused_sst_tier(sim)
@@ -2822,6 +3240,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
         kern = "K11" if imp else "K13"
         shape = "triangle channel" if sim.lay.ndim == 2 else "tet box"
         prec = f"{prec}, {shape} ({sim.mesh.nedge} edges, {kern})"
+    elif sim.lay.ndim == 3:
+        prec = f"{prec}, 3D box, {sim.lay.ns} species (v = {sim.lay.nvar})"
     phase("slice", f"{n} nodes {dt} {prec} x {niter}: graph {ms:.3f} "
           f"ms/iter, eager {eager_ms:.3f} ms/iter, {n / (ms * 1e3):.3f} "
           f"Mcell-updates/s, log10 rms[rho] {hist[0][0]:.4f} -> "
@@ -2944,7 +3364,7 @@ def output_phase(tmp, card, big):
     card vs CPU: the recomputed mu_t, grad_k, sigma_k (T2 and the gradient
     on the card) and run(5); then monitor_forces over MONITORED on the
     restarted run's state and forces_breakdown.dat.  One line of times:
-    write_solution at 9,072 nodes and on big (the 565,500-node case), and
+    write_solution at 9,072 nodes and on big (the TIER_N-node case), and
     ms/iter of MONITOR_NITER iterations with MARKER_MONITORING (chunk 1,
     forces in every history row) beside the same at chunk 25 without."""
     import numpy as np
@@ -3037,7 +3457,7 @@ def output_phase(tmp, card, big):
           f"{force_scale(cm):.3e}: {w_forces:.3e}); forces_breakdown.dat "
           f"{os.path.getsize(breakdown)} bytes")
     del gpu, cpu, gm, cm
-    # times: write_solution at 9,072 and 565,500 nodes; monitoring
+    # times: write_solution at 9,072 and TIER_N nodes; monitoring
     times = {}
     t0 = time.perf_counter()
     sim.write_solution(u, t, pair)
@@ -3083,6 +3503,7 @@ def output_phase(tmp, card, big):
 # per-edge body they share)
 SASS_SOURCES = {"edge_flux.cu": {"K8", "K13"}, "edge_win.cu": {"K8", "K13"},
                 "edge_list.cu": {"K8", "K13"}, "edge_implicit.cu": {"K10"},
+                "edge_implicit_3d.cu": {"K10"},
                 "ausm_jac.cu": {"K10", "K11"},
                 "stencil_solve.cu": {"K5", "K6"},
                 "node_state.cu": {"T2"}, "gradients_tiled.cu": {"K7"},
@@ -3383,7 +3804,7 @@ def time_k13(tmp, out):
     on the checkout's stack form: node-major where ops.edge_flux has
     stack_nodes) and ops.edge_flux.fused_interior_terms (the call: stack,
     edge pass, node sums), each with time_call (its device operations by
-    name); then K8 at 565,500 nodes: its edge_win_slot_kernel runs the
+    name); then K8 at TIER_N nodes: its edge_win_slot_kernel runs the
     same per-edge body over coalesced family slots (evaluations: slots
     per call)."""
     import torch
@@ -3452,11 +3873,11 @@ def time_t1_faces(sim, out):
 def time_t1_k9_k12(tmp, out, only):
     """The kernels of only among T1, K9 and K12 in f32, each with
     time_call: T1 (kernels.mixture_enthalpy) on kernel_phase's boundary
-    batch of the 9,072-node case and on the 565,500-node case's MUSCL
+    batch of the 9,072-node case and on the TIER_N-node case's MUSCL
     face rows (time_t1_faces), K9 (solvers.inlet_tc.solve) on
-    k9_inputs' inflow batch of the 565,500-node case's inlet (377
+    k9_inputs' inflow batch of the TIER_N-node case's inlet (377
     vertices), K12 (turbulence.sst_assemble.sst_assemble) on sst_inputs'
-    arguments at 9,072 and 565,500 nodes, with its bound (k12_bound)."""
+    arguments at 9,072 and TIER_N nodes, with its bound (k12_bound)."""
     import torch
     from su2_tpu_torch import kernels, state as st
     from su2_tpu_torch.solvers import inlet_tc as itc
@@ -3494,7 +3915,7 @@ def time_t1_k9_k12(tmp, out, only):
 def time_k11(tmp, out):
     """K11 (kernels.ausm_flux_jac, feature-major: the main path's layout)
     in f32 on k11_inputs of the laminar implicit LU_SGS case at 9,072 and
-    565,500 nodes, with time_call and its bound (bound_of: the inputs and
+    TIER_N nodes, with time_call and its bound (bound_of: the inputs and
     the outputs once, k11_inputs' operations)."""
     import torch
     from su2_tpu_torch import kernels
@@ -3582,12 +4003,12 @@ def k7_kcap_lib(tmp, k):
 
 
 def time_k7_t4(tmp, out, only):
-    """K7 (WLS) at 565,500 nodes on the step's two sweeps (nG = 13, the
+    """K7 (WLS) at TIER_N nodes on the step's two sweeps (nG = 13, the
     flow's gradient set; nG = 15, the set with (k, omega) of the merged
     turbulence sweep), and again with every offset 0 (every tap on the
     node itself) and, where the checkout's source has an offset cap, from
     a throwaway build with the cap at the mesh's K; T4 (PaSR on) at 9,072
-    and 565,500 nodes on the primitive rows of kernel_inputs' state, its
+    and TIER_N nodes on the primitive rows of kernel_inputs' state, its
     inputs the column views the step passes (chemistry_source_residual).
     Each: event ms (host included), device_ms (the su2k kernel alone) and
     call_profile (every device operation of the call, and its CUDA
@@ -3835,15 +4256,87 @@ def k13_bitwise(tmp, size, dtype, okern, result):
         result[f"{tag} {name}"] = bit_diff(a, b)
 
 
+# the sources whose kernels took a dimension template argument in front of
+# the species count (the 3D implicit flow): their 2D instances are held
+# against the other checkout's instances of the same arguments without it
+SASS_2D_SOURCES = ("edge_implicit.cu", "ausm_jac.cu")
+
+
+def sass_listings(root, srcs):
+    """{kernel (demangled): its SASS instructions, each without address
+    and encoding} of root's sources srcs, compiled as sass_counts
+    compiles them."""
+    from su2_tpu_torch import kernels
+    csrc = os.path.join(root, "su2_tpu_torch", "csrc")
+    dump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = lambda src: os.path.join(tmp, src + ".cubin")
+        procs = [subprocess.Popen([kernels._nvcc(), *flags, "-cubin", "-o",
+                                   cubin(src), os.path.join(csrc, src)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src in srcs]
+        logs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc -cubin failed:\n" + "\n".join(logs))
+        for src in srcs:
+            text = subprocess.run([dump, "-sass", cubin(src)], check=True,
+                                  capture_output=True, text=True).stdout
+            name = None
+            for line in text.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    name = demangle(m.group(1))
+                    out[name] = []
+                    continue
+                m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+                if m and name:
+                    out[name].append(m.group(1))
+    return out
+
+
+def sass_2d_diff(other):
+    """{kernel: whether its SASS equals the other checkout's} for the 2D
+    instances of SASS_2D_SOURCES: this checkout's kernel<T, 2, rest>
+    against the other's kernel<T, rest> (the parent's, before the
+    dimension argument), instruction by instruction."""
+    mine = sass_listings(HERE, SASS_2D_SOURCES)
+    theirs = sass_listings(other, SASS_2D_SOURCES)
+    out = {}
+    for name, ins in mine.items():
+        m = re.match(r"(\w+)<(\w+), 2, (.*)>$", name)
+        if not m:
+            continue
+        old = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+        other = theirs.get(old, [])
+        rec = out[name] = dict(identical=other == ins,
+                               instructions=len(ins), other=len(other))
+        if other and other != ins:
+            short = min(len(ins), len(other))
+            i = next((k for k in range(short) if ins[k] != other[k]), short)
+            at = lambda x: x[i] if i < len(x) else None
+            rec["first_difference"] = [i, at(ins), at(other)]
+    if not out or not all(r["other"] for r in out.values()):
+        raise AssertionError(f"sass: 2D instances unmatched in {other}: "
+                             f"{sorted(out)}")
+    return out
+
+
 def bitwise_main(other):
     """--bitwise DIR: T2 (full and lite, CLIPPING_TEMPRATURE off), K7 (WLS
     and GG, the flow's 13 gradient variables)
     and T4 (PaSR on, the step's column views) of this checkout against
     those of the checkout DIR (its kernels.py loaded as a module of its
-    own, its library built from its sources) on the 565,500-node case's
-    inputs (tier_state), and K13 (k13_bitwise) on the 9,072- and
-    142,317-node triangle channel, in float32 and float64: one JSON line,
-    per output whether it is bit for bit the other's (bit_diff)."""
+    own, its library built from its sources) on the TIER_N-node case's
+    inputs (tier_state), K13 (k13_bitwise) on the 9,072- and
+    142,317-node triangle channel, and K10 (the four variants, k10_inputs
+    of the 9,072-node implicit case) and K11 (both layouts, k11_inputs of
+    the 9,072-node laminar implicit case) in 2D, in float32 and float64:
+    one JSON line, per output whether it is bit for bit the other's
+    (bit_diff), and whether the SASS of each 2D instance of K10 and K11
+    equals the other's (sass_2d_diff)."""
     import importlib.util
     import torch
     from su2_tpu_torch import kernels
@@ -3883,6 +4376,46 @@ def bitwise_main(other):
         for size in TRI_NITERS:
             for dtype in (torch.float32, torch.float64):
                 k13_bitwise(tmp, size, dtype, okern, result)
+        from su2_tpu_torch import cases
+        from su2_tpu_torch.geometry.structured import channel_mesh
+        channel = channel_mesh(*SIZES["flagship"])
+        venk = IMPLICIT_VARIANTS["venkatakrishnan"]
+        imp = make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
+                        implicit=venk)
+        lam = make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
+                        implicit=venk, laminar=True)
+        flat = lambda out: torch.cat([t.double().flatten() for t in out])
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype)[6:]
+            args_of = k10_inputs(imp, dtype)[4]
+            for variant in IMPLICIT_VARIANTS:
+                args = args_of(variant)
+                a, b = (flat(k.edge_implicit(*args))
+                        for k in (kernels, okern))
+                result[f"K10 {variant} 9072 {dt}"] = bit_diff(a, b)
+            # the other 2D instances: 3 species (compiled) and 5 (the
+            # run-time count), every variant
+            for ns in (3, 5):
+                x = cases.shape_inputs(2, ns, os.path.join(tmp, "shapes"),
+                                       dtype, "cuda", raw_mesh=channel)
+                mesh = x["mesh"]
+                fam = (mesh.fam_offsets, mesh.fam_normal, mesh.fam_evec)
+                for variant, (muscl, limiter) in IMPLICIT_VARIANTS.items():
+                    args = x["implicit"] + fam + (muscl, limiter is not None)
+                    a, b = (flat(k.edge_implicit(*args))
+                            for k in (kernels, okern))
+                    result[f"K10 {variant} {ns} species {dt}"] = bit_diff(a,
+                                                                          b)
+            lay, ins, m_inf = k11_inputs(lam, dt)[:3]
+            for em in (False, True):
+                x = [t.T.contiguous() for t in ins] if em else ins
+                a, b = (flat(k.ausm_flux_jac(lay, *x[:3], m_inf, *x[3:],
+                                             edge_major=em))
+                        for k in (kernels, okern))
+                result[f"K11 {'edge' if em else 'feature'}-major 9072 "
+                       f"{dt}"] = bit_diff(a, b)
+    torch.cuda.synchronize()
+    result["sass_2d"] = sass_2d_diff(other)
     print(json.dumps(result), flush=True)
     return 0
 
@@ -3911,7 +4444,8 @@ def ab_main(root, only=TIMED):
 # flow, iterations), float32, LU_SGS, the default SST assembly
 RUN_LOOP_PATHS = (("9072 explicit LU_SGS", "flagship", {}, 50),
                   ("9072 implicit LU_SGS", "flagship", {"implicit": True}, 20),
-                  ("565500 implicit LU_SGS", "tier", {"implicit": True}, 10))
+                  (f"{TIER_N} implicit LU_SGS", "tier", {"implicit": True},
+                   10))
 # --run-loop --gather: the paths without a static stencil (label, size,
 # make_case keywords, implicit: the main implicit variant; iterations);
 # size "tet" is TET_SLICE
@@ -3927,6 +4461,17 @@ GATHER_RUN_LOOP_PATHS = tuple(
     ("9072 triangles laminar implicit JACOBI", "flagship",
      dict(implicit=True, laminar=True, tri=True, prec="JACOBI"), 20),
     ("136161 tetrahedra explicit LU_SGS", "tet", {}, TET_NITER))
+# --run-loop --box: the 3D implicit paths on box_mesh (the size a box
+# shape; LU_SGS unless prec says otherwise) and the tet box's implicit
+# LU_SGS step
+BOX_RUN_LOOP_PATHS = (
+    ("8000 box implicit LU_SGS", BOX_KERNELS, dict(implicit=True), 20),
+    ("136161 box implicit LU_SGS", BOX_SCALING, dict(implicit=True), 10),
+    ("136161 box 3 species implicit LU_SGS", BOX_SCALING,
+     dict(implicit=True, species="3"), 5),
+    ("136161 box laminar implicit LU_SGS", BOX_SCALING,
+     dict(implicit=True, laminar=True), 3),
+    ("136161 tetrahedra implicit LU_SGS", "tet", dict(implicit=True), 3))
 
 
 def memory_mb(fn):
@@ -3970,6 +4515,9 @@ def run_loop_main(root, paths=RUN_LOOP_PATHS):
             if size == "tet":
                 sim = make_case(tmp, *TET_SLICE[:2], torch.float32, "cuda",
                                 nz=TET_SLICE[2], **kw)
+            elif isinstance(size, tuple):
+                sim = make_case(tmp, *size[:2], torch.float32, "cuda",
+                                nz=size[2], box=True, **kw)
             else:
                 sim = make_case(tmp, *SIZES[size], torch.float32, "cuda",
                                 **kw)
@@ -4043,11 +4591,11 @@ def options_time_main(root):
     """--time-options: the slice's options on the card in float32, timed
     through Simulation.run (time_run) in one call: the explicit LU_SGS
     case first order and with MUSCL (Venkatakrishnan) at 9,072 x 50 and
-    565,500 x 10; the implicit LU_SGS case (MUSCL + Venkatakrishnan) at
+    TIER_N x 10; the implicit LU_SGS case (MUSCL + Venkatakrishnan) at
     9,072 x 20 with FGMRES, BCGSTAB and LINELET; dual time BDF2 on the
     explicit case at 9,072 nodes (UNST_INT_ITER 25: ms per physical step
     of run_unsteady over 4 steps, after a 1-step run that captures the
-    graph); T1 on the 565,500-node MUSCL face rows (time_t1_faces).  One
+    graph); T1 on the TIER_N-node MUSCL face rows (time_t1_faces).  One
     JSON line."""
     import torch
     from su2_tpu_torch import kernels
@@ -4103,6 +4651,9 @@ def main():
     ap.add_argument("--gather", action="store_true",
                     help="--run-loop: on GATHER_RUN_LOOP_PATHS (the paths "
                     "without a static stencil) instead")
+    ap.add_argument("--box", action="store_true",
+                    help="--run-loop: on BOX_RUN_LOOP_PATHS (the 3D "
+                    "implicit paths) instead")
     ap.add_argument("--time-options", action="store_true",
                     help="time the slice's options (options_time_main)")
     ap.add_argument("--root", default=HERE)
@@ -4133,6 +4684,7 @@ def main():
         return ab_main(root, only)
     if opt.run_loop:
         return run_loop_main(root, GATHER_RUN_LOOP_PATHS if opt.gather
+                             else BOX_RUN_LOOP_PATHS if opt.box
                              else RUN_LOOP_PATHS)
     if opt.time_options:
         return options_time_main(root)
@@ -4154,242 +4706,252 @@ def main():
         phase("build", line)
 
     report = {}
-    niters = {"flagship": 25, "scaling": 20, "tier": 10}
+    niters = {"flagship": 10, "scaling": 5, "tier": 3}
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
-        for dt in ("float64", "float32"):
-            kernel_phase(tmp, dt, report)
-        sims = {}
-        for size in SIZES:
-            t0 = time.perf_counter()
-            sims[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda")
-            phase("kernels", f"{sims[size].mesh.npoint}-node case built in "
-                  f"{time.perf_counter() - t0:.1f} s")
-        for dt in ("float64", "float32"):
-            tier_kernel_phase(sims["tier"], dt, report)
-        # the implicit-flow case (MUSCL + Venkatakrishnan) at every size,
-        # with JACOBI (K10, the flow's solve in torch ops) and with LU_SGS
-        # (the flow's 13 x 13 system through K5/K6)
-        main_imp = IMPLICIT_VARIANTS["venkatakrishnan"]
-        imp, lusgs = {}, {}
-        for size in SIZES:
-            for prec, out in (("JACOBI", imp), ("LU_SGS", lusgs)):
-                t0 = time.perf_counter()
-                out[size] = make_case(tmp, *SIZES[size], torch.float32,
-                                      "cuda", prec, implicit=main_imp)
-                phase("k10", f"{out[size].mesh.npoint}-node implicit {prec} "
-                      f"case built in {time.perf_counter() - t0:.1f} s")
-        stencil_phase(sims, lusgs, report)
-        for dt in ("float64", "float32"):
-            implicit_kernel_phase(imp["flagship"], dt, report,
-                                  list(IMPLICIT_VARIANTS))
-        for size in ("scaling", "tier"):
-            implicit_kernel_phase(imp[size], "float32", report,
-                                  ["venkatakrishnan"])
-        # the laminar implicit case (MUSCL + Venkatakrishnan, LU_SGS): K11
-        # at 9,072 nodes in f64 and f32 and at 565,500 in f32
-        lam = {}
-        for size in ("flagship", "tier"):
-            t0 = time.perf_counter()
-            lam[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda",
-                                  "LU_SGS", implicit=main_imp, laminar=True)
-            phase("k11", f"{lam[size].mesh.npoint}-node laminar implicit "
-                  f"LU_SGS case built in {time.perf_counter() - t0:.1f} s")
-        for dt in ("float64", "float32"):
-            ausm_kernel_phase(lam["flagship"], dt, report)
-        ausm_kernel_phase(lam["tier"], "float32", report)
-        # K12 on the explicit LU_SGS case's SST inputs: 9,072 nodes in f64
-        # (a case of its own) and f32, 565,500 in f32
-        sst_kernel_phase(make_case(tmp, *SIZES["flagship"], torch.float64,
-                                   "cuda"), "float64", report)
-        sst_kernel_phase(sims["flagship"], "float32", report)
-        sst_kernel_phase(sims["tier"], "float32", report)
-        step_phase(tmp, fused=True)
-        step_phase(tmp, implicit=main_imp, prec="LU_SGS", fused=True)
-        # K13 on the scrambled triangle channel (no static stencil: the
-        # gather path): 9,072 nodes in f64 (a case of its own) and f32,
-        # 142,317 in f32; then the 5-step f64 check there
-        tri = {}
-        for size in TRI_NITERS:
-            t0 = time.perf_counter()
-            tri[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda",
-                                  tri=True)
-            phase("k13", f"{tri[size].mesh.npoint}-node triangle channel "
-                  f"({tri[size].mesh.nedge} edges, {tri[size].ncolor} sweep "
-                  f"colors) built in {time.perf_counter() - t0:.1f} s")
-        k13_phase(make_case(tmp, *SIZES["flagship"], torch.float64, "cuda",
-                            tri=True), "float64", report)
-        for size in TRI_NITERS:
-            k13_phase(tri[size], "float32", report)
-        step_phase(tmp, tri=True)
-        # meshes without a static stencil, implicit and laminar:
-        # the triangle channel's implicit case (MUSCL + Venkatakrishnan)
-        # with LU_SGS and JACOBI at 9,072 and 142,317 nodes (K11 on its
-        # edge rows: f64 and f32 at 9,072, f32 at 142,317), its laminar
-        # case explicit and implicit (JACOBI) at 9,072, the tet box at
-        # 136,161 (K13 at (3, 9)); then the f64 step checks
-        tri_imp, lam_tri = {}, {}
-        for size in TRI_IMPLICIT_NITERS:
-            for prec in ("LU_SGS", "JACOBI"):
-                t0 = time.perf_counter()
-                tri_imp[(size, prec)] = sim = make_case(
-                    tmp, *SIZES[size], torch.float32, "cuda", prec,
-                    implicit=main_imp, tri=True)
-                phase("k11", f"{sim.mesh.npoint}-node triangle channel, "
-                      f"implicit {prec} case built in "
-                      f"{time.perf_counter() - t0:.1f} s")
-        for label, implicit in (("explicit", None), ("implicit", main_imp)):
-            lam_tri[label] = make_case(tmp, *SIZES["flagship"],
-                                       torch.float32, "cuda", "JACOBI",
-                                       implicit=implicit, laminar=True,
-                                       tri=True)
-        for dt in ("float64", "float32"):
-            ausm_edge_phase(tri_imp[("flagship", "LU_SGS")], dt, report)
-        ausm_edge_phase(tri_imp[("scaling", "LU_SGS")], "float32", report)
+        try:
+            return smoke_phases(tmp, card, report, niters)
+        finally:
+            stop_cpu_pool(wait=False)
+
+
+def smoke_phases(tmp, card, report, niters):
+    """Phases 3-6 and the output phase (see the docstring) in tmp, then
+    the kernels line and the last line; returns the exit code."""
+    import torch
+    # the f64 step checks: the card's halves now, the CPU's in the
+    # workers beside the phases up to 6 (finish_steps)
+    step_checks(tmp)
+    for dt in ("float64", "float32"):
+        kernel_phase(tmp, dt, report)
+    sims = {}
+    for size in SIZES:
         t0 = time.perf_counter()
-        tet = make_case(tmp, *TET_SLICE[:2], torch.float32, "cuda",
-                        nz=TET_SLICE[2])
-        phase("k13", f"{tet.mesh.npoint}-node tet box ({tet.mesh.nedge} "
-              f"edges, {tet.ncolor} sweep colors) built in "
+        sims[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda")
+        phase("kernels", f"{sims[size].mesh.npoint}-node case built in "
               f"{time.perf_counter() - t0:.1f} s")
-        k13_phase(tet, "float32", report)
-        step_phase(tmp, implicit=main_imp, prec="LU_SGS", tri=True)
-        step_phase(tmp, implicit=main_imp, prec="LINELET", tri=True)
-        laminar_step_phase(tmp, implicit=main_imp, prec="JACOBI", tri=True)
-        step_phase(tmp, tet=TET_STEP)
-        # T3/K8/K13, K10 and K11 at shapes outside their compiled lists
-        shape_phase(tmp, report)
-        laminar_step_phase(tmp)
-        laminar_step_phase(tmp, implicit=main_imp, prec="LU_SGS")
-        laminar_step_phase(tmp, implicit=main_imp, tier=True)
-        step_phase(tmp)
-        step_phase(tmp, tier=True)
-        step_phase(tmp, total_conditions=True)
-        step_phase(tmp, implicit=main_imp)
-        step_phase(tmp, tier=True, implicit=main_imp)
-        step_phase(tmp, implicit=main_imp, prec="LU_SGS")
-        # each run: (label, launch counts, iterations)
-        runs = []
-        # the slice's options: dual time, explicit MUSCL, CLIPPING,
-        # BCGSTAB and LINELET, card vs CPU in f64 and through the graph
-        seen = options_phase(tmp, runs)
-        # every path of the kernel table through its captured CUDA graph,
-        # bit for bit the eager step (each kernel inside a graph)
-        gather = (
-            ("triangles, implicit LU_SGS", tri_imp[("flagship", "LU_SGS")]),
-            ("triangles, implicit LINELET", make_case(
-                tmp, *SIZES["flagship"], torch.float32, "cuda", "LINELET",
-                implicit=main_imp, tri=True)),
-            ("triangles, laminar implicit JACOBI", lam_tri["implicit"]),
-            ("tetrahedra, explicit LU_SGS", make_case(
-                tmp, *TET_STEP[:2], torch.float32, "cuda", nz=TET_STEP[2])))
-        graph_phase(tmp, sims, lusgs, lam, tri, seen, gather)
-        del gather
-        # the TOTAL_CONDITIONS inlet on the main path: K9 once per iteration
-        runs.append(("9072 TOTAL_CONDITIONS", slice_phase(
-            make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
-                      total_conditions=True), "flagship", 10, card,
-            profile=True), 10))
-        # float64 past the full-precision gate: K5 at full precision inside
-        # the Krylov loop, KRYLOV_M launches per iteration
-        slice_phase(make_case(tmp, *SIZES["scaling"], torch.float64, "cuda"),
-                    "scaling", 3, card)
-        # JACOBI (the path without K5/K6) against LU_SGS in the order J, L,
-        # then LU_SGS with the fused SST assembly (F), each run profiled
-        # after its timed run
-        pairs = {}
-        for size, niter in niters.items():
-            jac = make_case(tmp, *SIZES[size], torch.float32, "cuda",
-                            prec="JACOBI")
-            slice_phase(jac, size, niter, card, prec="JACOBI", profile=True)
-            unf = {}
-            runs.append((str(sims[size].mesh.npoint), slice_phase(
-                sims[size], size, niter, card, profile=True, stats=unf),
-                niter))
-            counts, fus = fused_slice(tmp, size, niter, card)
-            runs.append((f"{sims[size].mesh.npoint} fused", counts, niter))
-            pairs[f"{sims[size].mesh.npoint} nodes explicit LU_SGS"] = (
-                unf, fus)
-        # the implicit flow with JACOBI, then with LU_SGS: K10 once per
-        # iteration; K6 twice per iteration at 9,072 nodes, K5 twice per
-        # Krylov vector at the larger sizes; profiled
-        imp_stats = {}
-        for size in SIZES:
-            for prec, sims_p, its in (("JACOBI", imp, IMPLICIT_NITERS),
-                                      ("LU_SGS", lusgs, LUSGS_NITERS)):
-                stats = imp_stats.setdefault((size, prec), {})
-                runs.append((f"{sims_p[size].mesh.npoint} implicit {prec}",
-                             slice_phase(sims_p[size], size, its[size], card,
-                                         prec=prec, profile=True,
-                                         stats=stats),
-                             its[size]))
-        # the implicit LU_SGS case with the fused SST assembly at 9,072
-        niter = LUSGS_NITERS["flagship"]
-        counts, fus = fused_slice(tmp, "flagship", niter, card,
-                                  implicit=main_imp)
-        runs.append((f"{lusgs['flagship'].mesh.npoint} implicit LU_SGS "
-                     "fused", counts, niter))
-        pairs[f"{lusgs['flagship'].mesh.npoint} nodes implicit LU_SGS"] = (
-            imp_stats[("flagship", "LU_SGS")], fus)
-        for label, (unf, fus) in pairs.items():
-            print_pair(label, unf, fus)
-        # the laminar slice: implicit LU_SGS (K11 once per iteration, the
-        # flow's solve K6 once at 9,072 nodes, K5 ten times at 565,500)
-        # and explicit (T4 once per iteration), timed and profiled
-        for size, niter in LAMINAR_NITERS.items():
-            runs.append((f"{lam[size].mesh.npoint} laminar implicit LU_SGS",
-                         slice_phase(lam[size], size, niter, card,
-                                     profile=True), niter))
-        lam_exp = make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
-                            "JACOBI", laminar=True)
-        runs.append(("9072 laminar explicit", slice_phase(
-            lam_exp, "flagship", LAMINAR_NITERS["flagship"], card,
-            prec="JACOBI", profile=True), LAMINAR_NITERS["flagship"]))
-        # the triangle channel (K13 once per iteration, the SST solve in
-        # torch gather ops): JACOBI, then LU_SGS, each timed and profiled
-        for size, niter in TRI_NITERS.items():
-            jac = make_case(tmp, *SIZES[size], torch.float32, "cuda",
-                            prec="JACOBI", tri=True)
-            n = jac.mesh.npoint
-            runs.append((f"{n} triangles JACOBI", slice_phase(
-                jac, size, niter, card, prec="JACOBI", profile=True), niter))
-            runs.append((f"{n} triangles LU_SGS", slice_phase(
-                tri[size], size, niter, card, profile=True), niter))
-        # meshes without a static stencil, implicit and laminar: the
-        # triangle channel's implicit case (K11 once per iteration, both
-        # solves in torch gather ops) with LU_SGS, then JACOBI, its
-        # laminar case, the tet box (K13 at (3, 9)); each timed and
-        # profiled, with the device ms of each stage
-        for size, niter in TRI_IMPLICIT_NITERS.items():
-            for prec in ("LU_SGS", "JACOBI"):
-                sim = tri_imp.pop((size, prec))
-                runs.append((f"{sim.mesh.npoint} triangles implicit {prec}",
-                             slice_phase(sim, size, niter, card, prec=prec,
-                                         profile=True, prof_iters=1),
-                             niter))
-                del sim
-        for label, sim in lam_tri.items():
-            runs.append((f"{sim.mesh.npoint} triangles laminar {label}",
-                         slice_phase(sim, "flagship",
-                                     LAMINAR_NITERS["flagship"], card,
-                                     prec="JACOBI", profile=True,
-                                     prof_iters=1 if label == "implicit"
-                                     else 3),
-                         LAMINAR_NITERS["flagship"]))
-        del lam_tri
-        runs.append((f"{tet.mesh.npoint} tetrahedra LU_SGS", slice_phase(
-            tet, "tet", TET_NITER, card, profile=True), TET_NITER))
-        del tet
-        torch.cuda.empty_cache()
-        # solution output, restart and force monitoring between chunks
-        output_phase(tmp, card, sims["tier"])
+    for dt in ("float64", "float32"):
+        tier_kernel_phase(sims["tier"], dt, report)
+    # the implicit-flow case (MUSCL + Venkatakrishnan) at every size,
+    # with JACOBI (K10, the flow's solve in torch ops) and with LU_SGS
+    # (the flow's 13 x 13 system through K5/K6)
+    main_imp = IMPLICIT_VARIANTS["venkatakrishnan"]
+    imp, lusgs = {}, {}
+    for size in SIZES:
+        for prec, out in (("JACOBI", imp), ("LU_SGS", lusgs)):
+            if prec == "JACOBI" and size not in IMPLICIT_NITERS:
+                continue
+            t0 = time.perf_counter()
+            out[size] = make_case(tmp, *SIZES[size], torch.float32,
+                                  "cuda", prec, implicit=main_imp)
+            phase("k10", f"{out[size].mesh.npoint}-node implicit {prec} "
+                  f"case built in {time.perf_counter() - t0:.1f} s")
+    stencil_phase(sims, lusgs, report)
+    for dt in ("float64", "float32"):
+        implicit_kernel_phase(imp["flagship"], dt, report,
+                              list(IMPLICIT_VARIANTS))
+    for size in ("scaling", "tier"):
+        implicit_kernel_phase(lusgs[size], "float32", report,
+                              ["venkatakrishnan"])
+    # the laminar implicit case (MUSCL + Venkatakrishnan, LU_SGS): K11
+    # at 9,072 nodes in f64 and f32 and at TIER_N in f32
+    lam = {}
+    for size in ("flagship", "tier"):
+        t0 = time.perf_counter()
+        lam[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                              "LU_SGS", implicit=main_imp, laminar=True)
+        phase("k11", f"{lam[size].mesh.npoint}-node laminar implicit "
+              f"LU_SGS case built in {time.perf_counter() - t0:.1f} s")
+    for dt in ("float64", "float32"):
+        ausm_kernel_phase(lam["flagship"], dt, report)
+    ausm_kernel_phase(lam["tier"], "float32", report)
+    # K12 on the explicit LU_SGS case's SST inputs: 9,072 nodes in f64
+    # (a case of its own) and f32, TIER_N in f32
+    sst_kernel_phase(make_case(tmp, *SIZES["flagship"], torch.float64,
+                               "cuda"), "float64", report)
+    sst_kernel_phase(sims["flagship"], "float32", report)
+    sst_kernel_phase(sims["tier"], "float32", report)
+    # K13 on the scrambled triangle channel (no static stencil: the
+    # gather path): 9,072 nodes in f64 (a case of its own) and f32,
+    # 142,317 in f32
+    tri = {}
+    for size in TRI_NITERS:
+        t0 = time.perf_counter()
+        tri[size] = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                              tri=True)
+        phase("k13", f"{tri[size].mesh.npoint}-node triangle channel "
+              f"({tri[size].mesh.nedge} edges, {tri[size].ncolor} sweep "
+              f"colors) built in {time.perf_counter() - t0:.1f} s")
+    k13_phase(make_case(tmp, *SIZES["flagship"], torch.float64, "cuda",
+                        tri=True), "float64", report)
+    for size in TRI_NITERS:
+        k13_phase(tri[size], "float32", report)
+    # meshes without a static stencil, implicit and laminar:
+    # the triangle channel's implicit case (MUSCL + Venkatakrishnan)
+    # with LU_SGS and JACOBI at 9,072 and 142,317 nodes (K11 on its
+    # edge rows: f64 and f32 at 9,072, f32 at 142,317), its laminar
+    # case explicit and implicit (JACOBI) at 9,072, the tet box at
+    # 136,161 (K13 at (3, 9))
+    tri_imp, lam_tri = {}, {}
+    for size in TRI_IMPLICIT_NITERS:
+        for prec in ("LU_SGS", "JACOBI"):
+            t0 = time.perf_counter()
+            tri_imp[(size, prec)] = sim = make_case(
+                tmp, *SIZES[size], torch.float32, "cuda", prec,
+                implicit=main_imp, tri=True)
+            phase("k11", f"{sim.mesh.npoint}-node triangle channel, "
+                  f"implicit {prec} case built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+    for label, implicit in (("explicit", None), ("implicit", main_imp)):
+        lam_tri[label] = make_case(tmp, *SIZES["flagship"],
+                                   torch.float32, "cuda", "JACOBI",
+                                   implicit=implicit, laminar=True,
+                                   tri=True)
+    for dt in ("float64", "float32"):
+        ausm_edge_phase(tri_imp[("flagship", "LU_SGS")], dt, report)
+    ausm_edge_phase(tri_imp[("scaling", "LU_SGS")], "float32", report)
+    t0 = time.perf_counter()
+    tet = make_case(tmp, *TET_SLICE[:2], torch.float32, "cuda",
+                    nz=TET_SLICE[2])
+    phase("k13", f"{tet.mesh.npoint}-node tet box ({tet.mesh.nedge} "
+          f"edges, {tet.ncolor} sweep colors) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    k13_phase(tet, "float32", report)
+    # the 3D implicit flow: K10 and K11 in 3D, K5/K6 at v = 14 and 8;
+    # its cases serve the graph phase and the box slices at the end of 6
+    box = box_phase(tmp, report)
+    # T3/K8/K13, K10 and K11 at shapes outside their compiled lists
+    shape_phase(tmp, report)
+    # each run: (label, launch counts, iterations)
+    runs = []
+    # the slice's options: dual time, explicit MUSCL, CLIPPING,
+    # BCGSTAB and LINELET, card vs CPU in f64 and through the graph
+    seen = options_phase(tmp, runs)
+    # every path of the kernel table through its captured CUDA graph,
+    # bit for bit the eager step (each kernel inside a graph)
+    gather = (
+        ("triangles, implicit LU_SGS", tri_imp[("flagship", "LU_SGS")]),
+        ("triangles, implicit LINELET", make_case(
+            tmp, *SIZES["flagship"], torch.float32, "cuda", "LINELET",
+            implicit=main_imp, tri=True)),
+        ("triangles, laminar implicit JACOBI", lam_tri["implicit"]),
+        ("tetrahedra, explicit LU_SGS", make_case(
+            tmp, *TET_STEP[:2], torch.float32, "cuda",
+            nz=TET_STEP[2]))) + box_graphs(box)
+    graph_phase(tmp, sims, lusgs, lam, tri, seen, gather)
+    del gather
+    # the step checks' CPU halves, before the timed runs
+    finish_steps()
+    # the TOTAL_CONDITIONS inlet on the main path: K9 once per iteration
+    runs.append(("9072 TOTAL_CONDITIONS", slice_phase(
+        make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
+                  total_conditions=True), "flagship", 10, card,
+        profile=True), 10))
+    # float64 past the full-precision gate: K5 at full precision inside
+    # the Krylov loop, KRYLOV_M launches per iteration
+    slice_phase(make_case(tmp, *SIZES["scaling"], torch.float64, "cuda"),
+                "scaling", 3, card)
+    # JACOBI (the path without K5/K6) against LU_SGS in the order J, L,
+    # then LU_SGS with the fused SST assembly (F: at 142,317 nodes and at
+    # the tier, fused_sst_solve_tier's per-iteration K5 in place of the
+    # one K6 launch of 9,072), each run profiled after its timed run
+    pairs = {}
+    for size, niter in niters.items():
+        jac = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                        prec="JACOBI")
+        slice_phase(jac, size, niter, card, prec="JACOBI", profile=True)
+        del jac
+        unf = {}
+        runs.append((str(sims[size].mesh.npoint), slice_phase(
+            sims[size], size, niter, card, profile=True, stats=unf),
+            niter))
+        counts, fus = fused_slice(tmp, size, niter, card)
+        runs.append((f"{sims[size].mesh.npoint} fused", counts, niter))
+        pairs[f"{sims[size].mesh.npoint} nodes explicit LU_SGS"] = (
+            unf, fus)
+    # the implicit flow with JACOBI, then with LU_SGS: K10 once per
+    # iteration; K6 twice per iteration at 9,072 nodes, K5 twice per
+    # Krylov vector at the larger sizes; profiled
+    imp_stats = {}
+    for size in SIZES:
+        for prec, sims_p, its in (("JACOBI", imp, IMPLICIT_NITERS),
+                                  ("LU_SGS", lusgs, LUSGS_NITERS)):
+            if size not in its:
+                continue
+            stats = imp_stats.setdefault((size, prec), {})
+            runs.append((f"{sims_p[size].mesh.npoint} implicit {prec}",
+                         slice_phase(sims_p[size], size, its[size], card,
+                                     prec=prec, profile=True,
+                                     stats=stats),
+                         its[size]))
+    # the implicit LU_SGS case with the fused SST assembly at 9,072
+    niter = LUSGS_NITERS["flagship"]
+    counts, fus = fused_slice(tmp, "flagship", niter, card,
+                              implicit=main_imp)
+    runs.append((f"{lusgs['flagship'].mesh.npoint} implicit LU_SGS "
+                 "fused", counts, niter))
+    pairs[f"{lusgs['flagship'].mesh.npoint} nodes implicit LU_SGS"] = (
+        imp_stats[("flagship", "LU_SGS")], fus)
+    for label, (unf, fus) in pairs.items():
+        print_pair(label, unf, fus)
+    # the laminar slice: implicit LU_SGS (K11 once per iteration, the
+    # flow's solve K6 once at 9,072 nodes, K5 ten times at TIER_N)
+    # and explicit (T4 once per iteration), timed and profiled
+    for size, niter in LAMINAR_NITERS.items():
+        runs.append((f"{lam[size].mesh.npoint} laminar implicit LU_SGS",
+                     slice_phase(lam[size], size, niter, card,
+                                 profile=True), niter))
+    lam_exp = make_case(tmp, *SIZES["flagship"], torch.float32, "cuda",
+                        "JACOBI", laminar=True)
+    runs.append(("9072 laminar explicit", slice_phase(
+        lam_exp, "flagship", LAMINAR_NITERS["flagship"], card,
+        prec="JACOBI", profile=True), LAMINAR_NITERS["flagship"]))
+    # the triangle channel (K13 once per iteration, the SST solve in
+    # torch gather ops): JACOBI, then LU_SGS, each timed and profiled
+    for size, niter in TRI_NITERS.items():
+        jac = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                        prec="JACOBI", tri=True)
+        n = jac.mesh.npoint
+        runs.append((f"{n} triangles JACOBI", slice_phase(
+            jac, size, niter, card, prec="JACOBI", profile=True), niter))
+        runs.append((f"{n} triangles LU_SGS", slice_phase(
+            tri[size], size, niter, card, profile=True), niter))
+    # meshes without a static stencil, implicit and laminar: the
+    # triangle channel's implicit case (K11 once per iteration, both
+    # solves in torch gather ops) with LU_SGS, then JACOBI, its
+    # laminar case, the tet box (K13 at (3, 9)); each timed and
+    # profiled, with the device ms of each stage
+    for size, niter in TRI_IMPLICIT_NITERS.items():
+        for prec in ("LU_SGS", "JACOBI"):
+            sim = tri_imp.pop((size, prec))
+            runs.append((f"{sim.mesh.npoint} triangles implicit {prec}",
+                         slice_phase(sim, size, niter, card, prec=prec,
+                                     profile=True),
+                         niter))
+            del sim
+    for label, sim in lam_tri.items():
+        runs.append((f"{sim.mesh.npoint} triangles laminar {label}",
+                     slice_phase(sim, "flagship",
+                                 LAMINAR_NITERS["flagship"], card,
+                                 prec="JACOBI", profile=True),
+                     LAMINAR_NITERS["flagship"]))
+    del lam_tri
+    runs.append((f"{tet.mesh.npoint} tetrahedra LU_SGS", slice_phase(
+        tet, "tet", TET_NITER, card, profile=True), TET_NITER))
+    del tet
+    torch.cuda.empty_cache()
+    # the 3D implicit flow's slices (K10 in 3D, K5/K6 at v = 14 and 8,
+    # K7 at 262,701 nodes, K11 in 3D), profiled by stage
+    box_slices(tmp, card, runs, box)
+    # solution output, restart and force monitoring between chunks
+    output_phase(tmp, card, sims["tier"])
 
     # each kernel's numbers at its main-path use: T1-T4 in f32 at 9,072
     # nodes, K5 mixed on the implicit LU_SGS case's flow system at 142,317
     # nodes and K6 mixed on it at 9,072 nodes (v = 13; the SST's v = 2
     # numbers beside them), K7 (WLS, the case's method) and K8 in f32 at
-    # 565,500 nodes, K9 in f32 on the 377-vertex batch, K10 f32 at 9,072
+    # TIER_N nodes, K9 in f32 on the 377-vertex batch, K10 f32 at 9,072
     # nodes (MUSCL + Venkatakrishnan), K11 f32 feature-major at 9,072 nodes
-    # (the laminar implicit case's family slots; edge-major and 565,500
+    # (the laminar implicit case's family slots; edge-major and TIER_N
     # nodes beside it), K12 f32 at 9,072 nodes, K13 f32 on the 9,072-node
     # triangle channel (f64 and 142,317 nodes beside it; the call: edge
     # pass and node sums, each also on its own)
@@ -4415,13 +4977,13 @@ def main():
             row["sst_v2"] = report[name][sst_use[name]]
         if name == "ausm_flux_jac":
             row["edge_major"] = report[name]["float32 9072 edge-major"]
-            row["at_565500"] = report[name]["float32 565500 feature-major"]
+            row["at_tier"] = report[name][f"float32 {TIER_N} feature-major"]
             # the implicit triangle channel's edge rows
             row["edge_rows"] = {k: v for k, v in report[name].items()
                                 if k.endswith("edge rows")}
         if name == "sst_assemble":
             row["float64"] = report[name]["float64 9072"]
-            row["at_565500"] = report[name]["float32 565500"]
+            row["at_tier"] = report[name][f"float32 {TIER_N}"]
         if name == "edge_list_flux":
             row["float64"] = report[name]["float64 9072"]
             row["at_142317"] = report[name]["float32 142317"]
@@ -4443,12 +5005,12 @@ def main():
             mv = report[name][("flow142317", "float32", "matvec")]
             row["matvec_only"] = {k: mv[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "library")}
-            row["at_565500"] = report[name][("flow565500", "mixed",
+            row["at_tier"] = report[name][(f"flow{TIER_N}", "mixed",
                                              "sgs_matvec")]
-            row["sst_v2_at_565500"] = report[name][("sst565500", "mixed",
+            row["sst_v2_at_tier"] = report[name][(f"sst{TIER_N}", "mixed",
                                                     "sgs_matvec")]
-            row["matvec_only_at_565500"] = report[name][
-                ("flow565500", "float32", "matvec")]
+            row["matvec_only_at_tier"] = report[name][
+                (f"flow{TIER_N}", "float32", "matvec")]
         if name == "edge_win":
             row["edge_evaluations_per_call"] = report[name][
                 "edge_evaluations_per_call"]
@@ -4456,6 +5018,12 @@ def main():
                  if isinstance(k, str) and k.startswith("shape ")}
         if other:
             row["other_shapes"] = other
+        # the 3D implicit flow's (box_phase): K10, K11, K5 and K6
+        three = {" ".join(map(str, k)) if isinstance(k, tuple) else k: v
+                 for k, v in report[name].items()
+                 if "3D" in str(k) or "flow3d" in str(k)}
+        if three:
+            row["3d"] = three
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -104,28 +104,41 @@ def _write(path, lines):
         f.write("\n".join(lines) + "\nSTOP\n")
 
 
-def write_library(directory: str, backward_rate: bool = False) -> str:
-    """Write the library files into `directory`; returns the manifest path."""
+# the reactions (equation, its species, Arrhenius rate); the species sets
+# of write_library keep the reactions whose species they all hold
+_REACTIONS = (("C4H6_1.15 + 3.5O2_1.65 => 4CO + 3H2O",
+               {"C4H6", "O2", "CO", "H2O"}, _ARR_1),
+              ("CO + 0.5O2 <=> CO2_1", {"CO", "O2", "CO2"}, _ARR_2))
+# the 3-species mixture of the case: the CO oxidation of reaction 2 alone
+# (a flow of nDim + 5 conserved variables, as the flat plate's 3-species
+# air)
+SPECIES_3 = ("CO", "O2", "CO2")
+
+
+def write_library(directory: str, backward_rate: bool = False,
+                  species=SPECIES) -> str:
+    """Write the library files into `directory`; returns the manifest path.
+    species: the mixture, SPECIES or a subset of it (SPECIES_3) that keeps
+    the reactions whose species it holds."""
     os.makedirs(directory, exist_ok=True)
     names = ["mixture.txt", "chemistry.txt"]
-    mix = [f"{len(SPECIES)}"]
-    for sp in SPECIES:
+    mix = [f"{len(species)}"]
+    for sp in species:
         mm, hf, _, dv = _DATA[sp][:4]
         mix.append(f"{sp} {_row((mm, hf, dv))}")
     _write(os.path.join(directory, "mixture.txt"), mix)
 
-    chem = ["2", "SI",
-            "C4H6_1.15 + 3.5O2_1.65 => 4CO + 3H2O",
-            _row(_ARR_1),
-            "CO + 0.5O2 <=> CO2_1",
-            _row(_ARR_2)]
-    if backward_rate:
-        chem.append("Available Backward Rate reaction 2: "
-                    + _row(_ARR_2B))
+    kept = [r for r in _REACTIONS if r[1] <= set(species)]
+    chem = [f"{len(kept)}", "SI"]
+    for eq, _, arr in kept:
+        chem += [eq, _row(arr)]
+    if backward_rate and _REACTIONS[1] in kept:
+        chem.append(f"Available Backward Rate reaction "
+                    f"{kept.index(_REACTIONS[1]) + 1}: " + _row(_ARR_2B))
     _write(os.path.join(directory, "chemistry.txt"), chem)
 
     t = T_GRID
-    for sp in SPECIES:
+    for sp in species:
         mm, hf, s0, _, a, b, theta, mu_ref, s_mu = _DATA[sp]
         cp = R_UNGAS * _cp_over_r(t, a, b, theta)
         h = hf * 1.0e6 + R_UNGAS * _h_integral(t, a, b, theta)
@@ -144,16 +157,19 @@ def write_library(directory: str, backward_rate: bool = False) -> str:
     return manifest
 
 
-def cfg_text(manifest: str, mesh_file: str | None = None) -> str:
+def cfg_text(manifest: str, mesh_file: str | None = None,
+             species=SPECIES) -> str:
     """cfg of the case: REACTIVE_NAVIER_STOKES + SST + PaSR, AUSM first
     order, explicit flow, implicit SST by FGMRES + LU_SGS (the multicolor
-    block-SGS sweep; JACOBI is the test variant that bypasses it)."""
-    fuel = ", ".join(["1.0"] + ["0.0"] * (len(SPECIES) - 1))
-    ox = ", ".join(["0.0", "0.0", "1.0"] + ["0.0"] * (len(SPECIES) - 3))
+    block-SGS sweep; JACOBI is the test variant that bypasses it).  The
+    fuel stream is the mixture's first species (C4H6, or CO of
+    SPECIES_3), the oxidizer O2."""
+    pure = lambda sp: ", ".join("1.0" if s == sp else "0.0" for s in species)
+    fuel, ox = pure(species[0]), pure("O2")
     mesh = f"MESH_FILENAME= {mesh_file}\n" if mesh_file else ""
     return f"""
 CONFIG_LIB_FILE = {manifest}
-{mesh}SPECIES_ORDER = ({", ".join(SPECIES)})
+{mesh}SPECIES_ORDER = ({", ".join(species)})
 FREESTREAM_MASS_FRAC = ({ox})
 PHYSICAL_PROBLEM= REACTIVE_NAVIER_STOKES
 KIND_TURB_MODEL= SST
@@ -179,9 +195,11 @@ PASR_LB = 0.2
 
 
 def write_case(directory: str, backward_rate: bool = False,
-               mesh_file: str | None = None) -> str:
-    """Write the library into `directory` and return the cfg text."""
-    return cfg_text(write_library(directory, backward_rate), mesh_file)
+               mesh_file: str | None = None, species=SPECIES) -> str:
+    """Write the library of the mixture species into `directory` and
+    return the cfg text."""
+    return cfg_text(write_library(directory, backward_rate, species),
+                    mesh_file, species)
 
 
 def with_total_conditions(text: str) -> str:
@@ -358,8 +376,8 @@ def shape_inputs(nd: int, ns: int, directory: str, dtype=None,
     120 nodes), a random reacting state (numpy seed) through the plain node
     state, random gradients and SST fields.  Returns a dict: mesh, lib,
     lay; explicit, the arguments of T3/K8/K13 before the geometry (lib,
-    lay, species consts, consts, stack); in 2D also implicit, K10's before
-    the geometry (with a random limiter), and faces, K11's first-order face
+    lay, species consts, consts, stack); implicit, K10's before the
+    geometry (with a random limiter); and faces, K11's first-order face
     states of the family slots (v_i, v_j, normal, s_i, s_j, feature-major;
     pad slots with zero normals)."""
     import torch
@@ -404,14 +422,13 @@ def shape_inputs(nd: int, ns: int, directory: str, dtype=None,
         lib, lay, sc, (0.1, 0.72, 0.9, 1.0),
         ef.stack_inputs(lay, nsd.v, grad, trans, turb, turb.sigma_k,
                         nsd.dpdu[:, lay.RHOE])))
-    if nd == 2:
-        lim = dev(rng.uniform(0.0, 1.0, (n, 2 + nd)))
-        out["implicit"] = (lib, lay, sc, (0.1, 0.9, 1.0), ei.stack_inputs(
-            lay, nsd.v, grad, lim, trans, turb, turb.sigma_k, nsd.dtdu,
-            nsd.dpdu))
-        vt, st_ = nsd.v.T, nsd.dpdu.T
-        out["faces"] = tuple(x.contiguous() for x in (
-            mesh.fam_gather_i(vt, -1), mesh.fam_gather_j(vt, -1),
-            mesh.fam_normal_flat.T, mesh.fam_gather_i(st_, -1),
-            mesh.fam_gather_j(st_, -1)))
+    lim = dev(rng.uniform(0.0, 1.0, (n, 2 + nd)))
+    out["implicit"] = (lib, lay, sc, (0.1, 0.9, 1.0), ei.stack_inputs(
+        lay, nsd.v, grad, lim, trans, turb, turb.sigma_k, nsd.dtdu,
+        nsd.dpdu))
+    vt, st_ = nsd.v.T, nsd.dpdu.T
+    out["faces"] = tuple(x.contiguous() for x in (
+        mesh.fam_gather_i(vt, -1), mesh.fam_gather_j(vt, -1),
+        mesh.fam_normal_flat.T, mesh.fam_gather_i(st_, -1),
+        mesh.fam_gather_j(st_, -1)))
     return out

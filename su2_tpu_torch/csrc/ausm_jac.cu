@@ -1,7 +1,8 @@
 // K11: the AUSM+-up convective flux and both its Jacobians per edge
 // (CUpwReactiveAUSM::ComputeResidual with the implicit part,
-// numerics_direct_reactive.cpp:53-383), 2D.  Per edge e: from the two
-// sides' primitives v_i, v_j (nPrim), the area normal (2) and the sides'
+// numerics_direct_reactive.cpp:53-383), in 2D and 3D.  Per edge e: from
+// the two sides' primitives v_i, v_j (nPrim), the area normal (nd) and the
+// sides'
 // dP/dU rows s_i, s_j (nVar), the flux (nVar) and the blocks jac_i, jac_j
 // (nVar x nVar).  Arithmetic: ops/ausm_t.py ausm_flux_t and _jacobians,
 // the plain version, through the device functions that K10 runs too
@@ -14,9 +15,11 @@
 // (the edge-major layout (E, features)), behind one template flag.
 //
 // Bound on the H100: bytes.  An edge reads 2 x 16 + 2 + 2 x 13 = 60 values
-// and writes 13 + 2 x 169 = 351 (1.64 KB in f32) against ~3 kFLOP, far
+// and writes 13 + 2 x 169 = 351 (1.64 KB in f32; in 3D 65 and 406) against
+// ~3 kFLOP, far
 // below the card's ~20 FLOP per byte.  Design: one thread per edge; the
-// species count is a template constant, so the loops unroll and the four
+// dimension and the species count are template constants, so the loops
+// unroll and the four
 // nVar column vectors of the Jacobians stay in registers (2 x 169 entries
 // are never held); every other count up to 16 runs one run-time instance
 // (NS = 0, its vectors in local memory, so no mixture is refused); each
@@ -28,9 +31,7 @@
 
 namespace su2k {
 
-constexpr int AUSM_ND = 2;
-
-template <typename T, int NS, bool EDGE_MAJOR>
+template <typename T, int ND, int NS, bool EDGE_MAJOR>
 __global__ void __launch_bounds__(128)
 ausm_jac_kernel(int ne, int ns_rt, double m_infty, const T* __restrict__ v_i,
                 const T* __restrict__ v_j, const T* __restrict__ nrm,
@@ -39,7 +40,7 @@ ausm_jac_kernel(int ne, int ns_rt, double m_infty, const T* __restrict__ v_i,
                 T* __restrict__ jac_j) {
   // NS = 0: the species count ns_rt known at run time (at most SU2K_MAXS),
   // the arrays at that bound
-  constexpr int ND = AUSM_ND, MS = NS > 0 ? NS : SU2K_MAXS;
+  constexpr int MS = NS > 0 ? NS : SU2K_MAXS;
   constexpr int MPRIM = MS + ND + 5, MV = MS + ND + 2;
   const int ns = NS > 0 ? NS : ns_rt;
   const int NPRIM = ns + ND + 5, NV = ns + ND + 2;
@@ -53,7 +54,10 @@ ausm_jac_kernel(int ne, int ns_rt, double m_infty, const T* __restrict__ v_i,
   T nm[ND];
 #pragma unroll
   for (int d = 0; d < ND; ++d) nm[d] = nrm[at(ND, d)];
-  const T area = sqrt(nm[0] * nm[0] + nm[1] * nm[1]);
+  T area2 = nm[0] * nm[0];
+#pragma unroll
+  for (int d = 1; d < ND; ++d) area2 = area2 + nm[d] * nm[d];
+  const T area = sqrt(area2);
   if (area == (T)0) {
 #pragma unroll
     for (int a = 0; a < NV; ++a) flux[at(NV, a)] = (T)0;
@@ -105,11 +109,11 @@ ausm_jac_kernel(int ne, int ns_rt, double m_infty, const T* __restrict__ v_i,
 }
 
 // the species counts K11 is compiled for (kernels.AUSM_SPECIES): the
-// case's 9 (nVar = 13); every other count up to SU2K_MAXS runs the
-// run-time instance (NS = 0)
+// case's 9 (nVar = 13 in 2D, 14 in 3D); every other count up to SU2K_MAXS
+// runs the run-time instance (NS = 0) of its dimension
 #define SU2K_AUSM_BY_NS(X) X(9)
 
-template <typename T, bool EDGE_MAJOR>
+template <typename T, int ND, bool EDGE_MAJOR>
 int launch_ausm_jac(int ne, int ns, double m_infty, const void* vi,
                     const void* vj, const void* nrm, const void* si,
                     const void* sj, void* flux, void* ji, void* jj,
@@ -120,7 +124,7 @@ int launch_ausm_jac(int ne, int ns, double m_infty, const void* vi,
   if (ne <= 0) return (int)cudaSuccess;
 #define SU2K_AUSM_CASE(NS_)                                                 \
   if (ns == NS_) {                                                          \
-    ausm_jac_kernel<T, NS_, EDGE_MAJOR>                                     \
+    ausm_jac_kernel<T, ND, NS_, EDGE_MAJOR>                                 \
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(                     \
             ne, ns, m_infty, (const T*)vi, (const T*)vj, (const T*)nrm,     \
             (const T*)si, (const T*)sj, (T*)flux, (T*)ji, (T*)jj);          \
@@ -128,11 +132,23 @@ int launch_ausm_jac(int ne, int ns, double m_infty, const void* vi,
   }
   SU2K_AUSM_BY_NS(SU2K_AUSM_CASE)
 #undef SU2K_AUSM_CASE
-  ausm_jac_kernel<T, 0, EDGE_MAJOR>
+  ausm_jac_kernel<T, ND, 0, EDGE_MAJOR>
       <<<blocks, threads, 0, (cudaStream_t)stream>>>(
           ne, ns, m_infty, (const T*)vi, (const T*)vj, (const T*)nrm,
           (const T*)si, (const T*)sj, (T*)flux, (T*)ji, (T*)jj);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool EDGE_MAJOR>
+int launch_ausm_dim(int nd, int ne, int ns, double m_infty, const void* vi,
+                    const void* vj, const void* nrm, const void* si,
+                    const void* sj, void* flux, void* ji, void* jj,
+                    void* stream) {
+  if (nd == 2)
+    return launch_ausm_jac<T, 2, EDGE_MAJOR>(ne, ns, m_infty, vi, vj, nrm,
+                                             si, sj, flux, ji, jj, stream);
+  return launch_ausm_jac<T, 3, EDGE_MAJOR>(ne, ns, m_infty, vi, vj, nrm, si,
+                                           sj, flux, ji, jj, stream);
 }
 
 }  // namespace su2k
@@ -142,16 +158,19 @@ extern "C" int su2k_ausm_flux_jac(int is_f64, int edge_major, int ne, int nd,
                                   const void* vj, const void* nrm,
                                   const void* si, const void* sj, void* flux,
                                   void* ji, void* jj, void* stream) {
-  if (nd != su2k::AUSM_ND) return (int)cudaErrorInvalidValue;
+  if (nd != 2 && nd != 3) return (int)cudaErrorInvalidValue;
   if (is_f64)
     return edge_major
-        ? su2k::launch_ausm_jac<double, true>(ne, ns, m_infty, vi, vj, nrm,
-                                              si, sj, flux, ji, jj, stream)
-        : su2k::launch_ausm_jac<double, false>(ne, ns, m_infty, vi, vj, nrm,
-                                               si, sj, flux, ji, jj, stream);
+        ? su2k::launch_ausm_dim<double, true>(nd, ne, ns, m_infty, vi, vj,
+                                              nrm, si, sj, flux, ji, jj,
+                                              stream)
+        : su2k::launch_ausm_dim<double, false>(nd, ne, ns, m_infty, vi, vj,
+                                               nrm, si, sj, flux, ji, jj,
+                                               stream);
   return edge_major
-      ? su2k::launch_ausm_jac<float, true>(ne, ns, m_infty, vi, vj, nrm, si,
-                                           sj, flux, ji, jj, stream)
-      : su2k::launch_ausm_jac<float, false>(ne, ns, m_infty, vi, vj, nrm, si,
-                                            sj, flux, ji, jj, stream);
+      ? su2k::launch_ausm_dim<float, true>(nd, ne, ns, m_infty, vi, vj, nrm,
+                                           si, sj, flux, ji, jj, stream)
+      : su2k::launch_ausm_dim<float, false>(nd, ne, ns, m_infty, vi, vj,
+                                            nrm, si, sj, flux, ji, jj,
+                                            stream);
 }

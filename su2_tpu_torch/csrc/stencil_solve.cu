@@ -59,9 +59,9 @@
 // field).  The matvec, with the same thread layout, reads the full-precision
 // blocks in the natural layout, one pass.
 //
-// Widths: V = 2 (the SST system), 3, and 7, 13 (the flow's nDim + nSpecies
-// + 2 of the 3-species flat plate and the 9-species channel), one template
-// instance each; another width is refused.  Every per-node V-vector (r, z,
+// Widths: V = 2 (the SST system), 3, and 7, 8, 13, 14 (the flow's nDim +
+// nSpecies + 2 of the 3-species flat plate and the 9-species channel, in
+// 2D and 3D), one template instance each; another width is refused.  Every per-node V-vector (r, z,
 // the products) of K6 is a register array indexed only by unrolled loops,
 // so it stays out of local memory; the V x V blocks are streamed, never
 // held.
@@ -1296,14 +1296,17 @@ int grid_of(int n, int m, int part_cap, int cluster) {
 
 // the block widths K5 and K6 are compiled for (kernels.STENCIL_WIDTHS): 2
 // (the SST's k-omega system) and 3, and the flow's nDim + nSpecies + 2 of
-// the 3-species 2D flat plate (7) and the 9-species 2D channel (13); CALL
-// names the width V; another width returns BAD
+// the 3-species flat plate in 2D (7) and 3D (8) and of the 9-species
+// channel in 2D (13) and on the 3D box (14); CALL names the width V;
+// another width returns BAD
 #define SU2K_BY_WIDTH(v, CALL, BAD)                     \
   switch (v) {                                          \
     case 2: { constexpr int V = 2; return CALL; }       \
     case 3: { constexpr int V = 3; return CALL; }       \
     case 7: { constexpr int V = 7; return CALL; }       \
+    case 8: { constexpr int V = 8; return CALL; }       \
     case 13: { constexpr int V = 13; return CALL; }     \
+    case 14: { constexpr int V = 14; return CALL; }     \
     default: return BAD;                                \
   }
 

@@ -7,7 +7,7 @@ laminar (NONE), and the AUSM scheme, on meshes with a static neighbour
 stencil and on meshes without one (the gather path: triangles or
 tetrahedra, nodes in any order).  The flow is explicit (first order or
 MUSCL; laminar also Runge-Kutta), or implicit (EULER_IMPLICIT, first
-order or MUSCL with or without a limiter; 2D only);
+order or MUSCL with or without a limiter; 2D and 3D);
 the flow and SST systems are solved by FGMRES or BCGSTAB with the
 multicolor SGS (LU_SGS, ILU0), LINELET (the flow's system; the SST's takes
 the sweep) or JACOBI preconditioner.  One RANS
@@ -161,9 +161,6 @@ class Simulation:
                 grid2 = build_dual_grid(raw2)
                 if 0 < len(stn.edge_offsets(grid2.edges)) <= stn.MAX_OFFSETS:
                     raw, self.grid, self.perm = raw2, grid2, sperm
-        if cfg.implicit_flow and self.grid.ndim == 3:
-            raise NotImplementedError("3D implicit flow: not ported; "
-                                      "su2_tpu.ops.viscous_t has it")
         self.mesh = mesh_arrays(self.grid, dtype, self.device)
         self.lay = Layout(self.grid.ndim, cfg.nspecies)
         self.tparams = TSolveParams(tmin=cfg.temperature_min,

@@ -21,7 +21,8 @@ capture recorded and adds those to ``launches``.
   K7 gradient_rows      csrc/gradients_tiled.cu (ops/gradients_tiled.py)
   K8 edge_win           csrc/edge_win.cu     (ops/edge_flux.py)
   K9 inlet_tc           csrc/inlet_tc.cu     (solvers/inlet_tc.py)
-  K10 edge_implicit     csrc/edge_implicit.cu (ops/edge_implicit.py)
+  K10 edge_implicit     csrc/edge_implicit.cu, edge_implicit_3d.cu
+      (ops/edge_implicit.py; the kernel in edge_implicit.cuh)
   K11 ausm_flux_jac     csrc/ausm_jac.cu      (ops/edge_kernels.py)
   K12 sst_assemble      csrc/sst_assemble.cu  (turbulence/sst_assemble.py)
   K13 edge_list_flux    csrc/edge_list.cu     (ops/edge_flux.py; the
@@ -31,8 +32,10 @@ T3, K8 and K13 share the per-edge device function of csrc/edge_side.cuh
 one run-time instance for every other shape up to 3D and 16 species; K8's
 first pass is T3's slot pass under a kernel name of its own); K10 shares
 its species h/cp lookup and Stefan-Maxwell solve (compiled for the species
-counts of IMPLICIT_SPECIES), and K10 and K11 (AUSM_SPECIES) its implicit
-AUSM+-up face (ausm_face, ausm_jac_entry); T2 is compiled for the counts
+counts of IMPLICIT_SPECIES in the dimensions of IMPLICIT_DIMS), and K10 and
+K11 (AUSM_SPECIES in AUSM_DIMS) its implicit AUSM+-up face (ausm_face,
+ausm_jac_entry); K5 and K6 for the block widths of STENCIL_WIDTHS (no
+run-time width); T2 is compiled for the counts
 of NODE_STATE_SPECIES, T4 for the (species, reaction) counts of
 CHEM_SHAPES, K7 for the (offset count, dimension) stencils of
 K7_STENCILS; each has a run-time-count instance for the other counts.
@@ -54,7 +57,8 @@ BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("common.cuh", "edge_side.cuh", "thermo.cu", "node_state.cu",
            "edge_flux.cu", "chem_source.cu", "stencil_solve.cu",
            "gradients_tiled.cu", "edge_win.cu", "inlet_tc.cu",
-           "edge_implicit.cu", "ausm_jac.cu", "sst_assemble.cu",
+           "edge_implicit.cuh", "edge_implicit.cu", "edge_implicit_3d.cu",
+           "ausm_jac.cu", "sst_assemble.cu",
            "edge_list.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -617,8 +621,9 @@ def chem_source(lib, prm, t, rho, ys, omega_turb=None):
 # buffers of at most 4,096 blocks (more than any card holds at once).
 _PART_CAP = 2 * 4096
 # The block widths K5 and K6 are compiled for (SU2K_BY_WIDTH in
-# csrc/stencil_solve.cu): 2 (the SST's system) and 3, the flow's 7 and 13.
-STENCIL_WIDTHS = (2, 3, 7, 13)
+# csrc/stencil_solve.cu): 2 (the SST's system) and 3, the flow's nDim +
+# nSpecies + 2 at 3 and 9 species: 7 and 13 in 2D, 8 and 14 in 3D.
+STENCIL_WIDTHS = (2, 3, 7, 8, 13, 14)
 
 
 def _check_stencil(name, selp, selm, dinv, diag, colors, r, offsets, ncolor,
@@ -916,9 +921,12 @@ def inlet_tc(tc, riemann, gamma, alpha):
 
 
 # ---------------------------------------------------------------- K10
-# The species counts K10 is compiled for (SU2K_IMPLICIT_BY_NS in
-# csrc/edge_implicit.cu): the 9-species case and the 3-species flat plate;
-# every other count up to MAX_SPECIES runs the run-time instance.
+# The dimensions and species counts K10 is compiled for
+# (SU2K_IMPLICIT_BY_NS in csrc/edge_implicit.cuh; the 2D instances built
+# from edge_implicit.cu, the 3D ones from edge_implicit_3d.cu): the
+# 9-species case and the 3-species flat plate, in 2D and 3D; every other
+# count up to MAX_SPECIES runs the run-time instance of its dimension.
+IMPLICIT_DIMS = (2, 3)
 IMPLICIT_SPECIES = (9, 3)
 
 
@@ -927,9 +935,10 @@ def edge_implicit(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec,
     """Kernel K10: per-family implicit edge flux (Kh, nVar, N) and edge
     Jacobian blocks j_i, j_j (Kh, nVar^2, N) from the stack f_all (R, N) of
     ops/edge_implicit.implicit_rows, in one launch for every family;
-    consts = (m_infty, prandtl_turb, lewis_turb).  2D only."""
-    if lay.ndim != 2:
-        raise ValueError("edge_implicit: 2D only")
+    consts = (m_infty, prandtl_turb, lewis_turb).  2D and 3D."""
+    if lay.ndim not in IMPLICIT_DIMS:
+        raise ValueError(f"edge_implicit: {lay.ndim}D; the kernel takes "
+                         f"{IMPLICIT_DIMS}")
     _check_species("edge_implicit", lay.ns)
     if use_limiter and not muscl:
         raise ValueError("edge_implicit: a limiter needs MUSCL")
@@ -968,21 +977,24 @@ def edge_implicit(lib, lay, sc, consts, f_all, offsets, fam_normal, fam_evec,
 
 
 # ---------------------------------------------------------------- K11
-# The species counts K11 is compiled for (SU2K_AUSM_BY_NS in
-# csrc/ausm_jac.cu): the case's 9, nVar = 13; every other count up to
-# MAX_SPECIES runs the run-time instance.
+# The dimensions and species counts K11 is compiled for (SU2K_AUSM_BY_NS
+# in csrc/ausm_jac.cu): the case's 9, nVar = 13 in 2D and 14 in 3D; every
+# other count up to MAX_SPECIES runs the run-time instance of its
+# dimension.
+AUSM_DIMS = (2, 3)
 AUSM_SPECIES = (9,)
 
 
 def ausm_flux_jac(lay, v_i, v_j, normal, m_infty, s_i, s_j,
                   edge_major=False):
-    """Kernel K11: the AUSM+-up flux and both Jacobians per edge, 2D.
+    """Kernel K11: the AUSM+-up flux and both Jacobians per edge, 2D or 3D.
     Feature-major (edge_major False): v_* (nPrim, E), normal (d, E), s_*
     (nVar, E) -> flux (nVar, E), jac_i, jac_j (nVar, nVar, E).
     Edge-major: the transposes, (E, nPrim) ... -> (E, nVar),
     (E, nVar, nVar).  A zero normal gives exact zeros."""
-    if lay.ndim != 2:
-        raise ValueError("ausm_flux_jac: 2D only")
+    if lay.ndim not in AUSM_DIMS:
+        raise ValueError(f"ausm_flux_jac: {lay.ndim}D; the kernel takes "
+                         f"{AUSM_DIMS}")
     _check_species("ausm_flux_jac", lay.ns)
     ins = [x.contiguous() for x in (v_i, v_j, normal, s_i, s_j)]
     _check("ausm_flux_jac", *ins)

@@ -194,7 +194,7 @@ def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
 
     LU_SGS/ILU0 with colors run the stencil kernels in the reference's
     tiers (stencil_solve.solve_tier), at any block width the kernels are
-    compiled for (the SST's 2, the flow's 13).  Where the reference sweeps
+    compiled for (the SST's 2, the flow's 7, 8, 13 and 14).  Where the reference sweeps
     with XLA ops (float64 past its full-precision gate, float32 with no
     mixed tier) the kernels compute the same sweep and matvec at full
     precision; the (z, A z) kernel of the mixed tier stands for the

@@ -6,7 +6,8 @@ numerics_direct_reactive.cpp:385-1684 and the SST closure :656-889) with
 every array (features, edges).  This is the viscous half of the plain
 versions of kernels T3 (csrc/edge_flux.cu) and K10 (csrc/edge_implicit.cu,
 with the Jacobians of SetLaminarViscousProjJacs :1200-1409 and
-SST_Reactive_JacobianClosure :891-1097); the boundary faces use it with
+SST_Reactive_JacobianClosure :891-1097, in 2D and 3D, where the closure
+takes the reference's own 3D branch); the boundary faces use it with
 ``corrected=False`` and the Fuller factor of the domain node on both sides.
 Without the SST fields (mu_t_i None) it is the laminar flux and Jacobians,
 the JAX package's node-major ops/viscous.py viscous_flux with turb_i None,
@@ -295,13 +296,10 @@ def _viscous_jacobians_t(lay, sc, v_i, v_j, vmean, mu, ktr, ds, xs, xs_i,
                          xs_j, grad_xs_norm, jd, dist, area, unit, s_i, s_j,
                          flux, mu_t, gy, cmt, ys, h_s, cp_s, prandtl_turb):
     """dF/dV . dV/dU (SetLaminarViscousProjJacs :1200-1409 +
-    SST_Reactive_JacobianClosure :891-1097, 2D; mu_t None: laminar), the
-    (nVar, nVar) block held as lists of (E,) rows, the sparse dV/dU applied
-    analytically."""
+    SST_Reactive_JacobianClosure :891-1097, 2D and 3D; mu_t None:
+    laminar), the (nVar, nVar) block held as lists of (E,) rows, the sparse
+    dV/dU applied analytically."""
     nd, ns, nvar = lay.ndim, lay.ns, lay.nvar
-    if nd != 2:
-        raise NotImplementedError("3D implicit viscous Jacobians: not "
-                                  "ported; su2_tpu.ops.viscous_t has them")
     mm_col = sc.mm_col
     tot_mass = _rowsum(mm_col * xs)
     tot_mass_i = _rowsum(mm_col * xs_i)
@@ -333,7 +331,7 @@ def _viscous_jacobians_t(lay, sc, v_i, v_j, vmean, mu, ktr, ds, xs, xs_i,
     djdr_i = djdr(xs_i, tot_mass_i, sigma_i, rho_i, -1.0)
 
     # dF/dV as [a][b] of (E,) rows (None: zero); thin-shear tensor
-    # M = theta I + n (x) n / 3, pi = M u
+    # M = theta I + n (x) n / 3, pi = M u (2D :912-918, 3D :981-995)
     theta = unit[0] * unit[0]
     for d in range(1, nd):
         theta = theta + unit[d] * unit[d]
@@ -378,7 +376,7 @@ def _viscous_jacobians_t(lay, sc, v_i, v_j, vmean, mu, ktr, ds, xs, xs_i,
             dadd(side, lay.RHO, lay.RHOS + k, col_rho)
             dadd(side, lay.RHOE, lay.RHOS + k, col_e)
     if mu_t is not None:
-        # SST closure Jacobian (2D, :911-983)
+        # SST closure Jacobian (2D :911-983, 3D :996-1090)
         coef_t = mu_t / dist * area
         add = emp()
         for d in range(nd):
@@ -389,9 +387,22 @@ def _viscous_jacobians_t(lay, sc, v_i, v_j, vmean, mu, ktr, ds, xs, xs_i,
         dadd(add, lay.RHOE, lay.RHOE,
              mu_t / prandtl_turb * cpy * theta / dist * area)
         ce = cmt / dist * area * theta
-        for k in range(ns):
-            dadd(dfdv_j, lay.RHOE, lay.RHOS + k, ce * h_s[k] * ys[k] / rho_j)
-            dadd(dfdv_i, lay.RHOE, lay.RHOS + k, -ce * h_s[k] * ys[k] / rho_i)
+        if nd == 2:
+            for k in range(ns):
+                dadd(dfdv_j, lay.RHOE, lay.RHOS + k,
+                     ce * h_s[k] * ys[k] / rho_j)
+                dadd(dfdv_i, lay.RHOE, lay.RHOS + k,
+                     -ce * h_s[k] * ys[k] / rho_i)
+        else:
+            # the reference's 3D branch (:983-1075) keeps the species
+            # mass-closure diagonal that 2D comments out (:957-966),
+            # mu_t / (Pr_t Le_t) / dist area theta Y_k / rho: ce (cmt holds
+            # Le_t); and its energy-species term has no Y_k factor (:1067)
+            for k in range(ns):
+                dadd(dfdv_j, lay.RHOE, lay.RHOS + k, ce * h_s[k] / rho_j)
+                dadd(dfdv_i, lay.RHOE, lay.RHOS + k, -ce * h_s[k] / rho_i)
+                dadd(dfdv_j, lay.RHOS + k, lay.RHOS + k, ce * ys[k] / rho_j)
+                dadd(dfdv_i, lay.RHOS + k, lay.RHOS + k, -ce * ys[k] / rho_i)
         for a in range(nvar):
             for b in range(nvar):
                 if add[a][b] is not None:

@@ -24,7 +24,8 @@ viscous fluxes over the edge list (mesh.scatter_edges); implicit, on the
 family slots, the convective system by kernel K11 (euler.
 convective_system_fam) and the viscous flux and Jacobians in plain torch
 ops, as a FamilyJacobian.  Boundary rows are added marker by marker in
-batch order (euler.add_rows), without atomics.
+batch order (euler.add_rows), without atomics.  Every path runs in 2D and
+3D (the 3D viscous Jacobians: ops/viscous_t.py).
 """
 
 from __future__ import annotations

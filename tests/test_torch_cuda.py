@@ -1,7 +1,8 @@
 """The CUDA kernels T1-T4 and K5-K13 against their plain torch versions on
-the card (K11 also on the triangle channel's edge rows), and the slice's
-launch counts and graph replays (also on meshes without a static
-stencil).  Every test needs a CUDA device
+the card (K11 also on the triangle channel's edge rows; K10 and K11 also
+in 3D, K5/K6 at the 3D flow's widths 8 and 14), and the slice's launch
+counts and graph replays (also on meshes without a static stencil and
+in 3D).  Every test needs a CUDA device
 and skips without one.  This file imports no JAX, so on a machine without it run it
 alone, past the suite's JAX conftest:
 
@@ -644,6 +645,41 @@ def test_k10_every_species_instance(card, tmp_path, ns, variant, dtype):
         assert (np.moveaxis(g, 1, 0)[:, pad] == 0.0).all()
 
 
+K10_3D = [(ns, var, dt) for ns in (9, 3, 5) for var in K10_VARIANTS
+          for dt in ("float64", "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,variant,dtype", K10_3D,
+                         ids=[f"{ns}-{var}-{dt}" for ns, var, dt in K10_3D])
+def test_k10_3d_instances(card, tmp_path, ns, variant, dtype):
+    """K10 in 3D at 9 and 3 species (compiled) and 5 (the run-time-count
+    instance), every (MUSCL, limiter) variant, on the 120-node box
+    (torch_helpers.implicit_shape_inputs at nd = 3: 3 families, nVar = 14
+    at 9 species) against edge_implicit_plain: each output row within
+    1e-10 (f64) or 1e-4 (f32) of the row's max, the pad slots exactly 0,
+    one launch."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import edge_implicit as ei
+    muscl, limiter = K10_VARIANTS[variant]
+    mesh, args = th.implicit_shape_inputs(ns, tmp_path,
+                                          getattr(torch, dtype), card, nd=3)
+    assert len(mesh.fam_offsets) == 3 and args[1].ndim == 3
+    args = args[:8] + (muscl, limiter is not None)
+    kernels.reset_launches()
+    got = kernels.edge_implicit(*args)
+    assert kernels.launches["edge_implicit"] == 1
+    want = ei.edge_implicit_plain(*args)
+    pad = th.npy((args[6] == 0).all(-1))
+    tol = 1e-10 if dtype == "float64" else 1e-4
+    for g, w in zip(got, want):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert np.isfinite(g).all()
+        scale = np.abs(w).max(axis=-1, keepdims=True)
+        assert (np.abs(g - w) <= tol * scale).all()
+        assert (np.moveaxis(g, 1, 0)[:, pad] == 0.0).all()
+
+
 @pytest.mark.cuda
 def test_implicit_slice_launches(card, tmp_path, monkeypatch):
     """The implicit JACOBI case: K10 once per iteration (both families in
@@ -718,7 +754,10 @@ def test_implicit_lusgs_slice_launches(card, tmp_path, monkeypatch, tier):
 BANDS = {"band2": (2, (-9, -8, -7, -1, 1, 7, 8, 9)),
          "band3": (3, (-5, -1, 1, 5)),
          "band7": (7, (-9, -1, 1, 9)),
-         "band13": (13, (-9, -1, 1, 9))}
+         "band13": (13, (-9, -1, 1, 9)),
+         # the 3D flow's widths (3 and 9 species) on a box-like stencil
+         "band8": (8, (-400, -20, -1, 1, 20, 400)),
+         "band14": (14, (-400, -20, -1, 1, 20, 400))}
 VARIANTS = ["float64", "float32", "mixed"]
 
 
@@ -785,8 +824,8 @@ def _cm_layout(args):
                        color_major=True)
 
 
-K5_COLORINGS = [(c, v, var) for c in th.COLORINGS for v in (2, 3, 7, 13)
-                for var in VARIANTS]
+K5_COLORINGS = [(c, v, var) for c in th.COLORINGS
+                for v in (2, 3, 7, 8, 13, 14) for var in VARIANTS]
 
 
 @pytest.mark.cuda
@@ -928,7 +967,7 @@ def test_k6_kernel_matches_plain(card, system, variant, rhs):
         assert np.abs(x - wx).max() <= 2e-5 * scale
 
 
-K6_COLORINGS = [(c, v, var) for c in th.COLORINGS for v in (7, 13)
+K6_COLORINGS = [(c, v, var) for c in th.COLORINGS for v in (7, 8, 13, 14)
                 for var in VARIANTS]
 
 
@@ -969,7 +1008,7 @@ def test_k6_colorings(card, coloring, v, variant):
             assert np.abs(x - th.npy(wx)).max() <= 2e-5 * scale
 
 
-K6_BIG = [(v, var) for v in (7, 13) for var in VARIANTS]
+K6_BIG = [(v, var) for v in (7, 8, 13, 14) for var in VARIANTS]
 
 
 @pytest.mark.cuda
@@ -1199,6 +1238,48 @@ def test_k11_other_species_counts(card, ns, layout, dtype):
     for g, w in zip(got, want):
         g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
         assert g.shape == w.shape and np.isfinite(g).all()
+        assert (np.abs(g - w) <= rtol * np.abs(w)
+                + afrac * np.abs(w).max()).all()
+        assert (g[..., pad] == 0.0).all()
+
+
+K11_3D = [(ns, lay, dt) for ns in (9, 3)
+          for lay in ("feature_major", "edge_major")
+          for dt in ("float64", "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,layout,dtype", K11_3D,
+                         ids=[f"{ns}-{lay}-{dt}" for ns, lay, dt in K11_3D])
+def test_k11_3d_instances(card, tmp_path, ns, layout, dtype):
+    """K11 in 3D at 9 species (compiled) and 3 (its run-time-count
+    instance) on the 120-node box's family slots (cases.shape_inputs'
+    first-order faces, pad slots with zero normals) against
+    ops/ausm_t.ausm_flux_t, both layouts, at
+    test_k11_kernel_matches_plain's pins; the pad slots exactly 0."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.ops import ausm_t
+    dt = getattr(torch, dtype)
+    x = th.cases.shape_inputs(3, ns, str(tmp_path), dt, card)
+    lay, ins = x["lay"], list(x["faces"])
+    m_inf = 0.0251
+    want = ausm_t.ausm_flux_t(lay, *ins[:3], m_inf, *ins[3:])
+    kernels.reset_launches()
+    if layout == "feature_major":
+        got = kernels.ausm_flux_jac(lay, *ins[:3], m_inf, *ins[3:])
+    else:
+        got = kernels.ausm_flux_jac(lay, *(t.T for t in ins[:3]), m_inf,
+                                    *(t.T for t in ins[3:]),
+                                    edge_major=True)
+        got = (got[0].T, got[1].permute(1, 2, 0), got[2].permute(1, 2, 0))
+    assert kernels.launches["ausm_flux_jac"] == 1
+    pad = th.npy(~x["mesh"].fam_valid_flat)
+    assert pad.any()
+    rtol, afrac = (1e-10, 1e-12) if dtype == "float64" else (1e-4, 1e-5)
+    for g, w in zip(got, want):
+        g, w = th.npy(g).astype(np.float64), th.npy(w).astype(np.float64)
+        assert g.shape == w.shape and g.shape[0] == lay.nvar
+        assert np.isfinite(g).all()
         assert (np.abs(g - w) <= rtol * np.abs(w)
                 + afrac * np.abs(w).max()).all()
         assert (g[..., pad] == 0.0).all()
@@ -1790,6 +1871,56 @@ def test_gather_graph_matches_eager_bitwise(card, tmp_path, path, dtype):
     for k in ("stencil_fgmres", "stencil_sgs_matvec", "stencil_sweep_only",
               "stencil_matvec_only", "edge_implicit", "edge_flux"):
         assert eager[k] == 0, k
+
+
+# the 3D implicit paths of the graph test: (cfg text from the case, mesh,
+# the 3-species mixture); the flow's kernel per iteration
+BOX_GRAPH_PATHS = {
+    "box-rans": (lambda t: t, "box", False, "edge_implicit"),
+    "box-3species": (lambda t: t, "box", True, "edge_implicit"),
+    "box-laminar": (th.cases.with_laminar, "box", False, "ausm_flux_jac"),
+    "tet-rans": (lambda t: t, "tet", False, "ausm_flux_jac")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("path", list(BOX_GRAPH_PATHS))
+def test_3d_implicit_graph_matches_eager_bitwise(card, tmp_path, path,
+                                                 dtype):
+    """Five iterations of the 3D implicit LU_SGS step (MUSCL +
+    Venkatakrishnan) on the 80-node box (K10 in 3D at 9 or 3 species, or
+    K11 in 3D for the laminar flow; the flow's K6 at v = 14 or 8 and the
+    SST's at v = 2, one cycle each) or the 180-node tet box (K11 on the
+    edge rows, the gather solves) through the captured graph equal five
+    eager iterations from the same state bit for bit, state and history
+    rows; the capture's launches per replay are one eager iteration's."""
+    from su2_tpu_torch import cases, kernels
+    from su2_tpu_torch.config import Config
+    from su2_tpu_torch.driver import Simulation
+    from su2_tpu_torch.geometry.structured import box_mesh
+    cfg_of, mesh, three, flow_kernel = BOX_GRAPH_PATHS[path]
+    text = cases.write_case(str(tmp_path), species=cases.SPECIES_3 if three
+                            else cases.SPECIES)
+    text = th.with_implicit(cases.with_box_markers(cfg_of(text)),
+                            prec="LU_SGS")
+    raw = box_mesh(5, 4, 4) if mesh == "box" else cases.tet_box_mesh(6, 6, 5)
+    sim = Simulation(Config(text=text), raw_mesh=raw, dtype=dtype,
+                     device=card)
+    assert sim.lay.ndim == 3
+    state = (sim.u0, sim.t0) + (tuple(sim.initial_turb_state())
+                                if sim.turbulent else ())
+    state = _eager(sim, state, 2)[0]
+    kernels.reset_launches()
+    want = _eager(sim, state, 5)
+    eager = dict(kernels.launches)
+    kernels.reset_launches()
+    got = sim._multistep(state, 5)
+    _assert_same(got, want)
+    assert {k: 5 * c for k, c in sim._graph.per_replay.items()} == eager
+    assert eager[flow_kernel] == 5
+    stencil = mesh == "box"
+    assert eager["stencil_fgmres"] == 5 * stencil * (1 + sim.turbulent)
 
 
 @pytest.mark.cuda

@@ -216,7 +216,7 @@ def _compiled(source, macro):
 
 
 @pytest.mark.parametrize("name,source,macro,listed", [
-    ("edge_implicit", "edge_implicit.cu", "SU2K_IMPLICIT_BY_NS",
+    ("edge_implicit", "edge_implicit.cuh", "SU2K_IMPLICIT_BY_NS",
      "IMPLICIT_SPECIES"),
     ("ausm_flux_jac", "ausm_jac.cu", "SU2K_AUSM_BY_NS", "AUSM_SPECIES"),
     ("node_state", "node_state.cu", "SU2K_NODE_STATE_BY_NS",

@@ -232,21 +232,6 @@ def test_cli_implicit_lusgs_two_iterations(tmp_path):
     _cli_implicit(tmp_path, "LU_SGS")
 
 
-def test_implicit_3d_raises():
-    """3D implicit flow is refused, naming the su2_tpu module with the 3D
-    viscous Jacobians."""
-    from su2_tpu_torch.config import Config
-    from su2_tpu_torch.driver import Simulation
-    from su2_tpu_torch.geometry.structured import box_mesh
-    import tempfile
-    with tempfile.TemporaryDirectory() as d:
-        text = th.with_implicit(th.write_case(d))
-        with pytest.raises(NotImplementedError,
-                           match=r"su2_tpu\.ops\.viscous_t"):
-            Simulation(Config(text=text), raw_mesh=box_mesh(3, 3, 3),
-                       dtype=torch.float64, device="cpu")
-
-
 def test_cli_refuses_without_a_card(tmp_path):
     """Without --cpu and with no CUDA device visible the CLI exits nonzero
     and names --cpu; it never drops to the CPU by itself."""

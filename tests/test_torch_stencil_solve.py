@@ -474,7 +474,7 @@ def test_sweep_colors_and_refusals():
                  lambda: kernels.stencil_fgmres(**args5, b=r5, m=5, tol=1e-6),
                  lambda: kernels.stencil_fgmres_grid(torch.float32, True, 5,
                                                      300, 10)):
-        with pytest.raises(ValueError, match=r"\(2, 3, 7, 13\)"):
+        with pytest.raises(ValueError, match=r"\(2, 3, 7, 8, 13, 14\)"):
             call()
     tmesh = SimpleNamespace(npoint=4, stencil_offsets=(1,))
     for kind, where in tb.UNPORTED_PREC.items():

@@ -8,9 +8,9 @@ laminar edge-list spectral radius, LINELET's edge-form preconditioner and
 coupled iterations of the implicit RANS step (LU_SGS, ILU0, JACOBI,
 LINELET, BCGSTAB, dual time BDF2) and of the laminar steps; on the
 180-node scrambled tet box (cases.tet_box_mesh(6, 6, 5)) the mesh, the 3D
-gather WLS and the explicit RANS step, and the refusal of 3D implicit
-flow; the port alone: IGNITION, CFL_ADAPT and the CLI's output on the
-implicit triangle channel.  su2_tpu runs with its edge kernel mode on
+gather WLS and the explicit RANS step (its implicit steps:
+tests/test_torch_implicit_3d_system.py); the port alone: IGNITION,
+CFL_ADAPT and the CLI's output on the implicit triangle channel.  su2_tpu runs with its edge kernel mode on
 (its Pallas kernels in interpret mode).  Tolerances: the system parts
 |port - su2_tpu| <= 1e-10 |su2_tpu| + 1e-12 max|su2_tpu|, the steps 1e-9
 |su2_tpu| + 1e-12 max|field| (BCGSTAB: its rounding floor, see
@@ -150,19 +150,6 @@ def test_wls_3d_matches_jax(tets):
     assert (g1[0] == 0.0).all() and (g0[0] == 0.0).all()
     np.testing.assert_allclose(g1, g0, rtol=1e-12,
                                atol=1e-12 * np.abs(g0).max())
-
-
-def test_implicit_3d_tet_box_raises(text):
-    """3D implicit flow on the tet box is still refused before any step,
-    naming the su2_tpu module with the 3D viscous Jacobians."""
-    from su2_tpu_torch import cases
-    from su2_tpu_torch.config import Config
-    from su2_tpu_torch.driver import Simulation
-    t = th.with_implicit(cases.with_box_markers(text), prec="LU_SGS")
-    with pytest.raises(NotImplementedError,
-                       match=r"su2_tpu\.ops\.viscous_t"):
-        Simulation(Config(text=t), raw_mesh=cases.tet_box_mesh(3, 3, 3),
-                   dtype=torch.float64, device="cpu")
 
 
 # ----------------------------------------------------------------------

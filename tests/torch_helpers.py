@@ -159,7 +159,7 @@ def mixed_state(ts, ys=None, seed=None):
         + (0.2 * rng.standard_normal((n, lay.ndim)) if seed is not None
            else 0.0)
     if ys is None:
-        alpha = np.array([1.0] * 5 + [0.05] * (lay.ns - 5))
+        alpha = np.array(([1.0] * 5 + [0.05] * max(lay.ns - 5, 0))[:lay.ns])
         ys = rng.dirichlet(alpha, n)
     ys = np.broadcast_to(np.asarray(ys, np.float64), (n, lay.ns))
     lib = ts.lib_host
@@ -365,11 +365,13 @@ def edge_shape_inputs(nd, ns, directory, dtype=torch.float64, device="cpu",
 
 
 def implicit_shape_inputs(ns, directory, dtype=torch.float64, device="cpu",
-                          seed=8):
+                          seed=8, nd=2, raw_mesh=None):
     """(mesh, K10's arguments (lib, lay, species consts, consts, f_all,
     offsets, normals, edge vectors, muscl, limiter)): the inputs of
-    cases.shape_inputs at (2, ns), MUSCL with the limiter."""
-    x = cases.shape_inputs(2, ns, str(directory), dtype, device, seed=seed)
+    cases.shape_inputs at (nd, ns) (on raw_mesh, else its default mesh),
+    MUSCL with the limiter."""
+    x = cases.shape_inputs(nd, ns, str(directory), dtype, device,
+                           raw_mesh=raw_mesh, seed=seed)
     mesh = x["mesh"]
     return mesh, x["implicit"] + (mesh.fam_offsets, mesh.fam_normal,
                                   mesh.fam_evec, True, True)
