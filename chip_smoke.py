@@ -58,7 +58,7 @@ Phases (one line each; any failure exits nonzero):
              implicit LU_SGS at 9,072 (K10, K6 cooperative at v = 13) and
              142,317 (K5 at v = 13), laminar implicit LU_SGS (K11), the
              triangle channel (K13), a TOTAL_CONDITIONS inlet (K9) and the
-             fused SST assembly (K12), float32: 3 replays against 3 eager
+             fused SST assembly (K12), float32: 2 replays against 2 eager
              iterations from one state, bit for bit in the state and the
              history rows; one eager step under
              torch.cuda.set_sync_debug_mode("error"); the captured launches
@@ -186,13 +186,31 @@ Phases (one line each; any failure exits nonzero):
              the implicit LU_SGS step of the 19,844-node tet box; in the
              graph phase
              the box's RANS, 3-species and laminar steps at 8,000 nodes,
-             its 5-species JACOBI step there (K10's run-time count), its
-             RANS step at 136,161 and the 19,844-node tet box's implicit
-             step; at
+             its RANS step at 136,161 and the 19,844-node tet box's
+             implicit step; at
              the end of 6 the box slices (BOX_SLICES: implicit LU_SGS at
              8,000 x 20, 136,161 x 10 and 262,701 x 3, JACOBI at 136,161 x
              5, the 3-species and laminar boxes at 136,161), float32,
              timed and profiled with the device ms of each stage
+  widths     (after 3D) K5 and K6 at every block width from 4 to 21 that
+             kernels.STENCIL_WIDTHS does not compile, through their
+             run-time-width instance (RUNTIME_WIDTHS, widths_phase):
+             K5's three modes and K6 against their plain versions on band
+             systems (band_offsets) and on the flow systems of the
+             5-species cases (MIXTURE_PATHS: v = 9 on the channel, K6 at
+             SIZES["flagship"], K5 at SIZES["scaling"]; v = 10 on the box,
+             K6 at BOX_KERNELS, K5 at BOX_SCALING), f64, f32 and mixed,
+             times at RUNTIME_TIMED's widths and on the flow systems; the
+             run-time instance at 8 and 13 against the compiled one (K5
+             bit for bit, K6 within its pins; both times); the step
+             checks hold 5 f64 iterations card vs CPU of the 5-species
+             implicit LU_SGS channel (SIZES["flagship"]) and box
+             (BOX_STEP); in the graph phase every path of MIXTURE_PATHS
+             (the channel with LU_SGS at each size of SIZES, with ILU0,
+             BCGSTAB, LINELET and laminar at SIZES["flagship"]; the box at
+             BOX_KERNELS and BOX_SCALING); at the end of 6 their slices,
+             float32, timed and profiled with the device ms of each stage
+             (mixture_slices)
   output     (after 6) Simulation.run(50, chunk=25) of the 9,072-node
              explicit LU_SGS case in float32 through the captured graph
              with WRT_SOL_FREQ= 25 (the writes between chunks: one T2
@@ -305,7 +323,14 @@ for bit on the TIER_N-node case's inputs, K13's per-edge outputs and
 node sums on the 9,072- and 142,317-node triangle channel, and K10 (every
 variant; 9, 3 and 5 species) and K11 (both layouts) in 2D, in float32
 and float64, and compares the SASS of each 2D instance of K10 and K11
-with DIR's (bitwise_main, sass_2d_diff).
+with DIR's (bitwise_main, sass_2d_diff); then K5 and K6 as below.
+
+    python3 chip_smoke.py --bitwise-stencil DIR
+
+holds K5 (its three modes) and K6 at every compiled width
+(kernels.STENCIL_WIDTHS) on band systems, in float64, float32 and mixed,
+against DIR's bit for bit, and compares the SASS of every compiled K5/K6
+instance with DIR's (stencil_bitwise, sass_same_names).
 """
 
 from __future__ import annotations
@@ -338,6 +363,13 @@ KERNELS = {
                            "554,643,741"),
     "stencil_fgmres": ("su2_tpu_torch/csrc/stencil_solve.cu",
                        "su2_tpu/pallas/stencil_solve.py:381,434"),
+    # the same kernels' run-time-width instance (every width from 4 to 21
+    # outside kernels.STENCIL_WIDTHS), counted apart
+    "stencil_runtime_sgs_matvec": ("su2_tpu_torch/csrc/stencil_solve.cu",
+                                   "su2_tpu/pallas/stencil_solve.py:178,206,"
+                                   "251,273,554,643,741"),
+    "stencil_runtime_fgmres": ("su2_tpu_torch/csrc/stencil_solve.cu",
+                               "su2_tpu/pallas/stencil_solve.py:381,434"),
     "gradient_rows": ("su2_tpu_torch/csrc/gradients_tiled.cu",
                       "su2_tpu/pallas/gradients_tiled.py:55"),
     "edge_win": ("su2_tpu_torch/csrc/edge_win.cu",
@@ -455,6 +487,50 @@ BOX_SLICES = (
      dict(species="3"), 5),
     ("136161 box laminar implicit LU_SGS", BOX_SCALING,
      dict(laminar=True), 3))
+
+
+# the block widths K5 and K6 run through their run-time-width instance
+# (the flow's nDim + nSpecies + 2 from 4 to 21 but the compiled 7, 8, 13,
+# 14), their band systems' offsets (the channel's 4 at odd widths, the
+# box's 6 at even ones, 8 at 21: the f64 staging past the 48 KB a launch
+# gets unasked) and the widths whose times the widths phase takes
+RUNTIME_WIDTHS = tuple(v for v in range(4, 22) if v not in (7, 8, 13, 14))
+RUNTIME_TIMED = ("band9", "band10", "band21")
+BOX_BAND = (-400, -20, -1, 1, 20, 400)
+
+
+def band_offsets(v):
+    if v == 21:
+        return (-9, -8, -7, -1, 1, 7, 8, 9)
+    return BOX_BAND if v % 2 == 0 else (-9, -1, 1, 9)
+
+
+# the implicit flow (MUSCL + Venkatakrishnan) at 5 species (make_case's
+# species "5": the flow's v = 9 on the channel and 10 on the box, K5/K6
+# through their run-time-width instance) in su2_tpu's tiers: label ->
+# (SIZES key or box_mesh shape, make_case keywords, slice iterations, K5/K6
+# launches per iteration where stencil_per_iter does not give them); the
+# channel with LU_SGS at each size (K6's mixed one-launch cycle at 9,072,
+# K5's mixed sweep past it, K7 at TIER_N), with ILU0, BCGSTAB (K5's
+# sweep-only and matvec-only forms, both systems: 2 (2m + 2m + 1)) and
+# LINELET (the flow's matvec, the SST's K6) and laminar at 9,072; the box
+# at 8,000 (K6) and 136,161 (K5)
+MIXTURE_PATHS = (
+    ("5 species implicit LU_SGS", "flagship", {}, 5, None),
+    ("5 species implicit ILU0", "flagship",
+     dict(settings=dict(LINEAR_SOLVER_PREC="ILU0")), 3, None),
+    ("5 species implicit BCGSTAB", "flagship",
+     dict(settings=dict(LINEAR_SOLVER="BCGSTAB")), 3,
+     {"stencil_fgmres": 0, "stencil_sgs_matvec": 2 * (4 * KRYLOV_M + 1)}),
+    ("5 species implicit LINELET", "flagship",
+     dict(settings=dict(LINEAR_SOLVER_PREC="LINELET")), 3,
+     {"stencil_fgmres": 1, "stencil_sgs_matvec": KRYLOV_M}),
+    ("5 species laminar implicit LU_SGS", "flagship", dict(laminar=True), 5,
+     None),
+    ("5 species implicit LU_SGS", "scaling", {}, 3, None),
+    ("5 species implicit LU_SGS", "tier", {}, 2, None),
+    ("3D box 5 species implicit LU_SGS", BOX_KERNELS, {}, 5, None),
+    ("3D box 5 species implicit LU_SGS", BOX_SCALING, {}, 3, None))
 
 
 T_START = time.perf_counter()
@@ -1875,10 +1951,20 @@ def box_stencil_phase(flow_sims, report):
     stencil_checks(systems, report)
 
 
-def stencil_checks(systems, report):
+def stencil_report(name, v):
+    """The report key of kernel name's numbers at width v: its own, or its
+    run-time-width instance's (a width STENCIL_WIDTHS does not compile)."""
+    from su2_tpu_torch import kernels
+    if v in kernels.STENCIL_WIDTHS:
+        return name
+    return name.replace("stencil_", "stencil_runtime_")
+
+
+def stencil_checks(systems, report, timed=None):
     """K5 and K6 against their plain versions on systems (name -> (the
     operands of a variant, K5's modes by variant, whether to run K6)), as
-    stencil_phase describes."""
+    stencil_phase describes; timed (a set of names; None: all) says whose
+    times to take, the others are checked only."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import stencil_solve as ts
@@ -1919,6 +2005,10 @@ def stencil_checks(systems, report):
                     err = max(err, e.max().item())
                     worst = max(worst, e.max().item()
                                 / max(w.abs().max().item(), 1e-300))
+                if timed is not None and sname not in timed:
+                    phase("stencil", f"K5 {mode} {sname} {var}: max_abs_err "
+                          f"{err:.3e} ({worst:.2e} of its field's max)")
+                    continue
                 ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
                 ins = [r]
                 if sweep:
@@ -1939,13 +2029,14 @@ def stencil_checks(systems, report):
                       f"{bound[0]:.4f} ms ({bound[1]}){lib_txt}; sweep "
                       "blocks " + ("color-major" if lay["color_major"]
                                    else "natural"))
-                report.setdefault("stencil_sgs_matvec", {})[
-                    (sname, var, mode)] = dict(
+                report.setdefault(stencil_report("stencil_sgs_matvec", v),
+                                  {})[(sname, var, mode)] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound[0], bound_by=bound[1],
                         library_ms=lib_ms, library=lib_txt.strip() or None)
             if run_k6:
-                k6_check(sname, var, args, r, b, report)
+                k6_check(sname, var, args, r, b, report,
+                         timed is None or sname in timed)
 
 
 def box_phase(tmp, report):
@@ -1980,10 +2071,6 @@ def box_phase(tmp, report):
     box3 = build("box 3 species", BOX_KERNELS, nz=BOX_KERNELS[2],
                  species="3")
     lam = build("box laminar", BOX_KERNELS, nz=BOX_KERNELS[2], laminar=True)
-    # 5 species: K10's run-time count at v = 10, a width K5/K6 are not
-    # compiled for, so JACOBI
-    build("box 5 species", BOX_KERNELS, nz=BOX_KERNELS[2], species="5",
-          prec="JACOBI")
     tet = build("tet box", TET_STEP, nz=TET_STEP[2], box=False)
     big = build("box 136161", BOX_SCALING, nz=BOX_SCALING[2])
     big3 = build("box 136161 3 species", BOX_SCALING, nz=BOX_SCALING[2],
@@ -2013,13 +2100,11 @@ def box_graphs(sims):
     """(label, sim) of the 3D implicit paths for graph_phase: the box's
     RANS (K10 at (3, 9), the flow's K6 at v = 14), 3-species (K10 at
     (3, 3), K6 at v = 8), laminar (K11 in 3D) LU_SGS steps at 8,000
-    nodes, the 5-species JACOBI step there (K10's run-time count), the
-    RANS step at 136,161 (K5 at v = 14) and the tet box's implicit LU_SGS
-    step (K11 on the edge rows)."""
-    out = tuple((f"3D {label}, implicit LU_SGS", sims[label]) for label in (
+    nodes, the RANS step at 136,161 (K5 at v = 14) and the tet box's
+    implicit LU_SGS step (K11 on the edge rows); the 5-species box (K10's
+    run-time count, K5/K6's run-time width) is mixture_graphs'."""
+    return tuple((f"3D {label}, implicit LU_SGS", sims[label]) for label in (
         "box", "box 3 species", "box laminar", "box 136161", "tet box"))
-    return out + (("3D box 5 species, implicit JACOBI",
-                   sims.pop("box 5 species")),)
 
 
 def box_slices(tmp, card, runs, sims):
@@ -2048,6 +2133,148 @@ def box_slices(tmp, card, runs, sims):
     sims.clear()
 
 
+def mixture_cases(tmp):
+    """MIXTURE_PATHS' float32 cases on the card, built here: label with
+    its node count -> (sim, slice iterations, K5/K6 launches per iteration
+    of the slice)."""
+    import torch
+    venk = IMPLICIT_VARIANTS["venkatakrishnan"]
+    out = {}
+    for label, size, kw, niter, stencil in MIXTURE_PATHS:
+        t0 = time.perf_counter()
+        if isinstance(size, str):
+            sim = make_case(tmp, *SIZES[size], torch.float32, "cuda",
+                            implicit=venk, species="5", **kw)
+        else:
+            sim = make_case(tmp, *size[:2], torch.float32, "cuda",
+                            implicit=venk, nz=size[2], box=True,
+                            species="5", **kw)
+        key = f"{sim.mesh.npoint} {label}"
+        phase("widths", f"{key}: v = {sim.lay.nvar}, stencil "
+              f"{sim.mesh.stencil_offsets}, {sim.ncolor} sweep colors, "
+              f"built in {time.perf_counter() - t0:.1f} s")
+        out[key] = (sim, niter, stencil)
+    return out
+
+
+def widths_phase(msims, report):
+    """K5 and K6 through their run-time-width instance against their plain
+    versions, in f64, f32 and mixed: band systems with round-robin colors
+    at every width of RUNTIME_WIDTHS (band_offsets; 20,000 nodes and
+    times at RUNTIME_TIMED's widths, the others 4,000 nodes, checked
+    only) and the flow systems
+    the 5-species cases assemble (mixture_cases: K6 where the flow's solve
+    is one cycle, on the channel's 9,072 nodes and the box's 8,000, K5's
+    three modes on the channel's 142,317 and the box's 136,161); then the
+    run-time instance at the compiled widths 8 and 13 against the compiled
+    one (runtime_vs_compiled)."""
+    every = ("float64", "float32", "mixed")
+    modes = ("sgs_matvec", "sgs", "matvec")
+    systems = {}
+    for key, (sim, _, _) in msims.items():
+        if not (sim.turbulent and key.endswith(" implicit LU_SGS")) \
+                or sim.mesh.npoint == TIER_N:
+            continue
+        one = flow_one_launch(sim)
+        rec = capture_systems(sim)[sim.lay.nvar]
+        name = (f"flow{'3d' if sim.lay.ndim == 3 else ''}{sim.mesh.npoint} "
+                f"v{sim.lay.nvar}")
+        systems[name] = (
+            lambda var, sim=sim, rec=rec: system_operands(sim, rec, var),
+            {} if one else dict.fromkeys(every, modes), one)
+    for v in RUNTIME_WIDTHS:
+        n = 20000 if f"band{v}" in RUNTIME_TIMED else 4000
+        systems[f"band{v}"] = (
+            lambda var, v=v, n=n: band_operands(v, band_offsets(v), var,
+                                                n=n),
+            dict.fromkeys(every, modes), True)
+    stencil_checks(systems, report, timed={name for name in systems
+                                           if not name.startswith("band")}
+                   | set(RUNTIME_TIMED))
+    runtime_vs_compiled(report)
+
+
+def runtime_vs_compiled(report):
+    """The run-time-width instance (runtime=True) at the compiled widths 8
+    (the box's 6 offsets) and 13 (the channel's 4) against the compiled
+    instance on one band system (20,000 nodes, 4 colors) in the solve
+    path's layouts, f64, f32 and mixed: K5 (z, A z) bit for bit, K6's
+    FGMRES(10) cycle (tol 1e-6) with equal iterations and x within
+    k6_check's pins of the compiled x; both instances' times and K6's
+    grids."""
+    import torch
+    from su2_tpu_torch import kernels
+    out = report.setdefault("runtime_vs_compiled", {})
+    for v, offsets in ((8, BOX_BAND), (13, (-9, -1, 1, 9))):
+        for var in ("float64", "float32", "mixed"):
+            args, _, b = band_operands(v, offsets, var)
+            n = b.shape[0]
+            lay = solve_layout(args)
+            k5 = lambda rt: kernels.stencil_sgs_matvec(
+                **dict(args, **lay), r=b, runtime=rt)
+            (z0, w0), (z1, w1) = k5(False), k5(True)
+            torch.cuda.synchronize()
+            if not (torch.equal(z0, z1) and torch.equal(w0, w1)):
+                raise AssertionError(
+                    f"runtime vs compiled K5 v = {v} {var}: max difference "
+                    f"{max((z0 - z1).abs().max().item(), (w0 - w1).abs().max().item()):.3e}")
+            k5_ms = [cuda_time(lambda rt=rt: k5(rt)) for rt in (False, True)]
+            lay1 = solve_layout(args, one_launch=True)
+            k6 = lambda rt: kernels.stencil_fgmres(
+                **dict(args, **lay1), b=b, m=KRYLOV_M, tol=1e-6, runtime=rt)
+            (x0, _, it0), (x1, _, it1) = k6(False), k6(True)
+            torch.cuda.synchronize()
+            scale = max(x0.abs().max().item(), 1e-300)
+            diff = (x1.double() - x0.double()).abs()
+            ok = (bool((diff <= 1e-9 * x0.double().abs() + 1e-12 * scale)
+                       .all()) if var == "float64"
+                  else diff.max().item() <= 2e-5 * scale)
+            if int(it0) != int(it1) or not ok:
+                raise AssertionError(
+                    f"runtime vs compiled K6 v = {v} {var}: iterations "
+                    f"{int(it1)} / {int(it0)}, max difference "
+                    f"{diff.max().item():.3e} (x scale {scale:.3e})")
+            k6_ms = [cuda_time(lambda rt=rt: k6(rt), reps=10)
+                     for rt in (False, True)]
+            sel_bf16 = var == "mixed"
+            grids = [kernels.stencil_fgmres_grid(b.dtype, sel_bf16, v, n,
+                                                 KRYLOV_M, runtime=rt)
+                     for rt in (False, True)]
+            phase("widths", f"run-time instance at v = {v} {var} ({n} "
+                  f"nodes): K5 (z, A z) bit for bit the compiled "
+                  f"instance's, {k5_ms[1]:.4f} ms against {k5_ms[0]:.4f}; "
+                  f"K6 {int(it1)} iterations as the compiled, x within "
+                  f"{diff.max().item() / scale:.2e} of max|x|, "
+                  f"{k6_ms[1]:.4f} ms against {k6_ms[0]:.4f} (grids "
+                  f"{grids[1]} / {grids[0]} blocks)")
+            out[f"v{v} {var}"] = dict(
+                k5_ms=k5_ms[1], k5_compiled_ms=k5_ms[0], k6_ms=k6_ms[1],
+                k6_compiled_ms=k6_ms[0], k6_max_rel_diff=diff.max().item()
+                / scale, k6_grid=grids[1], k6_compiled_grid=grids[0])
+
+
+def mixture_graphs(msims):
+    """(label, sim) of MIXTURE_PATHS for graph_phase."""
+    return tuple((f"5 species: {key}", sim)
+                 for key, (sim, _, _) in msims.items())
+
+
+def mixture_slices(card, runs, msims):
+    """MIXTURE_PATHS through slice_phase, float32, timed and profiled (with
+    the device ms of each stage); each case dropped after its run."""
+    import torch
+    for key in list(msims):
+        sim, niter, stencil = msims.pop(key)
+        prec = (sim.cfg.linear_solver if sim.cfg.linear_solver == "BCGSTAB"
+                else sim.cfg.linear_solver_prec)
+        if stencil is None:
+            stencil = stencil_per_iter(sim, prec)
+        runs.append((key, slice_phase(sim, key, niter, card, prec=prec,
+                                      profile=True, stencil=stencil), niter))
+        del sim
+        torch.cuda.empty_cache()
+
+
 def bsr_time(args, r, n, v):
     """(ms, label) of torch.sparse.mm on the matvec operator as a BSR
     tensor with v x v blocks, the yardstick of the matvec; (None, what it
@@ -2065,7 +2292,7 @@ def bsr_time(args, r, n, v):
     return ms, f" torch.sparse.mm (BSR) {ms:.4f} ms"
 
 
-def k6_check(sname, var, args, r, b, report):
+def k6_check(sname, var, args, r, b, report, timed=True):
     """K6 against the plain FGMRES(10) over the plain sweep: equal
     iterations; f64 x within rtol 1e-9 and atol 1e-12 of max|x|, rel
     within rtol 1e-8 (atol 1e-15); f32 and mixed x within 2e-5 of max|x|
@@ -2073,7 +2300,7 @@ def k6_check(sname, var, args, r, b, report):
     Cases: tol 1e-6, tol 1e-12 (all iterations in f32), the unit right
     side r times 1e18 (the pow2 scaling; b itself may reach 1e21 in f32)
     and, in f64, b = 0 (in f32 the reference's 1e-300 floor rounds to 0
-    and its cycle divides 0 by 0)."""
+    and its cycle divides 0 by 0).  timed=False: the checks only."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import stencil_solve as ts
@@ -2117,6 +2344,11 @@ def k6_check(sname, var, args, r, b, report):
         iters.append(int(it))
     grid = kernels.stencil_fgmres_grid(
         b.dtype, args["selp_t"].dtype == torch.bfloat16, v, n, KRYLOV_M)
+    if not timed:
+        phase("stencil", f"K6 {sname} {var}: iterations {iters} equal to the "
+              f"plain version's, max error {err:.2e} of max|x|; "
+              f"{k6_launch(v, grid)} (v = {v})")
+        return
     kfn = lambda: kernels.stencil_fgmres(**dict(args, **lay), b=b,
                                          m=KRYLOV_M, tol=1e-6)
     pfn = lambda: ts.fgmres_plain(**args, b=b, m=KRYLOV_M, tol=1e-6)
@@ -2132,7 +2364,8 @@ def k6_check(sname, var, args, r, b, report):
           f" {k6_barriers(args['ncolor'], KRYLOV_M)} barriers; "
           f"{k6_launch(v, grid)} (v = {v}); sweep blocks "
           + ("color-major" if lay["color_major"] else "natural"))
-    report.setdefault("stencil_fgmres", {})[(sname, var)] = dict(
+    report.setdefault(stencil_report("stencil_fgmres", v), {})[
+        (sname, var)] = dict(
         max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
         bound_by=bound[1], library_ms=None,
         barriers=k6_barriers(args["ncolor"], KRYLOV_M), grid=grid)
@@ -2215,6 +2448,9 @@ def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
         what += f", {prec}"
     if fused:
         what += ", the fused SST assembly (K12)"
+    if species is not None and box is None:
+        what += (f", {sim.lay.ns} species (v = {sim.lay.nvar}: "
+                 f"{stencil_per_iter(sim, prec)} per iteration)")
     if tri:
         what = ("the triangle channel (no static stencil: K13, the SST "
                 "solve's LU_SGS in torch gather ops)")
@@ -2449,9 +2685,12 @@ def step_checks(tmp):
     implicit LU_SGS and explicit LU_SGS (TET_STEP), the triangle
     channel's implicit LU_SGS and LINELET, the 3D box's implicit RANS and
     laminar LU_SGS (BOX_STEP), the triangle channel's laminar implicit
-    JACOBI and explicit LU_SGS, then the channel's (9,072 nodes)."""
+    JACOBI and explicit LU_SGS, then the channel's (9,072 nodes); the
+    5-species box's and channel's implicit LU_SGS steps (K5/K6's run-time
+    width: v = 10 and 9) among them."""
     venk = IMPLICIT_VARIANTS["venkatakrishnan"]
     step_phase(tmp, implicit=venk, prec="LU_SGS", tet=TET_STEP)
+    step_phase(tmp, implicit=venk, prec="LU_SGS", box=BOX_STEP, species="5")
     step_phase(tmp, implicit=venk, prec="LU_SGS", tri=True)
     step_phase(tmp, tet=TET_STEP)
     step_phase(tmp, implicit=venk, prec="LINELET", tri=True)
@@ -2461,6 +2700,7 @@ def step_checks(tmp):
     step_phase(tmp, tri=True)
     step_phase(tmp, fused=True)
     step_phase(tmp, implicit=venk, prec="LU_SGS", fused=True)
+    step_phase(tmp, implicit=venk, prec="LU_SGS", species="5")
     laminar_step_phase(tmp)
     laminar_step_phase(tmp, implicit=venk, prec="LU_SGS")
     laminar_step_phase(tmp, implicit=venk, tier=True)
@@ -2908,6 +3148,10 @@ def graph_check(sim, label, niter=5):
     return per
 
 
+# iterations of each graph_phase check (replays against eager iterations)
+GRAPH_NITER = 2
+
+
 def graph_phase(tmp, sims, lusgs, lam, tri, seen, gather=()):
     """graph_check, float32, on the paths that together launch every
     kernel: explicit LU_SGS at 9,072 nodes (T1-T4, K6 as one cluster at
@@ -2932,18 +3176,17 @@ def graph_phase(tmp, sims, lusgs, lam, tri, seen, gather=()):
                        ("implicit LU_SGS", lusgs["scaling"]),
                        ("explicit LU_SGS, the >= 200k-node tier",
                         sims["tier"])) + tuple(gather):
-        # the gather paths' eager steps are the slowest: 2 iterations
-        seen |= set(graph_check(sim, label, 2 if (label, sim) in gather
-                                else 3))
+        seen |= set(graph_check(sim, label, GRAPH_NITER))
         sim.drop_graph()
     seen |= set(graph_check(make_case(
         tmp, *SIZES["flagship"], torch.float32, "cuda",
-        total_conditions=True), "explicit LU_SGS, TOTAL_CONDITIONS inlet"))
+        total_conditions=True), "explicit LU_SGS, TOTAL_CONDITIONS inlet",
+        GRAPH_NITER))
     os.environ["SU2_TPU_SST_ASSEMBLE"] = "pallas"
     try:
         seen |= set(graph_check(make_case(
             tmp, *SIZES["flagship"], torch.float32, "cuda"),
-            "explicit LU_SGS, fused SST assembly"))
+            "explicit LU_SGS, fused SST assembly", GRAPH_NITER))
     finally:
         del os.environ["SU2_TPU_SST_ASSEMBLE"]
         sst.set_assemble_mode("unfused")
@@ -3086,7 +3329,7 @@ def options_phase(tmp, runs):
 
 
 def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
-                stats=None, prof_iters=1):
+                stats=None, prof_iters=1, stencil=None):
     """Time niter iterations of Simulation.run (chunks of 25: replays of
     the step's CUDA graph) after a 2-iteration warm-up (which captures
     it), then the same iterations through the eager step from the same
@@ -3095,7 +3338,9 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     eager step's), print one line; profile: also prof_iters profiled eager
     iterations and as many profiled replays (1 by default: reading a
     profile's events takes seconds, and the run's time limit holds every
-    slice).
+    slice); stencil: the K5/K6 launches per iteration the run must show,
+    where the size's table or the solves' tiers (stencil_per_iter) do not
+    give them (BCGSTAB, LINELET).
     The graph is dropped at the end.  Returns the
     launch counts of the graph run; stats, a dict, receives ms/iter
     (graph and eager) and the profiles' launches, kernels, API calls and
@@ -3173,6 +3418,7 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
     table = (LAMINAR_STENCIL_PER_ITER if lam else
              IMPLICIT_STENCIL_PER_ITER if imp else STENCIL_PER_ITER)
     per = ({k: 0 for k in table["flagship"]} if tri
+           else dict(stencil) if stencil is not None
            else dict(table[size]) if size in table
            else stencil_per_iter(sim, "LU_SGS"))
     if fused:
@@ -3183,7 +3429,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
         per["stencil_fgmres"] += one
         per["stencil_sgs_matvec"] += KRYLOV_M * (not one)
     for k, per_iter in per.items():
-        want_k = per_iter * niter if prec == "LU_SGS" else 0
+        want_k = per_iter * niter if prec == "LU_SGS" or stencil is not None \
+            else 0
         if counts[k] != want_k:
             raise AssertionError(f"{size} {prec}: {k} launched {counts[k]} "
                                  f"times in {niter} iterations, expected "
@@ -3242,6 +3489,8 @@ def slice_phase(sim, size, niter, card, prec="LU_SGS", profile=False,
         prec = f"{prec}, {shape} ({sim.mesh.nedge} edges, {kern})"
     elif sim.lay.ndim == 3:
         prec = f"{prec}, 3D box, {sim.lay.ns} species (v = {sim.lay.nvar})"
+    elif sim.lay.ns != 9:
+        prec = f"{prec}, {sim.lay.ns} species (v = {sim.lay.nvar})"
     phase("slice", f"{n} nodes {dt} {prec} x {niter}: graph {ms:.3f} "
           f"ms/iter, eager {eager_ms:.3f} ms/iter, {n / (ms * 1e3):.3f} "
           f"Mcell-updates/s, log10 rms[rho] {hist[0][0]:.4f} -> "
@@ -4297,6 +4546,19 @@ def sass_listings(root, srcs):
     return out
 
 
+def sass_rec(ins, other):
+    """Whether the SASS instructions ins equal other's, their counts and,
+    where they differ, the first difference [index, ins's, other's]."""
+    rec = dict(identical=other == ins, instructions=len(ins),
+               other=len(other))
+    if other and other != ins:
+        short = min(len(ins), len(other))
+        i = next((k for k in range(short) if ins[k] != other[k]), short)
+        at = lambda x: x[i] if i < len(x) else None
+        rec["first_difference"] = [i, at(ins), at(other)]
+    return rec
+
+
 def sass_2d_diff(other):
     """{kernel: whether its SASS equals the other checkout's} for the 2D
     instances of SASS_2D_SOURCES: this checkout's kernel<T, 2, rest>
@@ -4310,18 +4572,66 @@ def sass_2d_diff(other):
         if not m:
             continue
         old = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
-        other = theirs.get(old, [])
-        rec = out[name] = dict(identical=other == ins,
-                               instructions=len(ins), other=len(other))
-        if other and other != ins:
-            short = min(len(ins), len(other))
-            i = next((k for k in range(short) if ins[k] != other[k]), short)
-            at = lambda x: x[i] if i < len(x) else None
-            rec["first_difference"] = [i, at(ins), at(other)]
+        out[name] = sass_rec(ins, theirs.get(old, []))
     if not out or not all(r["other"] for r in out.values()):
         raise AssertionError(f"sass: 2D instances unmatched in {other}: "
                              f"{sorted(out)}")
     return out
+
+
+def sass_same_names(other, srcs):
+    """{kernel: whether its SASS equals the other checkout's kernel of the
+    same name} for every kernel of srcs in the other checkout (the
+    compiled instances of both), instruction by instruction."""
+    mine = sass_listings(HERE, srcs)
+    return {name: sass_rec(mine.get(name, []), ins)
+            for name, ins in sass_listings(other, srcs).items()}
+
+
+def stencil_bitwise(other, okern, result):
+    """K5 (z, A z; the sweep only; the matvec only) and K6 (one FGMRES(10)
+    cycle, tol 1e-6) at every compiled width (kernels.STENCIL_WIDTHS) on
+    band systems (band_operands, 20,000 nodes, band_offsets' rule; the
+    solve path's layouts), f64, f32 and mixed, against the other
+    checkout's (okern) bit for bit, into result; and the SASS of every
+    compiled K5/K6 instance against the other's (sass_same_names)."""
+    import torch
+    from su2_tpu_torch import kernels
+    flat = lambda out: torch.cat([t.double().flatten() for t in out
+                                  if t is not None])
+    for v in kernels.STENCIL_WIDTHS:
+        for var in ("float64", "float32", "mixed"):
+            args, _, b = band_operands(v, band_offsets(v), var)
+            lay = solve_layout(args)
+            for mode, sweep, matvec in (("sgs_matvec", True, True),
+                                        ("sgs", True, False),
+                                        ("matvec", False, True)):
+                if mode == "matvec" and var == "mixed":
+                    continue
+                a, c = (flat(k.stencil_sgs_matvec(
+                    **dict(args, **lay), r=b, sweep=sweep, matvec=matvec))
+                    for k in (kernels, okern))
+                result[f"K5 {mode} v{v} {var}"] = bit_diff(a, c)
+            lay1 = solve_layout(args, one_launch=True)
+            a, c = (flat(k.stencil_fgmres(**dict(args, **lay1), b=b,
+                                          m=KRYLOV_M, tol=1e-6))
+                    for k in (kernels, okern))
+            result[f"K6 v{v} {var}"] = bit_diff(a, c)
+    torch.cuda.synchronize()
+    result["sass_stencil"] = sass_same_names(other, ["stencil_solve.cu"])
+
+
+def stencil_bitwise_main(other):
+    """--bitwise-stencil DIR: stencil_bitwise alone; one JSON line."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "other_kernels", os.path.join(other, "su2_tpu_torch", "kernels.py"))
+    okern = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(okern)
+    result = dict(other=other, card=card_line())
+    stencil_bitwise(other, okern, result)
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def bitwise_main(other):
@@ -4416,6 +4726,7 @@ def bitwise_main(other):
                        f"{dt}"] = bit_diff(a, b)
     torch.cuda.synchronize()
     result["sass_2d"] = sass_2d_diff(other)
+    stencil_bitwise(other, okern, result)
     print(json.dumps(result), flush=True)
     return 0
 
@@ -4660,6 +4971,10 @@ def main():
     ap.add_argument("--bitwise", metavar="DIR",
                     help="K7, T4 and K13 against those of the checkout "
                     "DIR, bit for bit (bitwise_main)")
+    ap.add_argument("--bitwise-stencil", metavar="DIR",
+                    help="K5 and K6 at their compiled widths against those "
+                    "of the checkout DIR, bit for bit, and their SASS "
+                    "(stencil_bitwise_main)")
     ap.add_argument("--only", default=",".join(sorted(TIMED)),
                     help="--time-kernels: the kernels to time, a comma "
                     "list of " + ", ".join(sorted(TIMED)))
@@ -4690,6 +5005,8 @@ def main():
         return options_time_main(root)
     if opt.bitwise:
         return bitwise_main(os.path.abspath(opt.bitwise))
+    if opt.bitwise_stencil:
+        return stencil_bitwise_main(os.path.abspath(opt.bitwise_stencil))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -4819,6 +5136,12 @@ def smoke_phases(tmp, card, report, niters):
     # the 3D implicit flow: K10 and K11 in 3D, K5/K6 at v = 14 and 8;
     # its cases serve the graph phase and the box slices at the end of 6
     box = box_phase(tmp, report)
+    # the implicit flow at 5 species: K5/K6's run-time-width instance on
+    # band systems at every width it serves and on the 5-species flow
+    # systems, and against the compiled instance at 8 and 13; its cases
+    # serve the graph phase and the mixture slices at the end of 6
+    msims = mixture_cases(tmp)
+    widths_phase(msims, report)
     # T3/K8/K13, K10 and K11 at shapes outside their compiled lists
     shape_phase(tmp, report)
     # each run: (label, launch counts, iterations)
@@ -4836,7 +5159,7 @@ def smoke_phases(tmp, card, report, niters):
         ("triangles, laminar implicit JACOBI", lam_tri["implicit"]),
         ("tetrahedra, explicit LU_SGS", make_case(
             tmp, *TET_STEP[:2], torch.float32, "cuda",
-            nz=TET_STEP[2]))) + box_graphs(box)
+            nz=TET_STEP[2]))) + box_graphs(box) + mixture_graphs(msims)
     graph_phase(tmp, sims, lusgs, lam, tri, seen, gather)
     del gather
     # the step checks' CPU halves, before the timed runs
@@ -4942,6 +5265,8 @@ def smoke_phases(tmp, card, report, niters):
     # the 3D implicit flow's slices (K10 in 3D, K5/K6 at v = 14 and 8,
     # K7 at 262,701 nodes, K11 in 3D), profiled by stage
     box_slices(tmp, card, runs, box)
+    # the 5-species paths (K5/K6's run-time width), profiled by stage
+    mixture_slices(card, runs, msims)
     # solution output, restart and force monitoring between chunks
     output_phase(tmp, card, sims["tier"])
 
@@ -4957,6 +5282,9 @@ def smoke_phases(tmp, card, report, niters):
     # pass and node sums, each also on its own)
     main_use = {"stencil_sgs_matvec": ("flow142317", "mixed", "sgs_matvec"),
                 "stencil_fgmres": ("flow9072", "mixed"),
+                "stencil_runtime_sgs_matvec": ("flow142317 v9", "mixed",
+                                               "sgs_matvec"),
+                "stencil_runtime_fgmres": ("flow9072 v9", "mixed"),
                 "gradient_rows": "float32 WLS",
                 "edge_implicit": "float32 9072 venkatakrishnan",
                 "ausm_flux_jac": "float32 9072 feature-major",
@@ -4964,6 +5292,7 @@ def smoke_phases(tmp, card, report, niters):
                 "edge_list_flux": "float32 9072"}
     sst_use = {"stencil_sgs_matvec": ("sst142317", "mixed", "sgs_matvec"),
                "stencil_fgmres": ("sst9072", "float32")}
+    from su2_tpu_torch import kernels
     rows = []
     for name, (src, repl) in KERNELS.items():
         rec = dict(report[name][main_use.get(name, "float32")])
@@ -5011,6 +5340,21 @@ def smoke_phases(tmp, card, report, niters):
                                                     "sgs_matvec")]
             row["matvec_only_at_tier"] = report[name][
                 (f"flow{TIER_N}", "float32", "matvec")]
+        if name.startswith("stencil_"):
+            row["widths"] = (list(RUNTIME_WIDTHS) if "runtime" in name
+                             else list(kernels.STENCIL_WIDTHS))
+        if name.startswith("stencil_runtime_"):
+            # band systems (RUNTIME_TIMED's widths), the run-time instance
+            # at 8 and 13 against the compiled one, and its launches in
+            # the 5-species runs
+            row["bands"] = {" ".join(map(str, k)): v
+                            for k, v in report[name].items()
+                            if str(k[0]).startswith("band")}
+            row["runtime_vs_compiled"] = report["runtime_vs_compiled"]
+        if name == "stencil_runtime_sgs_matvec":
+            mv = report[name][("flow142317 v9", "float32", "matvec")]
+            row["matvec_only"] = {k: mv[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "library")}
         if name == "edge_win":
             row["edge_evaluations_per_call"] = report[name][
                 "edge_evaluations_per_call"]

@@ -42,7 +42,7 @@
 // stencil_solve.color_order), so the nodes of its color are a contiguous run
 // of lanes; the other lanes copy z_old (the two-buffer rule: masks that are
 // not a proper coloring give the reference's numbers too, with no race).  At
-// V = 7 and 13 every 32 lanes are V warps, warp a forming row a of the 32
+// V >= 4 every 32 lanes are V warps, warp a forming row a of the 32
 // nodes' block products: each block-row load is one coalesced read, a thread
 // holds no V-vector and has ~K V independent loads in flight, and the
 // node-major vectors are staged through shared memory (the former design ran
@@ -61,10 +61,18 @@
 //
 // Widths: V = 2 (the SST system), 3, and 7, 8, 13, 14 (the flow's nDim +
 // nSpecies + 2 of the 3-species flat plate and the 9-species channel, in
-// 2D and 3D), one template instance each; another width is refused.  Every per-node V-vector (r, z,
-// the products) of K6 is a register array indexed only by unrolled loops,
-// so it stays out of local memory; the V x V blocks are streamed, never
-// held.
+// 2D and 3D), one template instance each; every other width from 4 to
+// SU2K_VMAX = 21 (the flow's nDim + nSpecies + 2 up to 3D and 16 species)
+// runs the run-time instance V = 0 of the warp-per-row kernels (K5's pass
+// and matvec, K6's rows form), its width a kernel argument; another width
+// is refused.  Every per-node V-vector (r, z, the products) of K6's
+// cluster form (V <= 3) is a register array indexed only by unrolled
+// loops, so it stays out of local memory; the V x V blocks are streamed,
+// never held.  The warp-per-row kernels hold no V-vector: a thread forms
+// one block row, its loop over b unrolled to V (to SU2K_VMAX under a
+// b < v guard in the run-time instance), in the same order at every
+// width, so the run-time instance at a compiled width sums as the
+// compiled one does.
 //
 // K6: at m = 10, nc = 2 a cycle has 2 + m (2nc + 1) + m (m - 1)/2 = 97
 // barriers across the whole launch (sweep passes, one fused
@@ -76,7 +84,7 @@
 // threads at 9,072 nodes); at V = 13 the work of a phase did (~22 us a
 // phase with a thread per node, each thread streaming its K V^2 block
 // values one after the other).
-// Design K6 at V = 7 and 13 (fgmres_rows_kernel): one cooperative grid of
+// Design K6 at V >= 4 (fgmres_rows_kernel): one cooperative grid of
 // co-resident blocks (cudaLaunchCooperativeKernel), cg::this_grid().sync()
 // as the barrier, K5's warp per block row over the color-major node list,
 // the grid as many blocks as fit on every SM at once (one per 32-node
@@ -115,6 +123,7 @@
 namespace cg = cooperative_groups;
 
 #define SU2K_MAXK 8       // stencil offsets (geometry/stencil.py MAX_OFFSETS)
+#define SU2K_VMAX 21      // widest block of the run-time instance
 #define SU2K_FG_CLUSTER_THREADS 1024
 
 namespace su2k {
@@ -212,19 +221,34 @@ __device__ __forceinline__ void matvec_at(const T* __restrict__ selm,
 // node-major) are staged through shared memory first, one element per
 // thread (32 V elements of each vector for V x 32 threads), and the row
 // results are exchanged there before the dinv product.
-// groups per block: as many as fit the kernels' bound of 512 threads
-// (8 at V = 2, 1 at V = 13)
-template <int V>
-__host__ __device__ constexpr int k5_groups() {
-  return 512 / (32 * V);
+// groups per block at width v: as many as fit 512 threads (8 at V = 2, 1
+// at V = 13); past 16 one group of 32 v threads (544 to 672)
+__host__ __device__ constexpr int k5_groups(int v) {
+  return v > 16 ? 1 : 512 / (32 * v);
+}
+
+// the thread bound of K5's warp-per-row kernels: 512 at a compiled width,
+// 32 SU2K_VMAX for the run-time instance (V = 0)
+__host__ __device__ constexpr int k5_bound(int V) {
+  return V ? 512 : 32 * SU2K_VMAX;
 }
 
 // shared memory of a K5 block: per group K staged neighbour vectors, r
-// (or z itself in the matvec) and the rows' results, each 32 x V; at most
-// 40 KB (V = 2, K = 8, double), under the 48 KB a launch gets unasked
-template <typename T, int V>
-size_t k5_smem(int k) {
-  return (size_t)k5_groups<V>() * (k + 2) * 32 * V * sizeof(T);
+// (or z itself in the matvec) and the rows' results, each 32 x v; at most
+// 40 KB at v <= 16 (K = 8, double), under the 48 KB a launch gets unasked,
+// and up to 52.5 KB at v = 21 (k5_launch_smem asks for it)
+template <typename T>
+size_t k5_smem(int v, int k) {
+  return (size_t)k5_groups(v) * (k + 2) * 32 * v * sizeof(T);
+}
+
+// kern's dynamic shared memory past the 48 KB a launch gets unasked
+// (only the run-time instance's widest f64 blocks need it)
+template <typename K>
+cudaError_t k5_launch_smem(K* kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // One color pass over the color-major node list: lane i is node
@@ -233,33 +257,35 @@ size_t k5_smem(int k) {
 // its sweep blocks and dinv sit at lane i (cm: the color-major copy) or at
 // lane p (the natural layout).  Any other lane copies z_old[p] (0 in the
 // first pass), the two-buffer rule.  Row a's sums run in the order of the
-// other kernels (offdiag_at, bapply_at).
+// other kernels (offdiag_at, bapply_at).  V = 0: the run-time instance,
+// its width vrt (ignored at a compiled width).
 template <typename T, typename S, int V>
-__global__ void __launch_bounds__(512, 2)
+__global__ void __launch_bounds__(k5_bound(V), 2)
 sgs_pass_kernel(int n, Stencil st, int color, int first, int cm,
                 const S* __restrict__ selp, const T* __restrict__ dinv,
                 const int8_t* __restrict__ colors,
                 const int* __restrict__ order, const T* __restrict__ r,
-                const T* zold, T* znew) {
+                const T* zold, T* znew, int vrt) {
   extern __shared__ __align__(16) unsigned char k5_raw[];
+  const int v = V ? V : vrt;
   const int l = threadIdx.x, a = threadIdx.y, g = threadIdx.z;
   const int k = st.k;
-  T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * V;
-  T* gr = gx + (size_t)k * 32 * V;     // r of the group's nodes
-  T* gacc = gr + 32 * V;               // r - sum_k B_k z_old, by row
-  const int i0 = (blockIdx.x * k5_groups<V>() + g) * 32;
+  T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * v;
+  T* gr = gx + (size_t)k * 32 * v;     // r of the group's nodes
+  T* gacc = gr + 32 * v;               // r - sum_k B_k z_old, by row
+  const int i0 = (blockIdx.x * k5_groups(v) + g) * 32;
   {
-    // stage: element e = (node e / V, entry e % V) of each vector
-    const int e = a * 32 + l, ls = e / V, b = e - ls * V;
+    // stage: element e = (node e / v, entry e % v) of each vector
+    const int e = a * 32 + l, ls = e / v, b = e - ls * v;
     const int is = i0 + ls;
     if (is < n) {
       const int ps = order[is];
       if (colors[ps] == color) {
-        gr[e] = r[(size_t)ps * V + b];
+        gr[e] = r[(size_t)ps * v + b];
         for (int kk = 0; kk < k && !first; ++kk) {
           const int q = ps + st.off[kk];
-          gx[kk * 32 * V + e] =
-              q < 0 || q >= n ? (T)0 : zold[(size_t)q * V + b];
+          gx[kk * 32 * v + e] =
+              q < 0 || q >= n ? (T)0 : zold[(size_t)q * v + b];
         }
       }
     }
@@ -270,63 +296,65 @@ sgs_pass_kernel(int n, Stencil st, int color, int first, int cm,
   const bool mine = i < n && colors[p] == color;
   const int lane = cm ? i : p;
   if (mine) {
-    T acc = gr[l * V + a];
+    T acc = gr[l * v + a];
     if (!first) {
       T od = (T)0;
       for (int kk = 0; kk < k; ++kk) {
         const int q = p + st.off[kk];
         if (q < 0 || q >= n) continue;
-        const S* blk = selp + ((size_t)kk * V * V + a * V) * n + lane;
-        const T* x = gx + kk * 32 * V + l * V;
+        const S* blk = selp + ((size_t)kk * v * v + a * v) * n + lane;
+        const T* x = gx + kk * 32 * v + l * v;
         T y = (T)0;
 #pragma unroll
-        for (int b = 0; b < V; ++b)
-          y += widen<T, S>(blk[(size_t)b * n]) * x[b];
+        for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
+          if (V || b < v) y += widen<T, S>(blk[(size_t)b * n]) * x[b];
         od += y;
       }
       acc = acc - od;
     }
-    gacc[l * V + a] = acc;
+    gacc[l * v + a] = acc;
   }
   __syncthreads();
   if (i < n) {
     T zn;
     if (mine) {
-      const T* dr = dinv + (size_t)a * V * n + lane;
+      const T* dr = dinv + (size_t)a * v * n + lane;
       zn = (T)0;
 #pragma unroll
-      for (int b = 0; b < V; ++b) zn += dr[(size_t)b * n] * gacc[l * V + b];
+      for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
+        if (V || b < v) zn += dr[(size_t)b * n] * gacc[l * v + b];
     } else {
-      zn = first ? (T)0 : zold[(size_t)p * V + a];
+      zn = first ? (T)0 : zold[(size_t)p * v + a];
     }
-    znew[(size_t)p * V + a] = zn;
+    znew[(size_t)p * v + a] = zn;
   }
 }
 
 // w[p] = diag[p] z[p] + sum_k B_k[p] z[p + o_k], natural layout; the
 // group's 32 nodes are consecutive, so each staged vector is one
-// contiguous run of 32 V entries
+// contiguous run of 32 v entries; V = 0 as in sgs_pass_kernel
 template <typename T, int V>
-__global__ void __launch_bounds__(512, 2)
+__global__ void __launch_bounds__(k5_bound(V), 2)
 matvec_kernel(int n, Stencil st, const T* __restrict__ selm,
               const T* __restrict__ diag, const T* __restrict__ x,
-              T* __restrict__ y) {
+              T* __restrict__ y, int vrt) {
   extern __shared__ __align__(16) unsigned char k5_raw[];
+  const int v = V ? V : vrt;
   const int l = threadIdx.x, a = threadIdx.y, g = threadIdx.z;
   const int k = st.k;
-  T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * V;
-  T* gz = gx + (size_t)k * 32 * V;     // z of the group's own nodes
-  const int p0 = (blockIdx.x * k5_groups<V>() + g) * 32;
+  T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * v;
+  T* gz = gx + (size_t)k * 32 * v;     // z of the group's own nodes
+  const int p0 = (blockIdx.x * k5_groups(v) + g) * 32;
   {
     const int e = a * 32 + l;
-    const int ps = p0 + e / V;
+    const int ps = p0 + e / v;
     if (ps < n) {
-      gz[e] = x[(size_t)p0 * V + e];
+      gz[e] = x[(size_t)p0 * v + e];
       for (int kk = 0; kk < k; ++kk) {
         const int q = ps + st.off[kk];
-        gx[kk * 32 * V + e] =
-            q < 0 || q >= n ? (T)0 : x[(size_t)p0 * V + e
-                                       + (ptrdiff_t)st.off[kk] * V];
+        gx[kk * 32 * v + e] =
+            q < 0 || q >= n ? (T)0 : x[(size_t)p0 * v + e
+                                       + (ptrdiff_t)st.off[kk] * v];
       }
     }
   }
@@ -337,18 +365,20 @@ matvec_kernel(int n, Stencil st, const T* __restrict__ selm,
   for (int kk = 0; kk < k; ++kk) {
     const int q = p + st.off[kk];
     if (q < 0 || q >= n) continue;
-    const T* blk = selm + ((size_t)kk * V * V + a * V) * n + p;
-    const T* xq = gx + kk * 32 * V + l * V;
+    const T* blk = selm + ((size_t)kk * v * v + a * v) * n + p;
+    const T* xq = gx + kk * 32 * v + l * v;
     T t = (T)0;
 #pragma unroll
-    for (int b = 0; b < V; ++b) t += blk[(size_t)b * n] * xq[b];
+    for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
+      if (V || b < v) t += blk[(size_t)b * n] * xq[b];
     od += t;
   }
-  const T* dr = diag + (size_t)a * V * n + p;
+  const T* dr = diag + (size_t)a * v * n + p;
   T w = (T)0;
 #pragma unroll
-  for (int b = 0; b < V; ++b) w += dr[(size_t)b * n] * gz[l * V + b];
-  y[(size_t)p * V + a] = w + od;
+  for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
+    if (V || b < v) w += dr[(size_t)b * n] * gz[l * v + b];
+  y[(size_t)p * v + a] = w + od;
 }
 
 // V <= 3: one thread per lane holds its node's V-vectors in registers (a
@@ -402,18 +432,24 @@ __global__ void matvec_lane_kernel(int n, Stencil st,
   for (int a = 0; a < V; ++a) y[(size_t)p * V + a] = w[a];
 }
 
+// K5 at width v: V its compiled instance, or 0 for the run-time one
 template <typename T, typename S, int V>
-int launch_sgs_matvec(int n, const Stencil& st, int ncolor, int do_sweep,
-                      int do_matvec, int cm, const S* selp, const T* selm,
-                      const T* dinv, const T* diag, const int8_t* colors,
-                      const int* order, const T* r, T* z, T* w, T* zbuf,
-                      cudaStream_t stream) {
-  constexpr bool ROWS = V > 3;        // a warp per block row
-  constexpr int G = ROWS ? k5_groups<V>() : 8;
-  const dim3 threads = ROWS ? dim3(32, V, G) : dim3(32 * G);
+int launch_sgs_matvec(int v, int n, const Stencil& st, int ncolor,
+                      int do_sweep, int do_matvec, int cm, const S* selp,
+                      const T* selm, const T* dinv, const T* diag,
+                      const int8_t* colors, const int* order, const T* r,
+                      T* z, T* w, T* zbuf, cudaStream_t stream) {
+  constexpr bool ROWS = V == 0 || V > 3;   // a warp per block row
+  const int G = ROWS ? k5_groups(v) : 8;
+  const dim3 threads = ROWS ? dim3(32, v, G) : dim3(32 * G);
   const int blocks = (n + 32 * G - 1) / (32 * G);
-  const size_t smem = k5_smem<T, V>(st.k);
+  const size_t smem = k5_smem<T>(v, st.k);
   if (n <= 0) return 0;
+  if constexpr (ROWS) {
+    cudaError_t err = k5_launch_smem(sgs_pass_kernel<T, S, V>, smem);
+    if (err == cudaSuccess) err = k5_launch_smem(matvec_kernel<T, V>, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const T* x = r;
   if (do_sweep) {
     const int npass = 2 * ncolor - 1;
@@ -423,7 +459,8 @@ int launch_sgs_matvec(int n, const Stencil& st, int ncolor, int do_sweep,
       T* dst = ((npass - 1 - i) & 1) ? zbuf : z;   // the last pass writes z
       if constexpr (ROWS)
         sgs_pass_kernel<T, S, V><<<blocks, threads, smem, stream>>>(
-            n, st, c, i == 0, cm, selp, dinv, colors, order, r, zold, dst);
+            n, st, c, i == 0, cm, selp, dinv, colors, order, r, zold, dst,
+            v);
       else
         sgs_pass_lane_kernel<T, S, V><<<blocks, threads, 0, stream>>>(
             n, st, c, i == 0, cm, selp, dinv, colors, order, r, zold, dst);
@@ -434,7 +471,7 @@ int launch_sgs_matvec(int n, const Stencil& st, int ncolor, int do_sweep,
   if (do_matvec) {
     if constexpr (ROWS)
       matvec_kernel<T, V><<<blocks, threads, smem, stream>>>(n, st, selm,
-                                                             diag, x, w);
+                                                             diag, x, w, v);
     else
       matvec_lane_kernel<T, V><<<blocks, threads, 0, stream>>>(n, st, selm,
                                                                diag, x, w);
@@ -460,6 +497,7 @@ struct FgArgs {
   T* stats;     // [relative residual, iterations]
   T* ws;        // V (m+1), Z (m), sweep scratch, w: each n*V
   T* part;      // rows kernel: 2 * gridDim.x block partials
+  int v;        // the block width (the run-time instance reads it)
 };
 
 template <typename T, bool MAX>
@@ -877,10 +915,11 @@ fgmres_cluster_kernel(FgArgs<T, S> A) {
   asm volatile("barrier.cluster.wait;" ::: "memory");
 }
 
-// K6 at V = 7 and 13: the same cycle with K5's thread layout in the sweep
-// passes and the matvec.  A block is G = k5_groups<V>() groups of 32 lanes,
-// V warps each (1-D: thread t is lane t % 32 of row (t / 32) % V of group
-// t / (32 V)); warp a forms row a of the 32 nodes' block products, so each
+// K6 at V >= 4 (the compiled 7, 8, 13, 14 and the run-time instance V =
+// 0, its width A.v): the same cycle with K5's thread layout in the sweep
+// passes and the matvec.  A block is G = k5_groups(v) groups of 32 lanes,
+// v warps each (1-D: thread t is lane t % 32 of row (t / 32) % v of group
+// t / (32 v)); warp a forms row a of the 32 nodes' block products, so each
 // block-row load is one coalesced read, and the node-major vectors are
 // staged through shared memory.  The blocks walk the 32-node groups
 // (grid-stride, the same groups in every pass); a sweep pass runs over the
@@ -890,27 +929,30 @@ fgmres_cluster_kernel(FgArgs<T, S> A) {
 // updates of the Gram-Schmidt passes and the reductions run flat over the
 // n V entries.  Every value another thread wrote inside the launch is read
 // through L2 (__ldcg): the phases map entries to threads differently.
-template <int V>
-__host__ __device__ constexpr int fg_rows_threads() {
-  return 32 * V * k5_groups<V>();
+__host__ __device__ constexpr int fg_rows_threads(int v) {
+  return 32 * v * k5_groups(v);
 }
 
-// shared words of the staging area: per group (K + 2) vectors of 32 V
+// shared words of the staging area: per group (K + 2) vectors of 32 v
 // (sized for SU2K_MAXK offsets, so the grid does not depend on K)
-template <int V>
-__host__ __device__ constexpr int fg_rows_stage_words() {
-  return k5_groups<V>() * (SU2K_MAXK + 2) * 32 * V;
+__host__ __device__ constexpr int fg_rows_stage_words(int v) {
+  return k5_groups(v) * (SU2K_MAXK + 2) * 32 * v;
 }
 
 // 3 blocks per SM: the one-launch tier's largest field (npad <= 12,288
 // at m = 10, stencil_solve._fgmres_cap) is 384 groups, so at V = 13 every
 // group of a pass runs in one wave on 396 co-resident blocks; at 2 blocks
 // per SM (72 registers) 264 blocks took two rounds in some blocks and one
-// FGMRES(10) cycle at 9,072 nodes took ~1.0 ms instead of ~0.72.
+// FGMRES(10) cycle at 9,072 nodes took ~1.0 ms instead of ~0.72.  The
+// run-time instance is bounded for its widest block, 32 SU2K_VMAX
+// threads, 2 blocks per SM (48 registers); its grid follows the
+// occupancy it gets (fgmres_grid).
 template <typename T, typename S, int V>
-__global__ void __launch_bounds__(32 * V * (512 / (32 * V)), 3)
+__global__ void __launch_bounds__(V ? fg_rows_threads(V) : 32 * SU2K_VMAX,
+                                  V ? 3 : 2)
 fgmres_rows_kernel(FgArgs<T, S> A) {
-  constexpr int G = k5_groups<V>();
+  const int v = V ? V : A.v;
+  const int G = k5_groups(v);
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char fg_smem[];
   T* sh = reinterpret_cast<T*>(fg_smem);
@@ -925,13 +967,13 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
   T* y = g + m + 1;          // m
   T* cols = y + m;           // m * m: rotated column j, row i at j*m + i
   const int t = threadIdx.x;
-  const int l = t & 31, a = (t >> 5) % V, gl = (t >> 5) / V;
+  const int l = t & 31, a = (t >> 5) % v, gl = (t >> 5) / v;
   const int k = A.st.k;
   // this group's staging: K neighbour vectors, r (or z), the row results
-  T* gx = sh + fg_smem_words(m) + (size_t)gl * (SU2K_MAXK + 2) * 32 * V;
-  T* gr = gx + (size_t)k * 32 * V;
-  T* gacc = gr + 32 * V;
-  const size_t nv = (size_t)n * V;
+  T* gx = sh + fg_smem_words(m) + (size_t)gl * (SU2K_MAXK + 2) * 32 * v;
+  T* gr = gx + (size_t)k * 32 * v;
+  T* gacc = gr + 32 * v;
+  const size_t nv = (size_t)n * v;
   T* vb = A.ws;
   T* zb = vb + (size_t)(m + 1) * nv;
   T* zs = zb + (size_t)m * nv;
@@ -994,18 +1036,18 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
       for (int base = blockIdx.x * G; base < ngroup; base += gridDim.x * G) {
         const int i0 = (base + gl) * 32;
         {
-          // stage: element e = (node e / V, entry e % V) of each vector
-          const int e = a * 32 + l, ls = e / V, b = e - ls * V;
+          // stage: element e = (node e / v, entry e % v) of each vector
+          const int e = a * 32 + l, ls = e / v, b = e - ls * v;
           const int is = i0 + ls;
           if (is < n) {
             const int ps = A.order[is];
             if (A.colors[ps] == color) {
-              const size_t idx = (size_t)ps * V + b;
+              const size_t idx = (size_t)ps * v + b;
               gr[e] = first ? vnew(idx) : __ldcg(vj + idx);
               for (int kk = 0; kk < k && !first; ++kk) {
                 const int q = ps + A.st.off[kk];
-                gx[kk * 32 * V + e] =
-                    q < 0 || q >= n ? (T)0 : __ldcg(zold + (size_t)q * V + b);
+                gx[kk * 32 * v + e] =
+                    q < 0 || q >= n ? (T)0 : __ldcg(zold + (size_t)q * v + b);
               }
             }
           }
@@ -1016,36 +1058,37 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
         const bool mine = ii < n && A.colors[p] == color;
         const int lane = A.cm ? ii : p;
         if (mine) {
-          T acc = gr[l * V + a];
+          T acc = gr[l * v + a];
           if (!first) {
             T od = (T)0;
             for (int kk = 0; kk < k; ++kk) {
               const int q = p + A.st.off[kk];
               if (q < 0 || q >= n) continue;
-              const S* blk = A.selp + ((size_t)kk * V * V + a * V) * n + lane;
-              const T* x = gx + kk * 32 * V + l * V;
+              const S* blk = A.selp + ((size_t)kk * v * v + a * v) * n + lane;
+              const T* x = gx + kk * 32 * v + l * v;
               T yv = (T)0;
 #pragma unroll
-              for (int b = 0; b < V; ++b)
-                yv += widen<T, S>(blk[(size_t)b * n]) * x[b];
+              for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
+                if (V || b < v) yv += widen<T, S>(blk[(size_t)b * n]) * x[b];
               od += yv;
             }
             acc = acc - od;
           }
-          gacc[l * V + a] = acc;
+          gacc[l * v + a] = acc;
         }
         __syncthreads();
         if (ii < n) {
           T zn;
           if (mine) {
-            const T* dr = A.dinv + (size_t)a * V * n + lane;
+            const T* dr = A.dinv + (size_t)a * v * n + lane;
             zn = (T)0;
 #pragma unroll
-            for (int b = 0; b < V; ++b) zn += dr[(size_t)b * n] * gacc[l * V + b];
+            for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
+              if (V || b < v) zn += dr[(size_t)b * n] * gacc[l * v + b];
           } else {
-            zn = first ? (T)0 : __ldcg(zold + (size_t)p * V + a);
+            zn = first ? (T)0 : __ldcg(zold + (size_t)p * v + a);
           }
-          dst[(size_t)p * V + a] = zn;
+          dst[(size_t)p * v + a] = zn;
         }
         __syncthreads();
       }
@@ -1060,15 +1103,15 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
       T* gz = gr;                       // z of the group's own nodes
       {
         const int e = a * 32 + l;
-        const int ps = p0 + e / V;
+        const int ps = p0 + e / v;
         if (ps < n) {
-          gz[e] = __ldcg(zj + (size_t)p0 * V + e);
+          gz[e] = __ldcg(zj + (size_t)p0 * v + e);
           for (int kk = 0; kk < k; ++kk) {
             const int q = ps + A.st.off[kk];
-            gx[kk * 32 * V + e] =
+            gx[kk * 32 * v + e] =
                 q < 0 || q >= n ? (T)0
-                                : __ldcg(zj + (size_t)p0 * V + e
-                                         + (ptrdiff_t)A.st.off[kk] * V);
+                                : __ldcg(zj + (size_t)p0 * v + e
+                                         + (ptrdiff_t)A.st.off[kk] * v);
           }
         }
       }
@@ -1079,19 +1122,21 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
         for (int kk = 0; kk < k; ++kk) {
           const int q = p + A.st.off[kk];
           if (q < 0 || q >= n) continue;
-          const T* blk = A.selm + ((size_t)kk * V * V + a * V) * n + p;
-          const T* xq = gx + kk * 32 * V + l * V;
+          const T* blk = A.selm + ((size_t)kk * v * v + a * v) * n + p;
+          const T* xq = gx + kk * 32 * v + l * v;
           T tv = (T)0;
 #pragma unroll
-          for (int b = 0; b < V; ++b) tv += blk[(size_t)b * n] * xq[b];
+          for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
+            if (V || b < v) tv += blk[(size_t)b * n] * xq[b];
           od += tv;
         }
-        const T* dr = A.diag + (size_t)a * V * n + p;
+        const T* dr = A.diag + (size_t)a * v * n + p;
         T w = (T)0;
 #pragma unroll
-        for (int b = 0; b < V; ++b) w += dr[(size_t)b * n] * gz[l * V + b];
+        for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
+          if (V || b < v) w += dr[(size_t)b * n] * gz[l * v + b];
         w = w + od;
-        const size_t e = (size_t)p * V + a;
+        const size_t e = (size_t)p * v + a;
         wv[e] = w;
         part += __ldcg(vb + e) * w;
       }
@@ -1128,14 +1173,15 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
   }
 }
 
-// The grid of K6's rows kernel (V >= 7): every block co-resident (the
-// cooperative launch's condition) and at most the partial buffers'
-// capacity: as many blocks as fit on all the card's SMs at once (by the
-// occupancy of its registers and shared memory), at most one per G 32-node
-// groups.  Wider blocks take more registers per thread, so fewer blocks
-// fit on an SM.
+// The grid of K6's rows kernel (v >= 4; V = 0 the run-time instance):
+// every block co-resident (the cooperative launch's condition) and at
+// most the partial buffers' capacity: as many blocks as fit on all the
+// card's SMs at once (by the occupancy of its registers and shared
+// memory, at this width's block and staging size), at most one per G
+// 32-node groups.  Wider blocks take more registers per thread, so fewer
+// blocks fit on an SM.
 template <typename T, typename S, int V>
-cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
+cudaError_t fgmres_grid(int v, int n, int m, int part_cap, int* blocks,
                         size_t* smem, int* threads) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1145,8 +1191,8 @@ cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  *threads = fg_rows_threads<V>();
-  *smem = (size_t)(fg_smem_words(m) + fg_rows_stage_words<V>()) * sizeof(T);
+  *threads = fg_rows_threads(v);
+  *smem = (size_t)(fg_smem_words(m) + fg_rows_stage_words(v)) * sizeof(T);
   const void* kern = (const void*)fgmres_rows_kernel<T, S, V>;
   if (*smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
@@ -1157,7 +1203,7 @@ cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
                                                       *threads, *smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int per_block = 32 * k5_groups<V>();
+  const int per_block = 32 * k5_groups(v);
   int b = (n + per_block - 1) / per_block;
   b = b < per_sm * sms ? b : per_sm * sms;  // co-resident
   b = b < part_cap / 2 ? b : part_cap / 2;
@@ -1255,7 +1301,7 @@ template <typename T, typename S, int V>
 int launch_fgmres(FgArgs<T, S> A, int part_cap, int cluster,
                   cudaStream_t stream) {
   cudaError_t err;
-  if constexpr (V <= 3) {
+  if constexpr (V > 0 && V <= 3) {
     void (*kern)(FgArgs<T, S>) = nullptr;
     int c = 0;
     size_t smem = 0;
@@ -1267,7 +1313,7 @@ int launch_fgmres(FgArgs<T, S> A, int part_cap, int cluster,
   } else {
     int blocks = 0, threads = 0;
     size_t smem = 0;
-    err = fgmres_grid<T, S, V>(A.n, A.m, part_cap, &blocks, &smem,
+    err = fgmres_grid<T, S, V>(A.v, A.n, A.m, part_cap, &blocks, &smem,
                                &threads);
     if (err != cudaSuccess) return (int)err;
     void* args[] = {&A};
@@ -1279,68 +1325,76 @@ int launch_fgmres(FgArgs<T, S> A, int part_cap, int cluster,
   return (int)cudaGetLastError();
 }
 
-// blocks of K6's launch: the cluster size at V <= 3, the cooperative grid
-// at V >= 7
+// blocks of K6's launch: the cluster size at V = 2, 3, the cooperative
+// grid at v >= 4
 template <typename T, typename S, int V>
-int grid_of(int n, int m, int part_cap, int cluster) {
+int grid_of(int v, int n, int m, int part_cap, int cluster) {
   int blocks = 0, threads = 0;
   size_t smem = 0;
   cudaError_t err;
-  if constexpr (V <= 3) {
+  if constexpr (V > 0 && V <= 3) {
     void (*kern)(FgArgs<T, S>) = nullptr;
     err = fg_cluster_plan<T, S, V>(n, m, cluster, &kern, &blocks, &smem);
   } else
-    err = fgmres_grid<T, S, V>(n, m, part_cap, &blocks, &smem, &threads);
+    err = fgmres_grid<T, S, V>(v, n, m, part_cap, &blocks, &smem, &threads);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // the block widths K5 and K6 are compiled for (kernels.STENCIL_WIDTHS): 2
 // (the SST's k-omega system) and 3, and the flow's nDim + nSpecies + 2 of
 // the 3-species flat plate in 2D (7) and 3D (8) and of the 9-species
-// channel in 2D (13) and on the 3D box (14); CALL names the width V;
-// another width returns BAD
-#define SU2K_BY_WIDTH(v, CALL, BAD)                     \
-  switch (v) {                                          \
+// channel in 2D (13) and on the 3D box (14); every other width from 4 to
+// SU2K_VMAX, and every width of that range with rt, runs the run-time
+// instance V = 0; CALL names the width V (and v); another width returns
+// BAD
+#define SU2K_BY_WIDTH(v, rt, CALL, BAD)                 \
+  switch (rt ? 0 : v) {                                 \
     case 2: { constexpr int V = 2; return CALL; }       \
     case 3: { constexpr int V = 3; return CALL; }       \
     case 7: { constexpr int V = 7; return CALL; }       \
     case 8: { constexpr int V = 8; return CALL; }       \
     case 13: { constexpr int V = 13; return CALL; }     \
     case 14: { constexpr int V = 14; return CALL; }     \
-    default: return BAD;                                \
+    default: {                                          \
+      constexpr int V = 0;                              \
+      return v >= 4 && v <= SU2K_VMAX ? CALL : BAD;     \
+    }                                                   \
   }
 
 template <typename T, typename S>
-int fgmres_v(int v, int n, const Stencil& st, int ncolor, int m, double tol,
-             const void* selp, const void* selm, const void* dinv,
-             const void* diag, const void* colors, const void* order, int cm,
-             const void* b, void* x, void* stats, void* ws, void* part,
-             int part_cap, int cluster, cudaStream_t stream) {
+int fgmres_v(int v, int rt, int n, const Stencil& st, int ncolor, int m,
+             double tol, const void* selp, const void* selm,
+             const void* dinv, const void* diag, const void* colors,
+             const void* order, int cm, const void* b, void* x, void* stats,
+             void* ws, void* part, int part_cap, int cluster,
+             cudaStream_t stream) {
   FgArgs<T, S> A{n, ncolor, m, st, (T)tol, (const S*)selp, (const T*)selm,
                  (const T*)dinv, (const T*)diag, (const int8_t*)colors,
                  (const int*)order, cm, (const T*)b, (T*)x, (T*)stats,
-                 (T*)ws, (T*)part};
-  SU2K_BY_WIDTH(v, (launch_fgmres<T, S, V>(A, part_cap, cluster, stream)),
+                 (T*)ws, (T*)part, v};
+  SU2K_BY_WIDTH(v, rt,
+                (launch_fgmres<T, S, V>(A, part_cap, cluster, stream)),
                 (int)cudaErrorInvalidValue)
 }
 
 template <typename T, typename S>
-int fgmres_grid_v(int v, int n, int m, int part_cap, int cluster) {
-  SU2K_BY_WIDTH(v, (grid_of<T, S, V>(n, m, part_cap, cluster)),
+int fgmres_grid_v(int v, int rt, int n, int m, int part_cap, int cluster) {
+  SU2K_BY_WIDTH(v, rt, (grid_of<T, S, V>(v, n, m, part_cap, cluster)),
                 -(int)cudaErrorInvalidValue)
 }
 
 template <typename T, typename S>
-int sgs_matvec_v(int v, int n, const Stencil& st, int ncolor, int do_sweep,
-                 int do_matvec, int cm, const void* selp, const void* selm,
-                 const void* dinv, const void* diag, const void* colors,
-                 const void* order, const void* r, void* z, void* w,
-                 void* zbuf, cudaStream_t stream) {
+int sgs_matvec_v(int v, int rt, int n, const Stencil& st, int ncolor,
+                 int do_sweep, int do_matvec, int cm, const void* selp,
+                 const void* selm, const void* dinv, const void* diag,
+                 const void* colors, const void* order, const void* r,
+                 void* z, void* w, void* zbuf, cudaStream_t stream) {
 #define SU2K_SGS_ARGS                                                      \
-  n, st, ncolor, do_sweep, do_matvec, cm, (const S*)selp, (const T*)selm,  \
-      (const T*)dinv, (const T*)diag, (const int8_t*)colors,               \
-      (const int*)order, (const T*)r, (T*)z, (T*)w, (T*)zbuf, stream
-  SU2K_BY_WIDTH(v, (launch_sgs_matvec<T, S, V>(SU2K_SGS_ARGS)),
+  v, n, st, ncolor, do_sweep, do_matvec, cm, (const S*)selp,               \
+      (const T*)selm, (const T*)dinv, (const T*)diag,                      \
+      (const int8_t*)colors, (const int*)order, (const T*)r, (T*)z, (T*)w, \
+      (T*)zbuf, stream
+  SU2K_BY_WIDTH(v, rt, (launch_sgs_matvec<T, S, V>(SU2K_SGS_ARGS)),
                 (int)cudaErrorInvalidValue)
 #undef SU2K_SGS_ARGS
 }
@@ -1356,41 +1410,44 @@ inline bool make_stencil(int k, const int* offs, Stencil& st) {
 
 // sel_bf16: the sweep blocks selp are __nv_bfloat16 (float state only);
 // order: the color-major node list (int32, n); cm: selp and dinv are in
-// the color-major lane layout (lane i = node order[i]), else natural
+// the color-major lane layout (lane i = node order[i]), else natural; rt:
+// the run-time instance at any width from 4 to SU2K_VMAX (else it runs
+// the widths with no compiled instance only)
 extern "C" int su2k_stencil_sgs_matvec(
     int is_f64, int sel_bf16, int v, int n, int k, const int* offs,
     int ncolor, int do_sweep, int do_matvec, int cm, const void* selp,
     const void* selm, const void* dinv, const void* diag, const void* colors,
     const void* order, const void* r, void* z, void* w, void* zbuf,
-    void* stream) {
+    void* stream, int rt) {
   su2k::Stencil st;
   if (!su2k::make_stencil(k, offs, st) || (is_f64 && sel_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64)
     return su2k::sgs_matvec_v<double, double>(
-        v, n, st, ncolor, do_sweep, do_matvec, cm, selp, selm, dinv, diag,
-        colors, order, r, z, w, zbuf, s);
+        v, rt, n, st, ncolor, do_sweep, do_matvec, cm, selp, selm, dinv,
+        diag, colors, order, r, z, w, zbuf, s);
   if (sel_bf16)
     return su2k::sgs_matvec_v<float, __nv_bfloat16>(
-        v, n, st, ncolor, do_sweep, do_matvec, cm, selp, selm, dinv, diag,
-        colors, order, r, z, w, zbuf, s);
+        v, rt, n, st, ncolor, do_sweep, do_matvec, cm, selp, selm, dinv,
+        diag, colors, order, r, z, w, zbuf, s);
   return su2k::sgs_matvec_v<float, float>(
-      v, n, st, ncolor, do_sweep, do_matvec, cm, selp, selm, dinv, diag,
+      v, rt, n, st, ncolor, do_sweep, do_matvec, cm, selp, selm, dinv, diag,
       colors, order, r, z, w, zbuf, s);
 }
 
-// order, cm: at V >= 7 the color-major node list (int32, n) and whether
-// selp and dinv are in its lane layout (else natural); ignored at V <= 3,
+// order, cm: at v >= 4 the color-major node list (int32, n) and whether
+// selp and dinv are in its lane layout (else natural); ignored at v <= 3,
 // which read the natural layout.  part: the rows kernel's block partials
-// (part_cap values).  cluster: at V <= 3 the cluster size (1 to 16), or 0
-// for 16 where it fits on the card, else 8
+// (part_cap values).  cluster: at v <= 3 the cluster size (1 to 16), or 0
+// for 16 where it fits on the card, else 8.  rt: as in
+// su2k_stencil_sgs_matvec
 extern "C" int su2k_stencil_fgmres(
     int is_f64, int sel_bf16, int v, int n, int k, const int* offs,
     int ncolor, int m, double tol, const void* selp, const void* selm,
     const void* dinv, const void* diag, const void* colors,
     const void* order, int cm, const void* b, void* x, void* stats,
-    void* ws, void* part, int part_cap, int cluster, void* stream) {
+    void* ws, void* part, int part_cap, int cluster, void* stream, int rt) {
   su2k::Stencil st;
   if (!su2k::make_stencil(k, offs, st) || (is_f64 && sel_bf16) || m < 1 ||
       n < 1 || (v > 3 && order == nullptr) || (v <= 3 && cm) ||
@@ -1398,32 +1455,34 @@ extern "C" int su2k_stencil_fgmres(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64)
-    return su2k::fgmres_v<double, double>(v, n, st, ncolor, m, tol, selp,
-                                          selm, dinv, diag, colors, order,
-                                          cm, b, x, stats, ws, part,
+    return su2k::fgmres_v<double, double>(v, rt, n, st, ncolor, m, tol,
+                                          selp, selm, dinv, diag, colors,
+                                          order, cm, b, x, stats, ws, part,
                                           part_cap, cluster, s);
   if (sel_bf16)
     return su2k::fgmres_v<float, __nv_bfloat16>(
-        v, n, st, ncolor, m, tol, selp, selm, dinv, diag, colors, order, cm,
-        b, x, stats, ws, part, part_cap, cluster, s);
-  return su2k::fgmres_v<float, float>(v, n, st, ncolor, m, tol, selp, selm,
-                                      dinv, diag, colors, order, cm, b, x,
-                                      stats, ws, part, part_cap, cluster, s);
+        v, rt, n, st, ncolor, m, tol, selp, selm, dinv, diag, colors, order,
+        cm, b, x, stats, ws, part, part_cap, cluster, s);
+  return su2k::fgmres_v<float, float>(v, rt, n, st, ncolor, m, tol, selp,
+                                      selm, dinv, diag, colors, order, cm, b,
+                                      x, stats, ws, part, part_cap, cluster,
+                                      s);
 }
 
 // the blocks su2k_stencil_fgmres launches for these arguments on the
-// current device: at V <= 3 the cluster's CTAs (of 1024 threads), at
-// V >= 7 the cooperative grid (of 32 V k5_groups<V>() threads); or minus a
+// current device: at v <= 3 the cluster's CTAs (of 1024 threads), at
+// v >= 4 the cooperative grid (of 32 v k5_groups(v) threads); or minus a
 // cudaError_t
 extern "C" int su2k_stencil_fgmres_grid(int is_f64, int sel_bf16, int v,
                                         int n, int m, int part_cap,
-                                        int cluster) {
+                                        int cluster, int rt) {
   if ((is_f64 && sel_bf16) || m < 1 || n < 1 || cluster < 0 || cluster > 16)
     return -(int)cudaErrorInvalidValue;
   if (is_f64)
-    return su2k::fgmres_grid_v<double, double>(v, n, m, part_cap, cluster);
+    return su2k::fgmres_grid_v<double, double>(v, rt, n, m, part_cap,
+                                               cluster);
   if (sel_bf16)
-    return su2k::fgmres_grid_v<float, __nv_bfloat16>(v, n, m, part_cap,
+    return su2k::fgmres_grid_v<float, __nv_bfloat16>(v, rt, n, m, part_cap,
                                                      cluster);
-  return su2k::fgmres_grid_v<float, float>(v, n, m, part_cap, cluster);
+  return su2k::fgmres_grid_v<float, float>(v, rt, n, m, part_cap, cluster);
 }

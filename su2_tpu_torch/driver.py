@@ -1062,7 +1062,20 @@ class StepGraph:
     its place.  The kernel wrappers' counts during the capture, which
     launches nothing, are taken back out of kernels.launches and kept as
     per_replay; each replay adds them to kernels.launches, which no
-    wrapper touches during a replay."""
+    wrapper touches during a replay.
+
+    A CUDA graph may not be destroyed while a stream captures: the call
+    fails and invalidates that capture.  The cyclic collector can run
+    inside a capture and free an unreachable Simulation with its graph
+    (tests/test_torch_cuda.py::test_graph_capture_collects_another_graph
+    shows it).  So every StepGraph's CUDA graph is also held in _graphs,
+    outside any cycle, and the collector never frees one itself: a
+    StepGraph's finalizer releases its graph, or, during a capture, leaves
+    it in _parked, which the capture empties once it has ended."""
+
+    _capturing = 0      # StepGraph captures under way
+    _graphs = {}        # id(StepGraph) -> its CUDA graph
+    _parked = []        # CUDA graphs of StepGraphs freed during a capture
 
     def __init__(self, body, carry, width, cap, cfl, ignition=False,
                  dual=None):
@@ -1086,16 +1099,25 @@ class StepGraph:
                 self._iteration()
             torch.cuda.current_stream().wait_stream(side)
             before = dict(kernels.launches)
-            self.graph = torch.cuda.CUDAGraph()
+            self.graph = StepGraph._graphs[id(self)] = torch.cuda.CUDAGraph()
+            StepGraph._capturing += 1
             try:
                 with torch.cuda.graph(self.graph):
                     self._iteration()
             finally:
+                StepGraph._capturing -= 1
                 self.per_replay = {name: kernels.launches[name] - c
                                    for name, c in before.items()}
                 kernels.launches.update(before)
             torch.cuda.synchronize()
+        if not StepGraph._capturing:
+            StepGraph._parked.clear()
         self.capture_s = time.perf_counter() - t0
+
+    def __del__(self):
+        graph = StepGraph._graphs.pop(id(self), None)
+        if graph is not None and StepGraph._capturing:
+            StepGraph._parked.append(graph)
 
     def _iteration(self):
         at = self.slot.view(1)

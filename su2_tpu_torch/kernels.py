@@ -34,8 +34,9 @@ first pass is T3's slot pass under a kernel name of its own); K10 shares
 its species h/cp lookup and Stefan-Maxwell solve (compiled for the species
 counts of IMPLICIT_SPECIES in the dimensions of IMPLICIT_DIMS), and K10 and
 K11 (AUSM_SPECIES in AUSM_DIMS) its implicit AUSM+-up face (ausm_face,
-ausm_jac_entry); K5 and K6 for the block widths of STENCIL_WIDTHS (no
-run-time width); T2 is compiled for the counts
+ausm_jac_entry); K5 and K6 for the block widths of STENCIL_WIDTHS, and
+one run-time-width instance for every other width up to STENCIL_MAX_V;
+T2 is compiled for the counts
 of NODE_STATE_SPECIES, T4 for the (species, reaction) counts of
 CHEM_SHAPES, K7 for the (offset count, dimension) stencils of
 K7_STENCILS; each has a run-time-count instance for the other counts.
@@ -73,13 +74,15 @@ SOURCE_FLAGS = {"inlet_tc.cu": ("-fmad=false",),
 # and the replays' of captured graphs (driver.StepGraph); K5's sweep-only
 # and matvec-only forms (BCGSTAB's preconditioner and matvec, LINELET's
 # matvec) are also counted apart, as stencil_sweep_only and
-# stencil_matvec_only
+# stencil_matvec_only, and K5's and K6's launches of their run-time-width
+# instance as stencil_runtime_sgs_matvec and stencil_runtime_fgmres
 launches = {"mixture_enthalpy": 0, "node_state": 0, "edge_flux": 0,
             "chem_source": 0, "stencil_sgs_matvec": 0, "stencil_fgmres": 0,
             "gradient_rows": 0, "edge_win": 0, "inlet_tc": 0,
             "edge_implicit": 0, "ausm_flux_jac": 0, "sst_assemble": 0,
             "edge_list_flux": 0, "edge_list_sum": 0,
-            "stencil_sweep_only": 0, "stencil_matvec_only": 0}
+            "stencil_sweep_only": 0, "stencil_matvec_only": 0,
+            "stencil_runtime_sgs_matvec": 0, "stencil_runtime_fgmres": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -97,11 +100,11 @@ _ARGTYPES = {
                          _P, _P],
     "su2k_stencil_sgs_matvec": [_I, _I, _I, _I, _I,
                                 ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I]
-                               + [_P] * 11,
+                               + [_P] * 11 + [_I],
     "su2k_stencil_fgmres": [_I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int), _I, _I, _D]
-                           + [_P] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
-    "su2k_stencil_fgmres_grid": [_I] * 7,
+                           + [_P] * 6 + [_I] + [_P] * 5 + [_I, _I, _P, _I],
+    "su2k_stencil_fgmres_grid": [_I] * 8,
     "su2k_gradient_rows": [_I, _I, _I, _I, _I, _I,
                            ctypes.POINTER(ctypes.c_int), _I, _I, _I,
                            ctypes.c_longlong] + [_P] * 6,
@@ -617,26 +620,48 @@ def chem_source(lib, prm, t, rho, ys, omega_turb=None):
 
 
 # ------------------------------------------------------------------ K5, K6
-# Work space of the block partials of K6's cooperative grid (v >= 7): two
+# Work space of the block partials of K6's cooperative grid (v >= 4): two
 # buffers of at most 4,096 blocks (more than any card holds at once).
 _PART_CAP = 2 * 4096
 # The block widths K5 and K6 are compiled for (SU2K_BY_WIDTH in
 # csrc/stencil_solve.cu): 2 (the SST's system) and 3, the flow's nDim +
-# nSpecies + 2 at 3 and 9 species: 7 and 13 in 2D, 8 and 14 in 3D.
+# nSpecies + 2 at 3 and 9 species: 7 and 13 in 2D, 8 and 14 in 3D.  Every
+# other width from 4 to STENCIL_MAX_V, the flow's nDim + nSpecies + 2 up
+# to MAX_DIM and MAX_SPECIES, runs the run-time-width instance of K5's
+# warp-per-row kernels and K6's rows form (SU2K_VMAX); runtime=True in a
+# wrapper forces it at any width of that range (tests and measurements
+# only: the solvers never pass it).
 STENCIL_WIDTHS = (2, 3, 7, 8, 13, 14)
+STENCIL_MAX_V = MAX_DIM + MAX_SPECIES + 2
+# K6 runs K5's warp-per-block-row mapping over the color-major node list
+# in one cooperative grid from this width up (fgmres_rows_kernel: the
+# compiled 7, 8, 13, 14 and the run-time instance, which takes every
+# width from here), a thread per node in one thread-block cluster below
+# (fgmres_cluster_kernel, compiled for 2 and 3: its per-node register
+# arrays need the width at compile time)
+K6_ROWS_MIN_V = 4
+
+
+def _check_width(name, v, runtime=False):
+    """Refuse a block width no instance of K5/K6 takes, naming the range."""
+    lo = K6_ROWS_MIN_V if runtime else min(STENCIL_WIDTHS)
+    if not lo <= v <= STENCIL_MAX_V:
+        what = ("the run-time instance takes" if runtime
+                else f"the kernels are compiled for {STENCIL_WIDTHS} and "
+                "take, through a run-time instance, every width of")
+        raise ValueError(f"{name}: block width {v}; {what} {lo} to "
+                         f"{STENCIL_MAX_V}")
 
 
 def _check_stencil(name, selp, selm, dinv, diag, colors, r, offsets, ncolor,
-                   sweep=True):
+                   sweep=True, runtime=False):
     """Device, dtype, shape and contiguity of the stencil-solve operands."""
     dtype, dev = r.dtype, r.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: float32 or float64 vectors, got {dtype}")
     n, v = r.shape
     k = len(offsets)
-    if v not in STENCIL_WIDTHS:
-        raise ValueError(f"{name}: block width {v}; the kernels are compiled "
-                         f"for the widths {STENCIL_WIDTHS}")
+    _check_width(name, v, runtime)
     if not 1 <= k <= 8:
         raise ValueError(f"{name}: 1 to 8 stencil offsets, got {k}")
     sel_bf16 = selp.dtype == torch.bfloat16
@@ -682,7 +707,7 @@ def _node_order(name, colors, order, color_major, n, device):
 
 def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
                        ncolor, sweep=True, matvec=True, order=None,
-                       color_major=False):
+                       color_major=False, runtime=False):
     """Kernel K5: (z, w) with z the symmetric multicolor block-SGS sweep of
     r over the sweep blocks selp_t (float or bf16) and w = A z over the
     matvec blocks selm_t.  sweep=False: w = A r (z is r); matvec=False: w
@@ -692,12 +717,13 @@ def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
     StencilSolveOps makes once per solve, and a call without it sorts the
     colors here); color_major: selp_t and dinv_t are in the color-major
     lane layout of order (stencil_solve.to_color_major), else in the
-    natural one."""
+    natural one.  runtime: the run-time-width instance at any width from
+    K6_ROWS_MIN_V (STENCIL_WIDTHS' compiled ones included)."""
     if not (sweep or matvec):
         raise ValueError("stencil_sgs_matvec: nothing to compute")
     n, v, k, sel_bf16 = _check_stencil("stencil_sgs_matvec", selp_t, selm_t,
                                        dinv_t, diag_t, colors, r, offsets,
-                                       ncolor, sweep)
+                                       ncolor, sweep, runtime)
     if sweep:
         order = _node_order("stencil_sgs_matvec", colors, order, color_major,
                             n, r.device)
@@ -710,29 +736,28 @@ def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
         int(ncolor), int(sweep), int(matvec), int(bool(color_major)),
         _ptr(selp_t), _ptr(selm_t), _ptr(dinv_t), _ptr(diag_t),
         _ptr(colors) if sweep else None, _ptr(order) if sweep else None,
-        _ptr(r), _ptr(z) if sweep else None, _ptr(w), _ptr(zbuf), _stream())
+        _ptr(r), _ptr(z) if sweep else None, _ptr(w), _ptr(zbuf), _stream(),
+        int(bool(runtime)))
     _raise("stencil_sgs_matvec", err)
     launches["stencil_sgs_matvec"] += 1
+    if runtime or v not in STENCIL_WIDTHS:
+        launches["stencil_runtime_sgs_matvec"] += 1
     if not (sweep and matvec):
         launches["stencil_sweep_only" if sweep else "stencil_matvec_only"] \
             += 1
     return z, w
 
 
-# K6 runs K5's warp-per-block-row mapping over the color-major node list
-# in one cooperative grid from this width up (fgmres_rows_kernel), a thread
-# per node in one thread-block cluster below (fgmres_cluster_kernel)
-K6_ROWS_MIN_V = 7
-
-
 def k6_groups(v):
     """32-node groups per block of K6's rows kernel (k5_groups in
-    csrc/stencil_solve.cu): as many as fit 512 threads at V warps each."""
-    return 512 // (32 * v)
+    csrc/stencil_solve.cu): as many as fit 512 threads at v warps each,
+    one (of 32 v threads) past v = 16."""
+    return 1 if v > 16 else 512 // (32 * v)
 
 
 def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
-                   m, tol, order=None, color_major=False, cluster=0):
+                   m, tol, order=None, color_major=False, cluster=0,
+                   runtime=False):
     """Kernel K6: one FGMRES(m) cycle preconditioned by the sweep, in one
     launch (a cooperative grid at v >= K6_ROWS_MIN_V, one thread-block
     cluster below).  Returns (x (N, v), relative residual, iterations as
@@ -743,10 +768,11 @@ def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
     to_color_major); below it K6 reads the natural layout only.  cluster
     (below K6_ROWS_MIN_V, 1 to 16) forces the cluster's CTAs; 0, as every
     solver call leaves it, takes 16 where the card fits such a cluster,
-    else the portable 8 (16 measured faster at 9,072 nodes; PERF.md §6)."""
+    else the portable 8 (16 measured faster at 9,072 nodes; PERF.md §6).
+    runtime: as in stencil_sgs_matvec."""
     n, v, k, sel_bf16 = _check_stencil("stencil_fgmres", selp_t, selm_t,
                                        dinv_t, diag_t, colors, b, offsets,
-                                       ncolor)
+                                       ncolor, runtime=runtime)
     if not 1 <= m <= 64:
         raise ValueError(f"stencil_fgmres: 1 to 64 Krylov vectors, got {m}")
     if v < K6_ROWS_MIN_V:
@@ -768,25 +794,25 @@ def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
         int(ncolor), int(m), float(tol), _ptr(selp_t), _ptr(selm_t),
         _ptr(dinv_t), _ptr(diag_t), _ptr(colors), _ptr(order),
         int(bool(color_major)), _ptr(b), _ptr(x), _ptr(stats), _ptr(ws),
-        _ptr(part), _PART_CAP, int(cluster), _stream())
+        _ptr(part), _PART_CAP, int(cluster), _stream(), int(bool(runtime)))
     _raise("stencil_fgmres", err)
     launches["stencil_fgmres"] += 1
+    if runtime or v not in STENCIL_WIDTHS:
+        launches["stencil_runtime_fgmres"] += 1
     return x, stats[0], stats[1].to(torch.int32)
 
 
-def stencil_fgmres_grid(dtype, sel_bf16, v, n, m, cluster=0):
+def stencil_fgmres_grid(dtype, sel_bf16, v, n, m, cluster=0, runtime=False):
     """The blocks of K6's launch for these arguments on the current card (a
     host query; launches nothing): at v < K6_ROWS_MIN_V the cluster size C,
     CTAs of 1024 threads (stencil_fgmres's cluster, with 0 16 where such
     a cluster fits, else 8); at v >= K6_ROWS_MIN_V the co-resident blocks
     of the cooperative grid, of 32 v k6_groups(v) threads and at most one
-    per 32 k6_groups(v) nodes."""
-    if v not in STENCIL_WIDTHS:
-        raise ValueError(f"stencil_fgmres_grid: block width {v}; the kernels "
-                         f"are compiled for the widths {STENCIL_WIDTHS}")
+    per 32 k6_groups(v) nodes (runtime: of the run-time instance)."""
+    _check_width("stencil_fgmres_grid", v, runtime)
     blocks = _lib().su2k_stencil_fgmres_grid(
         int(dtype == torch.float64), int(bool(sel_bf16)), int(v), int(n),
-        int(m), _PART_CAP, int(cluster))
+        int(m), _PART_CAP, int(cluster), int(bool(runtime)))
     if blocks <= 0:
         _raise("stencil_fgmres_grid", -blocks)
     return blocks

@@ -193,8 +193,10 @@ def make_solver_ops_stencil_t(mesh: MeshArrays, diag: torch.Tensor,
     lane-layout off-diagonal blocks.
 
     LU_SGS/ILU0 with colors run the stencil kernels in the reference's
-    tiers (stencil_solve.solve_tier), at any block width the kernels are
-    compiled for (the SST's 2, the flow's 7, 8, 13 and 14).  Where the reference sweeps
+    tiers (stencil_solve.solve_tier), at every block width from 2 to
+    kernels.STENCIL_MAX_V (the SST's 2; the flow's nDim + nSpecies + 2, 4
+    to 21: compiled at 7, 8, 13 and 14, the run-time-width instance at
+    the others).  Where the reference sweeps
     with XLA ops (float64 past its full-precision gate, float32 with no
     mixed tier) the kernels compute the same sweep and matvec at full
     precision; the (z, A z) kernel of the mixed tier stands for the

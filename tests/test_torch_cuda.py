@@ -1,8 +1,9 @@
 """The CUDA kernels T1-T4 and K5-K13 against their plain torch versions on
 the card (K11 also on the triangle channel's edge rows; K10 and K11 also
-in 3D, K5/K6 at the 3D flow's widths 8 and 14), and the slice's launch
-counts and graph replays (also on meshes without a static stencil and
-in 3D).  Every test needs a CUDA device
+in 3D, K5/K6 at every block width from 2 to 21: the compiled six and the
+run-time-width instance), and the slice's launch counts and graph
+replays (also on meshes without a static stencil, in 3D and at a
+5-species mixture).  Every test needs a CUDA device
 and skips without one.  This file imports no JAX, so on a machine without it run it
 alone, past the suite's JAX conftest:
 
@@ -757,8 +758,18 @@ BANDS = {"band2": (2, (-9, -8, -7, -1, 1, 7, 8, 9)),
          "band13": (13, (-9, -1, 1, 9)),
          # the 3D flow's widths (3 and 9 species) on a box-like stencil
          "band8": (8, (-400, -20, -1, 1, 20, 400)),
-         "band14": (14, (-400, -20, -1, 1, 20, 400))}
+         "band14": (14, (-400, -20, -1, 1, 20, 400)),
+         # the run-time-width instance: the 5-species flow in 2D (9) and
+         # 3D (10), and 16 species in 3D (21) with 8 offsets (its f64
+         # staging past the 48 KB a launch gets unasked)
+         "band9": (9, (-9, -1, 1, 9)),
+         "band10": (10, (-400, -20, -1, 1, 20, 400)),
+         "band21": (21, (-9, -8, -7, -1, 1, 7, 8, 9))}
 VARIANTS = ["float64", "float32", "mixed"]
+# every block width K5 and K6 take (kernels.STENCIL_WIDTHS compiled, the
+# rest through the run-time-width instance), and those of K6's rows form
+STENCIL_V = tuple(range(2, 22))
+ROWS_V = tuple(range(4, 22))
 
 
 def _band_args(card, system, variant, n=2000):
@@ -825,7 +836,7 @@ def _cm_layout(args):
 
 
 K5_COLORINGS = [(c, v, var) for c in th.COLORINGS
-                for v in (2, 3, 7, 8, 13, 14) for var in VARIANTS]
+                for v in STENCIL_V for var in VARIANTS]
 
 
 @pytest.mark.cuda
@@ -835,8 +846,9 @@ K5_COLORINGS = [(c, v, var) for c in th.COLORINGS
 def test_k5_colorings(card, coloring, v, variant):
     """K5's passes over the color-major node list on proper colorings with
     2, 3 and 4 colors and on masks that are not a proper coloring (the
-    two-buffer rule decides the numbers), at every compiled width: the
-    sweep blocks and dinv in the color-major lane layout and in the
+    two-buffer rule decides the numbers), at every width from 2 to 21
+    (compiled or run-time): the sweep blocks and dinv in the color-major
+    lane layout and in the
     natural one (and the node list made by the wrapper), sweep + matvec
     and sweep only, against the plain version."""
     offsets, nc = th.COLORINGS[coloring]
@@ -967,7 +979,7 @@ def test_k6_kernel_matches_plain(card, system, variant, rhs):
         assert np.abs(x - wx).max() <= 2e-5 * scale
 
 
-K6_COLORINGS = [(c, v, var) for c in th.COLORINGS for v in (7, 8, 13, 14)
+K6_COLORINGS = [(c, v, var) for c in th.COLORINGS for v in ROWS_V
                 for var in VARIANTS]
 
 
@@ -976,8 +988,9 @@ K6_COLORINGS = [(c, v, var) for c in th.COLORINGS for v in (7, 8, 13, 14)
                          ids=[f"{c}-v{v}-{var}"
                               for c, v, var in K6_COLORINGS])
 def test_k6_colorings(card, coloring, v, variant):
-    """K6 at v = 7 and 13 (the warp-per-row kernel over the color-major
-    node list) on proper colorings with 2, 3 and 4 colors and on masks
+    """K6 at v = 4 to 21 (the warp-per-row kernel over the color-major
+    node list: compiled at 7, 8, 13, 14, the run-time instance at the
+    others) on proper colorings with 2, 3 and 4 colors and on masks
     that are not a proper coloring, with the sweep blocks and dinv in the
     color-major lane layout and in the natural one: equal iterations to
     the plain FGMRES(10), x at test_k6_kernel_matches_plain's pins (tol
@@ -1008,15 +1021,16 @@ def test_k6_colorings(card, coloring, v, variant):
             assert np.abs(x - th.npy(wx)).max() <= 2e-5 * scale
 
 
-K6_BIG = [(v, var) for v in (7, 8, 13, 14) for var in VARIANTS]
+K6_BIG = [(v, var) for v in ROWS_V for var in VARIANTS]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("v,variant", K6_BIG,
                          ids=[f"v{v}-{var}" for v, var in K6_BIG])
 def test_k6_rows_kernel_many_groups(card, v, variant):
-    """K6 at v = 7 and 13 on 30,011 nodes (more 32-node groups than the
-    grid has group slots, so blocks walk several groups a pass) over the
+    """K6 at v = 4 to 21 on 30,011 nodes (70,001 at v <= 6, whose blocks
+    hold 2 to 4 groups; more 32-node groups than the grid has group
+    slots, so blocks walk several groups a pass) over the
     color-major layout, two right sides in turn on fresh workspaces, each
     against the plain FGMRES(10) at test_k6_colorings' pins: no phase
     reads an entry that another thread writes in the same phase (the
@@ -1025,7 +1039,8 @@ def test_k6_rows_kernel_many_groups(card, v, variant):
     from su2_tpu_torch.linalg import stencil_solve as ts
     offsets, nc = th.COLORINGS["proper2"]
     dtype = torch.float64 if variant == "float64" else torch.float32
-    args, r = th.stencil_args(th.band_system(30011, v, offsets, nc, seed=8),
+    n = 70001 if v <= 6 else 30011
+    args, r = th.stencil_args(th.band_system(n, v, offsets, nc, seed=8),
                               dtype, mixed=variant == "mixed", device=card)
     n = r.shape[0]
     groups = -(-n // 32)
@@ -1109,6 +1124,131 @@ def test_k6_cluster_sizes(card, monkeypatch, v, n, variant, cluster):
                                                cluster=cluster)
         assert torch.equal(x2, x) and torch.equal(rel2, rel) \
             and int(it2) == int(it)
+
+
+GRID_CASES = [(v, var) for v in ROWS_V for var in VARIANTS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,variant", GRID_CASES,
+                         ids=[f"v{v}-{var}" for v, var in GRID_CASES])
+def test_k6_grid_every_width(card, v, variant):
+    """K6's cooperative grid at every width of its rows form: one block
+    per 32 k6_groups(v) nodes at the one-launch tier's shapes (9,072 and
+    8,000 nodes, each a single wave of groups), and on a field with more
+    groups than fit on the card at once the co-resident cap, the same at
+    any larger field and launchable: the cycle runs at that size (a grid
+    that is not co-resident is refused by the cooperative launch) and
+    gives a finite x."""
+    from su2_tpu_torch import kernels
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    mixed = variant == "mixed"
+    per = 32 * kernels.k6_groups(v)
+    for n in (9072, 8000):
+        grid = kernels.stencil_fgmres_grid(dtype, mixed, v, n, 10)
+        assert 1 <= grid <= -(-n // per)
+    cap = kernels.stencil_fgmres_grid(dtype, mixed, v, 10 ** 7, 10)
+    assert cap == kernels.stencil_fgmres_grid(dtype, mixed, v, 2 * 10 ** 7,
+                                              10)
+    n = (cap + 1) * per
+    assert kernels.stencil_fgmres_grid(dtype, mixed, v, n, 10) == cap
+    offsets, nc = th.COLORINGS["proper2"]
+    args, r = _device_band(card, n, v, offsets, nc, dtype, mixed)
+    x, _, it = kernels.stencil_fgmres(**args, b=r, m=10, tol=1e-6)
+    assert bool(torch.isfinite(x).all()) and 1 <= int(it) <= 10
+
+
+def _device_band(card, n, v, offsets, ncolor, dtype, mixed, seed=12):
+    """A band system as th.band_system makes it (dense v x v blocks, zero
+    blocks for out-of-range neighbours, round-robin colors), drawn on the
+    card: (operands of stencil_fgmres, r)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    k = len(offsets)
+    sel = torch.randn((k, v * v, n), generator=g, device=card,
+                      dtype=dtype) * 0.1
+    p = torch.arange(n, device=card)
+    for kk, o in enumerate(offsets):
+        sel[kk][:, (p + o < 0) | (p + o >= n)] = 0.0
+    diag = torch.randn((n, v, v), generator=g, device=card, dtype=dtype) \
+        * 0.1 + 3.0 * torch.eye(v, device=card, dtype=dtype)
+    lanes = lambda blk: blk.permute(1, 2, 0).reshape(v * v, n).contiguous()
+    sel = sel.reshape(k * v * v, n).contiguous()
+    args = dict(selp_t=sel.to(torch.bfloat16) if mixed else sel, selm_t=sel,
+                dinv_t=lanes(torch.linalg.inv(diag)), diag_t=lanes(diag),
+                colors=(p % ncolor).to(torch.int8), offsets=tuple(offsets),
+                ncolor=ncolor)
+    r = torch.randn((n, v), generator=g, device=card, dtype=dtype)
+    return args, r
+
+
+RUNTIME_CASES = [(v, var) for v in (8, 13) for var in VARIANTS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,variant", RUNTIME_CASES,
+                         ids=[f"v{v}-{var}" for v, var in RUNTIME_CASES])
+def test_runtime_width_matches_compiled(card, v, variant):
+    """The run-time-width instance (runtime=True) at two compiled widths
+    against the compiled instance on the same inputs: K5's three forms bit
+    for bit (the same thread layout, each block row summed in the same
+    order), over the color-major layout and the natural one; K6's cycle
+    with equal iterations and x within test_k6_colorings' pins (its grid
+    follows each instance's occupancy, so the reductions' partials may
+    split differently)."""
+    from su2_tpu_torch import kernels
+    offsets, nc = th.COLORINGS["proper2"]
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    args, r = th.stencil_args(th.band_system(4001, v, offsets, nc, seed=13),
+                              dtype, mixed=variant == "mixed", device=card)
+    order, cm = _cm_layout(args)
+    for layout in (cm, dict(order=order)):
+        for sweep, matvec in ((True, True), (True, False), (False, True)):
+            kw = dict(args, **layout, r=r, sweep=sweep, matvec=matvec)
+            want = kernels.stencil_sgs_matvec(**kw)
+            kernels.reset_launches()
+            got = kernels.stencil_sgs_matvec(**kw, runtime=True)
+            assert kernels.launches["stencil_sgs_matvec"] == 1
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    assert torch.equal(g, w)
+    tol = 1e-8 if variant == "float64" else 1e-12
+    wx, _, wit = kernels.stencil_fgmres(**dict(args, **cm), b=r, m=10,
+                                        tol=tol)
+    x, _, it = kernels.stencil_fgmres(**dict(args, **cm), b=r, m=10, tol=tol,
+                                      runtime=True)
+    assert int(it) == int(wit)
+    _k6_pins(x, wx, variant)
+    assert kernels.stencil_fgmres_grid(dtype, variant == "mixed", v, 4001, 10,
+                                       runtime=True) >= 1
+
+
+@pytest.mark.cuda
+def test_stencil_width_range_on_card(card):
+    """On the card K5, K6 and K6's grid query take every width from 2 to
+    21 and refuse 1 and 22 naming the range; the run-time instance, forced,
+    takes 4 to 21 and refuses 3."""
+    from su2_tpu_torch import kernels
+    offsets, nc = th.COLORINGS["proper2"]
+    for v, runtime in ((22, False), (1, False), (3, True), (22, True)):
+        args, r = th.stencil_args(th.band_system(64, v, offsets, nc),
+                                  torch.float32, device=card)
+        lo = 4 if runtime else 2
+        for call in (lambda: kernels.stencil_sgs_matvec(**args, r=r,
+                                                        runtime=runtime),
+                     lambda: kernels.stencil_fgmres(**args, b=r, m=5,
+                                                    tol=1e-6,
+                                                    runtime=runtime),
+                     lambda: kernels.stencil_fgmres_grid(
+                         torch.float32, False, v, 64, 5, runtime=runtime)):
+            with pytest.raises(ValueError, match=f"{lo} to 21"):
+                call()
+    for v in STENCIL_V:
+        args, r = th.stencil_args(th.band_system(64, v, offsets, nc),
+                                  torch.float32, device=card)
+        z, w = kernels.stencil_sgs_matvec(**args, r=r)
+        x, _, _ = kernels.stencil_fgmres(**args, b=r, m=5, tol=1e-6)
+        assert all(bool(torch.isfinite(t).all()) for t in (z, w, x))
 
 
 @pytest.mark.cuda
@@ -1921,6 +2061,110 @@ def test_3d_implicit_graph_matches_eager_bitwise(card, tmp_path, path,
     assert eager[flow_kernel] == 5
     stencil = mesh == "box"
     assert eager["stencil_fgmres"] == 5 * stencil * (1 + sim.turbulent)
+
+
+# the 5-species graph test's paths (cases.SPECIES[:5], the flow's v = 9
+# in 2D and 10 in 3D: K5/K6's run-time-width instance): (cfg lines, the
+# box, laminar); the launches per iteration come from the solves' tiers
+MIXTURE_GRAPH_PATHS = {
+    "channel-lusgs": ({}, False, False),
+    "channel-ilu0": (dict(LINEAR_SOLVER_PREC="ILU0"), False, False),
+    "channel-bcgstab": (dict(LINEAR_SOLVER="BCGSTAB"), False, False),
+    "channel-linelet": (dict(LINEAR_SOLVER_PREC="LINELET"), False, False),
+    "channel-laminar": ({}, False, True),
+    "box-lusgs": ({}, True, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("path", list(MIXTURE_GRAPH_PATHS))
+def test_mixture_graph_matches_eager_bitwise(card, tmp_path, path, dtype):
+    """Five iterations of the implicit step (MUSCL + Venkatakrishnan) at 5
+    species on the 153-node channel (LU_SGS, ILU0, BCGSTAB, LINELET;
+    laminar LU_SGS) or the 80-node box (LU_SGS) through the captured graph
+    equal five eager iterations from the same state bit for bit, state and
+    history rows; the flow's solve launches K5/K6 at v = 9 (2D) or 10
+    (3D) through the run-time-width instance: K6 once per iteration with
+    LU_SGS and ILU0 (the one-launch tier at this size), K5's sweep-only
+    and matvec-only forms with BCGSTAB, its matvec with LINELET."""
+    from su2_tpu_torch import cases, kernels
+    from su2_tpu_torch.config import Config
+    from su2_tpu_torch.driver import Simulation
+    from su2_tpu_torch.geometry.structured import box_mesh, channel_mesh
+    lines, box, laminar = MIXTURE_GRAPH_PATHS[path]
+    text = cases.write_case(str(tmp_path), species=cases.SPECIES[:5])
+    if laminar:
+        text = cases.with_laminar(text)
+    if box:
+        text = cases.with_box_markers(text)
+    text = th.with_lines(th.with_implicit(text, prec="LU_SGS"), **lines)
+    raw = box_mesh(5, 4, 4) if box else channel_mesh(*th.CHANNEL)
+    sim = Simulation(Config(text=text), raw_mesh=raw, dtype=dtype,
+                     device=card)
+    assert sim.lay.nvar == (10 if box else 9)
+    state = (sim.u0, sim.t0) + (tuple(sim.initial_turb_state())
+                                if sim.turbulent else ())
+    state = _eager(sim, state, 2)[0]
+    kernels.reset_launches()
+    want = _eager(sim, state, 5)
+    eager = dict(kernels.launches)
+    kernels.reset_launches()
+    got = sim._multistep(state, 5)
+    _assert_same(got, want)
+    assert {k: 5 * c for k, c in sim._graph.per_replay.items()} == eager
+    flow_k6 = path in ("channel-lusgs", "channel-ilu0", "channel-laminar",
+                       "box-lusgs")
+    sst_k6 = sim.turbulent and path != "channel-bcgstab"
+    assert eager["stencil_fgmres"] == 5 * (flow_k6 + sst_k6)
+    assert (eager["stencil_sweep_only"] > 0) == (path == "channel-bcgstab")
+    assert (eager["stencil_matvec_only"] > 0) == (
+        path in ("channel-bcgstab", "channel-linelet"))
+
+
+@pytest.mark.cuda
+def test_graph_capture_collects_another_graph(card, tmp_path, monkeypatch):
+    """The open capture hazard (a rare cudaErrorStreamCaptureInvalidated in
+    the card suite): an unreachable, cyclic Simulation that holds a
+    captured graph, freed by gc.collect() forced inside another
+    Simulation's capture (the first node_state call of the capture), must
+    leave that capture whole (the freed graph waits in StepGraph._parked
+    until the capture has ended): its graph replays bit for bit its eager
+    iterations."""
+    import gc
+    import weakref
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.driver import StepGraph
+    text = _graph_text(tmp_path, True)
+    node_state = kernels.node_state
+    freed = []
+
+    def collect_in_capture(*a, **kw):
+        if not freed and torch.cuda.is_current_stream_capturing():
+            freed.append(gc.collect())
+        return node_state(*a, **kw)
+
+    gc.disable()
+    try:
+        dead = _card_sim(card, text, torch.float32)
+        dead.run(2, quiet=True)
+        assert dead._graph is not None
+        dead.cycle = dead
+        ref = weakref.ref(dead)
+        del dead
+        live = _card_sim(card, text, torch.float32)
+        state = (live.u0, live.t0) + tuple(live.initial_turb_state())
+        state = _eager(live, state, 2)[0]
+        assert ref() is not None
+        monkeypatch.setattr(kernels, "node_state", collect_in_capture)
+        live._multistep(state, 1)
+        monkeypatch.setattr(kernels, "node_state", node_state)
+    finally:
+        gc.enable()
+    assert freed and ref() is None
+    assert StepGraph._capturing == 0 and not StepGraph._parked
+    want = _eager(live, state, 3)
+    _assert_same(live._multistep(state, 3), want)
 
 
 @pytest.mark.cuda

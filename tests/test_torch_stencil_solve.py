@@ -21,7 +21,16 @@ BAND = {"band2": (2, (-9, -8, -7, -1, 1, 7, 8, 9)),
         # the flow's widths (nDim + nSpecies + 2: the 3-species flat plate,
         # the 9-species channel) on a channel-like stencil
         "band7": (7, (-9, -1, 1, 9)),
-        "band13": (13, (-9, -1, 1, 9))}
+        "band13": (13, (-9, -1, 1, 9)),
+        # widths of the run-time-width instance on the card: the flow at 1
+        # species in 2D (4), 5 species in 2D (9) and 3D (10), 16 species in
+        # 3D (21)
+        "band4": (4, (-9, -1, 1, 9)),
+        "band9": (9, (-9, -1, 1, 9)),
+        "band10": (10, (-9, -1, 1, 9)),
+        "band21": (21, (-9, -1, 1, 9))}
+# the run-time-width instance's widths of the plain-versus-su2_tpu checks
+RUNTIME_V = (4, 9, 10, 21)
 
 
 def _quad(v, seed, f32=False):
@@ -60,8 +69,10 @@ def _quad(v, seed, f32=False):
 
 
 def _system(name):
-    if name == "quad":
-        return _quad(2, 5)[0]
+    """A band system of BAND, or "quad" ("quad<v>": at width v) as _quad
+    builds it."""
+    if name.startswith("quad"):
+        return _quad(int(name[4:] or 2), 5)[0]
     v, offsets = BAND[name]
     return th.band_system(1000, v, offsets, 4)
 
@@ -72,11 +83,17 @@ CALLS = ("sgs_matvec", "sgs", "matvec", "sgs_matvec_mixed",
 
 # every call on the SST-sized systems and v = 7; at v = 13 (where each
 # interpret-mode trace takes ~20 s) the full-field sweep + matvec and
-# matvec, and the mixed calls of the flow's tiers (resident and windowed)
+# matvec, and the mixed calls of the flow's tiers (resident and windowed);
+# at the run-time instance's widths the sweep + matvec on a quad system
+# (4, 9, 10, 21: ~6, 12, 14 and 60 s), on band systems at 9 the matvec
+# only (LINELET's form) and the mixed sweep + matvec (the 5-species flow's
+# mixed tier)
 SGS_CASES = [(system, call) for system in ("band2", "band3", "quad", "band7")
              for call in CALLS] + [
     ("band13", call) for call in ("sgs_matvec", "matvec", "sgs_matvec_mixed",
-                                  "tiled_sgs_matvec_mixed")]
+                                  "tiled_sgs_matvec_mixed")] + [
+    (f"quad{v}", "sgs_matvec") for v in RUNTIME_V] + [
+    ("band9", "matvec"), ("band9", "sgs_matvec_mixed")]
 
 
 @pytest.mark.parametrize("system,call", SGS_CASES,
@@ -149,7 +166,10 @@ def test_sgs_matvec_plain_matches_jax(system, call):
 FGMRES_CASES = [  # (m, tol, right side, block width)
     (3, 1e-6, "random", 2), (3, 1e-12, "random", 2), (10, 1e-6, "random", 2),
     (10, 1e-12, "random", 2), (3, 1e-6, "scaled", 2), (3, 1e-6, "zero", 2),
-    (3, 1e-6, "random", 7), (3, 1e-6, "scaled", 7), (3, 1e-12, "random", 13)]
+    (3, 1e-6, "random", 7), (3, 1e-6, "scaled", 7), (3, 1e-12, "random", 13)
+    ] + [(3, 1e-6, "random", v) for v in RUNTIME_V]
+# widths whose reference cycle is its Krylov loop over the (z, A z) kernel
+LOOP_V = (21,)
 
 
 @pytest.mark.parametrize(
@@ -158,19 +178,28 @@ FGMRES_CASES = [  # (m, tol, right side, block width)
          for m, t, r, v in FGMRES_CASES])
 def test_fgmres_plain_matches_jax(m, tol, rhs, v):
     """fgmres_plain against the one-launch _fgmres_call (f64, v = 2, and
-    the flow's v = 7 and 13) at the pins of tests/test_stencil.py:259-262
+    the flow's v = 7 and 13, and 4, 9, 10 and 21) at the pins of tests/test_stencil.py:259-262
     (x rtol 1e-9, atol 1e-12; rel rtol 1e-8; equal iterations), a right
     side scaled by 1e18 (the pow2 scaling; atol 1e-3 as there) and b = 0.
     tol 1e-12 runs all 3 iterations at m = 3; at m = 10 and v = 2 it stops
     after 8, with the relative residual at ~2e-13, where the two packages'
-    dot summation orders show, hence atol 1e-15 on rel."""
+    dot summation orders show, hence atol 1e-15 on rel.  At v = 21 the
+    reference's cycle is its Krylov loop over its (z, A z) kernel (as
+    SU2_TPU_FUSED_FGMRES_OFF runs it: the one-launch cycle's arithmetic),
+    whose interpret-mode trace the sweep's check at this width has made
+    (the one-launch kernel's own trace takes ~150 s there)."""
     from su2_tpu.pallas import stencil_solve as stks
     from su2_tpu_torch.linalg import stencil_solve as ts
     s, (ma, jac, sel, dinv, masks, _) = _quad(v, 13)
     b = np.random.default_rng(14).normal(0, 1, (s["n"], v))
     b = {"random": b, "scaled": b * 1e18, "zero": 0.0 * b}[rhs]
     ops = stks.StencilSolveOps(ma, sel, dinv, jac.diag, masks)
-    wx, wrel, wit = ops.fgmres(jnp.asarray(b), m, tol)
+    if v in LOOP_V:
+        from su2_tpu.linalg import krylov as jk
+        wx, wrel, wit = jk.fgmres(None, None, jnp.asarray(b), max_iter=m,
+                                  tol=tol, precond_matvec=ops.precond_matvec)
+    else:
+        wx, wrel, wit = ops.fgmres(jnp.asarray(b), m, tol)
     args, _ = th.stencil_args(s, torch.float64)
     x, rel, it = ts.fgmres_plain(**args, b=th.tt(b), m=m, tol=tol)
     atol = 1e-3 if rhs == "scaled" else 1e-12
@@ -183,11 +212,12 @@ def test_fgmres_plain_matches_jax(m, tol, rhs, v):
         assert int(it) == (min(m, 8) if v == 2 else m)
 
 
-@pytest.mark.parametrize("v,m", [(3, 3), (3, 10), (7, 3), (13, 3)],
-                         ids=["3", "10", "v7-3", "v13-3"])
+@pytest.mark.parametrize("v,m", [(3, 3), (3, 10), (7, 3), (13, 3), (9, 3)],
+                         ids=["3", "10", "v7-3", "v13-3", "v9-3"])
 def test_fgmres_mixed_plain_matches_jax(v, m):
     """fgmres_plain with bf16 sweep blocks and f32 matvec blocks against
-    _fgmres_mixed_call (f32, v = 3 and the flow's 7 and 13) at the pins of
+    _fgmres_mixed_call (f32, v = 3 and the flow's 7, 13 and 9, the
+    5-species flow's one-launch mixed tier) at the pins of
     tests/test_stencil.py:315-317: x within rtol 2e-5, atol 2e-5; equal
     iterations."""
     from su2_tpu.pallas import stencil_solve as stks
@@ -221,6 +251,11 @@ def test_greedy_coloring_identical(mesh):
     assert np.array_equal(got, want) and got.dtype == want.dtype
 
 
+# every block width of the stencil solve: the SST's 2, 3, and the flow's
+# nDim + nSpecies + 2 at 1 to 16 species in 2D and 3D
+WIDTHS = tuple(range(2, 22))
+
+
 def _sizes():
     pts = [1, 127, 128, 129, 153, 4096, 9072, 12288, 12289, 36000, 49152,
            49153, 100000, 142317, 200000, 331000, 419000, 420000, 565000,
@@ -233,8 +268,8 @@ def _sizes():
                                   "fgmres_mixed_supported"])
 def test_tier_predicates_match_jax(pred):
     """The port's pure size predicates equal the reference's over a table
-    of sizes, widths, dtypes and Krylov budgets (the reference gets a
-    mesh stand-in, so nothing is allocated)."""
+    of sizes, every block width from 2 to 21, dtypes and Krylov budgets
+    (the reference gets a mesh stand-in, so nothing is allocated)."""
     from su2_tpu.pallas import stencil_solve as stks
     from su2_tpu_torch.linalg import stencil_solve as ts
     dts = [(jnp.float32, torch.float32), (jnp.float64, torch.float64)]
@@ -245,7 +280,7 @@ def test_tier_predicates_match_jax(pred):
         for k in (4, 8):
             mesh = SimpleNamespace(npoint=n, n_shards=1,
                                    stencil_offsets=tuple(range(1, k + 1)))
-            for v in (2, 3, 7, 13):
+            for v in WIDTHS:
                 for nc in (2, 5):
                     for m in (5, 10):
                         for jd, td in dts:
@@ -338,15 +373,15 @@ def _offset_sets():
 
 def test_tiled_tier_predicate_matches_jax():
     """tiled_supported equals the reference's tile_plan (bf16 sweep and
-    f32 matvec blocks, one shard) is not None over stencils, widths and
-    color counts, both answers seen."""
+    f32 matvec blocks, one shard) is not None over stencils, every width
+    from 2 to 21 and color counts, both answers seen."""
     from su2_tpu.pallas import stencil_solve as stks
     from su2_tpu_torch.linalg import stencil_solve as ts
     seen = set()
     for offsets in _offset_sets():
         mesh = SimpleNamespace(npoint=565500, n_shards=1,
                                stencil_offsets=offsets)
-        for v in (2, 3, 7, 13):
+        for v in WIDTHS:
             for nc in (2, 5):
                 want = stks.tile_plan(mesh, v, nc, 2, True) is not None
                 assert ts.tiled_supported(offsets, v, nc) == want, \
@@ -374,8 +409,9 @@ def _reference_tier(mesh, v, jdt, nc, m):
 
 def test_solve_tier_matches_jax():
     """solve_tier (the tiers make_solver_ops_stencil_t picks) against the
-    reference's choice over sizes, stencils, the SST's and the flow's
-    widths, f32 and f64, at Krylov budgets 5 and 10; and at the flow's
+    reference's choice over sizes, stencils, every width from 2 to 21 (the
+    SST's 2, the flow's nDim + nSpecies + 2 at 1 to 16 species), f32 and
+    f64, at Krylov budgets 5 and 10; and at the flow's
     v = 13 on the smoke sizes' channels (2 colors, FGMRES(10)): the mixed
     one-launch tier at 9,072 nodes, the mixed per-iteration tier (windowed
     in the reference) at 142,317 and 565,500, full precision per
@@ -386,7 +422,7 @@ def test_solve_tier_matches_jax():
         for offsets in _offset_sets():
             mesh = SimpleNamespace(npoint=n, n_shards=1,
                                    stencil_offsets=offsets)
-            for v in (2, 3, 7, 13):
+            for v in WIDTHS:
                 for jdt, tdt in ((jnp.float32, torch.float32),
                                  (jnp.float64, torch.float64)):
                     for m in (5, 10):
@@ -450,9 +486,9 @@ def test_f64_past_the_gate_matches_jax(monkeypatch, kind):
 def test_sweep_colors_and_refusals():
     """The driver's sweep colors: greedy_coloring as int8 with its count,
     refused past 127 colors; the stencil kernel wrappers refuse CPU
-    tensors and block widths they were not compiled for (naming the
-    compiled ones); the unported preconditioners name the su2_tpu module
-    that has them."""
+    tensors and block widths outside 2 to 21 (naming the range, before
+    any launch); the unported preconditioners name the su2_tpu module that
+    has them."""
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import blockcsr as tb
     path = np.array([[1, 0], [0, 2], [1, 2]])       # 0 - 1 - 2, self-padded
@@ -467,14 +503,16 @@ def test_sweep_colors_and_refusals():
         kernels.stencil_sgs_matvec(**args, r=r)
     with pytest.raises(ValueError, match="must be on"):
         kernels.stencil_fgmres(**args, b=r, m=5, tol=1e-6)
-    # a width the kernels were not compiled for, named with the compiled
-    s5 = th.band_system(300, 5, BAND["band3"][1], 4)
-    args5, r5 = th.stencil_args(s5, torch.float32)
-    for call in (lambda: kernels.stencil_sgs_matvec(**args5, r=r5),
-                 lambda: kernels.stencil_fgmres(**args5, b=r5, m=5, tol=1e-6),
-                 lambda: kernels.stencil_fgmres_grid(torch.float32, True, 5,
+    # a width past the range of the run-time-width instance, named with
+    # the range
+    s22 = th.band_system(300, 22, BAND["band3"][1], 4)
+    args22, r22 = th.stencil_args(s22, torch.float32)
+    for call in (lambda: kernels.stencil_sgs_matvec(**args22, r=r22),
+                 lambda: kernels.stencil_fgmres(**args22, b=r22, m=5,
+                                                tol=1e-6),
+                 lambda: kernels.stencil_fgmres_grid(torch.float32, True, 22,
                                                      300, 10)):
-        with pytest.raises(ValueError, match=r"\(2, 3, 7, 8, 13, 14\)"):
+        with pytest.raises(ValueError, match="block width 22;.* 2 to 21"):
             call()
     tmesh = SimpleNamespace(npoint=4, stencil_offsets=(1,))
     for kind, where in tb.UNPORTED_PREC.items():
