@@ -193,15 +193,18 @@ Phases (one line each; any failure exits nonzero):
              5, the 3-species and laminar boxes at 136,161), float32,
              timed and profiled with the device ms of each stage
   widths     (after 3D) K5 and K6 at every block width from 4 to 21 that
-             kernels.STENCIL_WIDTHS does not compile, through their
-             run-time-width instance (RUNTIME_WIDTHS, widths_phase):
+             kernels.STENCIL_WIDTHS does not compile, through the
+             run-time kernels (RUNTIME_WIDTHS, widths_phase; each line
+             with the width's class, K6's form; K6 on the flow
+             systems also in its streamed form; every class's registers
+             and spills from this run's ptxas):
              K5's three modes and K6 against their plain versions on band
              systems (band_offsets) and on the flow systems of the
              5-species cases (MIXTURE_PATHS: v = 9 on the channel, K6 at
              SIZES["flagship"], K5 at SIZES["scaling"]; v = 10 on the box,
              K6 at BOX_KERNELS, K5 at BOX_SCALING), f64, f32 and mixed,
              times at RUNTIME_TIMED's widths and on the flow systems; the
-             run-time instance at 8 and 13 against the compiled one (K5
+             run-time kernels at 8 and 13 against the compiled ones (K5
              bit for bit, K6 within its pins; both times); the step
              checks hold 5 f64 iterations card vs CPU of the 5-species
              implicit LU_SGS channel (SIZES["flagship"]) and box
@@ -281,7 +284,12 @@ body); T1, K9 and K12 as time_t1_k9_k12 says (T1 on a boundary batch
 and on the TIER_N-node case's MUSCL face rows with its bound, K9 on the
 TIER_N-node case's inlet, K12 at 9,072 and TIER_N nodes with its
 bound); K11 as time_k11 says (feature-major, the laminar implicit
-case's family slots at 9,072 and TIER_N nodes, with its bound);
+case's family slots at 9,072 and TIER_N nodes, with its bound); K5 and
+K6 at the widths with no compiled instance as time_runtime_widths says
+(the 5-species flow systems: K5 mixed and its f32 matvec at 142,317 and
+136,161 nodes, K6 mixed at 9,072 and 8,000; RUNTIME_TIMED's band
+systems in f64, f32 and mixed; the run-time kernels at 8 and 13 beside
+the compiled ones, with device ms and bounds);
 float32, cuda_time's median ms (host work included) and, for T1, T2, K6,
 K7, K9, K11, T4, K12 and K13, device_ms (the kernels alone,
 torch.profiler; T1, K7, K9, K11, T4, K12 and K13 also every device
@@ -329,8 +337,10 @@ with DIR's (bitwise_main, sass_2d_diff); then K5 and K6 as below.
 
 holds K5 (its three modes) and K6 at every compiled width
 (kernels.STENCIL_WIDTHS) on band systems, in float64, float32 and mixed,
-against DIR's bit for bit, and compares the SASS of every compiled K5/K6
-instance with DIR's (stencil_bitwise, sass_same_names).
+against DIR's bit for bit, K5's three modes through the run-time kernels
+at every width of RUNTIME_WIDTHS (and 8, 13) against DIR's run-time
+instance, and compares the SASS of every compiled K5/K6 instance with
+DIR's (stencil_bitwise, sass_same_names).
 """
 
 from __future__ import annotations
@@ -599,6 +609,39 @@ def ptxas_summary(log):
                        f"{tail.strip(', ')}" + (f"; {frame}" if frame else ""))
             name = None
     return out
+
+
+# ptxas -v's line of each kernel in this run's build (main's; empty where
+# the library had been built before)
+PTXAS = {}
+RT_TYPES = {"float64": ("double", "double"), "float32": ("float", "float"),
+            "mixed": ("float", "bf16")}
+
+
+def rt_kernel_lines(v, var):
+    """The run-time kernels width v runs in tier var (its class's
+    instances) with the registers, stack and spills ptxas gave them."""
+    from su2_tpu_torch import kernels
+    vb = kernels.stencil_instance(v, runtime=True)[1]
+    t, s = RT_TYPES[var]
+    names = (f"sgs_pass_rt_kernel<{t}, {s}, {vb}>",
+             f"matvec_rt_kernel<{t}, {vb}>",
+             f"fgmres_rt_kernel<{t}, {s}, {vb}>")
+    return "; ".join(PTXAS.get(k, f"{k}: not in this run's build log")
+                     for k in names)
+
+
+def k5_form(v):
+    """K5's run-time instance at width v as words."""
+    from su2_tpu_torch import kernels
+    return f"class {kernels.stencil_instance(v, runtime=True)[1]}"
+
+
+def k6_form(plan):
+    """K6's run-time plan as words (kernels.k6_plan)."""
+    return (f"class {plan.vb}, {plan.form}"
+            + (f" ({plan.gpb} groups a block)" if plan.res else "")
+            + f", grid {plan.grid}, {plan.smem} B shared")
 
 
 def cuda_time(fn, reps=20, warm=3):
@@ -1873,6 +1916,33 @@ def k6_flops(args, n, v, m):
         + 2 * m * nv
 
 
+def k5_bound(args, lay, r, got, sweep, matvec, var):
+    """bound_of one K5 call: its inputs read once (r; the sweep blocks,
+    dinv, colors and order; diag and the matvec blocks where they are not
+    the sweep's), its outputs got written once, k5_flops' operations."""
+    n, v = r.shape
+    ins = [r]
+    if sweep:
+        ins += [lay["selp_t"], lay["dinv_t"], args["colors"], lay["order"]]
+    if matvec:
+        ins.append(args["diag_t"])
+        if not sweep or args["selm_t"] is not lay["selp_t"]:
+            ins.append(args["selm_t"])
+    return bound_of(nbytes(ins + list(got)),
+                    k5_flops(args, n, v, sweep, matvec), var)
+
+
+def k6_bound(args, lay, b, var):
+    """bound_of one K6 cycle: its inputs read once, x and the stats
+    written once, k6_flops' operations."""
+    n, v = b.shape
+    ins = [lay["selp_t"], lay["dinv_t"], args["diag_t"], args["colors"], b,
+           None if args["selm_t"] is lay["selp_t"] else args["selm_t"],
+           lay["order"]]
+    outs = nbytes([b]) + 2 * b.element_size()          # x and the stats
+    return bound_of(nbytes(ins) + outs, k6_flops(args, n, v, KRYLOV_M), var)
+
+
 def k6_launch(v, grid):
     """K6's launch at width v with stencil_fgmres_grid's count grid
     (csrc/stencil_solve.cu), as words."""
@@ -2005,21 +2075,15 @@ def stencil_checks(systems, report, timed=None):
                     err = max(err, e.max().item())
                     worst = max(worst, e.max().item()
                                 / max(w.abs().max().item(), 1e-300))
+                form = ("" if v in kernels.STENCIL_WIDTHS
+                        else "; " + k5_form(v))
                 if timed is not None and sname not in timed:
                     phase("stencil", f"K5 {mode} {sname} {var}: max_abs_err "
-                          f"{err:.3e} ({worst:.2e} of its field's max)")
+                          f"{err:.3e} ({worst:.2e} of its field's max)"
+                          + form)
                     continue
                 ms, plain_ms = cuda_time(kfn), cuda_time(pfn)
-                ins = [r]
-                if sweep:
-                    ins += [args["selp_t"], args["dinv_t"], args["colors"],
-                            lay["order"]]
-                if matvec:
-                    ins.append(args["diag_t"])
-                    if not sweep or args["selm_t"] is not args["selp_t"]:
-                        ins.append(args["selm_t"])
-                bound = bound_of(nbytes(ins + got),
-                                 k5_flops(args, n, v, sweep, matvec), var)
+                bound = k5_bound(args, lay, r, got, sweep, matvec, var)
                 lib_ms, lib_txt = None, ""
                 if mode == "matvec":
                     lib_ms, lib_txt = bsr_time(args, r, n, v)
@@ -2028,7 +2092,7 @@ def stencil_checks(systems, report, timed=None):
                       f"{ms:.4f} ms plain {plain_ms:.4f} ms bound "
                       f"{bound[0]:.4f} ms ({bound[1]}){lib_txt}; sweep "
                       "blocks " + ("color-major" if lay["color_major"]
-                                   else "natural"))
+                                   else "natural") + form)
                 report.setdefault(stencil_report("stencil_sgs_matvec", v),
                                   {})[(sname, var, mode)] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2167,10 +2231,15 @@ def widths_phase(msims, report):
     is one cycle, on the channel's 9,072 nodes and the box's 8,000, K5's
     three modes on the channel's 142,317 and the box's 136,161); then the
     run-time instance at the compiled widths 8 and 13 against the compiled
-    one (runtime_vs_compiled)."""
+    one (runtime_vs_compiled).  K6 on the flow systems also in its
+    streamed form (forced: smem_budget 0) beside the form k6_plan picks;
+    each width's class and its kernels' registers and spills (this run's
+    ptxas)."""
+    import torch
     every = ("float64", "float32", "mixed")
     modes = ("sgs_matvec", "sgs", "matvec")
     systems = {}
+    streamed = []
     for key, (sim, _, _) in msims.items():
         if not (sim.turbulent and key.endswith(" implicit LU_SGS")) \
                 or sim.mesh.npoint == TIER_N:
@@ -2182,6 +2251,8 @@ def widths_phase(msims, report):
         systems[name] = (
             lambda var, sim=sim, rec=rec: system_operands(sim, rec, var),
             {} if one else dict.fromkeys(every, modes), one)
+        if one:
+            streamed.append((name, systems[name][0]))
     for v in RUNTIME_WIDTHS:
         n = 20000 if f"band{v}" in RUNTIME_TIMED else 4000
         systems[f"band{v}"] = (
@@ -2191,6 +2262,16 @@ def widths_phase(msims, report):
     stencil_checks(systems, report, timed={name for name in systems
                                            if not name.startswith("band")}
                    | set(RUNTIME_TIMED))
+    for name, make in streamed:
+        for var in every:
+            args, r, b = make(var)
+            k6_check(f"{name} streamed", var, args, r, b, report,
+                     timed=var == "mixed", budget=0)
+            del args, r, b
+        torch.cuda.empty_cache()
+    for v in sorted(set(RUNTIME_WIDTHS) | {8, 13}):
+        for var in every:
+            phase("widths", f"v = {v} {var}: {rt_kernel_lines(v, var)}")
     runtime_vs_compiled(report)
 
 
@@ -2207,6 +2288,7 @@ def runtime_vs_compiled(report):
     out = report.setdefault("runtime_vs_compiled", {})
     for v, offsets in ((8, BOX_BAND), (13, (-9, -1, 1, 9))):
         for var in ("float64", "float32", "mixed"):
+            sel_bf16 = var == "mixed"
             args, _, b = band_operands(v, offsets, var)
             n = b.shape[0]
             lay = solve_layout(args)
@@ -2236,13 +2318,16 @@ def runtime_vs_compiled(report):
                     f"{diff.max().item():.3e} (x scale {scale:.3e})")
             k6_ms = [cuda_time(lambda rt=rt: k6(rt), reps=10)
                      for rt in (False, True)]
-            sel_bf16 = var == "mixed"
             grids = [kernels.stencil_fgmres_grid(b.dtype, sel_bf16, v, n,
                                                  KRYLOV_M, runtime=rt)
                      for rt in (False, True)]
-            phase("widths", f"run-time instance at v = {v} {var} ({n} "
-                  f"nodes): K5 (z, A z) bit for bit the compiled "
-                  f"instance's, {k5_ms[1]:.4f} ms against {k5_ms[0]:.4f}; "
+            plan = kernels.k6_launch_plan(
+                b.dtype, sel_bf16, v, len(offsets), n, lay1["color_major"],
+                KRYLOV_M)
+            phase("widths", f"run-time kernels at v = {v} {var} ({n} "
+                  f"nodes): K5 ({k5_form(v)}) (z, A z) bit for bit "
+                  f"the compiled instance's, {k5_ms[1]:.4f} ms against "
+                  f"{k5_ms[0]:.4f}; K6 {k6_form(plan)}; "
                   f"K6 {int(it1)} iterations as the compiled, x within "
                   f"{diff.max().item() / scale:.2e} of max|x|, "
                   f"{k6_ms[1]:.4f} ms against {k6_ms[0]:.4f} (grids "
@@ -2250,7 +2335,8 @@ def runtime_vs_compiled(report):
             out[f"v{v} {var}"] = dict(
                 k5_ms=k5_ms[1], k5_compiled_ms=k5_ms[0], k6_ms=k6_ms[1],
                 k6_compiled_ms=k6_ms[0], k6_max_rel_diff=diff.max().item()
-                / scale, k6_grid=grids[1], k6_compiled_grid=grids[0])
+                / scale, k6_grid=grids[1], k6_compiled_grid=grids[0],
+                k6_form=plan.form)
 
 
 def mixture_graphs(msims):
@@ -2292,7 +2378,7 @@ def bsr_time(args, r, n, v):
     return ms, f" torch.sparse.mm (BSR) {ms:.4f} ms"
 
 
-def k6_check(sname, var, args, r, b, report, timed=True):
+def k6_check(sname, var, args, r, b, report, timed=True, budget=None):
     """K6 against the plain FGMRES(10) over the plain sweep: equal
     iterations; f64 x within rtol 1e-9 and atol 1e-12 of max|x|, rel
     within rtol 1e-8 (atol 1e-15); f32 and mixed x within 2e-5 of max|x|
@@ -2300,12 +2386,20 @@ def k6_check(sname, var, args, r, b, report, timed=True):
     Cases: tol 1e-6, tol 1e-12 (all iterations in f32), the unit right
     side r times 1e18 (the pow2 scaling; b itself may reach 1e21 in f32)
     and, in f64, b = 0 (in f32 the reference's 1e-300 floor rounds to 0
-    and its cycle divides 0 by 0).  timed=False: the checks only."""
+    and its cycle divides 0 by 0).  timed=False: the checks only; budget
+    (a run-time width): kernels.stencil_fgmres's smem_budget (0: the
+    streamed form)."""
     import torch
     from su2_tpu_torch import kernels
     from su2_tpu_torch.linalg import stencil_solve as ts
     n, v = b.shape
     lay = solve_layout(args, one_launch=True)
+    rt = v not in kernels.STENCIL_WIDTHS
+    kw = dict(smem_budget=budget) if rt else {}
+    form = ("; " + k6_form(kernels.k6_launch_plan(
+        b.dtype, args["selp_t"].dtype == torch.bfloat16, v,
+        len(args["offsets"]), n, lay["color_major"], KRYLOV_M, budget))
+        if rt else "")
     cases = [("tol 1e-6", b, 1e-6), ("tol 1e-12", b, 1e-12),
              ("r x 1e18", r * 1e18, 1e-6)]
     if var == "float64":
@@ -2314,7 +2408,7 @@ def k6_check(sname, var, args, r, b, report, timed=True):
     iters = []
     for label, bb, tol in cases:
         x, rel, it = kernels.stencil_fgmres(**dict(args, **lay), b=bb,
-                                            m=KRYLOV_M, tol=tol)
+                                            m=KRYLOV_M, tol=tol, **kw)
         px, prel, pit = ts.fgmres_plain(**args, b=bb, m=KRYLOV_M, tol=tol)
         torch.cuda.synchronize()
         if int(it) != int(pit):
@@ -2347,28 +2441,25 @@ def k6_check(sname, var, args, r, b, report, timed=True):
     if not timed:
         phase("stencil", f"K6 {sname} {var}: iterations {iters} equal to the "
               f"plain version's, max error {err:.2e} of max|x|; "
-              f"{k6_launch(v, grid)} (v = {v})")
+              f"{k6_launch(v, grid)} (v = {v}){form}")
         return
     kfn = lambda: kernels.stencil_fgmres(**dict(args, **lay), b=b,
-                                         m=KRYLOV_M, tol=1e-6)
+                                         m=KRYLOV_M, tol=1e-6, **kw)
     pfn = lambda: ts.fgmres_plain(**args, b=b, m=KRYLOV_M, tol=1e-6)
     ms, plain_ms = cuda_time(kfn, reps=10), cuda_time(pfn, reps=5)
-    ins = [args["selp_t"], args["dinv_t"], args["diag_t"], args["colors"], b,
-           None if args["selm_t"] is args["selp_t"] else args["selm_t"],
-           lay["order"]]
-    outs = nbytes([b]) + 2 * b.element_size()          # x and the stats
-    bound = bound_of(nbytes(ins) + outs, k6_flops(args, n, v, KRYLOV_M), var)
+    bound = k6_bound(args, lay, b, var)
     phase("stencil", f"K6 {sname} {var}: iterations {iters} equal to the "
           f"plain version's, max error {err:.2e} of max|x|; kernel {ms:.4f} "
           f"ms plain {plain_ms:.4f} ms bound {bound[0]:.4f} ms ({bound[1]});"
           f" {k6_barriers(args['ncolor'], KRYLOV_M)} barriers; "
           f"{k6_launch(v, grid)} (v = {v}); sweep blocks "
-          + ("color-major" if lay["color_major"] else "natural"))
+          + ("color-major" if lay["color_major"] else "natural") + form)
     report.setdefault(stencil_report("stencil_fgmres", v), {})[
         (sname, var)] = dict(
         max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
         bound_by=bound[1], library_ms=None,
-        barriers=k6_barriers(args["ncolor"], KRYLOV_M), grid=grid)
+        barriers=k6_barriers(args["ncolor"], KRYLOV_M), grid=grid,
+        form=form[2:] or None)
 
 
 def step_phase(tmp, tier=False, total_conditions=False, implicit=None,
@@ -3913,6 +4004,8 @@ def time_kernels(tmp, only=TIMED):
         time_t1_k9_k12(tmp, out, only)
     if "K11" in only:
         time_k11(tmp, out)
+    if only & {"K5", "K6"}:
+        time_runtime_widths(tmp, out, only)
     if not only & {"T2", "K5", "K6", "K8", "K10"}:
         return out
     approx = t2_approx_lib(tmp)
@@ -4012,6 +4105,87 @@ def time_kernels(tmp, only=TIMED):
     out[f"T3 + roll-subtract {n}"] = dict(ms=cuda_time(
         lambda: ef.roll_subtract(eargs[5], *kernels.edge_flux(*eargs))))
     return out
+
+
+def time_runtime_widths(tmp, out, only):
+    """--time-kernels: K5 and K6 at the widths with no compiled instance,
+    through the calls this checkout and its parent share
+    (kernels.stencil_sgs_matvec, stencil_fgmres and stencil_fgmres_grid
+    with runtime, StencilSolveOps' layouts): the 5-species flow systems
+    (K5 mixed (z, A z) and the f32 matvec on the channel at
+    SIZES["scaling"] and the box at BOX_SCALING; K6 mixed on the channel at
+    SIZES["flagship"] and the box at BOX_KERNELS), the band systems of
+    RUNTIME_TIMED (20,000 nodes; K5 (z, A z) and K6 in f64, f32 and
+    mixed), and the run-time kernels (runtime=True) at 8 and 13 beside the
+    compiled ones; event ms, device ms (the kernels alone) and the bound."""
+    import torch
+    from su2_tpu_torch import kernels
+    venk = IMPLICIT_VARIANTS["venkatakrishnan"]
+
+    def k5(label, args, r, var, mode="sgs_matvec", runtime=False):
+        lay = solve_layout(args)
+        sweep = mode != "matvec"
+        fn = lambda: kernels.stencil_sgs_matvec(
+            **dict(args, **lay), r=r, sweep=sweep, runtime=runtime)
+        got = [t for t in fn() if t is not r]
+        bound = k5_bound(args, lay, r, got, sweep, True, var)
+        out[f"K5 {mode} {label} {var}"] = dict(
+            ms=cuda_time(fn), device_ms=device_ms(fn), bound_ms=bound[0])
+
+    def k6(label, args, b, var, runtime=False):
+        lay = solve_layout(args, one_launch=True)
+        fn = lambda: kernels.stencil_fgmres(
+            **dict(args, **lay), b=b, m=KRYLOV_M, tol=1e-6, runtime=runtime)
+        n, v = b.shape
+        out[f"K6 {label} {var}"] = dict(
+            ms=cuda_time(fn, reps=10), device_ms=device_ms(fn, reps=10),
+            bound_ms=k6_bound(args, lay, b, var)[0],
+            grid=kernels.stencil_fgmres_grid(
+                b.dtype, var == "mixed", v, n, KRYLOV_M, runtime=runtime))
+
+    flows = (("channel", SIZES["scaling"], "K5"), ("box", BOX_SCALING, "K5"),
+             ("channel", SIZES["flagship"], "K6"),
+             ("box", BOX_KERNELS, "K6"))
+    for name, size, tag in flows:
+        if tag not in only:
+            continue
+        box = dict(nz=size[2], box=True) if len(size) == 3 else {}
+        sim = make_case(tmp, *size[:2], torch.float32, "cuda", implicit=venk,
+                        species="5", **box)
+        rec = capture_systems(sim)[sim.lay.nvar]
+        label = f"{name} v={sim.lay.nvar} {sim.mesh.npoint}"
+        if tag == "K5":
+            args, r, _ = system_operands(sim, rec, "mixed")
+            k5(label, args, r, "mixed")
+            args, r, _ = system_operands(sim, rec, "float32")
+            k5(label, args, r, "float32", "matvec")
+        else:
+            args, _, b = system_operands(sim, rec, "mixed")
+            k6(label, args, b, "mixed")
+        del sim, rec, args
+        torch.cuda.empty_cache()
+    for band in RUNTIME_TIMED:
+        v = int(band[4:])
+        for var in ("float64", "float32", "mixed"):
+            args, r, b = band_operands(v, band_offsets(v), var)
+            label = f"{band} {b.shape[0]}"
+            if "K5" in only:
+                k5(label, args, r, var)
+            if "K6" in only:
+                k6(label, args, b, var)
+            del args, r, b
+            torch.cuda.empty_cache()
+    for v, offsets in ((8, BOX_BAND), (13, (-9, -1, 1, 9))):
+        for var in ("float64", "float32", "mixed"):
+            args, r, b = band_operands(v, offsets, var)
+            for rt in (False, True):
+                label = f"band{v} {b.shape[0]} {'run-time' if rt else 'compiled'}"
+                if "K5" in only:
+                    k5(label, args, r, var, runtime=rt)
+                if "K6" in only:
+                    k6(label, args, b, var, runtime=rt)
+            del args, r, b
+            torch.cuda.empty_cache()
 
 
 def k13_state(sim):
@@ -4579,13 +4753,14 @@ def sass_2d_diff(other):
     return out
 
 
-def sass_same_names(other, srcs):
+def sass_same_names(other, srcs, keep=lambda name: True):
     """{kernel: whether its SASS equals the other checkout's kernel of the
-    same name} for every kernel of srcs in the other checkout (the
-    compiled instances of both), instruction by instruction."""
+    same name} for every kernel of srcs in the other checkout that keep
+    takes (the compiled instances of both), instruction by instruction."""
     mine = sass_listings(HERE, srcs)
     return {name: sass_rec(mine.get(name, []), ins)
-            for name, ins in sass_listings(other, srcs).items()}
+            for name, ins in sass_listings(other, srcs).items()
+            if keep(name)}
 
 
 def stencil_bitwise(other, okern, result):
@@ -4593,8 +4768,12 @@ def stencil_bitwise(other, okern, result):
     cycle, tol 1e-6) at every compiled width (kernels.STENCIL_WIDTHS) on
     band systems (band_operands, 20,000 nodes, band_offsets' rule; the
     solve path's layouts), f64, f32 and mixed, against the other
-    checkout's (okern) bit for bit, into result; and the SASS of every
-    compiled K5/K6 instance against the other's (sass_same_names)."""
+    checkout's (okern) bit for bit, into result; K5's three modes through
+    the run-time kernels (runtime=True) at every width of RUNTIME_WIDTHS
+    and at 8 and 13 (4,000 nodes) against the other's run-time instance;
+    and the SASS of every compiled K5/K6 instance against the other's
+    (sass_same_names; the width template argument 0 named the other's
+    run-time instance)."""
     import torch
     from su2_tpu_torch import kernels
     flat = lambda out: torch.cat([t.double().flatten() for t in out
@@ -4617,8 +4796,24 @@ def stencil_bitwise(other, okern, result):
                                           m=KRYLOV_M, tol=1e-6))
                     for k in (kernels, okern))
             result[f"K6 v{v} {var}"] = bit_diff(a, c)
+    for v in sorted(set(RUNTIME_WIDTHS) | {8, 13}):
+        for var in ("float64", "float32", "mixed"):
+            args, _, b = band_operands(v, band_offsets(v), var, n=4000)
+            lay = solve_layout(args)
+            for mode, sweep, matvec in (("sgs_matvec", True, True),
+                                        ("sgs", True, False),
+                                        ("matvec", False, True)):
+                if mode == "matvec" and var == "mixed":
+                    continue
+                a, c = (flat(k.stencil_sgs_matvec(
+                    **dict(args, **lay), r=b, sweep=sweep, matvec=matvec,
+                    runtime=True)) for k in (kernels, okern))
+                result[f"K5 run-time {mode} v{v} {var}"] = bit_diff(a, c)
+            del args, b, lay
     torch.cuda.synchronize()
-    result["sass_stencil"] = sass_same_names(other, ["stencil_solve.cu"])
+    result["sass_stencil"] = sass_same_names(
+        other, ["stencil_solve.cu"], keep=lambda name: not name.endswith(
+            ", 0>"))
 
 
 def stencil_bitwise_main(other):
@@ -5021,6 +5216,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     for line in ptxas_summary(log):
         phase("build", line)
+        PTXAS[line.split(":", 1)[0]] = line
 
     report = {}
     niters = {"flagship": 10, "scaling": 5, "tier": 3}

@@ -63,16 +63,15 @@
 // nSpecies + 2 of the 3-species flat plate and the 9-species channel, in
 // 2D and 3D), one template instance each; every other width from 4 to
 // SU2K_VMAX = 21 (the flow's nDim + nSpecies + 2 up to 3D and 16 species)
-// runs the run-time instance V = 0 of the warp-per-row kernels (K5's pass
-// and matvec, K6's rows form), its width a kernel argument; another width
-// is refused.  Every per-node V-vector (r, z, the products) of K6's
-// cluster form (V <= 3) is a register array indexed only by unrolled
-// loops, so it stays out of local memory; the V x V blocks are streamed,
-// never held.  The warp-per-row kernels hold no V-vector: a thread forms
-// one block row, its loop over b unrolled to V (to SU2K_VMAX under a
-// b < v guard in the run-time instance), in the same order at every
-// width, so the run-time instance at a compiled width sums as the
-// compiled one does.
+// runs the run-time kernels (the section "run-time widths" below: width
+// classes, rows staged asynchronously in shared memory, K6's sweep rows
+// resident), its width a kernel argument; another width is refused.
+// Every per-node V-vector (r, z, the products) of K6's cluster form
+// (V <= 3) is a register array indexed only by unrolled loops, so it
+// stays out of local memory; the V x V blocks are streamed, never held.
+// The warp-per-row kernels hold no V-vector: a thread forms one block row,
+// its loop over b unrolled to V, summed over b, then the offsets in order
+// at every width, as the run-time kernels sum too.
 //
 // K6: at m = 10, nc = 2 a cycle has 2 + m (2nc + 1) + m (m - 1)/2 = 97
 // barriers across the whole launch (sweep passes, one fused
@@ -84,7 +83,8 @@
 // threads at 9,072 nodes); at V = 13 the work of a phase did (~22 us a
 // phase with a thread per node, each thread streaming its K V^2 block
 // values one after the other).
-// Design K6 at V >= 4 (fgmres_rows_kernel): one cooperative grid of
+// Design K6 at V >= 4 (fgmres_rows_kernel at the compiled widths,
+// fgmres_rt_kernel at the others, below): one cooperative grid of
 // co-resident blocks (cudaLaunchCooperativeKernel), cg::this_grid().sync()
 // as the barrier, K5's warp per block row over the color-major node list,
 // the grid as many blocks as fit on every SM at once (one per 32-node
@@ -123,7 +123,7 @@
 namespace cg = cooperative_groups;
 
 #define SU2K_MAXK 8       // stencil offsets (geometry/stencil.py MAX_OFFSETS)
-#define SU2K_VMAX 21      // widest block of the run-time instance
+#define SU2K_VMAX 21      // widest block of the run-time kernels
 #define SU2K_FG_CLUSTER_THREADS 1024
 
 namespace su2k {
@@ -227,28 +227,13 @@ __host__ __device__ constexpr int k5_groups(int v) {
   return v > 16 ? 1 : 512 / (32 * v);
 }
 
-// the thread bound of K5's warp-per-row kernels: 512 at a compiled width,
-// 32 SU2K_VMAX for the run-time instance (V = 0)
-__host__ __device__ constexpr int k5_bound(int V) {
-  return V ? 512 : 32 * SU2K_VMAX;
-}
-
 // shared memory of a K5 block: per group K staged neighbour vectors, r
 // (or z itself in the matvec) and the rows' results, each 32 x v; at most
-// 40 KB at v <= 16 (K = 8, double), under the 48 KB a launch gets unasked,
-// and up to 52.5 KB at v = 21 (k5_launch_smem asks for it)
+// 40 KB at a compiled width (K = 8, double), under the 48 KB a launch gets
+// unasked
 template <typename T>
 size_t k5_smem(int v, int k) {
   return (size_t)k5_groups(v) * (k + 2) * 32 * v * sizeof(T);
-}
-
-// kern's dynamic shared memory past the 48 KB a launch gets unasked
-// (only the run-time instance's widest f64 blocks need it)
-template <typename K>
-cudaError_t k5_launch_smem(K* kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // One color pass over the color-major node list: lane i is node
@@ -257,17 +242,16 @@ cudaError_t k5_launch_smem(K* kern, size_t smem) {
 // its sweep blocks and dinv sit at lane i (cm: the color-major copy) or at
 // lane p (the natural layout).  Any other lane copies z_old[p] (0 in the
 // first pass), the two-buffer rule.  Row a's sums run in the order of the
-// other kernels (offdiag_at, bapply_at).  V = 0: the run-time instance,
-// its width vrt (ignored at a compiled width).
+// other kernels (offdiag_at, bapply_at).
 template <typename T, typename S, int V>
-__global__ void __launch_bounds__(k5_bound(V), 2)
+__global__ void __launch_bounds__(512, 2)
 sgs_pass_kernel(int n, Stencil st, int color, int first, int cm,
                 const S* __restrict__ selp, const T* __restrict__ dinv,
                 const int8_t* __restrict__ colors,
                 const int* __restrict__ order, const T* __restrict__ r,
-                const T* zold, T* znew, int vrt) {
+                const T* zold, T* znew) {
   extern __shared__ __align__(16) unsigned char k5_raw[];
-  const int v = V ? V : vrt;
+  const int v = V;
   const int l = threadIdx.x, a = threadIdx.y, g = threadIdx.z;
   const int k = st.k;
   T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * v;
@@ -306,8 +290,8 @@ sgs_pass_kernel(int n, Stencil st, int color, int first, int cm,
         const T* x = gx + kk * 32 * v + l * v;
         T y = (T)0;
 #pragma unroll
-        for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
-          if (V || b < v) y += widen<T, S>(blk[(size_t)b * n]) * x[b];
+        for (int b = 0; b < V; ++b)
+          y += widen<T, S>(blk[(size_t)b * n]) * x[b];
         od += y;
       }
       acc = acc - od;
@@ -321,8 +305,8 @@ sgs_pass_kernel(int n, Stencil st, int color, int first, int cm,
       const T* dr = dinv + (size_t)a * v * n + lane;
       zn = (T)0;
 #pragma unroll
-      for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
-        if (V || b < v) zn += dr[(size_t)b * n] * gacc[l * v + b];
+      for (int b = 0; b < V; ++b)
+        zn += dr[(size_t)b * n] * gacc[l * v + b];
     } else {
       zn = first ? (T)0 : zold[(size_t)p * v + a];
     }
@@ -332,14 +316,14 @@ sgs_pass_kernel(int n, Stencil st, int color, int first, int cm,
 
 // w[p] = diag[p] z[p] + sum_k B_k[p] z[p + o_k], natural layout; the
 // group's 32 nodes are consecutive, so each staged vector is one
-// contiguous run of 32 v entries; V = 0 as in sgs_pass_kernel
+// contiguous run of 32 v entries
 template <typename T, int V>
-__global__ void __launch_bounds__(k5_bound(V), 2)
+__global__ void __launch_bounds__(512, 2)
 matvec_kernel(int n, Stencil st, const T* __restrict__ selm,
               const T* __restrict__ diag, const T* __restrict__ x,
-              T* __restrict__ y, int vrt) {
+              T* __restrict__ y) {
   extern __shared__ __align__(16) unsigned char k5_raw[];
-  const int v = V ? V : vrt;
+  const int v = V;
   const int l = threadIdx.x, a = threadIdx.y, g = threadIdx.z;
   const int k = st.k;
   T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * v;
@@ -369,15 +353,15 @@ matvec_kernel(int n, Stencil st, const T* __restrict__ selm,
     const T* xq = gx + kk * 32 * v + l * v;
     T t = (T)0;
 #pragma unroll
-    for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
-      if (V || b < v) t += blk[(size_t)b * n] * xq[b];
+    for (int b = 0; b < V; ++b)
+      t += blk[(size_t)b * n] * xq[b];
     od += t;
   }
   const T* dr = diag + (size_t)a * v * n + p;
   T w = (T)0;
 #pragma unroll
-  for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
-    if (V || b < v) w += dr[(size_t)b * n] * gz[l * v + b];
+  for (int b = 0; b < V; ++b)
+    w += dr[(size_t)b * n] * gz[l * v + b];
   y[(size_t)p * v + a] = w + od;
 }
 
@@ -432,24 +416,19 @@ __global__ void matvec_lane_kernel(int n, Stencil st,
   for (int a = 0; a < V; ++a) y[(size_t)p * V + a] = w[a];
 }
 
-// K5 at width v: V its compiled instance, or 0 for the run-time one
+// K5 at the compiled width V
 template <typename T, typename S, int V>
-int launch_sgs_matvec(int v, int n, const Stencil& st, int ncolor,
-                      int do_sweep, int do_matvec, int cm, const S* selp,
-                      const T* selm, const T* dinv, const T* diag,
-                      const int8_t* colors, const int* order, const T* r,
-                      T* z, T* w, T* zbuf, cudaStream_t stream) {
-  constexpr bool ROWS = V == 0 || V > 3;   // a warp per block row
-  const int G = ROWS ? k5_groups(v) : 8;
-  const dim3 threads = ROWS ? dim3(32, v, G) : dim3(32 * G);
+int launch_sgs_matvec(int n, const Stencil& st, int ncolor, int do_sweep,
+                      int do_matvec, int cm, const S* selp, const T* selm,
+                      const T* dinv, const T* diag, const int8_t* colors,
+                      const int* order, const T* r, T* z, T* w, T* zbuf,
+                      cudaStream_t stream) {
+  constexpr bool ROWS = V > 3;   // a warp per block row
+  const int G = ROWS ? k5_groups(V) : 8;
+  const dim3 threads = ROWS ? dim3(32, V, G) : dim3(32 * G);
   const int blocks = (n + 32 * G - 1) / (32 * G);
-  const size_t smem = k5_smem<T>(v, st.k);
+  const size_t smem = k5_smem<T>(V, st.k);
   if (n <= 0) return 0;
-  if constexpr (ROWS) {
-    cudaError_t err = k5_launch_smem(sgs_pass_kernel<T, S, V>, smem);
-    if (err == cudaSuccess) err = k5_launch_smem(matvec_kernel<T, V>, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const T* x = r;
   if (do_sweep) {
     const int npass = 2 * ncolor - 1;
@@ -459,8 +438,7 @@ int launch_sgs_matvec(int v, int n, const Stencil& st, int ncolor,
       T* dst = ((npass - 1 - i) & 1) ? zbuf : z;   // the last pass writes z
       if constexpr (ROWS)
         sgs_pass_kernel<T, S, V><<<blocks, threads, smem, stream>>>(
-            n, st, c, i == 0, cm, selp, dinv, colors, order, r, zold, dst,
-            v);
+            n, st, c, i == 0, cm, selp, dinv, colors, order, r, zold, dst);
       else
         sgs_pass_lane_kernel<T, S, V><<<blocks, threads, 0, stream>>>(
             n, st, c, i == 0, cm, selp, dinv, colors, order, r, zold, dst);
@@ -471,7 +449,7 @@ int launch_sgs_matvec(int v, int n, const Stencil& st, int ncolor,
   if (do_matvec) {
     if constexpr (ROWS)
       matvec_kernel<T, V><<<blocks, threads, smem, stream>>>(n, st, selm,
-                                                             diag, x, w, v);
+                                                             diag, x, w);
     else
       matvec_lane_kernel<T, V><<<blocks, threads, 0, stream>>>(n, st, selm,
                                                                diag, x, w);
@@ -497,7 +475,7 @@ struct FgArgs {
   T* stats;     // [relative residual, iterations]
   T* ws;        // V (m+1), Z (m), sweep scratch, w: each n*V
   T* part;      // rows kernel: 2 * gridDim.x block partials
-  int v;        // the block width (the run-time instance reads it)
+  int v;        // the block width (the run-time kernel reads it)
 };
 
 template <typename T, bool MAX>
@@ -915,9 +893,8 @@ fgmres_cluster_kernel(FgArgs<T, S> A) {
   asm volatile("barrier.cluster.wait;" ::: "memory");
 }
 
-// K6 at V >= 4 (the compiled 7, 8, 13, 14 and the run-time instance V =
-// 0, its width A.v): the same cycle with K5's thread layout in the sweep
-// passes and the matvec.  A block is G = k5_groups(v) groups of 32 lanes,
+// K6 at the compiled V = 7, 8, 13, 14: the same cycle with K5's thread
+// layout in the sweep passes and the matvec.  A block is G = k5_groups(v) groups of 32 lanes,
 // v warps each (1-D: thread t is lane t % 32 of row (t / 32) % v of group
 // t / (32 v)); warp a forms row a of the 32 nodes' block products, so each
 // block-row load is one coalesced read, and the node-major vectors are
@@ -943,15 +920,11 @@ __host__ __device__ constexpr int fg_rows_stage_words(int v) {
 // at m = 10, stencil_solve._fgmres_cap) is 384 groups, so at V = 13 every
 // group of a pass runs in one wave on 396 co-resident blocks; at 2 blocks
 // per SM (72 registers) 264 blocks took two rounds in some blocks and one
-// FGMRES(10) cycle at 9,072 nodes took ~1.0 ms instead of ~0.72.  The
-// run-time instance is bounded for its widest block, 32 SU2K_VMAX
-// threads, 2 blocks per SM (48 registers); its grid follows the
-// occupancy it gets (fgmres_grid).
+// FGMRES(10) cycle at 9,072 nodes took ~1.0 ms instead of ~0.72.
 template <typename T, typename S, int V>
-__global__ void __launch_bounds__(V ? fg_rows_threads(V) : 32 * SU2K_VMAX,
-                                  V ? 3 : 2)
+__global__ void __launch_bounds__(fg_rows_threads(V), 3)
 fgmres_rows_kernel(FgArgs<T, S> A) {
-  const int v = V ? V : A.v;
+  const int v = V;
   const int G = k5_groups(v);
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char fg_smem[];
@@ -1068,8 +1041,8 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
               const T* x = gx + kk * 32 * v + l * v;
               T yv = (T)0;
 #pragma unroll
-              for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
-                if (V || b < v) yv += widen<T, S>(blk[(size_t)b * n]) * x[b];
+              for (int b = 0; b < V; ++b)
+                yv += widen<T, S>(blk[(size_t)b * n]) * x[b];
               od += yv;
             }
             acc = acc - od;
@@ -1083,8 +1056,8 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
             const T* dr = A.dinv + (size_t)a * v * n + lane;
             zn = (T)0;
 #pragma unroll
-            for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
-              if (V || b < v) zn += dr[(size_t)b * n] * gacc[l * v + b];
+            for (int b = 0; b < V; ++b)
+              zn += dr[(size_t)b * n] * gacc[l * v + b];
           } else {
             zn = first ? (T)0 : __ldcg(zold + (size_t)p * v + a);
           }
@@ -1126,15 +1099,15 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
           const T* xq = gx + kk * 32 * v + l * v;
           T tv = (T)0;
 #pragma unroll
-          for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
-            if (V || b < v) tv += blk[(size_t)b * n] * xq[b];
+          for (int b = 0; b < V; ++b)
+            tv += blk[(size_t)b * n] * xq[b];
           od += tv;
         }
         const T* dr = A.diag + (size_t)a * v * n + p;
         T w = (T)0;
 #pragma unroll
-        for (int b = 0; b < (V ? V : SU2K_VMAX); ++b)
-          if (V || b < v) w += dr[(size_t)b * n] * gz[l * v + b];
+        for (int b = 0; b < V; ++b)
+          w += dr[(size_t)b * n] * gz[l * v + b];
         w = w + od;
         const size_t e = (size_t)p * v + a;
         wv[e] = w;
@@ -1173,16 +1146,692 @@ fgmres_rows_kernel(FgArgs<T, S> A) {
   }
 }
 
-// The grid of K6's rows kernel (v >= 4; V = 0 the run-time instance):
-// every block co-resident (the cooperative launch's condition) and at
+// ------------------------------------------------------ run-time widths
+// K5 and K6 at every block width from 4 to SU2K_VMAX that has no compiled
+// instance (4-6, 9-12, 15-21: the flow's nDim + nSpecies + 2 at the
+// mixtures other than 3 and 9 species), and at any width of that range
+// where the caller forces them (rt).  Bound on the H100: bytes, as above.
+// Design:
+// - Width classes.  Each kernel is instantiated for the class bounds VB
+//   of SU2K_BY_CLASS (6, 12, 16, 21); width v runs the smallest class with
+//   VB >= v, each block row's loop unrolled to VB under a b < v guard.  K5 keeps
+//   the compiled kernels' thread layout and order (a warp per block row,
+//   k5_groups(v) groups of 32 lanes a block, the group's vectors staged in
+//   shared memory), bounded for 512 threads at 3 blocks an SM up to the 16
+//   class (672 at 2 at 21): 40 registers (at 2 blocks an SM they took
+//   46-53, and v = 9 and 13 fit a block less an SM).  The vectors sit at
+//   a row stride vp = v | 1 (odd: the lanes' reads of entry b fall in 32
+//   banks; at v = 16 a stride of v puts them in 2).
+// - K6 (fgmres_rt_kernel): fgmres_rows_kernel's cycle with one 32-node
+//   group a block of v warps.  Resident form: each block copies its
+//   groups' sweep blocks and dinv into shared memory once (cp.async: the
+//   16-byte chunks that cover each block row's run in the color-major
+//   layout, a copy a lane through the node list in the natural one) and
+//   keeps them for the cycle's m (2 nc - 1) passes, which read no sweep
+//   block from device memory; streamed form (where they do not fit:
+//   kernels.k6_plan, a pure function of the width, offsets, types,
+//   layout, n and grid) the passes read them as the compiled kernel does.
+//   Its block-row products unroll SU2K_RT_K6_CH terms at a time: fully
+//   unrolled, its cycle spilled at 64 registers.  The 21 class holds no
+//   resident rows (fg_rt_resident).
+// - Measured and dropped (PERF.md §6): K5's and K6's streamed block rows
+//   staged in shared memory by cp.async in a ring of 2-4 units of a
+//   persistent grid ran 1.1-2.6x the direct loads' time on the H100.
+// Every block row is summed over b, then over the offsets in order, as in
+// the compiled kernels, so K5's (z, A z) is bit for bit the compiled
+// instance's at a compiled width.
+#define SU2K_RT_K6_CH 4     // K6's block-row terms unrolled at a time
+
+// bytes of K6's run-time shared memory before the resident rows: the
+// scalars and one group's staged vectors (K neighbour z, r, the row
+// results; sized for SU2K_MAXK at a row stride of v | 1); kernels.k6_plan's
+// base, which the launch checks
+template <typename T>
+constexpr int fg_rt_base(int v, int m) {
+  return ((fg_smem_words(m) + (SU2K_MAXK + 2) * 32 * (v | 1))
+              * (int)sizeof(T) + 15) / 16 * 16;
+}
+
+// kernels.k6_plan, in this order (RT_PLAN_FIELDS)
+struct RtPlan {
+  int vb;       // the width class
+  int res;      // the resident form
+  int gpb;      // resident: groups a block holds
+  int grp;      // resident: bytes of a group's rows
+  int slot_s;   // resident: bytes of a sweep-block row, of a dinv row
+  int slot_t;
+  int base;     // bytes of shared memory before the resident rows
+  int smem;     // dynamic shared memory of the launch
+  int grid;     // blocks of the cooperative grid
+};
+
+// K5's bounds: 512 threads at 3 blocks an SM (40 registers) up to the 16
+// class, 672 at 2 for the 21 class
+__host__ __device__ constexpr int rt_threads(int vb) {
+  return vb <= 16 ? 512 : 32 * vb;
+}
+__host__ __device__ constexpr int rt_blocks(int vb) {
+  return vb <= 16 ? 3 : 2;
+}
+// K6's: the 6 class's blocks of at most 192 threads 4 an SM at 80
+// registers, the 12 and 16 classes' 512 threads 2 (64 registers; at v = 9
+// and 10 every group of the one-launch tier in one wave), the 21 class's
+// 672 threads 1 (80; at 2, 40 registers, it spilled), which hold no
+// resident rows (a group's take 88 KB and more there)
+__host__ __device__ constexpr int fg_rt_threads(int vb) {
+  return vb <= 6 ? 32 * vb : rt_threads(vb);
+}
+__host__ __device__ constexpr int fg_rt_blocks(int vb) {
+  return vb <= 6 ? 4 : (vb <= 16 ? 2 : 1);
+}
+__host__ __device__ constexpr bool fg_rt_resident(int vb) { return vb <= 16; }
+
+// out = sum_b widen(blk[b n]) x[b] over b < v (a block row of the
+// (rows, n) lane layout from device memory), CH terms unrolled at a time,
+// in the compiled kernels' order
+template <typename T, typename E, int VB, int CH = VB>
+__device__ __forceinline__ T row_dot_g(const E* __restrict__ blk, int n,
+                                       const T* x, int v) {
+  T y = (T)0;
+#pragma unroll 1
+  for (int b0 = 0; b0 < VB; b0 += CH) {
+#pragma unroll
+    for (int bb = 0; bb < CH; ++bb) {
+      const int b = b0 + bb;
+      if (b < v) y += widen<T, E>(blk[(size_t)b * n]) * x[b];
+    }
+  }
+  return y;
+}
+
+// K5's sweep pass at a run-time width v (sgs_pass_kernel's arithmetic)
+template <typename T, typename S, int VB>
+__global__ void __launch_bounds__(rt_threads(VB), rt_blocks(VB))
+sgs_pass_rt_kernel(int n, Stencil st, int color, int first, int cm,
+                   const S* __restrict__ selp, const T* __restrict__ dinv,
+                   const int8_t* __restrict__ colors,
+                   const int* __restrict__ order, const T* __restrict__ r,
+                   const T* zold, T* znew, int v) {
+  extern __shared__ __align__(16) unsigned char k5_raw[];
+  const int vp = v | 1;
+  const int l = threadIdx.x, a = threadIdx.y, g = threadIdx.z;
+  const int k = st.k;
+  T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * vp;
+  T* gr = gx + (size_t)k * 32 * vp;    // r of the group's nodes
+  T* gacc = gr + 32 * vp;              // r - sum_k B_k z_old, by row
+  const int i0 = (blockIdx.x * k5_groups(v) + g) * 32;
+  {
+    // stage: element e = (node e / v, entry e % v) of each vector
+    const int e = a * 32 + l, ls = e / v, b = e - ls * v;
+    const int is = i0 + ls;
+    if (is < n) {
+      const int ps = order[is];
+      if (colors[ps] == color) {
+        gr[ls * vp + b] = r[(size_t)ps * v + b];
+        for (int kk = 0; kk < k && !first; ++kk) {
+          const int q = ps + st.off[kk];
+          gx[kk * 32 * vp + ls * vp + b] =
+              q < 0 || q >= n ? (T)0 : zold[(size_t)q * v + b];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int i = i0 + l;
+  const int p = i < n ? order[i] : 0;
+  const bool mine = i < n && colors[p] == color;
+  const int lane = cm ? i : p;
+  if (mine) {
+    T acc = gr[l * vp + a];
+    if (!first) {
+      T od = (T)0;
+      for (int kk = 0; kk < k; ++kk) {
+        const int q = p + st.off[kk];
+        if (q < 0 || q >= n) continue;
+        od += row_dot_g<T, S, VB>(selp + ((size_t)kk * v * v + a * v) * n
+                                      + lane,
+                                  n, gx + kk * 32 * vp + l * vp, v);
+      }
+      acc = acc - od;
+    }
+    gacc[l * vp + a] = acc;
+  }
+  __syncthreads();
+  if (i < n) {
+    znew[(size_t)p * v + a] =
+        mine ? row_dot_g<T, T, VB>(dinv + (size_t)a * v * n + lane, n,
+                                   gacc + l * vp, v)
+             : (first ? (T)0 : zold[(size_t)p * v + a]);
+  }
+}
+
+// K5's matvec at a run-time width v (matvec_kernel's arithmetic)
+template <typename T, int VB>
+__global__ void __launch_bounds__(rt_threads(VB), rt_blocks(VB))
+matvec_rt_kernel(int n, Stencil st, const T* __restrict__ selm,
+                 const T* __restrict__ diag, const T* __restrict__ x,
+                 T* __restrict__ y, int v) {
+  extern __shared__ __align__(16) unsigned char k5_raw[];
+  const int vp = v | 1;
+  const int l = threadIdx.x, a = threadIdx.y, g = threadIdx.z;
+  const int k = st.k;
+  T* gx = reinterpret_cast<T*>(k5_raw) + (size_t)g * (k + 2) * 32 * vp;
+  T* gz = gx + (size_t)k * 32 * vp;    // z of the group's own nodes
+  const int p0 = (blockIdx.x * k5_groups(v) + g) * 32;
+  {
+    const int e = a * 32 + l, ls = e / v, b = e - ls * v;
+    const int ps = p0 + ls;
+    if (ps < n) {
+      gz[ls * vp + b] = x[(size_t)p0 * v + e];
+      for (int kk = 0; kk < k; ++kk) {
+        const int q = ps + st.off[kk];
+        gx[kk * 32 * vp + ls * vp + b] =
+            q < 0 || q >= n ? (T)0 : x[(size_t)q * v + b];
+      }
+    }
+  }
+  __syncthreads();
+  const int p = p0 + l;
+  if (p >= n) return;
+  T od = (T)0;
+  for (int kk = 0; kk < k; ++kk) {
+    const int q = p + st.off[kk];
+    if (q < 0 || q >= n) continue;
+    od += row_dot_g<T, T, VB>(selm + ((size_t)kk * v * v + a * v) * n + p,
+                              n, gx + kk * 32 * vp + l * vp, v);
+  }
+  const T w = row_dot_g<T, T, VB>(diag + (size_t)a * v * n + p, n,
+                                  gz + l * vp, v);
+  y[(size_t)p * v + a] = w + od;
+}
+
+// shared memory of a run-time K5 block: per group K staged neighbour
+// vectors, r (or z) and the rows' results, each 32 vp; past the 48 KB a
+// launch gets unasked at v = 4 and 17-21 in f64 (k5_smem_attr asks)
+template <typename T>
+size_t k5_rt_smem(int v, int k) {
+  return (size_t)k5_groups(v) * (k + 2) * 32 * (v | 1) * sizeof(T);
+}
+
+template <typename K>
+cudaError_t k5_smem_attr(K* kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// K5 at a run-time width v, class VB: one launch per pass, then the
+// matvec, as launch_sgs_matvec
+template <typename T, typename S, int VB>
+int launch_sgs_matvec_rt(int v, int n, const Stencil& st, int ncolor,
+                         int do_sweep, int do_matvec, int cm, const S* selp,
+                         const T* selm, const T* dinv, const T* diag,
+                         const int8_t* colors, const int* order, const T* r,
+                         T* z, T* w, T* zbuf, cudaStream_t stream) {
+  const int G = k5_groups(v);
+  const dim3 threads(32, v, G);
+  const int blocks = (n + 32 * G - 1) / (32 * G);
+  const size_t smem = k5_rt_smem<T>(v, st.k);
+  if (n <= 0) return 0;
+  cudaError_t err = k5_smem_attr(sgs_pass_rt_kernel<T, S, VB>, smem);
+  if (err == cudaSuccess) err = k5_smem_attr(matvec_rt_kernel<T, VB>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const T* x = r;
+  if (do_sweep) {
+    const int npass = 2 * ncolor - 1;
+    const T* zold = nullptr;
+    for (int i = 0; i < npass; ++i) {
+      const int c = i < ncolor ? i : 2 * ncolor - 2 - i;
+      T* dst = ((npass - 1 - i) & 1) ? zbuf : z;   // the last pass writes z
+      sgs_pass_rt_kernel<T, S, VB><<<blocks, threads, smem, stream>>>(
+          n, st, c, i == 0, cm, selp, dinv, colors, order, r, zold, dst, v);
+      zold = dst;
+    }
+    x = z;
+  }
+  if (do_matvec)
+    matvec_rt_kernel<T, VB><<<blocks, threads, smem, stream>>>(
+        n, st, selm, diag, x, w, v);
+  return (int)cudaGetLastError();
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// 16 bytes from global src (16-byte aligned) to shared dst, of which only
+// the first `bytes` are read (the rest zero-filled)
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+template <int B>
+__device__ __forceinline__ void cp_small(void* dst, const void* src,
+                                         int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(B), "r"(bytes)
+               : "memory");
+}
+// every copy this thread started, complete
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                   "memory");
+}
+
+// bytes a lane's copy of an E takes through the node list
+template <typename E>
+__host__ __device__ constexpr int gather_bytes() {
+  return sizeof(E) < 4 ? 4 : (int)sizeof(E);
+}
+
+// Copy rows [0, nrows) of the (rows, n) array x to dst (row r at
+// dst + r slot): contig, lanes [i0, i0 + nl) as the 16-byte chunks that
+// cover their run (chunks past x's end cut; x starts on a 16-byte
+// boundary); else lane l as node ids[l] (l < nl).  Thread tid of nth.
+template <typename E>
+__device__ __forceinline__ void rows_copy(unsigned char* dst, int slot,
+                                          const E* x, size_t total, int n,
+                                          int nrows, bool contig, int i0,
+                                          int nl, const int* ids, int tid,
+                                          int nth) {
+  const uintptr_t lim = (uintptr_t)(x + total);
+  if (contig) {
+    constexpr int CH = 32 * (int)sizeof(E) / 16 + 1;
+    for (int c = tid; c < nrows * CH; c += nth) {
+      const int r = c / CH, ch = c - r * CH;
+      const E* run = x + (size_t)r * n + i0;
+      const uintptr_t at = ((uintptr_t)run & ~(uintptr_t)15) + ch * 16;
+      if (at >= (uintptr_t)(run + nl) || at >= lim) continue;
+      cp16(dst + (size_t)r * slot + ch * 16, (const void*)at,
+           lim - at < 16 ? (int)(lim - at) : 16);
+    }
+  } else {
+    constexpr int EC = gather_bytes<E>();
+    for (int e = tid; e < nrows * 32; e += nth) {
+      const int r = e >> 5, l = e & 31;
+      if (l >= nl) continue;
+      const uintptr_t at = (uintptr_t)(x + (size_t)r * n + ids[l]) &
+                           ~(uintptr_t)(EC - 1);
+      cp_small<EC>(dst + (size_t)r * slot + l * EC, (const void*)at,
+                   lim - at < (uintptr_t)EC ? (int)(lim - at) : EC);
+    }
+  }
+}
+
+// Where lane l's element of row rr of such a copy sits: byte
+// rr slot + lo + ((sh0 + rr dn) & msk) (a row's address modulo 16 moves
+// by n sizeof(E) a row)
+struct RowAt {
+  int lo, sh0, dn, msk;
+};
+template <typename E>
+__device__ __forceinline__ RowAt row_at(const E* x, int n, bool contig,
+                                        int key, int l) {
+  RowAt at;
+  at.dn = (int)(((unsigned long long)n * sizeof(E)) & 15);
+  at.sh0 = (int)((uintptr_t)(x + key) & 15);
+  at.lo = l * (contig ? (int)sizeof(E) : gather_bytes<E>());
+  at.msk = contig ? 15 : gather_bytes<E>() - 1;
+  return at;
+}
+
+// row_dot_g over rows rr0 + b of such a copy in shared memory
+template <typename T, typename E, int VB, int CH>
+__device__ __forceinline__ T row_dot_s(const unsigned char* rows, int slot,
+                                       const RowAt& at, int rr0, const T* x,
+                                       int v) {
+  T y = (T)0;
+#pragma unroll 1
+  for (int b0 = 0; b0 < VB; b0 += CH) {
+#pragma unroll
+    for (int bb = 0; bb < CH; ++bb) {
+      const int b = b0 + bb;
+      if (b < v) {
+        const int rr = rr0 + b;
+        const E w = *reinterpret_cast<const E*>(
+            rows + (size_t)rr * slot + at.lo +
+            ((at.sh0 + rr * at.dn) & at.msk));
+        y += widen<T, E>(w) * x[b];
+      }
+    }
+  }
+  return y;
+}
+
+// K6 at a run-time width: fgmres_rows_kernel's cycle (the same phases,
+// reductions and scalar recurrence) with one 32-node group a block of v
+// warps; P.res: the resident form (the block's groups' sweep blocks and
+// dinv in shared memory for the whole launch), else the streamed one.
+// Entries are int-indexed (launch_fgmres_rt: n v < 2^31).
+template <typename T, typename S, int VB>
+__global__ void __launch_bounds__(fg_rt_threads(VB), fg_rt_blocks(VB))
+fgmres_rt_kernel(FgArgs<T, S> A, RtPlan P) {
+  constexpr int CH = SU2K_RT_K6_CH;
+  constexpr bool RES = fg_rt_resident(VB);
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char fg_smem[];
+  T* sh = reinterpret_cast<T*>(fg_smem);
+  const int n = A.n, m = A.m, v = A.v, vp = v | 1, k = A.st.k;
+  T* wsum = sh;              // 32 warp partials
+  T* bc = sh + 32;           // reduction broadcast
+  T* sc = sh + 40;           // active, iters, res_hist, vact, vden
+  T* rc = sh + 48;           // m + 1: the new Hessenberg column
+  T* cs = rc + m + 1;        // m
+  T* sn = cs + m;            // m
+  T* g = sn + m;             // m + 1
+  T* y = g + m + 1;          // m
+  T* cols = y + m;           // m * m: rotated column j, row i at j*m + i
+  // the group's vectors (row stride vp): K neighbour z, r (or z), results
+  T* gx = sh + fg_smem_words(m);
+  T* gr = gx + SU2K_MAXK * 32 * vp;
+  T* gacc = gr + 32 * vp;
+  unsigned char* resid = fg_smem + P.base;
+  const int t = threadIdx.x, l = t & 31, a = t >> 5;
+  const int nv = n * v;
+  T* vb = A.ws;
+  T* zb = vb + (size_t)(m + 1) * nv;
+  T* zs = zb + (size_t)m * nv;
+  T* wv = zs + nv;
+  const int tid = blockIdx.x * blockDim.x + t;
+  const int nth = gridDim.x * blockDim.x;
+  const int ngroup = (n + 31) / 32;
+  const int npass = 2 * A.ncolor - 1;
+  const T tiny = (T)1e-300;   // 0 in float, as in the reference
+  const size_t kvv = (size_t)k * v * v;
+  int buf = 0;
+
+  // the resident form: the block's groups' sweep blocks (K v v rows of
+  // P.slot_s bytes) and dinv (v v rows of P.slot_t), copied once
+  if (RES && P.res) {
+    int* ids = reinterpret_cast<int*>(gacc);
+    for (int gi = blockIdx.x, jr = 0; gi < ngroup; gi += gridDim.x, ++jr) {
+      const int i0 = gi * 32, nl = n - i0 < 32 ? n - i0 : 32;
+      __syncthreads();
+      if (t < 32) ids[t] = t < nl ? A.order[i0 + t] : 0;
+      __syncthreads();
+      unsigned char* rg = resid + (size_t)jr * P.grp;
+      rows_copy<S>(rg, P.slot_s, A.selp, kvv * n, n, (int)kvv, A.cm, i0, nl,
+                   ids, t, blockDim.x);
+      rows_copy<T>(rg + kvv * P.slot_s, P.slot_t, A.dinv, (size_t)v * v * n,
+                   n, v * v, A.cm, i0, nl, ids, t, blockDim.x);
+    }
+    cp_wait_all();
+    __syncthreads();
+  }
+
+  // exact power-of-two scaling of b (krylov._pow2_scale)
+  T amax = (T)0;
+  for (int e = tid; e < nv; e += nth) {
+    T u = fab(A.b[e]);
+    amax = u > amax ? u : amax;
+  }
+  amax = grid_reduce<T, true>(grid, amax, A.part, buf, wsum, bc);
+  const T s = amax > (T)0 ? pow2_floor(amax > tiny ? amax : tiny) : (T)1;
+  T ss = (T)0;
+  for (int e = tid; e < nv; e += nth) {
+    T bv = A.b[e] / s;
+    ss += bv * bv;
+  }
+  const T beta = sq(grid_reduce<T, false>(grid, ss, A.part, buf, wsum, bc));
+  const T norm0 = beta > tiny ? beta : tiny;
+  for (int e = tid; e < nv; e += nth) vb[e] = (A.b[e] / s) / norm0;
+  if (t == 0) {
+    sc[0] = (beta / norm0 >= A.tol) ? (T)1 : (T)0;
+    sc[1] = (T)0;
+    sc[2] = beta;
+    sc[3] = (T)0;
+    sc[4] = (T)1;
+    g[0] = beta;
+  }
+  __syncthreads();
+
+  for (int j = 0; j < m; ++j) {
+    T* vj = vb + (size_t)j * nv;
+    T* zj = zb + (size_t)j * nv;
+    const bool vact = sc[3] != (T)0;
+    const T vden = sc[4];
+    // v_j: written in the phase before (v_0) or in the first pass's phase
+    // (j > 0: entry e of the normalised w, or v_{j-1} once the cycle
+    // stopped) by the flat entry mapping, so the first pass, which reads
+    // other nodes' entries, forms it on the fly with the same operations
+    auto vnew = [&](int e) {
+      if (j == 0) return (A.b[e] / s) / norm0;
+      return vact ? __ldcg(wv + e) / vden : __ldcg(vj - nv + e);
+    };
+    if (j > 0)
+      for (int e = tid; e < nv; e += nth) vj[e] = vnew(e);
+    // z_j = sweep(v_j)
+    const T* zold = nullptr;
+    for (int i = 0; i < npass; ++i) {
+      const int color = i < A.ncolor ? i : 2 * A.ncolor - 2 - i;
+      const bool first = i == 0;
+      T* dst = ((npass - 1 - i) & 1) ? zs : zj;
+      for (int gi = blockIdx.x, jr = 0; gi < ngroup;
+           gi += gridDim.x, ++jr) {
+        const int i0 = gi * 32;
+        {
+          // stage: element e = (node e / v, entry e % v) of each vector
+          const int ls = t / v, b = t - ls * v, is = i0 + ls;
+          if (is < n) {
+            const int ps = A.order[is];
+            if (A.colors[ps] == color) {
+              const int idx = ps * v + b;
+              gr[ls * vp + b] = first ? vnew(idx) : __ldcg(vj + idx);
+              for (int kk = 0; kk < k && !first; ++kk) {
+                const int q = ps + A.st.off[kk];
+                gx[kk * 32 * vp + ls * vp + b] =
+                    q < 0 || q >= n ? (T)0 : __ldcg(zold + q * v + b);
+              }
+            }
+          }
+        }
+        __syncthreads();
+        const int ii = i0 + l;
+        const int p = ii < n ? A.order[ii] : 0;
+        const bool mine = ii < n && A.colors[p] == color;
+        const int lane = A.cm ? ii : p;
+        const int key = A.cm ? i0 : p;   // the resident copy's first lane
+        const unsigned char* rg = resid + (size_t)jr * P.grp;
+        if (mine) {
+          T acc = gr[l * vp + a];
+          if (!first) {
+            const RowAt at = row_at<S>(A.selp, n, A.cm, key, l);
+            T od = (T)0;
+            for (int kk = 0; kk < k; ++kk) {
+              const int q = p + A.st.off[kk];
+              if (q < 0 || q >= n) continue;
+              const T* x = gx + kk * 32 * vp + l * vp;
+              const int row = kk * v * v + a * v;
+              od += RES && P.res
+                        ? row_dot_s<T, S, VB, CH>(rg, P.slot_s, at, row, x, v)
+                        : row_dot_g<T, S, VB, CH>(
+                              A.selp + (size_t)row * n + lane, n, x, v);
+            }
+            acc = acc - od;
+          }
+          gacc[l * vp + a] = acc;
+        }
+        __syncthreads();
+        if (ii < n) {
+          T zn;
+          if (mine) {
+            const RowAt at = row_at<T>(A.dinv, n, A.cm, key, l);
+            zn = RES && P.res
+                     ? row_dot_s<T, T, VB, CH>(rg + kvv * P.slot_s,
+                                               P.slot_t, at, a * v,
+                                               gacc + l * vp, v)
+                     : row_dot_g<T, T, VB, CH>(
+                           A.dinv + (size_t)a * v * n + lane, n,
+                           gacc + l * vp, v);
+          } else {
+            zn = first ? (T)0 : __ldcg(zold + p * v + a);
+          }
+          dst[p * v + a] = zn;
+        }
+        __syncthreads();
+      }
+      grid.sync();
+      zold = dst;
+    }
+    // w = A z_j (natural layout, 32 consecutive nodes a group), fused with
+    // the first Gram-Schmidt dot (v_0, w)
+    T part = (T)0;
+    for (int gi = blockIdx.x; gi < ngroup; gi += gridDim.x) {
+      const int p0 = gi * 32;
+      {
+        const int ls = t / v, b = t - ls * v, ps = p0 + ls;
+        if (ps < n) {
+          gr[ls * vp + b] = __ldcg(zj + ps * v + b);
+          for (int kk = 0; kk < k; ++kk) {
+            const int q = ps + A.st.off[kk];
+            gx[kk * 32 * vp + ls * vp + b] =
+                q < 0 || q >= n ? (T)0 : __ldcg(zj + q * v + b);
+          }
+        }
+      }
+      __syncthreads();
+      const int p = p0 + l;
+      if (p < n) {
+        T od = (T)0;
+        for (int kk = 0; kk < k; ++kk) {
+          const int q = p + A.st.off[kk];
+          if (q < 0 || q >= n) continue;
+          od += row_dot_g<T, T, VB, CH>(
+              A.selm + ((size_t)kk * v * v + a * v) * n + p, n,
+              gx + kk * 32 * vp + l * vp, v);
+        }
+        T w = row_dot_g<T, T, VB, CH>(A.diag + (size_t)a * v * n + p, n,
+                                      gr + l * vp, v);
+        w = w + od;
+        const int e = p * v + a;
+        wv[e] = w;
+        part += __ldcg(vb + e) * w;
+      }
+      __syncthreads();
+    }
+    T h = grid_reduce<T, false>(grid, part, A.part, buf, wsum, bc);
+    const bool active = sc[0] != (T)0;
+    // modified Gram-Schmidt: w -= h_ij v_i, then the next dot (or |w|^2)
+    for (int i = 0; i <= j; ++i) {
+      const T hij = active ? h : (i == j ? (T)1 : (T)0);
+      const T hm = active ? hij : (T)0;
+      if (t == 0) rc[i] = hij;
+      const T* vi = vb + (size_t)i * nv;
+      part = (T)0;
+      for (int e = tid; e < nv; e += nth) {
+        T tv = __ldcg(wv + e) - hm * __ldcg(vi + e);
+        wv[e] = tv;
+        part += (i < j) ? __ldcg(vi + nv + e) * tv : tv * tv;
+      }
+      h = grid_reduce<T, false>(grid, part, A.part, buf, wsum, bc);
+    }
+    if (t == 0)
+      fg_column(j, m, active, h, norm0, A.tol, sc, rc, cs, sn, g, cols);
+    __syncthreads();
+  }
+
+  // back-substitution on the rotated R, then x = s * sum_j y_j z_j
+  if (t == 0) fg_solve_y(m, norm0, sc, g, cols, y, A.stats);
+  __syncthreads();
+  for (int e = tid; e < nv; e += nth) {
+    T d = __ldcg(zb + e) * y[0];
+    for (int jz = 1; jz < m; ++jz)
+      d = d + y[jz] * __ldcg(zb + (size_t)jz * nv + e);
+    A.x[e] = d * s;
+  }
+}
+
+// blocks of K6's run-time kernel (32 v threads, smem bytes) co-resident on
+// the card, at most cap; the largest dynamic shared memory a block may
+// ask for granted to it
+template <typename T, typename S, int VB>
+cudaError_t fg_rt_fit(int v, size_t smem, int cap, int* blocks) {
+  auto kern = fgmres_rt_kernel<T, S, VB>;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * v,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int b = per_sm * sms < cap ? per_sm * sms : cap;
+  *blocks = b > 0 ? b : 1;
+  return cudaSuccess;
+}
+
+// K6's cooperative grid at a run-time width, class VB: the co-resident
+// blocks at the streamed form's shared memory P.smem (kernels.k6_plan
+// decides the form for this grid), at most one per group and the partial
+// buffers' capacity
+template <typename T, typename S, int VB>
+int grid_rt(int v, int n, int m, const RtPlan& P, int part_cap) {
+  if (P.vb != VB || P.base != fg_rt_base<T>(v, m) || P.smem < P.base)
+    return -(int)cudaErrorInvalidValue;
+  const int ngroup = (n + 31) / 32;
+  int blocks = 0;
+  const cudaError_t err = fg_rt_fit<T, S, VB>(
+      v, P.smem, ngroup < part_cap / 2 ? ngroup : part_cap / 2, &blocks);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// K6 at a run-time width with kernels.k6_plan's plan (its grid and form);
+// a grid the plan's shared memory does not keep co-resident is refused
+template <typename T, typename S, int VB>
+int launch_fgmres_rt(FgArgs<T, S> A, const RtPlan& P, int part_cap,
+                     cudaStream_t stream) {
+  const int ngroup = (A.n + 31) / 32;
+  if ((long long)A.n * A.v > 0x7fffffffLL || P.vb != VB ||
+      P.base != fg_rt_base<T>(A.v, A.m) || P.smem < P.base || P.grid < 1 ||
+      P.grid > part_cap / 2 || P.grid > ngroup ||
+      (P.res && (!fg_rt_resident(VB) ||
+                 P.gpb < (ngroup + P.grid - 1) / P.grid)))
+    return (int)cudaErrorInvalidValue;
+  int fit = 0;
+  cudaError_t err = fg_rt_fit<T, S, VB>(A.v, P.smem, P.grid, &fit);
+  if (err != cudaSuccess) return (int)err;
+  if (fit < P.grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  RtPlan plan = P;
+  void* args[] = {&A, &plan};
+  err = cudaLaunchCooperativeKernel(
+      (const void*)fgmres_rt_kernel<T, S, VB>, dim3(P.grid), dim3(32 * A.v),
+      args, P.smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The run-time width classes (kernels.STENCIL_RT_CLASSES): width v runs
+// the instance of the first class bound VB >= v
+#define SU2K_BY_CLASS(v, CALL)                            \
+  if ((v) <= 6) { constexpr int VB = 6; return CALL; }    \
+  if ((v) <= 12) { constexpr int VB = 12; return CALL; }  \
+  if ((v) <= 16) { constexpr int VB = 16; return CALL; }  \
+  { constexpr int VB = 21; return CALL; }
+
+// The grid of K6's rows kernel at a compiled width V >= 7: every block
+// co-resident (the cooperative launch's condition) and at
 // most the partial buffers' capacity: as many blocks as fit on all the
 // card's SMs at once (by the occupancy of its registers and shared
 // memory, at this width's block and staging size), at most one per G
 // 32-node groups.  Wider blocks take more registers per thread, so fewer
 // blocks fit on an SM.
 template <typename T, typename S, int V>
-cudaError_t fgmres_grid(int v, int n, int m, int part_cap, int* blocks,
+cudaError_t fgmres_grid(int n, int m, int part_cap, int* blocks,
                         size_t* smem, int* threads) {
+  constexpr int v = V;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1301,7 +1950,7 @@ template <typename T, typename S, int V>
 int launch_fgmres(FgArgs<T, S> A, int part_cap, int cluster,
                   cudaStream_t stream) {
   cudaError_t err;
-  if constexpr (V > 0 && V <= 3) {
+  if constexpr (V <= 3) {
     void (*kern)(FgArgs<T, S>) = nullptr;
     int c = 0;
     size_t smem = 0;
@@ -1313,8 +1962,7 @@ int launch_fgmres(FgArgs<T, S> A, int part_cap, int cluster,
   } else {
     int blocks = 0, threads = 0;
     size_t smem = 0;
-    err = fgmres_grid<T, S, V>(A.v, A.n, A.m, part_cap, &blocks, &smem,
-                               &threads);
+    err = fgmres_grid<T, S, V>(A.n, A.m, part_cap, &blocks, &smem, &threads);
     if (err != cudaSuccess) return (int)err;
     void* args[] = {&A};
     err = cudaLaunchCooperativeKernel((const void*)fgmres_rows_kernel<T, S, V>,
@@ -1325,29 +1973,29 @@ int launch_fgmres(FgArgs<T, S> A, int part_cap, int cluster,
   return (int)cudaGetLastError();
 }
 
-// blocks of K6's launch: the cluster size at V = 2, 3, the cooperative
-// grid at v >= 4
+// blocks of K6's launch at a compiled width: the cluster size at V = 2,
+// 3, the cooperative grid at V >= 7
 template <typename T, typename S, int V>
-int grid_of(int v, int n, int m, int part_cap, int cluster) {
+int grid_of(int n, int m, int part_cap, int cluster) {
   int blocks = 0, threads = 0;
   size_t smem = 0;
   cudaError_t err;
-  if constexpr (V > 0 && V <= 3) {
+  if constexpr (V <= 3) {
     void (*kern)(FgArgs<T, S>) = nullptr;
     err = fg_cluster_plan<T, S, V>(n, m, cluster, &kern, &blocks, &smem);
   } else
-    err = fgmres_grid<T, S, V>(v, n, m, part_cap, &blocks, &smem, &threads);
+    err = fgmres_grid<T, S, V>(n, m, part_cap, &blocks, &smem, &threads);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // the block widths K5 and K6 are compiled for (kernels.STENCIL_WIDTHS): 2
 // (the SST's k-omega system) and 3, and the flow's nDim + nSpecies + 2 of
 // the 3-species flat plate in 2D (7) and 3D (8) and of the 9-species
-// channel in 2D (13) and on the 3D box (14); every other width from 4 to
-// SU2K_VMAX, and every width of that range with rt, runs the run-time
-// instance V = 0; CALL names the width V (and v); another width returns
-// BAD
-#define SU2K_BY_WIDTH(v, rt, CALL, BAD)                 \
+// channel in 2D (13) and on the 3D box (14); CALL names the width V.
+// Every other width from 4 to SU2K_VMAX, and every width of that range
+// with rt, runs RTCALL (the run-time kernels, by class: SU2K_BY_CLASS);
+// another width returns BAD
+#define SU2K_BY_WIDTH(v, rt, CALL, RTCALL, BAD)         \
   switch (rt ? 0 : v) {                                 \
     case 2: { constexpr int V = 2; return CALL; }       \
     case 3: { constexpr int V = 3; return CALL; }       \
@@ -1356,8 +2004,8 @@ int grid_of(int v, int n, int m, int part_cap, int cluster) {
     case 13: { constexpr int V = 13; return CALL; }     \
     case 14: { constexpr int V = 14; return CALL; }     \
     default: {                                          \
-      constexpr int V = 0;                              \
-      return v >= 4 && v <= SU2K_VMAX ? CALL : BAD;     \
+      if (v < 4 || v > SU2K_VMAX) return BAD;           \
+      SU2K_BY_CLASS(v, RTCALL)                          \
     }                                                   \
   }
 
@@ -1367,19 +2015,22 @@ int fgmres_v(int v, int rt, int n, const Stencil& st, int ncolor, int m,
              const void* dinv, const void* diag, const void* colors,
              const void* order, int cm, const void* b, void* x, void* stats,
              void* ws, void* part, int part_cap, int cluster,
-             cudaStream_t stream) {
+             const RtPlan& P, cudaStream_t stream) {
   FgArgs<T, S> A{n, ncolor, m, st, (T)tol, (const S*)selp, (const T*)selm,
                  (const T*)dinv, (const T*)diag, (const int8_t*)colors,
                  (const int*)order, cm, (const T*)b, (T*)x, (T*)stats,
                  (T*)ws, (T*)part, v};
   SU2K_BY_WIDTH(v, rt,
                 (launch_fgmres<T, S, V>(A, part_cap, cluster, stream)),
+                (launch_fgmres_rt<T, S, VB>(A, P, part_cap, stream)),
                 (int)cudaErrorInvalidValue)
 }
 
 template <typename T, typename S>
-int fgmres_grid_v(int v, int rt, int n, int m, int part_cap, int cluster) {
-  SU2K_BY_WIDTH(v, rt, (grid_of<T, S, V>(v, n, m, part_cap, cluster)),
+int fgmres_grid_v(int v, int rt, int n, int m, int part_cap, int cluster,
+                  const RtPlan& P) {
+  SU2K_BY_WIDTH(v, rt, (grid_of<T, S, V>(n, m, part_cap, cluster)),
+                (grid_rt<T, S, VB>(v, n, m, P, part_cap)),
                 -(int)cudaErrorInvalidValue)
 }
 
@@ -1390,11 +2041,11 @@ int sgs_matvec_v(int v, int rt, int n, const Stencil& st, int ncolor,
                  const void* colors, const void* order, const void* r,
                  void* z, void* w, void* zbuf, cudaStream_t stream) {
 #define SU2K_SGS_ARGS                                                      \
-  v, n, st, ncolor, do_sweep, do_matvec, cm, (const S*)selp,               \
-      (const T*)selm, (const T*)dinv, (const T*)diag,                      \
-      (const int8_t*)colors, (const int*)order, (const T*)r, (T*)z, (T*)w, \
-      (T*)zbuf, stream
-  SU2K_BY_WIDTH(v, rt, (launch_sgs_matvec<T, S, V>(SU2K_SGS_ARGS)),
+  n, st, ncolor, do_sweep, do_matvec, cm, (const S*)selp, (const T*)selm,  \
+      (const T*)dinv, (const T*)diag, (const int8_t*)colors,               \
+      (const int*)order, (const T*)r, (T*)z, (T*)w, (T*)zbuf
+  SU2K_BY_WIDTH(v, rt, (launch_sgs_matvec<T, S, V>(SU2K_SGS_ARGS, stream)),
+                (launch_sgs_matvec_rt<T, S, VB>(v, SU2K_SGS_ARGS, stream)),
                 (int)cudaErrorInvalidValue)
 #undef SU2K_SGS_ARGS
 }
@@ -1408,10 +2059,21 @@ inline bool make_stencil(int k, const int* offs, Stencil& st) {
 
 }  // namespace su2k
 
+// K6's plan at a run-time width (kernels.k6_plan: the RtPlan fields as
+// ints), or null at a compiled width
+inline su2k::RtPlan rt_plan(const int* plan) {
+  su2k::RtPlan P = {};
+  if (plan) {
+    int* f = reinterpret_cast<int*>(&P);
+    for (int i = 0; i < (int)(sizeof(P) / sizeof(int)); ++i) f[i] = plan[i];
+  }
+  return P;
+}
+
 // sel_bf16: the sweep blocks selp are __nv_bfloat16 (float state only);
 // order: the color-major node list (int32, n); cm: selp and dinv are in
 // the color-major lane layout (lane i = node order[i]), else natural; rt:
-// the run-time instance at any width from 4 to SU2K_VMAX (else it runs
+// the run-time kernels at any width from 4 to SU2K_VMAX (else they run
 // the widths with no compiled instance only)
 extern "C" int su2k_stencil_sgs_matvec(
     int is_f64, int sel_bf16, int v, int n, int k, const int* offs,
@@ -1438,51 +2100,59 @@ extern "C" int su2k_stencil_sgs_matvec(
 
 // order, cm: at v >= 4 the color-major node list (int32, n) and whether
 // selp and dinv are in its lane layout (else natural); ignored at v <= 3,
-// which read the natural layout.  part: the rows kernel's block partials
+// which read the natural layout.  part: the rows kernels' block partials
 // (part_cap values).  cluster: at v <= 3 the cluster size (1 to 16), or 0
 // for 16 where it fits on the card, else 8.  rt: as in
-// su2k_stencil_sgs_matvec
+// su2k_stencil_sgs_matvec; plan: kernels.k6_plan's (the grid and the
+// form), read at a run-time width only
 extern "C" int su2k_stencil_fgmres(
     int is_f64, int sel_bf16, int v, int n, int k, const int* offs,
     int ncolor, int m, double tol, const void* selp, const void* selm,
     const void* dinv, const void* diag, const void* colors,
     const void* order, int cm, const void* b, void* x, void* stats,
-    void* ws, void* part, int part_cap, int cluster, void* stream, int rt) {
+    void* ws, void* part, int part_cap, int cluster, void* stream, int rt,
+    const int* plan) {
   su2k::Stencil st;
   if (!su2k::make_stencil(k, offs, st) || (is_f64 && sel_bf16) || m < 1 ||
       n < 1 || (v > 3 && order == nullptr) || (v <= 3 && cm) ||
       cluster < 0 || cluster > 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const su2k::RtPlan P = rt_plan(plan);
   if (is_f64)
     return su2k::fgmres_v<double, double>(v, rt, n, st, ncolor, m, tol,
                                           selp, selm, dinv, diag, colors,
                                           order, cm, b, x, stats, ws, part,
-                                          part_cap, cluster, s);
+                                          part_cap, cluster, P, s);
   if (sel_bf16)
     return su2k::fgmres_v<float, __nv_bfloat16>(
         v, rt, n, st, ncolor, m, tol, selp, selm, dinv, diag, colors, order,
-        cm, b, x, stats, ws, part, part_cap, cluster, s);
+        cm, b, x, stats, ws, part, part_cap, cluster, P, s);
   return su2k::fgmres_v<float, float>(v, rt, n, st, ncolor, m, tol, selp,
                                       selm, dinv, diag, colors, order, cm, b,
                                       x, stats, ws, part, part_cap, cluster,
-                                      s);
+                                      P, s);
 }
 
 // the blocks su2k_stencil_fgmres launches for these arguments on the
-// current device: at v <= 3 the cluster's CTAs (of 1024 threads), at
-// v >= 4 the cooperative grid (of 32 v k5_groups(v) threads); or minus a
-// cudaError_t
+// current device: at v <= 3 the cluster's CTAs (of 1024 threads), at a
+// compiled v >= 7 the cooperative grid (of 32 v k5_groups(v) threads), at
+// a run-time width the co-resident blocks of 32 v threads at the streamed
+// form's shared memory (plan: kernels.k6_plan's, for any grid); or minus
+// a cudaError_t
 extern "C" int su2k_stencil_fgmres_grid(int is_f64, int sel_bf16, int v,
                                         int n, int m, int part_cap,
-                                        int cluster, int rt) {
+                                        int cluster, int rt,
+                                        const int* plan) {
   if ((is_f64 && sel_bf16) || m < 1 || n < 1 || cluster < 0 || cluster > 16)
     return -(int)cudaErrorInvalidValue;
+  const su2k::RtPlan P = rt_plan(plan);
   if (is_f64)
     return su2k::fgmres_grid_v<double, double>(v, rt, n, m, part_cap,
-                                               cluster);
+                                               cluster, P);
   if (sel_bf16)
     return su2k::fgmres_grid_v<float, __nv_bfloat16>(v, rt, n, m, part_cap,
-                                                     cluster);
-  return su2k::fgmres_grid_v<float, float>(v, rt, n, m, part_cap, cluster);
+                                                     cluster, P);
+  return su2k::fgmres_grid_v<float, float>(v, rt, n, m, part_cap, cluster,
+                                           P);
 }

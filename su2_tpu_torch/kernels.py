@@ -103,8 +103,9 @@ _ARGTYPES = {
                                + [_P] * 11 + [_I],
     "su2k_stencil_fgmres": [_I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int), _I, _I, _D]
-                           + [_P] * 6 + [_I] + [_P] * 5 + [_I, _I, _P, _I],
-    "su2k_stencil_fgmres_grid": [_I] * 8,
+                           + [_P] * 6 + [_I] + [_P] * 5
+                           + [_I, _I, _P, _I, ctypes.POINTER(_I)],
+    "su2k_stencil_fgmres_grid": [_I] * 8 + [ctypes.POINTER(_I)],
     "su2k_gradient_rows": [_I, _I, _I, _I, _I, _I,
                            ctypes.POINTER(ctypes.c_int), _I, _I, _I,
                            ctypes.c_longlong] + [_P] * 6,
@@ -627,43 +628,136 @@ _PART_CAP = 2 * 4096
 # csrc/stencil_solve.cu): 2 (the SST's system) and 3, the flow's nDim +
 # nSpecies + 2 at 3 and 9 species: 7 and 13 in 2D, 8 and 14 in 3D.  Every
 # other width from 4 to STENCIL_MAX_V, the flow's nDim + nSpecies + 2 up
-# to MAX_DIM and MAX_SPECIES, runs the run-time-width instance of K5's
-# warp-per-row kernels and K6's rows form (SU2K_VMAX); runtime=True in a
-# wrapper forces it at any width of that range (tests and measurements
-# only: the solvers never pass it).
+# to MAX_DIM and MAX_SPECIES, runs the run-time kernels (sgs_pass_rt,
+# matvec_rt, fgmres_rt), instantiated for the class bounds
+# STENCIL_RT_CLASSES (SU2K_BY_CLASS): width v runs the smallest class >= v,
+# its block-row loops unrolled to the class under a b < v guard;
+# runtime=True in a wrapper forces them at any width of 4 to STENCIL_MAX_V
+# (tests and measurements only: the solvers never pass it).
 STENCIL_WIDTHS = (2, 3, 7, 8, 13, 14)
 STENCIL_MAX_V = MAX_DIM + MAX_SPECIES + 2
+STENCIL_RT_CLASSES = (6, 12, 16, 21)
 # K6 runs K5's warp-per-block-row mapping over the color-major node list
-# in one cooperative grid from this width up (fgmres_rows_kernel: the
-# compiled 7, 8, 13, 14 and the run-time instance, which takes every
-# width from here), a thread per node in one thread-block cluster below
-# (fgmres_cluster_kernel, compiled for 2 and 3: its per-node register
-# arrays need the width at compile time)
+# in one cooperative grid from this width up (fgmres_rows_kernel at the
+# compiled 7, 8, 13, 14, fgmres_rt_kernel at every width from here), a
+# thread per node in one thread-block cluster below (fgmres_cluster_kernel,
+# compiled for 2 and 3: its per-node register arrays need the width at
+# compile time)
 K6_ROWS_MIN_V = 4
+# the stencil's offsets at most (SU2K_MAXK in csrc/stencil_solve.cu)
+STENCIL_MAX_OFFSETS = 8
+# RtPlan's fields in csrc/stencil_solve.cu's order
+RT_PLAN_FIELDS = ("vb", "res", "gpb", "grp", "slot_s", "slot_t", "base",
+                  "smem", "grid")
+
+
+class RtPlan(NamedTuple):
+    """K6's plan at a run-time width (RtPlan in csrc/stencil_solve.cu):
+    the width class vb; res 1: the resident form, gpb groups a block of
+    grp bytes each (sweep-block rows of slot_s bytes, dinv rows of slot_t)
+    after base bytes of scalars and staged vectors; smem bytes of dynamic
+    shared memory; the cooperative grid."""
+    vb: int
+    res: int
+    gpb: int
+    grp: int
+    slot_s: int
+    slot_t: int
+    base: int
+    smem: int
+    grid: int
+
+    @property
+    def form(self):
+        return "resident" if self.res else "streamed"
+
+    def c_ints(self):
+        return (ctypes.c_int * len(RT_PLAN_FIELDS))(*self)
+
+
+def stencil_instance(v, runtime=False):
+    """The K5/K6 instance width v runs: ("compiled", v) at STENCIL_WIDTHS
+    (unless runtime), else ("class", the class bound of the run-time
+    kernels); ValueError past the range."""
+    _check_width("stencil_instance", v, runtime)
+    if v in STENCIL_WIDTHS and not runtime:
+        return "compiled", v
+    return "class", next(c for c in STENCIL_RT_CLASSES if c >= v)
+
+
+def _align16(b):
+    return -(-b // 16) * 16
+
+
+def k6_plan(v, k, dtype, sel_bf16, color_major, n, grid, m=10,
+            budget=None):
+    """K6's plan at a run-time width v with k offsets on n nodes.  grid
+    None: the streamed form, whose shared memory (the scalars and the
+    group's staged vectors, sized for STENCIL_MAX_OFFSETS at a row stride
+    of v | 1, so the grid does not depend on k) sets the co-resident grid
+    (stencil_fgmres_grid).  With the grid: the resident form where the
+    block's ceil(groups / grid) groups' sweep rows (k v v rows of the
+    sweep blocks and v v of dinv: the 16-byte chunks that cover each run
+    in the color-major layout, a copy a lane through the node list in the
+    natural one) fit after those in budget bytes (default, and at most,
+    the SMEM_PER_BLOCK a block may take) with ceil(grid / H100_SMS) such
+    blocks on an SM, at a class up to 16 (the 21 class's kernel holds no
+    resident rows); else the streamed form.  A pure function: a smaller
+    budget forces the streamed form (tests)."""
+    es = 8 if dtype == torch.float64 else 4
+    ess = 2 if sel_bf16 else es
+    words = 50 + 5 * m + m * m                       # fg_smem_words(m)
+    base = _align16(es * (words + (STENCIL_MAX_OFFSETS + 2) * 32 * (v | 1)))
+    vb = stencil_instance(v, runtime=True)[1]
+    streamed = RtPlan(vb, 0, 0, 0, 0, 0, base, base, 0)
+    if grid is None:
+        return streamed
+    contig = lambda e: (32 * e // 16 + 1) * 16
+    gath = lambda e: 32 * max(e, 4)
+    slot_s = contig(ess) if color_major else gath(ess)
+    slot_t = contig(es) if color_major else gath(es)
+    grp = k * v * v * slot_s + v * v * slot_t
+    groups = -(-n // 32)
+    gpb = -(-groups // grid)
+    smem = base + gpb * grp
+    cap = SMEM_PER_BLOCK if budget is None else min(budget, SMEM_PER_BLOCK)
+    per_sm = -(-grid // H100_SMS)
+    if vb <= 16 and smem <= cap \
+            and per_sm * (smem + SMEM_RESERVED) <= SMEM_PER_SM:
+        return RtPlan(vb, 1, gpb, grp, slot_s, slot_t, base, smem, grid)
+    return streamed._replace(grid=grid)
 
 
 def _check_width(name, v, runtime=False):
     """Refuse a block width no instance of K5/K6 takes, naming the range."""
     lo = K6_ROWS_MIN_V if runtime else min(STENCIL_WIDTHS)
     if not lo <= v <= STENCIL_MAX_V:
-        what = ("the run-time instance takes" if runtime
+        what = ("the run-time kernels take" if runtime
                 else f"the kernels are compiled for {STENCIL_WIDTHS} and "
-                "take, through a run-time instance, every width of")
+                "take, through the run-time kernels, every width of")
         raise ValueError(f"{name}: block width {v}; {what} {lo} to "
                          f"{STENCIL_MAX_V}")
 
 
+def _runtime(v, runtime):
+    return runtime or v not in STENCIL_WIDTHS
+
+
 def _check_stencil(name, selp, selm, dinv, diag, colors, r, offsets, ncolor,
-                   sweep=True, runtime=False):
-    """Device, dtype, shape and contiguity of the stencil-solve operands."""
+                   sweep=True, runtime=False, aligned=False):
+    """Device, dtype, shape and contiguity of the stencil-solve operands;
+    aligned (K6): its run-time kernel copies the sweep blocks and dinv as
+    16-byte chunks, so at a run-time width these must start on a 16-byte
+    boundary (every fresh torch allocation does)."""
     dtype, dev = r.dtype, r.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: float32 or float64 vectors, got {dtype}")
     n, v = r.shape
     k = len(offsets)
     _check_width(name, v, runtime)
-    if not 1 <= k <= 8:
-        raise ValueError(f"{name}: 1 to 8 stencil offsets, got {k}")
+    if not 1 <= k <= STENCIL_MAX_OFFSETS:
+        raise ValueError(f"{name}: 1 to {STENCIL_MAX_OFFSETS} stencil "
+                         f"offsets, got {k}")
     sel_bf16 = selp.dtype == torch.bfloat16
     if selp.dtype not in (dtype, torch.bfloat16) or (
             sel_bf16 and dtype != torch.float32):
@@ -686,6 +780,10 @@ def _check_stencil(name, selp, selm, dinv, diag, colors, r, offsets, ncolor,
     for x in (selm, dinv, diag):
         if x.dtype != dtype:
             raise TypeError(f"{name}: mixed dtypes {x.dtype} and {dtype}")
+    if aligned and _runtime(v, runtime) and any(
+            x.data_ptr() % 16 for x in (selp, dinv)):
+        raise ValueError(f"{name}: at width {v} the blocks must start on a "
+                         "16-byte boundary")
     return n, v, k, sel_bf16
 
 
@@ -717,7 +815,7 @@ def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
     StencilSolveOps makes once per solve, and a call without it sorts the
     colors here); color_major: selp_t and dinv_t are in the color-major
     lane layout of order (stencil_solve.to_color_major), else in the
-    natural one.  runtime: the run-time-width instance at any width from
+    natural one.  runtime: the run-time kernels at any width from
     K6_ROWS_MIN_V (STENCIL_WIDTHS' compiled ones included)."""
     if not (sweep or matvec):
         raise ValueError("stencil_sgs_matvec: nothing to compute")
@@ -740,7 +838,7 @@ def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
         int(bool(runtime)))
     _raise("stencil_sgs_matvec", err)
     launches["stencil_sgs_matvec"] += 1
-    if runtime or v not in STENCIL_WIDTHS:
+    if _runtime(v, runtime):
         launches["stencil_runtime_sgs_matvec"] += 1
     if not (sweep and matvec):
         launches["stencil_sweep_only" if sweep else "stencil_matvec_only"] \
@@ -748,16 +846,26 @@ def stencil_sgs_matvec(selp_t, selm_t, dinv_t, diag_t, colors, r, offsets,
     return z, w
 
 
-def k6_groups(v):
-    """32-node groups per block of K6's rows kernel (k5_groups in
-    csrc/stencil_solve.cu): as many as fit 512 threads at v warps each,
-    one (of 32 v threads) past v = 16."""
-    return 1 if v > 16 else 512 // (32 * v)
+def k6_groups(v, runtime=False):
+    """32-node groups per block of K6's rows kernel: at a compiled width
+    (k5_groups in csrc/stencil_solve.cu) as many as fit 512 threads at v
+    warps each; the run-time kernel's blocks hold one."""
+    return 1 if _runtime(v, runtime) else 512 // (32 * v)
+
+
+def k6_launch_plan(dtype, sel_bf16, v, k, n, color_major, m=10,
+                   smem_budget=None):
+    """K6's plan at a run-time width on the current card: the co-resident
+    grid of the streamed form's shared memory (stencil_fgmres_grid), then
+    k6_plan's form for that grid."""
+    grid = stencil_fgmres_grid(dtype, sel_bf16, v, n, m, runtime=True)
+    return k6_plan(v, k, dtype, sel_bf16, color_major, n, grid, m,
+                   smem_budget)
 
 
 def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
                    m, tol, order=None, color_major=False, cluster=0,
-                   runtime=False):
+                   runtime=False, smem_budget=None):
     """Kernel K6: one FGMRES(m) cycle preconditioned by the sweep, in one
     launch (a cooperative grid at v >= K6_ROWS_MIN_V, one thread-block
     cluster below).  Returns (x (N, v), relative residual, iterations as
@@ -769,10 +877,12 @@ def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
     (below K6_ROWS_MIN_V, 1 to 16) forces the cluster's CTAs; 0, as every
     solver call leaves it, takes 16 where the card fits such a cluster,
     else the portable 8 (16 measured faster at 9,072 nodes; PERF.md §6).
-    runtime: as in stencil_sgs_matvec."""
+    runtime: as in stencil_sgs_matvec; at a run-time width smem_budget
+    caps the resident form's shared memory (k6_plan; tests only: no
+    solver passes it)."""
     n, v, k, sel_bf16 = _check_stencil("stencil_fgmres", selp_t, selm_t,
                                        dinv_t, diag_t, colors, b, offsets,
-                                       ncolor, runtime=runtime)
+                                       ncolor, runtime=runtime, aligned=True)
     if not 1 <= m <= 64:
         raise ValueError(f"stencil_fgmres: 1 to 64 Krylov vectors, got {m}")
     if v < K6_ROWS_MIN_V:
@@ -783,6 +893,8 @@ def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
     else:
         order = _node_order("stencil_fgmres", colors, order, color_major, n,
                             b.device)
+    plan = k6_launch_plan(b.dtype, sel_bf16, v, k, n, color_major, m,
+                          smem_budget) if _runtime(v, runtime) else None
     x = torch.empty_like(b)
     stats = torch.empty((2,), dtype=b.dtype, device=b.device)
     ws = torch.empty(((2 * m + 3) * n * v,), dtype=b.dtype, device=b.device)
@@ -794,10 +906,11 @@ def stencil_fgmres(selp_t, selm_t, dinv_t, diag_t, colors, b, offsets, ncolor,
         int(ncolor), int(m), float(tol), _ptr(selp_t), _ptr(selm_t),
         _ptr(dinv_t), _ptr(diag_t), _ptr(colors), _ptr(order),
         int(bool(color_major)), _ptr(b), _ptr(x), _ptr(stats), _ptr(ws),
-        _ptr(part), _PART_CAP, int(cluster), _stream(), int(bool(runtime)))
+        _ptr(part), _PART_CAP, int(cluster), _stream(), int(bool(runtime)),
+        None if plan is None else plan.c_ints())
     _raise("stencil_fgmres", err)
     launches["stencil_fgmres"] += 1
-    if runtime or v not in STENCIL_WIDTHS:
+    if plan is not None:
         launches["stencil_runtime_fgmres"] += 1
     return x, stats[0], stats[1].to(torch.int32)
 
@@ -808,11 +921,16 @@ def stencil_fgmres_grid(dtype, sel_bf16, v, n, m, cluster=0, runtime=False):
     CTAs of 1024 threads (stencil_fgmres's cluster, with 0 16 where such
     a cluster fits, else 8); at v >= K6_ROWS_MIN_V the co-resident blocks
     of the cooperative grid, of 32 v k6_groups(v) threads and at most one
-    per 32 k6_groups(v) nodes (runtime: of the run-time instance)."""
+    per 32 k6_groups(v) nodes (runtime: of the run-time kernel, at its
+    streamed form's shared memory, which k6_plan's forms keep
+    co-resident)."""
     _check_width("stencil_fgmres_grid", v, runtime)
+    plan = k6_plan(v, STENCIL_MAX_OFFSETS, dtype, sel_bf16, False, n, None,
+                   m) if _runtime(v, runtime) else None
     blocks = _lib().su2k_stencil_fgmres_grid(
         int(dtype == torch.float64), int(bool(sel_bf16)), int(v), int(n),
-        int(m), _PART_CAP, int(cluster), int(bool(runtime)))
+        int(m), _PART_CAP, int(cluster), int(bool(runtime)),
+        None if plan is None else plan.c_ints())
     if blocks <= 0:
         _raise("stencil_fgmres_grid", -blocks)
     return blocks

@@ -1251,6 +1251,132 @@ def test_stencil_width_range_on_card(card):
         assert all(bool(torch.isfinite(t).all()) for t in (z, w, x))
 
 
+EDGE_CASES = [(n, v, var) for n in (31, 33, 4017) for v in (9, 21)
+              for var in VARIANTS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v,variant", EDGE_CASES,
+                         ids=[f"n{n}-v{v}-{var}" for n, v, var in EDGE_CASES])
+def test_runtime_kernels_group_edges(card, n, v, variant):
+    """The run-time kernels at the edges of their 32-node groups: 31 nodes
+    (one partial group), 33 (a full group and one of one node) and 4,017
+    (more groups than K6's grid, a partial last one), on 4 colors of which
+    color 1 holds a single node and color 3 none (a pass over a color of
+    one node, and one over no node), over the color-major layout and the
+    natural one: K5's three modes against the plain version at
+    test_k5_kernel_matches_plain's pins, and K6 at test_k6_colorings'
+    (tol 1e-8 in f64, else 1e-12)."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    offsets, _ = th.COLORINGS["proper4"]
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    colors = np.array([(0, 2)[p % 2] for p in range(n)])
+    colors[n // 2] = 1
+    s = th.recolor(th.band_system(n, v, offsets, 4, seed=14), colors, 4)
+    args, r = th.stencil_args(s, dtype, mixed=variant == "mixed",
+                              device=card)
+    assert int((args["colors"] == 1).sum()) == 1
+    assert int((args["colors"] == 3).sum()) == 0
+    order, cm = _cm_layout(args)
+    tol = 1e-8 if variant == "float64" else 1e-12
+    wx, _, wit = ts.fgmres_plain(**args, b=r, m=10, tol=tol)
+    for layout in (cm, dict(order=order)):
+        for mode in ("sgs_matvec", "sgs", "matvec"):
+            _k5_check(args, r, variant, mode, **layout)
+        x, _, it = kernels.stencil_fgmres(**dict(args, **layout), b=r, m=10,
+                                          tol=tol)
+        assert int(it) == int(wit)
+        _k6_pins(x, wx, variant)
+
+
+K6_FORMS = [(v, var, budget) for v in (9, 10) for var in VARIANTS
+            for budget in (None, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,variant,budget", K6_FORMS,
+                         ids=[f"v{v}-{var}-{'streamed' if b == 0 else 'plan'}"
+                              for v, var, b in K6_FORMS])
+def test_k6_runtime_forms(card, v, variant, budget):
+    """K6's run-time kernel at the 5-species flow's widths and one-launch
+    sizes (v = 9 on 9,072 nodes with the channel's 4 offsets, v = 10 on
+    8,000 with the box's 6) over the color-major layout, in the form
+    kernels.k6_plan picks (the resident one in the mixed tier) and in the
+    streamed form, forced through the same plan by smem_budget 0: equal
+    iterations to the plain FGMRES(10), x at test_k6_colorings' pins."""
+    from su2_tpu_torch import kernels
+    from su2_tpu_torch.linalg import stencil_solve as ts
+    n, offsets = ((9072, (-9, -1, 1, 9)) if v == 9
+                  else (8000, (-400, -20, -1, 1, 20, 400)))
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    mixed = variant == "mixed"
+    args, r = th.stencil_args(th.band_system(n, v, offsets, 2, seed=15),
+                              dtype, mixed=mixed, device=card)
+    _, cm = _cm_layout(args)
+    plan = kernels.k6_launch_plan(dtype, mixed, v, len(offsets), n, True,
+                                  10, budget)
+    if budget == 0:
+        assert plan.form == "streamed"
+    elif mixed:
+        assert plan.form == "resident" and plan.gpb == 1
+    tol = 1e-8 if variant == "float64" else 1e-12
+    wx, _, wit = ts.fgmres_plain(**args, b=r, m=10, tol=tol)
+    x, _, it = kernels.stencil_fgmres(**dict(args, **cm), b=r, m=10, tol=tol,
+                                      smem_budget=budget)
+    assert int(it) == int(wit)
+    _k6_pins(x, wx, variant)
+
+
+@pytest.mark.cuda
+def test_k6_runtime_refuses_misaligned_blocks(card):
+    """At a run-time width K6 copies the sweep blocks and dinv as 16-byte
+    chunks: blocks that do not start on a 16-byte boundary raise before
+    any launch, naming it; K5 takes the same operands."""
+    from su2_tpu_torch import kernels
+    offsets, nc = th.COLORINGS["proper2"]
+    args, r = th.stencil_args(th.band_system(2001, 9, offsets, nc),
+                              torch.float32, device=card)
+    dinv = torch.cat([args["dinv_t"][:1], args["dinv_t"]])[1:]
+    assert dinv.data_ptr() % 16 and dinv.is_contiguous()
+    bad = dict(args, dinv_t=dinv)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kernels.stencil_fgmres(**bad, b=r, m=5, tol=1e-6)
+    z, w = kernels.stencil_sgs_matvec(**bad, r=r)
+    assert bool(torch.isfinite(z).all() and torch.isfinite(w).all())
+
+
+@pytest.mark.cuda
+def test_runtime_kernels_do_not_spill_in_f32(card, tmp_path):
+    """ptxas -v of csrc/stencil_solve.cu with the build's flags (where nvcc
+    is present): the run-time kernels (sgs_pass_rt, matvec_rt and
+    fgmres_rt at every width class) spill 0 bytes in f32 and mixed."""
+    import os
+    import re
+    import shutil
+    import subprocess
+    from su2_tpu_torch import kernels
+    if not (shutil.which("nvcc") or os.path.exists(
+            "/usr/local/cuda/bin/nvcc")):
+        pytest.skip("needs nvcc (ptxas -v)")
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    log = subprocess.run(
+        [kernels._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+         str(tmp_path / "k.cubin"), os.path.join(kernels.CSRC,
+                                                 "stencil_solve.cu")],
+        capture_output=True, text=True, check=True).stderr
+    spills = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'")[0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      chunk)
+        if "_rt_kernelI" in name and name.split("_rt_kernelI")[1][0] == "f":
+            spills[name] = (int(m.group(1)), int(m.group(2)))
+    # per class: the pass and K6 for f32 and bf16 sweep blocks, one matvec
+    assert len(spills) == 5 * len(kernels.STENCIL_RT_CLASSES)
+    assert all(v == (0, 0) for v in spills.values()), spills
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["LU_SGS", "ILU0"])
 def test_f64_past_the_gate_launches_k5(card, monkeypatch, kind):
